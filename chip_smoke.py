@@ -5,10 +5,14 @@
 
 Phases (any failure exits non-zero; no phase catches an exception):
  1. device: the card's name and power limit (nvidia-smi), TF32 switched off;
- 2. build: both CUDA kernels from cor_tpu_torch/csrc;
+ 2. build: every CUDA kernel from cor_tpu_torch/csrc (one nvcc per source,
+    in parallel), with each kernel's registers and spills from ptxas;
  3. kernels: each kernel against its plain PyTorch version on identical bf16
-    inputs at the serving path's shapes (batch 16, ViT-B-16-SigLIP-384),
-    max |difference| <= 2e-2, and both timed with CUDA events;
+    inputs at the serving path's shapes (K4, K5: batch 16 of
+    ViT-B-16-SigLIP-384; K1, K2, K3: 40 candidates of the SAM-base decoder
+    on the 64 x 64 grid, K1's layer 0 out of a 2,048-row int8 store), both
+    timed with CUDA events beside the one PyTorch call that computes the
+    same function where there is one (SDPA for K4, F.layer_norm for K5);
  4. serve: a synthetic 127,166 x 256 gallery index (the COR127K triplet
     count), then ``cor_tpu_torch.cli.serve.main`` with --self-test 8 at full
     ViT-B-16-SigLIP-384 width (random weights from seed 0), fp32 and --int8
@@ -16,8 +20,21 @@ Phases (any failure exits non-zero; no phase catches an exception):
  5. numerics: GPU bf16 queries against the same weights' CPU fp32 queries,
     per-query cosine >= 0.99;
  6. timings: encode+scan latency per batch bucket (1, 4, 16) and responses/s
-    of the self-test loop, with the card's name and power limit.
-The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
+    of the self-test loop, with the card's name and power limit;
+ 7. decode serve: a synthetic 2,048-row index with a [2048, 64, 64, 256]
+    fp16 store (4 GiB on disk, written in chunks), then ``cli.serve.main``
+    with --decode-masks, --self-test 8, --max-batch 4, --k 10, host-streamed
+    and with --store-hbm; checks every response and PNG, every kernel's
+    launch count per decode, and the two configurations' masks against each
+    other;
+ 8. decode numerics: 4 candidates decoded on the card in bf16 and on the
+    CPU in fp32 with the same weights, per-candidate logit cosine >= 0.99;
+ 9. decode timings: encode+scan+decode latency per batch at buckets 1 and 4
+    (--store-hbm), responses/s of the --decode-masks loop (--store-hbm with
+    and without the PNG writing, and host-streamed), and a torch.profiler
+    breakdown of the device time at bucket 4 (--store-hbm).
+The line before the last lists every kernel ({"kernels": [...]}); the last
+line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
@@ -31,6 +48,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -40,7 +59,15 @@ GALLERY_ROWS = 127_166  # COR127K triplets
 DIM = 256
 BATCH = 16  # the kernels are checked and timed at the largest serving bucket
 KERNEL_TOL = 2e-2  # ~1 bf16 ulp at |y| <= 4; statistics and softmax are fp32 in both
+DECODE_REL = 2e-2  # max |kernel - plain| / max |plain| for K1, K2, K3
 COS_MIN = 0.99
+CANDIDATES = 40  # --max-batch 4 x --k 10: the candidates of one decoded batch
+STORE_ROWS = 2_048  # the decode phases' candidate store
+GRID, SAM_C = 64, 256  # SAM-base image-embedding grid and width
+MASK_AGREE_MIN = 0.99  # host-streamed fp16 vs int8 store: pixels that agree
+# H100 SXM peaks (NVIDIA data sheet, dense): the bounds of the kernel table
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOP_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -91,19 +118,50 @@ def phase_build():
     _build.library()
     dt = time.perf_counter() - t0
     print(f"phase 2 build: {path.name} in {dt:.1f} s", flush=True)
-    # ptxas -v: per kernel, its registers (and shared memory) and spill bytes
-    kernel = None
+    # ptxas -v: per compiled kernel (template cases apart), registers, shared
+    # memory and spill bytes
+    names = ("layer_norm_kernel", "seq_attention_qkv_kernel", "twl_tokens_in_kernel",
+             "t2i_image_kernel", "twl_tokens_mid_kernel", "twl_image_i2t_kernel",
+             "t2i_combine_kernel", "decoder_tail_kernel")
+    kernel, spills, regs = None, {}, {}
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
-            kernel = "attention" if "seq_attention" in line else "layer_norm"
-        elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
-            print(f"  ptxas {kernel} spills: {line.strip()}")
-        elif "Used" in line and "registers" in line and kernel == "attention":
-            print(f"  ptxas attention: {line.split(':', 1)[1].strip()}")
+            mangled = line.split("'")[1]
+            kernel = next((n for n in names if n in mangled), mangled)
+            rest = mangled[mangled.find(kernel) + len(kernel):]
+            if rest.startswith("I"):  # a template case, e.g. <Lb1ELb0E> = <true, false>
+                kernel += f"<{rest[1:rest.find('EE') + 1]}>"
+        elif "spill" in line and kernel:
+            spills[kernel] = line.strip()
+        elif "Used" in line and "registers" in line and kernel:
+            regs[kernel] = line.split(":", 1)[1].strip()
+    for k in regs:
+        if "layer_norm" not in k or "spill stores, 0 bytes spill loads" not in spills.get(k, ""):
+            print(f"  ptxas {k}: {regs[k]}; {spills.get(k, '')}")
+    spilled = [k for k, v in spills.items() if not v.startswith("0 bytes stack frame, 0 bytes spill")]
+    print(f"  ptxas: {len(regs)} kernels, spills in {spilled or 'none'}")
     return dt
 
 
+def bound(n_bytes: float, flops: float):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def entry(err, kern_t, plain_t, bound_ms_by, library_t=None, **extra):
+    return {"max_abs_err": err, "ms": kern_t[0], "ms_min": kern_t[1], "ms_max": kern_t[2],
+            "plain_ms": plain_t[0], "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
+            "library_ms": None if library_t is None else library_t[0], **extra}
+
+
 def phase_kernels(device):
+    import torch.nn.functional as F
+
     from cor_tpu_torch.ops.kernels.layernorm import layer_norm, layer_norm_plain
     from cor_tpu_torch.ops.kernels.seq_attention import (
         attention_seq_qkv,
@@ -127,9 +185,13 @@ def phase_kernels(device):
         err = (got.float() - want.float()).abs().max().item()
         ln_err = max(ln_err, err)
         ln_t[tower] = (cuda_ms(lambda: layer_norm(x, scale, bias, 1e-6)),
-                       cuda_ms(lambda: layer_norm_plain(x, scale, bias, 1e-6)))
+                       cuda_ms(lambda: layer_norm_plain(x, scale, bias, 1e-6)),
+                       cuda_ms(lambda: F.layer_norm(x, (768,), scale, bias, 1e-6)))
         print(f"  K5 layer_norm [{n}, 768] bf16: max|d|={err:.3e} kernel "
-              f"{ln_t[tower][0][0]:.4f} ms, plain {ln_t[tower][1][0]:.4f} ms")
+              f"{ln_t[tower][0][0]:.4f} ms, plain {ln_t[tower][1][0]:.4f} ms, "
+              f"F.layer_norm {ln_t[tower][2][0]:.4f} ms")
+        if tower == "vision":
+            ln_bound = bound(nbytes(x, scale, bias) + nbytes(x), 8 * x.numel())
     # fp32 input and ragged row count: the same kernel, other template cases
     x = torch.randn(1001, 768, generator=gen, device=device)
     err32 = (layer_norm(x, scale, bias) - layer_norm_plain(x, scale, bias)).abs().max().item()
@@ -137,7 +199,8 @@ def phase_kernels(device):
     print(f"  K5 layer_norm [1001, 768] fp32: max|d|={err32:.3e}")
     if ln_err > KERNEL_TOL or err32 > 1e-4:
         fail(f"layer_norm kernel disagrees with its plain version: {ln_err} (bf16), {err32} (fp32)")
-    results["layer_norm"] = (ln_err, ln_t["vision"])
+    v = ln_t["vision"]
+    results["layer_norm"] = entry(ln_err, v[0], v[1], ln_bound, v[2])
 
     # K4 sequence attention at qkv [B, N, 3*768], 12 heads
     at_err, at_t = 0.0, {}
@@ -149,32 +212,147 @@ def phase_kernels(device):
         err = (got.float() - want.float()).abs().max().item()
         at_err = max(at_err, err)
         if tower != "ragged":
+            q, k, v = (qkv[..., i * 768:(i + 1) * 768].unflatten(-1, (12, 64)).transpose(1, 2)
+                       for i in range(3))
             at_t[tower] = (cuda_ms(lambda: attention_seq_qkv(qkv, 12)),
-                           cuda_ms(lambda: attention_seq_qkv_plain(qkv, 12)))
+                           cuda_ms(lambda: attention_seq_qkv_plain(qkv, 12)),
+                           cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
             print(f"  K4 attention_seq_qkv [{BATCH}, {n}, 2304] bf16: max|d|={err:.3e} kernel "
-                  f"{at_t[tower][0][0]:.4f} ms, plain {at_t[tower][1][0]:.4f} ms")
+                  f"{at_t[tower][0][0]:.4f} ms, plain {at_t[tower][1][0]:.4f} ms, "
+                  f"SDPA {at_t[tower][2][0]:.4f} ms")
+            if tower == "vision":
+                at_bound = bound(nbytes(qkv) + nbytes(got), 4 * BATCH * 12 * n * n * 64)
         else:
             print(f"  K4 attention_seq_qkv [{BATCH}, {n}, 2304] bf16: max|d|={err:.3e}")
     if at_err > KERNEL_TOL:
         fail(f"attention_seq_qkv kernel disagrees with its plain version: {at_err}")
-    results["attention_seq_qkv"] = (at_err, at_t["vision"])
+    v = at_t["vision"]
+    results["attention_seq_qkv"] = entry(at_err, v[0], v[1], at_bound, v[2])
+    results.update(decoder_kernels(device))
     print("phase 3 kernels: ok", flush=True)
     return results
 
 
-def reset_counts():
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def abs_err(*pairs) -> float:
+    return max((g.float() - w.float()).abs().max().item() for g, w in pairs)
+
+
+@torch.no_grad()
+def decoder_kernels(device):
+    """K1 (layer 0 out of a 2,048-row int8 store, and a bf16 layer 1), K2 and
+    K3 against their plain versions at 40 candidates of the SAM-base decoder."""
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+    from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail, decoder_tail_plain
+    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv, t2i_flash_kv_plain
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer, two_way_layer_plain
+
+    bf16 = torch.bfloat16
+    n, N, C, I, T = CANDIDATES, GRID * GRID, SAM_C, 128, 6
+    dec = init_mask_decoder(CoreConfig(), 1).to(device, bf16).eval()
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    tokens, kpe, qpe = rnd(n, T, C).to(bf16), (0.5 * rnd(N, I)).to(bf16), (0.5 * rnd(N, I)).to(bf16)
+    store = torch.randint(-127, 128, (STORE_ROWS, N, C), generator=gen, device=device,
+                          dtype=torch.int8)
+    scales = (0.5 * 4 / 127) * (1 + 0.1 * torch.rand(STORE_ROWS, generator=gen, device=device))
+    idx = torch.randperm(STORE_ROWS, generator=gen, device=device)[:n].to(torch.int32)
+    keys = (0.5 * rnd(n, N, C)).to(bf16)
+    # per candidate: packed [k|v|q] projection, i2t out-projection, both
+    # attentions (logits and AV), and the token side (~8.6 M MACs)
+    layer_flops = n * (2 * N * C * 3 * I + 2 * N * I * C + 4 * 2 * N * T * I + 2 * 8.6e6)
+    weights = dec.transformer.layers[0]
+    w_bytes = sum(p.numel() * p.element_size() for p in weights.parameters())
+    out = {}
+
+    cases = (
+        ("two_way_layer", "layer 0, int8 store-indexed", dec.transformer.layers[0], store,
+         dict(idx=idx, scale=scales), True,
+         n * N * C + 8 * n),  # the gathered int8 rows, their idx and scales
+        ("two_way_layer", "layer 1, bf16", dec.transformer.layers[1], keys, {}, False,
+         nbytes(keys)),
+    )
+    k1 = {}
+    for name, label, lp, rows, kw, skip, rows_bytes in cases:
+        args = (lp, tokens, tokens, rows, kpe, qpe, skip)
+        got_t, got_k = two_way_layer(*args, **kw)
+        want_t, want_k = two_way_layer_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(rel_err(got_t, want_t), rel_err(got_k, want_k))
+        kt = cuda_ms(lambda: two_way_layer(*args, **kw))
+        pt = cuda_ms(lambda: two_way_layer_plain(*args, **kw), iters=3)
+        b = bound(rows_bytes + nbytes(tokens, kpe, qpe, got_t, got_k) + nbytes(tokens) + w_bytes,
+                  layer_flops)
+        print(f"  K1 two_way_layer {label} [{n}, {N}, {C}]: max|d|/max|plain| = {err:.3e} "
+              f"(tokens {rel_err(got_t, want_t):.3e}, keys {rel_err(got_k, want_k):.3e}); "
+              f"kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, "
+              f"bound {b[0]:.4f} ms ({b[1]})")
+        if not err <= DECODE_REL:
+            fail(f"two_way_layer kernel ({label}) disagrees with its plain version: {err}")
+        k1[label] = entry(abs_err((got_t, want_t), (got_k, want_k)), kt, pt, b, max_rel_err=err)
+    # the served layer 0 is the row of the table; layer 1 rides along
+    out["two_way_layer"] = dict(k1["layer 0, int8 store-indexed"],
+                                layer1=k1["layer 1, bf16"])
+
+    fa = dec.transformer.final_attn_t2i
+    q_tok = rnd(n, T, I).to(bf16)
+    args = (keys, fa.k_proj.w, fa.k_proj.b, fa.v_proj.w, fa.v_proj.b, kpe, q_tok, 8)
+    got, want = t2i_flash_kv(*args), t2i_flash_kv_plain(*args)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    kt, pt = cuda_ms(lambda: t2i_flash_kv(*args)), cuda_ms(lambda: t2i_flash_kv_plain(*args))
+    b = bound(nbytes(keys, kpe, q_tok, got) + 2 * I * C * 2,
+              n * (2 * N * C * 2 * I + 4 * N * T * I))
+    print(f"  K2 t2i_flash_kv [{n}, {N}, {C}]: max|d|/max|plain| = {err:.3e}; kernel "
+          f"{kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, "
+          f"bound {b[0]:.4f} ms ({b[1]})")
+    if not err <= DECODE_REL:
+        fail(f"t2i_flash_kv kernel disagrees with its plain version: {err}")
+    out["t2i_flash_kv"] = entry(abs_err((got, want)), kt, pt, b, max_rel_err=err)
+
+    up = dec.output_upscaling
+    src = keys.reshape(n, GRID, GRID, C)
+    hyper = rnd(n, 1, 32).to(bf16)
+    args = (src, up.convt1.w, up.convt1.b, up.ln.scale, up.ln.bias, up.convt2.w, up.convt2.b,
+            hyper)
+    got, want = decoder_tail(*args), decoder_tail_plain(*args)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    kt, pt = cuda_ms(lambda: decoder_tail(*args)), cuda_ms(lambda: decoder_tail_plain(*args))
+    b = bound(nbytes(src, hyper, got), n * 2 * N * (C * 4 * 64 + 4 * 64 * 4 * 32))
+    print(f"  K3 decoder_tail [{n}, {GRID}, {GRID}, {C}] -> {tuple(got.shape)}: max|d|/max|plain| "
+          f"= {err:.3e}; kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, "
+          f"bound {b[0]:.4f} ms ({b[1]})")
+    if not err <= DECODE_REL:
+        fail(f"decoder_tail kernel disagrees with its plain version: {err}")
+    out["decoder_tail"] = entry(abs_err((got, want)), kt, pt, b, max_rel_err=err)
+    del store
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_wrappers():
+    from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
     from cor_tpu_torch.ops.kernels.layernorm import layer_norm
     from cor_tpu_torch.ops.kernels.seq_attention import attention_seq_qkv
+    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
 
-    layer_norm.launches = 0
-    attention_seq_qkv.launches = 0
+    return {"layer_norm": layer_norm, "attention_seq_qkv": attention_seq_qkv,
+            "two_way_layer": two_way_layer, "t2i_flash_kv": t2i_flash_kv,
+            "decoder_tail": decoder_tail}
+
+
+def reset_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from cor_tpu_torch.ops.kernels.layernorm import layer_norm
-    from cor_tpu_torch.ops.kernels.seq_attention import attention_seq_qkv
-
-    return {"layer_norm": layer_norm.launches, "attention_seq_qkv": attention_seq_qkv.launches}
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def phase_serve(index_dir, pair_ids):
@@ -206,10 +384,11 @@ def phase_serve(index_dir, pair_ids):
             if not all(x["pair_id"] in ids for x in res):
                 fail(f"{mode}: response {r['id']} names a pair_id outside the index")
         n = server.batches_encoded
-        want = {"layer_norm": 50 * n, "attention_seq_qkv": 24 * n}
+        want = {"layer_norm": 50 * n, "attention_seq_qkv": 24 * n, "two_way_layer": 0,
+                "t2i_flash_kv": 0, "decoder_tail": 0}
         print(f"  serve {mode}: {len(resps)} responses, {n} encoded batches (warmup included), "
               f"launches {c} (expected {want}), main() took {dt:.1f} s")
-        if c != want or min(c.values()) == 0:
+        if c != want or min(c["layer_norm"], c["attention_seq_qkv"]) == 0:
             fail(f"{mode}: kernel launch counts {c} != expected {want}")
         servers[mode], counts[mode] = server, c
         print(f"  first response ({mode}): {json.dumps(resps[0])[:300]}")
@@ -274,6 +453,234 @@ def phase_timings(server, smi):
     print("phase 6 timings: ok", flush=True)
 
 
+def write_store_index(d: Path):
+    """A synthetic 2,048-row gallery index with a [2048, 64, 64, 256] fp16
+    store, written through a memory map in chunks so host memory stays
+    bounded; the artifact format of save_gallery_index."""
+    from cor_tpu_torch.retrieval.index import save_gallery_index
+
+    rng = np.random.default_rng(SEED + 1)
+    emb = rng.standard_normal((STORE_ROWS, DIM), dtype=np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    pair_ids = 1_000_000 + np.arange(STORE_ROWS, dtype=np.int64)
+    save_gallery_index(d, emb, pair_ids)
+    shape = (STORE_ROWS, GRID, GRID, SAM_C)
+    store = np.lib.format.open_memmap(d / "store.npy", mode="w+", dtype=np.float16, shape=shape)
+    for s in range(0, STORE_ROWS, 128):
+        store[s:s + 128] = (0.5 * rng.standard_normal((128, *shape[1:]), dtype=np.float32)
+                            ).astype(np.float16)
+    store.flush()
+    del store
+    meta = json.loads((d / "meta.json").read_text())
+    meta.update(has_store=True, store_shape=list(shape))
+    (d / "meta.json").write_text(json.dumps(meta))
+    return pair_ids
+
+
+def read_png_gray(path: Path) -> np.ndarray:
+    """Decode an 8-bit grayscale PNG whose scanlines use filter type 0 (the
+    port's writer) with the standard library."""
+    data = path.read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path} is not a PNG")
+    pos, idat = 8, b""
+    w = h = None
+    while pos < len(data):
+        length = int.from_bytes(data[pos:pos + 4], "big")
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if zlib.crc32(body, zlib.crc32(kind)) != int.from_bytes(
+                data[pos + 8 + length:pos + 12 + length], "big"):
+            fail(f"{path}: bad CRC in chunk {kind}")
+        if kind == b"IHDR":
+            w, h = int.from_bytes(body[:4], "big"), int.from_bytes(body[4:8], "big")
+            if body[8:10] != b"\x08\x00":
+                fail(f"{path}: not 8-bit grayscale")
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    if rows[:, 0].any():
+        fail(f"{path}: scanline filters other than 0")
+    return rows[:, 1:]
+
+
+def phase_decode_serve(index_dir: Path, pair_ids: np.ndarray, out_root: Path):
+    from cor_tpu_torch.cli import serve as cli
+    from cor_tpu_torch.ops.kernels import decoder_tail, t2i_flash, two_way_layer
+
+    ids = set(pair_ids.tolist())
+    servers, counts, masks = {}, {}, {}
+    for mode, extra in (("host", []), ("hbm", ["--store-hbm"])):
+        argv = ["--gallery-index", str(index_dir), "--k", "10", "--max-batch", "4",
+                "--self-test", "8", "--decode-masks", str(out_root / mode), *extra]
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            server = cli.main(argv)
+        dt = time.perf_counter() - t0
+        c = read_counts()
+        resps = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+        if [r.get("id") for r in resps] != list(range(8)):
+            fail(f"decode {mode}: expected responses for ids 0..7, got {out.getvalue()[:500]}")
+        masks[mode] = {}
+        for r in resps:
+            res, paths = r.get("results"), r.get("masks")
+            if res is None or len(res) != 10 or paths is None or len(paths) != 10:
+                fail(f"decode {mode}: response {r.get('id')} is not 10 results and 10 masks: {r}")
+            s = np.array([x["score"] for x in res], np.float64)
+            if not (np.isfinite(s).all() and (np.diff(s) <= 0).all()):
+                fail(f"decode {mode}: response {r['id']} scores not finite and sorted: {s}")
+            for x, path in zip(res, paths):
+                if x["pair_id"] not in ids or Path(path).name != f"{r['id']}_{x['pair_id']}.png":
+                    fail(f"decode {mode}: mask {path} does not name pair {x['pair_id']}")
+                m = read_png_gray(Path(path))
+                if m.shape != (4 * GRID, 4 * GRID) or not np.isin(m, (0, 255)).all():
+                    fail(f"decode {mode}: {path} is {m.shape}, values {np.unique(m)[:5]}")
+                masks[mode][Path(path).name] = m
+        d, e = server.decode_calls, server.batches_encoded
+        want = {"layer_norm": 50 * e, "attention_seq_qkv": 24 * e,
+                "two_way_layer": two_way_layer.LAUNCHES * 2 * d,
+                "t2i_flash_kv": t2i_flash.LAUNCHES * d, "decoder_tail": d}
+        fg = np.mean([m.mean() / 255 for m in masks[mode].values()])
+        print(f"  decode serve {mode}: {len(resps)} responses, {e} encoded batches, {d} decode "
+              f"calls (warmup included), launches {c} (expected {want}), foreground share "
+              f"{fg:.4f}, main() took {dt:.1f} s")
+        if c != want or min(c.values()) == 0:
+            fail(f"decode {mode}: kernel launch counts {c} != expected {want}")
+        servers[mode], counts[mode] = server, c
+        print(f"  first response ({mode}): {json.dumps(resps[0])[:300]}")
+    if masks["host"].keys() != masks["hbm"].keys():
+        fail("the two decode configurations retrieved different candidates")
+    agree = np.mean([(masks["host"][k] == masks["hbm"][k]).mean() for k in masks["host"]])
+    print(f"  host-streamed fp16 vs int8 store masks: {agree:.6f} of pixels agree "
+          f"over {len(masks['host'])} masks")
+    if agree < MASK_AGREE_MIN:
+        fail(f"host-streamed and --store-hbm masks agree on only {agree:.4f} of pixels")
+    print("phase 7 decode serve: ok", flush=True)
+    return servers, counts["hbm"], agree
+
+
+@torch.no_grad()
+def phase_decode_numerics(server, index_dir: Path):
+    from cor_tpu_torch.config import EvalConfig
+    from cor_tpu_torch.models.core_model import init_decode_model
+    from cor_tpu_torch.retrieval.index import load_gallery_index, make_candidate_mask_decoder
+
+    assembled = [server._synthetic_query(i) for i in range(4)]
+    imgs, masks, texts = server._batch_tensors(assembled)
+    feats = server.encode_query(server.model, imgs, texts, masks)
+    rows = np.asarray(load_gallery_index(index_dir)["store"][[3, 100, 1000, 2047]])
+    gpu = make_candidate_mask_decoder(server.cfg)(
+        server.decode_model, torch.from_numpy(rows).cuda(), feats).cpu()
+    cfg = dataclasses.replace(EvalConfig().core_config(), compute_dtype="float32")
+    model_cpu = init_decode_model(cfg, EvalConfig().seed)  # the weights main() served
+    t0 = time.perf_counter()
+    cpu = make_candidate_mask_decoder(cfg)(model_cpu, torch.from_numpy(rows), feats.cpu())
+    dt = time.perf_counter() - t0
+    cos = torch.nn.functional.cosine_similarity(gpu.flatten(1), cpu.flatten(1), dim=1)
+    agree = ((gpu > 0) == (cpu > 0)).float().mean().item()
+    print(f"  GPU bf16 vs CPU fp32 decode, per-candidate logit cosine: "
+          f"{[round(v, 6) for v in cos.tolist()]}; mask pixels agreeing {agree:.6f} "
+          f"(CPU decode {dt:.1f} s)")
+    if gpu.shape != (4, 1, 4 * GRID, 4 * GRID) or not torch.isfinite(gpu).all():
+        fail(f"GPU decode malformed: shape {tuple(gpu.shape)}")
+    if cos.min().item() < COS_MIN:
+        fail(f"GPU bf16 and CPU fp32 decodes disagree: min cosine {cos.min().item()}")
+    print(f"phase 8 decode numerics: ok, min cosine {cos.min().item():.6f}", flush=True)
+    return cos.min().item()
+
+
+def self_test_rps(server, save_masks: bool = True):
+    """Responses/s of the --self-test loop (8 requests, --max-batch 4, the
+    synthetic inputs already memoised): median, min and max of 7 runs."""
+    reqs = [[{"id": i, "synthetic": i} for i in range(s, s + 4)] for s in (0, 4)]
+    for batch in reqs:
+        server.handle_batch(batch, save_masks=save_masks)
+    walls = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in reqs:
+            server.handle_batch(batch, save_masks=save_masks)
+        walls.append(time.perf_counter() - t0)
+    rps = [8 / w for w in walls]
+    return {"median": statistics.median(rps), "min": min(rps), "max": max(rps)}
+
+
+def phase_decode_timings(servers, smi):
+    server = servers["hbm"]
+    assembled = [server._synthetic_query(i) for i in range(4)]
+    latency = {}
+    for b in (1, 4):
+        tensors = server._batch_tensors(assembled[:b])
+        med, lo, hi = cuda_ms(lambda: server.encode_scan_decode(*tensors, b), windows=7, iters=3)
+        latency[str(b)] = {"ms": med, "min_ms": lo, "max_ms": hi}
+    print(json.dumps({"decode_timings": {
+        "encode_scan_decode_ms_by_bucket": latency,
+        "self_test_responses_per_s": self_test_rps(server),
+        # the same loop writing no PNG, and the host-streamed configuration
+        "self_test_responses_per_s_no_png": self_test_rps(server, save_masks=False),
+        "self_test_responses_per_s_host_streamed": self_test_rps(servers["host"]),
+        "store_rows": STORE_ROWS, "k": 10, "store": "int8 on the card", "card": smi,
+    }}))
+    profile_decode(server, tensors, 4, smi)
+    print("phase 9 decode timings: ok", flush=True)
+
+
+# device kernels by the layer they belong to (substrings of their names)
+KERNEL_GROUPS = (
+    ("K1 two_way_layer", ("twl_", "t2i_image_kernel<true, true>", "t2i_image_kernel<false, true>")),
+    ("K2 t2i_flash_kv", ("t2i_image_kernel", "t2i_combine")),
+    ("K3 decoder_tail", ("decoder_tail_kernel",)),
+    ("K4 attention_seq_qkv", ("seq_attention",)),
+    ("K5 layer_norm", ("layer_norm_kernel",)),
+    ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "cublas")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("reductions, top-k, sort", ("reduce", "topk", "sort", "radix", "gather", "scatter")),
+)
+
+
+def profile_decode(server, tensors, b: int, smi: str, calls: int = 3):
+    """torch.profiler over ``calls`` encode+scan+decode calls at bucket b
+    (--store-hbm): device time per call by layer, the top kernels, and the
+    device's idle share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    server.encode_scan_decode(*tensors, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            server.encode_scan_decode(*tensors, b)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+    kernels = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.device_type == DeviceType.CUDA and us > 0:
+            kernels.append((e.key, e.count / calls, us / 1e3 / calls))
+    groups = {}
+    for key, n, ms in kernels:
+        name = next((g for g, subs in KERNEL_GROUPS if any(s in key for s in subs)), "other")
+        c, t = groups.get(name, (0.0, 0.0))
+        groups[name] = (c + n, t + ms)
+    device_ms = sum(ms for _, _, ms in kernels)
+    top = sorted(kernels, key=lambda k: -k[2])[:12]
+    print(json.dumps({"decode_profile": {
+        "bucket": b, "calls": calls, "wall_ms_per_call": wall_ms,
+        "device_ms_per_call": device_ms, "device_idle_share": 1 - device_ms / wall_ms,
+        "kernels_per_call": sum(n for _, n, _ in kernels),
+        "by_layer": {g: {"launches": c, "ms": t} for g, (c, t) in
+                     sorted(groups.items(), key=lambda kv: -kv[1][1])},
+        "top_kernels": [{"name": k[:90], "launches": n, "ms": t} for k, n, t in top],
+        "card": smi,
+    }}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this check runs on a GPU only",
@@ -295,20 +702,35 @@ def main():
         servers, launches = phase_serve(d, pair_ids)
     phase_numerics(servers["fp32"])
     phase_timings(servers["fp32"], smi)
+    del servers
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        t0 = time.perf_counter()
+        store_ids = write_store_index(d / "index")
+        print(f"  store index: {STORE_ROWS} x {GRID} x {GRID} x {SAM_C} fp16 written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        dec_servers, dec_launches, _ = phase_decode_serve(d / "index", store_ids, d / "masks")
+        phase_decode_numerics(dec_servers["host"], d / "index")
+        phase_decode_timings(dec_servers, smi)
 
     sources = {
-        "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70"),
+        "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70",
+                       launches),
         "attention_seq_qkv": ("cor_tpu_torch/csrc/seq_attention.cu",
-                              "cor_tpu/ops/pallas/seq_attention.py:99"),
+                              "cor_tpu/ops/pallas/seq_attention.py:99", launches),
+        "two_way_layer": ("cor_tpu_torch/csrc/two_way_layer.cu",
+                          "cor_tpu/ops/pallas/two_way_layer.py:978", dec_launches),
+        "t2i_flash_kv": ("cor_tpu_torch/csrc/t2i_flash.cu",
+                         "cor_tpu/ops/pallas/t2i_flash.py:220", dec_launches),
+        "decoder_tail": ("cor_tpu_torch/csrc/decoder_tail.cu",
+                         "cor_tpu/ops/pallas/decoder_tail.py:150", dec_launches),
     }
     kernels = []
-    for kname, (err, (kern_t, plain_t)) in kernel_results.items():
-        src, replaces = sources[kname]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": err,
-            "ms": kern_t[0], "plain_ms": plain_t[0],
-        })
+    for kname, res in kernel_results.items():
+        src, replaces, counts = sources[kname]
+        kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": counts[kname], **res})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

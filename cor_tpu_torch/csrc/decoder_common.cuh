@@ -1,0 +1,172 @@
+// Device helpers shared by the SAM mask-decoder kernels (two_way_layer.cu,
+// t2i_flash.cu, decoder_tail.cu): bf16 conversions, the tensor-core
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate) and a warp's 16-row GEMM tile
+// over operands in shared memory, the loading of one 64-row tile of image
+// rows (bf16, or an int8 store row dequantised as the TPU kernel does it),
+// and warp reductions. Geometry of the SAM decoder: C = 256 channels, 8
+// heads, internal width 128 (head_dim 16 in the cross attentions), 6 tokens.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace cor {
+
+constexpr int kC = 256;        // transformer_dim
+constexpr int kI = 128;        // cross-attention internal width (downsample 2)
+constexpr int kHeads = 8;
+constexpr int kTok = 6;        // iou + 4 mask tokens + 1 prompt token
+constexpr int kCrossD = kI / kHeads;   // 16
+constexpr int kQ = kHeads * kTok;      // 48 (head, token) query rows
+constexpr int kRows = 64;      // image rows per CTA of an image pass
+constexpr int kLdC = kC + 8;   // padded shared row strides (bf16 elements):
+constexpr int kLdI = kI + 8;   // rows 4 banks apart, conflict-free fragments
+
+__device__ __forceinline__ float bf2f(uint16_t v) { return __uint_as_float(uint32_t(v) << 16); }
+__device__ __forceinline__ uint16_t f2bf(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float round_bf16(float x) { return bf2f(f2bf(x)); }
+
+// two floats -> bf16x2 in one 32-bit register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return uint32_t(f2bf(lo)) | (uint32_t(f2bf(hi)) << 16);
+}
+__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ void sts32(uint16_t* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[n] (16 x 8 tile n) += A[row0 .. row0+15][0 .. K) * B[n*8 .. n*8+7][0 .. K)^T
+// with A [rows][lda] and B [cols][ldb] bf16 in shared memory, both K-contiguous
+// (B is a weight in the [out, in] layout). Accumulator layout of mma.sync:
+// acc[n][0..1] row row0+g, cols n*8+2t, +1; acc[n][2..3] row row0+g+8.
+template <int NT, int K>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const uint16_t* sA, int lda,
+                                         const uint16_t* sB, int ldb, int row0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kc = 0; kc < K / 16; ++kc) {
+    uint32_t a[4];
+    const uint16_t* pa = sA + (row0 + g) * lda + kc * 16 + 2 * t;
+    a[0] = lds32(pa);
+    a[1] = lds32(pa + 8 * lda);
+    a[2] = lds32(pa + 8);
+    a[3] = lds32(pa + 8 * lda + 8);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const uint16_t* pb = sB + (n * 8 + g) * ldb + kc * 16 + 2 * t;
+      mma_bf16_16816(acc[n], a, lds32(pb), lds32(pb + 8));
+    }
+  }
+}
+
+// The store row a candidate reads: idx[cand] clipped to [0, S - 1] (the JAX
+// server clips), or the candidate itself without idx.
+__device__ __forceinline__ int source_row(const int* idx, int cand, int S) {
+  if (idx == nullptr) return cand;
+  const int r = idx[cand];
+  return r < 0 ? 0 : (r > S - 1 ? S - 1 : r);
+}
+
+// Rows [r0, r0 + kRows) of source row `row` ([N, C]) -> sRows [kRows][kLdC]
+// bf16. An int8 row dequantises as bf16((int8 -> fp32) * scale), the TPU
+// kernel's rounding (two_way_layer.py:382-389).
+template <bool kInt8>
+__device__ __forceinline__ void load_rows(uint16_t* sRows, const void* src, int row, int N,
+                                          int r0, float scale, int tid, int nthreads) {
+  const int64_t base = (static_cast<int64_t>(row) * N + r0) * kC;
+  for (int i = tid; i < kRows * (kC / 8); i += nthreads) {
+    const int r = i / (kC / 8);
+    const int c8 = (i % (kC / 8)) * 8;
+    uint4 v;
+    if (kInt8) {
+      const uint2 q = *reinterpret_cast<const uint2*>(static_cast<const int8_t*>(src) + base +
+                                                      r * kC + c8);
+      const uint32_t w[2] = {q.x, q.y};
+      uint32_t o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int8_t lo = static_cast<int8_t>((w[j >> 1] >> (16 * (j & 1))) & 0xff);
+        const int8_t hi = static_cast<int8_t>((w[j >> 1] >> (16 * (j & 1) + 8)) & 0xff);
+        o[j] = pack_bf16x2(static_cast<float>(lo) * scale, static_cast<float>(hi) * scale);
+      }
+      v = make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+      v = *reinterpret_cast<const uint4*>(static_cast<const uint16_t*>(src) + base + r * kC + c8);
+    }
+    *reinterpret_cast<uint4*>(sRows + r * kLdC + c8) = v;
+  }
+}
+
+// Two consecutive channels (col, col + 1) of source row `row`, image row r,
+// as the compute dtype's values in fp32 (dequantised for an int8 store).
+template <bool kInt8>
+__device__ __forceinline__ void load_pair(const void* src, int row, int N, int r, int col,
+                                          float scale, float& v0, float& v1) {
+  const int64_t off = (static_cast<int64_t>(row) * N + r) * kC + col;
+  if (kInt8) {
+    const int8_t* p = static_cast<const int8_t*>(src) + off;
+    v0 = round_bf16(static_cast<float>(p[0]) * scale);
+    v1 = round_bf16(static_cast<float>(p[1]) * scale);
+  } else {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(static_cast<const uint16_t*>(src) + off);
+    v0 = bf2f(static_cast<uint16_t>(w & 0xffffu));
+    v1 = bf2f(static_cast<uint16_t>(w >> 16));
+  }
+}
+
+// The t2i flash partials of query q (of kQ), channel d (of kCrossD), merged
+// over the `tiles` row tiles of one candidate (tile j at base + j):
+// sum_j acc_j e^(m_j - m) / sum_j l_j e^(m_j - m) with m = max_j m_j. Two
+// passes, unrolled so that the loads of 8 tiles are in flight at once and no
+// exponential waits on the one before it.
+__device__ __forceinline__ float combine_partials(const float* __restrict__ part_m,
+                                                  const float* __restrict__ part_l,
+                                                  const float* __restrict__ part_acc,
+                                                  int64_t base, int tiles, int q, int d) {
+  float m = -INFINITY;
+#pragma unroll 8
+  for (int j = 0; j < tiles; ++j) m = fmaxf(m, __ldg(part_m + (base + j) * kQ + q));
+  float l = 0.f, acc = 0.f;
+#pragma unroll 8
+  for (int j = 0; j < tiles; ++j) {
+    const int64_t pq = (base + j) * kQ + q;
+    const float a = expf(__ldg(part_m + pq) - m);
+    l += __ldg(part_l + pq) * a;
+    acc += __ldg(part_acc + pq * kCrossD + d) * a;
+  }
+  return acc / l;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+// sum over the 4 lanes (t = 0..3) that share accumulator rows
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+}  // namespace cor

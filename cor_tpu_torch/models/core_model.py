@@ -2,10 +2,11 @@
 ``cor_tpu.models.core_model`` that the retrieval-only serving path reads.
 
 ``CoreConfig`` mirrors ``cor_tpu``'s field for field with equal defaults. The
-SAM encoder, prompt encoder and mask decoder are not ported yet, so their
-override fields are carried as opaque values; only ``encoder_override``'s
-``img_size`` is read (the size of a synthetic query image, for
-``SyntheticDataset`` stream parity).
+SAM image encoder is not ported yet (ROADMAP Queue 1, item 6): of its config
+only ``img_size`` and ``patch_size`` are read (the size of a synthetic query
+image, and the 64 x 64 image-embedding grid that the prompt encoder and the
+mask decoder work on), so ``encoder_override`` may be any object that has
+them. The prompt encoder and the mask decoder are the port's own modules.
 """
 
 from __future__ import annotations
@@ -16,12 +17,26 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from cor_tpu_torch.models.prompt_encoder import PromptEncoder, PromptEncoderConfig
+from cor_tpu_torch.models.sam_decoder import MaskDecoder, MaskDecoderConfig
 from cor_tpu_torch.models.support_branch import SupportBranch, SupportBranchConfig
 from cor_tpu_torch.ops.common import reset_all
 
 # SAM image-encoder input size by model name (cor_tpu sam_encoder.SAM_SIZES:
-# every SAM size takes 1024 x 1024)
+# every SAM size takes 1024 x 1024 in 16 x 16 patches)
 SAM_IMG_SIZE = {"sam_base": 1024, "sam_large": 1024, "sam_huge": 1024}
+
+
+@dataclass(frozen=True)
+class SamEncoderConfig:
+    """The part of ``cor_tpu``'s SAM encoder config that the port reads."""
+
+    img_size: int = 1024
+    patch_size: int = 16
+
+    @property
+    def grid(self) -> int:
+        return self.img_size // self.patch_size
 
 
 @dataclass(frozen=True)
@@ -39,12 +54,30 @@ class CoreConfig:
     support_override: Optional[SupportBranchConfig] = None
 
     @property
-    def query_img_size(self) -> int:
+    def encoder(self):
         if self.encoder_override is not None:
-            return int(self.encoder_override.img_size)
+            return self.encoder_override
         if self.sam_model not in SAM_IMG_SIZE:
             raise ValueError(f"Invalid SAM model: {self.sam_model}")
-        return SAM_IMG_SIZE[self.sam_model]
+        return SamEncoderConfig(img_size=SAM_IMG_SIZE[self.sam_model])
+
+    @property
+    def query_img_size(self) -> int:
+        return int(self.encoder.img_size)
+
+    @property
+    def decoder(self) -> MaskDecoderConfig:
+        return self.decoder_override or MaskDecoderConfig()
+
+    @property
+    def prompt(self) -> PromptEncoderConfig:
+        if self.prompt_override is not None:
+            return self.prompt_override
+        enc = self.encoder
+        g = int(enc.img_size) // int(enc.patch_size)
+        return PromptEncoderConfig(
+            image_embedding_size=(g, g), input_image_size=(enc.img_size, enc.img_size)
+        )
 
     @property
     def support(self) -> SupportBranchConfig:
@@ -76,6 +109,35 @@ def init_support_branch(cfg: CoreConfig, seed: int) -> SupportBranch:
     seed gives the same weights on every machine."""
     gen = torch.Generator().manual_seed(seed)
     return reset_all(SupportBranch(cfg.support), gen)
+
+
+def init_prompt_encoder(cfg: CoreConfig, seed: int) -> PromptEncoder:
+    """The prompt encoder with the port's seeded init (cor_tpu
+    ``init_prompt_encoder``'s distributions)."""
+    return reset_all(PromptEncoder(cfg.prompt), torch.Generator().manual_seed(seed))
+
+
+def init_mask_decoder(cfg: CoreConfig, seed: int) -> MaskDecoder:
+    """The mask decoder with the port's seeded init (cor_tpu
+    ``init_mask_decoder``'s distributions)."""
+    return reset_all(MaskDecoder(cfg.decoder), torch.Generator().manual_seed(seed))
+
+
+class DecodeModel(nn.Module):
+    """What the candidate-mask decode reads: ``prompt_encoder`` and
+    ``mask_decoder``, named as the two subtrees of a ``cor_tpu`` parameter
+    tree so that ``{"prompt_encoder": ..., "mask_decoder": ...}`` loads
+    through the weight bridge as it is."""
+
+    def __init__(self, prompt_encoder: PromptEncoder, mask_decoder: MaskDecoder):
+        super().__init__()
+        self.prompt_encoder = prompt_encoder
+        self.mask_decoder = mask_decoder
+
+
+def init_decode_model(cfg: CoreConfig, seed: int) -> DecodeModel:
+    """The prompt encoder from ``seed`` and the mask decoder from ``seed + 1``."""
+    return DecodeModel(init_prompt_encoder(cfg, seed), init_mask_decoder(cfg, seed + 1))
 
 
 def _cast(model: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -35,6 +35,27 @@ def attention_heads(
     return out.to(q.dtype).reshape(B, Nq, C)
 
 
+class AttentionQKV(nn.Module):
+    """cor_tpu ``init_attention_qkv`` / ``attention_qkv``: separate q/k/v/out
+    projections with an internal width ``embed_dim // downsample_rate`` (the
+    SAM two-way transformer's attention)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, downsample_rate: int = 1):
+        super().__init__()
+        internal = embed_dim // downsample_rate
+        if internal % num_heads:
+            raise ValueError(f"internal width {internal} is not a multiple of {num_heads} heads")
+        self.num_heads = num_heads
+        self.q_proj = Dense(embed_dim, internal)
+        self.k_proj = Dense(embed_dim, internal)
+        self.v_proj = Dense(embed_dim, internal)
+        self.out_proj = Dense(internal, embed_dim)
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        out = attention_heads(self.q_proj(q), self.k_proj(k), self.v_proj(v), self.num_heads)
+        return self.out_proj(out)
+
+
 class AttentionSeq(nn.Module):
     """cor_tpu ``init_attention_seq`` (the parameters, initialised by
     ``reset_all``) and ``attention_seq`` (``forward``): fused-QKV

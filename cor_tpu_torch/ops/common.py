@@ -94,6 +94,21 @@ def conv2d(
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv_transpose_2x(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 transposed convolution, NHWC, with cor_tpu's kernel layout
+    ``w`` [C_in, 2, 2, C_out]:
+
+        out[n, 2i + di, 2j + dj, o] = sum_c x[n, i, j, c] * w[c, di, dj, o] + b[o]
+
+    ``F.conv_transpose2d`` takes [C_in, C_out, kh, kw] and applies it without
+    a flip (cor_tpu pre-flips only because ``lax.conv_transpose`` flips).
+    Output in x.dtype."""
+    y = F.conv_transpose2d(
+        x.permute(0, 3, 1, 2), w.to(x.dtype).permute(0, 3, 1, 2), b.to(x.dtype), stride=2
+    )
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
 def layer_norm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
@@ -231,3 +246,21 @@ class MlpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mlp_block(self, x)
+
+
+class MlpStack(nn.Module):
+    """cor_tpu ``init_mlp_stack`` / ``mlp_stack``: ``num_layers`` Dense
+    layers with ReLU between them and none after the last (the SAM mask
+    decoder's hypernetworks and IoU head)."""
+
+    def __init__(self, in_dim: int, hidden: int, out_dim: int, num_layers: int):
+        super().__init__()
+        dims = [in_dim] + [hidden] * (num_layers - 1) + [out_dim]
+        self.layers = nn.ModuleList(Dense(dims[i], dims[i + 1]) for i in range(num_layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.relu(x)
+        return x

@@ -1,9 +1,9 @@
 """Build the port's CUDA kernels from ``cor_tpu_torch/csrc`` and load them.
 
-Every ``*.cu`` file under ``csrc/`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ``ctypes``. The library goes into ``cor_tpu_torch/_build/``
-(git-ignored) under a name that carries a hash of the sources and flags, so
+Every ``*.cu`` file under ``csrc/`` is compiled by its own ``nvcc`` for
+Hopper (``sm_90a``), all of them at once, and the objects are linked into one
+shared library with a plain C interface, which is loaded with ``ctypes``.
+The library goes into ``cor_tpu_torch/_build/`` (git-ignored) under a name that carries a hash of the sources and flags, so
 an edited source is rebuilt at its first use and an unchanged one is loaded
 as it is. Nothing is built at import time: the first kernel launch (or an
 explicit :func:`library` call) builds.
@@ -24,7 +24,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v", "-lineinfo",
 )
 
@@ -38,6 +38,36 @@ _SIGNATURES = {
     # qkv, out, B, N, C, num_heads, stream
     "cor_seq_attention_qkv": (
         _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP,
+    ),
+    # tokens, qpe, wt, bt, skip_pe, self_scale, cross_scale, eps, n, x_out, qt_out, stream
+    "cor_twl_tokens_in": (
+        _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, _VP, _VP, _VP,
+    ),
+    # src, src_int8, idx, scale, S, n, N, w, b, kpe, qpe, qt, q_img, part_m, part_l,
+    # part_acc, stream
+    "cor_t2i_image_pass": (
+        _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+    ),
+    # x_in, qpe, part_m, part_l, part_acc, tiles, wt, bt, eps, n, tokens_out, k_out,
+    # v_out, stream
+    "cor_twl_tokens_mid": (
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_float, ctypes.c_int,
+        _VP, _VP, _VP, _VP,
+    ),
+    # src, src_int8, idx, scale, S, n, N, q_img, k_i, v_i, wo, bo_ln4, eps, cross_scale,
+    # keys_out, stream
+    "cor_twl_image_i2t": (
+        _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_float, ctypes.c_float, _VP, _VP,
+    ),
+    # part_m, part_l, part_acc, tiles, n, out, stream
+    "cor_t2i_combine": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _VP, _VP),
+    # src, w1t, w2t, vec, hyper, n, m, H, eps, out, stream
+    "cor_decoder_tail": (
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        _VP, _VP,
     ),
 }
 
@@ -71,23 +101,43 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the sources unless a library for them already exists.
 
-    The build writes to a temporary name and renames it into place, so two
-    processes that build at once both end with a whole library. The
-    compiler's output (with ``-Xptxas=-v``: registers, shared memory and
+    One ``nvcc -c`` per source, all started together, then one link. The
+    build writes to temporary names and renames the library into place, so
+    two processes that build at once both end with a whole library. The
+    compilers' output (with ``-Xptxas=-v``: registers, shared memory and
     spills of every kernel) is kept beside the library as ``.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, obj, proc in jobs:
+        text = proc.communicate()[0]
+        logs.append(f"$ {' '.join(cmd)}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    if not failed:
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(logs))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, out)
     return out
 

@@ -53,6 +53,32 @@ def quantize_queries(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     return torch.clamp(torch.round(q / qscale[:, None]), -127, 127), qscale
 
 
+def quantize_candidate_store_host(
+    store, no_mask_embed=None, chunk: int = 256
+) -> Tuple[np.ndarray, np.ndarray]:
+    """int8 per-candidate-row symmetric quantisation of a SAM candidate store
+    [S, H, W, C] (often memory-mapped fp16) -> (int8 store, fp32 scales [S]),
+    chunk by chunk in numpy so that host memory stays bounded; bit for bit
+    cor_tpu's ``quantize_candidate_store_host``. The dense no-mask prompt,
+    when given, is added in fp32 before quantisation, so the decode needs
+    no dense-prompt pass; row s dequantises as ``q[s] * scales[s]``."""
+    S = store.shape[0]
+    q = np.empty(store.shape, np.int8)
+    scales = np.empty((S,), np.float32)
+    bias = None if no_mask_embed is None else np.asarray(no_mask_embed, np.float32)
+    for s in range(0, S, chunk):
+        rows = np.asarray(store[s : s + chunk], np.float32)
+        if bias is not None:
+            rows = rows + bias
+        flat = rows.reshape(rows.shape[0], -1)
+        sc = np.maximum(np.abs(flat).max(axis=1) / 127.0, 1e-12)
+        q[s : s + chunk] = (
+            np.clip(np.round(flat / sc[:, None]), -127, 127).astype(np.int8).reshape(rows.shape)
+        )
+        scales[s : s + chunk] = sc
+    return q, scales
+
+
 def cosine_scores_int8(
     queries_q: torch.Tensor,  # [Q, D] int8 values
     qscales: torch.Tensor,  # [Q] fp32
@@ -68,7 +94,7 @@ def cosine_scores_int8(
 class RetrievalEngine:
     """Hold a gallery on one device; retrieve the top k for query batches."""
 
-    def __init__(self, k: int = 10, quantize: bool = False, device="cpu"):
+    def __init__(self, k: int = 10, quantize: bool = False, device="cuda"):
         self.k = k
         self.quantize = quantize
         self.device = torch.device(device)

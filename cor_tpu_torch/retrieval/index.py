@@ -1,5 +1,6 @@
-"""Query encoding and the gallery-index artifact, the PyTorch counterpart of
-the retrieval-only part of ``cor_tpu.retrieval.index``.
+"""Query encoding, candidate-mask decoding and the gallery-index artifact,
+the PyTorch counterpart of ``cor_tpu.retrieval.index`` (all but the gallery
+build, which needs the SAM image encoder).
 
 The artifact format is ``cor_tpu``'s (version 1): a directory holding
 ``embeddings.npy`` (fp32 [G, D]), ``pair_ids.npy`` (int64 [G]), optionally
@@ -16,7 +17,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from cor_tpu_torch.models.core_model import CoreConfig
+from cor_tpu_torch.models.core_model import CoreConfig, DecodeModel
+from cor_tpu_torch.models.prompt_encoder import get_dense_pe, prompt_encoder_dense
+from cor_tpu_torch.models.sam_decoder import mask_decoder
 
 INDEX_VERSION = 1
 
@@ -36,6 +39,55 @@ def make_query_encoder(cfg: CoreConfig):
         return feat[:, 0, :].float()
 
     return encode
+
+
+def _select(cfg: CoreConfig, masks: torch.Tensor, iou: torch.Tensor) -> torch.Tensor:
+    if cfg.multimask_output:
+        best = iou.argmax(dim=1)
+        masks = masks[torch.arange(masks.shape[0], device=masks.device), best][:, None]
+    return masks.float()
+
+
+def make_candidate_mask_decoder(cfg: CoreConfig):
+    """Returns decode(model, cand_embeddings [B, g, g, C], query_feats [B, D])
+    -> mask logits [B, 1, 4g, 4g] fp32: segment each retrieved candidate
+    conditioned on its composed query. ``model`` is a ``DecodeModel`` cast to
+    ``cfg.dtype``; the embeddings are cast to it here and the dense no-mask
+    prompt is added in the compute dtype."""
+
+    @torch.inference_mode()
+    def decode(model: DecodeModel, cand_embeddings, query_feats):
+        pe = model.prompt_encoder
+        dense_e = prompt_encoder_dense(pe, cand_embeddings.shape[0]).to(cfg.dtype)
+        image_pe = get_dense_pe(pe).to(cfg.dtype)
+        masks, iou, _ = mask_decoder(
+            model.mask_decoder, cand_embeddings.to(cfg.dtype), image_pe,
+            query_feats[:, None, :].to(cfg.dtype), dense_e, cfg.multimask_output,
+        )
+        return _select(cfg, masks, iou)
+
+    return decode
+
+
+def make_store_indexed_mask_decoder(cfg: CoreConfig):
+    """Returns decode(model, store_q int8 [S, g, g, C], scales fp32 [S],
+    idx int32 [B], query_feats [B, D]) -> mask logits [B, 1, 4g, 4g] fp32.
+
+    The first two-way layer reads ``store_q[idx[b]]`` itself and dequantises
+    it inside the kernel: no gather and no host round trip. The store must
+    carry the dense no-mask prompt pre-baked
+    (``engine.quantize_candidate_store_host`` with ``no_mask_embed``)."""
+
+    @torch.inference_mode()
+    def decode(model: DecodeModel, store_q, scales, idx, query_feats):
+        image_pe = get_dense_pe(model.prompt_encoder).to(cfg.dtype)
+        masks, iou, _ = mask_decoder(
+            model.mask_decoder, store_q, image_pe, query_feats[:, None, :].to(cfg.dtype),
+            None, cfg.multimask_output, store_idx=idx, store_scale=scales,
+        )
+        return _select(cfg, masks, iou)
+
+    return decode
 
 
 def save_gallery_index(

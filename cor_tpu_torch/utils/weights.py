@@ -8,7 +8,9 @@ index), so ``blocks[3]["attn"]["qkv"]["w"]`` is the parameter
 
 - a dense weight (``w`` of a ``Dense``) goes from [in, out] to [out, in];
 - a convolution weight (``w`` of a ``Conv2d``) goes from HWIO to OIHW;
-- everything else is copied as it is.
+- everything else is copied as it is, the mask decoder's transposed-conv
+  ``w`` (kept in ``cor_tpu``'s [C_in, 2, 2, C_out]) and its token and PE
+  leaves included.
 
 Loading fails if a leaf of the tree is left unused, if a parameter of the
 module is left unset, or if a converted shape disagrees.

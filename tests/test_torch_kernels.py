@@ -114,3 +114,112 @@ def test_attention_seq_qkv_kernel_refuses_other_head_dims(cuda_device):
     qkv = torch.zeros(1, 8, 3 * 1152, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim 64"):
         attention_seq_qkv(qkv, 16)  # SO400M: head_dim 72
+
+
+# ---------------------------------------------------------------------------
+# the SAM mask decoder's kernels (K1 two-way layer, K2 final t2i attention,
+# K3 upscale tail): the CUDA kernel against its plain version in bf16 at the
+# decode path's widths (C 256, 8 heads, 64 x 64 grid), max |d| / max |plain|
+# <= 2e-2 (the plain versions round at the kernels' points; the flash
+# partials and the order of the fp32 sums differ)
+# ---------------------------------------------------------------------------
+
+DECODE_REL = 2e-2
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.fixture(scope="module")
+def sam_decoder_bf16():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+
+    return init_mask_decoder(CoreConfig(), 1).to("cuda", torch.bfloat16).eval()
+
+
+def decode_inputs(n, N=4096, S=None, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    bf = torch.bfloat16
+    return dict(
+        tokens=rnd(n, 6, 256).to(bf), rows=(0.5 * rnd(S or n, N, 256)).to(bf),
+        kpe=(0.5 * rnd(N, 128)).to(bf), qpe=(0.5 * rnd(N, 128)).to(bf),
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["skip_pe", "pe", "store", "int8"])
+def test_two_way_layer_kernel_matches_plain_bf16(sam_decoder_bf16, case):
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer, two_way_layer_plain
+
+    lp = sam_decoder_bf16.transformer.layers[0 if case != "pe" else 1]
+    n = 8
+    x = decode_inputs(n, S=12 if case in ("store", "int8") else None)
+    keys, idx, scale = x["rows"], None, None
+    if case in ("store", "int8"):
+        idx = torch.tensor([11, 0, 3, 3, 7, 2, 9, 5], dtype=torch.int32, device="cuda")
+    if case == "int8":
+        f = keys.float()
+        scale = (f.abs().amax(dim=(1, 2)) / 127.0).clamp_min(1e-12)
+        keys = torch.clamp(torch.round(f / scale[:, None, None]), -127, 127).to(torch.int8)
+    args = (lp, x["tokens"], x["tokens"], keys, x["kpe"], x["qpe"], case != "pe")
+    with torch.no_grad():
+        before = two_way_layer.launches
+        got_t, got_k = two_way_layer(*args, idx=idx, scale=scale)
+        torch.cuda.synchronize()
+        assert two_way_layer.launches == before + 4
+        want_t, want_k = two_way_layer_plain(*args, idx=idx, scale=scale)
+    assert rel_err(got_t, want_t) <= DECODE_REL
+    assert rel_err(got_k, want_k) <= DECODE_REL
+
+
+@pytest.mark.gpu
+def test_t2i_flash_kv_kernel_matches_plain_bf16(sam_decoder_bf16):
+    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv, t2i_flash_kv_plain
+
+    fa = sam_decoder_bf16.transformer.final_attn_t2i
+    x = decode_inputs(8)
+    q_tok = x["tokens"][..., :128].contiguous()
+    args = (x["rows"], fa.k_proj.w, fa.k_proj.b, fa.v_proj.w, fa.v_proj.b, x["kpe"], q_tok, 8)
+    with torch.no_grad():
+        before = t2i_flash_kv.launches
+        got = t2i_flash_kv(*args)
+        torch.cuda.synchronize()
+        assert t2i_flash_kv.launches == before + 2
+        assert rel_err(got, t2i_flash_kv_plain(*args)) <= DECODE_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3])
+def test_decoder_tail_kernel_matches_plain_bf16(sam_decoder_bf16, m):
+    from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail, decoder_tail_plain
+
+    up = sam_decoder_bf16.output_upscaling
+    g = torch.Generator(device="cuda").manual_seed(1)
+    src = torch.randn(4, 64, 64, 256, generator=g, device="cuda").to(torch.bfloat16)
+    hyper = torch.randn(4, m, 32, generator=g, device="cuda").to(torch.bfloat16)
+    args = (src, up.convt1.w, up.convt1.b, up.ln.scale, up.ln.bias, up.convt2.w, up.convt2.b,
+            hyper)
+    with torch.no_grad():
+        before = decoder_tail.launches
+        got = decoder_tail(*args)
+        torch.cuda.synchronize()
+        assert decoder_tail.launches == before + 1 and got.shape == (4, m, 256, 256)
+        assert rel_err(got, decoder_tail_plain(*args)) <= DECODE_REL
+
+
+@pytest.mark.gpu
+def test_decoder_kernels_refuse_other_geometry(sam_decoder_bf16):
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
+
+    lp = sam_decoder_bf16.transformer.layers[0]
+    x = decode_inputs(2, N=100)
+    with pytest.raises(ValueError, match="N % 64"):
+        two_way_layer(lp, x["tokens"], x["tokens"], x["rows"], x["kpe"], x["qpe"], True)
+    x = decode_inputs(2)
+    with pytest.raises(TypeError, match="bf16"):
+        two_way_layer(lp, x["tokens"].float(), x["tokens"].float(), x["rows"], x["kpe"],
+                      x["qpe"], True)

@@ -3,9 +3,12 @@
 The same gallery index (written by cor_tpu), the same weights (carried over
 by the weight bridge) and the same ``{"synthetic": i}`` requests go through
 cor_tpu's RetrievalServer (CPU mesh) and the port's. Rankings must agree
-wherever adjacent scores differ by more than 1e-4, and scores within 1e-4.
+wherever adjacent scores differ by more than 1e-4, and scores within 1e-4;
+decoded masks must agree wherever the logit is not within 1e-3 of 0.
 """
 
+import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -17,7 +20,9 @@ import jax
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
+import cor_tpu.data.tokenizer as jtok
 import cor_tpu.models.pooling as jpool
 import cor_tpu.models.siglip as jsig
 import cor_tpu.models.support_branch as jsb
@@ -28,16 +33,21 @@ from cor_tpu.retrieval.index import load_gallery_index as j_load_index
 from cor_tpu.retrieval.index import save_gallery_index as j_save_index
 from cor_tpu.retrieval.serve import RetrievalServer as JaxRetrievalServer
 from cor_tpu_torch.cli import serve as pcli
+from cor_tpu_torch.config import EvalConfig
+from cor_tpu_torch.data import tokenizer as ptok
 from cor_tpu_torch.data.synthetic import SyntheticDataset
 from cor_tpu_torch.models import core_model as pcore
 from cor_tpu_torch.models import pooling as ppool
+from cor_tpu_torch.models import prompt_encoder as ppe
+from cor_tpu_torch.models import sam_decoder as psd
 from cor_tpu_torch.models import siglip as psig
 from cor_tpu_torch.models import support_branch as psb
 from cor_tpu_torch.retrieval import engine as pengine
 from cor_tpu_torch.retrieval.index import load_gallery_index, save_gallery_index
 from cor_tpu_torch.retrieval.serve import RetrievalServer
+from cor_tpu_torch.utils.png import png_encode_gray
 from cor_tpu_torch.utils.weights import load_cor_tpu_params
-from tests.helpers import TINY_ENCODER, tiny_core_config
+from tests.helpers import TINY_ADAPTER, TINY_ENCODER, TINY_PROMPT, tiny_core_config
 
 REPO = Path(__file__).resolve().parents[1]
 VISION = dict(image_size=64, patch_size=16, width=128, depth=2, num_heads=2)
@@ -103,7 +113,8 @@ def test_server_matches_cor_tpu_server(served, int8):
     want = JaxRetrievalServer(jc, params, j_load_index(idx_dir), k=6,
                               quantize=int8).handle_batch(reqs)
     model = load_cor_tpu_params(psb.SupportBranch(pc.support), params["support_branch"])
-    server = RetrievalServer(pc, model, load_gallery_index(idx_dir), k=6, quantize=int8)
+    server = RetrievalServer(pc, model, load_gallery_index(idx_dir), k=6, quantize=int8,
+                             device="cpu")
     got = server.handle_batch(reqs)
     assert all(len(r["results"]) == 6 for r in got)
     assert_same_answers(got, want)
@@ -115,7 +126,7 @@ def test_server_matches_cor_tpu_server(served, int8):
 def test_server_isolates_malformed_requests(served, tmp_path):
     _, pc, params, idx_dir = served
     model = load_cor_tpu_params(psb.SupportBranch(pc.support), params["support_branch"])
-    server = RetrievalServer(pc, model, load_gallery_index(idx_dir), k=3)
+    server = RetrievalServer(pc, model, load_gallery_index(idx_dir), k=3, device="cpu")
     mixed = server.handle_batch([
         {"id": "ok0", "synthetic": 0},
         {"id": "bad", "support_img": str(tmp_path / "missing.jpg"),
@@ -175,15 +186,13 @@ def test_engine_scans_match_cor_tpu(rng):
     got = pengine.cosine_scores_int8(qq, qs, torch.from_numpy(gq), torch.from_numpy(gs))
     want = jengine.cosine_scores_int8(jqq, jqs, gq, gs)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
-    engine = pengine.RetrievalEngine(k=10, quantize=True)
+    engine = pengine.RetrievalEngine(k=10, quantize=True, device="cpu")
     engine.set_gallery(g * 3.0)  # rows are re-normalised on the way in
     s, i = engine.retrieve(torch.from_numpy(q))
     np.testing.assert_allclose(s.numpy(), got.topk(10, dim=1).values.numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("flag", [
-    ["--decode-masks", "out"], ["--store-hbm"], ["--rescore"], ["--approx"], ["--tcp", "9000"],
-])
+@pytest.mark.parametrize("flag", [["--rescore"], ["--approx"], ["--tcp", "9000"]])
 def test_cli_refuses_later_slice_flags(tmp_path, capsys, flag):
     with pytest.raises(SystemExit) as e:
         pcli.main(["--gallery-index", str(tmp_path), *flag])
@@ -203,15 +212,20 @@ def test_cli_refuses_configs_that_name_checkpoints(tmp_path, capsys):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Block jax, import every module of the port, and serve end to end."""
+    """Block jax and cor_tpu, import every module of the port, and serve end
+    to end: retrieval alone, and with masks decoded host-streamed and from
+    the int8 store."""
     script = textwrap.dedent(f"""
         import importlib, json, pkgutil, sys
+        from pathlib import Path
         sys.modules["jax"] = None  # any import of jax now raises ImportError
+        sys.modules["cor_tpu"] = None  # and so does any import of cor_tpu
         import numpy as np, torch
         import cor_tpu_torch
         for m in pkgutil.walk_packages(cor_tpu_torch.__path__, "cor_tpu_torch."):
             importlib.import_module(m.name)
-        from cor_tpu_torch.models import core_model, pooling, siglip, support_branch
+        from cor_tpu_torch.models import (
+            core_model, pooling, prompt_encoder, sam_decoder, siglip, support_branch)
         from cor_tpu_torch.retrieval.index import save_gallery_index, load_gallery_index
         from cor_tpu_torch.retrieval.serve import RetrievalServer
         sup = support_branch.SupportBranchConfig(
@@ -220,23 +234,37 @@ def test_port_runs_without_jax(tmp_path):
                 siglip.SigLIPVisionConfig(32, 16, 128, 1, 2),
                 siglip.SigLIPTextConfig(8, 64, 128, 1, 2)),
             adapter_override=pooling.MaskAdapterConfig(128, 16, 8, 16, 4))
-        class Enc:  # the SAM encoder is not ported: only its input size is read
-            img_size = 64
-        cfg = core_model.CoreConfig(compute_dtype="float32", encoder_override=Enc(),
-                                    support_override=sup)
+        dec = sam_decoder.MaskDecoderConfig(
+            transformer_dim=16, iou_head_hidden_dim=16,
+            transformer=sam_decoder.TwoWayTransformerConfig(2, 16, 2, 32))
+        cfg = core_model.CoreConfig(
+            compute_dtype="float32", encoder_override=core_model.SamEncoderConfig(64, 16),
+            support_override=sup, decoder_override=dec,
+            prompt_override=prompt_encoder.PromptEncoderConfig(16, (4, 4), (64, 64)))
         rng = np.random.default_rng(0)
-        save_gallery_index({str(tmp_path)!r}, rng.standard_normal((20, 16)).astype(np.float32),
-                           np.arange(20))
-        server = RetrievalServer(cfg, core_model.init_support_branch(cfg, 0),
-                                 load_gallery_index({str(tmp_path)!r}), k=5)
+        root = Path({str(tmp_path)!r})
+        save_gallery_index(root / "idx", rng.standard_normal((20, 16)).astype(np.float32),
+                           np.arange(20), image_embeddings=rng.standard_normal((20, 4, 4, 16)))
+        index = load_gallery_index(root / "idx")
+        reqs = [{{"id": i, "synthetic": i}} for i in range(3)]
+        server = RetrievalServer(cfg, core_model.init_support_branch(cfg, 0), index, k=5,
+                                 device="cpu")
         server.warmup((1, 2))
-        out = server.handle_batch([{{"id": i, "synthetic": i}} for i in range(3)])
-        assert all(len(r["results"]) == 5 for r in out), out
-        # of cor_tpu, only its numpy/stdlib modules were imported
-        allowed = {{"cor_tpu", "cor_tpu.data", "cor_tpu.data.tokenizer", "cor_tpu.cli",
-                   "cor_tpu.cli.serve"}}
-        used = {{k for k in sys.modules if k == "cor_tpu" or k.startswith("cor_tpu.")}}
-        assert used <= allowed, used - allowed
+        out = server.handle_batch(reqs)
+        assert all(len(r["results"]) == 5 and "masks" not in r for r in out), out
+        for mode in ("host", "hbm"):
+            server = RetrievalServer(
+                cfg, core_model.init_support_branch(cfg, 0), index, k=5, device="cpu",
+                decode_model=core_model.init_decode_model(cfg, 0),
+                decode_dir=root / mode, store_hbm=mode == "hbm")
+            dec_out = server.handle_batch(reqs)
+            for r in dec_out:
+                assert len(r["masks"]) == 5 and all(Path(p).is_file() for p in r["masks"]), r
+            assert [r["results"] for r in dec_out] == [r["results"] for r in out]
+        used = [k for k in sys.modules
+                if k in ("jax", "cor_tpu") and sys.modules[k] is not None
+                or k.startswith(("jax.", "cor_tpu."))]
+        assert not used, used
         print(json.dumps(out[0]))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -246,3 +274,184 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     resp = json.loads(proc.stdout.strip().splitlines()[-1])
     assert resp["id"] == 0 and len(resp["results"]) == 5
+
+
+# ---------------------------------------------------------------------------
+# candidate-mask decode serving (--decode-masks [--store-hbm]) against
+# cor_tpu's, on tiny_core_config: SigLIP at width 32, the SAM decoder at width
+# 16 on a 4 x 4 grid (cor_tpu runs K8a/K8b there in place of K1, the same
+# function; the port's kernel wrappers take their plain versions on the CPU)
+# ---------------------------------------------------------------------------
+
+DEC_GALLERY = 24
+
+
+def decode_core_configs():
+    """tests.helpers.tiny_core_config and the port's CoreConfig with the
+    same support branch, prompt encoder and mask decoder."""
+    psup = psb.SupportBranchConfig(
+        prompt_dim=16, proj_hidden=24,
+        siglip_override=psig.SigLIPConfig(
+            psig.SigLIPVisionConfig(image_size=32, patch_size=16, width=32, depth=2, num_heads=2),
+            psig.SigLIPTextConfig(context_length=8, vocab_size=64, width=32, depth=2,
+                                  num_heads=2)),
+        adapter_override=ppool.MaskAdapterConfig(**dataclasses.asdict(TINY_ADAPTER)),
+    )
+    dec = psd.MaskDecoderConfig(
+        transformer_dim=16, iou_head_hidden_dim=16,
+        transformer=psd.TwoWayTransformerConfig(depth=2, embedding_dim=16, num_heads=2,
+                                                mlp_dim=32))
+    pc = pcore.CoreConfig(
+        compute_dtype="float32", encoder_override=TINY_ENCODER, support_override=psup,
+        decoder_override=dec,
+        prompt_override=ppe.PromptEncoderConfig(**dataclasses.asdict(TINY_PROMPT)))
+    return tiny_core_config(), pc
+
+
+@pytest.fixture(scope="module")
+def decode_served(tmp_path_factory):
+    """cor_tpu's params, the port's models loaded from them, and an index
+    with a [G, 4, 4, 16] store written by cor_tpu."""
+    jc, pc = decode_core_configs()
+    params = jax.tree.map(np.asarray, init_core_model(jax.random.PRNGKey(0), jc))
+    rng = np.random.default_rng(2)
+    emb = rng.standard_normal((DEC_GALLERY, 16)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    store = rng.standard_normal((DEC_GALLERY, 4, 4, 16)).astype(np.float32)
+    d = tmp_path_factory.mktemp("dec_idx")
+    j_save_index(d, emb, np.arange(100, 100 + DEC_GALLERY), image_embeddings=store)
+
+    def port_models():
+        sb = load_cor_tpu_params(psb.SupportBranch(pc.support), params["support_branch"])
+        dm = load_cor_tpu_params(
+            pcore.DecodeModel(ppe.PromptEncoder(pc.prompt), psd.MaskDecoder(pc.decoder)),
+            {"prompt_encoder": params["prompt_encoder"], "mask_decoder": params["mask_decoder"]})
+        return sb, dm
+
+    return jc, pc, params, d, port_models
+
+
+def read_png(path) -> np.ndarray:
+    return np.asarray(Image.open(path))
+
+
+def port_logits(server, reqs, rows: np.ndarray) -> np.ndarray:
+    """The port's fp32 mask logits [B, k, 4g, 4g] for gallery rows [B, k]."""
+    q, _, _ = server.encode_and_scan(
+        *server._batch_tensors([server._assemble(r) for r in reqs]))
+    feats = q[: len(reqs)].repeat_interleave(rows.shape[1], dim=0)
+    flat = torch.from_numpy(rows.reshape(-1).astype(np.int32))
+    if server._decode_hbm is not None:
+        out = server._decode_hbm(server.decode_model, server._store_q, server._store_scales,
+                                 flat, feats)
+    else:
+        out = server._decode(server.decode_model,
+                             torch.from_numpy(np.asarray(server.store[rows.reshape(-1)])), feats)
+    return out[:, 0].reshape(*rows.shape, *out.shape[-2:]).numpy()
+
+
+@pytest.mark.parametrize("store_hbm", [False, True], ids=["host_streamed", "store_hbm"])
+def test_decode_server_matches_cor_tpu_server(decode_served, tmp_path, store_hbm):
+    jc, pc, params, idx_dir, port_models = decode_served
+    # a path-traversal id and an id-less request name their files as cor_tpu does
+    reqs = [{"id": f"r{i}", "synthetic": i} for i in range(3)]
+    reqs += [{"id": "../../etc/x", "synthetic": 3}, {"synthetic": 4}]
+    want = JaxRetrievalServer(jc, params, j_load_index(idx_dir), k=4,
+                              decode_dir=str(tmp_path / "jax"),
+                              store_hbm=store_hbm).handle_batch(reqs)
+    sb, dm = port_models()
+    server = RetrievalServer(pc, sb, load_gallery_index(idx_dir), k=4, device="cpu",
+                             decode_model=dm, decode_dir=str(tmp_path / "port"),
+                             store_hbm=store_hbm)
+    got = server.handle_batch(reqs)
+    assert_same_answers(got, want)
+    for g, w in zip(got, want):
+        assert [r["pair_id"] for r in g["results"]] == [r["pair_id"] for r in w["results"]]
+        assert [Path(p).name for p in g["masks"]] == [Path(p).name for p in w["masks"]]
+        assert all(Path(p).parent == tmp_path / "port" for p in g["masks"])
+    assert Path(got[3]["masks"][0]).name.startswith("etcx_")
+    assert Path(got[4]["masks"][0]).name.startswith("req1_")
+    rows = np.array([[r["pair_id"] - 100 for r in g["results"]] for g in got])
+    logits = port_logits(server, reqs, rows)
+    assert 0 < (logits > 0).mean() < 1  # the masks are not all one value
+    for b, (g, w) in enumerate(zip(got, want)):
+        for j, (pg, pw) in enumerate(zip(g["masks"], w["masks"])):
+            mg, mw = read_png(pg), read_png(pw)
+            assert mg.shape == mw.shape == (16, 16) and set(np.unique(mg)) <= {0, 255}
+            # masks are logit > 0: they may differ only where the logit is ~0
+            differ = mg != mw
+            assert np.all(np.abs(logits[b, j][differ]) < 1e-3), (b, j, logits[b, j][differ])
+            np.testing.assert_array_equal(mg == 255, logits[b, j] > 0)
+    assert server.decode_calls == 1
+
+
+def test_decode_server_refuses_what_cor_tpu_refuses(decode_served, tmp_path):
+    jc, pc, params, idx_dir, port_models = decode_served
+    sb, dm = port_models()
+    no_store = tmp_path / "no_store"
+    j_save_index(no_store, np.eye(4, 16, dtype=np.float32), np.arange(4))
+    cases = [(no_store, dict(decode_dir=str(tmp_path / "m"))),
+             (idx_dir, dict(store_hbm=True))]
+    for index_dir, kw in cases:
+        with pytest.raises(ValueError) as want:
+            JaxRetrievalServer(jc, params, j_load_index(index_dir), k=2, **kw)
+        with pytest.raises(ValueError) as got:
+            RetrievalServer(pc, sb, load_gallery_index(index_dir), k=2, device="cpu",
+                            decode_model=dm, **kw)
+        assert str(got.value) == str(want.value)
+
+
+def test_tokenizer_copy_gives_cor_tpus_ids():
+    texts = ["make the cat blue", "", "A photo of THE dog, on a red sofa!", "x " * 40,
+             "naïve café — über"]
+    for context_length, vocab in ((16, 512), (64, 32000)):
+        ours = ptok.get_tokenizer(None, context_length, vocab)
+        theirs = jtok.get_tokenizer(None, context_length, vocab)
+        got, want = ours(texts), theirs(texts)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(ours(texts[0]), theirs(texts[0]))
+
+
+def test_png_writer_decodes_to_native_encoders_pixels(rng):
+    from cor_tpu.native import png_encode_gray as native_png_encode_gray
+
+    masks = [(rng.random((256, 256)) > 0.5).astype(np.uint8) * 255,
+             rng.integers(0, 256, (7, 13), dtype=np.uint8), np.zeros((1, 1), np.uint8)]
+    for m in masks:
+        ours = Image.open(io.BytesIO(png_encode_gray(m)))
+        theirs = Image.open(io.BytesIO(native_png_encode_gray(m, level=1)))
+        assert ours.mode == theirs.mode == "L"
+        np.testing.assert_array_equal(np.asarray(ours), np.asarray(theirs))
+        np.testing.assert_array_equal(np.asarray(ours), m)
+    with pytest.raises(ValueError, match="uint8"):
+        png_encode_gray(np.zeros((2, 2), np.float32))
+
+
+def test_cli_needs_a_card_unless_told_cpu(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        pcli.main(["--gallery-index", str(tmp_path)])
+    assert e.value.code == 2
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_cli_serves_decode_masks_on_the_cpu(decode_served, tmp_path, capsys, monkeypatch):
+    """cli.serve.main with --device cpu --decode-masks --self-test, the
+    model keys of a tiny config; --store-hbm without --decode-masks exits
+    with cor_tpu's message."""
+    jc, pc, params, idx_dir, port_models = decode_served
+    monkeypatch.setattr(EvalConfig, "core_config", lambda self: pc)
+    argv = ["--gallery-index", str(idx_dir), "--device", "cpu", "--k", "3", "--max-batch", "2",
+            "--self-test", "3"]
+    server = pcli.main([*argv, "--decode-masks", str(tmp_path / "m"), "--store-hbm"])
+    resps = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["id"] for r in resps] == [0, 1, 2]
+    for r in resps:
+        assert len(r["results"]) == 3 and len(r["masks"]) == 3
+        assert all(read_png(p).shape == (16, 16) for p in r["masks"])
+    assert server.decode_calls == server.batches_encoded == 2 + 2  # warmup buckets 1, 2
+    with pytest.raises(SystemExit) as e:
+        pcli.main([*argv, "--store-hbm"])
+    assert e.value.code == 2
+    assert "store_hbm=True without decode_dir" in capsys.readouterr().err
