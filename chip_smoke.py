@@ -32,7 +32,28 @@ Phases (any failure exits non-zero; no phase catches an exception):
  9. decode timings: encode+scan+decode latency per batch at buckets 1 and 4
     (--store-hbm), responses/s of the --decode-masks loop (--store-hbm with
     and without the PNG writing, and host-streamed), and a torch.profiler
-    breakdown of the device time at bucket 4 (--store-hbm).
+    breakdown of the device time at bucket 4 (--store-hbm);
+10. encoder kernels: K6 against its plain version at the SAM-base global
+    shape (qkv [2, 4096, 2304]) and windowed shape (50 windows of 14 x 14,
+    the last key tile masked), with random bias factors, max relative error
+    <= 2e-2, timed beside SDPA with the additive bias; K5 at the encoder's
+    [8 * 4096, 768] and the neck's [8 * 4096, 256];
+11. gallery build: ``cor_tpu_torch.cli.index.main`` --synthetic 64
+    --batch-size 8 --with-store at full SAM-base width; checks the JSON
+    line, 64 unit-norm rows, the finite [64, 64, 64, 256] fp16 store and
+    K6 / K5 launches (12 / 26 per encoded batch); then ``cli.serve.main``
+    --decode-masks --store-hbm --self-test 8 on that index, every response
+    and PNG checked;
+12. encoder numerics: one candidate through the encoder (rel-pos tables and
+    pos_embed filled from a seed) on the card in bf16 and on the CPU in
+    fp32 with the same weights, cosine >= 0.99 of the flattened and of the
+    pooled embedding; one ``core_forward`` at full width (batch 2) on the
+    card, its query embeddings equal to the encoder's;
+13. build timings: the encode per batch at batch 1 and 8 (CUDA events),
+    candidates/s of the encode, of the host's synthetic data alone and of
+    the CLI build, the reckoned time for 127,166 candidates, and a
+    torch.profiler breakdown of one batch-8 encode with the GELU and the
+    window partition timed alone at the encoder's shapes.
 The line before the last lists every kernel ({"kernels": [...]}); the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -47,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 from pathlib import Path
@@ -64,6 +86,8 @@ COS_MIN = 0.99
 CANDIDATES = 40  # --max-batch 4 x --k 10: the candidates of one decoded batch
 STORE_ROWS = 2_048  # the decode phases' candidate store
 GRID, SAM_C = 64, 256  # SAM-base image-embedding grid and width
+SAM_BATCH = 8  # the gallery build's batch
+BUILD_ROWS = 64  # candidates of the phase-11 build
 MASK_AGREE_MIN = 0.99  # host-streamed fp16 vs int8 store: pixels that agree
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds of the kernel table
 PEAK_BYTES_S = 3.35e12
@@ -122,7 +146,7 @@ def phase_build():
     # memory and spill bytes
     names = ("layer_norm_kernel", "seq_attention_qkv_kernel", "twl_tokens_in_kernel",
              "t2i_image_kernel", "twl_tokens_mid_kernel", "twl_image_i2t_kernel",
-             "t2i_combine_kernel", "decoder_tail_kernel")
+             "t2i_combine_kernel", "decoder_tail_kernel", "vit_attention_relpos_kernel")
     kernel, spills, regs = None, {}, {}
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -340,10 +364,11 @@ def kernel_wrappers():
     from cor_tpu_torch.ops.kernels.seq_attention import attention_seq_qkv
     from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
+    from cor_tpu_torch.ops.kernels.vit_attention import vit_attention_relpos
 
     return {"layer_norm": layer_norm, "attention_seq_qkv": attention_seq_qkv,
             "two_way_layer": two_way_layer, "t2i_flash_kv": t2i_flash_kv,
-            "decoder_tail": decoder_tail}
+            "decoder_tail": decoder_tail, "vit_attention_relpos": vit_attention_relpos}
 
 
 def reset_counts():
@@ -385,7 +410,7 @@ def phase_serve(index_dir, pair_ids):
                 fail(f"{mode}: response {r['id']} names a pair_id outside the index")
         n = server.batches_encoded
         want = {"layer_norm": 50 * n, "attention_seq_qkv": 24 * n, "two_way_layer": 0,
-                "t2i_flash_kv": 0, "decoder_tail": 0}
+                "t2i_flash_kv": 0, "decoder_tail": 0, "vit_attention_relpos": 0}
         print(f"  serve {mode}: {len(resps)} responses, {n} encoded batches (warmup included), "
               f"launches {c} (expected {want}), main() took {dt:.1f} s")
         if c != want or min(c["layer_norm"], c["attention_seq_qkv"]) == 0:
@@ -504,52 +529,61 @@ def read_png_gray(path: Path) -> np.ndarray:
     return rows[:, 1:]
 
 
-def phase_decode_serve(index_dir: Path, pair_ids: np.ndarray, out_root: Path):
+def serve_masks(index_dir: Path, ids: set, out_dir: Path, mode: str, extra: list):
+    """``cli.serve.main`` --decode-masks with --self-test 8, --max-batch 4,
+    --k 10 (and ``extra``) on the index: every response and PNG checked, the
+    kernels' launches per decoded batch checked. Returns (server, launches,
+    {png name: mask})."""
     from cor_tpu_torch.cli import serve as cli
-    from cor_tpu_torch.ops.kernels import decoder_tail, t2i_flash, two_way_layer
+    from cor_tpu_torch.ops.kernels import t2i_flash, two_way_layer
 
+    argv = ["--gallery-index", str(index_dir), "--k", "10", "--max-batch", "4",
+            "--self-test", "8", "--decode-masks", str(out_dir), *extra]
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        server = cli.main(argv)
+    dt = time.perf_counter() - t0
+    c = read_counts()
+    resps = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+    if [r.get("id") for r in resps] != list(range(8)):
+        fail(f"decode {mode}: expected responses for ids 0..7, got {out.getvalue()[:500]}")
+    masks = {}
+    for r in resps:
+        res, paths = r.get("results"), r.get("masks")
+        if res is None or len(res) != 10 or paths is None or len(paths) != 10:
+            fail(f"decode {mode}: response {r.get('id')} is not 10 results and 10 masks: {r}")
+        s = np.array([x["score"] for x in res], np.float64)
+        if not (np.isfinite(s).all() and (np.diff(s) <= 0).all()):
+            fail(f"decode {mode}: response {r['id']} scores not finite and sorted: {s}")
+        for x, path in zip(res, paths):
+            if x["pair_id"] not in ids or Path(path).name != f"{r['id']}_{x['pair_id']}.png":
+                fail(f"decode {mode}: mask {path} does not name pair {x['pair_id']}")
+            m = read_png_gray(Path(path))
+            if m.shape != (4 * GRID, 4 * GRID) or not np.isin(m, (0, 255)).all():
+                fail(f"decode {mode}: {path} is {m.shape}, values {np.unique(m)[:5]}")
+            masks[Path(path).name] = m
+    d, e = server.decode_calls, server.batches_encoded
+    want = {"layer_norm": 50 * e, "attention_seq_qkv": 24 * e,
+            "two_way_layer": two_way_layer.LAUNCHES * 2 * d,
+            "t2i_flash_kv": t2i_flash.LAUNCHES * d, "decoder_tail": d, "vit_attention_relpos": 0}
+    fg = np.mean([m.mean() / 255 for m in masks.values()])
+    print(f"  decode serve {mode}: {len(resps)} responses, {e} encoded batches, {d} decode "
+          f"calls (warmup included), launches {c} (expected {want}), foreground share "
+          f"{fg:.4f}, main() took {dt:.1f} s")
+    if c != want or min(v for k, v in c.items() if k != "vit_attention_relpos") == 0:
+        fail(f"decode {mode}: kernel launch counts {c} != expected {want}")
+    print(f"  first response ({mode}): {json.dumps(resps[0])[:300]}")
+    return server, c, masks
+
+
+def phase_decode_serve(index_dir: Path, pair_ids: np.ndarray, out_root: Path):
     ids = set(pair_ids.tolist())
     servers, counts, masks = {}, {}, {}
     for mode, extra in (("host", []), ("hbm", ["--store-hbm"])):
-        argv = ["--gallery-index", str(index_dir), "--k", "10", "--max-batch", "4",
-                "--self-test", "8", "--decode-masks", str(out_root / mode), *extra]
-        out = io.StringIO()
-        reset_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            server = cli.main(argv)
-        dt = time.perf_counter() - t0
-        c = read_counts()
-        resps = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
-        if [r.get("id") for r in resps] != list(range(8)):
-            fail(f"decode {mode}: expected responses for ids 0..7, got {out.getvalue()[:500]}")
-        masks[mode] = {}
-        for r in resps:
-            res, paths = r.get("results"), r.get("masks")
-            if res is None or len(res) != 10 or paths is None or len(paths) != 10:
-                fail(f"decode {mode}: response {r.get('id')} is not 10 results and 10 masks: {r}")
-            s = np.array([x["score"] for x in res], np.float64)
-            if not (np.isfinite(s).all() and (np.diff(s) <= 0).all()):
-                fail(f"decode {mode}: response {r['id']} scores not finite and sorted: {s}")
-            for x, path in zip(res, paths):
-                if x["pair_id"] not in ids or Path(path).name != f"{r['id']}_{x['pair_id']}.png":
-                    fail(f"decode {mode}: mask {path} does not name pair {x['pair_id']}")
-                m = read_png_gray(Path(path))
-                if m.shape != (4 * GRID, 4 * GRID) or not np.isin(m, (0, 255)).all():
-                    fail(f"decode {mode}: {path} is {m.shape}, values {np.unique(m)[:5]}")
-                masks[mode][Path(path).name] = m
-        d, e = server.decode_calls, server.batches_encoded
-        want = {"layer_norm": 50 * e, "attention_seq_qkv": 24 * e,
-                "two_way_layer": two_way_layer.LAUNCHES * 2 * d,
-                "t2i_flash_kv": t2i_flash.LAUNCHES * d, "decoder_tail": d}
-        fg = np.mean([m.mean() / 255 for m in masks[mode].values()])
-        print(f"  decode serve {mode}: {len(resps)} responses, {e} encoded batches, {d} decode "
-              f"calls (warmup included), launches {c} (expected {want}), foreground share "
-              f"{fg:.4f}, main() took {dt:.1f} s")
-        if c != want or min(c.values()) == 0:
-            fail(f"decode {mode}: kernel launch counts {c} != expected {want}")
-        servers[mode], counts[mode] = server, c
-        print(f"  first response ({mode}): {json.dumps(resps[0])[:300]}")
+        servers[mode], counts[mode], masks[mode] = serve_masks(
+            index_dir, ids, out_root / mode, mode, extra)
     if masks["host"].keys() != masks["hbm"].keys():
         fail("the two decode configurations retrieved different candidates")
     agree = np.mean([(masks["host"][k] == masks["hbm"][k]).mean() for k in masks["host"]])
@@ -628,32 +662,35 @@ def phase_decode_timings(servers, smi):
     print("phase 9 decode timings: ok", flush=True)
 
 
-# device kernels by the layer they belong to (substrings of their names)
+# device kernels by the layer they belong to (substrings of their names; the
+# first group that matches takes the kernel)
 KERNEL_GROUPS = (
     ("K1 two_way_layer", ("twl_", "t2i_image_kernel<true, true>", "t2i_image_kernel<false, true>")),
     ("K2 t2i_flash_kv", ("t2i_image_kernel", "t2i_combine")),
     ("K3 decoder_tail", ("decoder_tail_kernel",)),
     ("K4 attention_seq_qkv", ("seq_attention",)),
     ("K5 layer_norm", ("layer_norm_kernel",)),
-    ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "cublas")),
+    ("K6 vit_attention_relpos", ("vit_attention_relpos",)),
+    ("cuDNN convs", ("fprop", "conv", "cudnn", "nchwToNhwc", "nhwcToNchw")),
+    ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
     ("reductions, top-k, sort", ("reduce", "topk", "sort", "radix", "gather", "scatter")),
 )
 
 
-def profile_decode(server, tensors, b: int, smi: str, calls: int = 3):
-    """torch.profiler over ``calls`` encode+scan+decode calls at bucket b
-    (--store-hbm): device time per call by layer, the top kernels, and the
-    device's idle share of the wall time."""
+def profile(fn, calls: int):
+    """torch.profiler over ``calls`` calls of ``fn`` (after one unprofiled
+    call): device time per call by layer, the top kernels, and the device's
+    idle share of the wall time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    server.encode_scan_decode(*tensors, b)
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            server.encode_scan_decode(*tensors, b)
+            fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / calls
     kernels = []
@@ -670,15 +707,295 @@ def profile_decode(server, tensors, b: int, smi: str, calls: int = 3):
         groups[name] = (c + n, t + ms)
     device_ms = sum(ms for _, _, ms in kernels)
     top = sorted(kernels, key=lambda k: -k[2])[:12]
-    print(json.dumps({"decode_profile": {
-        "bucket": b, "calls": calls, "wall_ms_per_call": wall_ms,
+    return {
+        "calls": calls, "wall_ms_per_call": wall_ms,
         "device_ms_per_call": device_ms, "device_idle_share": 1 - device_ms / wall_ms,
         "kernels_per_call": sum(n for _, n, _ in kernels),
         "by_layer": {g: {"launches": c, "ms": t} for g, (c, t) in
                      sorted(groups.items(), key=lambda kv: -kv[1][1])},
         "top_kernels": [{"name": k[:90], "launches": n, "ms": t} for k, n, t in top],
+    }
+
+
+def profile_decode(server, tensors, b: int, smi: str, calls: int = 3):
+    """The profile of ``calls`` encode+scan+decode calls at bucket b
+    (--store-hbm)."""
+    prof = profile(lambda: server.encode_scan_decode(*tensors, b), calls)
+    print(json.dumps({"decode_profile": {"bucket": b, **prof, "card": smi}}))
+
+
+@torch.no_grad()
+def phase_encoder_kernels(device):
+    """K6 at the global and windowed shapes, K5 at the encoder's shapes."""
+    import torch.nn.functional as F
+
+    from cor_tpu_torch.ops.kernels.layernorm import layer_norm, layer_norm_plain
+    from cor_tpu_torch.ops.kernels.vit_attention import (
+        vit_attention_relpos,
+        vit_attention_relpos_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    bf16 = torch.bfloat16
+    k6 = {}
+    for label, B, side in (("global", 2, GRID), ("windowed", 50, 14)):
+        N = side * side
+        qkv = rnd(B, N, 3 * 768).to(bf16)
+        rel_h, rel_w = (0.3 * rnd(B, 12, N, side)).to(bf16), (0.3 * rnd(B, 12, N, side)).to(bf16)
+        args = (qkv, rel_h, rel_w, 12, (side, side))
+        got, want = vit_attention_relpos(*args), vit_attention_relpos_plain(*args)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        kt = cuda_ms(lambda: vit_attention_relpos(*args))
+        pt = cuda_ms(lambda: vit_attention_relpos_plain(*args), iters=3)
+        # the library call: SDPA with the additive [B, heads, N, N] bias built
+        # beforehand (the build is not timed)
+        q, k, v = (qkv[..., i * 768:(i + 1) * 768].unflatten(-1, (12, 64)).transpose(1, 2)
+                   for i in range(3))
+        bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, 12, N, N)
+        lt = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        b = bound(nbytes(qkv, rel_h, rel_w, got), 4 * B * 12 * N * N * 64)
+        print(f"  K6 vit_attention_relpos {label} [{B}, {N}, 2304]: max|d|/max|plain| = "
+              f"{err:.3e}; kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, "
+              f"SDPA with the bias {lt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        if not err <= DECODE_REL:
+            fail(f"vit_attention_relpos kernel ({label}) disagrees with its plain version: {err}")
+        k6[label] = entry(abs_err((got, want)), kt, pt, b, lt, max_rel_err=err)
+        del bias, q, k, v
+    torch.cuda.empty_cache()
+
+    ln = {}
+    for C in (768, SAM_C):
+        x = (2 * rnd(SAM_BATCH * GRID * GRID, C) + 0.5).to(bf16)
+        scale, bias = (1 + 0.1 * rnd(C)).to(bf16), (0.1 * rnd(C)).to(bf16)
+        got, want = layer_norm(x, scale, bias), layer_norm_plain(x, scale, bias)
+        torch.cuda.synchronize()
+        err = abs_err((got, want))
+        kt = cuda_ms(lambda: layer_norm(x, scale, bias))
+        pt = cuda_ms(lambda: layer_norm_plain(x, scale, bias))
+        lt = cuda_ms(lambda: F.layer_norm(x, (C,), scale, bias, 1e-6))
+        b = bound(2 * nbytes(x) + nbytes(scale, bias), 8 * x.numel())
+        print(f"  K5 layer_norm [{x.shape[0]}, {C}] bf16: max|d|={err:.3e} kernel {kt[0]:.4f} ms, "
+              f"plain {pt[0]:.4f} ms, F.layer_norm {lt[0]:.4f} ms, bound {b[0]:.4f} ms")
+        if err > KERNEL_TOL:
+            fail(f"layer_norm kernel disagrees with its plain version at C={C}: {err}")
+        ln[f"[{x.shape[0]},{C}]"] = entry(err, kt, pt, b, lt)
+    print("phase 10 encoder kernels: ok", flush=True)
+    return dict(k6["global"], windowed=k6["windowed"]), ln
+
+
+def phase_build_index(index_dir: Path):
+    """cli.index.main at full SAM-base width, checked; then --decode-masks
+    --store-hbm serving from the index it wrote."""
+    from cor_tpu_torch.cli import index as cli
+    from cor_tpu_torch.retrieval.index import load_gallery_index
+
+    argv = ["--out", str(index_dir), "--synthetic", str(BUILD_ROWS),
+            "--batch-size", str(SAM_BATCH), "--with-store"]
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    dt = time.perf_counter() - t0
+    c = read_counts()
+    batches = -(-BUILD_ROWS // SAM_BATCH)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    want_line = {"rows": BUILD_ROWS, "dim": SAM_C, "with_store": True, "out": str(index_dir)}
+    if line != want_line:
+        fail(f"index: the JSON line {line} != {want_line}")
+    idx = load_gallery_index(index_dir)
+    emb, store = idx["embeddings"], np.asarray(idx["store"])
+    norms = np.linalg.norm(emb, axis=1)
+    print(f"  index build: {json.dumps(line)} in {dt:.1f} s; row norms [{norms.min():.6f}, "
+          f"{norms.max():.6f}], store {store.shape} {store.dtype}, |store| max "
+          f"{np.abs(store.astype(np.float32)).max():.3f}")
+    if emb.shape != (BUILD_ROWS, SAM_C) or not np.allclose(norms, 1.0, atol=1e-3):
+        fail(f"index: embeddings {emb.shape} are not {BUILD_ROWS} unit rows")
+    if store.shape != (BUILD_ROWS, GRID, GRID, SAM_C) or store.dtype != np.float16 or not (
+            np.isfinite(store).all()):
+        fail(f"index: the store is {store.shape} {store.dtype}, or not finite")
+    want = {k: 0 for k in c}
+    want.update(vit_attention_relpos=12 * batches, layer_norm=26 * batches)
+    print(f"  index build launches {c} over {batches} encoded batches (expected {want})")
+    if c != want:
+        fail(f"index: kernel launch counts {c} != expected {want}")
+    _, dec_counts, _ = serve_masks(index_dir, set(idx["pair_ids"].tolist()),
+                                   index_dir.parent / "built_masks", "hbm, built index",
+                                   ["--store-hbm"])
+    print("phase 11 gallery build: ok", flush=True)
+    return c, dt
+
+
+def filled_encoder(cfg):
+    """The CLI's image encoder (seed + 2) with its rel-pos tables and
+    pos_embed filled with seeded normals x 0.3 (zeros at init)."""
+    from cor_tpu_torch.config import EvalConfig
+    from cor_tpu_torch.models.core_model import init_image_encoder
+
+    enc = init_image_encoder(cfg, EvalConfig().seed + 2)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    with torch.no_grad():
+        for name, prm in enc.named_parameters():
+            if "rel_pos" in name or name == "pos_embed":
+                prm.copy_(0.3 * torch.randn(prm.shape, generator=gen))
+    return enc
+
+
+def synthetic_batch(n: int):
+    """n synthetic samples of the served config (the build's data)."""
+    from cor_tpu_torch.config import EvalConfig
+    from cor_tpu_torch.data.pipeline import collate
+    from cor_tpu_torch.data.synthetic import SyntheticDataset
+
+    cfg = EvalConfig().core_config()
+    sig = cfg.support.siglip
+    ds = SyntheticDataset(length=n, query_img_size=cfg.encoder.img_size,
+                          support_img_size=sig.vision.image_size,
+                          context_length=sig.text.context_length,
+                          vocab_size=sig.text.vocab_size, seed=SEED)
+    return collate([ds[i] for i in range(n)])
+
+
+def phase_encoder_numerics():
+    import copy
+
+    from cor_tpu_torch.config import EvalConfig
+    from cor_tpu_torch.models.core_model import _cast, core_forward, init_core_model
+    from cor_tpu_torch.retrieval.index import make_candidate_encoder
+
+    cfg = EvalConfig().core_config()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    enc = filled_encoder(cfg).eval()
+    b = synthetic_batch(2)
+    img, mask = torch.from_numpy(b["query_img"][:1]), torch.from_numpy(b["query_mask"][:1])
+    enc_gpu = _cast(copy.deepcopy(enc).cuda(), cfg.dtype)
+    pooled_g, emb_g = make_candidate_encoder(cfg)(enc_gpu, img.cuda(), mask.cuda())
+    t0 = time.perf_counter()
+    pooled_c, emb_c = make_candidate_encoder(cfg32)(enc, img, mask)
+    dt = time.perf_counter() - t0
+    cos_flat = torch.nn.functional.cosine_similarity(
+        emb_g.cpu().flatten()[None], emb_c.flatten()[None]).item()
+    cos_pool = torch.nn.functional.cosine_similarity(pooled_g.cpu(), pooled_c).item()
+    print(f"  encoder GPU bf16 vs CPU fp32: cosine {cos_flat:.6f} flattened, {cos_pool:.6f} "
+          f"pooled (CPU encode {dt:.1f} s)")
+    if emb_g.shape != (1, GRID, GRID, SAM_C) or not torch.isfinite(emb_g).all():
+        fail(f"GPU encoder output malformed: {tuple(emb_g.shape)}")
+    if min(cos_flat, cos_pool) < COS_MIN:
+        fail(f"GPU bf16 and CPU fp32 encoders disagree: cosines {cos_flat}, {cos_pool}")
+
+    # core_forward at full width, batch 2, the filled encoder in place
+    model = init_core_model(cfg, SEED)
+    model.image_encoder = enc
+    model = _cast(model.cuda(), cfg.dtype).eval()
+    t = {k: torch.from_numpy(v).cuda() for k, v in b.items() if k != "pair_id"}
+    final, q_emb, feat = core_forward(model, t["query_img"], t["support_img"], t["text"],
+                                      t["support_mask"], cfg)
+    _, emb_direct = make_candidate_encoder(cfg)(model.image_encoder, t["query_img"],
+                                                t["query_mask"])
+    torch.cuda.synchronize()
+    shapes = [tuple(x.shape) for x in (final, q_emb, feat)]
+    d = rel_err(q_emb, emb_direct)
+    print(f"  core_forward batch 2: shapes {shapes}, finite "
+          f"{all(torch.isfinite(x).all().item() for x in (final, q_emb, feat))}, foreground "
+          f"share {(final > 0).float().mean().item():.4f}; query embeddings vs the encoder's: "
+          f"max|d|/max = {d:.3e}")
+    if shapes != [(2, 1, 4 * GRID, 4 * GRID), (2, GRID, GRID, SAM_C), (2, 1, DIM)] or not all(
+            torch.isfinite(x).all() for x in (final, q_emb, feat)):
+        fail(f"core_forward malformed: {shapes}")
+    if d > 1e-3:
+        fail(f"core_forward's query embeddings differ from the encoder's: {d}")
+    print("phase 12 encoder numerics: ok", flush=True)
+    return enc_gpu, cos_flat, cos_pool
+
+
+def phase_build_timings(enc_gpu, smi: str):
+    from cor_tpu_torch.cli import index as cli
+    from cor_tpu_torch.config import EvalConfig
+    from cor_tpu_torch.data.pipeline import DataLoader
+    from cor_tpu_torch.data.synthetic import SyntheticDataset
+    from cor_tpu_torch.ops.attention import window_partition, window_unpartition
+    from cor_tpu_torch.ops.common import gelu
+    from cor_tpu_torch.retrieval.index import build_gallery, make_candidate_encoder
+
+    cfg = EvalConfig().core_config()
+    encode = make_candidate_encoder(cfg)
+    b = synthetic_batch(SAM_BATCH)
+    imgs, masks = (torch.from_numpy(b[k]).cuda() for k in ("query_img", "query_mask"))
+    encode_ms = {}
+    for n in (1, SAM_BATCH):
+        med, lo, hi = cuda_ms(lambda: encode(enc_gpu, imgs[:n], masks[:n]), windows=7, iters=2)
+        encode_ms[str(n)] = {"ms": med, "min_ms": lo, "max_ms": hi,
+                             "candidates_per_s": n / med * 1e3}
+    # the host's synthetic data alone (the loader of the CLI, 8 threads)
+    n_rows = 2 * BUILD_ROWS
+    sig = cfg.support.siglip
+    ds = SyntheticDataset(length=n_rows, query_img_size=cfg.encoder.img_size,
+                          support_img_size=sig.vision.image_size,
+                          context_length=sig.text.context_length,
+                          vocab_size=sig.text.vocab_size, seed=SEED)
+    t0 = time.perf_counter()
+    for _ in DataLoader(ds, SAM_BATCH, num_workers=EvalConfig().num_workers):
+        pass
+    data_s = time.perf_counter() - t0
+    # the build loop (data, encode, fetch) on the encoder already built, with
+    # the CLI's 8 loader threads and with 4
+    loop_s, cli_workers = {}, EvalConfig().num_workers
+    for workers in (cli_workers, 4):
+        t0 = time.perf_counter()
+        build_gallery(cfg, enc_gpu, DataLoader(ds, SAM_BATCH, num_workers=workers))
+        loop_s[workers] = time.perf_counter() - t0
+    # the encode of a batch of 8 while the loader makes data beside it
+    stop = threading.Event()
+
+    def churn():
+        while not stop.is_set():
+            for _ in DataLoader(ds, SAM_BATCH, num_workers=cli_workers):
+                if stop.is_set():
+                    break
+
+    churner = threading.Thread(target=churn, daemon=True)
+    churner.start()
+    time.sleep(1.0)
+    contended = cuda_ms(lambda: encode(enc_gpu, imgs, masks), windows=5, iters=2)
+    stop.set()
+    churner.join(timeout=120)
+    if churner.is_alive():
+        fail("the loader run beside the encode did not stop")
+    encode_ms["8, beside the loader"] = {"ms": contended[0], "min_ms": contended[1],
+                                         "max_ms": contended[2]}
+    # the CLI build without a store, model init and saving included
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        cli.main(["--out", d, "--synthetic", str(n_rows), "--batch-size", str(SAM_BATCH)])
+        cli_s = time.perf_counter() - t0
+    rates = {"encode_batch8": encode_ms[str(SAM_BATCH)]["candidates_per_s"],
+             "host_data": n_rows / data_s, "build_loop": n_rows / loop_s[cli_workers],
+             "build_loop_4_loader_threads": n_rows / loop_s[4], "cli_build": n_rows / cli_s}
+    # the encoder's elementwise layers timed alone at its shapes: the bf16
+    # GELU of the 12 MLPs and the partition/unpartition of the 8 windowed blocks
+    h = torch.randn(SAM_BATCH * GRID * GRID, 3072, device="cuda").to(torch.bfloat16)
+    gelu_ms = cuda_ms(lambda: gelu(h), iters=3)[0]
+    g = torch.randn(SAM_BATCH, GRID, GRID, 768, device="cuda").to(torch.bfloat16)
+
+    def partition_roundtrip():
+        w, pad_hw = window_partition(g, 14)
+        return window_unpartition(w, 14, pad_hw, (GRID, GRID))
+
+    part_ms = cuda_ms(partition_roundtrip)[0]
+    del h, g
+    prof = profile(lambda: encode(enc_gpu, imgs, masks), 1)
+    print(json.dumps({"build_timings": {
+        "encode_ms_by_batch": encode_ms,
+        "candidates_per_s": rates,
+        "rows_timed": n_rows,
+        "cor127k_minutes_at": {k: GALLERY_ROWS / v / 60 for k, v in rates.items()},
+        "gelu_ms_per_encode": 12 * gelu_ms, "partition_ms_per_encode": 8 * part_ms,
         "card": smi,
     }}))
+    print(json.dumps({"encode_profile": {"batch": SAM_BATCH, **prof, "card": smi}}))
+    print("phase 13 build timings: ok", flush=True)
 
 
 def main():
@@ -713,6 +1030,15 @@ def main():
         dec_servers, dec_launches, _ = phase_decode_serve(d / "index", store_ids, d / "masks")
         phase_decode_numerics(dec_servers["host"], d / "index")
         phase_decode_timings(dec_servers, smi)
+    del dec_servers
+
+    enc_kernels, ln_sam = phase_encoder_kernels(torch.device("cuda"))
+    kernel_results["vit_attention_relpos"] = enc_kernels
+    kernel_results["layer_norm"]["sam_encoder_shapes"] = ln_sam
+    with tempfile.TemporaryDirectory() as d:
+        build_launches, _ = phase_build_index(Path(d) / "index")
+    enc_gpu, _, _ = phase_encoder_numerics()
+    phase_build_timings(enc_gpu, smi)
 
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70",
@@ -725,6 +1051,8 @@ def main():
                          "cor_tpu/ops/pallas/t2i_flash.py:220", dec_launches),
         "decoder_tail": ("cor_tpu_torch/csrc/decoder_tail.cu",
                          "cor_tpu/ops/pallas/decoder_tail.py:150", dec_launches),
+        "vit_attention_relpos": ("cor_tpu_torch/csrc/vit_attention.cu",
+                                 "cor_tpu/ops/pallas/vit_attention.py:284", build_launches),
     }
     kernels = []
     for kname, res in kernel_results.items():

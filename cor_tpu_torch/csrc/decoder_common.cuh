@@ -1,5 +1,6 @@
 // Device helpers shared by the SAM mask-decoder kernels (two_way_layer.cu,
-// t2i_flash.cu, decoder_tail.cu): bf16 conversions, the tensor-core
+// t2i_flash.cu, decoder_tail.cu; vit_attention.cu takes the bf16 and mma
+// helpers): bf16 conversions, the tensor-core
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) and a warp's 16-row GEMM tile
 // over operands in shared memory, the loading of one 64-row tile of image
 // rows (bf16, or an int8 store row dequantised as the TPU kernel does it),

@@ -1,0 +1,287 @@
+// SAM ViT attention with the decomposed relative-position bias, read straight
+// off a fused QKV tensor. For every head h, over the N = H * W tokens of one
+// image (global blocks: 64 x 64) or one window (14 x 14, N = 196):
+//
+//   l[i, j] = bf16(q_i * scale) . k_j + rel_h[i, j / W] + rel_w[i, j % W]
+//   out[i, h*D:(h+1)*D] = sum_j exp(l[i, j] - m_i) v_j / sum_j exp(l[i, j] - m_i)
+//
+// Replaces the TPU kernel cor_tpu/ops/pallas/vit_attention.py:
+// vit_attention_relpos_pallas (_vit_attention_relpos_pallas_impl, its
+// pallas_call at line 284). That kernel folds the bias into its logits GEMM
+// by concatenating [q*scale | rel_h | rel_w] against [k | Eh^T | Ew^T]
+// (indicator columns, zero-padded to 32 lanes), a way to run the bias on the
+// TPU's matrix unit. Here the two factors are added to each fp32 logit tile
+// directly, indexed by the key's grid row j / W and column j % W; they are
+// not padded and no indicator matrix exists.
+//
+// What bounds it on the H100: a global block does 4 N^2 D flops per (image,
+// head) on ~(3 N D + 2 N 64 + N D) * 2 bytes, ~1,500 flop/byte at N = 4096,
+// far above the card's ~295 flop/byte ridge: bound by operations (51.5 GFLOP
+// per image over 12 heads, 0.052 ms at the bf16 peak). A 14 x 14 window
+// (N = 196) does ~60 flop/byte: bound by bytes. The design is the port's K4
+// (csrc/seq_attention.cu) with the bias:
+//  - one block of 4 warps per (64-query tile, head, image or window); each
+//    warp owns 16 query rows;
+//  - q is scaled and rounded to bf16 as it is staged in shared memory (the
+//    TPU kernel's q * scale in the compute dtype); the tile's rel_h and rel_w
+//    rows ([64][H], [64][W] bf16) are staged beside it once;
+//  - K and V stream through shared memory in 64-key tiles with 16-byte loads
+//    (V transposed there, so its tensor-core operand is one 32-bit load);
+//  - logits and P.V on mma.sync m16n8k16, bf16 in, fp32 accumulate; the bias
+//    is added in fp32; each lane steps the grid (row, column) of its keys
+//    through the tile instead of dividing per key;
+//  - online softmax in fp32 in the log2 domain, shifted by the running row
+//    max (the TPU kernel shifts by the column mean of its concatenated keys:
+//    the same function); P rounded to bf16 before P.V, as the TPU kernel
+//    rounds its probabilities; the division by the fp32 row sum once at the
+//    end;
+//  - keys j >= N (the tail of the last tile: 196 = 3 * 64 + 4) are masked.
+//    The zero tokens that window_partition pads in are real keys and are not.
+// Shared memory: five [64][72] bf16 tiles, 45 KiB, under the static 48 KiB.
+// wgmma, TMA and a pipelined K/V ring are left for later.
+
+#include "decoder_common.cuh"
+
+namespace {
+
+using cor::bf2f;
+using cor::lds32;
+using cor::mma_bf16_16816;
+using cor::pack_bf16x2;
+
+constexpr int kD = 64;         // head_dim this kernel takes
+constexpr int kBQ = 64;        // query rows per block (16 per warp)
+constexpr int kBK = 64;        // keys per shared-memory tile
+constexpr int kLds = kD + 8;   // padded shared row stride, in bf16 elements
+constexpr int kMaxSide = 64;   // H, W <= 64
+constexpr int kLdr = kMaxSide + 8;  // padded stride of the staged bias rows
+constexpr int kThreads = 128;  // 4 warps
+constexpr float kLog2e = 1.4426950408889634f;
+
+// two bf16 in one 32-bit word, each times s, rounded back to bf16
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float s) {
+  return pack_bf16x2(bf2f(static_cast<uint16_t>(w & 0xffffu)) * s,
+                     bf2f(static_cast<uint16_t>(w >> 16)) * s);
+}
+
+__global__ void __launch_bounds__(kThreads)
+vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __restrict__ rel_h,
+                            const uint16_t* __restrict__ rel_w, uint16_t* __restrict__ out,
+                            int N, int C, int H, int W, float scale) {
+  __shared__ __align__(16) uint16_t sQ[kBQ * kLds];
+  __shared__ __align__(16) uint16_t sK[kBK * kLds];   // [key][d]
+  __shared__ __align__(16) uint16_t sVt[kD * kLds];   // [d][key]
+  __shared__ __align__(16) uint16_t sRh[kBQ * kLdr];  // [query][key grid row]
+  __shared__ __align__(16) uint16_t sRw[kBQ * kLdr];  // [query][key grid column]
+
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+  const int64_t row_stride = 3LL * C;
+  const uint16_t* base = qkv + static_cast<int64_t>(b) * N * row_stride + h * kD;
+
+  // Q tile, scaled and rounded to bf16 -> shared (rows past N are zero)
+  for (int i = tid; i < kBQ * (kD / 8); i += kThreads) {
+    const int r = i / (kD / 8);
+    const int c8 = (i % (kD / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < N) {
+      v = *reinterpret_cast<const uint4*>(base + (q0 + r) * row_stride + c8);
+      v = make_uint4(scale_bf16x2(v.x, scale), scale_bf16x2(v.y, scale),
+                     scale_bf16x2(v.z, scale), scale_bf16x2(v.w, scale));
+    }
+    *reinterpret_cast<uint4*>(&sQ[r * kLds + c8]) = v;
+  }
+  // the tile's bias rows of this (image, head): rel_h/rel_w [B, heads, N, H|W]
+  const int64_t rel_row0 = (static_cast<int64_t>(b) * gridDim.y + h) * N + q0;
+  for (int i = tid; i < kBQ * H; i += kThreads) {
+    const int r = i / H, c = i % H;
+    sRh[r * kLdr + c] = q0 + r < N ? rel_h[(rel_row0 + r) * H + c] : uint16_t(0);
+  }
+  for (int i = tid; i < kBQ * W; i += kThreads) {
+    const int r = i / W, c = i % W;
+    sRw[r * kLdr + c] = q0 + r < N ? rel_w[(rel_row0 + r) * W + c] : uint16_t(0);
+  }
+  __syncthreads();
+
+  // this warp's 16 query rows as m16k16 A fragments, one per 16 columns of D
+  const int wr = warp * 16;
+  uint32_t qa[kD / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < kD / 16; ++kc) {
+    const uint16_t* p = sQ + (wr + g) * kLds + kc * 16 + 2 * t;
+    qa[kc][0] = lds32(p);
+    qa[kc][1] = lds32(p + 8 * kLds);
+    qa[kc][2] = lds32(p + 8);
+    qa[kc][3] = lds32(p + 8 * kLds + 8);
+  }
+  // the bias rows of this lane's two query rows (g and g + 8)
+  const uint16_t* rh0 = sRh + (wr + g) * kLdr;
+  const uint16_t* rw0 = sRw + (wr + g) * kLdr;
+  const uint16_t* rh1 = rh0 + 8 * kLdr;
+  const uint16_t* rw1 = rw0 + 8 * kLdr;
+
+  float o[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 domain
+  float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
+
+  for (int k0 = 0; k0 < N; k0 += kBK) {
+    __syncthreads();  // the previous K/V tile is fully consumed
+    for (int i = tid; i < kBK * (kD / 8); i += kThreads) {
+      const int r = i / (kD / 8);
+      const int c8 = (i % (kD / 8)) * 8;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
+      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+      if (k0 + r < N) {
+        const uint16_t* rowp = base + (k0 + r) * row_stride + c8;
+        kv = *reinterpret_cast<const uint4*>(rowp + C);
+        vv = *reinterpret_cast<const uint4*>(rowp + 2 * C);
+      }
+      *reinterpret_cast<uint4*>(&sK[r * kLds + c8]) = kv;
+      const uint32_t w[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sVt[(c8 + 2 * j) * kLds + r] = static_cast<uint16_t>(w[j] & 0xffffu);
+        sVt[(c8 + 2 * j + 1) * kLds + r] = static_cast<uint16_t>(w[j] >> 16);
+      }
+    }
+    __syncthreads();
+
+    // S = Q K^T: 16 rows x 64 keys, 8 n-tiles of 8 keys
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kD / 16; ++kc) {
+        const uint16_t* p = sK + (n * 8 + g) * kLds + kc * 16 + 2 * t;
+        mma_bf16_16816(s[n], qa[kc], lds32(p), lds32(p + 8));
+      }
+    }
+
+    // add the bias, mask keys past N, scale into the log2 domain, tile row
+    // max. Accumulator column (n, e & 1) is key k0 + 8n + 2t + (e & 1); its
+    // grid row jh and column jw step along with n.
+    int jh = (k0 + 2 * t) / W;
+    int jw = (k0 + 2 * t) - jh * W;
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      const int key = k0 + n * 8 + 2 * t;
+      int jh1 = jh, jw1 = jw + 1;  // key + 1
+      if (jw1 == W) {
+        jw1 = 0;
+        ++jh1;
+      }
+      if (key < N) {
+        s[n][0] = (s[n][0] + bf2f(rh0[jh]) + bf2f(rw0[jw])) * kLog2e;
+        s[n][2] = (s[n][2] + bf2f(rh1[jh]) + bf2f(rw1[jw])) * kLog2e;
+      } else {
+        s[n][0] = s[n][2] = -INFINITY;
+      }
+      if (key + 1 < N) {
+        s[n][1] = (s[n][1] + bf2f(rh0[jh1]) + bf2f(rw0[jw1])) * kLog2e;
+        s[n][3] = (s[n][3] + bf2f(rh1[jh1]) + bf2f(rw1[jw1])) * kLog2e;
+      } else {
+        s[n][1] = s[n][3] = -INFINITY;
+      }
+      mt[0] = fmaxf(mt[0], fmaxf(s[n][0], s[n][1]));
+      mt[1] = fmaxf(mt[1], fmaxf(s[n][2], s[n][3]));
+      jw += 8;
+      while (jw >= W) {
+        jw -= W;
+        ++jh;
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      const float m_new = fmaxf(m_run[r], mt[r]);  // finite: every tile has a key < N
+      alpha[r] = exp2f(m_run[r] - m_new);           // 0 on the first tile
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // P = exp2(S - m) in fp32 for the row sums, bf16 A fragments for P.V:
+    // accumulator tiles 2kc and 2kc+1 are exactly the A fragment of keys
+    // 16kc .. 16kc+15
+    uint32_t pa[kBK / 16][4];
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      const float p0 = exp2f(s[n][0] - m_run[0]);
+      const float p1 = exp2f(s[n][1] - m_run[0]);
+      const float p2 = exp2f(s[n][2] - m_run[1]);
+      const float p3 = exp2f(s[n][3] - m_run[1]);
+      l_run[0] += p0 + p1;
+      l_run[1] += p2 + p3;
+      pa[n >> 1][(n & 1) * 2 + 0] = pack_bf16x2(p0, p1);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16x2(p2, p3);
+    }
+
+    // O += P V: B[key][d] = V[key][d], read from the transposed tile
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+#pragma unroll
+      for (int kc = 0; kc < kBK / 16; ++kc) {
+        const uint16_t* p = sVt + (n * 8 + g) * kLds + kc * 16 + 2 * t;
+        mma_bf16_16816(o[n], pa[kc], lds32(p), lds32(p + 8));
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    inv[r] = 1.f / l_run[r];
+  }
+  const int qa_row = q0 + wr + g;
+  const int qb_row = qa_row + 8;
+  uint16_t* out_h = out + static_cast<int64_t>(b) * N * C + h * kD + 2 * t;
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    if (qa_row < N)
+      *reinterpret_cast<uint32_t*>(out_h + static_cast<int64_t>(qa_row) * C + n * 8) =
+          pack_bf16x2(o[n][0] * inv[0], o[n][1] * inv[0]);
+    if (qb_row < N)
+      *reinterpret_cast<uint32_t*>(out_h + static_cast<int64_t>(qb_row) * C + n * 8) =
+          pack_bf16x2(o[n][2] * inv[1], o[n][3] * inv[1]);
+  }
+}
+
+}  // namespace
+
+// qkv: [B, N, 3C] bf16 contiguous, 16-byte aligned, C = num_heads * 64.
+// rel_h: [B, num_heads, N, H], rel_w: [B, num_heads, N, W] bf16 contiguous,
+// N = H * W, H and W <= 64. out: [B, N, C] bf16 contiguous. Returns the
+// launch's cudaError_t (cudaErrorInvalidValue for shapes the kernel does not
+// take).
+extern "C" int cor_vit_attention_relpos(const void* qkv, const void* rel_h, const void* rel_w,
+                                        void* out, int B, int N, int C, int num_heads, int H,
+                                        int W, float scale, void* stream) {
+  if (B < 1 || N < 1 || num_heads < 1 || C != num_heads * kD || B > 65535 ||
+      num_heads > 65535 || H < 1 || W < 1 || H > kMaxSide || W > kMaxSide || H * W != N)
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + kBQ - 1) / kBQ, num_heads, B);
+  vit_attention_relpos_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(qkv), static_cast<const uint16_t*>(rel_h),
+      static_cast<const uint16_t*>(rel_w), static_cast<uint16_t*>(out), N, C, H, W, scale);
+  return cudaGetLastError();
+}

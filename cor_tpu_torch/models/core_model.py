@@ -1,42 +1,33 @@
-"""The CORE model's configuration, the PyTorch counterpart of the part of
-``cor_tpu.models.core_model`` that the retrieval-only serving path reads.
+"""The CORE model, the PyTorch counterpart of ``cor_tpu.models.core_model``:
+its configuration, the seeded init of each of its four parts, ``CoreModel``
+(the four parts named as the subtrees of ``init_core_model``'s tree) and
+``core_forward`` for inference.
 
-``CoreConfig`` mirrors ``cor_tpu``'s field for field with equal defaults. The
-SAM image encoder is not ported yet (ROADMAP Queue 1, item 6): of its config
-only ``img_size`` and ``patch_size`` are read (the size of a synthetic query
-image, and the 64 x 64 image-embedding grid that the prompt encoder and the
-mask decoder work on), so ``encoder_override`` may be any object that has
-them. The prompt encoder and the mask decoder are the port's own modules.
+``CoreConfig`` mirrors ``cor_tpu``'s field for field with equal defaults;
+``encoder`` is the full SAM encoder config of ``models.sam_encoder``
+(``encoder_override`` may be any object with its fields). The image encoder,
+the support branch, the prompt encoder and the mask decoder are the port's
+own modules.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
 
-from cor_tpu_torch.models.prompt_encoder import PromptEncoder, PromptEncoderConfig
-from cor_tpu_torch.models.sam_decoder import MaskDecoder, MaskDecoderConfig
+from cor_tpu_torch.models.prompt_encoder import (
+    PromptEncoder,
+    PromptEncoderConfig,
+    get_dense_pe,
+    prompt_encoder_dense,
+)
+from cor_tpu_torch.models.sam_decoder import MaskDecoder, MaskDecoderConfig, mask_decoder
+from cor_tpu_torch.models.sam_encoder import SamEncoder, SamEncoderConfig, sam_encoder_config
 from cor_tpu_torch.models.support_branch import SupportBranch, SupportBranchConfig
 from cor_tpu_torch.ops.common import reset_all
-
-# SAM image-encoder input size by model name (cor_tpu sam_encoder.SAM_SIZES:
-# every SAM size takes 1024 x 1024 in 16 x 16 patches)
-SAM_IMG_SIZE = {"sam_base": 1024, "sam_large": 1024, "sam_huge": 1024}
-
-
-@dataclass(frozen=True)
-class SamEncoderConfig:
-    """The part of ``cor_tpu``'s SAM encoder config that the port reads."""
-
-    img_size: int = 1024
-    patch_size: int = 16
-
-    @property
-    def grid(self) -> int:
-        return self.img_size // self.patch_size
 
 
 @dataclass(frozen=True)
@@ -54,12 +45,10 @@ class CoreConfig:
     support_override: Optional[SupportBranchConfig] = None
 
     @property
-    def encoder(self):
+    def encoder(self) -> SamEncoderConfig:
         if self.encoder_override is not None:
             return self.encoder_override
-        if self.sam_model not in SAM_IMG_SIZE:
-            raise ValueError(f"Invalid SAM model: {self.sam_model}")
-        return SamEncoderConfig(img_size=SAM_IMG_SIZE[self.sam_model])
+        return sam_encoder_config(self.sam_model)
 
     @property
     def query_img_size(self) -> int:
@@ -145,3 +134,67 @@ def _cast(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     included) to ``dtype``, as ``cor_tpu``'s ``_cast`` casts every float leaf.
     In place; returns ``model``."""
     return model.to(dtype)
+
+
+def init_image_encoder(cfg: CoreConfig, seed: int) -> SamEncoder:
+    """The SAM image encoder with the port's seeded init (cor_tpu
+    ``init_sam_encoder``'s distributions: zeros for ``pos_embed`` and the
+    rel-pos tables)."""
+    return reset_all(SamEncoder(cfg.encoder), torch.Generator().manual_seed(seed))
+
+
+class CoreModel(nn.Module):
+    """The whole model, its four children named as the subtrees of cor_tpu
+    ``init_core_model``'s tree, so that one cor_tpu tree loads through the
+    weight bridge as it is."""
+
+    def __init__(self, image_encoder: SamEncoder, support_branch: SupportBranch,
+                 prompt_encoder: PromptEncoder, mask_decoder: MaskDecoder):
+        super().__init__()
+        self.image_encoder = image_encoder
+        self.support_branch = support_branch
+        self.prompt_encoder = prompt_encoder
+        self.mask_decoder = mask_decoder
+
+
+def init_core_model(cfg: CoreConfig, seed: int) -> CoreModel:
+    """The seeds the entry points use: the support branch and the prompt
+    encoder from ``seed``, the mask decoder from ``seed + 1``, the image
+    encoder from ``seed + 2``."""
+    return CoreModel(init_image_encoder(cfg, seed + 2), init_support_branch(cfg, seed),
+                     init_prompt_encoder(cfg, seed), init_mask_decoder(cfg, seed + 1))
+
+
+def select_mask(cfg: CoreConfig, masks: torch.Tensor, iou: torch.Tensor) -> torch.Tensor:
+    """With ``multimask_output``, each row's mask of the highest predicted
+    IoU; fp32 [B, 1, 4g, 4g]."""
+    if cfg.multimask_output:
+        best = iou.argmax(dim=1)
+        masks = masks[torch.arange(masks.shape[0], device=masks.device), best][:, None]
+    return masks.float()
+
+
+@torch.inference_mode()
+def core_forward(
+    model: CoreModel,
+    query_images: torch.Tensor,  # [B, img, img, 3] normalized
+    support_images: torch.Tensor,  # [B, S, S, 3] normalized
+    text_tokens: torch.Tensor,  # [B, L] int
+    support_masks: torch.Tensor,  # [B, S, S, 1] in [0, 1]
+    cfg: CoreConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """cor_tpu ``core_forward`` for inference (``train=False``): (mask
+    logits [B, 1, 4g, 4g], query image embeddings [B, g, g, C], the support
+    feature [B, 1, D]), all fp32. ``model`` is already cast to ``cfg.dtype``
+    (``_cast``); the inputs are cast to it here."""
+    dt = cfg.dtype
+    query_embeddings = model.image_encoder(query_images.to(dt))
+    comb_support_feat = model.support_branch(
+        support_images.to(dt), text_tokens, support_masks.to(dt), train=False)
+    B = query_images.shape[0]
+    pe = model.prompt_encoder
+    masks, iou, _ = mask_decoder(
+        model.mask_decoder, query_embeddings, get_dense_pe(pe).to(dt),
+        comb_support_feat.to(dt), prompt_encoder_dense(pe, B).to(dt), cfg.multimask_output,
+    )
+    return (select_mask(cfg, masks, iou), query_embeddings.float(), comb_support_feat.float())

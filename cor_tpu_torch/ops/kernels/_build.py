@@ -39,6 +39,11 @@ _SIGNATURES = {
     "cor_seq_attention_qkv": (
         _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP,
     ),
+    # qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, stream
+    "cor_vit_attention_relpos": (
+        _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, _VP,
+    ),
     # tokens, qpe, wt, bt, skip_pe, self_scale, cross_scale, eps, n, x_out, qt_out, stream
     "cor_twl_tokens_in": (
         _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,

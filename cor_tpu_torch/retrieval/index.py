@@ -1,6 +1,9 @@
-"""Query encoding, candidate-mask decoding and the gallery-index artifact,
-the PyTorch counterpart of ``cor_tpu.retrieval.index`` (all but the gallery
-build, which needs the SAM image encoder).
+"""The gallery build, query encoding, candidate-mask decoding and the
+gallery-index artifact, the PyTorch counterpart of ``cor_tpu.retrieval.index``.
+
+A gallery candidate (image, object mask) is embedded by mask-pooling its SAM
+image embedding over the mask and L2-normalising it (``build_gallery``); a
+query by the support branch. Retrieval is the cosine top-k between the two.
 
 The artifact format is ``cor_tpu``'s (version 1): a directory holding
 ``embeddings.npy`` (fp32 [G, D]), ``pair_ids.npy`` (int64 [G]), optionally
@@ -12,16 +15,62 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from cor_tpu_torch.models.core_model import CoreConfig, DecodeModel
+from cor_tpu_torch.models.core_model import CoreConfig, DecodeModel, select_mask
 from cor_tpu_torch.models.prompt_encoder import get_dense_pe, prompt_encoder_dense
 from cor_tpu_torch.models.sam_decoder import mask_decoder
+from cor_tpu_torch.models.sam_encoder import SamEncoder
+from cor_tpu_torch.train.losses import mask_pool_normalized
 
 INDEX_VERSION = 1
+
+
+def make_candidate_encoder(cfg: CoreConfig):
+    """Returns encode(model, images [B, S, S, 3], masks [B, S, S, 1]) ->
+    (embeddings [B, C] fp32, L2-normed; image embeddings [B, g, g, C] fp32).
+
+    ``model`` is a ``SamEncoder`` already cast to ``cfg.dtype``; the images
+    are cast to it here."""
+
+    @torch.inference_mode()
+    def encode(model: SamEncoder, images, masks):
+        emb = model(images.to(cfg.dtype))
+        return mask_pool_normalized(emb, masks), emb.float()
+
+    return encode
+
+
+def build_gallery(
+    cfg: CoreConfig,
+    model: SamEncoder,
+    batches: Iterable[Dict[str, np.ndarray]],
+    with_store: bool = False,
+    store_dtype=np.float16,
+) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """One pass over candidate batches ({"query_img", "query_mask",
+    "pair_id"}, numpy) -> (embeddings [G, D], pair_ids [G], store
+    [G, g, g, C] or None), on the model's device. The image embeddings come
+    back as fp32 and are kept as ``store_dtype`` (fp16 halves the artifact;
+    the decode path computes in bf16)."""
+    encode = make_candidate_encoder(cfg)
+    device = next(model.parameters()).device
+    embs, ids, stores = [], [], []
+    for b in batches:
+        e, ie = encode(model, torch.from_numpy(b["query_img"]).to(device),
+                       torch.from_numpy(b["query_mask"]).to(device))
+        embs.append(e.cpu().numpy())
+        ids.append(np.asarray(b["pair_id"]))
+        if with_store:
+            stores.append(ie.cpu().numpy().astype(store_dtype))
+    return (
+        np.concatenate(embs, axis=0),
+        np.concatenate(ids, axis=0),
+        np.concatenate(stores, axis=0) if with_store else None,
+    )
 
 
 def make_query_encoder(cfg: CoreConfig):
@@ -41,13 +90,6 @@ def make_query_encoder(cfg: CoreConfig):
     return encode
 
 
-def _select(cfg: CoreConfig, masks: torch.Tensor, iou: torch.Tensor) -> torch.Tensor:
-    if cfg.multimask_output:
-        best = iou.argmax(dim=1)
-        masks = masks[torch.arange(masks.shape[0], device=masks.device), best][:, None]
-    return masks.float()
-
-
 def make_candidate_mask_decoder(cfg: CoreConfig):
     """Returns decode(model, cand_embeddings [B, g, g, C], query_feats [B, D])
     -> mask logits [B, 1, 4g, 4g] fp32: segment each retrieved candidate
@@ -64,7 +106,7 @@ def make_candidate_mask_decoder(cfg: CoreConfig):
             model.mask_decoder, cand_embeddings.to(cfg.dtype), image_pe,
             query_feats[:, None, :].to(cfg.dtype), dense_e, cfg.multimask_output,
         )
-        return _select(cfg, masks, iou)
+        return select_mask(cfg, masks, iou)
 
     return decode
 
@@ -85,7 +127,7 @@ def make_store_indexed_mask_decoder(cfg: CoreConfig):
             model.mask_decoder, store_q, image_pe, query_feats[:, None, :].to(cfg.dtype),
             None, cfg.multimask_output, store_idx=idx, store_scale=scales,
         )
-        return _select(cfg, masks, iou)
+        return select_mask(cfg, masks, iou)
 
     return decode
 

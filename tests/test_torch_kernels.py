@@ -21,6 +21,10 @@ import torch
 
 from cor_tpu_torch.ops.kernels.layernorm import layer_norm, layer_norm_plain
 from cor_tpu_torch.ops.kernels.seq_attention import attention_seq_qkv, attention_seq_qkv_plain
+from cor_tpu_torch.ops.kernels.vit_attention import (
+    vit_attention_relpos,
+    vit_attention_relpos_plain,
+)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -71,12 +75,45 @@ def test_attention_seq_qkv_plain_matches_pallas(rng, width, n):
     assert attention_seq_qkv.launches == before
 
 
+def vit_inputs(rng, B, H, W, heads=2):
+    """qkv [B, N, 3C] and bias factors [B, heads, N, H|W] (x0.3), head_dim 64."""
+    N, C = H * W, heads * 64
+    qkv = rng.standard_normal((B, N, 3 * C)).astype(np.float32)
+    rel_h = (0.3 * rng.standard_normal((B, heads, N, H))).astype(np.float32)
+    rel_w = (0.3 * rng.standard_normal((B, heads, N, W))).astype(np.float32)
+    return qkv, rel_h, rel_w
+
+
+@pytest.mark.parametrize("H,W", [(10, 10), (4, 4), (6, 5)], ids=["grid10", "window4", "rect"])
+def test_vit_attention_relpos_plain_matches_pallas(rng, H, W):
+    """K6's plain version against cor_tpu's kernel, called as
+    attention_2d_fused calls it (indicator matrices, explicit scale)."""
+    import jax.numpy as jnp
+
+    from cor_tpu.ops.pallas.vit_attention import vit_attention_relpos_pallas
+
+    qkv, rel_h, rel_w = vit_inputs(rng, 2, H, W)
+    n = np.arange(H * W)
+    eh = (np.arange(H)[:, None] == (n // W)[None, :]).astype(np.float32)
+    ew = (np.arange(W)[:, None] == (n % W)[None, :]).astype(np.float32)
+    want = np.asarray(vit_attention_relpos_pallas(
+        *map(jnp.asarray, (qkv, rel_h, rel_w, eh, ew)), 2, scale=64**-0.5))
+    args = (torch.from_numpy(qkv), torch.from_numpy(rel_h), torch.from_numpy(rel_w), 2, (H, W))
+    np.testing.assert_allclose(vit_attention_relpos_plain(*args).numpy(), want, **TOL)
+    before = vit_attention_relpos.launches
+    np.testing.assert_allclose(vit_attention_relpos(*args).numpy(), want, **TOL)
+    assert vit_attention_relpos.launches == before
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     x = torch.empty(4, 128, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         layer_norm(x, torch.empty(128, device="meta"), torch.empty(128, device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         attention_seq_qkv(torch.empty(1, 4, 384, device="meta"), 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        rel = torch.empty(1, 2, 4, 2, device="meta")
+        vit_attention_relpos(torch.empty(1, 4, 384, device="meta"), rel, rel, 2, (2, 2))
 
 
 @pytest.mark.gpu
@@ -114,6 +151,34 @@ def test_attention_seq_qkv_kernel_refuses_other_head_dims(cuda_device):
     qkv = torch.zeros(1, 8, 3 * 1152, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim 64"):
         attention_seq_qkv(qkv, 16)  # SO400M: head_dim 72
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W", [(1, 64, 64), (50, 14, 14)], ids=["global", "windowed"])
+def test_vit_attention_relpos_kernel_matches_plain_bf16(cuda_device, B, H, W):
+    """K6 at SAM-base's shapes: a global block of one image (N = 4096) and
+    the 50 windows of two images (N = 196, the last key tile masked after 4
+    keys). Both round q * scale and P to bf16 at the same points; the
+    online softmax sums in another order: max |d| / max |plain| <= 2e-2."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    N, bf = H * W, torch.bfloat16
+    qkv = torch.randn(B, N, 3 * 768, generator=g, device=cuda_device).to(bf)
+    rel_h = (0.3 * torch.randn(B, 12, N, H, generator=g, device=cuda_device)).to(bf)
+    rel_w = (0.3 * torch.randn(B, 12, N, W, generator=g, device=cuda_device)).to(bf)
+    before = vit_attention_relpos.launches
+    got = vit_attention_relpos(qkv, rel_h, rel_w, 12, (H, W))
+    torch.cuda.synchronize()
+    assert vit_attention_relpos.launches == before + 1
+    want = vit_attention_relpos_plain(qkv, rel_h, rel_w, 12, (H, W))
+    assert rel_err(got, want) <= DECODE_REL
+
+
+@pytest.mark.gpu
+def test_vit_attention_relpos_kernel_refuses_other_head_dims(cuda_device):
+    qkv = torch.zeros(1, 16, 3 * 1280, device=cuda_device, dtype=torch.bfloat16)
+    rel = torch.zeros(1, 16, 16, 4, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        vit_attention_relpos(qkv, rel, rel, 16, (4, 4))  # sam_huge: head_dim 80
 
 
 # ---------------------------------------------------------------------------

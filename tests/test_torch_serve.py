@@ -212,11 +212,11 @@ def test_cli_refuses_configs_that_name_checkpoints(tmp_path, capsys):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Block jax and cor_tpu, import every module of the port, and serve end
-    to end: retrieval alone, and with masks decoded host-streamed and from
-    the int8 store."""
+    """Block jax and cor_tpu, import every module of the port, build a
+    gallery index with ``cli.index`` and serve from it end to end: retrieval
+    alone, and with masks decoded host-streamed and from the int8 store."""
     script = textwrap.dedent(f"""
-        import importlib, json, pkgutil, sys
+        import contextlib, importlib, io, json, pkgutil, sys
         from pathlib import Path
         sys.modules["jax"] = None  # any import of jax now raises ImportError
         sys.modules["cor_tpu"] = None  # and so does any import of cor_tpu
@@ -224,9 +224,11 @@ def test_port_runs_without_jax(tmp_path):
         import cor_tpu_torch
         for m in pkgutil.walk_packages(cor_tpu_torch.__path__, "cor_tpu_torch."):
             importlib.import_module(m.name)
+        from cor_tpu_torch.cli import index as index_cli
+        from cor_tpu_torch.config import EvalConfig
         from cor_tpu_torch.models import (
             core_model, pooling, prompt_encoder, sam_decoder, siglip, support_branch)
-        from cor_tpu_torch.retrieval.index import save_gallery_index, load_gallery_index
+        from cor_tpu_torch.retrieval.index import load_gallery_index
         from cor_tpu_torch.retrieval.serve import RetrievalServer
         sup = support_branch.SupportBranchConfig(
             prompt_dim=16, proj_hidden=24,
@@ -237,15 +239,20 @@ def test_port_runs_without_jax(tmp_path):
         dec = sam_decoder.MaskDecoderConfig(
             transformer_dim=16, iou_head_hidden_dim=16,
             transformer=sam_decoder.TwoWayTransformerConfig(2, 16, 2, 32))
+        enc = core_model.SamEncoderConfig(64, 16, embed_dim=32, depth=2, num_heads=2,
+                                          out_chans=16, window_size=3, global_attn_indexes=(1,))
         cfg = core_model.CoreConfig(
-            compute_dtype="float32", encoder_override=core_model.SamEncoderConfig(64, 16),
+            compute_dtype="float32", encoder_override=enc,
             support_override=sup, decoder_override=dec,
             prompt_override=prompt_encoder.PromptEncoderConfig(16, (4, 4), (64, 64)))
-        rng = np.random.default_rng(0)
+        EvalConfig.core_config = lambda self: cfg
         root = Path({str(tmp_path)!r})
-        save_gallery_index(root / "idx", rng.standard_normal((20, 16)).astype(np.float32),
-                           np.arange(20), image_embeddings=rng.standard_normal((20, 4, 4, 16)))
+        with contextlib.redirect_stdout(io.StringIO()):
+            built = index_cli.main(["--out", str(root / "idx"), "--synthetic", "20",
+                                    "--batch-size", "8", "--with-store", "--device", "cpu"])
+        assert built["rows"] == 20 and built["dim"] == 16, built
         index = load_gallery_index(root / "idx")
+        assert index["store"].shape == (20, 4, 4, 16), index["store"].shape
         reqs = [{{"id": i, "synthetic": i}} for i in range(3)]
         server = RetrievalServer(cfg, core_model.init_support_branch(cfg, 0), index, k=5,
                                  device="cpu")
