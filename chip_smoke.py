@@ -53,7 +53,29 @@ Phases (any failure exits non-zero; no phase catches an exception):
     candidates/s of the encode, of the host's synthetic data alone and of
     the CLI build, the reckoned time for 127,166 candidates, and a
     torch.profiler breakdown of one batch-8 encode with the GELU and the
-    window partition timed alone at the encoder's shapes.
+    window partition timed alone at the encoder's shapes;
+14. K6b: the backward kernel against its plain version at the global shape
+    (qkv [2, 4096, 2304]) and the windowed one ([50, 196, 2304]), random
+    bias factors and cotangent, max relative error <= 2e-2 for dqkv, drel_h
+    and drel_w; timed beside the plain version and the autograd backward
+    of SDPA with the materialised bias requiring grad;
+15. training: ``cor_tpu_torch.cli.train.main --synthetic`` on
+    configs/train_config_m3.yaml's keys (epoch 1: 4 steps at batch 10, a
+    2-batch val epoch), frozen and with ``freeze_towers: false``: finite
+    losses, the val metrics line, best_model and best_model_full written;
+    frozen, the towers, the IoU head and the PE matrix bit-identical and no
+    K6b launch; unfrozen, a leaf of each tower moved, K6b 12 launches per
+    step and K6 24 (remat) plus 12 per val batch;
+16. training numerics: one unfrozen step at full width, batch 1 (rel-pos
+    tables and pos_embed filled from a seed, no dropout, "add" fusion), on
+    the card in bf16 and on the CPU in fp32: loss within 2e-2, gradient
+    cosine >= 0.99 for a windowed block's qkv, a global block's rel_pos_h,
+    the patch embed, a SigLIP block's qkv and the decoder's first layer;
+    then the decoder alone on the card in bf16 against fp32 over 3 seeds
+    (each layer's q_proj gradient cosine, reported, not gated);
+17. training timings at batch 10, frozen and unfrozen: seconds per step
+    (CUDA events, median and spread of 6 steps), samples/s, peak memory,
+    and a torch.profiler breakdown of one unfrozen step by layer.
 The line before the last lists every kernel ({"kernels": [...]}); the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -364,11 +386,15 @@ def kernel_wrappers():
     from cor_tpu_torch.ops.kernels.seq_attention import attention_seq_qkv
     from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
-    from cor_tpu_torch.ops.kernels.vit_attention import vit_attention_relpos
+    from cor_tpu_torch.ops.kernels.vit_attention import (
+        vit_attention_relpos,
+        vit_attention_relpos_bwd,
+    )
 
     return {"layer_norm": layer_norm, "attention_seq_qkv": attention_seq_qkv,
             "two_way_layer": two_way_layer, "t2i_flash_kv": t2i_flash_kv,
-            "decoder_tail": decoder_tail, "vit_attention_relpos": vit_attention_relpos}
+            "decoder_tail": decoder_tail, "vit_attention_relpos": vit_attention_relpos,
+            "vit_attention_relpos_bwd": vit_attention_relpos_bwd}
 
 
 def reset_counts():
@@ -410,7 +436,8 @@ def phase_serve(index_dir, pair_ids):
                 fail(f"{mode}: response {r['id']} names a pair_id outside the index")
         n = server.batches_encoded
         want = {"layer_norm": 50 * n, "attention_seq_qkv": 24 * n, "two_way_layer": 0,
-                "t2i_flash_kv": 0, "decoder_tail": 0, "vit_attention_relpos": 0}
+                "t2i_flash_kv": 0, "decoder_tail": 0, "vit_attention_relpos": 0,
+                "vit_attention_relpos_bwd": 0}
         print(f"  serve {mode}: {len(resps)} responses, {n} encoded batches (warmup included), "
               f"launches {c} (expected {want}), main() took {dt:.1f} s")
         if c != want or min(c["layer_norm"], c["attention_seq_qkv"]) == 0:
@@ -567,12 +594,13 @@ def serve_masks(index_dir: Path, ids: set, out_dir: Path, mode: str, extra: list
     d, e = server.decode_calls, server.batches_encoded
     want = {"layer_norm": 50 * e, "attention_seq_qkv": 24 * e,
             "two_way_layer": two_way_layer.LAUNCHES * 2 * d,
-            "t2i_flash_kv": t2i_flash.LAUNCHES * d, "decoder_tail": d, "vit_attention_relpos": 0}
+            "t2i_flash_kv": t2i_flash.LAUNCHES * d, "decoder_tail": d, "vit_attention_relpos": 0,
+            "vit_attention_relpos_bwd": 0}
     fg = np.mean([m.mean() / 255 for m in masks.values()])
     print(f"  decode serve {mode}: {len(resps)} responses, {e} encoded batches, {d} decode "
           f"calls (warmup included), launches {c} (expected {want}), foreground share "
           f"{fg:.4f}, main() took {dt:.1f} s")
-    if c != want or min(v for k, v in c.items() if k != "vit_attention_relpos") == 0:
+    if c != want or min(v for k, v in c.items() if not k.startswith("vit_attention")) == 0:
         fail(f"decode {mode}: kernel launch counts {c} != expected {want}")
     print(f"  first response ({mode}): {json.dumps(resps[0])[:300]}")
     return server, c, masks
@@ -670,6 +698,7 @@ KERNEL_GROUPS = (
     ("K3 decoder_tail", ("decoder_tail_kernel",)),
     ("K4 attention_seq_qkv", ("seq_attention",)),
     ("K5 layer_norm", ("layer_norm_kernel",)),
+    ("K6b vit_attention_relpos_bwd", ("vit_attention_bwd",)),
     ("K6 vit_attention_relpos", ("vit_attention_relpos",)),
     ("cuDNN convs", ("fprop", "conv", "cudnn", "nchwToNhwc", "nhwcToNchw")),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
@@ -998,6 +1027,272 @@ def phase_build_timings(enc_gpu, smi: str):
     print("phase 13 build timings: ok", flush=True)
 
 
+def phase_k6b(device):
+    """K6b against its plain backward at the global and windowed shapes,
+    timed beside the plain version and SDPA's autograd backward with the
+    materialised bias requiring grad."""
+    import torch.nn.functional as F
+
+    from cor_tpu_torch.ops.kernels.vit_attention import (
+        vit_attention_relpos_bwd,
+        vit_attention_relpos_bwd_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    bf16 = torch.bfloat16
+    out = {}
+    for label, B, side in (("global", 2, GRID), ("windowed", 50, 14)):
+        N = side * side
+        qkv = rnd(B, N, 3 * 768).to(bf16)
+        rel_h, rel_w = (0.3 * rnd(B, 12, N, side)).to(bf16), (0.3 * rnd(B, 12, N, side)).to(bf16)
+        do = rnd(B, N, 768).to(bf16)
+        args = (qkv, rel_h, rel_w, do, 12, (side, side))
+        got = vit_attention_relpos_bwd(*args)
+        want = vit_attention_relpos_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        err_abs = abs_err(*zip(got, want))
+        if not all(torch.isfinite(g.float()).all() for g in got) or max(errs) > DECODE_REL:
+            fail(f"vit_attention_relpos_bwd ({label}) disagrees with its plain version: "
+                 f"dqkv {errs[0]}, drel_h {errs[1]}, drel_w {errs[2]}")
+        kt = cuda_ms(lambda: vit_attention_relpos_bwd(*args))
+        pt = cuda_ms(lambda: vit_attention_relpos_bwd_plain(*args), windows=3, iters=2)
+        del want
+        # the library call: autograd's backward of SDPA with the additive
+        # [B, heads, N, N] bias, both requiring grad (the graph built once)
+        q, k, v = (qkv[..., i * 768:(i + 1) * 768].unflatten(-1, (12, 64)).transpose(1, 2)
+                   .detach().requires_grad_() for i in range(3))
+        bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, 12, N, N).requires_grad_()
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        do4 = do.unflatten(-1, (12, 64)).transpose(1, 2)
+        lt = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v, bias), do4, retain_graph=True),
+                     windows=5, iters=3)
+        del o, bias, q, k, v
+        # the five N x N x 64 products the gradient needs: the logits' recompute
+        # q k^T, do v^T, a^T do, dl k and dl^T q
+        flops = 5 * 2 * N * N * 64 * B * 12
+        b = bound(nbytes(qkv, rel_h, rel_w, do) + nbytes(*got), flops)
+        print(f"  K6b vit_attention_relpos_bwd {label} [{B}, {N}, 2304]: max|d|/max|plain| = "
+              f"dqkv {errs[0]:.3e}, drel_h {errs[1]:.3e}, drel_w {errs[2]:.3e}; kernel "
+              f"{kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, SDPA backward "
+              f"with the bias {lt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})", flush=True)
+        out[label] = entry(err_abs, kt, pt, b, lt, max_rel_err=max(errs))
+        del got
+        torch.cuda.empty_cache()
+    print("phase 14 K6b: ok", flush=True)
+    return dict(out["global"], windowed=out["windowed"])
+
+
+def m3_config(d: Path, **overrides) -> Path:
+    """configs/train_config_m3.yaml's keys, with ``overrides``, as a file."""
+    from cor_tpu_torch.config import read_flat_yaml
+
+    keys = read_flat_yaml((Path(__file__).resolve().parent / "configs" /
+                           "train_config_m3.yaml").read_text())
+    keys.update(overrides)
+    path = d / "train.yaml"
+    path.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in keys.items()))
+    return path
+
+
+TOWERS = ("image_encoder.", "support_branch.siglip.", "mask_decoder.iou_prediction_head.",
+          "prompt_encoder.pe_layer.")
+
+
+def phase_train(root: Path):
+    """cli.train.main --synthetic at full width on m3's keys, frozen and
+    unfrozen; the launch counts of each run."""
+    from cor_tpu_torch.cli import train as cli
+    from cor_tpu_torch.config import load_train_config
+    from cor_tpu_torch.models.core_model import init_core_model
+
+    counts, results = {}, {}
+    for mode, freeze in (("frozen", True), ("unfrozen", False)):
+        d = root / mode
+        d.mkdir(parents=True)
+        cfg_path = m3_config(d, epoch=1, train_model_save_path=str(d / "ck"),
+                             freeze_towers=freeze)
+        log = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log):
+            trainer = cli.main(["--config", str(cfg_path), "--synthetic"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = read_counts()
+        text = log.getvalue()
+        losses = [float(x.split("]")[0]) for x in text.split("[BLoss: ")[1:]]
+        val = [line for line in text.splitlines() if line.startswith("[Val Info]: Epoch: 1,")]
+        print(f"  train {mode}: {trainer.state.step} steps, batch losses {losses}, main() took "
+              f"{dt:.1f} s; launches {c}")
+        print(f"  {val[0] if val else 'no val line'}")
+        cfg = load_train_config(cfg_path)
+        steps, val_batches = trainer.state.step, 2
+        if steps != 4 or not losses or not all(np.isfinite(losses)) or len(val) != 1:
+            fail(f"train {mode}: {steps} steps, losses {losses}, val lines {val}")
+        for name in ("best_model", "best_model_full"):
+            if not (d / "ck" / name / "state.pt").is_file():
+                fail(f"train {mode}: {name} was not written")
+        fresh = init_core_model(cfg.core_config(), cfg.seed).state_dict()
+        got = trainer.state.model.state_dict()
+        same = {p: all(torch.equal(got[n].cpu(), fresh[n]) for n in fresh if n.startswith(p))
+                for p in TOWERS}
+        k6_want = (12 if freeze else 24) * steps + 12 * val_batches
+        k6b_want = 0 if freeze else 12 * steps
+        print(f"  train {mode}: unchanged since init {same}; K6 {c['vit_attention_relpos']} "
+              f"(expected {k6_want}), K6b {c['vit_attention_relpos_bwd']} (expected {k6b_want})")
+        if freeze and not all(same.values()):
+            fail(f"train frozen: a frozen part moved: {same}")
+        if not freeze and (same[TOWERS[0]] or same[TOWERS[1]] or not same[TOWERS[3]]):
+            fail(f"train unfrozen: a tower did not move, or the PE matrix did: {same}")
+        if c["vit_attention_relpos"] != k6_want or c["vit_attention_relpos_bwd"] != k6b_want or \
+                min(v for k, v in c.items() if k != "vit_attention_relpos_bwd") == 0:
+            fail(f"train {mode}: kernel launch counts {c}")
+        counts[mode], results[mode] = c, {"seconds": dt, "losses": losses, "val": val[0]}
+        del trainer, got, fresh
+        torch.cuda.empty_cache()
+    print("phase 15 training: ok", flush=True)
+    return counts, results
+
+
+def deterministic_config(cfg):
+    """The config with no dropout draw (proj_dropout 0, "add" fusion)."""
+    sup = dataclasses.replace(cfg.support, proj_dropout=0.0, fusion="add")
+    return dataclasses.replace(cfg, support_override=sup, freeze_towers=False)
+
+
+def decoder_bf16_cosines(dec, pe, multimask: bool, seeds=(0, 1, 2)) -> dict:
+    """The decoder alone on the card: its training (``fused=False``) path in
+    bf16 against fp32, on the same fp32 weights and random inputs and mask
+    cotangent per seed; the cosine of each layer's self-attention q_proj
+    gradient. It shows how much of phase 16's decoder cosine is the
+    decoder's own bf16 rounding."""
+    import copy
+
+    from cor_tpu_torch.models.prompt_encoder import get_dense_pe, prompt_encoder_dense
+    from cor_tpu_torch.models.sam_decoder import mask_decoder
+
+    names = [f"transformer.layers.{i}.self_attn.q_proj.w" for i in range(len(dec.transformer.layers))]
+    out = {n: [] for n in names}
+    with torch.no_grad():
+        image_pe, dense = get_dense_pe(pe), prompt_encoder_dense(pe, 1)
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        emb = torch.randn(1, GRID, GRID, SAM_C, generator=gen, device="cuda")
+        sparse = torch.randn(1, 1, SAM_C, generator=gen, device="cuda")
+        cot, grads = None, []
+        for dt in (torch.bfloat16, torch.float32):
+            d = copy.deepcopy(dec).to(dt)
+            params = dict(d.named_parameters())
+            masks, _, _ = mask_decoder(d, emb.to(dt), image_pe.to(dt), sparse.to(dt),
+                                       dense.to(dt), multimask, fused=False)
+            if cot is None:
+                cot = torch.randn(masks.shape, generator=gen, device="cuda")
+            gs = torch.autograd.grad((masks.float() * cot).sum(), [params[n] for n in names])
+            grads.append([g.float().flatten() for g in gs])
+        for n, g16, g32 in zip(names, *grads):
+            out[n].append(torch.nn.functional.cosine_similarity(g16[None], g32[None]).item())
+    return out
+
+
+def phase_train_numerics():
+    import copy
+
+    from cor_tpu_torch.config import TrainConfig
+    from cor_tpu_torch.models.core_model import init_core_model
+    from cor_tpu_torch.train.step import train_loss
+
+    cfg = deterministic_config(TrainConfig().core_config())
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = init_core_model(cfg, SEED)
+    model.image_encoder = filled_encoder(cfg)
+    gpu = copy.deepcopy(model).cuda()  # remat on, as the trainer runs it
+    # the CPU reference keeps every block's activations: no recompute
+    model.image_encoder.cfg = dataclasses.replace(model.image_encoder.cfg, remat_blocks=False)
+    b = synthetic_batch(1)
+    batch = {k: torch.from_numpy(b[k]) for k in ("query_img", "query_mask", "support_img",
+                                                   "support_mask", "text")}
+    loss_g, _ = train_loss(cfg, gpu, {k: v.cuda() for k, v in batch.items()}, None)
+    loss_g.backward()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_c, _ = train_loss(cfg32, model, batch, None)
+    loss_c.backward()
+    dt = time.perf_counter() - t0
+    names = ("image_encoder.blocks.0.attn.qkv.w", "image_encoder.blocks.2.attn.rel_pos_h",
+             "image_encoder.patch_embed.w", "support_branch.siglip.visual.blocks.0.attn.qkv.w",
+             "mask_decoder.transformer.layers.0.self_attn.q_proj.w")
+    pg, pc = dict(gpu.named_parameters()), dict(model.named_parameters())
+    cos = {n: torch.nn.functional.cosine_similarity(
+        pg[n].grad.cpu().flatten()[None], pc[n].grad.flatten()[None]).item() for n in names}
+    d = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    print(f"  unfrozen step, batch 1: loss GPU bf16 {loss_g.item():.6f}, CPU fp32 "
+          f"{loss_c.item():.6f} (relative {d:.3e}); gradient cosines {json.dumps(cos)} "
+          f"(CPU forward and backward {dt:.1f} s)")
+    if not d <= 2e-2 or min(cos.values()) < COS_MIN:
+        fail(f"GPU bf16 and CPU fp32 training steps disagree: loss {d}, cosines {cos}")
+    dec_cos = decoder_bf16_cosines(gpu.mask_decoder, gpu.prompt_encoder, cfg.multimask_output)
+    print(f"  the decoder alone on the card, bf16 vs fp32, seeds 0-2: q_proj gradient cosines "
+          f"{json.dumps(dec_cos)}")
+    del gpu, model
+    torch.cuda.empty_cache()
+    print("phase 16 training numerics: ok", flush=True)
+    return d, cos
+
+
+def phase_train_timings(smi: str):
+    from cor_tpu_torch.config import TrainConfig
+    from cor_tpu_torch.models.core_model import init_core_model
+    from cor_tpu_torch.ops.common import gelu
+    from cor_tpu_torch.train.optim import make_optimizer
+    from cor_tpu_torch.train.step import BATCH_KEYS, TrainState, make_train_step
+
+    b = synthetic_batch(TrainConfig().batch_size)
+    batch = {k: torch.from_numpy(b[k]).cuda() for k in BATCH_KEYS}
+    batch["valid"] = torch.ones(TrainConfig().batch_size, device="cuda")
+    out = {}
+    for mode, freeze in (("frozen", True), ("unfrozen", False)):
+        cfg = dataclasses.replace(TrainConfig(), freeze_towers=freeze)
+        model = init_core_model(cfg.core_config(), cfg.seed).cuda()
+        opt, _ = make_optimizer(model, cfg.optimizer, cfg.lr, freeze_towers=freeze)
+        state = TrainState(model, opt)
+        step = make_train_step(cfg.core_config(), cfg.seed)
+        step(state, batch, cfg.lr)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(6):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, batch, cfg.lr)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        med = statistics.median(times)
+        out[mode] = {"s_per_step": med, "min_s": min(times), "max_s": max(times),
+                     "samples_per_s": TrainConfig().batch_size / med,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if not freeze:
+            out[mode]["profile"] = profile(lambda: step(state, batch, cfg.lr), 1)
+        del state, model, opt
+        torch.cuda.empty_cache()
+    # the encoder's bf16 GELU at its training shape: forward and backward of
+    # one MLP's [B * 4096, 3072] (12 per step, and 12 recomputed forwards)
+    h = torch.randn(TrainConfig().batch_size * GRID * GRID, 3072, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    y = gelu(h)
+    g = torch.ones_like(y)
+    fwd = cuda_ms(lambda: gelu(h), windows=3, iters=2)[0]
+    bwd = cuda_ms(lambda: torch.autograd.grad(y, h, g, retain_graph=True), windows=3, iters=2)[0]
+    out["unfrozen"]["encoder_gelu_ms_per_step"] = 12 * (2 * fwd + bwd)
+    del h, y, g
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_timings": {**out, "batch": TrainConfig().batch_size, "card": smi}}))
+    print("phase 17 training timings: ok", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this check runs on a GPU only",
@@ -1039,6 +1334,14 @@ def main():
         build_launches, _ = phase_build_index(Path(d) / "index")
     enc_gpu, _, _ = phase_encoder_numerics()
     phase_build_timings(enc_gpu, smi)
+    del enc_gpu
+    torch.cuda.empty_cache()
+
+    kernel_results["vit_attention_relpos_bwd"] = phase_k6b(torch.device("cuda"))
+    with tempfile.TemporaryDirectory() as d:
+        train_launches, _ = phase_train(Path(d))
+    phase_train_numerics()
+    phase_train_timings(smi)
 
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70",
@@ -1053,6 +1356,9 @@ def main():
                          "cor_tpu/ops/pallas/decoder_tail.py:150", dec_launches),
         "vit_attention_relpos": ("cor_tpu_torch/csrc/vit_attention.cu",
                                  "cor_tpu/ops/pallas/vit_attention.py:284", build_launches),
+        "vit_attention_relpos_bwd": ("cor_tpu_torch/csrc/vit_attention_bwd.cu",
+                                     "cor_tpu/ops/pallas/vit_attention.py:459",
+                                     train_launches["unfrozen"]),
     }
     kernels = []
     for kname, res in kernel_results.items():

@@ -36,7 +36,7 @@ def main(argv=None):
     """Build and save the index; returns the JSON line's dict."""
     parser = argparse.ArgumentParser(description="cor_tpu_torch gallery-index build")
     parser.add_argument("--config", default=None,
-                        help="eval YAML (needs PyYAML); default: configs/vaild_config.yaml's "
+                        help="eval YAML; default: configs/vaild_config.yaml's "
                              "model keys")
     parser.add_argument("--out", required=True, help="output artifact directory")
     parser.add_argument("--synthetic", type=int, default=0, metavar="N",

@@ -103,7 +103,7 @@ def main(argv=None):
     """Serve; returns the ``RetrievalServer`` after ``--self-test`` or EOF."""
     parser = argparse.ArgumentParser(description="cor_tpu_torch retrieval server")
     parser.add_argument("--config", default=None,
-                        help="eval YAML (needs PyYAML); default: configs/vaild_config.yaml's model keys")
+                        help="eval YAML; default: configs/vaild_config.yaml's model keys")
     parser.add_argument("--gallery-index", required=True, metavar="DIR",
                         help="artifact written by save_gallery_index (either package)")
     parser.add_argument("--k", type=int, default=10)

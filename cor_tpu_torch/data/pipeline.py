@@ -2,7 +2,11 @@
 ``cor_tpu.data.pipeline.DataLoader`` for the port's datasets.
 
 Samples are made by a pool of ``num_workers`` threads and batched by
-stacking each key. A synthetic sample draws a 1024 x 1024 x 3 normal image
+stacking each key. ``shuffle`` permutes the order with
+``np.random.default_rng((seed, epoch))`` and ``drop_last`` drops a short last
+batch, as ``cor_tpu``'s loader does; ``set_epoch`` pins the epoch (a resumed
+run continues the uninterrupted run's order), which otherwise counts the
+passes from 0. A synthetic sample draws a 1024 x 1024 x 3 normal image
 (tens of ms on one host core); numpy's generators and casts release the GIL
 on fills that large, so threads scale. At most ``num_workers + prefetch``
 batches are in flight, and each is dropped once consumed. The manifest
@@ -26,25 +30,40 @@ def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 
 
 class DataLoader:
-    """Batches of ``batch_size`` consecutive samples, in order, the last one
-    short when ``len(dataset)`` is not a multiple."""
+    """Batches of ``batch_size`` samples, in order (or shuffled), the last one
+    short when ``len(dataset)`` is not a multiple (or dropped)."""
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 8, prefetch: int = 4):
+    def __init__(self, dataset, batch_size: int, num_workers: int = 8, prefetch: int = 4,
+                 shuffle: bool = False, drop_last: bool = False, seed: int = 42):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def _batch(self, start: int) -> Dict[str, np.ndarray]:
-        stop = min(start + self.batch_size, len(self.dataset))
-        return collate([self.dataset[i] for i in range(start, stop)])
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = int(epoch)
+
+    def _batch(self, idxs) -> Dict[str, np.ndarray]:
+        return collate([self.dataset[int(i)] for i in idxs])
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng((self.seed, self.epoch)).shuffle(order)
+        self.epoch += 1
+        batches = [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
         done = object()
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         cancel = threading.Event()
@@ -52,14 +71,14 @@ class DataLoader:
         def produce():
             try:
                 with cf.ThreadPoolExecutor(self.num_workers) as pool:
-                    starts = iter(range(0, len(self.dataset), self.batch_size))
+                    todo = iter(batches)
                     pending: deque = deque()
                     while not cancel.is_set():
                         while len(pending) < self.num_workers + self.prefetch:
-                            start = next(starts, None)
-                            if start is None:
+                            idxs = next(todo, None)
+                            if idxs is None:
                                 break
-                            pending.append(pool.submit(self._batch, start))
+                            pending.append(pool.submit(self._batch, idxs))
                         if not pending:
                             break
                         q.put(pending.popleft().result())

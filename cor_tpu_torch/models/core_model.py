@@ -1,7 +1,7 @@
 """The CORE model, the PyTorch counterpart of ``cor_tpu.models.core_model``:
 its configuration, the seeded init of each of its four parts, ``CoreModel``
 (the four parts named as the subtrees of ``init_core_model``'s tree) and
-``core_forward`` for inference.
+``core_forward``, for inference and for training.
 
 ``CoreConfig`` mirrors ``cor_tpu``'s field for field with equal defaults;
 ``encoder`` is the full SAM encoder config of ``models.sam_encoder``
@@ -12,6 +12,7 @@ own modules.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
@@ -156,6 +157,35 @@ class CoreModel(nn.Module):
         self.prompt_encoder = prompt_encoder
         self.mask_decoder = mask_decoder
 
+    def forward(
+        self,
+        query_images: torch.Tensor,
+        support_images: torch.Tensor,
+        text_tokens: torch.Tensor,
+        support_masks: torch.Tensor,
+        cfg: CoreConfig,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """cor_tpu ``core_forward`` on parameters already in ``cfg.dtype``
+        (``core_forward`` below supplies them): the frozen towers build no
+        graph, the decoder runs its kernels (``fused``) unless training."""
+        dt = cfg.dtype
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not cfg.freeze_towers):
+            query_embeddings = self.image_encoder(query_images.to(dt))
+        comb_support_feat = self.support_branch(
+            support_images.to(dt), text_tokens, support_masks.to(dt), generator=generator,
+            train=train)
+        B = query_images.shape[0]
+        pe = self.prompt_encoder
+        masks, iou, _ = mask_decoder(
+            self.mask_decoder, query_embeddings, get_dense_pe(pe).to(dt),
+            comb_support_feat.to(dt), prompt_encoder_dense(pe, B).to(dt), cfg.multimask_output,
+            fused=not train,
+        )
+        return (select_mask(cfg, masks, iou), query_embeddings.float(),
+                comb_support_feat.float())
+
 
 def init_core_model(cfg: CoreConfig, seed: int) -> CoreModel:
     """The seeds the entry points use: the support branch and the prompt
@@ -174,7 +204,6 @@ def select_mask(cfg: CoreConfig, masks: torch.Tensor, iou: torch.Tensor) -> torc
     return masks.float()
 
 
-@torch.inference_mode()
 def core_forward(
     model: CoreModel,
     query_images: torch.Tensor,  # [B, img, img, 3] normalized
@@ -182,19 +211,28 @@ def core_forward(
     text_tokens: torch.Tensor,  # [B, L] int
     support_masks: torch.Tensor,  # [B, S, S, 1] in [0, 1]
     cfg: CoreConfig,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """cor_tpu ``core_forward`` for inference (``train=False``): (mask
-    logits [B, 1, 4g, 4g], query image embeddings [B, g, g, C], the support
-    feature [B, 1, D]), all fp32. ``model`` is already cast to ``cfg.dtype``
-    (``_cast``); the inputs are cast to it here."""
-    dt = cfg.dtype
-    query_embeddings = model.image_encoder(query_images.to(dt))
-    comb_support_feat = model.support_branch(
-        support_images.to(dt), text_tokens, support_masks.to(dt), train=False)
-    B = query_images.shape[0]
-    pe = model.prompt_encoder
-    masks, iou, _ = mask_decoder(
-        model.mask_decoder, query_embeddings, get_dense_pe(pe).to(dt),
-        comb_support_feat.to(dt), prompt_encoder_dense(pe, B).to(dt), cfg.multimask_output,
-    )
-    return (select_mask(cfg, masks, iou), query_embeddings.float(), comb_support_feat.float())
+    """cor_tpu ``core_forward``: (mask logits [B, 1, 4g, 4g], query image
+    embeddings [B, g, g, C], the support feature [B, 1, D]), all fp32.
+
+    As in ``cor_tpu``, the model's parameters and buffers are cast to
+    ``cfg.dtype`` for this call only (``torch.func.functional_call`` on the
+    copies; a model already in ``cfg.dtype``, as ``_cast`` leaves a served
+    one, is used as it is), so that training updates fp32 masters: the
+    gradients flow through the casts to them. ``train=True`` records the
+    graph through every parameter that requires grad (the image encoder and
+    the SigLIP towers only with ``cfg.freeze_towers=False``; the PE matrix is
+    a buffer and never trains), draws the dropouts (CirFuse's 0.5,
+    ``dim_proj``'s 0.8) from ``generator`` and runs the decoder's
+    ``fused=False`` path. ``train=False`` runs under ``torch.inference_mode``
+    with the decoder's kernels."""
+    with torch.inference_mode(not train):
+        state = {
+            name: t.to(cfg.dtype) if t.is_floating_point() else t
+            for name, t in itertools.chain(model.named_parameters(), model.named_buffers())
+        }
+        return torch.func.functional_call(
+            model, state, (query_images, support_images, text_tokens, support_masks, cfg),
+            {"train": train, "generator": generator})

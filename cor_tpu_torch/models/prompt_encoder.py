@@ -28,11 +28,13 @@ class PromptEncoderConfig:
 
 class PositionEmbeddingRandom(nn.Module):
     """``gaussian_matrix`` [2, num_pos_feats] ~ N(0, 1) (cor_tpu's default
-    scale, the only one CORE uses)."""
+    scale, the only one CORE uses): a buffer, as in the reference, which
+    never trains (``cor_tpu`` stops its gradient and masks it out of every
+    optimizer)."""
 
     def __init__(self, num_pos_feats: int):
         super().__init__()
-        self.gaussian_matrix = nn.Parameter(torch.empty(2, num_pos_feats))
+        self.register_buffer("gaussian_matrix", torch.empty(2, num_pos_feats))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -23,8 +23,12 @@ ports them: ``fused_window_indexing`` (the partition inside the kernel, K7),
 ``seq_shard`` and ``pp_stages > 1`` (parallel), and, on the card,
 ``fused_attention=False`` or ``fused_layernorm=False`` (the plain
 formulations are test oracles on the CPU, not a served path).
-``remat_blocks`` means nothing here: it trades compute for activation memory
-in a backward pass, and the port's encoder runs inference only.
+``remat_blocks`` (default on; ``TrainConfig.encoder_remat`` overrides it)
+acts where autograd records the forward (an unfrozen fine-tune): each block
+runs under ``torch.utils.checkpoint`` and is recomputed in the backward, so
+only the blocks' inputs stay alive (the fp32 GELU polynomial's
+intermediates alone would hold ~0.75 GB per image per block). Its K6 and K5
+then launch twice per training step, and K6b once.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from cor_tpu_torch.ops.attention import (
     Attention2d,
@@ -65,7 +70,7 @@ class SamEncoderConfig:
     global_attn_indexes: Tuple[int, ...] = (2, 5, 8, 11)
     ln_eps: float = 1e-6
     fused_attention: bool = True  # K6; False: attention_2d (CPU only)
-    remat_blocks: bool = True  # training only; no meaning for inference
+    remat_blocks: bool = True  # recompute each block in the backward (training only)
     fused_layernorm: bool = True  # K5; False: ops.common.layer_norm (CPU only)
     fused_window_indexing: bool = False  # refused: K7
     seq_shard: bool = False  # refused: parallel
@@ -141,6 +146,13 @@ class SamBlock(nn.Module):
         return x + self.mlp(_ln(self.norm2, x, cfg))
 
 
+def _call_block(block: SamBlock, names, x: torch.Tensor, *params) -> torch.Tensor:
+    """``block(x)`` with these parameters: the tensors the forward ran with
+    (``core_forward``'s compute-dtype copies) are the ones the checkpoint's
+    recompute in the backward runs with, not the module's own."""
+    return torch.func.functional_call(block, dict(zip(names, params)), (x,))
+
+
 class Neck(nn.Module):
     def __init__(self, embed_dim: int, out_chans: int):
         super().__init__()
@@ -190,8 +202,13 @@ class SamEncoder(nn.Module):
         x = self.patch_embed(x.reshape(B, gh, gw, P * P * Cin))
         if self.pos_embed is not None:
             x = x + self.pos_embed.to(x.dtype)
+        remat = cfg.remat_blocks and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            if remat:
+                names, params = zip(*block.named_parameters())
+                x = checkpoint(_call_block, block, names, x, *params, use_reentrant=False)
+            else:
+                x = block(x)
         n = self.neck
         x = _ln(n.ln1, n.conv1(x), cfg)
         return _ln(n.ln2, n.conv2(x, padding=1), cfg)

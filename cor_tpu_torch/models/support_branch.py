@@ -3,8 +3,9 @@ L2-normed query, the PyTorch counterpart of ``cor_tpu.models.support_branch``.
 
 SigLIP(support image, text) -> LN on the patch grid -> mask pooling -> LN ->
 fusion -> dim_proj (Linear D->512, GELU, Dropout 0.8, Linear 512->256, GELU,
-Dropout 0.8) -> L2 normalize -> [B, 1, prompt_dim]. The dropouts are the
-identity at ``train=False``, the only mode serving uses.
+Dropout 0.8) -> L2 normalize -> [B, 1, prompt_dim]. The dropouts (these and
+CirFuse's 0.5) draw from the given ``torch.Generator`` at ``train=True`` and
+are the identity at ``train=False``, the mode serving uses.
 """
 
 from __future__ import annotations

@@ -44,6 +44,12 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, _VP,
     ),
+    # qkv, rel_h, rel_w, dout, dqkv, drel_h, drel_w, stats, B, N, C, num_heads, H, W, scale,
+    # stream
+    "cor_vit_attention_relpos_bwd": (
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _VP,
+    ),
     # tokens, qpe, wt, bt, skip_pe, self_scale, cross_scale, eps, n, x_out, qt_out, stream
     "cor_twl_tokens_in": (
         _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,

@@ -23,7 +23,9 @@ bf16, as cor_tpu's own bf16 test does).
 On the card: one launch per call (``decoder_tail.launches``), one CTA per
 grid row of a candidate and output map. The kernel takes bf16 with C = 256,
 O1 = 64, O2 = 32 and a grid 64 pixels wide; any other CUDA input raises, and
-a CPU tensor takes the plain version.
+a CPU tensor takes the plain version. With autograd recording it raises:
+``cor_tpu``'s kernel has no backward either (training runs the decoder's
+``fused=False`` tail).
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from cor_tpu_torch.ops.common import conv_transpose_2x, gelu_poly, layer_norm
+from cor_tpu_torch.ops.diff import refuse_grad
 from cor_tpu_torch.ops.kernels._build import check, library
+from cor_tpu_torch.ops.kernels.two_way_layer import cached_pack
 
 C_IN, O1, O2, GRID_W = 256, 64, 32, 64
 
@@ -50,6 +54,7 @@ def decoder_tail_plain(src, w1, b1, ln_scale, ln_bias, w2, b2, hyper, eps: float
 def decoder_tail(src, w1, b1, ln_scale, ln_bias, w2, b2, hyper, eps: float = 1e-6):
     """src [n, H, W, C], hyper [n, m, O2] -> [n, m, 4H, 4W] fp32."""
     if src.device.type == "cpu":
+        refuse_grad("decoder_tail", src, w1, b1, ln_scale, ln_bias, w2, b2, hyper)
         return decoder_tail_plain(src, w1, b1, ln_scale, ln_bias, w2, b2, hyper, eps)
     if src.device.type != "cuda":
         raise ValueError(f"decoder_tail: no kernel for device {src.device}")
@@ -65,19 +70,17 @@ def decoder_tail(src, w1, b1, ln_scale, ln_bias, w2, b2, hyper, eps: float = 1e-
         raise TypeError(f"decoder_tail kernel takes bf16, got {src.dtype} / {hyper.dtype}")
     if not src.is_contiguous() or not hyper.is_contiguous():
         raise ValueError("decoder_tail kernel takes contiguous src and hyper")
+    refuse_grad("decoder_tail", src, w1, b1, ln_scale, ln_bias, w2, b2, hyper)
     dev = src.device
-    cache = getattr(w1, "_tail_pack", None)
-    if cache is None or cache[0].device != dev:
-        bf = dict(device=dev, dtype=torch.bfloat16)
-        f32 = dict(device=dev, dtype=torch.float32)
-        cache = (
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    f32 = dict(device=dev, dtype=torch.float32)
+    w1t, w2t, vec = cached_pack(
+        w1, "_tail_pack", (w1, b1, ln_scale, ln_bias, w2, b2), dev, lambda: (
             w1.detach().reshape(C_IN, 4 * O1).T.to(**bf).contiguous(),  # [(p,q,o1), C]
             w2.detach().reshape(O1, 4 * O2).T.to(**bf).contiguous(),  # [(r,s,o2), O1]
             torch.cat([b1.detach().reshape(-1), ln_scale.detach().reshape(-1),
                        ln_bias.detach().reshape(-1), b2.detach().reshape(-1)]).to(**f32),
-        )
-        w1._tail_pack = cache  # serving weights are frozen: pack once
-    w1t, w2t, vec = cache
+        ))
     out = torch.empty((n, m, 4 * H, 4 * W), device=dev, dtype=torch.float32)
     lib = library()
     with torch.cuda.device(dev):

@@ -12,7 +12,10 @@ that memory is touched once each way. See the source for the design.
 
 ``layer_norm`` takes the plain version for a tensor on the CPU, and the
 kernel for a CUDA tensor; it raises on a CUDA tensor the kernel does not take.
-It never falls back from the kernel to the plain version.
+It never falls back from the kernel to the plain version. Where autograd
+records the call (training an unfrozen tower), the kernel runs forward and
+the gradient is the plain version's, recomputed in the backward
+(``ops.diff.with_plain_vjp``), as ``cor_tpu`` takes it from XLA.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 # the plain PyTorch version is ops.common's layer_norm, the one the models'
 # other LayerNorms use
 from cor_tpu_torch.ops.common import layer_norm as layer_norm_plain
+from cor_tpu_torch.ops.diff import needs_grad, with_plain_vjp
 from cor_tpu_torch.ops.kernels._build import check, library
 
 MAX_COLS = 2048  # 64 values per lane of one warp, the kernel's largest case
@@ -36,6 +40,14 @@ def layer_norm(
         return layer_norm_plain(x, scale, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm: no kernel for device {x.device}")
+    if needs_grad(x, scale, bias):
+        return _layer_norm_diff(x, scale, bias, eps)
+    return _layer_norm_kernel(x, scale, bias, eps)
+
+
+def _layer_norm_kernel(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
+) -> torch.Tensor:
     C = x.shape[-1]
     if x.dtype not in _FLOAT:
         raise TypeError(f"layer_norm kernel takes fp32 or bf16 input, got {x.dtype}")
@@ -68,4 +80,5 @@ def layer_norm(
     return y
 
 
+_layer_norm_diff = with_plain_vjp(_layer_norm_kernel, layer_norm_plain)
 layer_norm.launches = 0

@@ -15,13 +15,17 @@ matrix products; it reads q/k/v in place and keeps logits out of memory
 ``attention_seq_qkv`` takes the plain version for a tensor on the CPU, and
 the kernel for a CUDA tensor. The kernel takes bf16 with head_dim 64; any
 other CUDA input raises (head_dim 72 of SO400M and 80 are not ported yet).
-It never falls back from the kernel to the plain version.
+It never falls back from the kernel to the plain version. Where autograd
+records the call, the kernel runs forward and the gradient is the plain
+version's, recomputed in the backward (``ops.diff.with_plain_vjp``), as
+``cor_tpu`` takes it from XLA.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cor_tpu_torch.ops.diff import needs_grad, with_plain_vjp
 from cor_tpu_torch.ops.kernels._build import check, library
 
 HEAD_DIM = 64  # the only head_dim the kernel takes
@@ -41,6 +45,12 @@ def attention_seq_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         return attention_seq_qkv_plain(qkv, num_heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention_seq_qkv: no kernel for device {qkv.device}")
+    if needs_grad(qkv):
+        return _attention_seq_qkv_diff(qkv, num_heads)
+    return _attention_seq_qkv_kernel(qkv, num_heads)
+
+
+def _attention_seq_qkv_kernel(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if qkv.dim() != 3 or qkv.shape[-1] % 3 != 0:
         raise ValueError(f"attention_seq_qkv takes qkv [B, N, 3C], got {tuple(qkv.shape)}")
     B, N, C3 = qkv.shape
@@ -70,4 +80,5 @@ def attention_seq_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out
 
 
+_attention_seq_qkv_diff = with_plain_vjp(_attention_seq_qkv_kernel, attention_seq_qkv_plain)
 attention_seq_qkv.launches = 0

@@ -19,7 +19,8 @@ on the tensor cores, then the tile's flash partials: max, sum and the
 unnormalised [heads x T, d] product) and a combine over the tiles. The
 image pass is shared with stage 2 of the two-way layer kernel. The kernels
 take bf16 with C = 256, 8 heads, I = 128, 6 tokens and N a multiple of 64;
-any other CUDA input raises, and a CPU tensor takes the plain version.
+any other CUDA input raises, and a CPU tensor takes the plain version. With
+autograd recording it raises: ``cor_tpu``'s kernel has no backward either.
 """
 
 from __future__ import annotations
@@ -29,7 +30,15 @@ import math
 import torch
 
 from cor_tpu_torch.ops.kernels._build import check, library
-from cor_tpu_torch.ops.kernels.two_way_layer import C_DIM, HEADS, INTERNAL, ROW_TILE, TOKENS
+from cor_tpu_torch.ops.diff import refuse_grad
+from cor_tpu_torch.ops.kernels.two_way_layer import (
+    C_DIM,
+    HEADS,
+    INTERNAL,
+    ROW_TILE,
+    TOKENS,
+    cached_pack,
+)
 
 
 def t2i_flash_kv_plain(keys, wk, bk, wv, bv, kpe, q_tok, num_heads: int) -> torch.Tensor:
@@ -54,6 +63,7 @@ def t2i_flash_kv_plain(keys, wk, bk, wv, bv, kpe, q_tok, num_heads: int) -> torc
 def t2i_flash_kv(keys, wk, bk, wv, bv, kpe, q_tok, num_heads: int) -> torch.Tensor:
     """keys [n, N, C], q_tok [n, T, I] -> [n, T, I]."""
     if keys.device.type == "cpu":
+        refuse_grad("t2i_flash_kv", keys, wk, bk, wv, bv, kpe, q_tok)
         return t2i_flash_kv_plain(keys, wk, bk, wv, bv, kpe, q_tok, num_heads)
     if keys.device.type != "cuda":
         raise ValueError(f"t2i_flash_kv: no kernel for device {keys.device}")
@@ -71,14 +81,11 @@ def t2i_flash_kv(keys, wk, bk, wv, bv, kpe, q_tok, num_heads: int) -> torch.Tens
         raise TypeError(f"t2i_flash_kv kernel takes bf16, got {keys.dtype}")
     if not keys.is_contiguous() or not kpe.is_contiguous() or n > 65535:
         raise ValueError("t2i_flash_kv kernel takes contiguous keys and kpe, n <= 65535")
+    refuse_grad("t2i_flash_kv", keys, wk, bk, wv, bv, kpe, q_tok)
     dev = keys.device
-    cache = getattr(wk, "_t2i_pack", None)
-    if cache is None or cache[0].device != dev:
-        w = torch.cat([wk.detach(), wv.detach()]).to(dev, torch.bfloat16).contiguous()
-        b = torch.cat([bk.detach(), bv.detach()]).to(dev, torch.float32).contiguous()
-        cache = (w, b)
-        wk._t2i_pack = cache  # serving weights are frozen: pack once
-    w_kv, b_kv = cache
+    w_kv, b_kv = cached_pack(wk, "_t2i_pack", (wk, bk, wv, bv), dev, lambda: (
+        torch.cat([wk.detach(), wv.detach()]).to(dev, torch.bfloat16).contiguous(),
+        torch.cat([bk.detach(), bv.detach()]).to(dev, torch.float32).contiguous()))
     qt = (q_tok.float() / math.sqrt(INTERNAL // HEADS)).to(torch.bfloat16).contiguous()
     tiles = N // ROW_TILE
     f32 = dict(device=dev, dtype=torch.float32)

@@ -36,7 +36,10 @@ token kernel (the partials' combine, the rest of stage 2, stage 3, the i2t
 keys and values), and an image kernel (stage 4). See the sources for what
 bounds each. The kernels take the SAM geometry only: bf16, C = 256, 8
 heads, internal width 128, 6 tokens, MLP 2048, N a multiple of 64. Any
-other CUDA input raises; a CPU tensor takes the plain version.
+other CUDA input raises; a CPU tensor takes the plain version. ``cor_tpu``'s
+kernel has no backward, and neither has this one: with autograd recording
+(an input or a weight that requires grad, grad mode on) it raises. Training
+runs the decoder's ``fused=False`` path.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from typing import Optional, Tuple
 import torch
 
 from cor_tpu_torch.ops.common import layer_norm
+from cor_tpu_torch.ops.diff import refuse_grad
 from cor_tpu_torch.ops.kernels._build import check, library
 
 C_DIM, HEADS, INTERNAL, TOKENS, MLP_DIM = 256, 8, 128, 6, 2048
@@ -135,18 +139,33 @@ def two_way_layer_plain(
     return x.to(dt), z.to(dt)
 
 
+def cached_pack(holder, attr: str, tensors, device, make):
+    """``make()``, kept on ``holder`` as ``attr`` and made again only for
+    another device, or when one of ``tensors`` is another tensor (the
+    per-call copies of an eval under ``functional_call``): serving weights
+    are packed once."""
+    stamp = [id(t) for t in tensors]
+    cache = getattr(holder, attr, None)
+    if cache is None or cache[0] != device or cache[1] != stamp:
+        # the tensors ride along so that their ids stay theirs while cached
+        cache = (device, stamp, make(), tuple(tensors))
+        setattr(holder, attr, cache)
+    return cache[2]
+
+
 def _pack(lp, device) -> dict:
     """The layer's weights in the kernels' layouts, bf16 matrices [out, in]
-    and fp32 vectors, made once per layer and device (serving weights are
-    frozen). Order and offsets are those of ``csrc/two_way_layer.cu``."""
-    cache = getattr(lp, "_kernel_pack", None)
-    if cache is not None and cache["device"] == device:
-        return cache
+    and fp32 vectors (``cached_pack`` on the layer). Order and offsets are
+    those of ``csrc/two_way_layer.cu``."""
+    return cached_pack(lp, "_kernel_pack", list(lp.parameters()), device,
+                       lambda: _make_pack(lp, device))
+
+
+def _make_pack(lp, device) -> dict:
     sa, t2i, i2t, mlp = lp.self_attn, lp.cross_attn_t2i, lp.cross_attn_i2t, lp.mlp
     bf = lambda *ts: torch.cat([t.detach().reshape(-1).to(device, torch.bfloat16) for t in ts])  # noqa: E731
     f32 = lambda *ts: torch.cat([t.detach().reshape(-1).to(device, torch.float32) for t in ts])  # noqa: E731
-    pack = {
-        "device": device,
+    return {
         "wtok": bf(sa.q_proj.w, sa.k_proj.w, sa.v_proj.w, sa.out_proj.w, t2i.q_proj.w,
                    t2i.out_proj.w, mlp.lin1.w, mlp.lin2.w, i2t.k_proj.w, i2t.v_proj.w),
         "btok": f32(sa.q_proj.b, sa.k_proj.b, sa.v_proj.b, sa.out_proj.b,
@@ -158,8 +177,6 @@ def _pack(lp, device) -> dict:
         "wo_i": bf(i2t.out_proj.w).reshape(C_DIM, INTERNAL),
         "bo_ln4": f32(i2t.out_proj.b, lp.norm4.scale, lp.norm4.bias),
     }
-    lp._kernel_pack = pack
-    return pack
 
 
 def _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale) -> None:
@@ -207,11 +224,13 @@ def two_way_layer(
     [S, N, C] with ``idx`` int32 [n], int8 with ``scale`` fp32 [S]),
     kpe / qpe_img [N, I] -> (tokens' [n, T, C], rows' [n, N, C])."""
     if tokens.device.type == "cpu":
+        refuse_grad("two_way_layer", tokens, qpe_tok, keys, kpe, qpe_img, *lp.parameters())
         return two_way_layer_plain(lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps,
                                    idx, scale)
     if tokens.device.type != "cuda":
         raise ValueError(f"two_way_layer: no kernel for device {tokens.device}")
     _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale)
+    refuse_grad("two_way_layer", tokens, qpe_tok, keys, kpe, qpe_img, *lp.parameters())
     n = tokens.shape[0]
     S, N = keys.shape[0], keys.shape[1]
     dev = tokens.device

@@ -23,6 +23,8 @@ from cor_tpu_torch.ops.kernels.layernorm import layer_norm, layer_norm_plain
 from cor_tpu_torch.ops.kernels.seq_attention import attention_seq_qkv, attention_seq_qkv_plain
 from cor_tpu_torch.ops.kernels.vit_attention import (
     vit_attention_relpos,
+    vit_attention_relpos_bwd,
+    vit_attention_relpos_bwd_plain,
     vit_attention_relpos_plain,
 )
 
@@ -103,6 +105,55 @@ def test_vit_attention_relpos_plain_matches_pallas(rng, H, W):
     before = vit_attention_relpos.launches
     np.testing.assert_allclose(vit_attention_relpos(*args).numpy(), want, **TOL)
     assert vit_attention_relpos.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,W", [(8, 8), (4, 4)], ids=["grid8", "window4"])
+def test_vit_attention_relpos_bwd_plain_matches_pallas(rng, H, W, dtype):
+    """K6b's plain version against cor_tpu's flash-backward kernel
+    (``_vit_attention_relpos_bwd``, Pallas interpret mode), as K6's
+    custom_vjp calls it: C = 128, 2 heads of 64. fp32 at cor_tpu's own
+    tolerance (tests/test_kernel_vjp.py); bf16 within 2e-2 of max |ref| (the
+    TPU kernel's mean-shifted keys round differently in bf16)."""
+    import jax.numpy as jnp
+
+    from cor_tpu.ops.pallas.vit_attention import _vit_attention_relpos_bwd
+
+    qkv, rel_h, rel_w = vit_inputs(rng, 2, H, W)
+    do = rng.standard_normal((2, H * W, 128)).astype(np.float32)
+    n = np.arange(H * W)
+    eh = (np.arange(H)[:, None] == (n // W)[None, :]).astype(np.float32)
+    ew = (np.arange(W)[:, None] == (n % W)[None, :]).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    xs = [torch.from_numpy(a).to(tdt) for a in (qkv, rel_h, rel_w, do)]
+    want = _vit_attention_relpos_bwd(
+        *(jnp.asarray(x.float().numpy()).astype(jdt) for x in xs[:3]), jnp.asarray(eh),
+        jnp.asarray(ew), jnp.asarray(xs[3].float().numpy()).astype(jdt), 2, 64**-0.5)
+    before = vit_attention_relpos_bwd.launches
+    got = vit_attention_relpos_bwd(*xs, 2, (H, W))  # the CPU takes the plain version
+    assert vit_attention_relpos_bwd.launches == before
+    for g, w in zip(got, want):
+        assert g.dtype == tdt
+        w = np.asarray(w.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=1e-4)
+        else:
+            assert np.abs(g.float().numpy() - w).max() <= 2e-2 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("H,W", [(8, 8), (4, 4), (6, 5)], ids=["grid8", "window4", "rect"])
+def test_vit_attention_relpos_bwd_plain_matches_autograd(rng, H, W):
+    """The plain backward is the gradient of the plain forward (fp32), and
+    the differentiable ``vit_attention_relpos`` returns it."""
+    qkv, rel_h, rel_w = vit_inputs(rng, 2, H, W)
+    do = torch.from_numpy(rng.standard_normal((2, H * W, 128)).astype(np.float32))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (qkv, rel_h, rel_w)]
+    want = torch.autograd.grad(vit_attention_relpos_plain(*leaves, 2, (H, W)), leaves, do)
+    got = vit_attention_relpos_bwd_plain(*(x.detach() for x in leaves), do, 2, (H, W))
+    through = torch.autograd.grad(vit_attention_relpos(*leaves, 2, (H, W)), leaves, do)
+    for g, t, w in zip(got, through, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+        torch.testing.assert_close(t, g, atol=0, rtol=0)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -288,3 +339,111 @@ def test_decoder_kernels_refuse_other_geometry(sam_decoder_bf16):
     with pytest.raises(TypeError, match="bf16"):
         two_way_layer(lp, x["tokens"].float(), x["tokens"].float(), x["rows"], x["kpe"],
                       x["qpe"], True)
+
+
+# ---------------------------------------------------------------------------
+# training through the kernels: K6b against its plain version; K4, K5 and K6
+# pass their gradients (K6 through K6b, K4 and K5 through their plain
+# versions' recompute); K1, K2 and K3 refuse to be differentiated
+# ---------------------------------------------------------------------------
+
+
+def bf16_leaves(g, *shapes, scale=1.0):
+    return [(scale * torch.randn(*s, generator=g, device="cuda")).to(torch.bfloat16)
+            .requires_grad_() for s in shapes]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W", [(2, 8, 8), (3, 14, 14), (1, 64, 64), (2, 5, 13)],
+                         ids=["grid8", "window14", "global", "rect"])
+def test_vit_attention_relpos_bwd_kernel_matches_plain_bf16(cuda_device, B, H, W):
+    """K6b against its plain backward on the same bf16 inputs: dqkv, drel_h
+    and drel_w within 2e-2 of their max |plain| (the kernel's fp32 sums run
+    tile by tile)."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    N, heads = H * W, 12
+    qkv = torch.randn(B, N, 3 * 768, generator=g, device=cuda_device).to(torch.bfloat16)
+    rel_h = (0.3 * torch.randn(B, heads, N, H, generator=g, device=cuda_device)).to(torch.bfloat16)
+    rel_w = (0.3 * torch.randn(B, heads, N, W, generator=g, device=cuda_device)).to(torch.bfloat16)
+    do = torch.randn(B, N, 768, generator=g, device=cuda_device).to(torch.bfloat16)
+    before = vit_attention_relpos_bwd.launches
+    got = vit_attention_relpos_bwd(qkv, rel_h, rel_w, do, heads, (H, W))
+    torch.cuda.synchronize()
+    assert vit_attention_relpos_bwd.launches == before + 1
+    want = vit_attention_relpos_bwd_plain(qkv, rel_h, rel_w, do, heads, (H, W))
+    for name, a, b in zip(("dqkv", "drel_h", "drel_w"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a.float()).all(), name
+        assert rel_err(a, b) <= DECODE_REL, (name, rel_err(a, b))
+
+
+def grads_of(fn, leaves, seed):
+    """The gradients of sum(fn(*leaves) * r) for a fixed random r."""
+    out = fn(*leaves)
+    g = torch.Generator(device=out.device).manual_seed(seed)
+    r = torch.randn(out.shape, generator=g, device=out.device).to(out.dtype)
+    return torch.autograd.grad(out, leaves, r)
+
+
+@pytest.mark.gpu
+def test_kernels_pass_gradients_as_their_plain_versions(cuda_device):
+    """K5, K4 and K6 on bf16 inputs that require grad: every gradient is
+    non-zero and agrees with autograd through the plain version (K6's comes
+    from K6b)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    cases = {
+        "layer_norm": (lambda x, s, b: layer_norm(x, s, b, 1e-6),
+                       lambda x, s, b: layer_norm_plain(x, s, b, 1e-6),
+                       bf16_leaves(g, (64, 768), (768,), (768,))),
+        "attention_seq_qkv": (lambda q: attention_seq_qkv(q, 12),
+                              lambda q: attention_seq_qkv_plain(q, 12),
+                              bf16_leaves(g, (2, 100, 3 * 768))),
+        "vit_attention_relpos": (
+            lambda q, h, w: vit_attention_relpos(q, h, w, 12, (14, 14)),
+            lambda q, h, w: vit_attention_relpos_plain(q, h, w, 12, (14, 14)),
+            bf16_leaves(g, (2, 196, 3 * 768)) + bf16_leaves(g, (2, 12, 196, 14),
+                                                            (2, 12, 196, 14), scale=0.3)),
+    }
+    for name, (kernel, plain, leaves) in cases.items():
+        before = kernel_counts()
+        got = grads_of(kernel, leaves, 3)
+        torch.cuda.synchronize()
+        assert kernel_counts()[name] > before[name], name
+        want = grads_of(plain, leaves, 3)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a is not None and a.abs().max() > 0, (name, i)
+            assert rel_err(a, b) <= DECODE_REL, (name, i, rel_err(a, b))
+
+
+def kernel_counts():
+    return {"layer_norm": layer_norm.launches, "attention_seq_qkv": attention_seq_qkv.launches,
+            "vit_attention_relpos": vit_attention_relpos.launches}
+
+
+@pytest.mark.gpu
+def test_decoder_kernels_refuse_grad(sam_decoder_bf16):
+    """K1, K2 and K3 have no backward (nor have cor_tpu's): with autograd
+    recording they raise, and under no_grad they run."""
+    from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
+    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
+
+    x = decode_inputs(2)
+    lp = sam_decoder_bf16.transformer.layers[0]
+    fa = sam_decoder_bf16.transformer.final_attn_t2i
+    up = sam_decoder_bf16.output_upscaling
+    src = x["rows"].reshape(2, 64, 64, 256)
+    hyper = torch.zeros(2, 1, 32, device="cuda", dtype=torch.bfloat16)
+    calls = [
+        lambda: two_way_layer(lp, x["tokens"], x["tokens"], x["rows"], x["kpe"], x["qpe"], True),
+        lambda: t2i_flash_kv(x["rows"], fa.k_proj.w, fa.k_proj.b, fa.v_proj.w, fa.v_proj.b,
+                             x["kpe"], x["tokens"][..., :128].contiguous(), 8),
+        lambda: decoder_tail(src, up.convt1.w, up.convt1.b, up.ln.scale, up.ln.bias, up.convt2.w,
+                             up.convt2.b, hyper),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()

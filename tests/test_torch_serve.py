@@ -214,7 +214,8 @@ def test_cli_refuses_configs_that_name_checkpoints(tmp_path, capsys):
 def test_port_runs_without_jax(tmp_path):
     """Block jax and cor_tpu, import every module of the port, build a
     gallery index with ``cli.index`` and serve from it end to end: retrieval
-    alone, and with masks decoded host-streamed and from the int8 store."""
+    alone, and with masks decoded host-streamed and from the int8 store; then
+    train one tiny epoch with ``cli.train``."""
     script = textwrap.dedent(f"""
         import contextlib, importlib, io, json, pkgutil, sys
         from pathlib import Path
@@ -268,6 +269,14 @@ def test_port_runs_without_jax(tmp_path):
             for r in dec_out:
                 assert len(r["masks"]) == 5 and all(Path(p).is_file() for p in r["masks"]), r
             assert [r["results"] for r in dec_out] == [r["results"] for r in out]
+        from cor_tpu_torch.cli import train as train_cli
+        from cor_tpu_torch.config import TrainConfig
+        TrainConfig.core_config = lambda self: cfg
+        (root / "train.yaml").write_text(
+            f"epoch: 1\\nbatch_size: 1\\nnum_workers: 2\\ntrain_model_save_path: {{root / 'ck'}}\\n")
+        trainer = train_cli.main(["--config", str(root / "train.yaml"), "--synthetic",
+                                  "--device", "cpu"])
+        assert trainer.state.step == 4 and (root / "ck" / "best_model" / "state.pt").is_file()
         used = [k for k in sys.modules
                 if k in ("jax", "cor_tpu") and sys.modules[k] is not None
                 or k.startswith(("jax.", "cor_tpu."))]
