@@ -75,7 +75,34 @@ Phases (any failure exits non-zero; no phase catches an exception):
     (each layer's q_proj gradient cosine, reported, not gated);
 17. training timings at batch 10, frozen and unfrozen: seconds per step
     (CUDA events, median and spread of 6 steps), samples/s, peak memory,
-    and a torch.profiler breakdown of one unfrozen step by layer.
+    and a torch.profiler breakdown of one unfrozen step by layer;
+18. the largest configuration's kernels: K4′ (head_dim 72) at
+    ViT-SO400M-14-SigLIP-384's qkv [16, 729, 3456] and [16, 64, 3456]
+    through both entries (fused QKV and [B, H, N, D]), K6 at sam_huge's
+    head_dim 80 (global [2, 4096, 3840], windowed [50, 196, 3840]) and K5
+    at widths 1152 and 1280, each against its plain version (max relative
+    error <= 2e-2), timed beside the plain version, SDPA (with the
+    materialised bias for K6) or F.layer_norm, and the bound;
+19. gallery build at the largest configuration (CFG: a flat copy of
+    configs/vaild_config.yaml with sam_model_name sam_huge and
+    siglip_model_name ViT-SO400M-14-SigLIP-384, written to a temporary
+    directory): ``cli.index.main`` --config CFG --synthetic 16 --batch-size
+    8 --with-store; the JSON line, unit-norm rows, a finite store, and K6 /
+    K5 launches of exactly 32 / 66 per encoded batch;
+20. serving at CFG: ``cli.serve.main`` --config CFG --self-test 8
+    --max-batch 4 over the 127,166-row gallery, fp32 and --int8 scans (K4 /
+    K5 exactly 54 / 110 per encoded batch), then --decode-masks --store-hbm
+    on phase 19's index, every response and PNG checked;
+21. numerics at CFG: SO400M queries GPU bf16 against CPU fp32 (cosine >=
+    0.99); one candidate through sam_huge at full depth (rel-pos tables and
+    pos_embed filled) GPU bf16 against CPU fp32 (cosine >= 0.99); one
+    ``core_forward`` at CFG, batch 2, on the card;
+22. timings at CFG: encode+scan latency at buckets 1, 4, 16;
+    encode+scan+decode at bucket 4 (--store-hbm); the sam_huge encode at
+    batch 1 and 8 with candidates/s and the reckoned time for 127,166
+    candidates; the CPU init time of the random weights; peak memory; a
+    torch.profiler breakdown of one bucket-16 query encode and one batch-8
+    image encode.
 The line before the last lists every kernel ({"kernels": [...]}); the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -110,6 +137,11 @@ STORE_ROWS = 2_048  # the decode phases' candidate store
 GRID, SAM_C = 64, 256  # SAM-base image-embedding grid and width
 SAM_BATCH = 8  # the gallery build's batch
 BUILD_ROWS = 64  # candidates of the phase-11 build
+# the largest configuration the repository supports, as config keys
+LARGE_KEYS = {"sam_model_name": "sam_huge", "siglip_model_name": "ViT-SO400M-14-SigLIP-384"}
+LARGE_BUILD_ROWS = 16  # candidates of the phase-19 build
+BASE_TOWERS = (24, 50)  # K4, K5 launches per query encode: ViT-B-16-SigLIP-384
+LARGE_TOWERS = (54, 110)  # the same at ViT-SO400M-14-SigLIP-384 (27 layers per tower)
 MASK_AGREE_MIN = 0.99  # host-streamed fp16 vs int8 store: pixels that agree
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds of the kernel table
 PEAK_BYTES_S = 3.35e12
@@ -166,7 +198,7 @@ def phase_build():
     print(f"phase 2 build: {path.name} in {dt:.1f} s", flush=True)
     # ptxas -v: per compiled kernel (template cases apart), registers, shared
     # memory and spill bytes
-    names = ("layer_norm_kernel", "seq_attention_qkv_kernel", "twl_tokens_in_kernel",
+    names = ("layer_norm_kernel", "seq_attention_kernel", "twl_tokens_in_kernel",
              "t2i_image_kernel", "twl_tokens_mid_kernel", "twl_image_i2t_kernel",
              "t2i_combine_kernel", "decoder_tail_kernel", "vit_attention_relpos_kernel")
     kernel, spills, regs = None, {}, {}
@@ -383,7 +415,7 @@ def decoder_kernels(device):
 def kernel_wrappers():
     from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
     from cor_tpu_torch.ops.kernels.layernorm import layer_norm
-    from cor_tpu_torch.ops.kernels.seq_attention import attention_seq_qkv
+    from cor_tpu_torch.ops.kernels.seq_attention import attention_seq, attention_seq_qkv
     from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
     from cor_tpu_torch.ops.kernels.vit_attention import (
@@ -392,6 +424,7 @@ def kernel_wrappers():
     )
 
     return {"layer_norm": layer_norm, "attention_seq_qkv": attention_seq_qkv,
+            "attention_seq": attention_seq,
             "two_way_layer": two_way_layer, "t2i_flash_kv": t2i_flash_kv,
             "decoder_tail": decoder_tail, "vit_attention_relpos": vit_attention_relpos,
             "vit_attention_relpos_bwd": vit_attention_relpos_bwd}
@@ -406,14 +439,21 @@ def read_counts():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def phase_serve(index_dir, pair_ids):
+def config_args(cfg_path) -> list:
+    return [] if cfg_path is None else ["--config", str(cfg_path)]
+
+
+def phase_serve(index_dir, pair_ids, cfg_path=None, towers=BASE_TOWERS, phase=4):
+    """``cli.serve.main`` --self-test 8 over the index, fp32 and --int8
+    scans; every response and the launch counts (``towers``: K4, K5 per
+    encoded batch) checked."""
     from cor_tpu_torch.cli import serve as cli
 
     ids = set(pair_ids.tolist())
     servers, counts = {}, {}
     for mode, extra in (("fp32", []), ("int8", ["--int8"])):
-        argv = ["--gallery-index", index_dir, "--k", "10", "--max-batch", "4",
-                "--self-test", "8", *extra]
+        argv = [*config_args(cfg_path), "--gallery-index", str(index_dir), "--k", "10",
+                "--max-batch", "4", "--self-test", "8", *extra]
         out = io.StringIO()
         reset_counts()
         t0 = time.perf_counter()
@@ -435,29 +475,32 @@ def phase_serve(index_dir, pair_ids):
             if not all(x["pair_id"] in ids for x in res):
                 fail(f"{mode}: response {r['id']} names a pair_id outside the index")
         n = server.batches_encoded
-        want = {"layer_norm": 50 * n, "attention_seq_qkv": 24 * n, "two_way_layer": 0,
-                "t2i_flash_kv": 0, "decoder_tail": 0, "vit_attention_relpos": 0,
-                "vit_attention_relpos_bwd": 0}
+        want = {k: 0 for k in c}
+        want.update(attention_seq_qkv=towers[0] * n, layer_norm=towers[1] * n)
         print(f"  serve {mode}: {len(resps)} responses, {n} encoded batches (warmup included), "
               f"launches {c} (expected {want}), main() took {dt:.1f} s")
         if c != want or min(c["layer_norm"], c["attention_seq_qkv"]) == 0:
             fail(f"{mode}: kernel launch counts {c} != expected {want}")
         servers[mode], counts[mode] = server, c
         print(f"  first response ({mode}): {json.dumps(resps[0])[:300]}")
-    print("phase 4 serve: ok", flush=True)
+    print(f"phase {phase} serve: ok", flush=True)
     return servers, counts["fp32"]
 
 
-def phase_numerics(server):
+def phase_numerics(server, ecfg=None, phase=5):
     from cor_tpu_torch.config import EvalConfig
     from cor_tpu_torch.models.core_model import init_support_branch
     from cor_tpu_torch.retrieval.index import make_query_encoder
 
+    ecfg = ecfg or EvalConfig()
     assembled = [server._synthetic_query(i) for i in range(4)]
     imgs, masks, texts = server._batch_tensors(assembled)
     q_gpu = server.encode_query(server.model, imgs, texts, masks).cpu()
-    cfg = dataclasses.replace(EvalConfig().core_config(), compute_dtype="float32")
-    model_cpu = init_support_branch(cfg, EvalConfig().seed)  # the weights main() served
+    cfg = dataclasses.replace(ecfg.core_config(), compute_dtype="float32")
+    t0 = time.perf_counter()
+    model_cpu = init_support_branch(cfg, ecfg.seed)  # the weights main() served
+    print(f"  support branch random init on the CPU: {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in model_cpu.parameters()) / 1e6:.1f} M parameters)")
     t0 = time.perf_counter()
     q_cpu = make_query_encoder(cfg)(model_cpu, imgs.cpu(), texts.cpu(), masks.cpu())
     dt = time.perf_counter() - t0
@@ -468,12 +511,13 @@ def phase_numerics(server):
         fail(f"GPU queries malformed: shape {tuple(q_gpu.shape)}")
     if cos.min().item() < COS_MIN:
         fail(f"GPU bf16 and CPU fp32 queries disagree: min cosine {cos.min().item()}")
-    print(f"phase 5 numerics: ok, min cosine {cos.min().item():.6f}", flush=True)
+    print(f"phase {phase} numerics: ok, min cosine {cos.min().item():.6f}", flush=True)
     return cos.min().item()
 
 
-def phase_timings(server, smi):
+def phase_timings(server, smi, key="timings", phase=6):
     assembled = [server._synthetic_query(i) for i in range(16)]
+    torch.cuda.reset_peak_memory_stats()
     latency = {}
     for b in (1, 4, 16):
         tensors = server._batch_tensors(assembled[:b])
@@ -493,16 +537,17 @@ def phase_timings(server, smi):
         walls.append(time.perf_counter() - t0)
     rps = [8 / w for w in walls]
     out = {
-        "timings": {
+        key: {
             "encode_scan_ms_by_bucket": latency,
             "self_test_responses_per_s": {"median": statistics.median(rps),
                                           "min": min(rps), "max": max(rps)},
             "gallery_rows": GALLERY_ROWS, "k": 10, "scan": "fp32",
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "card": smi,
         }
     }
     print(json.dumps(out))
-    print("phase 6 timings: ok", flush=True)
+    print(f"phase {phase} timings: ok", flush=True)
 
 
 def write_store_index(d: Path):
@@ -556,16 +601,17 @@ def read_png_gray(path: Path) -> np.ndarray:
     return rows[:, 1:]
 
 
-def serve_masks(index_dir: Path, ids: set, out_dir: Path, mode: str, extra: list):
+def serve_masks(index_dir: Path, ids: set, out_dir: Path, mode: str, extra: list,
+                cfg_path=None, towers=BASE_TOWERS):
     """``cli.serve.main`` --decode-masks with --self-test 8, --max-batch 4,
     --k 10 (and ``extra``) on the index: every response and PNG checked, the
-    kernels' launches per decoded batch checked. Returns (server, launches,
-    {png name: mask})."""
+    kernels' launches per decoded batch checked (``towers``: K4, K5 per
+    encoded batch). Returns (server, launches, {png name: mask})."""
     from cor_tpu_torch.cli import serve as cli
     from cor_tpu_torch.ops.kernels import t2i_flash, two_way_layer
 
-    argv = ["--gallery-index", str(index_dir), "--k", "10", "--max-batch", "4",
-            "--self-test", "8", "--decode-masks", str(out_dir), *extra]
+    argv = [*config_args(cfg_path), "--gallery-index", str(index_dir), "--k", "10",
+            "--max-batch", "4", "--self-test", "8", "--decode-masks", str(out_dir), *extra]
     out = io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
@@ -592,15 +638,15 @@ def serve_masks(index_dir: Path, ids: set, out_dir: Path, mode: str, extra: list
                 fail(f"decode {mode}: {path} is {m.shape}, values {np.unique(m)[:5]}")
             masks[Path(path).name] = m
     d, e = server.decode_calls, server.batches_encoded
-    want = {"layer_norm": 50 * e, "attention_seq_qkv": 24 * e,
-            "two_way_layer": two_way_layer.LAUNCHES * 2 * d,
-            "t2i_flash_kv": t2i_flash.LAUNCHES * d, "decoder_tail": d, "vit_attention_relpos": 0,
-            "vit_attention_relpos_bwd": 0}
+    want = {k: 0 for k in c}
+    want.update(layer_norm=towers[1] * e, attention_seq_qkv=towers[0] * e,
+                two_way_layer=two_way_layer.LAUNCHES * 2 * d,
+                t2i_flash_kv=t2i_flash.LAUNCHES * d, decoder_tail=d)
     fg = np.mean([m.mean() / 255 for m in masks.values()])
     print(f"  decode serve {mode}: {len(resps)} responses, {e} encoded batches, {d} decode "
           f"calls (warmup included), launches {c} (expected {want}), foreground share "
           f"{fg:.4f}, main() took {dt:.1f} s")
-    if c != want or min(v for k, v in c.items() if not k.startswith("vit_attention")) == 0:
+    if c != want or min(e, d) == 0:
         fail(f"decode {mode}: kernel launch counts {c} != expected {want}")
     print(f"  first response ({mode}): {json.dumps(resps[0])[:300]}")
     return server, c, masks
@@ -814,13 +860,15 @@ def phase_encoder_kernels(device):
     return dict(k6["global"], windowed=k6["windowed"]), ln
 
 
-def phase_build_index(index_dir: Path):
-    """cli.index.main at full SAM-base width, checked; then --decode-masks
-    --store-hbm serving from the index it wrote."""
+def build_index(index_dir: Path, rows: int, cfg_path=None, per_batch=(12, 26)):
+    """``cli.index.main`` --synthetic rows --batch-size 8 --with-store,
+    checked: the JSON line, unit-norm rows, the finite fp16 store, and K6 /
+    K5 launches of exactly ``per_batch`` per encoded batch. Returns (launch
+    counts, seconds, the loaded index)."""
     from cor_tpu_torch.cli import index as cli
     from cor_tpu_torch.retrieval.index import load_gallery_index
 
-    argv = ["--out", str(index_dir), "--synthetic", str(BUILD_ROWS),
+    argv = [*config_args(cfg_path), "--out", str(index_dir), "--synthetic", str(rows),
             "--batch-size", str(SAM_BATCH), "--with-store"]
     out = io.StringIO()
     reset_counts()
@@ -829,27 +877,34 @@ def phase_build_index(index_dir: Path):
         cli.main(argv)
     dt = time.perf_counter() - t0
     c = read_counts()
-    batches = -(-BUILD_ROWS // SAM_BATCH)
+    batches = -(-rows // SAM_BATCH)
     line = json.loads(out.getvalue().strip().splitlines()[-1])
-    want_line = {"rows": BUILD_ROWS, "dim": SAM_C, "with_store": True, "out": str(index_dir)}
+    want_line = {"rows": rows, "dim": SAM_C, "with_store": True, "out": str(index_dir)}
     if line != want_line:
         fail(f"index: the JSON line {line} != {want_line}")
     idx = load_gallery_index(index_dir)
     emb, store = idx["embeddings"], np.asarray(idx["store"])
     norms = np.linalg.norm(emb, axis=1)
-    print(f"  index build: {json.dumps(line)} in {dt:.1f} s; row norms [{norms.min():.6f}, "
-          f"{norms.max():.6f}], store {store.shape} {store.dtype}, |store| max "
-          f"{np.abs(store.astype(np.float32)).max():.3f}")
-    if emb.shape != (BUILD_ROWS, SAM_C) or not np.allclose(norms, 1.0, atol=1e-3):
-        fail(f"index: embeddings {emb.shape} are not {BUILD_ROWS} unit rows")
-    if store.shape != (BUILD_ROWS, GRID, GRID, SAM_C) or store.dtype != np.float16 or not (
+    print(f"  index build: {json.dumps(line)} in {dt:.1f} s (model init included); row norms "
+          f"[{norms.min():.6f}, {norms.max():.6f}], store {store.shape} {store.dtype}, |store| "
+          f"max {np.abs(store.astype(np.float32)).max():.3f}")
+    if emb.shape != (rows, SAM_C) or not np.allclose(norms, 1.0, atol=1e-3):
+        fail(f"index: embeddings {emb.shape} are not {rows} unit rows")
+    if store.shape != (rows, GRID, GRID, SAM_C) or store.dtype != np.float16 or not (
             np.isfinite(store).all()):
         fail(f"index: the store is {store.shape} {store.dtype}, or not finite")
     want = {k: 0 for k in c}
-    want.update(vit_attention_relpos=12 * batches, layer_norm=26 * batches)
+    want.update(vit_attention_relpos=per_batch[0] * batches, layer_norm=per_batch[1] * batches)
     print(f"  index build launches {c} over {batches} encoded batches (expected {want})")
     if c != want:
         fail(f"index: kernel launch counts {c} != expected {want}")
+    return c, dt, idx
+
+
+def phase_build_index(index_dir: Path):
+    """cli.index.main at full SAM-base width, checked; then --decode-masks
+    --store-hbm serving from the index it wrote."""
+    c, dt, idx = build_index(index_dir, BUILD_ROWS)
     _, dec_counts, _ = serve_masks(index_dir, set(idx["pair_ids"].tolist()),
                                    index_dir.parent / "built_masks", "hbm, built index",
                                    ["--store-hbm"])
@@ -872,13 +927,14 @@ def filled_encoder(cfg):
     return enc
 
 
-def synthetic_batch(n: int):
-    """n synthetic samples of the served config (the build's data)."""
+def synthetic_batch(n: int, cfg=None):
+    """n synthetic samples of the served config, or of ``cfg`` (the build's
+    data)."""
     from cor_tpu_torch.config import EvalConfig
     from cor_tpu_torch.data.pipeline import collate
     from cor_tpu_torch.data.synthetic import SyntheticDataset
 
-    cfg = EvalConfig().core_config()
+    cfg = cfg or EvalConfig().core_config()
     sig = cfg.support.siglip
     ds = SyntheticDataset(length=n, query_img_size=cfg.encoder.img_size,
                           support_img_size=sig.vision.image_size,
@@ -887,17 +943,31 @@ def synthetic_batch(n: int):
     return collate([ds[i] for i in range(n)])
 
 
-def phase_encoder_numerics():
+def phase_encoder_numerics(ecfg=None, phase=12):
+    """One candidate through the encoder (tables and pos_embed filled) on
+    the card in bf16 and on the CPU in fp32; one ``core_forward`` at full
+    width, batch 2, with that encoder. Returns (the encoder on the card,
+    cosines)."""
     import copy
 
     from cor_tpu_torch.config import EvalConfig
-    from cor_tpu_torch.models.core_model import _cast, core_forward, init_core_model
+    from cor_tpu_torch.models.core_model import (
+        CoreModel,
+        _cast,
+        core_forward,
+        init_mask_decoder,
+        init_prompt_encoder,
+        init_support_branch,
+    )
     from cor_tpu_torch.retrieval.index import make_candidate_encoder
 
-    cfg = EvalConfig().core_config()
+    cfg = (ecfg or EvalConfig()).core_config()
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    t0 = time.perf_counter()
     enc = filled_encoder(cfg).eval()
-    b = synthetic_batch(2)
+    print(f"  image encoder random init on the CPU: {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in enc.parameters()) / 1e6:.1f} M parameters)")
+    b = synthetic_batch(2, cfg)
     img, mask = torch.from_numpy(b["query_img"][:1]), torch.from_numpy(b["query_mask"][:1])
     enc_gpu = _cast(copy.deepcopy(enc).cuda(), cfg.dtype)
     pooled_g, emb_g = make_candidate_encoder(cfg)(enc_gpu, img.cuda(), mask.cuda())
@@ -914,9 +984,10 @@ def phase_encoder_numerics():
     if min(cos_flat, cos_pool) < COS_MIN:
         fail(f"GPU bf16 and CPU fp32 encoders disagree: cosines {cos_flat}, {cos_pool}")
 
-    # core_forward at full width, batch 2, the filled encoder in place
-    model = init_core_model(cfg, SEED)
-    model.image_encoder = enc
+    # core_forward at full width, batch 2, the filled encoder in place of
+    # init_core_model's (its other parts from the seeds it uses)
+    model = CoreModel(enc, init_support_branch(cfg, SEED), init_prompt_encoder(cfg, SEED),
+                      init_mask_decoder(cfg, SEED + 1))
     model = _cast(model.cuda(), cfg.dtype).eval()
     t = {k: torch.from_numpy(v).cuda() for k, v in b.items() if k != "pair_id"}
     final, q_emb, feat = core_forward(model, t["query_img"], t["support_img"], t["text"],
@@ -935,7 +1006,7 @@ def phase_encoder_numerics():
         fail(f"core_forward malformed: {shapes}")
     if d > 1e-3:
         fail(f"core_forward's query embeddings differ from the encoder's: {d}")
-    print("phase 12 encoder numerics: ok", flush=True)
+    print(f"phase {phase} encoder numerics: ok", flush=True)
     return enc_gpu, cos_flat, cos_pool
 
 
@@ -1084,16 +1155,20 @@ def phase_k6b(device):
     return dict(out["global"], windowed=out["windowed"])
 
 
-def m3_config(d: Path, **overrides) -> Path:
-    """configs/train_config_m3.yaml's keys, with ``overrides``, as a file."""
+def flat_config(name: str, path: Path, **overrides) -> Path:
+    """configs/``name``'s keys, with ``overrides``, as the flat file
+    ``path``."""
     from cor_tpu_torch.config import read_flat_yaml
 
-    keys = read_flat_yaml((Path(__file__).resolve().parent / "configs" /
-                           "train_config_m3.yaml").read_text())
+    keys = read_flat_yaml((Path(__file__).resolve().parent / "configs" / name).read_text())
     keys.update(overrides)
-    path = d / "train.yaml"
     path.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in keys.items()))
     return path
+
+
+def m3_config(d: Path, **overrides) -> Path:
+    """configs/train_config_m3.yaml's keys, with ``overrides``, as a file."""
+    return flat_config("train_config_m3.yaml", d / "train.yaml", **overrides)
 
 
 TOWERS = ("image_encoder.", "support_branch.siglip.", "mask_decoder.iou_prediction_head.",
@@ -1147,7 +1222,8 @@ def phase_train(root: Path):
         if not freeze and (same[TOWERS[0]] or same[TOWERS[1]] or not same[TOWERS[3]]):
             fail(f"train unfrozen: a tower did not move, or the PE matrix did: {same}")
         if c["vit_attention_relpos"] != k6_want or c["vit_attention_relpos_bwd"] != k6b_want or \
-                min(v for k, v in c.items() if k != "vit_attention_relpos_bwd") == 0:
+                min(v for k, v in c.items()
+                    if k not in ("vit_attention_relpos_bwd", "attention_seq")) == 0:
             fail(f"train {mode}: kernel launch counts {c}")
         counts[mode], results[mode] = c, {"seconds": dt, "losses": losses, "val": val[0]}
         del trainer, got, fresh
@@ -1293,6 +1369,181 @@ def phase_train_timings(smi: str):
     return out
 
 
+def large_config(d: Path) -> Path:
+    """CFG: configs/vaild_config.yaml's keys with sam_huge and
+    ViT-SO400M-14-SigLIP-384, as a flat file in ``d``."""
+    return flat_config("vaild_config.yaml", d / "large.yaml", **LARGE_KEYS)
+
+
+@torch.no_grad()
+def phase_large_kernels(device):
+    """K4′ at ViT-SO400M-14-SigLIP-384's qkv (16 heads of 72; N 729 and 64)
+    through both entries, K6 at sam_huge's head_dim 80 (global and
+    windowed), K5 at widths 1152 and 1280: each against its plain version,
+    timed beside it, the library call and the bound."""
+    import torch.nn.functional as F
+
+    from cor_tpu_torch.ops.kernels.layernorm import layer_norm, layer_norm_plain
+    from cor_tpu_torch.ops.kernels.seq_attention import (
+        attention_seq,
+        attention_seq_plain,
+        attention_seq_qkv,
+        attention_seq_qkv_plain,
+    )
+    from cor_tpu_torch.ops.kernels.vit_attention import (
+        vit_attention_relpos,
+        vit_attention_relpos_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    bf16 = torch.bfloat16
+    heads, D = 16, 72
+    C = heads * D
+    k4 = {}
+    for tower, n in (("vision", 729), ("text", 64)):
+        qkv = rnd(BATCH, n, 3 * C).to(bf16)
+        q, k, v = (qkv[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
+                   .contiguous() for i in range(3))
+        got, want = attention_seq_qkv(qkv, heads), attention_seq_qkv_plain(qkv, heads)
+        got4, want4 = attention_seq(q, k, v, heads), attention_seq_plain(q, k, v, heads)
+        torch.cuda.synchronize()
+        errs = (rel_err(got, want), rel_err(got4, want4))
+        kt = cuda_ms(lambda: attention_seq_qkv(qkv, heads))
+        kt4 = cuda_ms(lambda: attention_seq(q, k, v, heads))
+        pt = cuda_ms(lambda: attention_seq_qkv_plain(qkv, heads), iters=3)
+        lt = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        b = bound(nbytes(qkv) + nbytes(got), 4 * BATCH * heads * n * n * D)
+        print(f"  K4′ head_dim 72 [{BATCH}, {n}, {3 * C}]: max|d|/max|plain| = {errs[0]:.3e} "
+              f"fused, {errs[1]:.3e} [B, H, N, D]; kernel {kt[0]:.4f} ms [{kt[1]:.4f}, "
+              f"{kt[2]:.4f}] fused, {kt4[0]:.4f} ms [B, H, N, D], plain {pt[0]:.4f} ms, SDPA "
+              f"{lt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        if not max(errs) <= DECODE_REL:
+            fail(f"K4′ ({tower}) disagrees with its plain version: {errs}")
+        k4[tower] = entry(abs_err((got, want), (got4, want4)), kt, pt, b, lt,
+                          max_rel_err=max(errs), bhnd_entry_ms=kt4[0])
+        del q, k, v
+
+    heads, D = 16, 80
+    C = heads * D
+    k6 = {}
+    for label, B, side in (("global", 2, GRID), ("windowed", 50, 14)):
+        N = side * side
+        qkv = rnd(B, N, 3 * C).to(bf16)
+        rel_h = (0.3 * rnd(B, heads, N, side)).to(bf16)
+        rel_w = (0.3 * rnd(B, heads, N, side)).to(bf16)
+        args = (qkv, rel_h, rel_w, heads, (side, side))
+        got, want = vit_attention_relpos(*args), vit_attention_relpos_plain(*args)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        kt = cuda_ms(lambda: vit_attention_relpos(*args))
+        pt = cuda_ms(lambda: vit_attention_relpos_plain(*args), windows=3, iters=2)
+        q, k, v = (qkv[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
+                   for i in range(3))
+        bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, heads, N, N)
+        lt = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        b = bound(nbytes(qkv, rel_h, rel_w, got), 4 * B * heads * N * N * D)
+        print(f"  K6 head_dim 80 {label} [{B}, {N}, {3 * C}]: max|d|/max|plain| = {err:.3e}; "
+              f"kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, SDPA with "
+              f"the bias {lt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        if not err <= DECODE_REL:
+            fail(f"K6 at head_dim 80 ({label}) disagrees with its plain version: {err}")
+        k6[label] = entry(abs_err((got, want)), kt, pt, b, lt, max_rel_err=err)
+        del bias, q, k, v, want
+        torch.cuda.empty_cache()
+
+    ln = {}
+    for C, rows in ((1152, BATCH * 729), (1280, SAM_BATCH * GRID * GRID)):
+        x = (2 * rnd(rows, C) + 0.5).to(bf16)
+        scale, bias = (1 + 0.1 * rnd(C)).to(bf16), (0.1 * rnd(C)).to(bf16)
+        got, want = layer_norm(x, scale, bias, 1e-6), layer_norm_plain(x, scale, bias, 1e-6)
+        torch.cuda.synchronize()
+        err = abs_err((got, want))
+        kt = cuda_ms(lambda: layer_norm(x, scale, bias, 1e-6))
+        pt = cuda_ms(lambda: layer_norm_plain(x, scale, bias, 1e-6))
+        lt = cuda_ms(lambda: F.layer_norm(x, (C,), scale, bias, 1e-6))
+        b = bound(2 * nbytes(x) + nbytes(scale, bias), 8 * x.numel())
+        print(f"  K5 layer_norm [{rows}, {C}] bf16: max|d|={err:.3e} kernel {kt[0]:.4f} ms, "
+              f"plain {pt[0]:.4f} ms, F.layer_norm {lt[0]:.4f} ms, bound {b[0]:.4f} ms")
+        if err > KERNEL_TOL:
+            fail(f"layer_norm kernel disagrees with its plain version at C={C}: {err}")
+        ln[f"[{rows},{C}]"] = entry(err, kt, pt, b, lt)
+    torch.cuda.empty_cache()
+    print("phase 18 large-config kernels: ok", flush=True)
+    return dict(k4["vision"], text=k4["text"]), dict(k6["global"], windowed=k6["windowed"]), ln
+
+
+def phase_large_timings(servers, dec_server, enc_gpu, cfg, smi: str):
+    """Encode+scan at buckets 1, 4, 16; encode+scan+decode at bucket 4
+    (--store-hbm); the image encode at batch 1 and 8; peak memory; a
+    profile of one bucket-16 query encode and one batch-8 image encode."""
+    from cor_tpu_torch.retrieval.index import make_candidate_encoder
+
+    phase_timings(servers["fp32"], smi, key="large_timings", phase=22)
+    torch.cuda.reset_peak_memory_stats()
+    tensors = dec_server._batch_tensors([dec_server._synthetic_query(i) for i in range(4)])
+    med, lo, hi = cuda_ms(lambda: dec_server.encode_scan_decode(*tensors, 4), windows=7, iters=3)
+    decode = {"ms": med, "min_ms": lo, "max_ms": hi,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    encode = make_candidate_encoder(cfg)
+    b = synthetic_batch(SAM_BATCH, cfg)
+    imgs, masks = (torch.from_numpy(b[k]).cuda() for k in ("query_img", "query_mask"))
+    encode_ms = {}
+    for n in (1, SAM_BATCH):
+        torch.cuda.reset_peak_memory_stats()
+        med, lo, hi = cuda_ms(lambda: encode(enc_gpu, imgs[:n], masks[:n]), windows=5, iters=2)
+        encode_ms[str(n)] = {"ms": med, "min_ms": lo, "max_ms": hi,
+                             "candidates_per_s": n / med * 1e3,
+                             "cor127k_minutes": GALLERY_ROWS / (n / med * 1e3) / 60,
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    server = servers["fp32"]
+    q16 = server._batch_tensors([server._synthetic_query(i) for i in range(16)])
+    query_prof = profile(lambda: server.encode_query(server.model, q16[0], q16[2], q16[1]), 1)
+    image_prof = profile(lambda: encode(enc_gpu, imgs, masks), 1)
+    print(json.dumps({"large_decode_timings": {
+        "encode_scan_decode_ms_bucket4": decode, "store_rows": LARGE_BUILD_ROWS, "k": 10,
+        "store": "int8 on the card", "card": smi}}))
+    print(json.dumps({"large_build_timings": {"encode_ms_by_batch": encode_ms, "card": smi}}))
+    print(json.dumps({"large_query_profile": {"bucket": 16, **query_prof, "card": smi}}))
+    print(json.dumps({"large_encode_profile": {"batch": SAM_BATCH, **image_prof, "card": smi}}))
+    print("phase 22 large-config timings: ok", flush=True)
+
+
+def phase_large(smi: str):
+    """Phases 19-22 at CFG (sam_huge + ViT-SO400M-14-SigLIP-384). Returns
+    the launch counts of its serving and build paths."""
+    from cor_tpu_torch.config import load_eval_config
+    from cor_tpu_torch.retrieval.index import save_gallery_index
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        cfg_path = large_config(d)
+        ecfg = load_eval_config(cfg_path)
+        print(f"  CFG {cfg_path.name}: {json.dumps(LARGE_KEYS)}", flush=True)
+        build_counts, build_s, idx = build_index(d / "index", LARGE_BUILD_ROWS, cfg_path,
+                                                 per_batch=(32, 66))
+        print("phase 19 large-config gallery build: ok", flush=True)
+
+        rng = np.random.default_rng(SEED)
+        gallery = rng.standard_normal((GALLERY_ROWS, DIM), dtype=np.float32)
+        gallery /= np.linalg.norm(gallery, axis=1, keepdims=True)
+        pair_ids = np.arange(GALLERY_ROWS, dtype=np.int64)
+        save_gallery_index(d / "gallery", gallery, pair_ids)
+        servers, serve_counts = phase_serve(d / "gallery", pair_ids, cfg_path, LARGE_TOWERS,
+                                            phase=20)
+        dec_server, _, _ = serve_masks(
+            d / "index", set(idx["pair_ids"].tolist()), d / "masks", "hbm, sam_huge index",
+            ["--store-hbm"], cfg_path, LARGE_TOWERS)
+        print("phase 20 large-config serving: ok", flush=True)
+
+        phase_numerics(servers["fp32"], ecfg, phase=21)
+        enc_gpu, _, _ = phase_encoder_numerics(ecfg, phase=21)
+        phase_large_timings(servers, dec_server, enc_gpu, ecfg.core_config(), smi)
+        del servers, dec_server, enc_gpu
+        torch.cuda.empty_cache()
+    return serve_counts, build_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this check runs on a GPU only",
@@ -1343,6 +1594,12 @@ def main():
     phase_train_numerics()
     phase_train_timings(smi)
 
+    k4_72, k6_80, ln_large = phase_large_kernels(torch.device("cuda"))
+    kernel_results["attention_seq_qkv@72"] = k4_72
+    kernel_results["vit_attention_relpos@80"] = k6_80
+    kernel_results["layer_norm"]["large_config_shapes"] = ln_large
+    large_serve, large_build = phase_large(smi)
+
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70",
                        launches),
@@ -1359,12 +1616,18 @@ def main():
         "vit_attention_relpos_bwd": ("cor_tpu_torch/csrc/vit_attention_bwd.cu",
                                      "cor_tpu/ops/pallas/vit_attention.py:459",
                                      train_launches["unfrozen"]),
+        # the largest configuration's paths: K4′ is the same kernel at head_dim
+        # 72, launched by the towers through the fused-QKV entry; K6 at 80
+        "attention_seq_qkv@72": ("cor_tpu_torch/csrc/seq_attention.cu",
+                                 "cor_tpu/ops/pallas/seq_attention.py:49", large_serve),
+        "vit_attention_relpos@80": ("cor_tpu_torch/csrc/vit_attention.cu",
+                                    "cor_tpu/ops/pallas/vit_attention.py:284", large_build),
     }
     kernels = []
     for kname, res in kernel_results.items():
         src, replaces, counts = sources[kname]
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[kname], **res})
+                        "launches": counts[kname.split("@")[0]], **res})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -24,12 +24,14 @@ import argparse
 import json
 import logging
 import sys
+import time
 
 import torch
 
 MANIFEST_ITEM = ("ROADMAP Queue 1, item 10 (the manifest data pipeline: CORDataset, decode "
                  "and augment, PIL)")
 CHECKPOINT_ITEM = "ROADMAP Queue 1, item 5 (checkpoint loaders)"
+log = logging.getLogger("cor_tpu_torch.index")
 
 
 def main(argv=None):
@@ -52,7 +54,7 @@ def main(argv=None):
     from cor_tpu_torch.config import EvalConfig, load_eval_config
     from cor_tpu_torch.data.pipeline import DataLoader
     from cor_tpu_torch.data.synthetic import SyntheticDataset
-    from cor_tpu_torch.models.core_model import _cast, init_image_encoder
+    from cor_tpu_torch.models.core_model import _cast, describe, init_image_encoder
     from cor_tpu_torch.retrieval.index import build_gallery, save_gallery_index
 
     cfg = load_eval_config(args.config) if args.config else EvalConfig()
@@ -77,10 +79,14 @@ def main(argv=None):
         seed=cfg.seed,
     )
     loader = DataLoader(ds, args.batch_size or cfg.batch_size, num_workers=cfg.num_workers)
+    t0 = time.perf_counter()
     model = init_image_encoder(core_cfg, cfg.seed + 2).to(args.device)
     model = _cast(model, core_cfg.dtype).eval()
+    t1 = time.perf_counter()
     emb, ids, store = build_gallery(core_cfg, model, loader, with_store=args.with_store)
     save_gallery_index(args.out, emb, ids, image_embeddings=store)
+    log.info("indexed %d candidates with %s on %s: model init %.1f s, build and save %.1f s",
+             emb.shape[0], describe(core_cfg), args.device, t1 - t0, time.perf_counter() - t1)
     out = {"rows": int(emb.shape[0]), "dim": int(emb.shape[1]),
            "with_store": bool(args.with_store), "out": str(args.out)}
     print(json.dumps(out), flush=True)

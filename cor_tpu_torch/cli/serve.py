@@ -38,6 +38,7 @@ LATER_FLAGS = {
     "tcp": ("--tcp", "ROADMAP Queue 1, item 3 (serving: --approx, --rescore, --tcp)"),
 }
 CHECKPOINT_ITEM = "ROADMAP Queue 1, item 5 (checkpoint loaders)"
+log = logging.getLogger("cor_tpu_torch.serve")
 
 
 def process_lines(server, raw_lines):
@@ -73,7 +74,7 @@ def process_lines(server, raw_lines):
     try:
         batch_resps = iter(server.handle_batch(reqs))
     except Exception as e:  # whole-batch failure: retry one by one
-        logging.getLogger("cor_tpu_torch.serve").warning(
+        log.warning(
             "batch dispatch failed (%s: %s); retrying requests singly", type(e).__name__, e,
         )
 
@@ -132,7 +133,7 @@ def main(argv=None):
             parser.error(f"{flag} is not ported to cor_tpu_torch yet: {item}")
 
     from cor_tpu_torch.config import EvalConfig, load_eval_config
-    from cor_tpu_torch.models.core_model import init_decode_model, init_support_branch
+    from cor_tpu_torch.models.core_model import describe, init_decode_model, init_support_branch
     from cor_tpu_torch.retrieval.index import load_gallery_index
     from cor_tpu_torch.retrieval.serve import RetrievalServer
 
@@ -159,6 +160,10 @@ def main(argv=None):
         parser.error(str(e))
     max_batch = max(1, args.max_batch)
     server.warmup(batch_buckets=power_of_two_buckets(max_batch))
+    log.info("serving %s on %s: gallery %d rows, k %d, %s scan, masks %s", describe(core_cfg),
+             args.device, len(index["pair_ids"]), args.k, "int8" if args.int8 else "fp32",
+             ("int8 store on the device" if args.store_hbm else "host-streamed store")
+             if args.decode_masks else "off")
 
     if args.self_test:
         for start in range(0, args.self_test, max_batch):
@@ -166,6 +171,8 @@ def main(argv=None):
                     for i in range(start, min(start + max_batch, args.self_test))]
             for resp in server.handle_batch(reqs):
                 print(json.dumps(resp), flush=True)
+        log.info("self-test: answered %d requests; %d encoded batches, warmup included",
+                 args.self_test, server.batches_encoded)
         return server
 
     # a reader thread drains stdin into a bounded queue, so the loop can

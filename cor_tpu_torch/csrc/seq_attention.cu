@@ -1,34 +1,48 @@
-// Whole-sequence multi-head self-attention read straight off a fused QKV
-// tensor: out[b, n, h*D:(h+1)*D] = softmax(q_h k_h^T / sqrt(D)) v_h.
+// Whole-sequence multi-head self-attention, out_h = softmax(q_h k_h^T / sqrt(D)) v_h
+// for every head h of every batch row, with head_dim D in {64, 72, 80}.
 //
-// Replaces the TPU kernel cor_tpu/ops/pallas/seq_attention.py:
-// attention_seq_qkv_pallas (_qkv_pair_call, its pallas_call at line 99). As
-// there, q, k and v of head h are read in place from qkv [B, N, 3C] at
-// column offsets h*D, C + h*D and 2C + h*D, and the output is written into
-// [B, N, C] at h*D with the heads already merged for the out-projection:
-// no transposes and no [B, H, N, N] logits ever reach device memory.
+// Replaces the TPU kernels of cor_tpu/ops/pallas/seq_attention.py:
+//  - attention_seq_qkv_pallas (_qkv_pair_call, its pallas_call at line 99),
+//    head_dim 64: q, k and v of head h are read in place from qkv [B, N, 3C]
+//    at column offsets h*D, C + h*D and 2C + h*D, and the output is written
+//    into [B, N, C] at h*D with the heads already merged for the
+//    out-projection;
+//  - attention_seq_pallas (_attention_padded, its pallas_call at line 49):
+//    the same over [B, H, N, D] operands, the TPU's route for head dims that
+//    do not tile its 128 lanes (ViT-SO400M-14-SigLIP-384: 16 heads of 72).
+//    cor_tpu transposes the fused QKV to [B, H, N, D] for it; here one kernel
+//    takes both layouts through strides, so the towers at head_dim 72 read
+//    the fused QKV in place too.
+// No transposes and no [B, H, N, N] logits ever reach device memory.
 //
-// What bounds it on the H100: at the SigLIP towers' shapes (N = 576 or 64,
-// D = 64) a (batch, head) pair is 4 * N^2 * D flops on 3 * N * D * 2 bytes,
-// about 280 flop/byte at N = 576, next to the card's ~295 flop/byte ridge,
-// and the products are small (64 x 64 x 64 tiles). So both the bytes and the
+// What bounds it on the H100: at the SigLIP towers' shapes (N = 576, 729 or
+// 64) a (batch, head) pair is 4 * N^2 * D flops on 4 * N * D * 2 bytes,
+// about 290 flop/byte at N = 576, next to the card's ~295 flop/byte ridge,
+// and the products are small (64 x 64 x D tiles). So both the bytes and the
 // rate of small matrix products count. The design:
 //  - one block of 4 warps per (64-query tile, head, batch); each warp owns 16
-//    query rows, so the vision tower at B = 16 launches 9 * 12 * 16 = 1,728
-//    blocks and fills the 132 SMs many times over;
+//    query rows, so the SO400M vision tower at B = 16 launches
+//    12 * 16 * 16 = 3,072 blocks and fills the 132 SMs many times over;
 //  - K and V of the (batch, head) stream through shared memory in 64-key
-//    tiles with 16-byte loads (V is stored transposed there so that its
-//    tensor-core operand is one 32-bit shared load per register);
+//    tiles with 16-byte loads (a row of D bf16 is D / 8 of them: 9 at 72);
+//    V is stored transposed there so that its tensor-core operand is one
+//    32-bit shared load per register;
 //  - logits and P.V run on the tensor cores with mma.sync m16n8k16 bf16 and
-//    fp32 accumulation; the softmax is online (flash-style) in fp32, in the
-//    log2 domain, with the row max and row sum reduced across the four lanes
-//    that share a row;
+//    fp32 accumulation. The logits' product runs over D rounded up to the
+//    mma's k of 16: at D = 72 a fifth k-step reads columns 72..79 of the Q
+//    and K tiles, which are zero in shared memory, so it adds exactly 0.
+//    P.V is D / 8 n-tiles of 8 (9 at 72, 10 at 80);
+//  - the softmax is online (flash-style) in fp32, in the log2 domain, with
+//    the row max and row sum reduced across the four lanes that share a row;
 //  - P is rounded to bf16 before P.V, as the TPU kernel rounds its
 //    probabilities to the compute dtype; here P is unnormalised and the
 //    division by the row sum happens once, in fp32, at the end.
-// Padded shared-memory rows (72 bf16) keep the fragment loads free of bank
-// conflicts. Ragged N is masked: keys past N get -inf logits, query rows past
-// N are computed on zeros and not stored. wgmma and TMA are left for later.
+// Padded shared-memory rows keep the fragment loads free of bank conflicts:
+// the Q and K tiles' rows are 72 bf16 (36 words) at D = 64 and 88 bf16 (44
+// words) at D = 72 and 80, where 80 (40 words) would put fragment rows g and
+// g + 4 on one bank; V^T's rows hold 64 keys and are 72 bf16 at every D.
+// Ragged N is masked: keys past N get -inf logits, query rows past N are
+// computed on zeros and not stored. wgmma and TMA are left for later.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,11 +51,19 @@
 
 namespace {
 
-constexpr int kD = 64;         // head_dim this kernel takes
 constexpr int kBQ = 64;        // query rows per block (16 per warp)
 constexpr int kBK = 64;        // keys per shared-memory tile
-constexpr int kLds = kD + 8;   // padded shared row stride, in bf16 elements
+constexpr int kLdv = kBK + 8;  // padded row stride of the V^T tile [d][key], in bf16
 constexpr int kThreads = 128;  // 4 warps
+
+// the shapes that follow from the head_dim D
+template <int D>
+struct HeadDim {
+  static_assert(D % 8 == 0, "a row of D bf16 is whole 16-byte chunks");
+  static constexpr int kDk = (D + 15) / 16 * 16;  // the logits' product depth
+  static constexpr int kLdq = D == 64 ? 72 : 88;  // row stride of the Q and K tiles
+  static_assert(kLdq >= kDk && (kLdq / 2) % 8 == 4, "conflict-free fragment rows");
+};
 
 __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
                                                uint32_t b1) {
@@ -63,12 +85,20 @@ __device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// q, k, v: element (b, h, n, d) at b * in_b + h * in_h + n * in_n + d (the
+// three share strides); out: at b * out_b + h * out_h + n * out_n + d.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-seq_attention_qkv_kernel(const uint16_t* __restrict__ qkv, uint16_t* __restrict__ out,
-                         int N, int C, float scale_log2) {
-  __shared__ __align__(16) uint16_t sQ[kBQ * kLds];
-  __shared__ __align__(16) uint16_t sK[kBK * kLds];   // [key][d]
-  __shared__ __align__(16) uint16_t sVt[kD * kLds];   // [d][key]
+seq_attention_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                     const uint16_t* __restrict__ v, uint16_t* __restrict__ out, int N,
+                     int64_t in_b, int64_t in_h, int64_t in_n, int64_t out_b, int64_t out_h,
+                     int64_t out_n, float scale_log2) {
+  constexpr int kDk = HeadDim<D>::kDk;
+  constexpr int kLdq = HeadDim<D>::kLdq;
+  constexpr int kChunks = kDk / 8;  // 16-byte chunks of a tile row, the zero pad included
+  __shared__ __align__(16) uint16_t sQ[kBQ * kLdq];
+  __shared__ __align__(16) uint16_t sK[kBK * kLdq];  // [key][d]
+  __shared__ __align__(16) uint16_t sVt[D * kLdv];   // [d][key]
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -78,55 +108,59 @@ seq_attention_qkv_kernel(const uint16_t* __restrict__ qkv, uint16_t* __restrict_
   const int lane = tid & 31;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
-  const int64_t row_stride = 3LL * C;
-  const uint16_t* base = qkv + static_cast<int64_t>(b) * N * row_stride + h * kD;
+  const int64_t head = b * in_b + h * in_h;
+  const uint16_t* qh = q + head;
+  const uint16_t* kh = k + head;
+  const uint16_t* vh = v + head;
 
-  // Q tile -> shared (rows past N are zero)
-  for (int i = tid; i < kBQ * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8);
-    const int c8 = (i % (kD / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < N) v = *reinterpret_cast<const uint4*>(base + (q0 + r) * row_stride + c8);
-    *reinterpret_cast<uint4*>(&sQ[r * kLds + c8]) = v;
+  // Q tile -> shared (rows past N and columns past D are zero)
+  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c8 = (i % kChunks) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (c8 < D && q0 + r < N)
+      val = *reinterpret_cast<const uint4*>(qh + (q0 + r) * in_n + c8);
+    *reinterpret_cast<uint4*>(&sQ[r * kLdq + c8]) = val;
   }
   __syncthreads();
 
   // this warp's 16 query rows as m16k16 A fragments, one per 16 columns of D
   const int wr = warp * 16;
-  uint32_t qa[kD / 16][4];
+  uint32_t qa[kDk / 16][4];
 #pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc) {
-    const uint16_t* p = sQ + (wr + g) * kLds + kc * 16 + 2 * t;
+  for (int kc = 0; kc < kDk / 16; ++kc) {
+    const uint16_t* p = sQ + (wr + g) * kLdq + kc * 16 + 2 * t;
     qa[kc][0] = lds32(p);
-    qa[kc][1] = lds32(p + 8 * kLds);
+    qa[kc][1] = lds32(p + 8 * kLdq);
     qa[kc][2] = lds32(p + 8);
-    qa[kc][3] = lds32(p + 8 * kLds + 8);
+    qa[kc][3] = lds32(p + 8 * kLdq + 8);
   }
 
-  float o[kD / 8][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 domain
   float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
 
   for (int k0 = 0; k0 < N; k0 += kBK) {
     __syncthreads();  // the previous K/V tile is fully consumed
-    for (int i = tid; i < kBK * (kD / 8); i += kThreads) {
-      const int r = i / (kD / 8);
-      const int c8 = (i % (kD / 8)) * 8;
+    for (int i = tid; i < kBK * kChunks; i += kThreads) {
+      const int r = i / kChunks;
+      const int c8 = (i % kChunks) * 8;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u);
       uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < N) {
-        const uint16_t* rowp = base + (k0 + r) * row_stride + c8;
-        kv = *reinterpret_cast<const uint4*>(rowp + C);
-        vv = *reinterpret_cast<const uint4*>(rowp + 2 * C);
+      if (c8 < D && k0 + r < N) {
+        kv = *reinterpret_cast<const uint4*>(kh + (k0 + r) * in_n + c8);
+        vv = *reinterpret_cast<const uint4*>(vh + (k0 + r) * in_n + c8);
       }
-      *reinterpret_cast<uint4*>(&sK[r * kLds + c8]) = kv;
-      const uint32_t w[4] = {vv.x, vv.y, vv.z, vv.w};
+      *reinterpret_cast<uint4*>(&sK[r * kLdq + c8]) = kv;
+      if (c8 < D) {
+        const uint32_t w[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sVt[(c8 + 2 * j) * kLds + r] = static_cast<uint16_t>(w[j] & 0xffffu);
-        sVt[(c8 + 2 * j + 1) * kLds + r] = static_cast<uint16_t>(w[j] >> 16);
+        for (int j = 0; j < 4; ++j) {
+          sVt[(c8 + 2 * j) * kLdv + r] = static_cast<uint16_t>(w[j] & 0xffffu);
+          sVt[(c8 + 2 * j + 1) * kLdv + r] = static_cast<uint16_t>(w[j] >> 16);
+        }
       }
     }
     __syncthreads();
@@ -137,8 +171,8 @@ seq_attention_qkv_kernel(const uint16_t* __restrict__ qkv, uint16_t* __restrict_
     for (int n = 0; n < kBK / 8; ++n) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < kD / 16; ++kc) {
-        const uint16_t* p = sK + (n * 8 + g) * kLds + kc * 16 + 2 * t;
+      for (int kc = 0; kc < kDk / 16; ++kc) {
+        const uint16_t* p = sK + (n * 8 + g) * kLdq + kc * 16 + 2 * t;
         mma_bf16_16816(s[n], qa[kc], lds32(p), lds32(p + 8));
       }
     }
@@ -150,9 +184,9 @@ seq_attention_qkv_kernel(const uint16_t* __restrict__ qkv, uint16_t* __restrict_
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + n * 8 + 2 * t + (e & 1);
-        const float v = key < N ? s[n][e] * scale_log2 : -INFINITY;
-        s[n][e] = v;
-        mt[e >> 1] = fmaxf(mt[e >> 1], v);
+        const float val = key < N ? s[n][e] * scale_log2 : -INFINITY;
+        s[n][e] = val;
+        mt[e >> 1] = fmaxf(mt[e >> 1], val);
       }
     }
     float alpha[2];
@@ -166,7 +200,7 @@ seq_attention_qkv_kernel(const uint16_t* __restrict__ qkv, uint16_t* __restrict_
       l_run[r] *= alpha[r];
     }
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       o[n][0] *= alpha[0];
       o[n][1] *= alpha[0];
       o[n][2] *= alpha[1];
@@ -191,10 +225,10 @@ seq_attention_qkv_kernel(const uint16_t* __restrict__ qkv, uint16_t* __restrict_
 
     // O += P V: B[key][d] = V[key][d], read from the transposed tile
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
       for (int kc = 0; kc < kBK / 16; ++kc) {
-        const uint16_t* p = sVt + (n * 8 + g) * kLds + kc * 16 + 2 * t;
+        const uint16_t* p = sVt + (n * 8 + g) * kLdv + kc * 16 + 2 * t;
         mma_bf16_16816(o[n], pa[kc], lds32(p), lds32(p + 8));
       }
     }
@@ -209,31 +243,54 @@ seq_attention_qkv_kernel(const uint16_t* __restrict__ qkv, uint16_t* __restrict_
   }
   const int qa_row = q0 + wr + g;
   const int qb_row = qa_row + 8;
-  uint16_t* out_h = out + static_cast<int64_t>(b) * N * C + h * kD + 2 * t;
+  uint16_t* dst = out + b * out_b + h * out_h + 2 * t;
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     if (qa_row < N)
-      *reinterpret_cast<uint32_t*>(out_h + static_cast<int64_t>(qa_row) * C + n * 8) =
+      *reinterpret_cast<uint32_t*>(dst + qa_row * out_n + n * 8) =
           pack_bf16x2(o[n][0] * inv[0], o[n][1] * inv[0]);
     if (qb_row < N)
-      *reinterpret_cast<uint32_t*>(out_h + static_cast<int64_t>(qb_row) * C + n * 8) =
+      *reinterpret_cast<uint32_t*>(dst + qb_row * out_n + n * 8) =
           pack_bf16x2(o[n][2] * inv[1], o[n][3] * inv[1]);
   }
 }
 
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int N,
+           int64_t in_b, int64_t in_h, int64_t in_n, int64_t out_b, int64_t out_h,
+           int64_t out_n, void* stream) {
+  const dim3 grid((N + kBQ - 1) / kBQ, H, B);
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  seq_attention_kernel<D><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), N, in_b, in_h, in_n, out_b,
+      out_h, out_n, scale_log2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// qkv: [B, N, 3C] bf16 contiguous, 16-byte aligned, C = num_heads * 64,
-// C % 8 == 0. out: [B, N, C] bf16 contiguous. Returns the launch's
-// cudaError_t (cudaErrorInvalidValue for shapes the kernel does not take).
-extern "C" int cor_seq_attention_qkv(const void* qkv, void* out, int B, int N, int C,
-                                     int num_heads, void* stream) {
-  if (B < 1 || N < 1 || num_heads < 1 || C != num_heads * kD || B > 65535 ||
-      num_heads > 65535)
-    return cudaErrorInvalidValue;
-  const dim3 grid((N + kBQ - 1) / kBQ, num_heads, B);
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(kD));
-  seq_attention_qkv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(qkv), static_cast<uint16_t*>(out), N, C, scale_log2);
-  return cudaGetLastError();
+// q, k, v: bf16, element (b, h, n, d) of each at b * in_b + h * in_h + n * in_n
+// + d, every row 16-byte aligned (pointers 16-byte aligned, strides multiples
+// of 8). out: bf16, element (b, h, n, d) at b * out_b + h * out_h + n * out_n
+// + d, rows 4-byte aligned. D in {64, 72, 80}. The fused QKV [B, N, 3C] is
+// q = qkv, k = qkv + C, v = qkv + 2C with strides (N * 3C, D, 3C) into an out
+// [B, N, C] of strides (N * C, D, C); [B, H, N, D] operands have strides
+// (H * N * D, N * D, D). Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for shapes the kernel does not take).
+extern "C" int cor_seq_attention(const void* q, const void* k, const void* v, void* out, int B,
+                                 int H, int N, int D, long long in_b, long long in_h,
+                                 long long in_n, long long out_b, long long out_h,
+                                 long long out_n, void* stream) {
+  if (B < 1 || H < 1 || N < 1 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return launch<64>(q, k, v, out, B, H, N, in_b, in_h, in_n, out_b, out_h, out_n, stream);
+    case 72:
+      return launch<72>(q, k, v, out, B, H, N, in_b, in_h, in_n, out_b, out_h, out_n, stream);
+    case 80:
+      return launch<80>(q, k, v, out, B, H, N, in_b, in_h, in_n, out_b, out_h, out_n, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -17,19 +17,24 @@
 // What bounds it on the H100: a global block does 4 N^2 D flops per (image,
 // head) on ~(3 N D + 2 N 64 + N D) * 2 bytes, ~1,500 flop/byte at N = 4096,
 // far above the card's ~295 flop/byte ridge: bound by operations (51.5 GFLOP
-// per image over 12 heads, 0.052 ms at the bf16 peak). A 14 x 14 window
-// (N = 196) does ~60 flop/byte: bound by bytes. The design is the port's K4
-// (csrc/seq_attention.cu) with the bias:
+// per SAM-base image over 12 heads of 64, 0.052 ms at the bf16 peak; 85.9
+// GFLOP per sam_huge image over 16 heads of 80). A 14 x 14 window (N = 196)
+// does ~60 flop/byte: bound by bytes. The design is the port's K4
+// (csrc/seq_attention.cu) with the bias, templated on the head_dim D
+// (64: SAM-base and SAM-large; 80: sam_huge):
 //  - one block of 4 warps per (64-query tile, head, image or window); each
 //    warp owns 16 query rows;
 //  - q is scaled and rounded to bf16 as it is staged in shared memory (the
-//    TPU kernel's q * scale in the compute dtype); the tile's rel_h and rel_w
-//    rows ([64][H], [64][W] bf16) are staged beside it once;
+//    TPU kernel's q * scale in the compute dtype, scale = D^-1/2 of the true
+//    D: cor_tpu lane-pads 80 to 128 for its kernel and passes 80^-1/2); the
+//    tile's rel_h and rel_w rows ([64][H], [64][W] bf16) are staged beside it
+//    once;
 //  - K and V stream through shared memory in 64-key tiles with 16-byte loads
 //    (V transposed there, so its tensor-core operand is one 32-bit load);
-//  - logits and P.V on mma.sync m16n8k16, bf16 in, fp32 accumulate; the bias
-//    is added in fp32; each lane steps the grid (row, column) of its keys
-//    through the tile instead of dividing per key;
+//  - logits and P.V on mma.sync m16n8k16, bf16 in, fp32 accumulate (D / 16
+//    k-steps for the logits, D / 8 n-tiles for P.V); the bias is added in
+//    fp32; each lane steps the grid (row, column) of its keys through the
+//    tile instead of dividing per key;
 //  - online softmax in fp32 in the log2 domain, shifted by the running row
 //    max (the TPU kernel shifts by the column mean of its concatenated keys:
 //    the same function); P rounded to bf16 before P.V, as the TPU kernel
@@ -37,8 +42,12 @@
 //    end;
 //  - keys j >= N (the tail of the last tile: 196 = 3 * 64 + 4) are masked.
 //    The zero tokens that window_partition pads in are real keys and are not.
-// Shared memory: five [64][72] bf16 tiles, 45 KiB, under the static 48 KiB.
-// wgmma, TMA and a pipelined K/V ring are left for later.
+// Shared memory, dynamic: Q and K tiles [64][72] bf16 at D = 64 and [64][88]
+// at D = 80 (a row of 40 words would put fragment rows g and g + 4 on one
+// bank; 44 words do not), V^T [D][72], the bias rows 2 x [64][72]: 46,080
+// bytes at 64 and 52,480 at 80, above the 48 KiB a launch gets without
+// cudaFuncSetAttribute. wgmma, TMA and a pipelined K/V ring are left for
+// later.
 
 #include "decoder_common.cuh"
 
@@ -49,14 +58,23 @@ using cor::lds32;
 using cor::mma_bf16_16816;
 using cor::pack_bf16x2;
 
-constexpr int kD = 64;         // head_dim this kernel takes
 constexpr int kBQ = 64;        // query rows per block (16 per warp)
 constexpr int kBK = 64;        // keys per shared-memory tile
-constexpr int kLds = kD + 8;   // padded shared row stride, in bf16 elements
+constexpr int kLdv = kBK + 8;  // padded row stride of the V^T tile [d][key], in bf16
 constexpr int kMaxSide = 64;   // H, W <= 64
 constexpr int kLdr = kMaxSide + 8;  // padded stride of the staged bias rows
 constexpr int kThreads = 128;  // 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the shapes that follow from the head_dim D (64 or 80: whole m16n8k16 k-steps)
+template <int D>
+struct HeadDim {
+  static_assert(D % 16 == 0, "the logits' product runs in k-steps of 16");
+  static constexpr int kLdq = D == 64 ? 72 : 88;  // row stride of the Q and K tiles
+  static_assert(kLdq >= D && (kLdq / 2) % 8 == 4, "conflict-free fragment rows");
+  // sQ, sK [64][kLdq]; sVt [D][kLdv]; sRh, sRw [64][kLdr]
+  static constexpr int kSmem = (2 * kBQ * kLdq + D * kLdv + 2 * kBQ * kLdr) * 2;
+};
 
 // two bf16 in one 32-bit word, each times s, rounded back to bf16
 __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float s) {
@@ -64,15 +82,18 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float s) {
                      bf2f(static_cast<uint16_t>(w >> 16)) * s);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __restrict__ rel_h,
                             const uint16_t* __restrict__ rel_w, uint16_t* __restrict__ out,
                             int N, int C, int H, int W, float scale) {
-  __shared__ __align__(16) uint16_t sQ[kBQ * kLds];
-  __shared__ __align__(16) uint16_t sK[kBK * kLds];   // [key][d]
-  __shared__ __align__(16) uint16_t sVt[kD * kLds];   // [d][key]
-  __shared__ __align__(16) uint16_t sRh[kBQ * kLdr];  // [query][key grid row]
-  __shared__ __align__(16) uint16_t sRw[kBQ * kLdr];  // [query][key grid column]
+  constexpr int kLds = HeadDim<D>::kLdq;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* sK = sQ + kBQ * kLds;    // [key][d]
+  uint16_t* sVt = sK + kBK * kLds;   // [d][key]
+  uint16_t* sRh = sVt + D * kLdv;    // [query][key grid row]
+  uint16_t* sRw = sRh + kBQ * kLdr;  // [query][key grid column]
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -83,12 +104,12 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
   const int64_t row_stride = 3LL * C;
-  const uint16_t* base = qkv + static_cast<int64_t>(b) * N * row_stride + h * kD;
+  const uint16_t* base = qkv + static_cast<int64_t>(b) * N * row_stride + h * D;
 
   // Q tile, scaled and rounded to bf16 -> shared (rows past N are zero)
-  for (int i = tid; i < kBQ * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8);
-    const int c8 = (i % (kD / 8)) * 8;
+  for (int i = tid; i < kBQ * (D / 8); i += kThreads) {
+    const int r = i / (D / 8);
+    const int c8 = (i % (D / 8)) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (q0 + r < N) {
       v = *reinterpret_cast<const uint4*>(base + (q0 + r) * row_stride + c8);
@@ -111,9 +132,9 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
 
   // this warp's 16 query rows as m16k16 A fragments, one per 16 columns of D
   const int wr = warp * 16;
-  uint32_t qa[kD / 16][4];
+  uint32_t qa[D / 16][4];
 #pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc) {
+  for (int kc = 0; kc < D / 16; ++kc) {
     const uint16_t* p = sQ + (wr + g) * kLds + kc * 16 + 2 * t;
     qa[kc][0] = lds32(p);
     qa[kc][1] = lds32(p + 8 * kLds);
@@ -126,17 +147,17 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   const uint16_t* rh1 = rh0 + 8 * kLdr;
   const uint16_t* rw1 = rw0 + 8 * kLdr;
 
-  float o[kD / 8][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 domain
   float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
 
   for (int k0 = 0; k0 < N; k0 += kBK) {
     __syncthreads();  // the previous K/V tile is fully consumed
-    for (int i = tid; i < kBK * (kD / 8); i += kThreads) {
-      const int r = i / (kD / 8);
-      const int c8 = (i % (kD / 8)) * 8;
+    for (int i = tid; i < kBK * (D / 8); i += kThreads) {
+      const int r = i / (D / 8);
+      const int c8 = (i % (D / 8)) * 8;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u);
       uint4 vv = make_uint4(0u, 0u, 0u, 0u);
       if (k0 + r < N) {
@@ -148,8 +169,8 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
       const uint32_t w[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        sVt[(c8 + 2 * j) * kLds + r] = static_cast<uint16_t>(w[j] & 0xffffu);
-        sVt[(c8 + 2 * j + 1) * kLds + r] = static_cast<uint16_t>(w[j] >> 16);
+        sVt[(c8 + 2 * j) * kLdv + r] = static_cast<uint16_t>(w[j] & 0xffffu);
+        sVt[(c8 + 2 * j + 1) * kLdv + r] = static_cast<uint16_t>(w[j] >> 16);
       }
     }
     __syncthreads();
@@ -160,7 +181,7 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
     for (int n = 0; n < kBK / 8; ++n) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < kD / 16; ++kc) {
+      for (int kc = 0; kc < D / 16; ++kc) {
         const uint16_t* p = sK + (n * 8 + g) * kLds + kc * 16 + 2 * t;
         mma_bf16_16816(s[n], qa[kc], lds32(p), lds32(p + 8));
       }
@@ -211,7 +232,7 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
       l_run[r] *= alpha[r];
     }
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       o[n][0] *= alpha[0];
       o[n][1] *= alpha[0];
       o[n][2] *= alpha[1];
@@ -236,10 +257,10 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
 
     // O += P V: B[key][d] = V[key][d], read from the transposed tile
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
       for (int kc = 0; kc < kBK / 16; ++kc) {
-        const uint16_t* p = sVt + (n * 8 + g) * kLds + kc * 16 + 2 * t;
+        const uint16_t* p = sVt + (n * 8 + g) * kLdv + kc * 16 + 2 * t;
         mma_bf16_16816(o[n], pa[kc], lds32(p), lds32(p + 8));
       }
     }
@@ -254,9 +275,9 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   }
   const int qa_row = q0 + wr + g;
   const int qb_row = qa_row + 8;
-  uint16_t* out_h = out + static_cast<int64_t>(b) * N * C + h * kD + 2 * t;
+  uint16_t* out_h = out + static_cast<int64_t>(b) * N * C + h * D + 2 * t;
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     if (qa_row < N)
       *reinterpret_cast<uint32_t*>(out_h + static_cast<int64_t>(qa_row) * C + n * 8) =
           pack_bf16x2(o[n][0] * inv[0], o[n][1] * inv[0]);
@@ -266,22 +287,40 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   }
 }
 
-}  // namespace
-
-// qkv: [B, N, 3C] bf16 contiguous, 16-byte aligned, C = num_heads * 64.
-// rel_h: [B, num_heads, N, H], rel_w: [B, num_heads, N, W] bf16 contiguous,
-// N = H * W, H and W <= 64. out: [B, N, C] bf16 contiguous. Returns the
-// launch's cudaError_t (cudaErrorInvalidValue for shapes the kernel does not
-// take).
-extern "C" int cor_vit_attention_relpos(const void* qkv, const void* rel_h, const void* rel_w,
-                                        void* out, int B, int N, int C, int num_heads, int H,
-                                        int W, float scale, void* stream) {
-  if (B < 1 || N < 1 || num_heads < 1 || C != num_heads * kD || B > 65535 ||
-      num_heads > 65535 || H < 1 || W < 1 || H > kMaxSide || W > kMaxSide || H * W != N)
-    return cudaErrorInvalidValue;
+template <int D>
+int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out, int B, int N, int C,
+           int num_heads, int H, int W, float scale, void* stream) {
+  constexpr int smem = HeadDim<D>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      vit_attention_relpos_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((N + kBQ - 1) / kBQ, num_heads, B);
-  vit_attention_relpos_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  vit_attention_relpos_kernel<D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(qkv), static_cast<const uint16_t*>(rel_h),
       static_cast<const uint16_t*>(rel_w), static_cast<uint16_t*>(out), N, C, H, W, scale);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// qkv: [B, N, 3C] bf16 contiguous, 16-byte aligned, C = num_heads * D with D
+// in {64, 80}. rel_h: [B, num_heads, N, H], rel_w: [B, num_heads, N, W] bf16
+// contiguous, N = H * W, H and W <= 64. out: [B, N, C] bf16 contiguous.
+// scale: D^-1/2. Returns the launch's cudaError_t (cudaErrorInvalidValue for
+// shapes the kernel does not take; a refused shared-memory size or launch as
+// the runtime reports it).
+extern "C" int cor_vit_attention_relpos(const void* qkv, const void* rel_h, const void* rel_w,
+                                        void* out, int B, int N, int C, int num_heads, int H,
+                                        int W, float scale, void* stream) {
+  if (B < 1 || N < 1 || num_heads < 1 || C % num_heads != 0 || B > 65535 ||
+      num_heads > 65535 || H < 1 || W < 1 || H > kMaxSide || W > kMaxSide || H * W != N)
+    return cudaErrorInvalidValue;
+  switch (C / num_heads) {
+    case 64:
+      return launch<64>(qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, stream);
+    case 80:
+      return launch<80>(qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

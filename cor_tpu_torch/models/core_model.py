@@ -92,6 +92,16 @@ class CoreConfig:
         return dt
 
 
+def describe(cfg: CoreConfig) -> str:
+    """What a config runs, for the entry points' logs: the SigLIP towers and
+    the SAM image encoder by name, width, depth and heads, and the dtype."""
+    vis, enc = cfg.support.siglip.vision, cfg.encoder
+    return (f"{cfg.support.siglip_model} (width {vis.width}, {vis.depth} layers, "
+            f"{vis.num_heads} heads of {vis.width // vis.num_heads}, grid {vis.grid}) + "
+            f"{cfg.sam_model} (embed {enc.embed_dim}, {enc.depth} blocks, {enc.num_heads} heads "
+            f"of {enc.embed_dim // enc.num_heads}), {cfg.compute_dtype}")
+
+
 def init_support_branch(cfg: CoreConfig, seed: int) -> SupportBranch:
     """The support branch with the port's own seeded init (fp32 master
     weights): the distributions and shapes of ``cor_tpu``'s init functions,

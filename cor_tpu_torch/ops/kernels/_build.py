@@ -35,9 +35,10 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, _VP,
     ),
-    # qkv, out, B, N, C, num_heads, stream
-    "cor_seq_attention_qkv": (
-        _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP,
+    # q, k, v, out, B, H, N, D, in_b, in_h, in_n, out_b, out_h, out_n, stream
+    "cor_seq_attention": (
+        _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        *(ctypes.c_longlong,) * 6, _VP,
     ),
     # qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, stream
     "cor_vit_attention_relpos": (

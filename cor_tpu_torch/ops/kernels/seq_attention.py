@@ -1,21 +1,30 @@
-"""Sequence self-attention off a fused QKV tensor: the CUDA kernel
-``csrc/seq_attention.cu`` and its plain PyTorch version.
+"""Sequence self-attention: the CUDA kernel ``csrc/seq_attention.cu`` and its
+plain PyTorch versions, through two entries.
 
-Replaces ``cor_tpu/ops/pallas/seq_attention.py:attention_seq_qkv_pallas``
-(the ``pallas_call`` in ``_qkv_pair_call``): softmax(q k^T / sqrt(D)) v for
-every head, read straight from ``qkv`` [B, N, 3C] laid out (q | k | v) with
-heads contiguous inside each third, written to [B, N, C] with the heads
-merged. Logits and softmax in fp32; probabilities rounded to the compute
-dtype before the product with v.
+- ``attention_seq_qkv`` replaces
+  ``cor_tpu/ops/pallas/seq_attention.py:attention_seq_qkv_pallas`` (the
+  ``pallas_call`` in ``_qkv_pair_call``): softmax(q k^T / sqrt(D)) v for
+  every head, read straight from ``qkv`` [B, N, 3C] laid out (q | k | v)
+  with heads contiguous inside each third, written to [B, N, C] with the
+  heads merged. The SigLIP towers call it at every head_dim.
+- ``attention_seq`` replaces ``attention_seq_pallas`` (the ``pallas_call``
+  in ``_attention_padded``, K4′): the same over q, k, v [B, H, N, D] ->
+  [B, H, N, D], ``cor_tpu``'s route for head dims that do not tile the TPU's
+  128 lanes (ViT-SO400M-14-SigLIP-384: 72). Here both entries launch one
+  kernel with the operands' strides; ``cor_tpu`` transposes the fused QKV
+  for its K4′, the port's towers do not.
+
+Logits and softmax in fp32; probabilities rounded to the compute dtype before
+the product with v; the scale is 1/sqrt(D) of the true D.
 
 On the H100 the kernel is bound by bytes and by the rate of small (64 x 64)
 matrix products; it reads q/k/v in place and keeps logits out of memory
 (tensor-core mma.sync, online softmax). See the source for the design.
 
-``attention_seq_qkv`` takes the plain version for a tensor on the CPU, and
-the kernel for a CUDA tensor. The kernel takes bf16 with head_dim 64; any
-other CUDA input raises (head_dim 72 of SO400M and 80 are not ported yet).
-It never falls back from the kernel to the plain version. Where autograd
+Each entry takes its plain version for a tensor on the CPU, and the kernel
+for a CUDA tensor. The kernel takes bf16 with head_dim 64 (ViT-B and ViT-L),
+72 (SO400M) or 80; any other CUDA input raises, naming the ROADMAP item. It
+never falls back from the kernel to the plain version. Where autograd
 records the call, the kernel runs forward and the gradient is the plain
 version's, recomputed in the backward (``ops.diff.with_plain_vjp``), as
 ``cor_tpu`` takes it from XLA.
@@ -28,7 +37,8 @@ import torch
 from cor_tpu_torch.ops.diff import needs_grad, with_plain_vjp
 from cor_tpu_torch.ops.kernels._build import check, library
 
-HEAD_DIM = 64  # the only head_dim the kernel takes
+HEAD_DIMS = (64, 72, 80)  # the head dims the kernel takes
+OTHER_HEAD_DIMS_ITEM = "ROADMAP Queue 2, K4′: head dims other than 64, 72 and 80"
 
 
 def attention_seq_qkv_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -37,6 +47,17 @@ def attention_seq_qkv_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
     C = qkv.shape[-1] // 3
     return attention_heads(qkv[..., :C], qkv[..., C : 2 * C], qkv[..., 2 * C :], num_heads)
+
+
+def attention_seq_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int
+) -> torch.Tensor:
+    """The plain PyTorch version of K4′ (cor_tpu ``_kernel`` of
+    ``attention_seq_pallas``): [B, H, N, D] operands -> [B, H, N, D]."""
+    D = q.shape[-1]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / D**0.5)
+    a = torch.softmax(logits, dim=-1).to(q.dtype).float()
+    return torch.einsum("bhqk,bhkd->bhqd", a, v.float()).to(q.dtype)
 
 
 def attention_seq_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -50,35 +71,86 @@ def attention_seq_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return _attention_seq_qkv_kernel(qkv, num_heads)
 
 
+def attention_seq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int
+) -> torch.Tensor:
+    """q, k, v [B, H, N, D] with H = num_heads -> [B, H, N, D]."""
+    if q.device.type == "cpu":
+        return attention_seq_plain(q, k, v, num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_seq: no kernel for device {q.device}")
+    if needs_grad(q, k, v):
+        return _attention_seq_diff(q, k, v, num_heads)
+    return _attention_seq_kernel(q, k, v, num_heads)
+
+
+def _check_head_dim(what: str, width: int, num_heads: int) -> int:
+    if num_heads < 1 or width % num_heads != 0 or width // num_heads not in HEAD_DIMS:
+        raise ValueError(
+            f"{what} kernel takes head_dim {', '.join(map(str, HEAD_DIMS))}; width {width} "
+            f"with {num_heads} heads is not ported ({OTHER_HEAD_DIMS_ITEM})"
+        )
+    return width // num_heads
+
+
+def _check_bf16(what: str, *ts: torch.Tensor) -> None:
+    for x in ts:
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"{what} kernel takes bf16, got {x.dtype}")
+        if not x.is_contiguous() or x.data_ptr() % 16 != 0:
+            raise ValueError(f"{what} kernel takes contiguous, 16-byte aligned operands")
+
+
+def _launch(what: str, q, k, v, out, B, H, N, D, in_strides, out_strides, device) -> None:
+    if not (1 <= B <= 65535 and H <= 65535):
+        raise ValueError(f"{what} kernel: batch {B} / heads {H} out of range")
+    lib = library()
+    with torch.cuda.device(device):
+        err = lib.cor_seq_attention(
+            q, k, v, out, B, H, N, D, *in_strides, *out_strides,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    check(err, what)
+
+
 def _attention_seq_qkv_kernel(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if qkv.dim() != 3 or qkv.shape[-1] % 3 != 0:
         raise ValueError(f"attention_seq_qkv takes qkv [B, N, 3C], got {tuple(qkv.shape)}")
     B, N, C3 = qkv.shape
     C = C3 // 3
-    if C % num_heads != 0 or C // num_heads != HEAD_DIM:
-        raise ValueError(
-            f"attention_seq_qkv kernel takes head_dim {HEAD_DIM}; width {C} with "
-            f"{num_heads} heads is not ported yet (ROADMAP: K4 for other head dims)"
-        )
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"attention_seq_qkv kernel takes bf16, got {qkv.dtype}")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16 != 0:
-        raise ValueError("attention_seq_qkv kernel takes a contiguous, 16-byte aligned qkv")
-    if not (1 <= B <= 65535 and num_heads <= 65535):
-        raise ValueError(f"attention_seq_qkv kernel: batch {B} / heads {num_heads} out of range")
+    D = _check_head_dim("attention_seq_qkv", C, num_heads)
+    _check_bf16("attention_seq_qkv", qkv)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     if N == 0:
         return out
-    lib = library()
-    with torch.cuda.device(qkv.device):
-        err = lib.cor_seq_attention_qkv(
-            qkv.data_ptr(), out.data_ptr(), B, N, C, num_heads,
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
-    check(err, "attention_seq_qkv")
+    base, size = qkv.data_ptr(), qkv.element_size()
+    _launch("attention_seq_qkv", base, base + C * size, base + 2 * C * size, out.data_ptr(),
+            B, num_heads, N, D, (N * C3, D, C3), (N * C, D, C), qkv.device)
     attention_seq_qkv.launches += 1
     return out
 
 
+def _attention_seq_kernel(q, k, v, num_heads: int) -> torch.Tensor:
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or q.shape[1] != num_heads:
+        raise ValueError(
+            f"attention_seq takes q, k, v [B, {num_heads}, N, D] of one shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, N, D = q.shape
+    _check_head_dim("attention_seq", H * D, H)
+    _check_bf16("attention_seq", q, k, v)
+    if not (k.device == v.device == q.device):
+        raise ValueError("attention_seq: q, k and v must be on one device")
+    out = torch.empty_like(q)
+    if N == 0:
+        return out
+    strides = (H * N * D, N * D, D)
+    _launch("attention_seq", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, N,
+            D, strides, strides, q.device)
+    attention_seq.launches += 1
+    return out
+
+
 _attention_seq_qkv_diff = with_plain_vjp(_attention_seq_qkv_kernel, attention_seq_qkv_plain)
+_attention_seq_diff = with_plain_vjp(_attention_seq_kernel, attention_seq_plain)
 attention_seq_qkv.launches = 0
+attention_seq.launches = 0

@@ -39,9 +39,12 @@ keys by their column mean; ``rowsum(dl) = 0`` makes that shift vanish from
 the gradient, so it is left out here.)
 
 Both directions take the plain version for a tensor on the CPU and the
-kernel for a CUDA tensor. The kernels take bf16 with head_dim 64 and
-H, W <= 64; any other CUDA input raises (sam_huge's head_dim 80 is not ported
-yet). They never fall back from a kernel to a plain version.
+kernel for a CUDA tensor. K6 takes bf16 with head_dim 64 (SAM-base and
+SAM-large) or 80 (sam_huge) and H, W <= 64, K6b head_dim 64; any other CUDA
+input raises, naming the ROADMAP item that ports it. Where the backward would
+run on the card at a head_dim K6b does not take (an unfrozen sam_huge step),
+the forward raises already, before any work of the step is spent. They never
+fall back from a kernel to a plain version.
 """
 
 from __future__ import annotations
@@ -50,10 +53,16 @@ from typing import Tuple
 
 import torch
 
+from cor_tpu_torch.ops.diff import needs_grad
 from cor_tpu_torch.ops.kernels._build import check, library
 
-HEAD_DIM = 64  # the only head_dim the kernel takes
 MAX_SIDE = 64  # H, W <= 64: the tile's bias rows are staged in shared memory
+# per kernel: the head dims it takes, and the ROADMAP item that ports others
+HEAD_DIMS = {
+    "vit_attention_relpos": ((64, 80), "ROADMAP Queue 2, K6: head dims other than 64 and 80"),
+    "vit_attention_relpos_bwd": ((64,), "ROADMAP Queue 2, K6b@80: K6b at sam_huge's head_dim "
+                                        "80, for unfrozen training at sam_huge"),
+}
 
 
 def vit_attention_relpos_plain(
@@ -115,18 +124,25 @@ def vit_attention_relpos_bwd_plain(
             dl5.sum(dim=-2).to(rel_w.dtype))
 
 
-def _check(qkv, rel_h, rel_w, num_heads, hw, what: str) -> None:
-    """Raise on what the kernels do not take."""
-    H, W = hw
+def _check_head_dim(qkv, num_heads, what: str) -> int:
+    """The head_dim, or raise if the kernel ``what`` does not take it."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3 != 0:
         raise ValueError(f"{what} takes qkv [B, N, 3C], got {tuple(qkv.shape)}")
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    if C % num_heads != 0 or C // num_heads != HEAD_DIM:
+    C = qkv.shape[-1] // 3
+    dims, item = HEAD_DIMS[what]
+    if num_heads < 1 or C % num_heads != 0 or C // num_heads not in dims:
         raise ValueError(
-            f"{what} kernel takes head_dim {HEAD_DIM}; width {C} with "
-            f"{num_heads} heads is not ported yet (ROADMAP Queue 1, item 6: sam_huge)"
+            f"{what} kernel takes head_dim {' or '.join(map(str, dims))}; width {C} with "
+            f"{num_heads} heads is not ported yet ({item})"
         )
+    return C // num_heads
+
+
+def _check(qkv, rel_h, rel_w, num_heads, hw, what: str) -> int:
+    """The head_dim, or raise on what the kernel ``what`` does not take."""
+    H, W = hw
+    D = _check_head_dim(qkv, num_heads, what)
+    B, N, C3 = qkv.shape
     if N != H * W or not (1 <= H <= MAX_SIDE and 1 <= W <= MAX_SIDE):
         raise ValueError(
             f"{what} kernel takes N = H * W with H, W <= {MAX_SIDE}; got N={N}, "
@@ -146,6 +162,7 @@ def _check(qkv, rel_h, rel_w, num_heads, hw, what: str) -> None:
         raise ValueError(f"{what} kernel takes contiguous inputs, qkv 16-byte aligned")
     if not (1 <= B <= 65535 and num_heads <= 65535):
         raise ValueError(f"{what} kernel: batch {B} / heads {num_heads} out of range")
+    return D
 
 
 def _forward(qkv, rel_h, rel_w, num_heads: int, hw: Tuple[int, int]) -> torch.Tensor:
@@ -154,7 +171,7 @@ def _forward(qkv, rel_h, rel_w, num_heads: int, hw: Tuple[int, int]) -> torch.Te
         return vit_attention_relpos_plain(qkv, rel_h, rel_w, num_heads, hw)
     if qkv.device.type != "cuda":
         raise ValueError(f"vit_attention_relpos: no kernel for device {qkv.device}")
-    _check(qkv, rel_h, rel_w, num_heads, hw, "vit_attention_relpos")
+    D = _check(qkv, rel_h, rel_w, num_heads, hw, "vit_attention_relpos")
     H, W = hw
     B, N, C3 = qkv.shape
     C = C3 // 3
@@ -163,7 +180,7 @@ def _forward(qkv, rel_h, rel_w, num_heads: int, hw: Tuple[int, int]) -> torch.Te
     with torch.cuda.device(qkv.device):
         err = lib.cor_vit_attention_relpos(
             qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
-            B, N, C, num_heads, H, W, float(HEAD_DIM**-0.5),
+            B, N, C, num_heads, H, W, float(D**-0.5),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     check(err, "vit_attention_relpos")
@@ -186,7 +203,7 @@ def vit_attention_relpos_bwd(
         return vit_attention_relpos_bwd_plain(qkv, rel_h, rel_w, do, num_heads, hw)
     if qkv.device.type != "cuda":
         raise ValueError(f"vit_attention_relpos_bwd: no kernel for device {qkv.device}")
-    _check(qkv, rel_h, rel_w, num_heads, hw, "vit_attention_relpos_bwd")
+    D = _check(qkv, rel_h, rel_w, num_heads, hw, "vit_attention_relpos_bwd")
     H, W = hw
     B, N, C3 = qkv.shape
     C = C3 // 3
@@ -202,7 +219,7 @@ def vit_attention_relpos_bwd(
         err = lib.cor_vit_attention_relpos_bwd(
             qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), do.data_ptr(),
             dqkv.data_ptr(), drel_h.data_ptr(), drel_w.data_ptr(), stats.data_ptr(),
-            B, N, C, num_heads, H, W, float(HEAD_DIM**-0.5),
+            B, N, C, num_heads, H, W, float(D**-0.5),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     check(err, "vit_attention_relpos_bwd")
@@ -236,6 +253,11 @@ def vit_attention_relpos(
 ) -> torch.Tensor:
     """qkv [B, N, 3C], rel_h [B, heads, N, H], rel_w [B, heads, N, W] with
     N = H * W -> [B, N, C]; differentiable in all three."""
+    if qkv.device.type != "cpu" and needs_grad(qkv, rel_h, rel_w):
+        # the backward will need K6b: refuse a head_dim it does not take now,
+        # before the step spends its forward
+        _check_head_dim(qkv, num_heads, "vit_attention_relpos")
+        _check_head_dim(qkv, num_heads, "vit_attention_relpos_bwd")
     return _VitAttentionRelpos.apply(qkv, rel_h, rel_w, num_heads, tuple(hw))
 
 

@@ -20,7 +20,12 @@ import pytest
 import torch
 
 from cor_tpu_torch.ops.kernels.layernorm import layer_norm, layer_norm_plain
-from cor_tpu_torch.ops.kernels.seq_attention import attention_seq_qkv, attention_seq_qkv_plain
+from cor_tpu_torch.ops.kernels.seq_attention import (
+    attention_seq,
+    attention_seq_plain,
+    attention_seq_qkv,
+    attention_seq_qkv_plain,
+)
 from cor_tpu_torch.ops.kernels.vit_attention import (
     vit_attention_relpos,
     vit_attention_relpos_bwd,
@@ -183,53 +188,92 @@ def test_layer_norm_kernel_matches_plain_bf16(cuda_device, rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [576, 64, 100])
-def test_attention_seq_qkv_kernel_matches_plain_bf16(cuda_device, n):
+@pytest.mark.parametrize("d,n", [(64, 576), (64, 64), (64, 100), (72, 729), (72, 64), (80, 100)],
+                         ids=["d64-n576", "d64-n64", "d64-n100", "d72-n729", "d72-n64",
+                              "d80-n100"])
+def test_attention_seq_qkv_kernel_matches_plain_bf16(cuda_device, d, n):
+    """K4 / K4′ off the fused QKV at the towers' shapes: ViT-B's 12 heads
+    of 64 (N 576, 64, ragged 100), SO400M's 16 heads of 72 (N 729 =
+    11 * 64 + 25, 64) and 16 heads of 80."""
+    heads = 12 if d == 64 else 16
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    qkv = torch.randn(16, n, 3 * 768, generator=g, device=cuda_device).to(torch.bfloat16)
+    qkv = torch.randn(16, n, 3 * heads * d, generator=g, device=cuda_device).to(torch.bfloat16)
     before = attention_seq_qkv.launches
-    got = attention_seq_qkv(qkv, 12)
+    got = attention_seq_qkv(qkv, heads)
     torch.cuda.synchronize()
     assert attention_seq_qkv.launches == before + 1
     # the online softmax rounds P to bf16 at other places than the plain version
     torch.testing.assert_close(
-        got.float(), attention_seq_qkv_plain(qkv, 12).float(), atol=2e-2, rtol=0
+        got.float(), attention_seq_qkv_plain(qkv, heads).float(), atol=2e-2, rtol=0
     )
 
 
 @pytest.mark.gpu
-def test_attention_seq_qkv_kernel_refuses_other_head_dims(cuda_device):
-    qkv = torch.zeros(1, 8, 3 * 1152, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 64"):
-        attention_seq_qkv(qkv, 16)  # SO400M: head_dim 72
+@pytest.mark.parametrize("d,n", [(72, 729), (80, 100), (64, 64)])
+def test_attention_seq_kernel_matches_plain_bf16(cuda_device, d, n):
+    """K4′'s own entry over [B, H, N, D] (the kernel through strides)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn(4, 16, n, d, generator=g, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    before = attention_seq.launches
+    got = attention_seq(q, k, v, 16)
+    torch.cuda.synchronize()
+    assert attention_seq.launches == before + 1
+    torch.testing.assert_close(got.float(), attention_seq_plain(q, k, v, 16).float(), atol=2e-2,
+                               rtol=0)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,W", [(1, 64, 64), (50, 14, 14)], ids=["global", "windowed"])
-def test_vit_attention_relpos_kernel_matches_plain_bf16(cuda_device, B, H, W):
-    """K6 at SAM-base's shapes: a global block of one image (N = 4096) and
-    the 50 windows of two images (N = 196, the last key tile masked after 4
-    keys). Both round q * scale and P to bf16 at the same points; the
-    online softmax sums in another order: max |d| / max |plain| <= 2e-2."""
+def test_attention_seq_qkv_kernel_refuses_other_head_dims(cuda_device):
+    qkv = torch.zeros(1, 8, 3 * 1536, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2, K4′"):
+        attention_seq_qkv(qkv, 16)  # head_dim 96
+    q = torch.zeros(1, 16, 8, 96, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2, K4′"):
+        attention_seq(q, q, q, 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,d", [(1, 64, 64, 64), (50, 14, 14, 64), (1, 64, 64, 80),
+                                     (50, 14, 14, 80)],
+                         ids=["global", "windowed", "global-d80", "windowed-d80"])
+def test_vit_attention_relpos_kernel_matches_plain_bf16(cuda_device, B, H, W, d):
+    """K6 at SAM-base's shapes (12 heads of 64) and sam_huge's (16 heads of
+    80, scale 80^-1/2, dynamic shared memory): a global block of one image
+    (N = 4096) and the 50 windows of two images (N = 196, the last key tile
+    masked after 4 keys). Both round q * scale and P to bf16 at the same
+    points; the online softmax sums in another order: max |d| / max |plain|
+    <= 2e-2."""
+    heads = 12 if d == 64 else 16
     g = torch.Generator(device=cuda_device).manual_seed(0)
     N, bf = H * W, torch.bfloat16
-    qkv = torch.randn(B, N, 3 * 768, generator=g, device=cuda_device).to(bf)
-    rel_h = (0.3 * torch.randn(B, 12, N, H, generator=g, device=cuda_device)).to(bf)
-    rel_w = (0.3 * torch.randn(B, 12, N, W, generator=g, device=cuda_device)).to(bf)
+    qkv = torch.randn(B, N, 3 * heads * d, generator=g, device=cuda_device).to(bf)
+    rel_h = (0.3 * torch.randn(B, heads, N, H, generator=g, device=cuda_device)).to(bf)
+    rel_w = (0.3 * torch.randn(B, heads, N, W, generator=g, device=cuda_device)).to(bf)
     before = vit_attention_relpos.launches
-    got = vit_attention_relpos(qkv, rel_h, rel_w, 12, (H, W))
+    got = vit_attention_relpos(qkv, rel_h, rel_w, heads, (H, W))
     torch.cuda.synchronize()
     assert vit_attention_relpos.launches == before + 1
-    want = vit_attention_relpos_plain(qkv, rel_h, rel_w, 12, (H, W))
+    want = vit_attention_relpos_plain(qkv, rel_h, rel_w, heads, (H, W))
     assert rel_err(got, want) <= DECODE_REL
 
 
 @pytest.mark.gpu
 def test_vit_attention_relpos_kernel_refuses_other_head_dims(cuda_device):
-    qkv = torch.zeros(1, 16, 3 * 1280, device=cuda_device, dtype=torch.bfloat16)
+    """K6 takes head_dim 64 and 80; K6b only 64, so a forward at 80 whose
+    backward would run refuses at once, naming K6b's ROADMAP item."""
     rel = torch.zeros(1, 16, 16, 4, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 64"):
-        vit_attention_relpos(qkv, rel, rel, 16, (4, 4))  # sam_huge: head_dim 80
+    qkv = torch.zeros(1, 16, 3 * 1536, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims other than 64 and 80"):
+        vit_attention_relpos(qkv, rel, rel, 16, (4, 4))  # head_dim 96
+    qkv = torch.zeros(1, 16, 3 * 1280, device=cuda_device, dtype=torch.bfloat16)
+    out = vit_attention_relpos(qkv, rel, rel, 16, (4, 4))  # sam_huge: head_dim 80
+    assert out.shape == (1, 16, 1280)
+    with pytest.raises(ValueError, match="K6b@80"):
+        vit_attention_relpos(qkv.requires_grad_(), rel, rel, 16, (4, 4))
+    do = torch.zeros(1, 16, 1280, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K6b@80"):
+        vit_attention_relpos_bwd(qkv.detach(), rel, rel, do, 16, (4, 4))
 
 
 # ---------------------------------------------------------------------------

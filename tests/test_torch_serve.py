@@ -211,11 +211,31 @@ def test_cli_refuses_configs_that_name_checkpoints(tmp_path, capsys):
         pcli.main(["--config", str(cfg), "--gallery-index", str(tmp_path)])
 
 
-def test_port_runs_without_jax(tmp_path):
+# the no-jax runs' tiny towers and encoder, as source: head_dim 64 (ViT-B,
+# SAM-base), and the largest configuration's head dims (SO400M's 72 with patch
+# 14 and MLP ratio 3.7362; sam_huge's 80)
+NO_JAX_BASE = """
+    towers = siglip.SigLIPConfig(siglip.SigLIPVisionConfig(32, 16, 128, 1, 2),
+                                 siglip.SigLIPTextConfig(8, 64, 128, 1, 2))
+    adapter = pooling.MaskAdapterConfig(128, 16, 8, 16, 4)
+    enc = core_model.SamEncoderConfig(64, 16, embed_dim=32, depth=2, num_heads=2,
+                                      out_chans=16, window_size=3, global_attn_indexes=(1,))
+"""
+NO_JAX_LARGE = """
+    towers = siglip.SigLIPConfig(siglip.SigLIPVisionConfig(32, 14, 144, 1, 2, 3.7362),
+                                 siglip.SigLIPTextConfig(8, 64, 144, 1, 2, 3.7362))
+    adapter = pooling.MaskAdapterConfig(144, 16, 8, 16, 4)
+    enc = core_model.SamEncoderConfig(64, 16, embed_dim=160, depth=2, num_heads=2,
+                                      out_chans=16, window_size=3, global_attn_indexes=(1,))
+"""
+
+
+def run_without_jax(tmp_path, models: str, train: bool) -> dict:
     """Block jax and cor_tpu, import every module of the port, build a
-    gallery index with ``cli.index`` and serve from it end to end: retrieval
-    alone, and with masks decoded host-streamed and from the int8 store; then
-    train one tiny epoch with ``cli.train``."""
+    gallery index with ``cli.index`` at the tiny config ``models`` and serve
+    from it end to end: retrieval alone, and with masks decoded
+    host-streamed and from the int8 store; with ``train``, then train one
+    tiny epoch with ``cli.train``. Returns the first response."""
     script = textwrap.dedent(f"""
         import contextlib, importlib, io, json, pkgutil, sys
         from pathlib import Path
@@ -231,17 +251,12 @@ def test_port_runs_without_jax(tmp_path):
             core_model, pooling, prompt_encoder, sam_decoder, siglip, support_branch)
         from cor_tpu_torch.retrieval.index import load_gallery_index
         from cor_tpu_torch.retrieval.serve import RetrievalServer
+        {textwrap.indent(textwrap.dedent(models), " " * 8).strip()}
         sup = support_branch.SupportBranchConfig(
-            prompt_dim=16, proj_hidden=24,
-            siglip_override=siglip.SigLIPConfig(
-                siglip.SigLIPVisionConfig(32, 16, 128, 1, 2),
-                siglip.SigLIPTextConfig(8, 64, 128, 1, 2)),
-            adapter_override=pooling.MaskAdapterConfig(128, 16, 8, 16, 4))
+            prompt_dim=16, proj_hidden=24, siglip_override=towers, adapter_override=adapter)
         dec = sam_decoder.MaskDecoderConfig(
             transformer_dim=16, iou_head_hidden_dim=16,
             transformer=sam_decoder.TwoWayTransformerConfig(2, 16, 2, 32))
-        enc = core_model.SamEncoderConfig(64, 16, embed_dim=32, depth=2, num_heads=2,
-                                          out_chans=16, window_size=3, global_attn_indexes=(1,))
         cfg = core_model.CoreConfig(
             compute_dtype="float32", encoder_override=enc,
             support_override=sup, decoder_override=dec,
@@ -269,14 +284,15 @@ def test_port_runs_without_jax(tmp_path):
             for r in dec_out:
                 assert len(r["masks"]) == 5 and all(Path(p).is_file() for p in r["masks"]), r
             assert [r["results"] for r in dec_out] == [r["results"] for r in out]
-        from cor_tpu_torch.cli import train as train_cli
-        from cor_tpu_torch.config import TrainConfig
-        TrainConfig.core_config = lambda self: cfg
-        (root / "train.yaml").write_text(
-            f"epoch: 1\\nbatch_size: 1\\nnum_workers: 2\\ntrain_model_save_path: {{root / 'ck'}}\\n")
-        trainer = train_cli.main(["--config", str(root / "train.yaml"), "--synthetic",
-                                  "--device", "cpu"])
-        assert trainer.state.step == 4 and (root / "ck" / "best_model" / "state.pt").is_file()
+        if {train!r}:
+            from cor_tpu_torch.cli import train as train_cli
+            from cor_tpu_torch.config import TrainConfig
+            TrainConfig.core_config = lambda self: cfg
+            (root / "train.yaml").write_text(
+                f"epoch: 1\\nbatch_size: 1\\nnum_workers: 2\\ntrain_model_save_path: {{root / 'ck'}}\\n")
+            trainer = train_cli.main(["--config", str(root / "train.yaml"), "--synthetic",
+                                      "--device", "cpu"])
+            assert trainer.state.step == 4 and (root / "ck" / "best_model" / "state.pt").is_file()
         used = [k for k in sys.modules
                 if k in ("jax", "cor_tpu") and sys.modules[k] is not None
                 or k.startswith(("jax.", "cor_tpu."))]
@@ -290,6 +306,19 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     resp = json.loads(proc.stdout.strip().splitlines()[-1])
     assert resp["id"] == 0 and len(resp["results"]) == 5
+    return resp
+
+
+def test_port_runs_without_jax(tmp_path):
+    """Without jax and cor_tpu: build, serve (with masks both ways) and train
+    an epoch at head_dim 64."""
+    run_without_jax(tmp_path, NO_JAX_BASE, train=True)
+
+
+def test_port_runs_without_jax_at_the_largest_head_dims(tmp_path):
+    """Without jax and cor_tpu: build and serve (with masks both ways) at the
+    head dims of ViT-SO400M-14-SigLIP-384 (72) and sam_huge (80)."""
+    run_without_jax(tmp_path, NO_JAX_LARGE, train=False)
 
 
 # ---------------------------------------------------------------------------
