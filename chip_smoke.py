@@ -102,7 +102,31 @@ Phases (any failure exits non-zero; no phase catches an exception):
     batch 1 and 8 with candidates/s and the reckoned time for 127,166
     candidates; the CPU init time of the random weights; peak memory; a
     torch.profiler breakdown of one bucket-16 query encode and one batch-8
-    image encode.
+    image encode;
+23. K6b at sam_huge's head_dim 80 (global [2, 4096, 3840], windowed
+    [50, 196, 3840]) against its plain backward, max relative error <= 2e-2
+    (as at 64), timed beside the plain version, SDPA's backward with the
+    bias and the bound;
+24. K7 at SAM-base's and sam_huge's padded grids (qkv [2, 70, 70, 2304] and
+    [2, 70, 70, 3840], windows of 14, cropped to 64 x 64) against its plain
+    version (<= 2e-2) and, bit for bit, K6 on the partitioned windows; timed
+    beside the plain version, SDPA with the bias, the bound, and the
+    attention step either way (pad + K7; partition + K6 + unpartition);
+25. the full-depth encoders (SAM-base, sam_huge; tables and pos_embed
+    filled) at batch 8 with and without fused_window_indexing through
+    make_candidate_encoder: exact launch counts (K7 8 / 28 and K6 4, or K6
+    12 / 32), cosine >= 0.999 between the two, ms per batch;
+26. training at CFG: ``cli.train.main --synthetic`` on m3's keys with
+    sam_huge and ViT-SO400M-14-SigLIP-384, frozen then unfrozen, at full
+    depth and width, batch 10: finite losses, the val line, the saves;
+    frozen, the towers bit-identical and no K6b launch; unfrozen, the towers
+    moved, K6b 32 launches per step and K6 64 plus 32 per val batch;
+27. the unfrozen CFG step (phase 26's trainer): launches of one step, s per
+    step (CUDA events, 3 steps), samples/s, peak memory, a torch.profiler
+    breakdown of one step;
+28. numerics at CFG: one unfrozen step at batch 1, GPU bf16 against CPU
+    fp32, with sam_huge cut to 4 blocks (block 3 global) at full width and
+    the towers at full depth: loss within 2e-2, gradient cosines >= 0.99.
 The line before the last lists every kernel ({"kernels": [...]}); the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -113,6 +137,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -200,7 +225,8 @@ def phase_build():
     # memory and spill bytes
     names = ("layer_norm_kernel", "seq_attention_kernel", "twl_tokens_in_kernel",
              "t2i_image_kernel", "twl_tokens_mid_kernel", "twl_image_i2t_kernel",
-             "t2i_combine_kernel", "decoder_tail_kernel", "vit_attention_relpos_kernel")
+             "t2i_combine_kernel", "decoder_tail_kernel", "vit_attention_relpos_kernel",
+             "vit_attention_bwd_dq_kernel", "vit_attention_bwd_dkv_kernel")
     kernel, spills, regs = None, {}, {}
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -421,13 +447,15 @@ def kernel_wrappers():
     from cor_tpu_torch.ops.kernels.vit_attention import (
         vit_attention_relpos,
         vit_attention_relpos_bwd,
+        vit_attention_relpos_windows,
     )
 
     return {"layer_norm": layer_norm, "attention_seq_qkv": attention_seq_qkv,
             "attention_seq": attention_seq,
             "two_way_layer": two_way_layer, "t2i_flash_kv": t2i_flash_kv,
             "decoder_tail": decoder_tail, "vit_attention_relpos": vit_attention_relpos,
-            "vit_attention_relpos_bwd": vit_attention_relpos_bwd}
+            "vit_attention_relpos_bwd": vit_attention_relpos_bwd,
+            "vit_attention_relpos_windows": vit_attention_relpos_windows}
 
 
 def reset_counts():
@@ -745,6 +773,8 @@ KERNEL_GROUPS = (
     ("K4 attention_seq_qkv", ("seq_attention",)),
     ("K5 layer_norm", ("layer_norm_kernel",)),
     ("K6b vit_attention_relpos_bwd", ("vit_attention_bwd",)),
+    ("K7 vit_attention_relpos_windows", ("vit_attention_relpos_kernel<64, true>",
+                                         "vit_attention_relpos_kernel<80, true>")),
     ("K6 vit_attention_relpos", ("vit_attention_relpos",)),
     ("cuDNN convs", ("fprop", "conv", "cudnn", "nchwToNhwc", "nhwcToNchw")),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
@@ -1098,9 +1128,10 @@ def phase_build_timings(enc_gpu, smi: str):
     print("phase 13 build timings: ok", flush=True)
 
 
-def phase_k6b(device):
-    """K6b against its plain backward at the global and windowed shapes,
-    timed beside the plain version and SDPA's autograd backward with the
+def phase_k6b(device, heads: int = 12, D: int = 64, phase: int = 14):
+    """K6b against its plain backward at the global and windowed shapes
+    (``heads`` of ``D``: SAM-base's 12 of 64, sam_huge's 16 of 80), timed
+    beside the plain version and SDPA's autograd backward with the
     materialised bias requiring grad."""
     import torch.nn.functional as F
 
@@ -1109,16 +1140,18 @@ def phase_k6b(device):
         vit_attention_relpos_bwd_plain,
     )
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    gen = torch.Generator(device=device).manual_seed(SEED + 5 if D == 64 else SEED + 8)
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
     bf16 = torch.bfloat16
+    C = heads * D
     out = {}
     for label, B, side in (("global", 2, GRID), ("windowed", 50, 14)):
         N = side * side
-        qkv = rnd(B, N, 3 * 768).to(bf16)
-        rel_h, rel_w = (0.3 * rnd(B, 12, N, side)).to(bf16), (0.3 * rnd(B, 12, N, side)).to(bf16)
-        do = rnd(B, N, 768).to(bf16)
-        args = (qkv, rel_h, rel_w, do, 12, (side, side))
+        qkv = rnd(B, N, 3 * C).to(bf16)
+        rel_h = (0.3 * rnd(B, heads, N, side)).to(bf16)
+        rel_w = (0.3 * rnd(B, heads, N, side)).to(bf16)
+        do = rnd(B, N, C).to(bf16)
+        args = (qkv, rel_h, rel_w, do, heads, (side, side))
         got = vit_attention_relpos_bwd(*args)
         want = vit_attention_relpos_bwd_plain(*args)
         torch.cuda.synchronize()
@@ -1132,26 +1165,28 @@ def phase_k6b(device):
         del want
         # the library call: autograd's backward of SDPA with the additive
         # [B, heads, N, N] bias, both requiring grad (the graph built once)
-        q, k, v = (qkv[..., i * 768:(i + 1) * 768].unflatten(-1, (12, 64)).transpose(1, 2)
+        q, k, v = (qkv[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
                    .detach().requires_grad_() for i in range(3))
-        bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, 12, N, N).requires_grad_()
+        bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, heads, N, N)
+        bias = bias.requires_grad_()
         o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-        do4 = do.unflatten(-1, (12, 64)).transpose(1, 2)
+        do4 = do.unflatten(-1, (heads, D)).transpose(1, 2)
         lt = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v, bias), do4, retain_graph=True),
                      windows=5, iters=3)
         del o, bias, q, k, v
-        # the five N x N x 64 products the gradient needs: the logits' recompute
+        # the five N x N x D products the gradient needs: the logits' recompute
         # q k^T, do v^T, a^T do, dl k and dl^T q
-        flops = 5 * 2 * N * N * 64 * B * 12
+        flops = 5 * 2 * N * N * D * B * heads
         b = bound(nbytes(qkv, rel_h, rel_w, do) + nbytes(*got), flops)
-        print(f"  K6b vit_attention_relpos_bwd {label} [{B}, {N}, 2304]: max|d|/max|plain| = "
+        print(f"  K6b vit_attention_relpos_bwd head_dim {D} {label} [{B}, {N}, {3 * C}]: "
+              f"max|d|/max|plain| = "
               f"dqkv {errs[0]:.3e}, drel_h {errs[1]:.3e}, drel_w {errs[2]:.3e}; kernel "
               f"{kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, SDPA backward "
               f"with the bias {lt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})", flush=True)
         out[label] = entry(err_abs, kt, pt, b, lt, max_rel_err=max(errs))
         del got
         torch.cuda.empty_cache()
-    print("phase 14 K6b: ok", flush=True)
+    print(f"phase {phase} K6b{'' if D == 64 else '@' + str(D)}: ok", flush=True)
     return dict(out["global"], windowed=out["windowed"])
 
 
@@ -1175,19 +1210,22 @@ TOWERS = ("image_encoder.", "support_branch.siglip.", "mask_decoder.iou_predicti
           "prompt_encoder.pe_layer.")
 
 
-def phase_train(root: Path):
-    """cli.train.main --synthetic at full width on m3's keys, frozen and
-    unfrozen; the launch counts of each run."""
+def phase_train(root: Path, keys=None, blocks: int = 12, phase: int = 15,
+                keep_unfrozen: bool = False):
+    """cli.train.main --synthetic at full width on m3's keys (with ``keys``:
+    CFG's), frozen and unfrozen; the launch counts of each run (``blocks``:
+    the encoder's). Returns (counts, results, the unfrozen Trainer if
+    ``keep_unfrozen``)."""
     from cor_tpu_torch.cli import train as cli
     from cor_tpu_torch.config import load_train_config
     from cor_tpu_torch.models.core_model import init_core_model
 
-    counts, results = {}, {}
+    counts, results, kept, fresh = {}, {}, None, None
     for mode, freeze in (("frozen", True), ("unfrozen", False)):
         d = root / mode
         d.mkdir(parents=True)
         cfg_path = m3_config(d, epoch=1, train_model_save_path=str(d / "ck"),
-                             freeze_towers=freeze)
+                             freeze_towers=freeze, **(keys or {}))
         log = io.StringIO()
         reset_counts()
         t0 = time.perf_counter()
@@ -1209,12 +1247,13 @@ def phase_train(root: Path):
         for name in ("best_model", "best_model_full"):
             if not (d / "ck" / name / "state.pt").is_file():
                 fail(f"train {mode}: {name} was not written")
-        fresh = init_core_model(cfg.core_config(), cfg.seed).state_dict()
+        if fresh is None:  # the seeded init both runs started from
+            fresh = init_core_model(cfg.core_config(), cfg.seed).state_dict()
         got = trainer.state.model.state_dict()
         same = {p: all(torch.equal(got[n].cpu(), fresh[n]) for n in fresh if n.startswith(p))
                 for p in TOWERS}
-        k6_want = (12 if freeze else 24) * steps + 12 * val_batches
-        k6b_want = 0 if freeze else 12 * steps
+        k6_want = (blocks if freeze else 2 * blocks) * steps + blocks * val_batches
+        k6b_want = 0 if freeze else blocks * steps
         print(f"  train {mode}: unchanged since init {same}; K6 {c['vit_attention_relpos']} "
               f"(expected {k6_want}), K6b {c['vit_attention_relpos_bwd']} (expected {k6b_want})")
         if freeze and not all(same.values()):
@@ -1222,14 +1261,19 @@ def phase_train(root: Path):
         if not freeze and (same[TOWERS[0]] or same[TOWERS[1]] or not same[TOWERS[3]]):
             fail(f"train unfrozen: a tower did not move, or the PE matrix did: {same}")
         if c["vit_attention_relpos"] != k6_want or c["vit_attention_relpos_bwd"] != k6b_want or \
-                min(v for k, v in c.items()
-                    if k not in ("vit_attention_relpos_bwd", "attention_seq")) == 0:
+                min(v for k, v in c.items() if k not in (
+                    "vit_attention_relpos_bwd", "attention_seq",
+                    "vit_attention_relpos_windows")) == 0:
             fail(f"train {mode}: kernel launch counts {c}")
         counts[mode], results[mode] = c, {"seconds": dt, "losses": losses, "val": val[0]}
-        del trainer, got, fresh
+        shutil.rmtree(d / "ck")  # the checkpoints (tens of GB at CFG)
+        if keep_unfrozen and not freeze:
+            kept = trainer
+        del trainer, got
         torch.cuda.empty_cache()
-    print("phase 15 training: ok", flush=True)
-    return counts, results
+    del fresh
+    print(f"phase {phase} training: ok", flush=True)
+    return counts, results, kept
 
 
 def deterministic_config(cfg):
@@ -1272,21 +1316,24 @@ def decoder_bf16_cosines(dec, pe, multimask: bool, seeds=(0, 1, 2)) -> dict:
     return out
 
 
-def phase_train_numerics():
+def phase_train_numerics(core_cfg=None, global_block: int = 2, phase: int = 16):
+    """One unfrozen step at batch 1 on the card in bf16 and on the CPU in
+    fp32 (``core_cfg``, default m3's model; ``global_block``: a global
+    block of its encoder); at m3's model also the decoder alone."""
     import copy
 
     from cor_tpu_torch.config import TrainConfig
     from cor_tpu_torch.models.core_model import init_core_model
     from cor_tpu_torch.train.step import train_loss
 
-    cfg = deterministic_config(TrainConfig().core_config())
+    cfg = deterministic_config(core_cfg or TrainConfig().core_config())
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     model = init_core_model(cfg, SEED)
     model.image_encoder = filled_encoder(cfg)
     gpu = copy.deepcopy(model).cuda()  # remat on, as the trainer runs it
     # the CPU reference keeps every block's activations: no recompute
     model.image_encoder.cfg = dataclasses.replace(model.image_encoder.cfg, remat_blocks=False)
-    b = synthetic_batch(1)
+    b = synthetic_batch(1, cfg)
     batch = {k: torch.from_numpy(b[k]) for k in ("query_img", "query_mask", "support_img",
                                                    "support_mask", "text")}
     loss_g, _ = train_loss(cfg, gpu, {k: v.cuda() for k, v in batch.items()}, None)
@@ -1296,24 +1343,29 @@ def phase_train_numerics():
     loss_c, _ = train_loss(cfg32, model, batch, None)
     loss_c.backward()
     dt = time.perf_counter() - t0
-    names = ("image_encoder.blocks.0.attn.qkv.w", "image_encoder.blocks.2.attn.rel_pos_h",
+    names = ("image_encoder.blocks.0.attn.qkv.w",
+             f"image_encoder.blocks.{global_block}.attn.rel_pos_h",
+             f"image_encoder.blocks.{global_block}.attn.qkv.w",
              "image_encoder.patch_embed.w", "support_branch.siglip.visual.blocks.0.attn.qkv.w",
              "mask_decoder.transformer.layers.0.self_attn.q_proj.w")
     pg, pc = dict(gpu.named_parameters()), dict(model.named_parameters())
-    cos = {n: torch.nn.functional.cosine_similarity(
-        pg[n].grad.cpu().flatten()[None], pc[n].grad.flatten()[None]).item() for n in names}
+    cos = {n: torch.nn.functional.cosine_similarity(  # in fp64: millions of terms
+        pg[n].grad.cpu().double().flatten()[None], pc[n].grad.double().flatten()[None]).item()
+        for n in names}
     d = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
     print(f"  unfrozen step, batch 1: loss GPU bf16 {loss_g.item():.6f}, CPU fp32 "
           f"{loss_c.item():.6f} (relative {d:.3e}); gradient cosines {json.dumps(cos)} "
           f"(CPU forward and backward {dt:.1f} s)")
     if not d <= 2e-2 or min(cos.values()) < COS_MIN:
         fail(f"GPU bf16 and CPU fp32 training steps disagree: loss {d}, cosines {cos}")
-    dec_cos = decoder_bf16_cosines(gpu.mask_decoder, gpu.prompt_encoder, cfg.multimask_output)
-    print(f"  the decoder alone on the card, bf16 vs fp32, seeds 0-2: q_proj gradient cosines "
-          f"{json.dumps(dec_cos)}")
+    if core_cfg is None:
+        dec_cos = decoder_bf16_cosines(gpu.mask_decoder, gpu.prompt_encoder,
+                                       cfg.multimask_output)
+        print(f"  the decoder alone on the card, bf16 vs fp32, seeds 0-2: q_proj gradient "
+              f"cosines {json.dumps(dec_cos)}")
     del gpu, model
     torch.cuda.empty_cache()
-    print("phase 16 training numerics: ok", flush=True)
+    print(f"phase {phase} training numerics: ok", flush=True)
     return d, cos
 
 
@@ -1544,6 +1596,213 @@ def phase_large(smi: str):
     return serve_counts, build_counts
 
 
+def phase_k7(device):
+    """K7 at SAM-base's and sam_huge's padded grids (two images, 70 x 70 in
+    windows of 14, cropped to 64 x 64) against its plain version and against
+    K6 on the partitioned windows (the same arithmetic: equal bit for bit),
+    timed beside the plain version, K6 with the partition and unpartition
+    copies of the unflagged route, SDPA with the bias and the bound."""
+    import torch.nn.functional as F
+
+    from cor_tpu_torch.ops.attention import window_partition, window_unpartition
+    from cor_tpu_torch.ops.kernels.vit_attention import (
+        vit_attention_relpos,
+        vit_attention_relpos_windows,
+        vit_attention_relpos_windows_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    bf16 = torch.bfloat16
+    B, ws, Hp = 2, 14, 70
+    nW, N = (Hp // ws) ** 2, ws * ws
+    out = {}
+    for label, heads, D in (("sam_base", 12, 64), ("sam_huge", 16, 80)):
+        C = heads * D
+        qkv = rnd(B, Hp, Hp, 3 * C).to(bf16)
+        rel_h = (0.3 * rnd(B, heads, Hp * Hp, ws)).to(bf16)
+        rel_w = (0.3 * rnd(B, heads, Hp * Hp, ws)).to(bf16)
+        args = (qkv, rel_h, rel_w, heads, ws, (GRID, GRID))
+        got = vit_attention_relpos_windows(*args)
+        want = vit_attention_relpos_windows_plain(*args)
+        # the unflagged route's operands: the windows partitioned by copies
+        qkv_w = window_partition(qkv, ws)[0].reshape(B * nW, N, 3 * C)
+        rel_win = [window_partition(r.reshape(B, heads, Hp, Hp, ws).permute(0, 2, 3, 1, 4)
+                                    .reshape(B, Hp, Hp, heads * ws), ws)[0]
+                   .reshape(B * nW, N, heads, ws).transpose(1, 2).contiguous()
+                   for r in (rel_h, rel_w)]
+        k6 = vit_attention_relpos(qkv_w, *rel_win, heads, (ws, ws))
+        k6 = window_unpartition(k6.reshape(B * nW, ws, ws, C), ws, (Hp, Hp), (GRID, GRID))
+        torch.cuda.synchronize()
+        err, same = rel_err(got, want), torch.equal(got, k6)
+        kt = cuda_ms(lambda: vit_attention_relpos_windows(*args))
+        pt = cuda_ms(lambda: vit_attention_relpos_windows_plain(*args), windows=3, iters=2)
+        # the attention step of a windowed block either way, from the LN'd
+        # grid x [B, 64, 64, C] (the QKV GEMM, the same rows, left out):
+        # unflagged, partition x, K6, unpartition; flagged, pad x, K7
+        x = rnd(B, GRID, GRID, C).to(bf16)
+
+        def k6_route():
+            window_partition(x, ws)
+            o = vit_attention_relpos(qkv_w, *rel_win, heads, (ws, ws))
+            return window_unpartition(o.reshape(B * nW, ws, ws, C), ws, (Hp, Hp), (GRID, GRID))
+
+        def k7_route():
+            F.pad(x, (0, 0, 0, Hp - GRID, 0, Hp - GRID))
+            return vit_attention_relpos_windows(*args)
+
+        k6t, k7t = cuda_ms(k6_route), cuda_ms(k7_route)
+        q, k, v = (qkv_w[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
+                   for i in range(3))
+        bias = (rel_win[0][..., :, None] + rel_win[1][..., None, :]).reshape(B * nW, heads, N, N)
+        lt = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        b = bound(nbytes(qkv, rel_h, rel_w, got), 4 * B * nW * heads * N * N * D)
+        print(f"  K7 vit_attention_relpos_windows {label} [{B}, {Hp}, {Hp}, {3 * C}] -> "
+              f"{tuple(got.shape)}: max|d|/max|plain| = {err:.3e}, equal to K6 on the "
+              f"partitioned windows: {same}; kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], "
+              f"plain {pt[0]:.4f} ms, SDPA with the bias {lt[0]:.4f} ms, bound {b[0]:.4f} ms "
+              f"({b[1]}); pad + K7 {k7t[0]:.4f} ms, partition + K6 + unpartition "
+              f"{k6t[0]:.4f} ms", flush=True)
+        if not err <= DECODE_REL or not same:
+            fail(f"K7 ({label}) disagrees with its plain version ({err}) or with K6 on the "
+                 f"partitioned windows (equal: {same})")
+        out[label] = entry(abs_err((got, want)), kt, pt, b, lt, max_rel_err=err,
+                           equal_to_k6_on_windows=same, pad_k7_ms=k7t[0],
+                           partition_k6_unpartition_ms=k6t[0])
+        del want, k6, bias, q, k, v, qkv_w, rel_win
+        torch.cuda.empty_cache()
+    print("phase 24 K7 kernels: ok", flush=True)
+    return dict(out["sam_huge"], sam_base=out["sam_base"])
+
+
+def phase_k7_encoders(smi: str):
+    """The full-depth encoder at batch 8, SAM-base and sam_huge (tables and
+    pos_embed filled), with and without fused_window_indexing through
+    ``make_candidate_encoder``: exact launch counts, the cosine between the
+    two, ms per batch (timed in turns: without, with, with, without).
+    Returns sam_huge's flagged launch counts."""
+    from cor_tpu_torch.config import EvalConfig, load_eval_config
+    from cor_tpu_torch.models.core_model import _cast
+    from cor_tpu_torch.retrieval.index import make_candidate_encoder
+
+    out, counts = {}, None
+    with tempfile.TemporaryDirectory() as d:
+        large = load_eval_config(large_config(Path(d))).core_config()
+    for label, cfg in (("sam_base", EvalConfig().core_config()), ("sam_huge", large)):
+        enc_cfg = cfg.encoder
+        windowed = enc_cfg.depth - len(enc_cfg.global_attn_indexes)
+        b = synthetic_batch(SAM_BATCH, cfg)
+        imgs, masks = (torch.from_numpy(b[k]).cuda() for k in ("query_img", "query_mask"))
+        runs = {}
+        for flag in (False, True):
+            fcfg = dataclasses.replace(cfg, encoder_override=dataclasses.replace(
+                enc_cfg, fused_window_indexing=flag))
+            enc = _cast(filled_encoder(fcfg).cuda(), cfg.dtype).eval()
+            encode = make_candidate_encoder(fcfg)
+            reset_counts()
+            pooled, emb = encode(enc, imgs, masks)
+            torch.cuda.synchronize()
+            c = read_counts()
+            want = {k: 0 for k in c}
+            want.update(layer_norm=2 * enc_cfg.depth + 2,
+                        vit_attention_relpos=len(enc_cfg.global_attn_indexes) if flag
+                        else enc_cfg.depth,
+                        vit_attention_relpos_windows=windowed if flag else 0)
+            if c != want or not torch.isfinite(emb).all():
+                fail(f"encoder {label} (fused_window_indexing={flag}): launches {c} != {want}, "
+                     f"or a value is not finite")
+            if flag:
+                counts = c
+            runs[flag] = (lambda enc=enc, encode=encode: encode(enc, imgs, masks), pooled, emb, c)
+        times = {False: [], True: []}
+        for flag in (False, True, True, False):
+            times[flag].append(cuda_ms(runs[flag][0], windows=3, iters=1))
+        ms = {f: (statistics.median(t[0] for t in ts), min(t[1] for t in ts),
+                  max(t[2] for t in ts)) for f, ts in times.items()}
+        cos_flat = torch.nn.functional.cosine_similarity(
+            runs[True][2].flatten()[None].double(), runs[False][2].flatten()[None].double()).item()
+        cos_pool = torch.nn.functional.cosine_similarity(runs[True][1], runs[False][1]).min().item()
+        print(f"  encoder {label} batch {SAM_BATCH}, fused_window_indexing vs not: cosine "
+              f"{cos_flat:.6f} flattened, min {cos_pool:.6f} pooled; launches {runs[True][3]} "
+              f"and {runs[False][3]}; {ms[True][0]:.2f} ms [{ms[True][1]:.2f}, "
+              f"{ms[True][2]:.2f}] with the flag, {ms[False][0]:.2f} ms [{ms[False][1]:.2f}, "
+              f"{ms[False][2]:.2f}] without (turns: without, with, with, without)", flush=True)
+        if min(cos_flat, cos_pool) < 0.999:
+            fail(f"encoder {label}: the flagged and unflagged encoders disagree: cosines "
+                 f"{cos_flat}, {cos_pool}")
+        out[label] = {"cosine_flat": cos_flat, "cosine_pooled_min": cos_pool,
+                      "ms_flagged": ms[True], "ms_unflagged": ms[False],
+                      "ms_turns": {"unflagged": times[False], "flagged": times[True]},
+                      "launches_flagged": runs[True][3], "launches_unflagged": runs[False][3]}
+        del runs, imgs, masks
+        torch.cuda.empty_cache()
+    print(json.dumps({"k7_encoders": {**out, "batch": SAM_BATCH, "card": smi}}))
+    print("phase 25 K7 encoders: ok", flush=True)
+    return counts
+
+
+def phase_large_train_timings(trainer, smi: str):
+    """On phase 26's unfrozen CFG trainer: one step's launches (K6b 32, K6
+    64, exactly), seconds per step (CUDA events, median and spread of 3
+    steps), samples/s, peak memory and a torch.profiler breakdown of one
+    step."""
+    from cor_tpu_torch.train.step import BATCH_KEYS
+
+    cfg = trainer.cfg
+    n = cfg.batch_size
+    b = synthetic_batch(n, trainer.core_cfg)
+    batch = {k: torch.from_numpy(b[k]).cuda() for k in BATCH_KEYS}
+    batch["valid"] = torch.ones(n, device="cuda")
+    step = lambda: trainer.train_step(trainer.state, batch, cfg.lr)  # noqa: E731
+    blocks = trainer.core_cfg.encoder.depth
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss = step()["total_loss"].item()
+    c = read_counts()
+    if c["vit_attention_relpos_bwd"] != blocks or c["vit_attention_relpos"] != 2 * blocks or \
+            not np.isfinite(loss):
+        fail(f"CFG train step: launches {c} (K6b {blocks} and K6 {2 * blocks} expected), "
+             f"loss {loss}")
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    med = statistics.median(times)
+    out = {"s_per_step": med, "min_s": min(times), "max_s": max(times),
+           "samples_per_s": n / med, "batch": n, "loss": loss, "launches_per_step": c,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "profile": profile(step, 1), "card": smi}
+    print(json.dumps({"large_train_timings": out}))
+    print("phase 27 training timings at CFG: ok", flush=True)
+    return out
+
+
+def phase_large_train(smi: str):
+    """Phases 26-28: cli.train at CFG frozen and unfrozen, the unfrozen
+    step's timings, and its numerics at batch 1 with sam_huge cut to 4
+    blocks (one global) at full width."""
+    from cor_tpu_torch.config import TrainConfig
+
+    with tempfile.TemporaryDirectory() as d:
+        counts, _, trainer = phase_train(Path(d), LARGE_KEYS, blocks=32, phase=26,
+                                         keep_unfrozen=True)
+    phase_large_train_timings(trainer, smi)
+    del trainer
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(TrainConfig(), **LARGE_KEYS).core_config()
+    cut = dataclasses.replace(cfg.encoder, depth=4, global_attn_indexes=(3,))
+    print("  numerics at CFG: sam_huge cut to 4 blocks (block 3 global) at full width, "
+          "the towers at full depth", flush=True)
+    phase_train_numerics(dataclasses.replace(cfg, encoder_override=cut), global_block=3,
+                         phase=28)
+    return counts["unfrozen"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this check runs on a GPU only",
@@ -1590,7 +1849,7 @@ def main():
 
     kernel_results["vit_attention_relpos_bwd"] = phase_k6b(torch.device("cuda"))
     with tempfile.TemporaryDirectory() as d:
-        train_launches, _ = phase_train(Path(d))
+        train_launches, _, _ = phase_train(Path(d))
     phase_train_numerics()
     phase_train_timings(smi)
 
@@ -1599,6 +1858,12 @@ def main():
     kernel_results["vit_attention_relpos@80"] = k6_80
     kernel_results["layer_norm"]["large_config_shapes"] = ln_large
     large_serve, large_build = phase_large(smi)
+
+    kernel_results["vit_attention_relpos_bwd@80"] = phase_k6b(torch.device("cuda"), 16, 80,
+                                                              phase=23)
+    kernel_results["vit_attention_relpos_windows"] = phase_k7(torch.device("cuda"))
+    k7_launches = phase_k7_encoders(smi)
+    large_train = phase_large_train(smi)
 
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70",
@@ -1622,6 +1887,12 @@ def main():
                                  "cor_tpu/ops/pallas/seq_attention.py:49", large_serve),
         "vit_attention_relpos@80": ("cor_tpu_torch/csrc/vit_attention.cu",
                                     "cor_tpu/ops/pallas/vit_attention.py:284", large_build),
+        # unfrozen training at CFG (cli.train), and the sam_huge encoder with
+        # fused_window_indexing (make_candidate_encoder, one batch of 8)
+        "vit_attention_relpos_bwd@80": ("cor_tpu_torch/csrc/vit_attention_bwd.cu",
+                                        "cor_tpu/ops/pallas/vit_attention.py:459", large_train),
+        "vit_attention_relpos_windows": ("cor_tpu_torch/csrc/vit_attention.cu",
+                                         "cor_tpu/ops/pallas/vit_attention.py:180", k7_launches),
     }
     kernels = []
     for kname, res in kernel_results.items():

@@ -54,7 +54,12 @@ def main(argv=None):
     from cor_tpu_torch.config import EvalConfig, load_eval_config
     from cor_tpu_torch.data.pipeline import DataLoader
     from cor_tpu_torch.data.synthetic import SyntheticDataset
-    from cor_tpu_torch.models.core_model import _cast, describe, init_image_encoder
+    from cor_tpu_torch.models.core_model import (
+        _cast,
+        check_kernel_dtype,
+        describe,
+        init_image_encoder,
+    )
     from cor_tpu_torch.retrieval.index import build_gallery, save_gallery_index
 
     cfg = load_eval_config(args.config) if args.config else EvalConfig()
@@ -66,6 +71,10 @@ def main(argv=None):
         )
     if not args.synthetic:
         parser.error(f"only --synthetic N is ported: a manifest needs {MANIFEST_ITEM}")
+    try:
+        check_kernel_dtype(cfg.core_config(), args.device)
+    except ValueError as e:
+        parser.error(str(e))
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA card is available; pass --device cpu to build on the CPU")
     core_cfg = cfg.core_config()

@@ -133,7 +133,12 @@ def main(argv=None):
             parser.error(f"{flag} is not ported to cor_tpu_torch yet: {item}")
 
     from cor_tpu_torch.config import EvalConfig, load_eval_config
-    from cor_tpu_torch.models.core_model import describe, init_decode_model, init_support_branch
+    from cor_tpu_torch.models.core_model import (
+        check_kernel_dtype,
+        describe,
+        init_decode_model,
+        init_support_branch,
+    )
     from cor_tpu_torch.retrieval.index import load_gallery_index
     from cor_tpu_torch.retrieval.serve import RetrievalServer
 
@@ -145,6 +150,10 @@ def main(argv=None):
             f"yet ({CHECKPOINT_ITEM})"
         )
     core_cfg = cfg.core_config()
+    try:
+        check_kernel_dtype(cfg.core_config(), args.device)
+    except ValueError as e:
+        parser.error(str(e))
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA card is available; pass --device cpu to serve on the CPU")
     model = init_support_branch(core_cfg, cfg.seed)

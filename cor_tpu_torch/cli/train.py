@@ -51,7 +51,7 @@ def main(argv=None):
     from cor_tpu_torch.config import load_train_config
     from cor_tpu_torch.data.pipeline import DataLoader
     from cor_tpu_torch.data.synthetic import SyntheticDataset
-    from cor_tpu_torch.models.core_model import init_core_model
+    from cor_tpu_torch.models.core_model import check_kernel_dtype, init_core_model
     from cor_tpu_torch.train.checkpoint import resolve_resume
     from cor_tpu_torch.train.optim import count_params, make_optimizer, trainable_mask
     from cor_tpu_torch.train.step import TrainState
@@ -66,6 +66,10 @@ def main(argv=None):
                      f"yet ({CHECKPOINT_ITEM})")
     if not args.synthetic:
         parser.error(f"only --synthetic is ported: a manifest needs {MANIFEST_ITEM}")
+    try:
+        check_kernel_dtype(cfg.core_config(), args.device)
+    except ValueError as e:
+        parser.error(str(e))
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA card is available; pass --device cpu to train on the CPU")
     try:

@@ -48,6 +48,27 @@
 // bytes at 64 and 52,480 at 80, above the 48 KiB a launch gets without
 // cudaFuncSetAttribute. wgmma, TMA and a pipelined K/V ring are left for
 // later.
+//
+// K7, the same kernel with the window partition in its indexing (kWin):
+// replaces cor_tpu/ops/pallas/vit_attention.py:
+// vit_attention_relpos_windows_pallas (its pallas_call at line 180, the
+// opt-in fused_window_indexing of the SAM encoder). Its qkv is the fused
+// QKV GEMM over the whole zero-padded grid [B, Hp, Wp, 3C] (Hp, Wp multiples
+// of the window ws; the pad tokens' k and v are the qkv bias, real keys of
+// their window), and one block is one (image and window, head, 64-query
+// tile): token i of window (wi, wj) is read by strides at grid row
+// wi * ws + i / ws, column wj * ws + i % ws, so the partition is never
+// materialised. The bias factors [B, heads, Hp * Wp, ws] are per grid token
+// over the window's key rows and columns; the output is written straight
+// into the cropped [B, H, W, C] grid (the tokens of the pad rows and
+// columns are computed as keys need them and dropped), so the unpartition
+// and the crop copies go too. The softmax, the rounding points and the
+// masking of the last key tile (196 = 3 * 64 + 4) are K6's. The TPU
+// kernel's 8-sublane column padding (14 -> 16) and its indicator matrices
+// are TPU layout and have no counterpart here. It takes head_dim 64 and 80
+// (cor_tpu's K7 takes no head_dim that needs lane padding, so at 80 cor_tpu
+// falls back to the XLA partition and attention: the same function). What
+// bounds it is what bounds K6's windowed shape: bytes.
 
 #include "decoder_common.cuh"
 
@@ -82,11 +103,22 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float s) {
                      bf2f(static_cast<uint16_t>(w >> 16)) * s);
 }
 
-template <int D>
+// K7's window grid: windows of ws x ws tokens over the padded Hp x Wp grid
+// (nwj windows per row of windows, nW per image), the output cropped to
+// Hout x Wout; unused by K6
+struct WindowGrid {
+  int ws, Hp, Wp, Hout, Wout, nwj, nW;
+};
+
+// One (image or window, head, 64-query tile). K6 (kWin false): the N = H * W
+// tokens of image blockIdx.z, rows of qkv [B, N, 3C]. K7 (kWin true): the
+// N = ws * ws tokens of window blockIdx.z % nW of image blockIdx.z / nW,
+// read by strides out of qkv [B, Hp, Wp, 3C] (H = W = ws).
+template <int D, bool kWin>
 __global__ void __launch_bounds__(kThreads)
 vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __restrict__ rel_h,
                             const uint16_t* __restrict__ rel_w, uint16_t* __restrict__ out,
-                            int N, int C, int H, int W, float scale) {
+                            int N, int C, int H, int W, float scale, WindowGrid wg) {
   constexpr int kLds = HeadDim<D>::kLdq;
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* sQ = reinterpret_cast<uint16_t*>(smem);
@@ -97,14 +129,25 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = kWin ? blockIdx.z / wg.nW : blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
   const int64_t row_stride = 3LL * C;
-  const uint16_t* base = qkv + static_cast<int64_t>(b) * N * row_stride + h * D;
+  // the window's first grid row and column (K7)
+  const int win = kWin ? blockIdx.z - b * wg.nW : 0;
+  const int y0 = kWin ? (win / wg.nwj) * wg.ws : 0;
+  const int x0 = kWin ? (win - (win / wg.nwj) * wg.nwj) * wg.ws : 0;
+  const int64_t grid_n = kWin ? static_cast<int64_t>(wg.Hp) * wg.Wp : N;  // tokens per image
+  // the place of this block's token i (< N) in its image's token grid
+  auto grid_pos = [&](int i) -> int64_t {
+    if (!kWin) return i;
+    const int r = i / wg.ws;
+    return static_cast<int64_t>(y0 + r) * wg.Wp + x0 + (i - r * wg.ws);
+  };
+  const uint16_t* base = qkv + static_cast<int64_t>(b) * grid_n * row_stride + h * D;
 
   // Q tile, scaled and rounded to bf16 -> shared (rows past N are zero)
   for (int i = tid; i < kBQ * (D / 8); i += kThreads) {
@@ -112,21 +155,24 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
     const int c8 = (i % (D / 8)) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (q0 + r < N) {
-      v = *reinterpret_cast<const uint4*>(base + (q0 + r) * row_stride + c8);
+      v = *reinterpret_cast<const uint4*>(base + grid_pos(q0 + r) * row_stride + c8);
       v = make_uint4(scale_bf16x2(v.x, scale), scale_bf16x2(v.y, scale),
                      scale_bf16x2(v.z, scale), scale_bf16x2(v.w, scale));
     }
     *reinterpret_cast<uint4*>(&sQ[r * kLds + c8]) = v;
   }
-  // the tile's bias rows of this (image, head): rel_h/rel_w [B, heads, N, H|W]
-  const int64_t rel_row0 = (static_cast<int64_t>(b) * gridDim.y + h) * N + q0;
+  // the tile's bias rows of this (image, head): rel_h/rel_w [B, heads,
+  // grid_n, H|W]
+  const int64_t rel_base = (static_cast<int64_t>(b) * gridDim.y + h) * grid_n;
   for (int i = tid; i < kBQ * H; i += kThreads) {
     const int r = i / H, c = i % H;
-    sRh[r * kLdr + c] = q0 + r < N ? rel_h[(rel_row0 + r) * H + c] : uint16_t(0);
+    sRh[r * kLdr + c] =
+        q0 + r < N ? rel_h[(rel_base + grid_pos(q0 + r)) * H + c] : uint16_t(0);
   }
   for (int i = tid; i < kBQ * W; i += kThreads) {
     const int r = i / W, c = i % W;
-    sRw[r * kLdr + c] = q0 + r < N ? rel_w[(rel_row0 + r) * W + c] : uint16_t(0);
+    sRw[r * kLdr + c] =
+        q0 + r < N ? rel_w[(rel_base + grid_pos(q0 + r)) * W + c] : uint16_t(0);
   }
   __syncthreads();
 
@@ -161,7 +207,7 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
       uint4 kv = make_uint4(0u, 0u, 0u, 0u);
       uint4 vv = make_uint4(0u, 0u, 0u, 0u);
       if (k0 + r < N) {
-        const uint16_t* rowp = base + (k0 + r) * row_stride + c8;
+        const uint16_t* rowp = base + grid_pos(k0 + r) * row_stride + c8;
         kv = *reinterpret_cast<const uint4*>(rowp + C);
         vv = *reinterpret_cast<const uint4*>(rowp + 2 * C);
       }
@@ -273,31 +319,50 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     inv[r] = 1.f / l_run[r];
   }
-  const int qa_row = q0 + wr + g;
-  const int qb_row = qa_row + 8;
-  uint16_t* out_h = out + static_cast<int64_t>(b) * N * C + h * D + 2 * t;
+  // the output rows of this lane's two queries: [B, N, C] (K6), or the
+  // cropped [B, Hout, Wout, C] grid (K7); -1: not written (past N, or a pad
+  // row or column of the grid)
+  int64_t orow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + wr + g + 8 * r;
+    orow[r] = -1;
+    if (i < N) {
+      if (!kWin) {
+        orow[r] = static_cast<int64_t>(b) * N + i;
+      } else {
+        const int y = y0 + i / wg.ws, x = x0 + i % wg.ws;
+        if (y < wg.Hout && x < wg.Wout)
+          orow[r] = (static_cast<int64_t>(b) * wg.Hout + y) * wg.Wout + x;
+      }
+    }
+  }
+  uint16_t* out_h = out + h * D + 2 * t;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    if (qa_row < N)
-      *reinterpret_cast<uint32_t*>(out_h + static_cast<int64_t>(qa_row) * C + n * 8) =
+    if (orow[0] >= 0)
+      *reinterpret_cast<uint32_t*>(out_h + orow[0] * C + n * 8) =
           pack_bf16x2(o[n][0] * inv[0], o[n][1] * inv[0]);
-    if (qb_row < N)
-      *reinterpret_cast<uint32_t*>(out_h + static_cast<int64_t>(qb_row) * C + n * 8) =
+    if (orow[1] >= 0)
+      *reinterpret_cast<uint32_t*>(out_h + orow[1] * C + n * 8) =
           pack_bf16x2(o[n][2] * inv[1], o[n][3] * inv[1]);
   }
 }
 
-template <int D>
-int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out, int B, int N, int C,
-           int num_heads, int H, int W, float scale, void* stream) {
+// blocks: B images (K6) or B * wg.nW windows (K7)
+template <int D, bool kWin>
+int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out, int blocks, int N,
+           int C, int num_heads, int H, int W, float scale, WindowGrid wg, void* stream) {
   constexpr int smem = HeadDim<D>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
-      vit_attention_relpos_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      vit_attention_relpos_kernel<D, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBQ - 1) / kBQ, num_heads, B);
-  vit_attention_relpos_kernel<D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(qkv), static_cast<const uint16_t*>(rel_h),
-      static_cast<const uint16_t*>(rel_w), static_cast<uint16_t*>(out), N, C, H, W, scale);
+  const dim3 grid((N + kBQ - 1) / kBQ, num_heads, blocks);
+  vit_attention_relpos_kernel<D, kWin>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint16_t*>(qkv), static_cast<const uint16_t*>(rel_h),
+          static_cast<const uint16_t*>(rel_w), static_cast<uint16_t*>(out), N, C, H, W, scale,
+          wg);
   return cudaGetLastError();
 }
 
@@ -315,11 +380,43 @@ extern "C" int cor_vit_attention_relpos(const void* qkv, const void* rel_h, cons
   if (B < 1 || N < 1 || num_heads < 1 || C % num_heads != 0 || B > 65535 ||
       num_heads > 65535 || H < 1 || W < 1 || H > kMaxSide || W > kMaxSide || H * W != N)
     return cudaErrorInvalidValue;
+  const WindowGrid none{};
   switch (C / num_heads) {
     case 64:
-      return launch<64>(qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, stream);
+      return launch<64, false>(qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, none,
+                               stream);
     case 80:
-      return launch<80>(qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, stream);
+      return launch<80, false>(qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, none,
+                               stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K7. qkv: [B, Hp, Wp, 3C] bf16 contiguous, 16-byte aligned, C = num_heads * D
+// with D in {64, 80}, Hp and Wp multiples of window (<= 64). rel_h, rel_w:
+// [B, num_heads, Hp * Wp, window] bf16 contiguous. out: [B, H, W, C] bf16
+// contiguous, H <= Hp, W <= Wp. scale: D^-1/2. Returns the launch's
+// cudaError_t (cudaErrorInvalidValue for shapes the kernel does not take).
+extern "C" int cor_vit_attention_relpos_windows(const void* qkv, const void* rel_h,
+                                                const void* rel_w, void* out, int B, int Hp,
+                                                int Wp, int H, int W, int C, int num_heads,
+                                                int window, float scale, void* stream) {
+  if (B < 1 || num_heads < 1 || C % num_heads != 0 || num_heads > 65535 || window < 1 ||
+      window > kMaxSide || Hp < window || Wp < window || Hp % window || Wp % window || H < 1 ||
+      W < 1 || H > Hp || W > Wp)
+    return cudaErrorInvalidValue;
+  const int nwj = Wp / window, nW = (Hp / window) * nwj;
+  if (static_cast<int64_t>(B) * nW > 65535) return cudaErrorInvalidValue;
+  const WindowGrid wg{window, Hp, Wp, H, W, nwj, nW};
+  const int N = window * window;
+  switch (C / num_heads) {
+    case 64:
+      return launch<64, true>(qkv, rel_h, rel_w, out, B * nW, N, C, num_heads, window, window,
+                              scale, wg, stream);
+    case 80:
+      return launch<80, true>(qkv, rel_h, rel_w, out, B * nW, N, C, num_heads, window, window,
+                              scale, wg, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -39,14 +39,27 @@
 // the last tile: 196 = 3 * 64 + 4) and queries i >= N are masked.
 //
 // What bounds it on the H100: per (image, head) the two passes run nine
-// N x N x 64 products (pass 1: S and da twice, dq; pass 2: S, da, dv, dk)
+// N x N x D products (pass 1: S and da twice, dq; pass 2: S, da, dv, dk)
 // against the five the gradient needs, on ~(3 N D + 2 N 64 + N D) * 2 bytes
 // in and the same out: at N = 4096 far above the card's ~295 flop/byte
 // ridge, bound by operations; a 14 x 14 window (N = 196) by bytes. mma.sync
 // m16n8k16 (bf16 in, fp32 accumulate) as in K6; wgmma, TMA and the forward's
 // log-sum-exp saved in place of pass 1's first sweep are left for later.
-// Shared memory: pass 1 seven [64][72] bf16 tiles and three [64][65] fp32
-// ones (~112 KiB), pass 2 eight [64][72] bf16 tiles (~73 KiB): dynamic.
+//
+// Templated on the head_dim D, as K6 is: 64 (SAM-base, SAM-large) and 80
+// (sam_huge; scale 80^-1/2). D sets the contraction of the logits (D / 16
+// k-steps) and the width of dq, dk and dv (D / 8 n-tiles); the token side of
+// every tile stays 64. Tiles [token][d] take a row stride of 72 bf16 at
+// D = 64 and 88 at D = 80, K6's choice (a row of 80 bf16, 40 words, would
+// put fragment rows g and g + 4 on one bank; 44 words do not); the
+// transposed tiles [d][token] keep 72.
+// Shared memory, dynamic, raised per instantiation: pass 1 holds four
+// [64][ld] tiles (sQ, sDO, sK, sV), the transposed sKt [D][72], the two bias
+// tiles [64][72] and three [64][65] fp32 tiles: 114,432 bytes at 64,
+// 124,928 at 80 (two blocks fit on an SM at 64, one at 80); pass 2 four
+// [64][ld] tiles (sK, sV, sQ, sDO), two transposed (sQt, sDOt) [D][72], the
+// bias tiles and 512 bytes of fp32: 74,240 and 87,040 bytes. At D = 64 the
+// kernels compute exactly what the untemplated ones did.
 
 #include "decoder_common.cuh"
 
@@ -60,19 +73,27 @@ using cor::pack_bf16x2;
 using cor::quad_sum;
 using cor::round_bf16;
 
-constexpr int kD = 64;         // head_dim the kernels take
 constexpr int kT = 64;         // query and key rows per tile (16 per warp)
-constexpr int kLds = kD + 8;   // padded shared row stride of a bf16 tile
+constexpr int kLdt = kT + 8;   // padded row stride of a transposed tile [d][token]
 constexpr int kMaxSide = 64;   // H, W <= 64
 constexpr int kLdr = kMaxSide + 8;  // padded stride of the staged bias rows
 constexpr int kLdf = kT + 1;   // fp32 row stride of the dl tile and bias gradients
 constexpr int kThreads = 128;  // 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTile = kT * kLds;  // bf16 elements of one staged tile
-constexpr size_t kSmemDq = (5 * kTile + 2 * kT * kLdr) * sizeof(uint16_t) +
-                           3 * kT * kLdf * sizeof(float);
-constexpr size_t kSmemDkv = (6 * kTile + 2 * kT * kLdr) * sizeof(uint16_t) +
-                            2 * kT * sizeof(float);
+
+// the shapes that follow from the head_dim D (64 or 80: whole m16n8k16 k-steps)
+template <int D>
+struct HeadDim {
+  static_assert(D % 16 == 0, "the logits' product runs in k-steps of 16");
+  static constexpr int kLds = D == 64 ? 72 : 88;  // row stride of a [token][d] tile
+  static_assert(kLds >= D && (kLds / 2) % 8 == 4, "conflict-free fragment rows");
+  static constexpr int kTile = kT * kLds;  // bf16 elements of a [token][d] tile
+  static constexpr int kTileT = D * kLdt;  // bf16 elements of a [d][token] tile
+  static constexpr size_t kSmemDq = (4 * kTile + kTileT + 2 * kT * kLdr) * sizeof(uint16_t) +
+                                    3 * kT * kLdf * sizeof(float);
+  static constexpr size_t kSmemDkv = (4 * kTile + 2 * kTileT + 2 * kT * kLdr) *
+                                     sizeof(uint16_t) + 2 * kT * sizeof(float);
+};
 
 // two bf16 in one 32-bit word, each times s, rounded back to bf16
 __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float s) {
@@ -80,15 +101,16 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float s) {
                      bf2f(static_cast<uint16_t>(w >> 16)) * s);
 }
 
-// Rows [r0, r0 + 64) of a [., stride] bf16 matrix, 64 columns from src ->
-// s [row][kLds] (if s) and its transpose st [col][kLds] (if st); rows >= N
+// Rows [r0, r0 + 64) of a [., stride] bf16 matrix, D columns from src ->
+// s [row][kLds] (if s) and its transpose st [col][kLdt] (if st); rows >= N
 // are zeros; with kScale each value is multiplied by scale and rounded.
-template <bool kScale>
+template <int D, bool kScale>
 __device__ __forceinline__ void stage_tile(uint16_t* s, uint16_t* st, const uint16_t* src,
                                            int64_t stride, int r0, int N, float scale, int tid) {
-  for (int i = tid; i < kT * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8);
-    const int c8 = (i % (kD / 8)) * 8;
+  constexpr int kLds = HeadDim<D>::kLds;
+  for (int i = tid; i < kT * (D / 8); i += kThreads) {
+    const int r = i / (D / 8);
+    const int c8 = (i % (D / 8)) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < N) {
       v = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c8);
@@ -101,8 +123,8 @@ __device__ __forceinline__ void stage_tile(uint16_t* s, uint16_t* st, const uint
       const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        st[(c8 + 2 * j) * kLds + r] = static_cast<uint16_t>(w[j] & 0xffffu);
-        st[(c8 + 2 * j + 1) * kLds + r] = static_cast<uint16_t>(w[j] >> 16);
+        st[(c8 + 2 * j) * kLdt + r] = static_cast<uint16_t>(w[j] & 0xffffu);
+        st[(c8 + 2 * j + 1) * kLdt + r] = static_cast<uint16_t>(w[j] >> 16);
       }
     }
   }
@@ -120,14 +142,16 @@ __device__ __forceinline__ void stage_bias(uint16_t* sR, const uint16_t* rel, in
 
 // acc[n] (16 rows x 8 columns) = A (this warp's 16 rows, as fragments a[4])
 // times the 64 rows of sB [n*8 + col][kLds] transposed: the 16 x 64 product
-// over the 64-wide contraction
-__device__ __forceinline__ void mma_rows(float (&acc)[kT / 8][4], const uint32_t (&a)[kD / 16][4],
+// over the D-wide contraction
+template <int D>
+__device__ __forceinline__ void mma_rows(float (&acc)[kT / 8][4], const uint32_t (&a)[D / 16][4],
                                          const uint16_t* sB, int g, int t) {
+  constexpr int kLds = HeadDim<D>::kLds;
 #pragma unroll
   for (int n = 0; n < kT / 8; ++n) {
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < kD / 16; ++kc) {
+    for (int kc = 0; kc < D / 16; ++kc) {
       const uint16_t* p = sB + (n * 8 + g) * kLds + kc * 16 + 2 * t;
       mma_bf16_16816(acc[n], a[kc], lds32(p), lds32(p + 8));
     }
@@ -135,24 +159,27 @@ __device__ __forceinline__ void mma_rows(float (&acc)[kT / 8][4], const uint32_t
 }
 
 // acc[n] += P (16 x 64, fragments p[4] along the contraction) times sB^T,
-// with sB [n*8 + col][kLds] holding the 64-deep operand transposed
-__device__ __forceinline__ void mma_acc(float (&acc)[kD / 8][4], const uint32_t (&p)[kT / 16][4],
+// with sB [n*8 + col][kLdt] holding the 64-deep operand transposed
+template <int D>
+__device__ __forceinline__ void mma_acc(float (&acc)[D / 8][4], const uint32_t (&p)[kT / 16][4],
                                         const uint16_t* sB, int g, int t) {
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
     for (int kc = 0; kc < kT / 16; ++kc) {
-      const uint16_t* q = sB + (n * 8 + g) * kLds + kc * 16 + 2 * t;
+      const uint16_t* q = sB + (n * 8 + g) * kLdt + kc * 16 + 2 * t;
       mma_bf16_16816(acc[n], p[kc], lds32(q), lds32(q + 8));
     }
   }
 }
 
 // The A fragments of a warp's 16 rows of a staged tile
-__device__ __forceinline__ void load_frags(uint32_t (&a)[kD / 16][4], const uint16_t* s, int row0,
+template <int D>
+__device__ __forceinline__ void load_frags(uint32_t (&a)[D / 16][4], const uint16_t* s, int row0,
                                            int g, int t) {
+  constexpr int kLds = HeadDim<D>::kLds;
 #pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc) {
+  for (int kc = 0; kc < D / 16; ++kc) {
     const uint16_t* p = s + (row0 + g) * kLds + kc * 16 + 2 * t;
     a[kc][0] = lds32(p);
     a[kc][1] = lds32(p + 8 * kLds);
@@ -206,19 +233,21 @@ __device__ __forceinline__ void bias_log2(float (&s)[kT / 8][4], const uint16_t*
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 vit_attention_bwd_dq_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __restrict__ rel_h,
                             const uint16_t* __restrict__ rel_w, const uint16_t* __restrict__ dout,
                             uint16_t* __restrict__ dqkv, uint16_t* __restrict__ drel_h,
                             uint16_t* __restrict__ drel_w, float* __restrict__ lse,
                             float* __restrict__ delta, int N, int C, int H, int W, float scale) {
+  constexpr int kTile = HeadDim<D>::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* sQ = reinterpret_cast<uint16_t*>(smem);  // [query][d], q * scale
   uint16_t* sDO = sQ + kTile;                         // [query][d]
   uint16_t* sK = sDO + kTile;                         // [key][d]
-  uint16_t* sKt = sK + kTile;                         // [d][key]
-  uint16_t* sV = sKt + kTile;                         // [key][d]
-  uint16_t* sRh = sV + kTile;                         // [query][key grid row]
+  uint16_t* sV = sK + kTile;                          // [key][d]
+  uint16_t* sKt = sV + kTile;                         // [d][key]
+  uint16_t* sRh = sKt + HeadDim<D>::kTileT;           // [query][key grid row]
   uint16_t* sRw = sRh + kT * kLdr;                    // [query][key grid column]
   float* sDl = reinterpret_cast<float*>(sRw + kT * kLdr);  // [query][key] bf16(dl)
   float* sDrh = sDl + kT * kLdf;                      // [query][key grid row]
@@ -235,20 +264,20 @@ vit_attention_bwd_dq_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   const int t = lane & 3;
   const int wr = warp * 16;
   const int64_t row_stride = 3LL * C;
-  const uint16_t* base = qkv + static_cast<int64_t>(b) * N * row_stride + h * kD;
+  const uint16_t* base = qkv + static_cast<int64_t>(b) * N * row_stride + h * D;
   const int64_t rel_row0 = (static_cast<int64_t>(b) * heads + h) * N + q0;
 
-  stage_tile<true>(sQ, nullptr, base, row_stride, q0, N, scale, tid);
-  stage_tile<false>(sDO, nullptr, dout + static_cast<int64_t>(b) * N * C + h * kD, C, q0, N, 0.f,
-                    tid);
+  stage_tile<D, true>(sQ, nullptr, base, row_stride, q0, N, scale, tid);
+  stage_tile<D, false>(sDO, nullptr, dout + static_cast<int64_t>(b) * N * C + h * D, C, q0, N,
+                       0.f, tid);
   stage_bias(sRh, rel_h, rel_row0, q0, N, H, tid);
   stage_bias(sRw, rel_w, rel_row0, q0, N, W, tid);
   for (int i = tid; i < 2 * kT * kLdf; i += kThreads) sDrh[i] = 0.f;  // sDrh and sDrw
   __syncthreads();
 
-  uint32_t qa[kD / 16][4], doa[kD / 16][4];
-  load_frags(qa, sQ, wr, g, t);
-  load_frags(doa, sDO, wr, g, t);
+  uint32_t qa[D / 16][4], doa[D / 16][4];
+  load_frags<D>(qa, sQ, wr, g, t);
+  load_frags<D>(doa, sDO, wr, g, t);
   const uint16_t* rh0 = sRh + (wr + g) * kLdr;
   const uint16_t* rw0 = sRw + (wr + g) * kLdr;
   const uint16_t* rh1 = rh0 + 8 * kLdr;
@@ -261,11 +290,11 @@ vit_attention_bwd_dq_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   float s[kT / 8][4], da[kT / 8][4];
   for (int k0 = 0; k0 < N; k0 += kT) {
     __syncthreads();  // the previous K/V tiles are fully consumed
-    stage_tile<false>(sK, nullptr, base + C, row_stride, k0, N, 0.f, tid);
-    stage_tile<false>(sV, nullptr, base + 2 * C, row_stride, k0, N, 0.f, tid);
+    stage_tile<D, false>(sK, nullptr, base + C, row_stride, k0, N, 0.f, tid);
+    stage_tile<D, false>(sV, nullptr, base + 2 * C, row_stride, k0, N, 0.f, tid);
     __syncthreads();
-    mma_rows(s, qa, sK, g, t);
-    mma_rows(da, doa, sV, g, t);
+    mma_rows<D>(s, qa, sK, g, t);
+    mma_rows<D>(da, doa, sV, g, t);
     bias_log2(s, rh0, rw0, rh1, rw1, k0, t, N, W);
     float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -309,9 +338,9 @@ vit_attention_bwd_dq_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
 
   // sweep 2: a and dl per tile; dq on the tensor cores, the bias gradients
   // from shared memory
-  float dq[kD / 8][4];
+  float dq[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
   float* dl_r0 = sDl + (wr + g) * kLdf;
   float* dl_r1 = dl_r0 + 8 * kLdf;
   const int my_row = wr + (lane & 15);  // the row whose bias gradient this lane sums
@@ -320,11 +349,11 @@ vit_attention_bwd_dq_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   const float* my_dl = sDl + my_row * kLdf;
   for (int k0 = 0; k0 < N; k0 += kT) {
     __syncthreads();
-    stage_tile<false>(sK, sKt, base + C, row_stride, k0, N, 0.f, tid);
-    stage_tile<false>(sV, nullptr, base + 2 * C, row_stride, k0, N, 0.f, tid);
+    stage_tile<D, false>(sK, sKt, base + C, row_stride, k0, N, 0.f, tid);
+    stage_tile<D, false>(sV, nullptr, base + 2 * C, row_stride, k0, N, 0.f, tid);
     __syncthreads();
-    mma_rows(s, qa, sK, g, t);
-    mma_rows(da, doa, sV, g, t);
+    mma_rows<D>(s, qa, sK, g, t);
+    mma_rows<D>(da, doa, sV, g, t);
     bias_log2(s, rh0, rw0, rh1, rw1, k0, t, N, W);
 #pragma unroll
     for (int n = 0; n < kT / 8; ++n) {
@@ -340,7 +369,7 @@ vit_attention_bwd_dq_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
     }
     uint32_t dla[kT / 16][4];
     pack_frags(dla, s);
-    mma_acc(dq, dla, sKt, g, t);
+    mma_acc<D>(dq, dla, sKt, g, t);
     __syncwarp();
     // this lane's (row, factor): bf16(dl) of the tile's keys summed by key
     // grid row (rel_h) or column (rel_w), in key order
@@ -368,10 +397,10 @@ vit_attention_bwd_dq_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   }
 
   // dq * scale -> the q third of dqkv; the bias gradients -> drel_h, drel_w
-  uint16_t* dq_out = dqkv + static_cast<int64_t>(b) * N * row_stride + h * kD + 2 * t;
+  uint16_t* dq_out = dqkv + static_cast<int64_t>(b) * N * row_stride + h * D + 2 * t;
   const int ra = q0 + wr + g, rb = ra + 8;
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     if (ra < N)
       *reinterpret_cast<uint32_t*>(dq_out + ra * row_stride + n * 8) =
           pack_bf16x2(dq[n][0] * scale, dq[n][1] * scale);
@@ -389,20 +418,22 @@ vit_attention_bwd_dq_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 vit_attention_bwd_dkv_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __restrict__ rel_h,
                              const uint16_t* __restrict__ rel_w, const uint16_t* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              uint16_t* __restrict__ dqkv, int N, int C, int H, int W,
                              float scale) {
+  constexpr int kTile = HeadDim<D>::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* sK = reinterpret_cast<uint16_t*>(smem);  // [key][d]
   uint16_t* sV = sK + kTile;                          // [key][d]
   uint16_t* sQ = sV + kTile;                          // [query][d], q * scale
-  uint16_t* sQt = sQ + kTile;                         // [d][query]
-  uint16_t* sDO = sQt + kTile;                        // [query][d]
-  uint16_t* sDOt = sDO + kTile;                       // [d][query]
-  uint16_t* sRh = sDOt + kTile;                       // [query][key grid row]
+  uint16_t* sDO = sQ + kTile;                         // [query][d]
+  uint16_t* sQt = sDO + kTile;                        // [d][query]
+  uint16_t* sDOt = sQt + HeadDim<D>::kTileT;          // [d][query]
+  uint16_t* sRh = sDOt + HeadDim<D>::kTileT;          // [query][key grid row]
   uint16_t* sRw = sRh + kT * kLdr;                    // [query][key grid column]
   float* sLse = reinterpret_cast<float*>(sRw + kT * kLdr);
   float* sDelta = sLse + kT;
@@ -418,12 +449,12 @@ vit_attention_bwd_dkv_kernel(const uint16_t* __restrict__ qkv, const uint16_t* _
   const int t = lane & 3;
   const int wr = warp * 16;
   const int64_t row_stride = 3LL * C;
-  const uint16_t* base = qkv + static_cast<int64_t>(b) * N * row_stride + h * kD;
-  const uint16_t* dbase = dout + static_cast<int64_t>(b) * N * C + h * kD;
+  const uint16_t* base = qkv + static_cast<int64_t>(b) * N * row_stride + h * D;
+  const uint16_t* dbase = dout + static_cast<int64_t>(b) * N * C + h * D;
   const int64_t rel0 = (static_cast<int64_t>(b) * heads + h) * N;
 
-  stage_tile<false>(sK, nullptr, base + C, row_stride, k0, N, 0.f, tid);
-  stage_tile<false>(sV, nullptr, base + 2 * C, row_stride, k0, N, 0.f, tid);
+  stage_tile<D, false>(sK, nullptr, base + C, row_stride, k0, N, 0.f, tid);
+  stage_tile<D, false>(sV, nullptr, base + 2 * C, row_stride, k0, N, 0.f, tid);
   // this lane's two keys (rows g and g + 8 of the warp) and their grid
   // (row, column); keys >= N are masked and read bias column 0
   int key[2], jh[2], jw[2];
@@ -434,15 +465,15 @@ vit_attention_bwd_dkv_kernel(const uint16_t* __restrict__ qkv, const uint16_t* _
     jw[r] = key[r] < N ? key[r] - jh[r] * W : 0;
   }
 
-  float dk[kD / 8][4], dv[kD / 8][4];
+  float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n)
+  for (int n = 0; n < D / 8; ++n)
     dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
   float s[kT / 8][4], da[kT / 8][4];
   for (int q0 = 0; q0 < N; q0 += kT) {
     __syncthreads();  // the previous query tiles are fully consumed
-    stage_tile<true>(sQ, sQt, base, row_stride, q0, N, scale, tid);
-    stage_tile<false>(sDO, sDOt, dbase, C, q0, N, 0.f, tid);
+    stage_tile<D, true>(sQ, sQt, base, row_stride, q0, N, scale, tid);
+    stage_tile<D, false>(sDO, sDOt, dbase, C, q0, N, 0.f, tid);
     stage_bias(sRh, rel_h, rel0 + q0, q0, N, H, tid);
     stage_bias(sRw, rel_w, rel0 + q0, q0, N, W, tid);
     for (int i = tid; i < kT; i += kThreads) {
@@ -451,11 +482,11 @@ vit_attention_bwd_dkv_kernel(const uint16_t* __restrict__ qkv, const uint16_t* _
       sDelta[i] = in ? delta[rel0 + q0 + i] : 0.f;
     }
     __syncthreads();
-    uint32_t ka[kD / 16][4], va[kD / 16][4];
-    load_frags(ka, sK, wr, g, t);
-    mma_rows(s, ka, sQ, g, t);  // S^T: this warp's keys x the tile's queries
-    load_frags(va, sV, wr, g, t);
-    mma_rows(da, va, sDO, g, t);  // da^T
+    uint32_t ka[D / 16][4], va[D / 16][4];
+    load_frags<D>(ka, sK, wr, g, t);
+    mma_rows<D>(s, ka, sQ, g, t);  // S^T: this warp's keys x the tile's queries
+    load_frags<D>(va, sV, wr, g, t);
+    mma_rows<D>(da, va, sDO, g, t);  // da^T
 #pragma unroll
     for (int n = 0; n < kT / 8; ++n) {
 #pragma unroll
@@ -473,17 +504,17 @@ vit_attention_bwd_dkv_kernel(const uint16_t* __restrict__ qkv, const uint16_t* _
     uint32_t aa[kT / 16][4], dla[kT / 16][4];
     pack_frags(aa, s);
     pack_frags(dla, da);
-    mma_acc(dv, aa, sDOt, g, t);
-    mma_acc(dk, dla, sQt, g, t);
+    mma_acc<D>(dv, aa, sDOt, g, t);
+    mma_acc<D>(dk, dla, sQt, g, t);
   }
 
-  uint16_t* out = dqkv + static_cast<int64_t>(b) * N * row_stride + h * kD + 2 * t;
+  uint16_t* out = dqkv + static_cast<int64_t>(b) * N * row_stride + h * D + 2 * t;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= N) continue;
     uint16_t* row = out + static_cast<int64_t>(key[r]) * row_stride;
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<uint32_t*>(row + C + n * 8) = pack_bf16x2(dk[n][2 * r], dk[n][2 * r + 1]);
       *reinterpret_cast<uint32_t*>(row + 2 * C + n * 8) =
           pack_bf16x2(dv[n][2 * r], dv[n][2 * r + 1]);
@@ -491,28 +522,16 @@ vit_attention_bwd_dkv_kernel(const uint16_t* __restrict__ qkv, const uint16_t* _
   }
 }
 
-}  // namespace
-
-// qkv: [B, N, 3C] bf16 contiguous, 16-byte aligned, C = num_heads * 64;
-// rel_h [B, num_heads, N, H], rel_w [B, num_heads, N, W] bf16 contiguous,
-// N = H * W, H and W <= 64; dout [B, N, C] bf16 contiguous. Writes dqkv
-// [B, N, 3C], drel_h, drel_w (bf16, the shapes of their inputs) and uses
-// stats: fp32 scratch of 2 * B * num_heads * N (the rows' log-sum-exp and
-// delta). Returns the launches' cudaError_t (cudaErrorInvalidValue for
-// shapes the kernels do not take).
-extern "C" int cor_vit_attention_relpos_bwd(const void* qkv, const void* rel_h, const void* rel_w,
-                                            const void* dout, void* dqkv, void* drel_h,
-                                            void* drel_w, void* stats, int B, int N, int C,
-                                            int num_heads, int H, int W, float scale,
-                                            void* stream) {
-  if (B < 1 || N < 1 || num_heads < 1 || C != num_heads * kD || B > 65535 ||
-      num_heads > 65535 || H < 1 || W < 1 || H > kMaxSide || W > kMaxSide || H * W != N)
-    return cudaErrorInvalidValue;
+template <int D>
+int launch(const void* qkv, const void* rel_h, const void* rel_w, const void* dout, void* dqkv,
+           void* drel_h, void* drel_w, void* stats, int B, int N, int C, int num_heads, int H,
+           int W, float scale, void* stream) {
+  constexpr size_t smem_dq = HeadDim<D>::kSmemDq, smem_dkv = HeadDim<D>::kSmemDkv;
   cudaError_t err = cudaFuncSetAttribute(
-      vit_attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);
+      vit_attention_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(vit_attention_bwd_dkv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDkv);
+  err = cudaFuncSetAttribute(vit_attention_bwd_dkv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
   if (err != cudaSuccess) return err;
   float* lse = static_cast<float*>(stats);
   float* delta = lse + static_cast<int64_t>(B) * num_heads * N;
@@ -523,12 +542,42 @@ extern "C" int cor_vit_attention_relpos_bwd(const void* qkv, const void* rel_h, 
   const uint16_t* rw = static_cast<const uint16_t*>(rel_w);
   const uint16_t* d = static_cast<const uint16_t*>(dout);
   uint16_t* dq = static_cast<uint16_t*>(dqkv);
-  vit_attention_bwd_dq_kernel<<<grid, kThreads, kSmemDq, st>>>(
+  vit_attention_bwd_dq_kernel<D><<<grid, kThreads, smem_dq, st>>>(
       q, rh, rw, d, dq, static_cast<uint16_t*>(drel_h), static_cast<uint16_t*>(drel_w), lse,
       delta, N, C, H, W, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  vit_attention_bwd_dkv_kernel<<<grid, kThreads, kSmemDkv, st>>>(q, rh, rw, d, lse, delta, dq, N,
-                                                                 C, H, W, scale);
+  vit_attention_bwd_dkv_kernel<D><<<grid, kThreads, smem_dkv, st>>>(q, rh, rw, d, lse, delta, dq,
+                                                                    N, C, H, W, scale);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// qkv: [B, N, 3C] bf16 contiguous, 16-byte aligned, C = num_heads * D with D
+// in {64, 80}; rel_h [B, num_heads, N, H], rel_w [B, num_heads, N, W] bf16
+// contiguous, N = H * W, H and W <= 64; dout [B, N, C] bf16 contiguous.
+// scale: D^-1/2. Writes dqkv [B, N, 3C], drel_h, drel_w (bf16, the shapes of
+// their inputs) and uses stats: fp32 scratch of 2 * B * num_heads * N (the
+// rows' log-sum-exp and delta). Returns the launches' cudaError_t
+// (cudaErrorInvalidValue for shapes the kernels do not take; a refused
+// shared-memory size or launch as the runtime reports it).
+extern "C" int cor_vit_attention_relpos_bwd(const void* qkv, const void* rel_h, const void* rel_w,
+                                            const void* dout, void* dqkv, void* drel_h,
+                                            void* drel_w, void* stats, int B, int N, int C,
+                                            int num_heads, int H, int W, float scale,
+                                            void* stream) {
+  if (B < 1 || N < 1 || num_heads < 1 || C % num_heads != 0 || B > 65535 ||
+      num_heads > 65535 || H < 1 || W < 1 || H > kMaxSide || W > kMaxSide || H * W != N)
+    return cudaErrorInvalidValue;
+  switch (C / num_heads) {
+    case 64:
+      return launch<64>(qkv, rel_h, rel_w, dout, dqkv, drel_h, drel_w, stats, B, N, C,
+                        num_heads, H, W, scale, stream);
+    case 80:
+      return launch<80>(qkv, rel_h, rel_w, dout, dqkv, drel_h, drel_w, stats, B, N, C,
+                        num_heads, H, W, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

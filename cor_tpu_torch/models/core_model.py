@@ -92,6 +92,24 @@ class CoreConfig:
         return dt
 
 
+# the compute dtypes the card's kernels take, and the ROADMAP row that ports others
+KERNEL_DTYPES = ("bfloat16",)
+FP32_ITEM = "ROADMAP Queue 2, @fp32 (the kernels in fp32)"
+
+
+def check_kernel_dtype(cfg: CoreConfig, device) -> None:
+    """Refuse, off the CPU, a compute dtype that the card's kernels do not
+    take, naming the ROADMAP row that ports it; the CPU runs any float dtype
+    through the kernels' plain versions. The entry points call this before
+    they look for the card, so that the refusal comes before any model is
+    built."""
+    dt = cfg.dtype  # raises on a name that is no float dtype
+    if torch.device(device).type != "cpu" and cfg.compute_dtype not in KERNEL_DTYPES:
+        raise ValueError(
+            f"compute_dtype {cfg.compute_dtype} ({dt}) has no kernels on the card, which take "
+            f"{' and '.join(KERNEL_DTYPES)}: {FP32_ITEM}; --device cpu runs it on the CPU")
+
+
 def describe(cfg: CoreConfig) -> str:
     """What a config runs, for the entry points' logs: the SigLIP towers and
     the SAM image encoder by name, width, depth and heads, and the dtype."""

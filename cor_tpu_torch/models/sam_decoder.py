@@ -21,6 +21,15 @@ tail as separate ops: LN eps 1e-6, GELU, transposed conv, GELU, the
 hypernetwork einsum) is differentiable and runs no kernel; the kernels have
 no backward and refuse to be differentiated.
 
+``fused=True`` routes as ``cor_tpu`` does (``layer_route``, its
+``layer_fused`` test): a grid of H * W a multiple of 1,024 rows, at most 8
+tokens and a width that the heads divide go through the per-layer kernel
+(K1); other geometries go through ``cor_tpu``'s K8a/K8b, which the port has
+not yet. Off the CPU, a decode that ``cor_tpu`` sends to K8a/K8b is refused
+naming their ROADMAP row, and one of 7 or 8 tokens (K1 in ``cor_tpu``; the
+port's K1 and K2 take 6) naming Queue 1's item 14, before any kernel runs.
+On the CPU the plain versions run every geometry.
+
 Parameters are named after ``cor_tpu``'s tree (``init_mask_decoder``), so the
 weight bridge maps a ``cor_tpu`` tree onto the module; the transposed-conv
 kernels keep ``cor_tpu``'s layout [C_in, 2, 2, C_out].
@@ -50,6 +59,14 @@ from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
 from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
 
 LN_EPS = 1e-5  # the two-way transformer's LayerNorms (the tail's is 1e-6)
+# cor_tpu's layer_fused test (models/sam_decoder.py:255-260): K1's row tile
+# and token pad (ops/pallas/two_way_layer.py:79-80)
+LAYER_ROW_TILE, LAYER_MAX_TOKENS = 1024, 8
+KERNEL_TOKENS = 6  # the tokens the port's K1 and K2 take
+K8_ITEM = ("ROADMAP Queue 2, K8a/K8b (the per-layer t2i and i2t kernels that cor_tpu runs "
+           "where its layer kernel does not)")
+TOKENS_ITEM = ("ROADMAP Queue 1, item 14 (the stock prompt encoder, with K1 and K2 at up to "
+               "8 tokens)")
 
 
 @dataclass(frozen=True)
@@ -209,6 +226,30 @@ def _conv_transpose_2x(p: ConvTranspose2x, x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1) + p.b.to(x.dtype)
 
 
+def layer_route(n_rows: int, n_tokens: int, width: int, num_heads: int) -> str:
+    """cor_tpu's routing of a fused decode of ``n_rows`` = H * W image rows
+    and ``n_tokens`` tokens: "layer" (K1, one kernel per layer) or "k8"
+    (K8a/K8b)."""
+    if (n_rows % LAYER_ROW_TILE == 0 and n_tokens <= LAYER_MAX_TOKENS
+            and width % num_heads == 0):
+        return "layer"
+    return "k8"
+
+
+def check_fused_geometry(n_rows: int, n_tokens: int, width: int, num_heads: int) -> None:
+    """Refuse, before any kernel runs, a fused decode on the card that the
+    port's kernels do not take, naming the ROADMAP item that ports it."""
+    if layer_route(n_rows, n_tokens, width, num_heads) == "k8":
+        raise ValueError(
+            f"a fused decode of {n_rows} image rows and {n_tokens} tokens runs through "
+            f"K8a/K8b in cor_tpu (not a multiple of {LAYER_ROW_TILE} rows, or more than "
+            f"{LAYER_MAX_TOKENS} tokens): {K8_ITEM}")
+    if n_tokens != KERNEL_TOKENS:
+        raise ValueError(
+            f"a fused decode of {n_tokens} tokens: the port's K1 and K2 take "
+            f"{KERNEL_TOKENS} ({TOKENS_ITEM})")
+
+
 def two_way_transformer(
     p: TwoWayTransformer,
     image_embedding: torch.Tensor,  # [B, H, W, C], or a store [S, H, W, C]
@@ -227,6 +268,8 @@ def two_way_transformer(
         return _two_way_transformer_unfused(p, image_embedding, image_pe, point_embedding)
     if store_scale is not None and store_idx is None:
         raise ValueError("an int8 store needs store_idx")
+    if image_embedding.device.type != "cpu":
+        check_fused_geometry(H * W, point_embedding.shape[1], C, p.cfg.num_heads)
     comp_dt = point_embedding.dtype if store_scale is not None else image_embedding.dtype
     keys = image_embedding.reshape(S, H * W, C)
     key_pe = image_pe.reshape(1, H * W, C).to(comp_dt)

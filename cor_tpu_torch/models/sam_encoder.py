@@ -14,14 +14,17 @@ A [B, 1024, 1024, 3] NHWC image becomes a [B, 64, 64, 256] NHWC embedding:
 
 On a CUDA tensor every LayerNorm runs K5 (``ops.kernels.layernorm``) and
 every attention K6 (``ops.kernels.vit_attention``): per forward of SAM-base,
-26 K5 and 12 K6 launches. Modules name their parameters after the leaves of
-``init_sam_encoder``'s tree, so a ``cor_tpu`` tree loads through
-``utils.weights.load_cor_tpu_params``.
+26 K5 and 12 K6 launches. With ``fused_window_indexing`` (cor_tpu's opt-in,
+which no YAML sets) a windowed block skips the partition copies: it pads x
+to whole windows and attends through K7, which reads the windows by strides
+(``ops.attention.attention_2d_fused(..., window=)``); SAM-base then launches
+K7 8 times and K6 4 times per forward, sam_huge 28 and 4. Modules name their
+parameters after the leaves of ``init_sam_encoder``'s tree, so a ``cor_tpu``
+tree loads through ``utils.weights.load_cor_tpu_params``.
 
 Config values the port does not run are refused with the ROADMAP item that
-ports them: ``fused_window_indexing`` (the partition inside the kernel, K7),
-``seq_shard`` and ``pp_stages > 1`` (parallel), and, on the card,
-``fused_attention=False`` or ``fused_layernorm=False`` (the plain
+ports them: ``seq_shard`` and ``pp_stages > 1`` (parallel), and, on the
+card, ``fused_attention=False`` or ``fused_layernorm=False`` (the plain
 formulations are test oracles on the CPU, not a served path).
 ``remat_blocks`` (default on; ``TrainConfig.encoder_remat`` overrides it)
 acts where autograd records the forward (an unfrozen fine-tune): each block
@@ -72,7 +75,7 @@ class SamEncoderConfig:
     fused_attention: bool = True  # K6; False: attention_2d (CPU only)
     remat_blocks: bool = True  # recompute each block in the backward (training only)
     fused_layernorm: bool = True  # K5; False: ops.common.layer_norm (CPU only)
-    fused_window_indexing: bool = False  # refused: K7
+    fused_window_indexing: bool = False  # windowed blocks through K7
     seq_shard: bool = False  # refused: parallel
     pp_stages: int = 0  # refused above 1: parallel
     pp_microbatches: int = 4
@@ -98,11 +101,6 @@ def sam_encoder_config(name: str, **overrides) -> SamEncoderConfig:
 
 def check_config(cfg) -> None:
     """Refuse the config values the port does not run, naming their item."""
-    if cfg.fused_window_indexing:
-        raise ValueError(
-            "fused_window_indexing=True (the window partition inside the attention kernel) "
-            "is not ported to cor_tpu_torch yet: ROADMAP Queue 2, K7"
-        )
     if cfg.seq_shard or cfg.pp_stages > 1:
         raise ValueError(
             "seq_shard and pp_stages > 1 are not ported to cor_tpu_torch yet: ROADMAP "
@@ -135,13 +133,17 @@ class SamBlock(nn.Module):
         cfg = self.cfg
         shortcut = x
         x = _ln(self.norm1, x, cfg)
-        if self.window > 0:
-            hw = x.shape[1:3]
-            x, pad_hw = window_partition(x, self.window)
-        attn = attention_2d_fused if cfg.fused_attention else attention_2d
-        x = attn(self.attn, x, cfg.num_heads)
-        if self.window > 0:
-            x = window_unpartition(x, self.window, pad_hw, hw)
+        if cfg.fused_attention and self.window > 0 and cfg.fused_window_indexing:
+            # the partition inside the kernel's indexing (K7)
+            x = attention_2d_fused(self.attn, x, cfg.num_heads, window=self.window)
+        else:
+            if self.window > 0:
+                hw = x.shape[1:3]
+                x, pad_hw = window_partition(x, self.window)
+            attn = attention_2d_fused if cfg.fused_attention else attention_2d
+            x = attn(self.attn, x, cfg.num_heads)
+            if self.window > 0:
+                x = window_unpartition(x, self.window, pad_hw, hw)
         x = shortcut + x
         return x + self.mlp(_ln(self.norm2, x, cfg))
 

@@ -6,12 +6,13 @@
   partitioning, the decomposed relative-position bias (``get_rel_pos``,
   ``decomposed_rel_pos_bias``), ``Attention2d`` (the leaves of
   ``init_attention_2d``), ``attention_2d`` (the plain formulation, a test
-  oracle) and ``attention_2d_fused`` (the served path).
+  oracle) and ``attention_2d_fused`` (the served path; with ``window``, the
+  window partition inside the kernel).
 
 The QKV projections are ``F.linear`` (large GEMMs, left to cuBLAS as
 ``cor_tpu`` leaves them to XLA); the softmax cores run in the hand-written
 kernels ``ops.kernels.seq_attention`` (K4) and ``ops.kernels.vit_attention``
-(K6) on a CUDA tensor.
+(K6, K7) on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ from torch import nn
 
 from cor_tpu_torch.ops.common import Dense
 from cor_tpu_torch.ops.kernels.seq_attention import attention_seq_qkv
-from cor_tpu_torch.ops.kernels.vit_attention import vit_attention_relpos
+from cor_tpu_torch.ops.kernels.vit_attention import (
+    vit_attention_relpos,
+    vit_attention_relpos_windows,
+)
 
 
 def attention_heads(
@@ -225,12 +229,59 @@ def rel_pos_factors(
             rel_w.to(q.dtype).reshape(B, num_heads, N, W))
 
 
-def attention_2d_fused(p: Attention2d, x: torch.Tensor, num_heads: int) -> torch.Tensor:
+def window_rel_pos_factors(
+    p: Attention2d, q: torch.Tensor, window: int, num_heads: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's bias factors from the unscaled q [B, Hp, Wp, C] of the padded
+    grid's fused QKV: (rel_h, rel_w) [B, heads, Hp * Wp, window], each grid
+    token's factors over its window's key rows and columns, with the tables
+    at window size read at the token's row and column within its window;
+    rounded as ``rel_pos_factors`` rounds (cor_tpu
+    ``_attention_2d_fused_impl`` with ``window``, without its 8-sublane
+    column padding). No partition copy is made."""
+    B, Hp, Wp, C = q.shape
+    D = C // num_heads
+    if p.rel_pos_h is None:
+        return (q.new_zeros(B, num_heads, Hp * Wp, window),
+                q.new_zeros(B, num_heads, Hp * Wp, window))
+    Rh = get_rel_pos(window, window, p.rel_pos_h).to(q.dtype).float()  # [row, key row, D]
+    Rw = get_rel_pos(window, window, p.rel_pos_w).to(q.dtype).float()
+    qf = q.float()
+    # grid row y = a * window + r, column x = c * window + s
+    rel_h = torch.einsum("barxnd,rkd->bnarxk",
+                         qf.reshape(B, Hp // window, window, Wp, num_heads, D), Rh)
+    rel_w = torch.einsum("bycsnd,skd->bnycsk",
+                         qf.reshape(B, Hp, Wp // window, window, num_heads, D), Rw)
+    return (rel_h.to(q.dtype).reshape(B, num_heads, Hp * Wp, window),
+            rel_w.to(q.dtype).reshape(B, num_heads, Hp * Wp, window))
+
+
+def attention_2d_fused(
+    p: Attention2d, x: torch.Tensor, num_heads: int, window: int = 0
+) -> torch.Tensor:
     """``attention_2d`` through K6 (cor_tpu ``attention_2d_fused`` with
     window 0, the served path of both the global blocks and the windowed
     blocks after ``window_partition``): the fused QKV GEMM, the bias factors
     from the unscaled q with plain einsums, then the kernel, which never
-    materialises the logits."""
+    materialises the logits.
+
+    With ``window > 0`` (cor_tpu's opt-in ``fused_window_indexing``), x
+    [B, H, W, C] is the whole grid: it is zero-padded to multiples of the
+    window, the QKV GEMM runs over the padded grid (so the pad tokens' k and
+    v are the qkv bias, as after ``window_partition``), and K7 attends within
+    each window by strides and writes the cropped [B, H, W, C]; it equals
+    ``window_partition`` + ``attention_2d`` + ``window_unpartition``. K7's
+    gradient is its plain version's VJP, recomputed in the backward (as
+    cor_tpu's oracle VJP is)."""
+    if window > 0:
+        B, H, W, C = x.shape
+        pad_h, pad_w = (window - H % window) % window, (window - W % window) % window
+        if pad_h or pad_w:
+            x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+        qkv = p.qkv(x)  # [B, Hp, Wp, 3C]
+        rel_h, rel_w = window_rel_pos_factors(p, qkv[..., :C], window, num_heads)
+        out = vit_attention_relpos_windows(qkv, rel_h, rel_w, num_heads, window, (H, W))
+        return p.proj(out)
     B, H, W, C = x.shape
     N = H * W
     qkv = p.qkv(x.reshape(B, N, C))  # [B, N, 3C], heads contiguous per third

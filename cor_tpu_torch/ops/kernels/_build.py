@@ -45,6 +45,10 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, _VP,
     ),
+    # qkv, rel_h, rel_w, out, B, Hp, Wp, H, W, C, num_heads, window, scale, stream
+    "cor_vit_attention_relpos_windows": (
+        _VP, _VP, _VP, _VP, *(ctypes.c_int,) * 8, ctypes.c_float, _VP,
+    ),
     # qkv, rel_h, rel_w, dout, dqkv, drel_h, drel_w, stats, B, N, C, num_heads, H, W, scale,
     # stream
     "cor_vit_attention_relpos_bwd": (

@@ -1,6 +1,7 @@
 """SAM ViT attention with the decomposed relative-position bias, off a fused
-QKV tensor: the CUDA kernels ``csrc/vit_attention.cu`` (K6, the forward) and
-``csrc/vit_attention_bwd.cu`` (K6b, its backward), and their plain PyTorch
+QKV tensor: the CUDA kernels ``csrc/vit_attention.cu`` (K6, the forward, and
+K7, the same function over the windows of a padded grid) and
+``csrc/vit_attention_bwd.cu`` (K6b, K6's backward), and their plain PyTorch
 versions.
 
 Replaces ``cor_tpu/ops/pallas/vit_attention.py:vit_attention_relpos_pallas``
@@ -38,13 +39,23 @@ and returned in the factors' dtype. (The TPU kernel shifts its concatenated
 keys by their column mean; ``rowsum(dl) = 0`` makes that shift vanish from
 the gradient, so it is left out here.)
 
-Both directions take the plain version for a tensor on the CPU and the
-kernel for a CUDA tensor. K6 takes bf16 with head_dim 64 (SAM-base and
-SAM-large) or 80 (sam_huge) and H, W <= 64, K6b head_dim 64; any other CUDA
-input raises, naming the ROADMAP item that ports it. Where the backward would
-run on the card at a head_dim K6b does not take (an unfrozen sam_huge step),
-the forward raises already, before any work of the step is spent. They never
-fall back from a kernel to a plain version.
+``vit_attention_relpos_windows`` replaces
+``cor_tpu/ops/pallas/vit_attention.py:vit_attention_relpos_windows_pallas``
+(K7, the ``pallas_call`` at line 180; the SAM encoder's opt-in
+``fused_window_indexing``): K6's function in every ``window`` x ``window``
+window of a grid zero-padded to multiples of the window, read off the fused
+QKV of the whole padded grid [B, Hp, Wp, 3C] with the factors [B, heads,
+Hp * Wp, window] of every grid token, and written to the grid cropped to
+``hw``. The pad tokens are keys of their window (their k and v are the qkv
+bias), as in ``window_partition``. Like ``cor_tpu``'s K7 it has no backward
+kernel: its gradient is the VJP of its plain version, recomputed in the
+backward (``ops.diff.with_plain_vjp``; ``cor_tpu``'s ``with_oracle_vjp``).
+
+Each takes the plain version for a tensor on the CPU and its kernel for a
+CUDA tensor: bf16 with head_dim 64 (SAM-base and SAM-large) or 80
+(sam_huge), H, W (K7: the window) <= 64. Any other CUDA input raises, naming
+the ROADMAP item that ports it. They never fall back from a kernel to a
+plain version.
 """
 
 from __future__ import annotations
@@ -53,16 +64,13 @@ from typing import Tuple
 
 import torch
 
-from cor_tpu_torch.ops.diff import needs_grad
+from cor_tpu_torch.ops.diff import with_plain_vjp
 from cor_tpu_torch.ops.kernels._build import check, library
 
 MAX_SIDE = 64  # H, W <= 64: the tile's bias rows are staged in shared memory
-# per kernel: the head dims it takes, and the ROADMAP item that ports others
-HEAD_DIMS = {
-    "vit_attention_relpos": ((64, 80), "ROADMAP Queue 2, K6: head dims other than 64 and 80"),
-    "vit_attention_relpos_bwd": ((64,), "ROADMAP Queue 2, K6b@80: K6b at sam_huge's head_dim "
-                                        "80, for unfrozen training at sam_huge"),
-}
+# the head dims K6, K6b and K7 take, and the ROADMAP row that ports others
+HEAD_DIMS = (64, 80)
+OTHER_DIMS_ITEM = "ROADMAP Queue 2, K4′ / K6 / K7: head dims other than 64 and 80"
 
 
 def vit_attention_relpos_plain(
@@ -129,26 +137,28 @@ def _check_head_dim(qkv, num_heads, what: str) -> int:
     if qkv.dim() != 3 or qkv.shape[-1] % 3 != 0:
         raise ValueError(f"{what} takes qkv [B, N, 3C], got {tuple(qkv.shape)}")
     C = qkv.shape[-1] // 3
-    dims, item = HEAD_DIMS[what]
-    if num_heads < 1 or C % num_heads != 0 or C // num_heads not in dims:
+    if num_heads < 1 or C % num_heads != 0 or C // num_heads not in HEAD_DIMS:
         raise ValueError(
-            f"{what} kernel takes head_dim {' or '.join(map(str, dims))}; width {C} with "
-            f"{num_heads} heads is not ported yet ({item})"
+            f"{what} kernel takes head_dim {' or '.join(map(str, HEAD_DIMS))}; width {C} "
+            f"with {num_heads} heads is not ported yet ({OTHER_DIMS_ITEM})"
         )
     return C // num_heads
 
 
-def _check(qkv, rel_h, rel_w, num_heads, hw, what: str) -> int:
-    """The head_dim, or raise on what the kernel ``what`` does not take."""
+def _check(qkv, rel_h, rel_w, num_heads, hw, what: str, sides=None) -> int:
+    """The head_dim, or raise on what the kernel ``what`` does not take:
+    qkv [B, N, 3C] with N = H * W, the factors [B, heads, N, side] with
+    ``sides`` (default ``hw``) <= 64."""
     H, W = hw
+    kh, kw = sides or hw
     D = _check_head_dim(qkv, num_heads, what)
     B, N, C3 = qkv.shape
-    if N != H * W or not (1 <= H <= MAX_SIDE and 1 <= W <= MAX_SIDE):
+    if N != H * W or not (1 <= kh <= MAX_SIDE and 1 <= kw <= MAX_SIDE):
         raise ValueError(
-            f"{what} kernel takes N = H * W with H, W <= {MAX_SIDE}; got N={N}, "
-            f"H={H}, W={W}"
+            f"{what} kernel takes N = H * W with bias sides <= {MAX_SIDE}; got N={N}, "
+            f"H={H}, W={W}, sides {kh}, {kw}"
         )
-    for name, t, k in (("rel_h", rel_h, H), ("rel_w", rel_w, W)):
+    for name, t, k in (("rel_h", rel_h, kh), ("rel_w", rel_w, kw)):
         if t.shape != (B, num_heads, N, k) or t.dtype != qkv.dtype or t.device != qkv.device:
             raise ValueError(
                 f"{what} kernel: {name} must be [{B}, {num_heads}, {N}, {k}] "
@@ -253,13 +263,98 @@ def vit_attention_relpos(
 ) -> torch.Tensor:
     """qkv [B, N, 3C], rel_h [B, heads, N, H], rel_w [B, heads, N, W] with
     N = H * W -> [B, N, C]; differentiable in all three."""
-    if qkv.device.type != "cpu" and needs_grad(qkv, rel_h, rel_w):
-        # the backward will need K6b: refuse a head_dim it does not take now,
-        # before the step spends its forward
-        _check_head_dim(qkv, num_heads, "vit_attention_relpos")
-        _check_head_dim(qkv, num_heads, "vit_attention_relpos_bwd")
     return _VitAttentionRelpos.apply(qkv, rel_h, rel_w, num_heads, tuple(hw))
+
+
+# ---------------------------------------------------------------------------
+# K7: the windows of a padded grid
+# ---------------------------------------------------------------------------
+
+
+def _partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """[B, Hp, Wp, ...] -> [B * nW, window * window, ...], windows in row
+    order (``ops.attention.window_partition`` on a grid already padded)."""
+    B, Hp, Wp = x.shape[:3]
+    rest = x.shape[3:]
+    x = x.reshape(B, Hp // window, window, Wp // window, window, *rest)
+    x = x.permute(0, 1, 3, 2, 4, *range(5, x.dim()))
+    return x.reshape(B * (Hp // window) * (Wp // window), window * window, *rest)
+
+
+def vit_attention_relpos_windows_plain(
+    qkv: torch.Tensor,
+    rel_h: torch.Tensor,
+    rel_w: torch.Tensor,
+    num_heads: int,
+    window: int,
+    hw: Tuple[int, int],
+) -> torch.Tensor:
+    """The plain version: the windows partitioned, K6's plain version in
+    each, unpartitioned and cropped to ``hw``."""
+    B, Hp, Wp, C3 = qkv.shape
+    H, W = hw
+    qw = _partition(qkv, window)
+    rel = [_partition(r.reshape(B, num_heads, Hp, Wp, window).permute(0, 2, 3, 1, 4), window)
+           .transpose(1, 2) for r in (rel_h, rel_w)]  # [B * nW, heads, window^2, window]
+    out = vit_attention_relpos_plain(qw, rel[0], rel[1], num_heads, (window, window))
+    out = out.reshape(B, Hp // window, Wp // window, window, window, C3 // 3)
+    out = out.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C3 // 3)
+    return out[:, :H, :W].contiguous()
+
+
+def _windows_forward(qkv, rel_h, rel_w, num_heads: int, window: int,
+                     hw: Tuple[int, int]) -> torch.Tensor:
+    """K7 on a CUDA tensor, the plain version on the CPU."""
+    if qkv.device.type == "cpu":
+        return vit_attention_relpos_windows_plain(qkv, rel_h, rel_w, num_heads, window, hw)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"vit_attention_relpos_windows: no kernel for device {qkv.device}")
+    what = "vit_attention_relpos_windows"
+    if qkv.dim() != 4 or not qkv.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous qkv [B, Hp, Wp, 3C], got "
+                         f"{tuple(qkv.shape)}")
+    B, Hp, Wp, C3 = qkv.shape
+    H, W = hw
+    D = _check(qkv.reshape(B, Hp * Wp, C3), rel_h, rel_w, num_heads, (Hp, Wp), what,
+               sides=(window, window))
+    if not (1 <= window <= MAX_SIDE and Hp % window == 0 and Wp % window == 0
+            and 1 <= H <= Hp and 1 <= W <= Wp):
+        raise ValueError(f"{what} kernel: grid {Hp} x {Wp} must be whole windows of "
+                         f"{window} <= {MAX_SIDE}, cropped to {H} x {W}")
+    if B * (Hp // window) * (Wp // window) > 65535:
+        raise ValueError(f"{what} kernel: {B} images of {Hp // window} x {Wp // window} "
+                         "windows is more than 65535 blocks")
+    C = C3 // 3
+    out = torch.empty((B, H, W, C), dtype=qkv.dtype, device=qkv.device)
+    lib = library()
+    with torch.cuda.device(qkv.device):
+        err = lib.cor_vit_attention_relpos_windows(
+            qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+            B, Hp, Wp, H, W, C, num_heads, window, float(D**-0.5),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    check(err, what)
+    vit_attention_relpos_windows.launches += 1
+    return out
+
+
+_windows_diff = with_plain_vjp(_windows_forward, vit_attention_relpos_windows_plain)
+
+
+def vit_attention_relpos_windows(
+    qkv: torch.Tensor,
+    rel_h: torch.Tensor,
+    rel_w: torch.Tensor,
+    num_heads: int,
+    window: int,
+    hw: Tuple[int, int],
+) -> torch.Tensor:
+    """qkv [B, Hp, Wp, 3C] (Hp, Wp multiples of ``window``), rel_h and rel_w
+    [B, heads, Hp * Wp, window] -> [B, H, W, C] with (H, W) = ``hw``;
+    differentiable in all three (the plain version's VJP)."""
+    return _windows_diff(qkv, rel_h, rel_w, num_heads, window, tuple(hw))
 
 
 vit_attention_relpos.launches = 0
 vit_attention_relpos_bwd.launches = 0
+vit_attention_relpos_windows.launches = 0

@@ -43,7 +43,7 @@ import torch
 
 from cor_tpu_torch.data.synthetic import SyntheticDataset
 from cor_tpu_torch.data.tokenizer import get_tokenizer
-from cor_tpu_torch.models.core_model import CoreConfig, DecodeModel, _cast
+from cor_tpu_torch.models.core_model import CoreConfig, DecodeModel, _cast, check_kernel_dtype
 from cor_tpu_torch.retrieval.engine import RetrievalEngine, quantize_candidate_store_host
 from cor_tpu_torch.retrieval.index import (
     make_candidate_mask_decoder,
@@ -115,6 +115,7 @@ class RetrievalServer:
         """``model`` is a ``SupportBranch`` and ``decode_model`` (needed with
         ``decode_dir``) a ``DecodeModel``; the server moves both to ``device``
         and casts them in place to the config's compute dtype."""
+        check_kernel_dtype(core_cfg, device)
         self.cfg = core_cfg
         self.device = torch.device(device)
         self.model = _cast(model.to(self.device), core_cfg.dtype).eval()

@@ -29,6 +29,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from cor_tpu_torch.models.core_model import check_kernel_dtype
 from cor_tpu_torch.train.checkpoint import save_checkpoint
 from cor_tpu_torch.train.step import BATCH_KEYS, TrainState, make_eval_step, make_train_step
 from cor_tpu_torch.utils.meters import AverageMeter, StepTimer
@@ -71,6 +72,7 @@ class Trainer:
     def __init__(self, cfg, core_cfg, state: TrainState, lr_schedule: Callable[[int], float],
                  logger, device, writer=None, profile_steps: int = 0, profile_dir=None):
         check_single_device(cfg)
+        check_kernel_dtype(core_cfg, device)
         self.cfg = cfg
         self.core_cfg = core_cfg
         self.state = state

@@ -230,6 +230,30 @@ def test_decoder_tail_plain_bf16_within_bf16_rounding(rng):
     assert np.abs(got - tpu).max() / scale < 0.05
 
 
+@pytest.mark.parametrize("rows,tokens,width,heads", [
+    (4096, 6, 256, 8), (4096, 8, 256, 8), (4096, 9, 256, 8), (16, 6, 16, 2), (1024, 7, 256, 8),
+    (2048, 5, 256, 8), (4096, 6, 256, 7), (3000, 6, 256, 8)])
+def test_fused_decode_routes_as_cor_tpu(rows, tokens, width, heads):
+    """The port's ``layer_route`` is cor_tpu's ``layer_fused`` test
+    (models/sam_decoder.py:255-260, on its K1's row tile and token pad)."""
+    cor = rows % jtwl._TILE == 0 and tokens <= jtwl._T and width % heads == 0
+    assert psd.layer_route(rows, tokens, width, heads) == ("layer" if cor else "k8")
+
+
+@pytest.mark.parametrize("grid,tokens,want", [
+    (16, 6, "K8a/K8b"), (64, 9, "K8a/K8b"), (64, 7, "item 14"), (64, 8, "item 14"),
+    (64, 5, "item 14"), (64, 6, "no kernel for device meta")])
+def test_fused_decode_refuses_off_the_cpu_before_any_kernel(grid, tokens, want):
+    """Off the CPU (here: the meta device, which has no kernels), a fused
+    decode that cor_tpu sends to K8a/K8b is refused naming their ROADMAP
+    row, and one of other than 6 tokens naming Queue 1's item 14, before any
+    kernel wrapper is reached; the SAM geometry reaches K1's wrapper."""
+    p = psd.TwoWayTransformer(psd.TwoWayTransformerConfig()).to("meta")
+    emb = torch.empty(1, grid, grid, 256, device="meta")
+    with pytest.raises(ValueError, match=want):
+        psd.two_way_transformer(p, emb, emb, torch.empty(1, tokens, 256, device="meta"))
+
+
 def test_two_way_transformer_matches_layer_fused_path(sam_layer, rng):
     """The whole transformer at N = 1024, where cor_tpu runs K1 for both
     layers and K2 for the final attention."""

@@ -124,6 +124,46 @@ def test_attention_2d_matches_cor_tpu(encoders, rng, block):
     np.testing.assert_allclose(got_plain, np.asarray(jatt.attention_2d(jp, xj, 2)), **KTOL)
 
 
+@pytest.mark.parametrize("hw", [(10, 10), (8, 8), (10, 7)], ids=["padded", "exact", "rect"])
+def test_window_rel_pos_factors_match_the_partitioned_ones(encoders, rng, hw):
+    """K7's factors over the padded grid, read window by window, are
+    rel_pos_factors of the partitioned q (what the unflagged route feeds
+    K6), at 1e-6."""
+    _, _, port = encoders
+    pp = port.blocks[0].attn  # window 4
+    H, W = hw
+    Hp, Wp = -(-H // 4) * 4, -(-W // 4) * 4
+    q = t(rng.standard_normal((2, Hp, Wp, 128)))
+    rel_h, rel_w = patt.window_rel_pos_factors(pp, q, 4, 2)
+    assert rel_h.shape == rel_w.shape == (2, 2, Hp * Wp, 4)
+    qw, _ = patt.window_partition(q, 4)
+    want_h, want_w = patt.rel_pos_factors(pp, qw.reshape(-1, 16, 128), (4, 4), 2)
+    for got, want in ((rel_h, want_h), (rel_w, want_w)):
+        got = got.reshape(2, 2, Hp // 4, 4, Wp // 4, 4, 4).permute(0, 2, 4, 1, 3, 5, 6)
+        np.testing.assert_allclose(got.reshape(want.shape).detach().numpy(),
+                                   want.detach().numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["kernels", "plain"])
+def test_flagged_encoder_equals_the_unflagged_one(encoders, rng, fused):
+    """fused_window_indexing changes where the partition happens, not the
+    function: the flagged port encoder equals the unflagged one at 1e-5 (on
+    the CPU its K7 is the plain version and counts no launch); with
+    fused_attention=False the flag is ignored, as in cor_tpu."""
+    from cor_tpu_torch.ops.kernels.vit_attention import vit_attention_relpos_windows
+
+    _, params, port = encoders
+    flags = dict(fused_attention=fused, fused_layernorm=fused)
+    flagged = load_cor_tpu_params(psam.SamEncoder(dataclasses.replace(
+        port.cfg, fused_window_indexing=True, **flags)), params)
+    plain = load_cor_tpu_params(psam.SamEncoder(dataclasses.replace(port.cfg, **flags)), params)
+    x = t(rng.standard_normal((1, 160, 160, 3)))
+    before = vit_attention_relpos_windows.launches
+    with torch.no_grad():
+        np.testing.assert_allclose(flagged(x).numpy(), plain(x).numpy(), atol=1e-5, rtol=1e-5)
+    assert vit_attention_relpos_windows.launches == before
+
+
 def test_attention_2d_without_rel_pos_matches_cor_tpu(rng):
     """use_rel_pos=False: no tables, zero bias factors into K6's path."""
     jp = jatt.init_attention_2d(jax.random.PRNGKey(4), 128, 2, use_rel_pos=False)
@@ -236,8 +276,24 @@ def test_core_forward_matches_cor_tpu(core_tree, rng, multimask):
 
 @pytest.mark.parametrize(
     "case", ["fused_window_indexing", "seq_shard", "pp_stages", "plain_on_a_device"])
-def test_encoder_refuses_what_it_does_not_run(case):
+def test_encoder_refuses_what_it_does_not_run(encoders, rng, case):
+    """The parallel keys are refused naming their ROADMAP item, and the plain
+    formulations off the CPU; fused_window_indexing is no longer refused
+    (K7 is ported): the flagged encoder matches cor_tpu's
+    ``sam_encoder(..., fused_window_indexing=True)`` (its K7 in interpret
+    mode) at cor_tpu's encoder tolerance."""
     cfg = psam.SamEncoderConfig(**ENC)
+    if case == "fused_window_indexing":
+        jcfg, params, _ = encoders
+        x = rng.standard_normal((2, 160, 160, 3)).astype(np.float32)
+        want = jsam.sam_encoder(jax.tree.map(jnp.asarray, params), jnp.asarray(x),
+                                dataclasses.replace(jcfg, fused_window_indexing=True))
+        port = load_cor_tpu_params(
+            psam.SamEncoder(dataclasses.replace(cfg, fused_window_indexing=True)), params)
+        with torch.no_grad():
+            got = port(t(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **ETOL)
+        return
     if case == "plain_on_a_device":
         enc = psam.SamEncoder(dataclasses.replace(cfg, fused_attention=False))
         with pytest.raises(ValueError, match="test oracles"):
@@ -293,7 +349,7 @@ def test_cli_index_builds_on_the_cpu(tiny_index_config, tmp_path, capsys):
     np.testing.assert_array_equal(np.asarray(idx["store"]), store)
 
 
-@pytest.mark.parametrize("case", ["manifest", "checkpoint", "no_card"])
+@pytest.mark.parametrize("case", ["manifest", "checkpoint", "no_card", "fp32_on_the_card"])
 def test_cli_index_refuses(tiny_index_config, tmp_path, capsys, monkeypatch, case):
     argv = ["--out", str(tmp_path / "idx"), "--synthetic", "2"]
     want = "--device cpu"
@@ -304,7 +360,14 @@ def test_cli_index_refuses(tiny_index_config, tmp_path, capsys, monkeypatch, cas
         cfg.write_text("load_sam_pretrained_checkpoint: /ckpt/sam.pth\n")
         argv, want = [*argv, "--config", str(cfg)], "load_sam_pretrained_checkpoint"
     else:
+        # without a card: the fp32 model (tiny_index_config's) is refused
+        # first, naming the ROADMAP row, before the card is looked for
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        if case == "fp32_on_the_card":
+            want = "ROADMAP Queue 2, @fp32"
+        else:
+            monkeypatch.setattr(EvalConfig, "core_config", lambda self: dataclasses.replace(
+                tiny_index_config, compute_dtype="bfloat16"))
     with pytest.raises(SystemExit) as e:
         pcli.main(argv)
     assert e.value.code == 2

@@ -31,6 +31,8 @@ from cor_tpu_torch.ops.kernels.vit_attention import (
     vit_attention_relpos_bwd,
     vit_attention_relpos_bwd_plain,
     vit_attention_relpos_plain,
+    vit_attention_relpos_windows,
+    vit_attention_relpos_windows_plain,
 )
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -82,9 +84,9 @@ def test_attention_seq_qkv_plain_matches_pallas(rng, width, n):
     assert attention_seq_qkv.launches == before
 
 
-def vit_inputs(rng, B, H, W, heads=2):
-    """qkv [B, N, 3C] and bias factors [B, heads, N, H|W] (x0.3), head_dim 64."""
-    N, C = H * W, heads * 64
+def vit_inputs(rng, B, H, W, heads=2, D=64):
+    """qkv [B, N, 3C] and bias factors [B, heads, N, H|W] (x0.3), head_dim D."""
+    N, C = H * W, heads * D
     qkv = rng.standard_normal((B, N, 3 * C)).astype(np.float32)
     rel_h = (0.3 * rng.standard_normal((B, heads, N, H))).astype(np.float32)
     rel_w = (0.3 * rng.standard_normal((B, heads, N, W))).astype(np.float32)
@@ -161,6 +163,86 @@ def test_vit_attention_relpos_bwd_plain_matches_autograd(rng, H, W):
         torch.testing.assert_close(t, g, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("H,W", [(4, 4), (5, 5)], ids=["grid4", "grid5"])
+def test_vit_attention_relpos_bwd_plain_at_head_dim_80_matches_pallas(rng, H, W):
+    """K6b's plain version at sam_huge's head_dim 80 against cor_tpu's
+    flash-backward kernel reached as cor_tpu reaches it there: through the
+    lane-pad shim (each head padded 80 -> 128, the scale 80^-1/2 passed),
+    as the VJP of K6's custom_vjp (Pallas interpret mode). 2 heads of 80,
+    fp32, at the head_dim-64 case's tolerance."""
+    import jax
+    import jax.numpy as jnp
+
+    from cor_tpu.ops.pallas.lane_pad import crop_heads, pad_qkv_heads
+    from cor_tpu.ops.pallas.vit_attention import vit_attention_relpos_pallas
+
+    qkv, rel_h, rel_w = vit_inputs(rng, 2, H, W, D=80)
+    do = rng.standard_normal((2, H * W, 160)).astype(np.float32)
+    n = np.arange(H * W)
+    eh = jnp.asarray((np.arange(H)[:, None] == (n // W)[None, :]).astype(np.float32))
+    ew = jnp.asarray((np.arange(W)[:, None] == (n % W)[None, :]).astype(np.float32))
+
+    def shim(q, rh, rw):
+        out = vit_attention_relpos_pallas(pad_qkv_heads(q, 2, 80), rh, rw, eh, ew, 2,
+                                          scale=80**-0.5)
+        return crop_heads(out, 2, 80)
+
+    _, vjp = jax.vjp(shim, *map(jnp.asarray, (qkv, rel_h, rel_w)))
+    want = vjp(jnp.asarray(do))
+    xs = [torch.from_numpy(a) for a in (qkv, rel_h, rel_w, do)]
+    before = vit_attention_relpos_bwd.launches
+    got = vit_attention_relpos_bwd(*xs, 2, (H, W))  # the CPU takes the plain version
+    assert vit_attention_relpos_bwd.launches == before
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("D", [64, 80])
+@pytest.mark.parametrize("hw", [10, 8], ids=["padded10", "exact8"])
+def test_vit_attention_relpos_windows_plain_matches_cor_tpu(rng, hw, D):
+    """K7's plain version, reached through the port's ``attention_2d_fused``
+    with ``window=4`` (x padded to whole windows, the fused QKV over the
+    padded grid, the factors per grid token), against cor_tpu's
+    ``attention_2d_fused(..., window=4)``: at head_dim 64 its K7 (Pallas
+    interpret mode), at 80 its partition + ``attention_2d`` fallback (the
+    same function). A 10 x 10 grid (padded to 12 x 12: pad tokens are keys)
+    and an exact 8 x 8 one, rel-pos tables filled, at cor_tpu's K6 test
+    tolerance 2e-4; the port's plain K7 equals K6's plain version on the
+    partitioned windows."""
+    import jax
+    import jax.numpy as jnp
+
+    import cor_tpu.ops.attention as jatt
+    from cor_tpu_torch.ops import attention as patt
+    from cor_tpu_torch.utils.weights import load_cor_tpu_params
+
+    C = 2 * D
+    jp = jax.tree.map(np.asarray, jatt.init_attention_2d(
+        jax.random.PRNGKey(4), C, 2, use_rel_pos=True, input_size=(4, 4)))
+    for key in ("rel_pos_h", "rel_pos_w"):
+        jp[key] = (0.3 * rng.standard_normal(jp[key].shape)).astype(np.float32)
+    x = (0.5 * rng.standard_normal((2, hw, hw, C))).astype(np.float32)
+    want = np.asarray(jatt.attention_2d_fused(jax.tree.map(jnp.asarray, jp), jnp.asarray(x), 2,
+                                              window=4))
+    pp = load_cor_tpu_params(patt.Attention2d(C, 2, (4, 4)), jp)
+    before = vit_attention_relpos_windows.launches
+    with torch.no_grad():
+        got = patt.attention_2d_fused(pp, torch.from_numpy(x), 2, window=4)
+        # the kernel-level plain version against K6's on the windows
+        xp = torch.nn.functional.pad(torch.from_numpy(x), (0, 0, 0, -hw % 4, 0, -hw % 4))
+        qkv = pp.qkv(xp)
+        rel_h, rel_w = patt.window_rel_pos_factors(pp, qkv[..., :C], 4, 2)
+        k7 = vit_attention_relpos_windows_plain(qkv, rel_h, rel_w, 2, 4, (hw, hw))
+        qkv_w, pad = patt.window_partition(qkv, 4)
+        fh, fw = patt.rel_pos_factors(pp, qkv_w[..., :C].reshape(-1, 16, C), (4, 4), 2)
+        k6 = vit_attention_relpos_plain(qkv_w.reshape(-1, 16, 3 * C), fh, fw, 2, (4, 4))
+        k6 = patt.window_unpartition(k6.reshape(-1, 4, 4, C), 4, pad, (hw, hw))
+    assert vit_attention_relpos_windows.launches == before  # the CPU takes the plain version
+    assert got.shape == (2, hw, hw, C)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(k7.numpy(), k6.numpy(), atol=1e-6, rtol=1e-6)
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     x = torch.empty(4, 128, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -170,6 +252,14 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         rel = torch.empty(1, 2, 4, 2, device="meta")
         vit_attention_relpos(torch.empty(1, 4, 384, device="meta"), rel, rel, 2, (2, 2))
+
+
+def test_vit_attention_relpos_windows_refuses_devices_without_a_kernel():
+    """K7 on a device other than the CPU and the card raises."""
+    rel = torch.empty(1, 2, 16, 2, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        vit_attention_relpos_windows(torch.empty(1, 4, 4, 384, device="meta"), rel, rel, 2, 2,
+                                     (3, 3))
 
 
 @pytest.mark.gpu
@@ -260,20 +350,26 @@ def test_vit_attention_relpos_kernel_matches_plain_bf16(cuda_device, B, H, W, d)
 
 @pytest.mark.gpu
 def test_vit_attention_relpos_kernel_refuses_other_head_dims(cuda_device):
-    """K6 takes head_dim 64 and 80; K6b only 64, so a forward at 80 whose
-    backward would run refuses at once, naming K6b's ROADMAP item."""
+    """K6, K6b and K7 take head_dim 64 and 80: at 80 (sam_huge) a forward
+    that records a gradient runs, and its backward is K6b; any other
+    head_dim raises, naming the ROADMAP row."""
     rel = torch.zeros(1, 16, 16, 4, device=cuda_device, dtype=torch.bfloat16)
     qkv = torch.zeros(1, 16, 3 * 1536, device=cuda_device, dtype=torch.bfloat16)
+    do96 = torch.zeros(1, 16, 1536, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims other than 64 and 80"):
         vit_attention_relpos(qkv, rel, rel, 16, (4, 4))  # head_dim 96
+    with pytest.raises(ValueError, match="head dims other than 64 and 80"):
+        vit_attention_relpos_bwd(qkv, rel, rel, do96, 16, (4, 4))
+    with pytest.raises(ValueError, match="head dims other than 64 and 80"):
+        vit_attention_relpos_windows(qkv.reshape(1, 4, 4, -1), rel, rel, 16, 4, (4, 4))
     qkv = torch.zeros(1, 16, 3 * 1280, device=cuda_device, dtype=torch.bfloat16)
     out = vit_attention_relpos(qkv, rel, rel, 16, (4, 4))  # sam_huge: head_dim 80
     assert out.shape == (1, 16, 1280)
-    with pytest.raises(ValueError, match="K6b@80"):
-        vit_attention_relpos(qkv.requires_grad_(), rel, rel, 16, (4, 4))
-    do = torch.zeros(1, 16, 1280, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="K6b@80"):
-        vit_attention_relpos_bwd(qkv.detach(), rel, rel, do, 16, (4, 4))
+    before = vit_attention_relpos_bwd.launches
+    leaf = qkv.clone().requires_grad_()
+    vit_attention_relpos(leaf, rel, rel, 16, (4, 4)).float().sum().backward()
+    torch.cuda.synchronize()
+    assert vit_attention_relpos_bwd.launches == before + 1 and leaf.grad.shape == qkv.shape
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +481,28 @@ def test_decoder_kernels_refuse_other_geometry(sam_decoder_bf16):
                       x["qpe"], True)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid,tokens,want", [(16, 6, "K8a/K8b"), (64, 7, "item 14"),
+                                              (64, 9, "K8a/K8b")])
+def test_fused_decode_refuses_other_geometry_before_any_kernel(sam_decoder_bf16, grid, tokens,
+                                                               want):
+    """On the card, ``mask_decoder(fused=True)`` refuses the geometries that
+    cor_tpu sends to K8a/K8b (naming their ROADMAP row) and 7 or 8 tokens
+    (K1 in cor_tpu; item 14 here) before any kernel is launched."""
+    from cor_tpu_torch.models.sam_decoder import mask_decoder
+    from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
+    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
+
+    wrappers = (two_way_layer, t2i_flash_kv, decoder_tail)
+    before = [w.launches for w in wrappers]
+    emb = torch.zeros(1, grid, grid, 256, device="cuda", dtype=torch.bfloat16)
+    sparse = torch.zeros(1, tokens - 5, 256, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad(), pytest.raises(ValueError, match=want):
+        mask_decoder(sam_decoder_bf16, emb, emb, sparse, emb, False)
+    assert [w.launches for w in wrappers] == before
+
+
 # ---------------------------------------------------------------------------
 # training through the kernels: K6b against its plain version; K4, K5 and K6
 # pass their gradients (K6 through K6b, K4 and K5 through their plain
@@ -398,18 +516,21 @@ def bf16_leaves(g, *shapes, scale=1.0):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 80])
 @pytest.mark.parametrize("B,H,W", [(2, 8, 8), (3, 14, 14), (1, 64, 64), (2, 5, 13)],
                          ids=["grid8", "window14", "global", "rect"])
-def test_vit_attention_relpos_bwd_kernel_matches_plain_bf16(cuda_device, B, H, W):
-    """K6b against its plain backward on the same bf16 inputs: dqkv, drel_h
-    and drel_w within 2e-2 of their max |plain| (the kernel's fp32 sums run
-    tile by tile)."""
+def test_vit_attention_relpos_bwd_kernel_matches_plain_bf16(cuda_device, B, H, W, d):
+    """K6b against its plain backward on the same bf16 inputs, at SAM-base's
+    12 heads of 64 and sam_huge's 16 of 80 (scale 80^-1/2; 124,928 and 87,040
+    bytes of dynamic shared memory): dqkv, drel_h and drel_w within 2e-2 of
+    their max |plain| (the kernel's fp32 sums run tile by tile)."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    N, heads = H * W, 12
-    qkv = torch.randn(B, N, 3 * 768, generator=g, device=cuda_device).to(torch.bfloat16)
-    rel_h = (0.3 * torch.randn(B, heads, N, H, generator=g, device=cuda_device)).to(torch.bfloat16)
-    rel_w = (0.3 * torch.randn(B, heads, N, W, generator=g, device=cuda_device)).to(torch.bfloat16)
-    do = torch.randn(B, N, 768, generator=g, device=cuda_device).to(torch.bfloat16)
+    N, heads = H * W, (12 if d == 64 else 16)
+    C, bf = heads * d, torch.bfloat16
+    qkv = torch.randn(B, N, 3 * C, generator=g, device=cuda_device).to(bf)
+    rel_h = (0.3 * torch.randn(B, heads, N, H, generator=g, device=cuda_device)).to(bf)
+    rel_w = (0.3 * torch.randn(B, heads, N, W, generator=g, device=cuda_device)).to(bf)
+    do = torch.randn(B, N, C, generator=g, device=cuda_device).to(bf)
     before = vit_attention_relpos_bwd.launches
     got = vit_attention_relpos_bwd(qkv, rel_h, rel_w, do, heads, (H, W))
     torch.cuda.synchronize()
@@ -419,6 +540,47 @@ def test_vit_attention_relpos_bwd_kernel_matches_plain_bf16(cuda_device, B, H, W
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert torch.isfinite(a.float()).all(), name
         assert rel_err(a, b) <= DECODE_REL, (name, rel_err(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,hw", [(64, 64), (80, 64), (64, 10), (80, 14)],
+                         ids=["base-64", "huge-64", "base-10", "huge-exact14"])
+def test_vit_attention_relpos_windows_kernel_matches_plain_bf16(cuda_device, D, hw):
+    """K7 against its plain version on the same bf16 inputs, windows of 14
+    over a grid padded to whole windows (64 -> 70, 10 -> 14; 14 exact):
+    within 2e-2 of max |plain|, and equal bit for bit to K6 on the
+    partitioned windows (the same arithmetic); its gradient is its plain
+    version's VJP."""
+    from cor_tpu_torch.ops.attention import window_partition, window_unpartition
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    heads, ws = (12 if D == 64 else 16), 14
+    C, Hp, B = heads * D, -(-hw // 14) * 14, 2
+    bf = torch.bfloat16
+    qkv = torch.randn(B, Hp, Hp, 3 * C, generator=g, device=cuda_device).to(bf)
+    rel_h = (0.3 * torch.randn(B, heads, Hp * Hp, ws, generator=g, device=cuda_device)).to(bf)
+    rel_w = (0.3 * torch.randn(B, heads, Hp * Hp, ws, generator=g, device=cuda_device)).to(bf)
+    before = vit_attention_relpos_windows.launches
+    got = vit_attention_relpos_windows(qkv, rel_h, rel_w, heads, ws, (hw, hw))
+    torch.cuda.synchronize()
+    assert vit_attention_relpos_windows.launches == before + 1 and got.shape == (B, hw, hw, C)
+    want = vit_attention_relpos_windows_plain(qkv, rel_h, rel_w, heads, ws, (hw, hw))
+    assert rel_err(got, want) <= DECODE_REL
+    nW = (Hp // ws) ** 2
+    qkv_w = window_partition(qkv, ws)[0].reshape(B * nW, ws * ws, 3 * C)
+    rel = [window_partition(r.reshape(B, heads, Hp, Hp, ws).permute(0, 2, 3, 1, 4)
+                            .reshape(B, Hp, Hp, heads * ws), ws)[0]
+           .reshape(B * nW, ws * ws, heads, ws).transpose(1, 2).contiguous()
+           for r in (rel_h, rel_w)]
+    k6 = vit_attention_relpos(qkv_w, *rel, heads, (ws, ws)).reshape(B * nW, ws, ws, C)
+    assert torch.equal(got, window_unpartition(k6, ws, (Hp, Hp), (hw, hw)))
+    leaves = [x.clone().requires_grad_() for x in (qkv, rel_h, rel_w)]
+    grads = grads_of(lambda q, h, w: vit_attention_relpos_windows(q, h, w, heads, ws, (hw, hw)),
+                     leaves, 6)
+    plain = grads_of(lambda q, h, w: vit_attention_relpos_windows_plain(q, h, w, heads, ws,
+                                                                        (hw, hw)), leaves, 6)
+    for a, b in zip(grads, plain):
+        assert rel_err(a, b) <= DECODE_REL
 
 
 def grads_of(fn, leaves, seed):

@@ -56,9 +56,17 @@ from cor_tpu_torch.ops.kernels.seq_attention import (
     attention_seq_qkv,
     attention_seq_qkv_plain,
 )
-from cor_tpu_torch.ops.kernels.vit_attention import vit_attention_relpos
+from cor_tpu_torch.ops.kernels.vit_attention import (
+    vit_attention_relpos,
+    vit_attention_relpos_windows,
+)
 from cor_tpu_torch.ops.resize import resize_bilinear
-from cor_tpu_torch.utils.weights import load_cor_tpu_params, to_cor_tpu_tree
+from cor_tpu_torch.utils.weights import (
+    flatten_tree,
+    load_cor_tpu_params,
+    to_cor_tpu_layout,
+    to_cor_tpu_tree,
+)
 from tests.helpers import TINY_DECODER, TINY_PROMPT
 from tests.test_torch_encoder import fill
 from tests.test_torch_serve import assert_same_answers, port_logits, read_png
@@ -210,20 +218,61 @@ def test_attention_2d_fused_at_head_dim_80_matches_cor_tpu(rng, case):
 
 
 def test_unfrozen_sam_huge_step_fails_at_its_forward():
-    """K6b takes head_dim 64 only: where the backward would run off the CPU
-    at head_dim 80 (an unfrozen sam_huge step), the forward raises naming
-    the ROADMAP item, before any kernel runs; without grad it goes on to the
-    device check; an unported head_dim names K6's own item."""
+    """An unfrozen sam_huge step no longer fails at its forward: K6b takes
+    head_dim 80 (ROADMAP Queue 2, K6b@80, ported), so a forward at 80 that
+    records a gradient goes on to the device check, with grad as without
+    (and so does K7's); only an unported head_dim is refused, naming its
+    ROADMAP row."""
     attn = patt.Attention2d(160, 2, (4, 4)).to("meta")
     x = torch.empty(2, 4, 4, 160, device="meta")
-    with pytest.raises(ValueError, match="K6b@80"):
-        patt.attention_2d_fused(attn, x, 2)
-    with torch.no_grad(), pytest.raises(ValueError, match="no kernel for device meta"):
-        patt.attention_2d_fused(attn, x, 2)
+    for window in (0, 4):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            patt.attention_2d_fused(attn, x, 2, window=window)
+        with torch.no_grad(), pytest.raises(ValueError, match="no kernel for device meta"):
+            patt.attention_2d_fused(attn, x, 2, window=window)
     qkv = torch.empty(1, 16, 3 * 192, device="meta", requires_grad=True)
     rel = torch.empty(1, 2, 16, 4, device="meta")
-    with pytest.raises(ValueError, match="K6: head dims other than 64 and 80"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         vit_attention_relpos(qkv, rel, rel, 2, (4, 4))
+
+
+@pytest.fixture(scope="module")
+def huge_encoder_grads():
+    """The sam_huge-shaped encoder (the port's seeded init, tables and
+    pos_embed filled) and jax.grad of cor_tpu's, remat on (its default),
+    without and with fused_window_indexing: {flag: (params, x, grads)}."""
+    params = fill(to_cor_tpu_tree(psam.SamEncoder(psam.SamEncoderConfig(**HUGE_ENC))),
+                  np.random.default_rng(11))
+    x = np.random.default_rng(12).standard_normal((1, 160, 160, 3)).astype(np.float32)
+    out = {}
+    for flag in (False, True):
+        jcfg = jsam.SamEncoderConfig(**HUGE_ENC, fused_window_indexing=flag)
+        jg = jax.jit(jax.grad(lambda p: jnp.mean(jsam.sam_encoder(p, jnp.asarray(x), jcfg) ** 2)))(
+            jax.tree.map(jnp.asarray, params))
+        out[flag] = flatten_tree(jax.tree.map(np.asarray, jg))
+    return params, x, out
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["partitioned", "fused_window_indexing"])
+def test_unfrozen_sam_huge_shaped_encoder_grad_matches_cor_tpu(huge_encoder_grads, flag):
+    """The unfrozen encoder at sam_huge's head_dim 80 (2 blocks of 2 heads of
+    80, block 1 global on the 10 x 10 grid, block 0 in windows of 4 padded
+    to 12 x 12), remat on as a training step runs it: every parameter's
+    gradient of mean(y^2) against jax.grad of cor_tpu's at its tolerance on
+    the unfrozen encoder's gradients (2e-5 + 2e-4 relative). The port's K6b
+    plain version stands where cor_tpu runs its K6b through the lane-pad
+    shim; with fused_window_indexing the port's K7 (its plain VJP) where
+    cor_tpu falls back to the partition and its oracle VJP."""
+    params, x, want = huge_encoder_grads
+    port = load_cor_tpu_params(
+        psam.SamEncoder(psam.SamEncoderConfig(**HUGE_ENC, fused_window_indexing=flag)), params)
+    before = vit_attention_relpos_windows.launches
+    (port(t(x)) ** 2).mean().backward()
+    assert vit_attention_relpos_windows.launches == before
+    assert want[flag].keys() == {n for n, _ in port.named_parameters()}
+    for name, p in port.named_parameters():
+        g = to_cor_tpu_layout(port, name, p.grad.numpy())
+        np.testing.assert_allclose(g, want[flag][name], atol=2e-5, rtol=2e-4, err_msg=name)
 
 
 # ---------------------------------------------------------------------------

@@ -230,14 +230,17 @@ NO_JAX_LARGE = """
 """
 
 
-def run_without_jax(tmp_path, models: str, train: bool) -> dict:
+def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False) -> dict:
     """Block jax and cor_tpu, import every module of the port, build a
     gallery index with ``cli.index`` at the tiny config ``models`` and serve
     from it end to end: retrieval alone, and with masks decoded
     host-streamed and from the int8 store; with ``train``, then train one
-    tiny epoch with ``cli.train``. Returns the first response."""
+    tiny epoch with ``cli.train`` (``unfrozen``: ``freeze_towers: false``,
+    the encoder's backward through K6b's plain version, and an encode with
+    ``fused_window_indexing``, K7's plain version, equal to the unflagged
+    one). Returns the first response."""
     script = textwrap.dedent(f"""
-        import contextlib, importlib, io, json, pkgutil, sys
+        import contextlib, dataclasses, importlib, io, json, pkgutil, sys
         from pathlib import Path
         sys.modules["jax"] = None  # any import of jax now raises ImportError
         sys.modules["cor_tpu"] = None  # and so does any import of cor_tpu
@@ -289,10 +292,24 @@ def run_without_jax(tmp_path, models: str, train: bool) -> dict:
             from cor_tpu_torch.config import TrainConfig
             TrainConfig.core_config = lambda self: cfg
             (root / "train.yaml").write_text(
-                f"epoch: 1\\nbatch_size: 1\\nnum_workers: 2\\ntrain_model_save_path: {{root / 'ck'}}\\n")
+                f"epoch: 1\\nbatch_size: 1\\nnum_workers: 2\\ntrain_model_save_path: {{root / 'ck'}}\\n"
+                f"freeze_towers: {{str(not {unfrozen!r}).lower()}}\\n")
+            TrainConfig.core_config = lambda self: dataclasses.replace(
+                cfg, freeze_towers=self.freeze_towers)
             trainer = train_cli.main(["--config", str(root / "train.yaml"), "--synthetic",
                                       "--device", "cpu"])
             assert trainer.state.step == 4 and (root / "ck" / "best_model" / "state.pt").is_file()
+            start = core_model.init_image_encoder(cfg, 44).blocks[0].attn.qkv.w
+            moved = not torch.equal(trainer.state.model.image_encoder.blocks[0].attn.qkv.w, start)
+            assert moved == {unfrozen!r}, moved
+        if {unfrozen!r}:
+            flagged = dataclasses.replace(cfg, encoder_override=dataclasses.replace(
+                enc, fused_window_indexing=True))
+            x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                a = core_model.init_image_encoder(flagged, 2)(x)
+                b = core_model.init_image_encoder(cfg, 2)(x)
+            assert torch.allclose(a, b, atol=1e-5, rtol=1e-5), (a - b).abs().max()
         used = [k for k in sys.modules
                 if k in ("jax", "cor_tpu") and sys.modules[k] is not None
                 or k.startswith(("jax.", "cor_tpu."))]
@@ -317,8 +334,9 @@ def test_port_runs_without_jax(tmp_path):
 
 def test_port_runs_without_jax_at_the_largest_head_dims(tmp_path):
     """Without jax and cor_tpu: build and serve (with masks both ways) at the
-    head dims of ViT-SO400M-14-SigLIP-384 (72) and sam_huge (80)."""
-    run_without_jax(tmp_path, NO_JAX_LARGE, train=False)
+    head dims of ViT-SO400M-14-SigLIP-384 (72) and sam_huge (80), train an
+    unfrozen epoch there and encode with fused_window_indexing."""
+    run_without_jax(tmp_path, NO_JAX_LARGE, train=True, unfrozen=True)
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +489,30 @@ def test_png_writer_decodes_to_native_encoders_pixels(rng):
         np.testing.assert_array_equal(np.asarray(ours), m)
     with pytest.raises(ValueError, match="uint8"):
         png_encode_gray(np.zeros((2, 2), np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_fp32_is_refused_on_the_card_before_the_card_is_looked_for(tmp_path, capsys,
+                                                                  monkeypatch, dtype):
+    """A compute dtype that has no kernels on the card (ROADMAP Queue 2's
+    @fp32 row) is refused by cli.serve and RetrievalServer before the card is
+    looked for or a model is built; with --device cpu / device="cpu" it runs
+    (the tests' fp32 configs)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(f"compute_dtype: {dtype}\n")
+    with pytest.raises(SystemExit) as e:
+        pcli.main(["--config", str(cfg), "--gallery-index", str(tmp_path)])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "ROADMAP Queue 2, @fp32" in err and "--device cpu" in err
+    core_cfg = dataclasses.replace(EvalConfig().core_config(), compute_dtype=dtype)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2, @fp32"):
+        RetrievalServer(core_cfg, torch.nn.Linear(1, 1), {}, device="cuda")
+    pcore.check_kernel_dtype(core_cfg, "cpu")
+    pcore.check_kernel_dtype(EvalConfig().core_config(), "cuda")
+    with pytest.raises(ValueError, match="Invalid compute_dtype"):
+        pcore.check_kernel_dtype(dataclasses.replace(core_cfg, compute_dtype="int8"), "cpu")
 
 
 def test_cli_needs_a_card_unless_told_cpu(tmp_path, capsys, monkeypatch):

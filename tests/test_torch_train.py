@@ -352,6 +352,32 @@ def test_attention_2d_fused_grad_matches_cor_tpu(rng, window):
         np.testing.assert_allclose(got[name], want, atol=1e-5, rtol=1e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("D", [64, 80])
+@pytest.mark.parametrize("hw", [10, 8], ids=["padded10", "exact8"])
+def test_attention_2d_fused_windows_grad_matches_cor_tpu(rng, hw, D):
+    """K7's route (``attention_2d_fused(..., window=4)``: its plain VJP
+    recomputed in the backward) against jax.grad of cor_tpu's (K7 at head_dim
+    64 in interpret mode, through its oracle VJP; the partition fallback at
+    80), for the parameters and the input: a 10 x 10 grid padded to 12 x 12
+    and an exact 8 x 8, 2 heads of D, at cor_tpu's tolerance for K7's
+    gradient (tests/test_kernel_vjp.py)."""
+    C = 2 * D
+    jp = jax.tree.map(np.asarray, jatt.init_attention_2d(
+        jax.random.PRNGKey(5), C, 2, use_rel_pos=True, input_size=(4, 4)))
+    for k in ("rel_pos_h", "rel_pos_w"):
+        jp[k] = (0.3 * rng.standard_normal(jp[k].shape)).astype(np.float32)
+    x = (0.3 * rng.standard_normal((1, hw, hw, C))).astype(np.float32)
+    jg = jax.jit(jax.grad(lambda p, x: jnp.mean(jatt.attention_2d_fused(p, x, 2, window=4) ** 2),
+                          argnums=(0, 1)))(jax.tree.map(jnp.asarray, jp), jnp.asarray(x))
+    pp = load_cor_tpu_params(patt.Attention2d(C, 2, (4, 4)), jp)
+    xt = t(x).requires_grad_()
+    (patt.attention_2d_fused(pp, xt, 2, window=4) ** 2).mean().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jg[1]), atol=1e-5, rtol=1e-4)
+    got = {n: to_cor_tpu_layout(pp, n, p.grad.numpy()) for n, p in pp.named_parameters()}
+    for name, want in flatten_tree(jax.tree.map(np.asarray, jg[0])).items():
+        np.testing.assert_allclose(got[name], want, atol=1e-5, rtol=1e-4, err_msg=name)
+
+
 @pytest.fixture(scope="module")
 def encoder_grads():
     """The kernel-active encoder (the port's seeded init, rel-pos tables and
@@ -626,7 +652,8 @@ def test_cli_train_runs_an_epoch_and_resumes_on_the_cpu(tiny_train, tmp_path):
     assert "Resumed from checkpoint_epoch_1 at epoch 2" in log
 
 
-@pytest.mark.parametrize("case", ["manifest", "checkpoint", "mesh", "async", "no_card"])
+@pytest.mark.parametrize("case", ["manifest", "checkpoint", "mesh", "async", "no_card",
+                                  "fp32_on_the_card"])
 def test_cli_train_refuses(tiny_train, capsys, monkeypatch, case):
     argv = ["--config", str(tiny_train), "--synthetic"]
     want = "--device cpu"
@@ -638,11 +665,33 @@ def test_cli_train_refuses(tiny_train, capsys, monkeypatch, case):
         tiny_train.write_text(tiny_train.read_text() + extra)
         want = {"checkpoint": "item 5", "mesh": "item 9", "async": "item 11"}[case]
     else:
+        # without a card: the fp32 model (tiny_train's) is refused first,
+        # naming the ROADMAP row, before the card is looked for
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        if case == "fp32_on_the_card":
+            want = "ROADMAP Queue 2, @fp32"
+        else:
+            fp32 = TrainConfig.core_config
+            monkeypatch.setattr(TrainConfig, "core_config", lambda self: dataclasses.replace(
+                fp32(self), compute_dtype="bfloat16"))
     with pytest.raises(SystemExit) as e:
-        pcli.main(argv + (["--device", "cpu"] if case != "no_card" else []))
+        pcli.main(argv + (["--device", "cpu"] if case not in ("no_card", "fp32_on_the_card")
+                          else []))
     assert e.value.code == 2
     assert want in capsys.readouterr().err
+
+
+def test_trainer_refuses_fp32_on_the_card():
+    """The Trainer refuses a compute dtype without kernels on the card
+    (ROADMAP Queue 2's @fp32 row) before it builds its steps; on the CPU
+    it takes it."""
+    from cor_tpu_torch.train.trainer import Trainer
+
+    _, pc = configs(False)
+    assert pc.compute_dtype == "float32"
+    with pytest.raises(ValueError, match="ROADMAP Queue 2, @fp32"):
+        Trainer(TrainConfig(), pc, None, lambda e: LR, None, "cuda")
+    assert Trainer(TrainConfig(), pc, None, lambda e: LR, None, "cpu").device.type == "cpu"
 
 
 def test_weight_bridge_round_trips_a_training_tree():
