@@ -126,9 +126,34 @@ Phases (any failure exits non-zero; no phase catches an exception):
     breakdown of one step;
 28. numerics at CFG: one unfrozen step at batch 1, GPU bf16 against CPU
     fp32, with sam_huge cut to 4 blocks (block 3 global) at full width and
-    the towers at full depth: loss within 2e-2, gradient cosines >= 0.99.
-The line before the last lists every kernel ({"kernels": [...]}); the last
-line is {"ok": true, "device": {"platform": "gpu", ...}}.
+    the towers at full depth: loss within 2e-2, gradient cosines >= 0.99;
+29. fp32 kernels (compute_dtype float32: 3xTF32 products): K5 at the
+    towers', encoder's and neck's shapes, K4 at [16, 576, 2304] and
+    [16, 64, 2304], K4′ at 72 (both entries) and 80, K6 at 64 and 80
+    (global and windowed), K7 at [2, 70, 70, 3C] (C 768 and 1280), K5 also
+    at the largest configuration's widths 1152 and 1280, K1
+    (layer 0 from the 2,048-row int8 store, layer 1 on fp32 rows), K2, K1 +
+    K2 through the two-way transformer, and K3, each against its plain fp32
+    version with TF32 off at cor_tpu's fp32 tolerance (FP32_TOL), timed
+    beside the plain version, the library call (SDPA, SDPA with the bias,
+    F.layer_norm) and the fp32 bound (PEAK_FP32_FLOP_S);
+30. the fp32 paths at full SAM-base + ViT-B-16-SigLIP-384 width, on
+    configs/vaild_config.yaml's and train_config_m3.yaml's keys with
+    compute_dtype float32: cli.index --with-store (32 candidates), cli.serve
+    --decode-masks --store-hbm --self-test 8 with the fp32 and --int8 scans
+    (every response and PNG, exact fp32 launch counts, no bf16 launch), GPU
+    fp32 against CPU fp32 cosines (queries and image embeddings >= 0.9999,
+    mask logits >= 0.999), frozen cli.train (the towers bit-identical, K1-K3
+    in its val step), and unfrozen fp32 cli.train refused naming @fp32-K6b
+    in a process that sees no card;
+31. fp32 beside bf16, one index and the same weights: encode+scan at
+    buckets 1, 4, 16, encode+scan+decode at 1 and 4, a batch-8 SAM-base
+    encode (and fp32 with fused_window_indexing: K7's fp32 launches), a
+    frozen train step at batch 10 with its peak memory, and a torch.profiler
+    breakdown of one served call at bucket 4 in each dtype.
+The line before the last lists every kernel ({"kernels": [...]}; an fp32
+instantiation is an entry of its own, name@fp32, with its fp32 launches);
+the last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
@@ -460,11 +485,16 @@ def kernel_wrappers():
 
 def reset_counts():
     for fn in kernel_wrappers().values():
-        fn.launches = 0
+        fn.launches = fn.launches_fp32 = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Every wrapper's launches since ``reset_counts``: bf16 under its name,
+    fp32 under name@fp32."""
+    out = {}
+    for name, fn in kernel_wrappers().items():
+        out[name], out[f"{name}@fp32"] = fn.launches, fn.launches_fp32
+    return out
 
 
 def config_args(cfg_path) -> list:
@@ -515,7 +545,7 @@ def phase_serve(index_dir, pair_ids, cfg_path=None, towers=BASE_TOWERS, phase=4)
     return servers, counts["fp32"]
 
 
-def phase_numerics(server, ecfg=None, phase=5):
+def phase_numerics(server, ecfg=None, phase=5, cos_min=COS_MIN):
     from cor_tpu_torch.config import EvalConfig
     from cor_tpu_torch.models.core_model import init_support_branch
     from cor_tpu_torch.retrieval.index import make_query_encoder
@@ -533,12 +563,13 @@ def phase_numerics(server, ecfg=None, phase=5):
     q_cpu = make_query_encoder(cfg)(model_cpu, imgs.cpu(), texts.cpu(), masks.cpu())
     dt = time.perf_counter() - t0
     cos = torch.nn.functional.cosine_similarity(q_gpu, q_cpu, dim=1)
-    print(f"  GPU bf16 vs CPU fp32 query cosine per query: {[round(v, 6) for v in cos.tolist()]} "
-          f"(CPU encode {dt:.1f} s)")
+    print(f"  GPU {server.cfg.compute_dtype} vs CPU fp32 query cosine per query: "
+          f"{[round(v, 6) for v in cos.tolist()]} (CPU encode {dt:.1f} s)")
     if not torch.isfinite(q_gpu).all() or q_gpu.shape != (4, DIM):
         fail(f"GPU queries malformed: shape {tuple(q_gpu.shape)}")
-    if cos.min().item() < COS_MIN:
-        fail(f"GPU bf16 and CPU fp32 queries disagree: min cosine {cos.min().item()}")
+    if cos.min().item() < cos_min:
+        fail(f"GPU {server.cfg.compute_dtype} and CPU fp32 queries disagree: min cosine "
+             f"{cos.min().item()} < {cos_min}")
     print(f"phase {phase} numerics: ok, min cosine {cos.min().item():.6f}", flush=True)
     return cos.min().item()
 
@@ -630,11 +661,12 @@ def read_png_gray(path: Path) -> np.ndarray:
 
 
 def serve_masks(index_dir: Path, ids: set, out_dir: Path, mode: str, extra: list,
-                cfg_path=None, towers=BASE_TOWERS):
+                cfg_path=None, towers=BASE_TOWERS, sfx=""):
     """``cli.serve.main`` --decode-masks with --self-test 8, --max-batch 4,
     --k 10 (and ``extra``) on the index: every response and PNG checked, the
     kernels' launches per decoded batch checked (``towers``: K4, K5 per
-    encoded batch). Returns (server, launches, {png name: mask})."""
+    encoded batch; ``sfx`` "@fp32": the fp32 kernels' counts). Returns
+    (server, launches, {png name: mask})."""
     from cor_tpu_torch.cli import serve as cli
     from cor_tpu_torch.ops.kernels import t2i_flash, two_way_layer
 
@@ -667,9 +699,9 @@ def serve_masks(index_dir: Path, ids: set, out_dir: Path, mode: str, extra: list
             masks[Path(path).name] = m
     d, e = server.decode_calls, server.batches_encoded
     want = {k: 0 for k in c}
-    want.update(layer_norm=towers[1] * e, attention_seq_qkv=towers[0] * e,
-                two_way_layer=two_way_layer.LAUNCHES * 2 * d,
-                t2i_flash_kv=t2i_flash.LAUNCHES * d, decoder_tail=d)
+    want.update({"layer_norm" + sfx: towers[1] * e, "attention_seq_qkv" + sfx: towers[0] * e,
+                 "two_way_layer" + sfx: two_way_layer.LAUNCHES * 2 * d,
+                 "t2i_flash_kv" + sfx: t2i_flash.LAUNCHES * d, "decoder_tail" + sfx: d})
     fg = np.mean([m.mean() / 255 for m in masks.values()])
     print(f"  decode serve {mode}: {len(resps)} responses, {e} encoded batches, {d} decode "
           f"calls (warmup included), launches {c} (expected {want}), foreground share "
@@ -698,7 +730,8 @@ def phase_decode_serve(index_dir: Path, pair_ids: np.ndarray, out_root: Path):
 
 
 @torch.no_grad()
-def phase_decode_numerics(server, index_dir: Path):
+def phase_decode_numerics(server, index_dir: Path, rows=(3, 100, 1000, 2047), phase=8,
+                          cos_min=COS_MIN):
     from cor_tpu_torch.config import EvalConfig
     from cor_tpu_torch.models.core_model import init_decode_model
     from cor_tpu_torch.retrieval.index import load_gallery_index, make_candidate_mask_decoder
@@ -706,7 +739,7 @@ def phase_decode_numerics(server, index_dir: Path):
     assembled = [server._synthetic_query(i) for i in range(4)]
     imgs, masks, texts = server._batch_tensors(assembled)
     feats = server.encode_query(server.model, imgs, texts, masks)
-    rows = np.asarray(load_gallery_index(index_dir)["store"][[3, 100, 1000, 2047]])
+    rows = np.asarray(load_gallery_index(index_dir)["store"][list(rows)])
     gpu = make_candidate_mask_decoder(server.cfg)(
         server.decode_model, torch.from_numpy(rows).cuda(), feats).cpu()
     cfg = dataclasses.replace(EvalConfig().core_config(), compute_dtype="float32")
@@ -716,14 +749,15 @@ def phase_decode_numerics(server, index_dir: Path):
     dt = time.perf_counter() - t0
     cos = torch.nn.functional.cosine_similarity(gpu.flatten(1), cpu.flatten(1), dim=1)
     agree = ((gpu > 0) == (cpu > 0)).float().mean().item()
-    print(f"  GPU bf16 vs CPU fp32 decode, per-candidate logit cosine: "
+    print(f"  GPU {server.cfg.compute_dtype} vs CPU fp32 decode, per-candidate logit cosine: "
           f"{[round(v, 6) for v in cos.tolist()]}; mask pixels agreeing {agree:.6f} "
           f"(CPU decode {dt:.1f} s)")
     if gpu.shape != (4, 1, 4 * GRID, 4 * GRID) or not torch.isfinite(gpu).all():
         fail(f"GPU decode malformed: shape {tuple(gpu.shape)}")
-    if cos.min().item() < COS_MIN:
-        fail(f"GPU bf16 and CPU fp32 decodes disagree: min cosine {cos.min().item()}")
-    print(f"phase 8 decode numerics: ok, min cosine {cos.min().item():.6f}", flush=True)
+    if cos.min().item() < cos_min:
+        fail(f"GPU {server.cfg.compute_dtype} and CPU fp32 decodes disagree: min cosine "
+             f"{cos.min().item()} < {cos_min}")
+    print(f"phase {phase} decode numerics: ok, min cosine {cos.min().item():.6f}", flush=True)
     return cos.min().item()
 
 
@@ -767,14 +801,14 @@ def phase_decode_timings(servers, smi):
 # device kernels by the layer they belong to (substrings of their names; the
 # first group that matches takes the kernel)
 KERNEL_GROUPS = (
-    ("K1 two_way_layer", ("twl_", "t2i_image_kernel<true, true>", "t2i_image_kernel<false, true>")),
+    # the image pass with q_img (kEmitQ, the last template argument) is K1's
+    ("K1 two_way_layer", ("twl_", "true, true>", "false, true>")),
     ("K2 t2i_flash_kv", ("t2i_image_kernel", "t2i_combine")),
     ("K3 decoder_tail", ("decoder_tail_kernel",)),
     ("K4 attention_seq_qkv", ("seq_attention",)),
     ("K5 layer_norm", ("layer_norm_kernel",)),
     ("K6b vit_attention_relpos_bwd", ("vit_attention_bwd",)),
-    ("K7 vit_attention_relpos_windows", ("vit_attention_relpos_kernel<64, true>",
-                                         "vit_attention_relpos_kernel<80, true>")),
+    ("K7 vit_attention_relpos_windows", ("kernel<64, true>", "kernel<80, true>")),
     ("K6 vit_attention_relpos", ("vit_attention_relpos",)),
     ("cuDNN convs", ("fprop", "conv", "cudnn", "nchwToNhwc", "nhwcToNchw")),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
@@ -890,11 +924,11 @@ def phase_encoder_kernels(device):
     return dict(k6["global"], windowed=k6["windowed"]), ln
 
 
-def build_index(index_dir: Path, rows: int, cfg_path=None, per_batch=(12, 26)):
+def build_index(index_dir: Path, rows: int, cfg_path=None, per_batch=(12, 26), sfx=""):
     """``cli.index.main`` --synthetic rows --batch-size 8 --with-store,
     checked: the JSON line, unit-norm rows, the finite fp16 store, and K6 /
-    K5 launches of exactly ``per_batch`` per encoded batch. Returns (launch
-    counts, seconds, the loaded index)."""
+    K5 launches of exactly ``per_batch`` per encoded batch (``sfx`` "@fp32":
+    the fp32 kernels'). Returns (launch counts, seconds, the loaded index)."""
     from cor_tpu_torch.cli import index as cli
     from cor_tpu_torch.retrieval.index import load_gallery_index
 
@@ -924,7 +958,8 @@ def build_index(index_dir: Path, rows: int, cfg_path=None, per_batch=(12, 26)):
             np.isfinite(store).all()):
         fail(f"index: the store is {store.shape} {store.dtype}, or not finite")
     want = {k: 0 for k in c}
-    want.update(vit_attention_relpos=per_batch[0] * batches, layer_norm=per_batch[1] * batches)
+    want.update({"vit_attention_relpos" + sfx: per_batch[0] * batches,
+                 "layer_norm" + sfx: per_batch[1] * batches})
     print(f"  index build launches {c} over {batches} encoded batches (expected {want})")
     if c != want:
         fail(f"index: kernel launch counts {c} != expected {want}")
@@ -973,7 +1008,7 @@ def synthetic_batch(n: int, cfg=None):
     return collate([ds[i] for i in range(n)])
 
 
-def phase_encoder_numerics(ecfg=None, phase=12):
+def phase_encoder_numerics(ecfg=None, phase=12, cos_min=COS_MIN):
     """One candidate through the encoder (tables and pos_embed filled) on
     the card in bf16 and on the CPU in fp32; one ``core_forward`` at full
     width, batch 2, with that encoder. Returns (the encoder on the card,
@@ -1007,12 +1042,13 @@ def phase_encoder_numerics(ecfg=None, phase=12):
     cos_flat = torch.nn.functional.cosine_similarity(
         emb_g.cpu().flatten()[None], emb_c.flatten()[None]).item()
     cos_pool = torch.nn.functional.cosine_similarity(pooled_g.cpu(), pooled_c).item()
-    print(f"  encoder GPU bf16 vs CPU fp32: cosine {cos_flat:.6f} flattened, {cos_pool:.6f} "
-          f"pooled (CPU encode {dt:.1f} s)")
+    print(f"  encoder GPU {cfg.compute_dtype} vs CPU fp32: cosine {cos_flat:.6f} flattened, "
+          f"{cos_pool:.6f} pooled (CPU encode {dt:.1f} s)")
     if emb_g.shape != (1, GRID, GRID, SAM_C) or not torch.isfinite(emb_g).all():
         fail(f"GPU encoder output malformed: {tuple(emb_g.shape)}")
-    if min(cos_flat, cos_pool) < COS_MIN:
-        fail(f"GPU bf16 and CPU fp32 encoders disagree: cosines {cos_flat}, {cos_pool}")
+    if min(cos_flat, cos_pool) < cos_min:
+        fail(f"GPU {cfg.compute_dtype} and CPU fp32 encoders disagree: cosines {cos_flat}, "
+             f"{cos_pool} < {cos_min}")
 
     # core_forward at full width, batch 2, the filled encoder in place of
     # init_core_model's (its other parts from the seeds it uses)
@@ -1211,17 +1247,19 @@ TOWERS = ("image_encoder.", "support_branch.siglip.", "mask_decoder.iou_predicti
 
 
 def phase_train(root: Path, keys=None, blocks: int = 12, phase: int = 15,
-                keep_unfrozen: bool = False):
+                keep_unfrozen: bool = False, modes=(("frozen", True), ("unfrozen", False)),
+                sfx: str = ""):
     """cli.train.main --synthetic at full width on m3's keys (with ``keys``:
-    CFG's), frozen and unfrozen; the launch counts of each run (``blocks``:
-    the encoder's). Returns (counts, results, the unfrozen Trainer if
-    ``keep_unfrozen``)."""
+    CFG's, or other overrides), in ``modes`` (frozen and unfrozen); the
+    launch counts of each run (``blocks``: the encoder's; ``sfx`` "@fp32":
+    the fp32 kernels', and no bf16 launch). Returns (counts, results, the
+    unfrozen Trainer if ``keep_unfrozen``)."""
     from cor_tpu_torch.cli import train as cli
     from cor_tpu_torch.config import load_train_config
     from cor_tpu_torch.models.core_model import init_core_model
 
     counts, results, kept, fresh = {}, {}, None, None
-    for mode, freeze in (("frozen", True), ("unfrozen", False)):
+    for mode, freeze in modes:
         d = root / mode
         d.mkdir(parents=True)
         cfg_path = m3_config(d, epoch=1, train_model_save_path=str(d / "ck"),
@@ -1254,16 +1292,17 @@ def phase_train(root: Path, keys=None, blocks: int = 12, phase: int = 15,
                 for p in TOWERS}
         k6_want = (blocks if freeze else 2 * blocks) * steps + blocks * val_batches
         k6b_want = 0 if freeze else blocks * steps
-        print(f"  train {mode}: unchanged since init {same}; K6 {c['vit_attention_relpos']} "
-              f"(expected {k6_want}), K6b {c['vit_attention_relpos_bwd']} (expected {k6b_want})")
+        k6, k6b = c["vit_attention_relpos" + sfx], c["vit_attention_relpos_bwd" + sfx]
+        print(f"  train {mode}: unchanged since init {same}; K6{sfx} {k6} (expected {k6_want}), "
+              f"K6b{sfx} {k6b} (expected {k6b_want})")
         if freeze and not all(same.values()):
             fail(f"train frozen: a frozen part moved: {same}")
         if not freeze and (same[TOWERS[0]] or same[TOWERS[1]] or not same[TOWERS[3]]):
             fail(f"train unfrozen: a tower did not move, or the PE matrix did: {same}")
-        if c["vit_attention_relpos"] != k6_want or c["vit_attention_relpos_bwd"] != k6b_want or \
-                min(v for k, v in c.items() if k not in (
-                    "vit_attention_relpos_bwd", "attention_seq",
-                    "vit_attention_relpos_windows")) == 0:
+        idle = ("vit_attention_relpos_bwd", "attention_seq", "vit_attention_relpos_windows")
+        if k6 != k6_want or k6b != k6b_want or min(
+                c[n + sfx] for n in kernel_wrappers() if n not in idle) == 0 or (
+                sfx and any(c[n] for n in kernel_wrappers())):
             fail(f"train {mode}: kernel launch counts {c}")
         counts[mode], results[mode] = c, {"seconds": dt, "losses": losses, "val": val[0]}
         shutil.rmtree(d / "ck")  # the checkpoints (tens of GB at CFG)
@@ -1369,42 +1408,60 @@ def phase_train_numerics(core_cfg=None, global_block: int = 2, phase: int = 16):
     return d, cos
 
 
-def phase_train_timings(smi: str):
+def train_batch():
     from cor_tpu_torch.config import TrainConfig
-    from cor_tpu_torch.models.core_model import init_core_model
-    from cor_tpu_torch.ops.common import gelu
-    from cor_tpu_torch.train.optim import make_optimizer
-    from cor_tpu_torch.train.step import BATCH_KEYS, TrainState, make_train_step
+    from cor_tpu_torch.train.step import BATCH_KEYS
 
     b = synthetic_batch(TrainConfig().batch_size)
     batch = {k: torch.from_numpy(b[k]).cuda() for k in BATCH_KEYS}
     batch["valid"] = torch.ones(TrainConfig().batch_size, device="cuda")
+    return batch
+
+
+def step_timings(cfg, batch, steps: int = 6, with_profile: bool = False) -> dict:
+    """Seconds per train step of TrainConfig ``cfg`` at its batch (CUDA
+    events, median and spread of ``steps`` steps after a warm-up), samples/s
+    and peak memory; with ``with_profile``, a torch.profiler breakdown of one
+    step."""
+    from cor_tpu_torch.models.core_model import init_core_model
+    from cor_tpu_torch.train.optim import make_optimizer
+    from cor_tpu_torch.train.step import TrainState, make_train_step
+
+    model = init_core_model(cfg.core_config(), cfg.seed).cuda()
+    opt, _ = make_optimizer(model, cfg.optimizer, cfg.lr, freeze_towers=cfg.freeze_towers)
+    state = TrainState(model, opt)
+    step = make_train_step(cfg.core_config(), cfg.seed)
+    step(state, batch, cfg.lr)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch, cfg.lr)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    med = statistics.median(times)
+    out = {"s_per_step": med, "min_s": min(times), "max_s": max(times),
+           "samples_per_s": cfg.batch_size / med,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if with_profile:
+        out["profile"] = profile(lambda: step(state, batch, cfg.lr), 1)
+    del state, model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_timings(smi: str):
+    from cor_tpu_torch.config import TrainConfig
+    from cor_tpu_torch.ops.common import gelu
+
+    batch = train_batch()
     out = {}
     for mode, freeze in (("frozen", True), ("unfrozen", False)):
         cfg = dataclasses.replace(TrainConfig(), freeze_towers=freeze)
-        model = init_core_model(cfg.core_config(), cfg.seed).cuda()
-        opt, _ = make_optimizer(model, cfg.optimizer, cfg.lr, freeze_towers=freeze)
-        state = TrainState(model, opt)
-        step = make_train_step(cfg.core_config(), cfg.seed)
-        step(state, batch, cfg.lr)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(6):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            step(state, batch, cfg.lr)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
-        med = statistics.median(times)
-        out[mode] = {"s_per_step": med, "min_s": min(times), "max_s": max(times),
-                     "samples_per_s": TrainConfig().batch_size / med,
-                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        if not freeze:
-            out[mode]["profile"] = profile(lambda: step(state, batch, cfg.lr), 1)
-        del state, model, opt
-        torch.cuda.empty_cache()
+        out[mode] = step_timings(cfg, batch, with_profile=not freeze)
     # the encoder's bf16 GELU at its training shape: forward and backward of
     # one MLP's [B * 4096, 3072] (12 per step, and 12 recomputed forwards)
     h = torch.randn(TrainConfig().batch_size * GRID * GRID, 3072, device="cuda").to(
@@ -1803,6 +1860,431 @@ def phase_large_train(smi: str):
     return counts["unfrozen"]
 
 
+
+# ---------------------------------------------------------------------------
+# fp32 (compute_dtype float32): phases 29-31
+# ---------------------------------------------------------------------------
+
+# cor_tpu's own fp32 kernel tests against their oracles (atol = rtol): K5
+# tests/test_pallas_kernels.py:19, K4/K4′ test_kernel_vjp.py:96-98, K6/K7
+# test_vit_attention_kernel.py:22, K1 test_two_way_layer_kernel.py:43-44,
+# K1 + K2 through the two-way transformer :59-60 (K2's only fp32 test), K3
+# test_decoder_tail_kernel.py:31
+FP32_TOL = {"layer_norm": 1e-5, "attention_seq_qkv": 1e-5, "vit_attention_relpos": 2e-4,
+            "vit_attention_relpos_windows": 2e-4, "two_way_layer": 2e-4, "t2i_flash_kv": 5e-4,
+            "transformer": 5e-4, "decoder_tail": 2e-4}
+# fp32-accurate products on the tensor cores: 3xTF32, three TF32 products
+# (494.7 TFLOP/s dense, NVIDIA data sheet) per fp32 product; above the 67
+# TFLOP/s of fp32 on the CUDA cores, so the least time the card could take
+PEAK_FP32_FLOP_S = 494.7e12 / 3
+
+
+def bound32(n_bytes: float, flops: float):
+    """The fp32 bound: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOP_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tol_err(tol: float, *pairs):
+    """(max |got - want|, max |got - want| / (tol + tol |want|)): the second
+    is <= 1 where allclose(atol=tol, rtol=tol) holds."""
+    d = max((g.float() - w.float()).abs().max().item() for g, w in pairs)
+    r = max(((g.float() - w.float()).abs() / (tol + tol * w.float().abs())).max().item()
+            for g, w in pairs)
+    return d, r
+
+
+def check32(name: str, label: str, tol: float, pairs, kt, pt, b, lt=None, **extra):
+    err, ratio = tol_err(tol, *pairs)
+    lib = "" if lt is None else f", library {lt[0]:.4f} ms"
+    print(f"  {name} fp32 {label}: max|d| = {err:.3e}, max|d|/(tol + tol|plain|) = {ratio:.3f} "
+          f"(tol {tol:g}); kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain "
+          f"{pt[0]:.4f} ms{lib}, bound {b[0]:.4f} ms ({b[1]})", flush=True)
+    if not ratio <= 1.0:
+        fail(f"{name} fp32 ({label}) disagrees with its plain fp32 version: max|d| {err}, "
+             f"{ratio} x its tolerance {tol}")
+    return entry(err, kt, pt, b, lt, tol=tol, tol_ratio=ratio, **extra)
+
+
+@torch.no_grad()
+def phase_fp32_kernels(device):
+    """Phase 29: every fp32 kernel against its plain fp32 version (TF32 off)
+    on the same inputs, at the shapes of phases 3, 10, 18 and 24, with
+    cor_tpu's fp32 tolerances; timed beside the plain version, the library
+    call and the fp32 bound."""
+    import torch.nn.functional as F
+
+    from cor_tpu_torch.ops.kernels.layernorm import layer_norm, layer_norm_plain
+    from cor_tpu_torch.ops.kernels.seq_attention import (
+        attention_seq,
+        attention_seq_plain,
+        attention_seq_qkv,
+        attention_seq_qkv_plain,
+    )
+    from cor_tpu_torch.ops.kernels.vit_attention import (
+        vit_attention_relpos,
+        vit_attention_relpos_plain,
+        vit_attention_relpos_windows,
+        vit_attention_relpos_windows_plain,
+    )
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("phase 29 holds the fp32 kernels to plain versions with TF32 off")
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    out = {}
+
+    # K5 at the towers' [16 * 576, 768], the encoder's [8 * 4096, 768], the
+    # neck's [8 * 4096, 256], and the largest configuration's SO400M towers
+    # [16 * 729, 1152] and sam_huge encoder [8 * 4096, 1280]
+    tol = FP32_TOL["layer_norm"]
+    ln = {}
+    for rows, C in ((BATCH * 576, 768), (SAM_BATCH * GRID * GRID, 768),
+                    (SAM_BATCH * GRID * GRID, SAM_C), (BATCH * 729, 1152),
+                    (SAM_BATCH * GRID * GRID, 1280)):
+        x = 2 * rnd(rows, C) + 0.5
+        scale, bias = 1 + 0.1 * rnd(C), 0.1 * rnd(C)
+        got, want = layer_norm(x, scale, bias, 1e-6), layer_norm_plain(x, scale, bias, 1e-6)
+        kt = cuda_ms(lambda: layer_norm(x, scale, bias, 1e-6))
+        pt = cuda_ms(lambda: layer_norm_plain(x, scale, bias, 1e-6))
+        lt = cuda_ms(lambda: F.layer_norm(x, (C,), scale, bias, 1e-6))
+        b = bound32(2 * nbytes(x) + nbytes(scale, bias), 8 * x.numel())
+        ln[f"[{rows},{C}]"] = check32("K5 layer_norm", f"[{rows}, {C}]", tol, [(got, want)], kt,
+                                      pt, b, lt)
+    first = f"[{BATCH * 576},768]"
+    out["layer_norm@fp32"] = dict(ln.pop(first), other_shapes=ln)
+
+    # K4 at [16, 576, 2304] and [16, 64, 2304]; K4′ at 72 (SO400M, vision and
+    # text, both entries) and 80 (ragged N)
+    tol = FP32_TOL["attention_seq_qkv"]
+    k4 = {}
+    for label, heads, D, n in (("vision", 12, 64, 576), ("text", 12, 64, 64),
+                               ("d72-vision", 16, 72, 729), ("d72-text", 16, 72, 64),
+                               ("d80-ragged", 16, 80, 100)):
+        C = heads * D
+        qkv = rnd(BATCH, n, 3 * C)
+        q, k, v = (qkv[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
+                   .contiguous() for i in range(3))
+        got, want = attention_seq_qkv(qkv, heads), attention_seq_qkv_plain(qkv, heads)
+        got4, want4 = attention_seq(q, k, v, heads), attention_seq_plain(q, k, v, heads)
+        pairs = [(got, want), (got4, want4)]
+        kt = cuda_ms(lambda: attention_seq_qkv(qkv, heads))
+        pt = cuda_ms(lambda: attention_seq_qkv_plain(qkv, heads), iters=3)
+        lt = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        b = bound32(nbytes(qkv) + nbytes(got), 4 * BATCH * heads * n * n * D)
+        k4[label] = check32("K4 attention_seq_qkv", f"{label} [{BATCH}, {n}, {3 * C}]", tol,
+                            pairs, kt, pt, b, lt)
+        del q, k, v
+    out["attention_seq_qkv@fp32"] = dict(k4.pop("vision"), other_shapes=k4)
+
+    # K6 at 64 and 80, global [2, 4096, 3C] and windowed [50, 196, 3C]
+    tol = FP32_TOL["vit_attention_relpos"]
+    k6 = {}
+    for heads, D in ((12, 64), (16, 80)):
+        C = heads * D
+        for label, B, side in (("global", 2, GRID), ("windowed", 50, 14)):
+            N = side * side
+            qkv = rnd(B, N, 3 * C)
+            rel_h, rel_w = 0.3 * rnd(B, heads, N, side), 0.3 * rnd(B, heads, N, side)
+            args = (qkv, rel_h, rel_w, heads, (side, side))
+            got, want = vit_attention_relpos(*args), vit_attention_relpos_plain(*args)
+            kt = cuda_ms(lambda: vit_attention_relpos(*args))
+            pt = cuda_ms(lambda: vit_attention_relpos_plain(*args), windows=3, iters=2)
+            q, k, v = (qkv[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
+                       for i in range(3))
+            bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, heads, N, N)
+            lt = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+            b = bound32(nbytes(qkv, rel_h, rel_w, got), 4 * B * heads * N * N * D)
+            k6[f"d{D}-{label}"] = check32("K6 vit_attention_relpos",
+                                         f"d{D} {label} [{B}, {N}, {3 * C}]", tol,
+                                         [(got, want)], kt, pt, b, lt)
+            del bias, q, k, v, want
+            torch.cuda.empty_cache()
+    out["vit_attention_relpos@fp32"] = dict(k6.pop("d64-global"), other_shapes=k6)
+
+    # K7 at [2, 70, 70, 3C], windows of 14 cropped to 64 x 64, C 768 and 1280
+    tol = FP32_TOL["vit_attention_relpos_windows"]
+    k7 = {}
+    B, ws, Hp = 2, 14, 70
+    nW, N = (Hp // ws) ** 2, ws * ws
+    for label, heads, D in (("sam_base", 12, 64), ("sam_huge", 16, 80)):
+        C = heads * D
+        qkv = rnd(B, Hp, Hp, 3 * C)
+        rel_h, rel_w = 0.3 * rnd(B, heads, Hp * Hp, ws), 0.3 * rnd(B, heads, Hp * Hp, ws)
+        args = (qkv, rel_h, rel_w, heads, ws, (GRID, GRID))
+        got = vit_attention_relpos_windows(*args)
+        want = vit_attention_relpos_windows_plain(*args)
+        kt = cuda_ms(lambda: vit_attention_relpos_windows(*args))
+        pt = cuda_ms(lambda: vit_attention_relpos_windows_plain(*args), windows=3, iters=2)
+        # SDPA with the bias on the partitioned windows (the partition is not timed)
+        qw = qkv.reshape(B, Hp // ws, ws, Hp // ws, ws, 3 * C).permute(0, 1, 3, 2, 4, 5)
+        qw = qw.reshape(B * nW, N, 3 * C)
+        rw = [r.reshape(B, heads, Hp // ws, ws, Hp // ws, ws, ws).permute(0, 2, 4, 1, 3, 5, 6)
+              .reshape(B * nW, heads, N, ws) for r in (rel_h, rel_w)]
+        q, k, v = (qw[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
+                   for i in range(3))
+        bias = (rw[0][..., :, None] + rw[1][..., None, :]).reshape(B * nW, heads, N, N)
+        lt = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        b = bound32(nbytes(qkv, rel_h, rel_w, got), 4 * B * nW * heads * N * N * D)
+        k7[label] = check32("K7 vit_attention_relpos_windows", f"{label} [{B}, {Hp}, {Hp}, "
+                            f"{3 * C}]", tol, [(got, want)], kt, pt, b, lt)
+        del bias, q, k, v, qw, rw, want
+        torch.cuda.empty_cache()
+    out["vit_attention_relpos_windows@fp32"] = dict(k7.pop("sam_base"), other_shapes=k7)
+
+    out.update(decoder_kernels_fp32(device, gen))
+    print("phase 29 fp32 kernels: ok", flush=True)
+    return out
+
+
+@torch.no_grad()
+def decoder_kernels_fp32(device, gen):
+    """K1 (layer 0 out of a 2,048-row int8 store, layer 1 on fp32 rows), K2,
+    K1 + K2 through the two-way transformer, and K3 in fp32 at 40 candidates
+    of the SAM-base decoder."""
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+    from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail, decoder_tail_plain
+    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv, t2i_flash_kv_plain
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer, two_way_layer_plain
+
+    n, N, C, I, T = CANDIDATES, GRID * GRID, SAM_C, 128, 6
+    dec = init_mask_decoder(CoreConfig(), 1).to(device).eval()
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    tokens, kpe, qpe = rnd(n, T, C), 0.5 * rnd(N, I), 0.5 * rnd(N, I)
+    store = torch.randint(-127, 128, (STORE_ROWS, N, C), generator=gen, device=device,
+                          dtype=torch.int8)
+    scales = (0.5 * 4 / 127) * (1 + 0.1 * torch.rand(STORE_ROWS, generator=gen, device=device))
+    idx = torch.randperm(STORE_ROWS, generator=gen, device=device)[:n].to(torch.int32)
+    keys = 0.5 * rnd(n, N, C)
+    layer_flops = n * (2 * N * C * 3 * I + 2 * N * I * C + 4 * 2 * N * T * I + 2 * 8.6e6)
+    w_bytes = sum(p.numel() * p.element_size() for p in dec.transformer.layers[0].parameters())
+    out = {}
+
+    tol = FP32_TOL["two_way_layer"]
+    k1 = {}
+    for label, lp, rows, kw, skip, rows_bytes in (
+            ("layer 0, int8 store-indexed", dec.transformer.layers[0], store,
+             dict(idx=idx, scale=scales), True, n * N * C + 8 * n),
+            ("layer 1, fp32", dec.transformer.layers[1], keys, {}, False, nbytes(keys))):
+        args = (lp, tokens, tokens, rows, kpe, qpe, skip)
+        got_t, got_k = two_way_layer(*args, **kw)
+        want_t, want_k = two_way_layer_plain(*args, **kw)
+        kt = cuda_ms(lambda: two_way_layer(*args, **kw))
+        pt = cuda_ms(lambda: two_way_layer_plain(*args, **kw), iters=3)
+        b = bound32(rows_bytes + nbytes(tokens, kpe, qpe, got_t, got_k) + nbytes(tokens) + w_bytes,
+                    layer_flops)
+        k1[label] = check32("K1 two_way_layer", f"{label} [{n}, {N}, {C}]", tol,
+                            [(got_t, want_t), (got_k, want_k)], kt, pt, b)
+    out["two_way_layer@fp32"] = dict(k1["layer 0, int8 store-indexed"],
+                                     layer1=k1["layer 1, fp32"])
+
+    fa = dec.transformer.final_attn_t2i
+    q_tok = rnd(n, T, I)
+    args = (keys, fa.k_proj.w, fa.k_proj.b, fa.v_proj.w, fa.v_proj.b, kpe, q_tok, 8)
+    got, want = t2i_flash_kv(*args), t2i_flash_kv_plain(*args)
+    kt, pt = cuda_ms(lambda: t2i_flash_kv(*args)), cuda_ms(lambda: t2i_flash_kv_plain(*args))
+    b = bound32(nbytes(keys, kpe, q_tok, got) + 2 * I * C * 4,
+                n * (2 * N * C * 2 * I + 4 * N * T * I))
+    out["t2i_flash_kv@fp32"] = check32("K2 t2i_flash_kv", f"[{n}, {N}, {C}]",
+                                       FP32_TOL["t2i_flash_kv"], [(got, want)], kt, pt, b)
+
+    # K1 + K2 through the two-way transformer: layer 0 from the int8 store,
+    # layer 1, the final attention's core, kernels against plain versions
+    def chain(layer, t2i):
+        lp0, lp1 = dec.transformer.layers
+        t, k = layer(lp0, tokens, tokens, store, kpe, qpe, True, idx=idx, scale=scales)
+        t, k = layer(lp1, t, tokens, k, kpe, qpe, False)
+        a = t2i(k, fa.k_proj.w, fa.k_proj.b, fa.v_proj.w, fa.v_proj.b, kpe,
+                fa.q_proj(t + tokens), 8)
+        return a, k
+
+    got_a, got_k = chain(two_way_layer, t2i_flash_kv)
+    want_a, want_k = chain(two_way_layer_plain, t2i_flash_kv_plain)
+    tol = FP32_TOL["transformer"]
+    err, ratio = tol_err(tol, (got_a, want_a), (got_k, want_k))
+    print(f"  K1 + K2 through the two-way transformer fp32: max|d| = {err:.3e}, "
+          f"max|d|/(tol + tol|plain|) = {ratio:.3f} (tol {tol:g})", flush=True)
+    if not ratio <= 1.0:
+        fail(f"K1 + K2 through the two-way transformer in fp32: {ratio} x its tolerance {tol}")
+    out["two_way_layer@fp32"]["through_transformer"] = {"max_abs_err": err, "tol": tol,
+                                                        "tol_ratio": ratio}
+
+    up = dec.output_upscaling
+    src = keys.reshape(n, GRID, GRID, C)
+    hyper = rnd(n, 1, 32)
+    args = (src, up.convt1.w, up.convt1.b, up.ln.scale, up.ln.bias, up.convt2.w, up.convt2.b,
+            hyper)
+    got, want = decoder_tail(*args), decoder_tail_plain(*args)
+    kt, pt = cuda_ms(lambda: decoder_tail(*args)), cuda_ms(lambda: decoder_tail_plain(*args))
+    b = bound32(nbytes(src, hyper, got), n * 2 * N * (C * 4 * 64 + 4 * 64 * 4 * 32))
+    out["decoder_tail@fp32"] = check32("K3 decoder_tail", f"[{n}, {GRID}, {GRID}, {C}] -> "
+                                       f"{tuple(got.shape)}", FP32_TOL["decoder_tail"],
+                                       [(got, want)], kt, pt, b)
+    del store
+    torch.cuda.empty_cache()
+    return out
+
+
+
+FP32_BUILD_ROWS = 32  # candidates of the phase-30 build (4 encoded batches)
+COS32_EMB, COS32_MASK = 0.9999, 0.999  # GPU fp32 against CPU fp32, same weights
+
+
+def refuse_unfrozen_fp32(root: Path) -> str:
+    """``cli.train`` with freeze_towers: false in fp32, in a process that
+    sees no card: it must exit 2 naming @fp32-K6b (with the card hidden, a
+    refusal that came after looking for the card would name the card
+    instead)."""
+    import os
+
+    root.mkdir(parents=True, exist_ok=True)
+    cfg_path = m3_config(root, epoch=1, train_model_save_path=str(root / "ck"),
+                         freeze_towers=False, compute_dtype="float32")
+    proc = subprocess.run(
+        [sys.executable, "-m", "cor_tpu_torch.cli.train", "--config", str(cfg_path),
+         "--synthetic"], cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    last = (proc.stderr.strip().splitlines() or [""])[-1]
+    print(f"  unfrozen fp32 cli.train, card hidden: exit {proc.returncode}: {last[:300]}")
+    if proc.returncode != 2 or "@fp32-K6b" not in proc.stderr or (root / "ck").exists():
+        fail(f"unfrozen fp32 training was not refused naming @fp32-K6b before the card "
+             f"was looked for: exit {proc.returncode}, {proc.stderr[-1000:]}")
+    return last
+
+
+def phase_fp32_paths(root: Path):
+    """Phase 30: the fp32 paths at full SAM-base + ViT-B-16-SigLIP-384 width
+    through the entry points, with configs/vaild_config.yaml's and
+    configs/train_config_m3.yaml's keys and compute_dtype: float32."""
+    from cor_tpu_torch.config import load_eval_config
+
+    cfg_path = flat_config("vaild_config.yaml", root / "fp32.yaml", compute_dtype="float32")
+    ecfg = load_eval_config(cfg_path)
+    if ecfg.core_config().compute_dtype != "float32":
+        fail(f"the fp32 config reads as {ecfg.core_config().compute_dtype}")
+    index_dir = root / "index"
+    build_counts, build_s, idx = build_index(index_dir, FP32_BUILD_ROWS, cfg_path, sfx="@fp32")
+    ids = set(idx["pair_ids"].tolist())
+    servers, serve_counts = {}, {}
+    for scan, extra in (("fp32", []), ("int8", ["--int8"])):
+        servers[scan], serve_counts[scan], _ = serve_masks(
+            index_dir, ids, root / f"masks_{scan}", f"fp32 compute, {scan} scan, --store-hbm",
+            ["--store-hbm", *extra], cfg_path, sfx="@fp32")
+    q_cos = phase_numerics(servers["fp32"], ecfg, phase=30, cos_min=COS32_EMB)
+    enc32, cos_flat, cos_pool = phase_encoder_numerics(ecfg, phase=30, cos_min=COS32_EMB)
+    m_cos = phase_decode_numerics(servers["fp32"], index_dir, rows=(0, 9, 17, 31), phase=30,
+                                  cos_min=COS32_MASK)
+    train_counts, train_res, _ = phase_train(root / "train", keys={"compute_dtype": "float32"},
+                                             phase=30, modes=(("frozen", True),), sfx="@fp32")
+    refusal = refuse_unfrozen_fp32(root / "refused")
+    print(json.dumps({"fp32_paths": {
+        "build": {"rows": FP32_BUILD_ROWS, "seconds": build_s,
+                  "launches": {k: v for k, v in build_counts.items() if v}},
+        "serve_launches": {k: {n: v for n, v in c.items() if v} for k, c in serve_counts.items()},
+        "min_cosine_vs_cpu_fp32": {"queries": q_cos, "image_embeddings_flat": cos_flat,
+                                   "image_embeddings_pooled": cos_pool, "mask_logits": m_cos},
+        "train_frozen": {**train_res["frozen"],
+                         "launches": {k: v for k, v in train_counts["frozen"].items() if v}},
+        "unfrozen_refusal": refusal,
+    }}))
+    print("phase 30 fp32 paths: ok", flush=True)
+    return servers["fp32"], enc32, index_dir, ids, {
+        "build": build_counts, "serve": serve_counts["fp32"], "train": train_counts["frozen"]}
+
+
+def phase_fp32_timings(server32, enc32, index_dir: Path, ids: set, root: Path, smi: str):
+    """Phase 31: fp32 beside bf16 in one run, on one index and the same
+    weights: encode+scan at buckets 1, 4, 16, encode+scan+decode at 1 and 4
+    (--store-hbm; the scan over phase 30's 32 rows), a batch-8 SAM-base
+    encode (and with fused_window_indexing: K7's fp32 launches), a frozen
+    train step at batch 10 with its peak memory; CUDA-event medians of 7
+    windows (7 steps) with their spread; a torch.profiler breakdown of one
+    served call at bucket 4 in each dtype. Returns K7's fp32 launches."""
+    import copy
+
+    from cor_tpu_torch.config import TrainConfig, load_eval_config
+    from cor_tpu_torch.models.core_model import _cast
+    from cor_tpu_torch.retrieval.index import make_candidate_encoder
+
+    server16, _, _ = serve_masks(index_dir, ids, root / "masks_bf16",
+                                 "bf16 compute beside fp32, fp32 scan, --store-hbm",
+                                 ["--store-hbm"])
+    servers = {"bf16": server16, "fp32": server32}
+    assembled = [server32._synthetic_query(i) for i in range(16)]
+    span = lambda t: {"ms": t[0], "min_ms": t[1], "max_ms": t[2]}  # noqa: E731
+    out = {"encode_scan_ms_by_bucket": {}, "encode_scan_decode_ms_by_bucket": {}}
+    for b in (1, 4, 16):
+        for dt, srv in servers.items():
+            tensors = srv._batch_tensors(assembled[:b])
+            out["encode_scan_ms_by_bucket"].setdefault(str(b), {})[dt] = span(
+                cuda_ms(lambda: srv.encode_and_scan(*tensors), windows=7, iters=3))
+            if b <= 4:
+                out["encode_scan_decode_ms_by_bucket"].setdefault(str(b), {})[dt] = span(
+                    cuda_ms(lambda: srv.encode_scan_decode(*tensors, b), windows=7, iters=3))
+    profiles = {}
+    for dt, srv in servers.items():
+        tensors = srv._batch_tensors(assembled[:4])
+        profiles[dt] = profile(lambda: srv.encode_scan_decode(*tensors, 4), 3)
+    del server16, servers
+
+    # the batch-8 SAM-base encode, the filled encoder of phase 30 in both
+    # dtypes, timed in turns; then fp32 with fused_window_indexing (K7)
+    cfg32 = load_eval_config(flat_config("vaild_config.yaml", root / "fp32.yaml",
+                                         compute_dtype="float32")).core_config()
+    cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
+    enc16 = _cast(copy.deepcopy(enc32), torch.bfloat16)
+    b = synthetic_batch(SAM_BATCH, cfg32)
+    imgs, masks = (torch.from_numpy(b[k]).cuda() for k in ("query_img", "query_mask"))
+    runs = {"bf16": lambda: make_candidate_encoder(cfg16)(enc16, imgs, masks),
+            "fp32": lambda: make_candidate_encoder(cfg32)(enc32, imgs, masks)}
+    # in turns (bf16, fp32, fp32, bf16), 7 windows each: the median of the
+    # two turns' medians and the spread of all 14 windows
+    times = {"bf16": [], "fp32": []}
+    for dt in ("bf16", "fp32", "fp32", "bf16"):
+        times[dt].append(cuda_ms(runs[dt], windows=7, iters=1))
+    encode = {dt: {"ms": statistics.median(t[0] for t in ts), "min_ms": min(t[1] for t in ts),
+                   "max_ms": max(t[2] for t in ts)} for dt, ts in times.items()}
+    del enc16
+    enc_cfg = cfg32.encoder
+    fcfg = dataclasses.replace(cfg32, encoder_override=dataclasses.replace(
+        enc_cfg, fused_window_indexing=True))
+    enc_flag = filled_encoder(fcfg).cuda().eval()
+    reset_counts()
+    _, emb_flag = make_candidate_encoder(fcfg)(enc_flag, imgs, masks)
+    torch.cuda.synchronize()
+    k7 = read_counts()
+    windowed = enc_cfg.depth - len(enc_cfg.global_attn_indexes)
+    want = {k: 0 for k in k7}
+    want.update({"layer_norm@fp32": 2 * enc_cfg.depth + 2,
+                 "vit_attention_relpos@fp32": len(enc_cfg.global_attn_indexes),
+                 "vit_attention_relpos_windows@fp32": windowed})
+    _, emb_plain = make_candidate_encoder(cfg32)(enc32, imgs, masks)
+    cos = torch.nn.functional.cosine_similarity(emb_flag.flatten()[None].double(),
+                                                emb_plain.flatten()[None].double()).item()
+    print(f"  fp32 encoder with fused_window_indexing: launches {k7} (expected {want}), "
+          f"cosine {cos:.6f} to the unflagged one")
+    if k7 != want or not cos >= COS32_EMB:
+        fail(f"fp32 flagged encoder: launches {k7} != {want}, or cosine {cos} < {COS32_EMB}")
+    encode["fp32, fused_window_indexing"] = span(cuda_ms(
+        lambda: make_candidate_encoder(fcfg)(enc_flag, imgs, masks), windows=4, iters=1))
+    del enc_flag, emb_flag, emb_plain
+    torch.cuda.empty_cache()
+
+    batch = train_batch()
+    steps = {}
+    for dt in ("bfloat16", "float32"):
+        steps[dt] = step_timings(dataclasses.replace(TrainConfig(), freeze_towers=True,
+                                                     compute_dtype=dt), batch, steps=7)
+    print(json.dumps({"fp32_timings": {
+        **out, "encode_batch8_ms": encode, "frozen_train_step": steps,
+        "batch": TrainConfig().batch_size, "index_rows": FP32_BUILD_ROWS, "k": 10, "card": smi}}))
+    for dt, prof in profiles.items():
+        print(json.dumps({"served_call_profile": {"dtype": dt, "bucket": 4, **prof,
+                                                  "card": smi}}))
+    print("phase 31 fp32 timings: ok", flush=True)
+    return k7
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this check runs on a GPU only",
@@ -1865,6 +2347,13 @@ def main():
     k7_launches = phase_k7_encoders(smi)
     large_train = phase_large_train(smi)
 
+    kernel_results.update(phase_fp32_kernels(torch.device("cuda")))
+    with tempfile.TemporaryDirectory() as d:
+        server32, enc32, index32, ids32, fp32_launches = phase_fp32_paths(Path(d))
+        k7_fp32 = phase_fp32_timings(server32, enc32, index32, ids32, Path(d), smi)
+        del server32, enc32
+    torch.cuda.empty_cache()
+
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70",
                        launches),
@@ -1893,12 +2382,34 @@ def main():
                                         "cor_tpu/ops/pallas/vit_attention.py:459", large_train),
         "vit_attention_relpos_windows": ("cor_tpu_torch/csrc/vit_attention.cu",
                                          "cor_tpu/ops/pallas/vit_attention.py:180", k7_launches),
+        # compute_dtype float32 (phases 29-31): the fp32 instantiations of the
+        # same sources, launched by the fp32 build, serving and frozen training
+        "layer_norm@fp32": ("cor_tpu_torch/csrc/layernorm.cu",
+                            "cor_tpu/ops/pallas/layernorm.py:70", fp32_launches["serve"]),
+        "attention_seq_qkv@fp32": ("cor_tpu_torch/csrc/seq_attention.cu",
+                                   "cor_tpu/ops/pallas/seq_attention.py:99",
+                                   fp32_launches["serve"]),
+        "vit_attention_relpos@fp32": ("cor_tpu_torch/csrc/vit_attention.cu",
+                                      "cor_tpu/ops/pallas/vit_attention.py:284",
+                                      fp32_launches["build"]),
+        "vit_attention_relpos_windows@fp32": ("cor_tpu_torch/csrc/vit_attention.cu",
+                                              "cor_tpu/ops/pallas/vit_attention.py:180",
+                                              k7_fp32),
+        "two_way_layer@fp32": ("cor_tpu_torch/csrc/two_way_layer.cu",
+                               "cor_tpu/ops/pallas/two_way_layer.py:978",
+                               fp32_launches["serve"]),
+        "t2i_flash_kv@fp32": ("cor_tpu_torch/csrc/t2i_flash.cu",
+                              "cor_tpu/ops/pallas/t2i_flash.py:220", fp32_launches["serve"]),
+        "decoder_tail@fp32": ("cor_tpu_torch/csrc/decoder_tail.cu",
+                              "cor_tpu/ops/pallas/decoder_tail.py:150", fp32_launches["serve"]),
     }
     kernels = []
     for kname, res in kernel_results.items():
         src, replaces, counts = sources[kname]
+        # the counts' key: the wrapper's name, and @fp32 for an fp32 instantiation
+        key = kname.split("@")[0] + ("@fp32" if kname.endswith("@fp32") else "")
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[kname.split("@")[0]], **res})
+                        "launches": counts[key], **res})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

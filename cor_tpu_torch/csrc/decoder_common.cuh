@@ -1,17 +1,27 @@
 // Device helpers shared by the SAM mask-decoder kernels (two_way_layer.cu,
-// t2i_flash.cu, decoder_tail.cu; vit_attention.cu takes the bf16 and mma
-// helpers): bf16 conversions, the tensor-core
+// t2i_flash.cu, decoder_tail.cu; the flash attentions seq_attention.cu and
+// vit_attention.cu take the bf16, mma and online-softmax helpers): bf16
+// conversions, the tensor-core
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) and a warp's 16-row GEMM tile
 // over operands in shared memory, the loading of one 64-row tile of image
 // rows (bf16, or an int8 store row dequantised as the TPU kernel does it),
 // and warp reductions. Geometry of the SAM decoder: C = 256 channels, 8
 // heads, internal width 128 (head_dim 16 in the cross attentions), 6 tokens.
+//
+// The decoder kernels are templated on their element type T: uint16_t for
+// bf16 and float for fp32 (cor_tpu's compute_dtype float32). Elem<T> reads,
+// writes and rounds one value in the compute dtype (fp32 rounds nothing,
+// as cor_tpu rounds to the compute dtype); warp_mma on fp32 tiles is the
+// 3xTF32 product of mma_tf32x3.cuh; the fp32 tiles' padded row strides are
+// 4 mod 8 words (conflict-free TF32 fragments).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_tf32x3.cuh"
 
 namespace cor {
 
@@ -75,6 +85,86 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const uint16_t* sA
   }
 }
 
+// The fp32 tiles: acc[n] += A . B^T as warp_mma above, 3xTF32.
+template <int NT, int K>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* sA, int lda,
+                                         const float* sB, int ldb, int row0, int lane) {
+  warp_mma_f32<NT, K>(acc, sA, lda, sB, ldb, row0, lane);
+}
+
+// One value of the compute dtype: bf16 (T = uint16_t) or fp32 (T = float),
+// with the padded shared row strides of kC- and kI-wide tiles of it.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<uint16_t> {
+  static constexpr int kLdC = cor::kLdC, kLdI = cor::kLdI;
+  static __device__ __forceinline__ float get(uint16_t v) { return bf2f(v); }
+  static __device__ __forceinline__ uint16_t put(float x) { return f2bf(x); }
+  static __device__ __forceinline__ float round(float x) { return round_bf16(x); }
+  // two consecutive values
+  static __device__ __forceinline__ void get2(const uint16_t* p, float& a, float& b) {
+    const uint32_t w = lds32(p);
+    a = bf2f(static_cast<uint16_t>(w & 0xffffu));
+    b = bf2f(static_cast<uint16_t>(w >> 16));
+  }
+  static __device__ __forceinline__ void put2(uint16_t* p, float a, float b) {
+    sts32(p, pack_bf16x2(a, b));
+  }
+};
+template <>
+struct Elem<float> {
+  static constexpr int kLdC = kC + 4, kLdI = kI + 4;  // 4 mod 8 words
+  static __device__ __forceinline__ float get(float v) { return v; }
+  static __device__ __forceinline__ float put(float x) { return x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ void get2(const float* p, float& a, float& b) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    a = v.x;
+    b = v.y;
+  }
+  static __device__ __forceinline__ void put2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+};
+
+// The online (flash) softmax of K4 and K6/K7, per lane: rows g and g + 8
+// of a warp's 16 query rows, in the log2 domain. Once a 64-key tile's
+// logits are final (scaled, biased, masked to -inf) and mt holds this lane's
+// maxima of them, fold the tile's row max into the running max m_run and
+// rescale the running sums l_run and the output tiles o.
+template <int NO>
+__device__ __forceinline__ void softmax_rescale(float (&mt)[2], float (&m_run)[2],
+                                                float (&l_run)[2], float (&o)[NO][4]) {
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    const float m_new = fmaxf(m_run[r], mt[r]);  // finite: every tile has a key < N
+    alpha[r] = exp2f(m_run[r] - m_new);           // 0 on the first tile
+    m_run[r] = m_new;
+    l_run[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+}
+
+// 1 / the row sums of rows g and g + 8 (each lane holds a share of them)
+__device__ __forceinline__ void softmax_inverse_sums(float (&l_run)[2], float (&inv)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    inv[r] = 1.f / l_run[r];
+  }
+}
+
 // The store row a candidate reads: idx[cand] clipped to [0, S - 1] (the JAX
 // server clips), or the candidate itself without idx.
 __device__ __forceinline__ int source_row(const int* idx, int cand, int S) {
@@ -83,50 +173,61 @@ __device__ __forceinline__ int source_row(const int* idx, int cand, int S) {
   return r < 0 ? 0 : (r > S - 1 ? S - 1 : r);
 }
 
-// Rows [r0, r0 + kRows) of source row `row` ([N, C]) -> sRows [kRows][kLdC]
-// bf16. An int8 row dequantises as bf16((int8 -> fp32) * scale), the TPU
-// kernel's rounding (two_way_layer.py:382-389).
-template <bool kInt8>
-__device__ __forceinline__ void load_rows(uint16_t* sRows, const void* src, int row, int N,
-                                          int r0, float scale, int tid, int nthreads) {
+// Rows [r0, r0 + kRows) of source row `row` ([N, C]) -> sRows [kRows][Elem<T>::kLdC]
+// in the compute dtype T. An int8 row dequantises as T((int8 -> fp32) *
+// scale), the TPU kernel's rounding (two_way_layer.py:382-389); fp32 rounds
+// nothing.
+template <bool kInt8, typename T>
+__device__ __forceinline__ void load_rows(T* sRows, const void* src, int row, int N, int r0,
+                                          float scale, int tid, int nthreads) {
+  constexpr int kVec = 16 / sizeof(T);  // values per 16-byte chunk
+  constexpr int kLd = Elem<T>::kLdC;
   const int64_t base = (static_cast<int64_t>(row) * N + r0) * kC;
-  for (int i = tid; i < kRows * (kC / 8); i += nthreads) {
-    const int r = i / (kC / 8);
-    const int c8 = (i % (kC / 8)) * 8;
+  for (int i = tid; i < kRows * (kC / kVec); i += nthreads) {
+    const int r = i / (kC / kVec);
+    const int c = (i % (kC / kVec)) * kVec;
     uint4 v;
     if (kInt8) {
-      const uint2 q = *reinterpret_cast<const uint2*>(static_cast<const int8_t*>(src) + base +
-                                                      r * kC + c8);
-      const uint32_t w[2] = {q.x, q.y};
-      uint32_t o[4];
+      const int8_t* q8 = static_cast<const int8_t*>(src) + base + r * kC + c;
+      if constexpr (sizeof(T) == 2) {
+        const uint2 q = *reinterpret_cast<const uint2*>(q8);
+        const uint32_t w[2] = {q.x, q.y};
+        uint32_t o[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t lo = static_cast<int8_t>((w[j >> 1] >> (16 * (j & 1))) & 0xff);
-        const int8_t hi = static_cast<int8_t>((w[j >> 1] >> (16 * (j & 1) + 8)) & 0xff);
-        o[j] = pack_bf16x2(static_cast<float>(lo) * scale, static_cast<float>(hi) * scale);
+        for (int j = 0; j < 4; ++j) {
+          const int8_t lo = static_cast<int8_t>((w[j >> 1] >> (16 * (j & 1))) & 0xff);
+          const int8_t hi = static_cast<int8_t>((w[j >> 1] >> (16 * (j & 1) + 8)) & 0xff);
+          o[j] = pack_bf16x2(static_cast<float>(lo) * scale, static_cast<float>(hi) * scale);
+        }
+        v = make_uint4(o[0], o[1], o[2], o[3]);
+      } else {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(q8);
+        float f[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          f[j] = static_cast<float>(static_cast<int8_t>((w >> (8 * j)) & 0xff)) * scale;
+        v = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                       __float_as_uint(f[3]));
       }
-      v = make_uint4(o[0], o[1], o[2], o[3]);
     } else {
-      v = *reinterpret_cast<const uint4*>(static_cast<const uint16_t*>(src) + base + r * kC + c8);
+      v = *reinterpret_cast<const uint4*>(static_cast<const T*>(src) + base + r * kC + c);
     }
-    *reinterpret_cast<uint4*>(sRows + r * kLdC + c8) = v;
+    *reinterpret_cast<uint4*>(sRows + r * kLd + c) = v;
   }
 }
 
 // Two consecutive channels (col, col + 1) of source row `row`, image row r,
 // as the compute dtype's values in fp32 (dequantised for an int8 store).
-template <bool kInt8>
+template <bool kInt8, typename T>
 __device__ __forceinline__ void load_pair(const void* src, int row, int N, int r, int col,
                                           float scale, float& v0, float& v1) {
   const int64_t off = (static_cast<int64_t>(row) * N + r) * kC + col;
   if (kInt8) {
     const int8_t* p = static_cast<const int8_t*>(src) + off;
-    v0 = round_bf16(static_cast<float>(p[0]) * scale);
-    v1 = round_bf16(static_cast<float>(p[1]) * scale);
+    v0 = Elem<T>::round(static_cast<float>(p[0]) * scale);
+    v1 = Elem<T>::round(static_cast<float>(p[1]) * scale);
   } else {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(static_cast<const uint16_t*>(src) + off);
-    v0 = bf2f(static_cast<uint16_t>(w & 0xffffu));
-    v1 = bf2f(static_cast<uint16_t>(w >> 16));
+    Elem<T>::get2(static_cast<const T*>(src) + off, v0, v1);
   }
 }
 

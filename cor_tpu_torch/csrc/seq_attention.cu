@@ -43,11 +43,20 @@
 // g + 4 on one bank; V^T's rows hold 64 keys and are 72 bf16 at every D.
 // Ragged N is masked: keys past N get -inf logits, query rows past N are
 // computed on zeros and not stored. wgmma and TMA are left for later.
+//
+// fp32 (cor_tpu's compute_dtype float32): seq_attention_f32_kernel, the same
+// blocks, tiles and online softmax on fp32 operands, with every product in
+// 3xTF32 on mma.sync m16n8k8 (mma_tf32x3.cuh): fp32 accuracy on the tensor
+// cores, three TF32 products per fp32 one. Nothing is rounded (P included),
+// as cor_tpu rounds to the compute dtype. The tiles are [64][D + 4] fp32
+// (68, 76, 84 words: 4 mod 8, conflict-free TF32 fragment loads; D = 72 is
+// 9 whole k-steps of 8, no zero columns), Q shares its tile with K (Q lives
+// in registers once loaded), and V stays [key][d]: P's accumulator tiles are
+// the A operand of P.V in the permuted key order of mma_tf32x3.cuh, so V's
+// B fragments read keys 2t and 2t + 1. 43,008 bytes of shared memory at
+// D = 80. What bounds it: operations (three products per product).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decoder_common.cuh"
 
 namespace {
 
@@ -65,24 +74,25 @@ struct HeadDim {
   static_assert(kLdq >= kDk && (kLdq / 2) % 8 == 4, "conflict-free fragment rows");
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using cor::lds32;
+using cor::mma_bf16_16816;
+using cor::pack_bf16x2;
 
-// two floats -> bf16x2 in one 32-bit register, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return l | (h << 16);
-}
-
-__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// S (a 64-key tile of this lane's rows g and g + 8) into the log2 domain,
+// keys past N masked to -inf; mt: this lane's row maxima of it
+__device__ __forceinline__ void scale_mask_max(float (&s)[kBK / 8][4], int k0, int N, int t,
+                                               float scale_log2, float (&mt)[2]) {
+  mt[0] = mt[1] = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + n * 8 + 2 * t + (e & 1);
+      const float val = key < N ? s[n][e] * scale_log2 : -INFINITY;
+      s[n][e] = val;
+      mt[e >> 1] = fmaxf(mt[e >> 1], val);
+    }
+  }
 }
 
 // q, k, v: element (b, h, n, d) at b * in_b + h * in_h + n * in_n + d (the
@@ -178,34 +188,9 @@ seq_attention_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
     }
 
     // scale into the log2 domain, mask keys past N, tile row max
-    float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
-        const float val = key < N ? s[n][e] * scale_log2 : -INFINITY;
-        s[n][e] = val;
-        mt[e >> 1] = fmaxf(mt[e >> 1], val);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float m_new = fmaxf(m_run[r], mt[r]);  // finite: every tile has a key < N
-      alpha[r] = exp2f(m_run[r] - m_new);           // 0 on the first tile
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
+    float mt[2];
+    scale_mask_max(s, k0, N, t, scale_log2, mt);
+    cor::softmax_rescale(mt, m_run, l_run, o);
 
     // P = exp2(S - m) in fp32 for the row sums, bf16 A fragments for P.V:
     // accumulator tiles 2kc and 2kc+1 are exactly the A fragment of keys
@@ -235,12 +220,7 @@ seq_attention_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
   }
 
   float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    inv[r] = 1.f / l_run[r];
-  }
+  cor::softmax_inverse_sums(l_run, inv);
   const int qa_row = q0 + wr + g;
   const int qb_row = qa_row + 8;
   uint16_t* dst = out + b * out_b + h * out_h + 2 * t;
@@ -255,25 +235,139 @@ seq_attention_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
   }
 }
 
+// The fp32 case: q, k, v, out fp32, element (b, h, n, d) as above.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+seq_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ out, int N,
+                         int64_t in_b, int64_t in_h, int64_t in_n, int64_t out_b, int64_t out_h,
+                         int64_t out_n, float scale_log2) {
+  static_assert(D % 8 == 0, "whole k-steps of 8");
+  constexpr int kLd = D + 4;  // 4 mod 8 words: conflict-free TF32 fragments
+  constexpr int kChunks = D / 4;  // 16-byte chunks of a row
+  __shared__ __align__(16) float sQK[kBK * kLd];  // the Q tile, then each K tile [key][d]
+  __shared__ __align__(16) float sV[kBK * kLd];   // [key][d]
+
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int64_t head = b * in_b + h * in_h;
+  const float* qh = q + head;
+  const float* kh = k + head;
+  const float* vh = v + head;
+
+  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c4 = (i % kChunks) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < N) val = *reinterpret_cast<const float4*>(qh + (q0 + r) * in_n + c4);
+    *reinterpret_cast<float4*>(&sQK[r * kLd + c4]) = val;
+  }
+  __syncthreads();
+  const int wr = warp * 16;
+  cor::FragA qa[D / 8];
+#pragma unroll
+  for (int kc = 0; kc < D / 8; ++kc) qa[kc] = cor::load_a_tf32(sQK, kLd, wr, kc * 8, g, t);
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  for (int k0 = 0; k0 < N; k0 += kBK) {
+    __syncthreads();  // the Q fragments, or the previous K/V tile, are consumed
+    for (int i = tid; i < kBK * kChunks; i += kThreads) {
+      const int r = i / kChunks;
+      const int c4 = (i % kChunks) * 4;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 vv = kv;
+      if (k0 + r < N) {
+        kv = *reinterpret_cast<const float4*>(kh + (k0 + r) * in_n + c4);
+        vv = *reinterpret_cast<const float4*>(vh + (k0 + r) * in_n + c4);
+      }
+      *reinterpret_cast<float4*>(&sQK[r * kLd + c4]) = kv;
+      *reinterpret_cast<float4*>(&sV[r * kLd + c4]) = vv;
+    }
+    __syncthreads();
+
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 8; ++kc)
+        cor::mma_tf32x3(s[n], qa[kc], cor::load_b_tf32(sQK, kLd, n * 8, kc * 8, g, t));
+    }
+
+    float mt[2];
+    scale_mask_max(s, k0, N, t, scale_log2, mt);
+    cor::softmax_rescale(mt, m_run, l_run, o);
+
+    // O += P V, one k-step of 8 keys per accumulator tile of S, in the
+    // permuted key order (keys 2t, 2t + 1 of the tile)
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      const float p0 = exp2f(s[n][0] - m_run[0]);
+      const float p1 = exp2f(s[n][1] - m_run[0]);
+      const float p2 = exp2f(s[n][2] - m_run[1]);
+      const float p3 = exp2f(s[n][3] - m_run[1]);
+      l_run[0] += p0 + p1;
+      l_run[1] += p2 + p3;
+      const cor::FragA pa = cor::a_from_c_tf32(p0, p1, p2, p3);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        cor::mma_tf32x3(o[j], pa, cor::load_b_tf32_kn_paired(sV, kLd, n * 8, j * 8, g, t));
+    }
+  }
+
+  float inv[2];
+  cor::softmax_inverse_sums(l_run, inv);
+  const int qa_row = q0 + wr + g;
+  const int qb_row = qa_row + 8;
+  float* dst = out + b * out_b + h * out_h + 2 * t;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (qa_row < N)
+      *reinterpret_cast<float2*>(dst + qa_row * out_n + n * 8) =
+          make_float2(o[n][0] * inv[0], o[n][1] * inv[0]);
+    if (qb_row < N)
+      *reinterpret_cast<float2*>(dst + qb_row * out_n + n * 8) =
+          make_float2(o[n][2] * inv[1], o[n][3] * inv[1]);
+  }
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int N,
            int64_t in_b, int64_t in_h, int64_t in_n, int64_t out_b, int64_t out_h,
-           int64_t out_n, void* stream) {
+           int64_t out_n, int f32, void* stream) {
   const dim3 grid((N + kBQ - 1) / kBQ, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  seq_attention_kernel<D><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), N, in_b, in_h, in_n, out_b,
-      out_h, out_n, scale_log2);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    seq_attention_f32_kernel<D><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(out), N, in_b, in_h, in_n, out_b, out_h, out_n, scale_log2);
+  else
+    seq_attention_kernel<D><<<grid, kThreads, 0, s>>>(
+        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), N, in_b, in_h, in_n, out_b,
+        out_h, out_n, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v: bf16, element (b, h, n, d) of each at b * in_b + h * in_h + n * in_n
-// + d, every row 16-byte aligned (pointers 16-byte aligned, strides multiples
-// of 8). out: bf16, element (b, h, n, d) at b * out_b + h * out_h + n * out_n
-// + d, rows 4-byte aligned. D in {64, 72, 80}. The fused QKV [B, N, 3C] is
+// q, k, v: bf16 (f32 = 0) or fp32 (f32 = 1), element (b, h, n, d) of each at
+// b * in_b + h * in_h + n * in_n + d, every row 16-byte aligned (pointers
+// 16-byte aligned, strides multiples of 8 bf16 or 4 fp32). out: of the same
+// type, element (b, h, n, d) at b * out_b + h * out_h + n * out_n + d, rows
+// 4-byte (bf16) or 8-byte (fp32) aligned. D in {64, 72, 80}. The fused QKV [B, N, 3C] is
 // q = qkv, k = qkv + C, v = qkv + 2C with strides (N * 3C, D, 3C) into an out
 // [B, N, C] of strides (N * C, D, C); [B, H, N, D] operands have strides
 // (H * N * D, N * D, D). Returns the launch's cudaError_t
@@ -281,15 +375,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
 extern "C" int cor_seq_attention(const void* q, const void* k, const void* v, void* out, int B,
                                  int H, int N, int D, long long in_b, long long in_h,
                                  long long in_n, long long out_b, long long out_h,
-                                 long long out_n, void* stream) {
+                                 long long out_n, int f32, void* stream) {
   if (B < 1 || H < 1 || N < 1 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, out, B, H, N, in_b, in_h, in_n, out_b, out_h, out_n, stream);
+      return launch<64>(q, k, v, out, B, H, N, in_b, in_h, in_n, out_b, out_h, out_n, f32,
+                         stream);
     case 72:
-      return launch<72>(q, k, v, out, B, H, N, in_b, in_h, in_n, out_b, out_h, out_n, stream);
+      return launch<72>(q, k, v, out, B, H, N, in_b, in_h, in_n, out_b, out_h, out_n, f32,
+                         stream);
     case 80:
-      return launch<80>(q, k, v, out, B, H, N, in_b, in_h, in_n, out_b, out_h, out_n, stream);
+      return launch<80>(q, k, v, out, B, H, N, in_b, in_h, in_n, out_b, out_h, out_n, f32,
+                         stream);
     default:
       return cudaErrorInvalidValue;
   }

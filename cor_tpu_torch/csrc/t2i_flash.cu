@@ -33,6 +33,15 @@
 // partials (64 tiles x 48 x 18 floats, 0.2 MiB per candidate) are the price
 // of running the tiles in parallel. wgmma, TMA and a fused combine are later
 // work.
+//
+// fp32 (compute_dtype float32): every kernel is templated on its element
+// type (decoder_common.cuh's Elem<T>). The projections run in 3xTF32 on
+// mma.sync m16n8k8 (mma_tf32x3.cuh), nothing is rounded (the scaled
+// queries, k, v and the exponentials stay fp32), the int8 store
+// dequantises to fp32, q_img and the combine's output are fp32. The image
+// pass then stages 204,800 bytes of shared memory (rows [64][260], the
+// weight block [128][132], k and v [64][132], fp32; within the 232,448 a
+// block may take, so no tile is halved): one block per SM.
 
 #include "decoder_common.cuh"
 
@@ -41,43 +50,50 @@ namespace {
 using namespace cor;
 
 constexpr int kThreads = 128;
-constexpr int kLdW = kI + 8;  // a 128 x 128 weight block, padded
 constexpr int kLdL = kRows + 1;
-constexpr size_t kSmemImage =
-    sizeof(uint16_t) * (kRows * kLdC + kI * kLdW + 2 * kRows * kLdI) + sizeof(float) * kTok * kI;
+// rows [kRows][kLdC], a 128 x 128 weight block [kI][kLdI], k and v [kRows][kLdI]
+// in T, the queries [kTok][kI] fp32
+template <typename T>
+constexpr size_t smem_image() {
+  return sizeof(T) * (kRows * Elem<T>::kLdC + kI * Elem<T>::kLdI + 2 * kRows * Elem<T>::kLdI) +
+         sizeof(float) * kTok * kI;
+}
 
-template <bool kInt8, bool kEmitQ>
+template <typename T, bool kInt8, bool kEmitQ>
 __global__ void __launch_bounds__(kThreads)
 t2i_image_kernel(const void* __restrict__ src, const int* __restrict__ idx,
                  const float* __restrict__ scale, int S, int N,
-                 const uint16_t* __restrict__ w,   // [(2 or 3) * kI][kC]: k | v (| q)
-                 const float* __restrict__ b,      // [(2 or 3) * kI]
-                 const uint16_t* __restrict__ kpe, // [N][kI]
-                 const uint16_t* __restrict__ qpe, // [N][kI] (kEmitQ)
-                 const uint16_t* __restrict__ qt,  // [n][kTok][kI], scaled and rounded
-                 uint16_t* __restrict__ q_img,     // [n][N][kI] (kEmitQ)
+                 const T* __restrict__ w,    // [(2 or 3) * kI][kC]: k | v (| q)
+                 const float* __restrict__ b,  // [(2 or 3) * kI]
+                 const T* __restrict__ kpe,  // [N][kI]
+                 const T* __restrict__ qpe,  // [N][kI] (kEmitQ)
+                 const T* __restrict__ qt,   // [n][kTok][kI], scaled (and rounded)
+                 T* __restrict__ q_img,      // [n][N][kI] (kEmitQ)
                  float* __restrict__ part_m, float* __restrict__ part_l,
                  float* __restrict__ part_acc) {
+  using E = Elem<T>;
+  constexpr int kLdR = E::kLdC, kLdW = E::kLdI, kLdKV = E::kLdI;
+  constexpr int kVec = 16 / sizeof(T);  // values per 16-byte chunk
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* sRows = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* sW = sRows + kRows * kLdC;
-  uint16_t* sK = sW + kI * kLdW;
-  uint16_t* sV = sK + kRows * kLdI;
-  float* sQt = reinterpret_cast<float*>(sV + kRows * kLdI);
+  T* sRows = reinterpret_cast<T*>(smem);
+  T* sW = sRows + kRows * kLdR;
+  T* sK = sW + kI * kLdW;
+  T* sV = sK + kRows * kLdKV;
+  float* sQt = reinterpret_cast<float*>(sV + kRows * kLdKV);
   float* sL = reinterpret_cast<float*>(sW);  // the weight block's space, after the projections
 
   const int tile = blockIdx.x, tiles = gridDim.x, cand = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
   const int r0 = tile * kRows;
   const int row = source_row(idx, cand, S);
   const float sc = kInt8 ? scale[row] : 1.f;
 
   load_rows<kInt8>(sRows, src, row, N, r0, sc, tid, kThreads);
   for (int i = tid; i < kTok * kI; i += kThreads)
-    sQt[i] = bf2f(qt[static_cast<int64_t>(cand) * kTok * kI + i]);
+    sQt[i] = E::get(qt[static_cast<int64_t>(cand) * kTok * kI + i]);
 
   constexpr int kChunks = kEmitQ ? 3 : 2;
-  const int ra = warp * 16 + g, rb = ra + 8;
+  const int ra = warp * 16 + (lane >> 2), rb = ra + 8;
 #pragma unroll 1
   for (int c = 0; c < kChunks; ++c) {
     float acc[kI / 8][4];
@@ -86,40 +102,40 @@ t2i_image_kernel(const void* __restrict__ src, const int* __restrict__ idx,
 #pragma unroll 1
     for (int kh = 0; kh < kC / kI; ++kh) {
       __syncthreads();  // rows loaded; the previous weight block consumed
-      for (int i = tid; i < kI * (kI / 8); i += kThreads) {
-        const int o = i / (kI / 8), c8 = (i % (kI / 8)) * 8;
-        *reinterpret_cast<uint4*>(sW + o * kLdW + c8) = *reinterpret_cast<const uint4*>(
-            w + static_cast<int64_t>(c * kI + o) * kC + kh * kI + c8);
+      for (int i = tid; i < kI * (kI / kVec); i += kThreads) {
+        const int o = i / (kI / kVec), cv = (i % (kI / kVec)) * kVec;
+        *reinterpret_cast<uint4*>(sW + o * kLdW + cv) = *reinterpret_cast<const uint4*>(
+            w + static_cast<int64_t>(c * kI + o) * kC + kh * kI + cv);
       }
       __syncthreads();
-      warp_mma<kI / 8, kI>(acc, sRows + kh * kI, kLdC, sW, kLdW, warp * 16, lane);
+      warp_mma<kI / 8, kI>(acc, sRows + kh * kI, kLdR, sW, kLdW, warp * 16, lane);
     }
-    // epilogue: + bias (+ the PE projection for k and q), rounded to bf16
-    const uint16_t* pe = c == 0 ? kpe : qpe;
+    // epilogue: + bias (+ the PE projection for k and q), rounded to T
+    const T* pe = c == 0 ? kpe : qpe;
 #pragma unroll
     for (int n = 0; n < kI / 8; ++n) {
       const int col = n * 8 + 2 * t;
       const float b0 = b[c * kI + col], b1 = b[c * kI + col + 1];
       float v0 = acc[n][0] + b0, v1 = acc[n][1] + b1, v2 = acc[n][2] + b0, v3 = acc[n][3] + b1;
       if (c != 1) {
-        const uint32_t pa = lds32(pe + static_cast<int64_t>(r0 + ra) * kI + col);
-        const uint32_t pb = lds32(pe + static_cast<int64_t>(r0 + rb) * kI + col);
-        v0 += bf2f(pa & 0xffffu);
-        v1 += bf2f(pa >> 16);
-        v2 += bf2f(pb & 0xffffu);
-        v3 += bf2f(pb >> 16);
+        float pa0, pa1, pb0, pb1;
+        E::get2(pe + static_cast<int64_t>(r0 + ra) * kI + col, pa0, pa1);
+        E::get2(pe + static_cast<int64_t>(r0 + rb) * kI + col, pb0, pb1);
+        v0 += pa0;
+        v1 += pa1;
+        v2 += pb0;
+        v3 += pb1;
       }
-      const uint32_t wa = pack_bf16x2(v0, v1), wb = pack_bf16x2(v2, v3);
       if (c == 0) {
-        sts32(sK + ra * kLdI + col, wa);
-        sts32(sK + rb * kLdI + col, wb);
+        E::put2(sK + ra * kLdKV + col, v0, v1);
+        E::put2(sK + rb * kLdKV + col, v2, v3);
       } else if (c == 1) {
-        sts32(sV + ra * kLdI + col, wa);
-        sts32(sV + rb * kLdI + col, wb);
+        E::put2(sV + ra * kLdKV + col, v0, v1);
+        E::put2(sV + rb * kLdKV + col, v2, v3);
       } else {
-        uint16_t* q = q_img + (static_cast<int64_t>(cand) * N + r0) * kI + col;
-        sts32(q + static_cast<int64_t>(ra) * kI, wa);
-        sts32(q + static_cast<int64_t>(rb) * kI, wb);
+        T* q = q_img + (static_cast<int64_t>(cand) * N + r0) * kI + col;
+        E::put2(q + static_cast<int64_t>(ra) * kI, v0, v1);
+        E::put2(q + static_cast<int64_t>(rb) * kI, v2, v3);
       }
     }
   }
@@ -129,10 +145,10 @@ t2i_image_kernel(const void* __restrict__ src, const int* __restrict__ idx,
   for (int e = tid; e < kQ * kRows; e += kThreads) {
     const int q = e / kRows, r = e % kRows, h = q / kTok, tt = q % kTok;
     const float* qv = sQt + tt * kI + h * kCrossD;
-    const uint16_t* kv = sK + r * kLdI + h * kCrossD;
+    const T* kv = sK + r * kLdKV + h * kCrossD;
     float l = 0.f;
 #pragma unroll
-    for (int d = 0; d < kCrossD; ++d) l += qv[d] * bf2f(kv[d]);
+    for (int d = 0; d < kCrossD; ++d) l += qv[d] * E::get(kv[d]);
     sL[q * kLdL + r] = l;
   }
   __syncthreads();
@@ -142,8 +158,8 @@ t2i_image_kernel(const void* __restrict__ src, const int* __restrict__ idx,
     const float m = warp_max(fmaxf(la, lb));
     const float ea = expf(la - m), eb = expf(lb - m);
     const float l = warp_sum(ea + eb);
-    sL[q * kLdL + lane] = round_bf16(ea);  // rounded before the product with v
-    sL[q * kLdL + lane + 32] = round_bf16(eb);
+    sL[q * kLdL + lane] = E::round(ea);  // rounded before the product with v
+    sL[q * kLdL + lane + 32] = E::round(eb);
     if (lane == 0) {
       part_m[pbase * kQ + q] = m;
       part_l[pbase * kQ + q] = l;
@@ -154,52 +170,66 @@ t2i_image_kernel(const void* __restrict__ src, const int* __restrict__ idx,
     const int q = o / kCrossD, d = o % kCrossD, h = q / kTok;
     float acc = 0.f;
 #pragma unroll 8
-    for (int r = 0; r < kRows; ++r) acc += sL[q * kLdL + r] * bf2f(sV[r * kLdI + h * kCrossD + d]);
+    for (int r = 0; r < kRows; ++r)
+      acc += sL[q * kLdL + r] * E::get(sV[r * kLdKV + h * kCrossD + d]);
     part_acc[(pbase * kQ + q) * kCrossD + d] = acc;
   }
 }
 
-// out[cand][t][h*16 + d] = bf16(sum_tiles acc * exp(m_tile - m) / sum_tiles l * exp(m_tile - m))
+// out[cand][t][h*16 + d] = T(sum_tiles acc * exp(m_tile - m) / sum_tiles l * exp(m_tile - m))
+template <typename T>
 __global__ void __launch_bounds__(256)
 t2i_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                   const float* __restrict__ part_acc, int tiles, uint16_t* __restrict__ out) {
+                   const float* __restrict__ part_acc, int tiles, T* __restrict__ out) {
   const int cand = blockIdx.x;
   for (int o = threadIdx.x; o < kQ * kCrossD; o += blockDim.x) {
     const int q = o / kCrossD, d = o % kCrossD, h = q / kTok, tt = q % kTok;
     const float v = combine_partials(part_m, part_l, part_acc,
                                      static_cast<int64_t>(cand) * tiles, tiles, q, d);
-    out[(static_cast<int64_t>(cand) * kTok + tt) * kI + h * kCrossD + d] = f2bf(v);
+    out[(static_cast<int64_t>(cand) * kTok + tt) * kI + h * kCrossD + d] = Elem<T>::put(v);
   }
 }
 
-template <bool kInt8, bool kEmitQ>
+template <typename T, bool kInt8, bool kEmitQ>
 int launch_image(const void* src, const int* idx, const float* scale, int S, int n, int N,
                  const void* w, const float* b, const void* kpe, const void* qpe, const void* qt,
                  void* q_img, float* pm, float* pl, float* pa, cudaStream_t stream) {
-  auto kernel = t2i_image_kernel<kInt8, kEmitQ>;
+  auto kernel = t2i_image_kernel<T, kInt8, kEmitQ>;
+  constexpr size_t smem = smem_image<T>();
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemImage);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(N / kRows, n), kThreads, kSmemImage, stream>>>(
-      src, idx, scale, S, N, static_cast<const uint16_t*>(w), b,
-      static_cast<const uint16_t*>(kpe), static_cast<const uint16_t*>(qpe),
-      static_cast<const uint16_t*>(qt), static_cast<uint16_t*>(q_img), pm, pl, pa);
+  kernel<<<dim3(N / kRows, n), kThreads, smem, stream>>>(
+      src, idx, scale, S, N, static_cast<const T*>(w), b, static_cast<const T*>(kpe),
+      static_cast<const T*>(qpe), static_cast<const T*>(qt), static_cast<T*>(q_img), pm, pl, pa);
   return cudaGetLastError();
+}
+
+template <typename T>
+int image_pass(const void* src, int src_int8, const int* ip, const float* sp, int S, int n, int N,
+               const void* w, const float* bp, const void* kpe, const void* qpe, const void* qt,
+               void* q_img, float* pm, float* pl, float* pa, cudaStream_t s) {
+  auto go = [&](auto launch) {
+    return launch(src, ip, sp, S, n, N, w, bp, kpe, qpe, qt, q_img, pm, pl, pa, s);
+  };
+  if (src_int8)
+    return qpe ? go(launch_image<T, true, true>) : go(launch_image<T, true, false>);
+  return qpe ? go(launch_image<T, false, true>) : go(launch_image<T, false, false>);
 }
 
 }  // namespace
 
-// The image pass. src: bf16 rows [S][N][256], or an int8 store with fp32
-// scale [S]; idx: int32 [n] store rows, or null (candidate b reads src[b]);
-// w: bf16 [2 or 3][128][256] (k | v | q projections, [out, in]); b: fp32
-// [2 or 3][128]; kpe, qpe: bf16 [N][128]; qt: bf16 [n][6][128], scaled;
-// q_img: bf16 [n][N][128], written when qpe is given; partials: fp32
-// [n][N/64][48] (m, l) and [n][N/64][48][16] (acc).
+// The image pass. Compute dtype T: bf16 (f32 = 0) or fp32 (f32 = 1). src: T
+// rows [S][N][256], or an int8 store with fp32 scale [S]; idx: int32 [n]
+// store rows, or null (candidate b reads src[b]); w: T [2 or 3][128][256]
+// (k | v | q projections, [out, in]); b: fp32 [2 or 3][128]; kpe, qpe: T
+// [N][128]; qt: T [n][6][128], scaled; q_img: T [n][N][128], written when qpe
+// is given; partials: fp32 [n][N/64][48] (m, l) and [n][N/64][48][16] (acc).
 extern "C" int cor_t2i_image_pass(const void* src, int src_int8, const void* idx,
                                   const void* scale, int S, int n, int N, const void* w,
                                   const void* b, const void* kpe, const void* qpe, const void* qt,
                                   void* q_img, void* part_m, void* part_l, void* part_acc,
-                                  void* stream) {
+                                  int f32, void* stream) {
   if (n < 1 || n > 65535 || N < kRows || N % kRows || S < 1 || (src_int8 && !scale) ||
       (src_int8 && !idx) || (qpe != nullptr) != (q_img != nullptr))
     return cudaErrorInvalidValue;
@@ -210,19 +240,23 @@ extern "C" int cor_t2i_image_pass(const void* src, int src_int8, const void* idx
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (src_int8)
-    return qpe ? launch_image<true, true>(src, ip, sp, S, n, N, w, bp, kpe, qpe, qt, q_img, pm, pl, pa, s)
-               : launch_image<true, false>(src, ip, sp, S, n, N, w, bp, kpe, qpe, qt, q_img, pm, pl, pa, s);
-  return qpe ? launch_image<false, true>(src, ip, sp, S, n, N, w, bp, kpe, qpe, qt, q_img, pm, pl, pa, s)
-             : launch_image<false, false>(src, ip, sp, S, n, N, w, bp, kpe, qpe, qt, q_img, pm, pl, pa, s);
+  return f32 ? image_pass<float>(src, src_int8, ip, sp, S, n, N, w, bp, kpe, qpe, qt, q_img, pm,
+                                 pl, pa, s)
+             : image_pass<uint16_t>(src, src_int8, ip, sp, S, n, N, w, bp, kpe, qpe, qt, q_img,
+                                    pm, pl, pa, s);
 }
 
-// The combine of the final attention: out bf16 [n][6][128].
+// The combine of the final attention: out T [n][6][128] (f32 as above).
 extern "C" int cor_t2i_combine(const void* part_m, const void* part_l, const void* part_acc,
-                               int tiles, int n, void* out, void* stream) {
+                               int tiles, int n, void* out, int f32, void* stream) {
   if (n < 1 || n > 65535 || tiles < 1) return cudaErrorInvalidValue;
-  t2i_combine_kernel<<<n, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), tiles, static_cast<uint16_t*>(out));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pm = static_cast<const float*>(part_m);
+  const float* pl = static_cast<const float*>(part_l);
+  const float* pa = static_cast<const float*>(part_acc);
+  if (f32)
+    t2i_combine_kernel<float><<<n, 256, 0, s>>>(pm, pl, pa, tiles, static_cast<float*>(out));
+  else
+    t2i_combine_kernel<uint16_t><<<n, 256, 0, s>>>(pm, pl, pa, tiles, static_cast<uint16_t*>(out));
   return cudaGetLastError();
 }

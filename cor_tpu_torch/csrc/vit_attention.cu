@@ -69,8 +69,22 @@
 // (cor_tpu's K7 takes no head_dim that needs lane padding, so at 80 cor_tpu
 // falls back to the XLA partition and attention: the same function). What
 // bounds it is what bounds K6's windowed shape: bytes.
+//
+// fp32 (compute_dtype float32), K6 and K7 alike:
+// vit_attention_relpos_f32_kernel<D, kWin>, the same blocks, addressing,
+// bias and online softmax on fp32 operands, every product in 3xTF32 on
+// mma.sync m16n8k8 (mma_tf32x3.cuh): fp32 accuracy on the tensor cores at
+// three TF32 products per fp32 one, so a global block is bound by
+// operations at a third of the bf16 rate. q * scale, the bias and P stay
+// fp32 (cor_tpu rounds to the compute dtype: nothing). Tiles [64][D + 4]
+// fp32 (68 / 84 words: 4 mod 8, conflict-free TF32 fragments); Q shares
+// its tile with K once it is in registers; V stays [key][d], read in the
+// permuted key order that lets P's accumulator tiles be the A operand of
+// P.V; the bias rows [64][68] fp32. 69,632 bytes of dynamic shared memory at
+// D = 64 and 77,824 at 80.
 
 #include "decoder_common.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace {
 
@@ -109,6 +123,49 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float s) {
 struct WindowGrid {
   int ws, Hp, Wp, Hout, Wout, nwj, nW;
 };
+
+// K6's logits of a 64-key tile (this lane's rows g and g + 8) + the bias
+// rows' factors rh[key / W] + rw[key % W] of the compute dtype T, keys past N
+// masked, into the log2 domain; mt: this lane's row maxima. Accumulator
+// column (n, e & 1) is key k0 + 8n + 2t + (e & 1); its grid row jh and
+// column jw step along with n.
+template <typename T>
+__device__ __forceinline__ void bias_mask_max(float (&s)[kBK / 8][4], const T* rh0, const T* rw0,
+                                              const T* rh1, const T* rw1, int k0, int N, int W,
+                                              int t, float (&mt)[2]) {
+  using E = cor::Elem<T>;
+  int jh = (k0 + 2 * t) / W;
+  int jw = (k0 + 2 * t) - jh * W;
+  mt[0] = mt[1] = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n) {
+    const int key = k0 + n * 8 + 2 * t;
+    int jh1 = jh, jw1 = jw + 1;  // key + 1
+    if (jw1 == W) {
+      jw1 = 0;
+      ++jh1;
+    }
+    if (key < N) {
+      s[n][0] = (s[n][0] + E::get(rh0[jh]) + E::get(rw0[jw])) * kLog2e;
+      s[n][2] = (s[n][2] + E::get(rh1[jh]) + E::get(rw1[jw])) * kLog2e;
+    } else {
+      s[n][0] = s[n][2] = -INFINITY;
+    }
+    if (key + 1 < N) {
+      s[n][1] = (s[n][1] + E::get(rh0[jh1]) + E::get(rw0[jw1])) * kLog2e;
+      s[n][3] = (s[n][3] + E::get(rh1[jh1]) + E::get(rw1[jw1])) * kLog2e;
+    } else {
+      s[n][1] = s[n][3] = -INFINITY;
+    }
+    mt[0] = fmaxf(mt[0], fmaxf(s[n][0], s[n][1]));
+    mt[1] = fmaxf(mt[1], fmaxf(s[n][2], s[n][3]));
+    jw += 8;
+    while (jw >= W) {
+      jw -= W;
+      ++jh;
+    }
+  }
+}
 
 // One (image or window, head, 64-query tile). K6 (kWin false): the N = H * W
 // tokens of image blockIdx.z, rows of qkv [B, N, 3C]. K7 (kWin true): the
@@ -233,57 +290,10 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
       }
     }
 
-    // add the bias, mask keys past N, scale into the log2 domain, tile row
-    // max. Accumulator column (n, e & 1) is key k0 + 8n + 2t + (e & 1); its
-    // grid row jh and column jw step along with n.
-    int jh = (k0 + 2 * t) / W;
-    int jw = (k0 + 2 * t) - jh * W;
-    float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      const int key = k0 + n * 8 + 2 * t;
-      int jh1 = jh, jw1 = jw + 1;  // key + 1
-      if (jw1 == W) {
-        jw1 = 0;
-        ++jh1;
-      }
-      if (key < N) {
-        s[n][0] = (s[n][0] + bf2f(rh0[jh]) + bf2f(rw0[jw])) * kLog2e;
-        s[n][2] = (s[n][2] + bf2f(rh1[jh]) + bf2f(rw1[jw])) * kLog2e;
-      } else {
-        s[n][0] = s[n][2] = -INFINITY;
-      }
-      if (key + 1 < N) {
-        s[n][1] = (s[n][1] + bf2f(rh0[jh1]) + bf2f(rw0[jw1])) * kLog2e;
-        s[n][3] = (s[n][3] + bf2f(rh1[jh1]) + bf2f(rw1[jw1])) * kLog2e;
-      } else {
-        s[n][1] = s[n][3] = -INFINITY;
-      }
-      mt[0] = fmaxf(mt[0], fmaxf(s[n][0], s[n][1]));
-      mt[1] = fmaxf(mt[1], fmaxf(s[n][2], s[n][3]));
-      jw += 8;
-      while (jw >= W) {
-        jw -= W;
-        ++jh;
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float m_new = fmaxf(m_run[r], mt[r]);  // finite: every tile has a key < N
-      alpha[r] = exp2f(m_run[r] - m_new);           // 0 on the first tile
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
+    // add the bias, mask keys past N, scale into the log2 domain, tile row max
+    float mt[2];
+    bias_mask_max(s, rh0, rw0, rh1, rw1, k0, N, W, t, mt);
+    cor::softmax_rescale(mt, m_run, l_run, o);
 
     // P = exp2(S - m) in fp32 for the row sums, bf16 A fragments for P.V:
     // accumulator tiles 2kc and 2kc+1 are exactly the A fragment of keys
@@ -313,12 +323,7 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   }
 
   float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    inv[r] = 1.f / l_run[r];
-  }
+  cor::softmax_inverse_sums(l_run, inv);
   // the output rows of this lane's two queries: [B, N, C] (K6), or the
   // cropped [B, Hout, Wout, C] grid (K7); -1: not written (past N, or a pad
   // row or column of the grid)
@@ -349,34 +354,202 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   }
 }
 
-// blocks: B images (K6) or B * wg.nW windows (K7)
+// the fp32 case's tiles: sQK, sV [64][D + 4]; sRh, sRw [64][kLdrF]
+constexpr int kLdrF = kMaxSide + 4;
+template <int D>
+struct HeadDimF32 {
+  static_assert(D % 8 == 0, "the products run in k-steps of 8");
+  static constexpr int kLd = D + 4;  // 4 mod 8 words: conflict-free TF32 fragments
+  static constexpr int kSmem = (2 * kBK * kLd + 2 * kBQ * kLdrF) * 4;
+};
+
+// K6 / K7 on fp32 operands (qkv, rel_h, rel_w, out fp32), as the kernel above.
+template <int D, bool kWin>
+__global__ void __launch_bounds__(kThreads)
+vit_attention_relpos_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_h,
+                                const float* __restrict__ rel_w, float* __restrict__ out, int N,
+                                int C, int H, int W, float scale, WindowGrid wg) {
+  constexpr int kLd = HeadDimF32<D>::kLd;
+  constexpr int kChunks = D / 4;  // 16-byte chunks of a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQK = reinterpret_cast<float*>(smem);  // the Q tile, then each K tile [key][d]
+  float* sV = sQK + kBK * kLd;                  // [key][d]
+  float* sRh = sV + kBK * kLd;                  // [query][key grid row]
+  float* sRw = sRh + kBQ * kLdrF;               // [query][key grid column]
+
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = kWin ? blockIdx.z / wg.nW : blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int64_t row_stride = 3LL * C;
+  const int win = kWin ? blockIdx.z - b * wg.nW : 0;
+  const int y0 = kWin ? (win / wg.nwj) * wg.ws : 0;
+  const int x0 = kWin ? (win - (win / wg.nwj) * wg.nwj) * wg.ws : 0;
+  const int64_t grid_n = kWin ? static_cast<int64_t>(wg.Hp) * wg.Wp : N;
+  auto grid_pos = [&](int i) -> int64_t {
+    if (!kWin) return i;
+    const int r = i / wg.ws;
+    return static_cast<int64_t>(y0 + r) * wg.Wp + x0 + (i - r * wg.ws);
+  };
+  const float* base = qkv + static_cast<int64_t>(b) * grid_n * row_stride + h * D;
+
+  // Q tile, scaled in fp32 -> shared (rows past N are zero)
+  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c4 = (i % kChunks) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < N) {
+      v = *reinterpret_cast<const float4*>(base + grid_pos(q0 + r) * row_stride + c4);
+      v = make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
+    }
+    *reinterpret_cast<float4*>(&sQK[r * kLd + c4]) = v;
+  }
+  const int64_t rel_base = (static_cast<int64_t>(b) * gridDim.y + h) * grid_n;
+  for (int i = tid; i < kBQ * H; i += kThreads) {
+    const int r = i / H, c = i % H;
+    sRh[r * kLdrF + c] = q0 + r < N ? rel_h[(rel_base + grid_pos(q0 + r)) * H + c] : 0.f;
+  }
+  for (int i = tid; i < kBQ * W; i += kThreads) {
+    const int r = i / W, c = i % W;
+    sRw[r * kLdrF + c] = q0 + r < N ? rel_w[(rel_base + grid_pos(q0 + r)) * W + c] : 0.f;
+  }
+  __syncthreads();
+
+  const int wr = warp * 16;
+  cor::FragA qa[D / 8];
+#pragma unroll
+  for (int kc = 0; kc < D / 8; ++kc) qa[kc] = cor::load_a_tf32(sQK, kLd, wr, kc * 8, g, t);
+  const float* rh0 = sRh + (wr + g) * kLdrF;
+  const float* rw0 = sRw + (wr + g) * kLdrF;
+  const float* rh1 = rh0 + 8 * kLdrF;
+  const float* rw1 = rw0 + 8 * kLdrF;
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  for (int k0 = 0; k0 < N; k0 += kBK) {
+    __syncthreads();  // the Q fragments, or the previous K/V tile, are consumed
+    for (int i = tid; i < kBK * kChunks; i += kThreads) {
+      const int r = i / kChunks;
+      const int c4 = (i % kChunks) * 4;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 vv = kv;
+      if (k0 + r < N) {
+        const float* rowp = base + grid_pos(k0 + r) * row_stride + c4;
+        kv = *reinterpret_cast<const float4*>(rowp + C);
+        vv = *reinterpret_cast<const float4*>(rowp + 2 * C);
+      }
+      *reinterpret_cast<float4*>(&sQK[r * kLd + c4]) = kv;
+      *reinterpret_cast<float4*>(&sV[r * kLd + c4]) = vv;
+    }
+    __syncthreads();
+
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 8; ++kc)
+        cor::mma_tf32x3(s[n], qa[kc], cor::load_b_tf32(sQK, kLd, n * 8, kc * 8, g, t));
+    }
+
+    float mt[2];
+    bias_mask_max(s, rh0, rw0, rh1, rw1, k0, N, W, t, mt);
+    cor::softmax_rescale(mt, m_run, l_run, o);
+
+    // O += P V, one k-step of 8 keys per accumulator tile of S, keys in the
+    // permuted order (2t, 2t + 1 of the tile)
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      const float p0 = exp2f(s[n][0] - m_run[0]);
+      const float p1 = exp2f(s[n][1] - m_run[0]);
+      const float p2 = exp2f(s[n][2] - m_run[1]);
+      const float p3 = exp2f(s[n][3] - m_run[1]);
+      l_run[0] += p0 + p1;
+      l_run[1] += p2 + p3;
+      const cor::FragA pa = cor::a_from_c_tf32(p0, p1, p2, p3);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        cor::mma_tf32x3(o[j], pa, cor::load_b_tf32_kn_paired(sV, kLd, n * 8, j * 8, g, t));
+    }
+  }
+
+  float inv[2];
+  cor::softmax_inverse_sums(l_run, inv);
+  int64_t orow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + wr + g + 8 * r;
+    orow[r] = -1;
+    if (i < N) {
+      if (!kWin) {
+        orow[r] = static_cast<int64_t>(b) * N + i;
+      } else {
+        const int y = y0 + i / wg.ws, x = x0 + i % wg.ws;
+        if (y < wg.Hout && x < wg.Wout)
+          orow[r] = (static_cast<int64_t>(b) * wg.Hout + y) * wg.Wout + x;
+      }
+    }
+  }
+  float* out_h = out + h * D + 2 * t;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (orow[0] >= 0)
+      *reinterpret_cast<float2*>(out_h + orow[0] * C + n * 8) =
+          make_float2(o[n][0] * inv[0], o[n][1] * inv[0]);
+    if (orow[1] >= 0)
+      *reinterpret_cast<float2*>(out_h + orow[1] * C + n * 8) =
+          make_float2(o[n][2] * inv[1], o[n][3] * inv[1]);
+  }
+}
+
+// blocks: B images (K6) or B * wg.nW windows (K7); f32: fp32 operands
 template <int D, bool kWin>
 int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out, int blocks, int N,
-           int C, int num_heads, int H, int W, float scale, WindowGrid wg, void* stream) {
+           int C, int num_heads, int H, int W, float scale, WindowGrid wg, int f32,
+           void* stream) {
+  const dim3 grid((N + kBQ - 1) / kBQ, num_heads, blocks);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32) {
+    constexpr int smem = HeadDimF32<D>::kSmem;
+    const cudaError_t err =
+        cudaFuncSetAttribute(vit_attention_relpos_f32_kernel<D, kWin>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    vit_attention_relpos_f32_kernel<D, kWin><<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(rel_h),
+        static_cast<const float*>(rel_w), static_cast<float*>(out), N, C, H, W, scale, wg);
+    return cudaGetLastError();
+  }
   constexpr int smem = HeadDim<D>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
       vit_attention_relpos_kernel<D, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBQ - 1) / kBQ, num_heads, blocks);
-  vit_attention_relpos_kernel<D, kWin>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint16_t*>(qkv), static_cast<const uint16_t*>(rel_h),
-          static_cast<const uint16_t*>(rel_w), static_cast<uint16_t*>(out), N, C, H, W, scale,
-          wg);
+  vit_attention_relpos_kernel<D, kWin><<<grid, kThreads, smem, s>>>(
+      static_cast<const uint16_t*>(qkv), static_cast<const uint16_t*>(rel_h),
+      static_cast<const uint16_t*>(rel_w), static_cast<uint16_t*>(out), N, C, H, W, scale, wg);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// qkv: [B, N, 3C] bf16 contiguous, 16-byte aligned, C = num_heads * D with D
-// in {64, 80}. rel_h: [B, num_heads, N, H], rel_w: [B, num_heads, N, W] bf16
-// contiguous, N = H * W, H and W <= 64. out: [B, N, C] bf16 contiguous.
+// qkv: [B, N, 3C] bf16 (f32 = 0) or fp32 (f32 = 1) contiguous, 16-byte
+// aligned, C = num_heads * D with D in {64, 80}. rel_h: [B, num_heads, N, H],
+// rel_w: [B, num_heads, N, W] contiguous, N = H * W, H and W <= 64. out:
+// [B, N, C] contiguous. All four of one type.
 // scale: D^-1/2. Returns the launch's cudaError_t (cudaErrorInvalidValue for
 // shapes the kernel does not take; a refused shared-memory size or launch as
 // the runtime reports it).
 extern "C" int cor_vit_attention_relpos(const void* qkv, const void* rel_h, const void* rel_w,
                                         void* out, int B, int N, int C, int num_heads, int H,
-                                        int W, float scale, void* stream) {
+                                        int W, float scale, int f32, void* stream) {
   if (B < 1 || N < 1 || num_heads < 1 || C % num_heads != 0 || B > 65535 ||
       num_heads > 65535 || H < 1 || W < 1 || H > kMaxSide || W > kMaxSide || H * W != N)
     return cudaErrorInvalidValue;
@@ -384,24 +557,25 @@ extern "C" int cor_vit_attention_relpos(const void* qkv, const void* rel_h, cons
   switch (C / num_heads) {
     case 64:
       return launch<64, false>(qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, none,
-                               stream);
+                               f32, stream);
     case 80:
       return launch<80, false>(qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, none,
-                               stream);
+                               f32, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// K7. qkv: [B, Hp, Wp, 3C] bf16 contiguous, 16-byte aligned, C = num_heads * D
-// with D in {64, 80}, Hp and Wp multiples of window (<= 64). rel_h, rel_w:
-// [B, num_heads, Hp * Wp, window] bf16 contiguous. out: [B, H, W, C] bf16
-// contiguous, H <= Hp, W <= Wp. scale: D^-1/2. Returns the launch's
+// K7. qkv: [B, Hp, Wp, 3C] bf16 (f32 = 0) or fp32 (f32 = 1) contiguous,
+// 16-byte aligned, C = num_heads * D with D in {64, 80}, Hp and Wp multiples
+// of window (<= 64). rel_h, rel_w: [B, num_heads, Hp * Wp, window]
+// contiguous. out: [B, H, W, C] contiguous, H <= Hp, W <= Wp. All four of
+// one type. scale: D^-1/2. Returns the launch's
 // cudaError_t (cudaErrorInvalidValue for shapes the kernel does not take).
 extern "C" int cor_vit_attention_relpos_windows(const void* qkv, const void* rel_h,
                                                 const void* rel_w, void* out, int B, int Hp,
                                                 int Wp, int H, int W, int C, int num_heads,
-                                                int window, float scale, void* stream) {
+                                                int window, float scale, int f32, void* stream) {
   if (B < 1 || num_heads < 1 || C % num_heads != 0 || num_heads > 65535 || window < 1 ||
       window > kMaxSide || Hp < window || Wp < window || Hp % window || Wp % window || H < 1 ||
       W < 1 || H > Hp || W > Wp)
@@ -413,10 +587,10 @@ extern "C" int cor_vit_attention_relpos_windows(const void* qkv, const void* rel
   switch (C / num_heads) {
     case 64:
       return launch<64, true>(qkv, rel_h, rel_w, out, B * nW, N, C, num_heads, window, window,
-                              scale, wg, stream);
+                              scale, wg, f32, stream);
     case 80:
       return launch<80, true>(qkv, rel_h, rel_w, out, B * nW, N, C, num_heads, window, window,
-                              scale, wg, stream);
+                              scale, wg, f32, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -7,6 +7,10 @@ The library goes into ``cor_tpu_torch/_build/`` (git-ignored) under a name that 
 an edited source is rebuilt at its first use and an unchanged one is loaded
 as it is. Nothing is built at import time: the first kernel launch (or an
 explicit :func:`library` call) builds.
+
+The kernels take their compute dtype, bf16 or fp32, as a flag (``f32``) of
+each C entry point; :func:`operand_dtype` is the wrappers' check of it and
+:func:`count_launch` counts a wrapper's launches by it.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -29,61 +35,65 @@ NVCC_FLAGS = (
 )
 
 _VP = ctypes.c_void_p
+_I = ctypes.c_int
+# every entry but cor_layer_norm takes its compute dtype as f32 (0: bf16, 1:
+# fp32) just before the stream
 _SIGNATURES = {
     # x, scale, bias, y, rows, cols, eps, x_bf16, w_bf16, stream
     "cor_layer_norm": (
         _VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, _VP,
     ),
-    # q, k, v, out, B, H, N, D, in_b, in_h, in_n, out_b, out_h, out_n, stream
+    # q, k, v, out, B, H, N, D, in_b, in_h, in_n, out_b, out_h, out_n, f32, stream
     "cor_seq_attention": (
         _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        *(ctypes.c_longlong,) * 6, _VP,
+        *(ctypes.c_longlong,) * 6, _I, _VP,
     ),
-    # qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, stream
+    # qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, f32, stream
     "cor_vit_attention_relpos": (
         _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, _VP,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, _I, _VP,
     ),
-    # qkv, rel_h, rel_w, out, B, Hp, Wp, H, W, C, num_heads, window, scale, stream
+    # qkv, rel_h, rel_w, out, B, Hp, Wp, H, W, C, num_heads, window, scale, f32, stream
     "cor_vit_attention_relpos_windows": (
-        _VP, _VP, _VP, _VP, *(ctypes.c_int,) * 8, ctypes.c_float, _VP,
+        _VP, _VP, _VP, _VP, *(ctypes.c_int,) * 8, ctypes.c_float, _I, _VP,
     ),
     # qkv, rel_h, rel_w, dout, dqkv, drel_h, drel_w, stats, B, N, C, num_heads, H, W, scale,
-    # stream
+    # stream (bf16 only)
     "cor_vit_attention_relpos_bwd": (
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _VP,
     ),
-    # tokens, qpe, wt, bt, skip_pe, self_scale, cross_scale, eps, n, x_out, qt_out, stream
+    # tokens, qpe, wt, bt, skip_pe, self_scale, cross_scale, eps, n, x_out, qt_out, f32,
+    # stream
     "cor_twl_tokens_in": (
         _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, _VP, _VP, _VP,
+        ctypes.c_int, _VP, _VP, _I, _VP,
     ),
     # src, src_int8, idx, scale, S, n, N, w, b, kpe, qpe, qt, q_img, part_m, part_l,
-    # part_acc, stream
+    # part_acc, f32, stream
     "cor_t2i_image_pass": (
         _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
     ),
     # x_in, qpe, part_m, part_l, part_acc, tiles, wt, bt, eps, n, tokens_out, k_out,
-    # v_out, stream
+    # v_out, f32, stream
     "cor_twl_tokens_mid": (
         _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_float, ctypes.c_int,
-        _VP, _VP, _VP, _VP,
+        _VP, _VP, _VP, _I, _VP,
     ),
     # src, src_int8, idx, scale, S, n, N, q_img, k_i, v_i, wo, bo_ln4, eps, cross_scale,
-    # keys_out, stream
+    # keys_out, f32, stream
     "cor_twl_image_i2t": (
         _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        _VP, _VP, _VP, _VP, _VP, ctypes.c_float, ctypes.c_float, _VP, _VP,
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_float, ctypes.c_float, _VP, _I, _VP,
     ),
-    # part_m, part_l, part_acc, tiles, n, out, stream
-    "cor_t2i_combine": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _VP, _VP),
-    # src, w1t, w2t, vec, hyper, n, m, H, eps, out, stream
+    # part_m, part_l, part_acc, tiles, n, out, f32, stream
+    "cor_t2i_combine": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _VP, _I, _VP),
+    # src, w1t, w2t, vec, hyper, n, m, H, eps, out, f32, stream
     "cor_decoder_tail": (
         _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        _VP, _VP,
+        _VP, _I, _VP,
     ),
 }
 
@@ -173,3 +183,26 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the compute dtypes the kernels take
+
+
+def operand_dtype(what: str, *ts) -> torch.dtype:
+    """The one compute dtype (bf16 or fp32) of a kernel's operands ``ts``
+    (``None`` skipped); raises ``TypeError`` on another dtype or a mix of
+    two, before anything launches."""
+    dts = {t.dtype for t in ts if t is not None}
+    if len(dts) != 1 or next(iter(dts)) not in KERNEL_DTYPES:
+        raise TypeError(f"{what} kernel takes bf16 or fp32 operands, all of one dtype; got "
+                        f"{', '.join(sorted(str(d) for d in dts))}")
+    return dts.pop()
+
+
+def count_launch(fn, dtype: torch.dtype, n: int = 1) -> None:
+    """Add ``n`` launches to the wrapper ``fn``'s count of its ``dtype``:
+    ``fn.launches`` (bf16) or ``fn.launches_fp32``."""
+    if dtype == torch.float32:
+        fn.launches_fp32 += n
+    else:
+        fn.launches += n

@@ -20,12 +20,14 @@ operands; this port keeps fp32 statistics, which is closer to the exact
 function (tests hold it within 0.05 relative of cor_tpu's fp32 tail in
 bf16, as cor_tpu's own bf16 test does).
 
-On the card: one launch per call (``decoder_tail.launches``), one CTA per
-grid row of a candidate and output map. The kernel takes bf16 with C = 256,
-O1 = 64, O2 = 32 and a grid 64 pixels wide; any other CUDA input raises, and
-a CPU tensor takes the plain version. With autograd recording it raises:
-``cor_tpu``'s kernel has no backward either (training runs the decoder's
-``fused=False`` tail).
+On the card: one launch per call (``decoder_tail.launches`` in bf16,
+``launches_fp32`` in fp32), one CTA per grid row of a candidate and output
+map. The kernel takes C = 256, O1 = 64, O2 = 32 and a grid 64 pixels wide,
+src and hyper in bf16 or fp32, of one dtype (in fp32 both products run in
+3xTF32 on the tensor cores, nothing is rounded and GELU is exact); any other
+CUDA input raises, and a CPU tensor takes the plain version. With autograd
+recording it raises: ``cor_tpu``'s kernel has no backward either (training
+runs the decoder's ``fused=False`` tail).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch.nn.functional as F
 
 from cor_tpu_torch.ops.common import conv_transpose_2x, gelu_poly, layer_norm
 from cor_tpu_torch.ops.diff import refuse_grad
-from cor_tpu_torch.ops.kernels._build import check, library
+from cor_tpu_torch.ops.kernels._build import check, count_launch, library, operand_dtype
 from cor_tpu_torch.ops.kernels.two_way_layer import cached_pack
 
 C_IN, O1, O2, GRID_W = 256, 64, 32, 64
@@ -58,6 +60,26 @@ def decoder_tail(src, w1, b1, ln_scale, ln_bias, w2, b2, hyper, eps: float = 1e-
         return decoder_tail_plain(src, w1, b1, ln_scale, ln_bias, w2, b2, hyper, eps)
     if src.device.type != "cuda":
         raise ValueError(f"decoder_tail: no kernel for device {src.device}")
+    dt = _check(src, w1, w2, hyper)
+    refuse_grad("decoder_tail", src, w1, b1, ln_scale, ln_bias, w2, b2, hyper)
+    n, H, W, C = src.shape
+    m = hyper.shape[1]
+    dev = src.device
+    w1t, w2t, vec = _pack(w1, b1, ln_scale, ln_bias, w2, b2, dev, dt)
+    out = torch.empty((n, m, 4 * H, 4 * W), device=dev, dtype=torch.float32)
+    lib = library()
+    with torch.cuda.device(dev):
+        check(lib.cor_decoder_tail(
+            src.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), vec.data_ptr(), hyper.data_ptr(),
+            n, m, H, eps, out.data_ptr(), int(dt == torch.float32),
+            torch.cuda.current_stream(dev).cuda_stream), "decoder_tail")
+    count_launch(decoder_tail, dt)
+    return out
+
+
+def _check(src, w1, w2, hyper) -> torch.dtype:
+    """The compute dtype (bf16 or fp32) of src and hyper, or raise on what
+    the kernel does not take."""
     n, H, W, C = src.shape
     m = hyper.shape[1]
     if (C, W, tuple(w1.shape), tuple(w2.shape)) != (C_IN, GRID_W, (C_IN, 2, 2, O1), (O1, 2, 2, O2)):
@@ -66,30 +88,24 @@ def decoder_tail(src, w1, b1, ln_scale, ln_bias, w2, b2, hyper, eps: float = 1e-
             f"w2 [{O1}, 2, 2, {O2}]; got {tuple(src.shape)}, {tuple(w1.shape)}, {tuple(w2.shape)}")
     if hyper.shape != (n, m, O2) or not 1 <= m <= 65535 or not 1 <= n <= 65535 or H < 1:
         raise ValueError(f"decoder_tail kernel: hyper {tuple(hyper.shape)} for {n} candidates")
-    if src.dtype != torch.bfloat16 or hyper.dtype != torch.bfloat16:
-        raise TypeError(f"decoder_tail kernel takes bf16, got {src.dtype} / {hyper.dtype}")
+    dt = operand_dtype("decoder_tail", src, hyper)
     if not src.is_contiguous() or not hyper.is_contiguous():
         raise ValueError("decoder_tail kernel takes contiguous src and hyper")
-    refuse_grad("decoder_tail", src, w1, b1, ln_scale, ln_bias, w2, b2, hyper)
-    dev = src.device
-    bf = dict(device=dev, dtype=torch.bfloat16)
-    f32 = dict(device=dev, dtype=torch.float32)
-    w1t, w2t, vec = cached_pack(
-        w1, "_tail_pack", (w1, b1, ln_scale, ln_bias, w2, b2), dev, lambda: (
-            w1.detach().reshape(C_IN, 4 * O1).T.to(**bf).contiguous(),  # [(p,q,o1), C]
-            w2.detach().reshape(O1, 4 * O2).T.to(**bf).contiguous(),  # [(r,s,o2), O1]
-            torch.cat([b1.detach().reshape(-1), ln_scale.detach().reshape(-1),
-                       ln_bias.detach().reshape(-1), b2.detach().reshape(-1)]).to(**f32),
-        ))
-    out = torch.empty((n, m, 4 * H, 4 * W), device=dev, dtype=torch.float32)
-    lib = library()
-    with torch.cuda.device(dev):
-        check(lib.cor_decoder_tail(
-            src.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), vec.data_ptr(), hyper.data_ptr(),
-            n, m, H, eps, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
-            "decoder_tail")
-    decoder_tail.launches += 1
-    return out
+    return dt
 
 
-decoder_tail.launches = 0
+def _pack(w1, b1, ln_scale, ln_bias, w2, b2, device, dtype):
+    """(w1 [(p, q, o1), C], w2 [(r, s, o2), O1] in the compute dtype, the
+    fp32 vectors), kept on ``w1`` (``cached_pack``: keyed by device and
+    dtype)."""
+    def make():
+        vec = [b1, ln_scale, ln_bias, b2]
+        return (w1.detach().reshape(C_IN, 4 * O1).T.to(device, dtype).contiguous(),
+                w2.detach().reshape(O1, 4 * O2).T.to(device, dtype).contiguous(),
+                torch.cat([v.detach().reshape(-1) for v in vec]).to(device, torch.float32))
+
+    return cached_pack(w1, "_tail_pack", (w1, b1, ln_scale, ln_bias, w2, b2), device, dtype,
+                       make)
+
+
+decoder_tail.launches = decoder_tail.launches_fp32 = 0

@@ -11,7 +11,10 @@ tensor, ~8 flops per element); it keeps each row in one warp's registers so
 that memory is touched once each way. See the source for the design.
 
 ``layer_norm`` takes the plain version for a tensor on the CPU, and the
-kernel for a CUDA tensor; it raises on a CUDA tensor the kernel does not take.
+kernel for a CUDA tensor: x in fp32 or bf16, the scale and bias in fp32 or
+bf16 (each pair of the four has its instantiation); it raises on a CUDA
+tensor the kernel does not take. Launches are counted by x's dtype:
+``layer_norm.launches`` (bf16) and ``layer_norm.launches_fp32``.
 It never falls back from the kernel to the plain version. Where autograd
 records the call (training an unfrozen tower), the kernel runs forward and
 the gradient is the plain version's, recomputed in the backward
@@ -26,7 +29,7 @@ import torch
 # other LayerNorms use
 from cor_tpu_torch.ops.common import layer_norm as layer_norm_plain
 from cor_tpu_torch.ops.diff import needs_grad, with_plain_vjp
-from cor_tpu_torch.ops.kernels._build import check, library
+from cor_tpu_torch.ops.kernels._build import check, count_launch, library
 
 MAX_COLS = 2048  # 64 values per lane of one warp, the kernel's largest case
 _FLOAT = (torch.float32, torch.bfloat16)
@@ -76,9 +79,9 @@ def _layer_norm_kernel(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     check(err, "layer_norm")
-    layer_norm.launches += 1
+    count_launch(layer_norm, x.dtype)
     return y
 
 
 _layer_norm_diff = with_plain_vjp(_layer_norm_kernel, layer_norm_plain)
-layer_norm.launches = 0
+layer_norm.launches = layer_norm.launches_fp32 = 0

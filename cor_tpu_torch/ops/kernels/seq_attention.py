@@ -22,9 +22,13 @@ matrix products; it reads q/k/v in place and keeps logits out of memory
 (tensor-core mma.sync, online softmax). See the source for the design.
 
 Each entry takes its plain version for a tensor on the CPU, and the kernel
-for a CUDA tensor. The kernel takes bf16 with head_dim 64 (ViT-B and ViT-L),
-72 (SO400M) or 80; any other CUDA input raises, naming the ROADMAP item. It
-never falls back from the kernel to the plain version. Where autograd
+for a CUDA tensor. The kernel takes bf16 or fp32 (the compute dtype; every
+operand of one dtype) with head_dim 64 (ViT-B and ViT-L), 72 (SO400M) or 80;
+any other CUDA input raises, naming the ROADMAP item for another head_dim.
+In fp32 its products run in 3xTF32 on the tensor cores (fp32 accuracy) and
+nothing is rounded. It never falls back from the kernel to the plain
+version. Launches are counted by dtype: ``launches`` (bf16) and
+``launches_fp32`` on each entry. Where autograd
 records the call, the kernel runs forward and the gradient is the plain
 version's, recomputed in the backward (``ops.diff.with_plain_vjp``), as
 ``cor_tpu`` takes it from XLA.
@@ -35,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from cor_tpu_torch.ops.diff import needs_grad, with_plain_vjp
-from cor_tpu_torch.ops.kernels._build import check, library
+from cor_tpu_torch.ops.kernels._build import check, count_launch, library, operand_dtype
 
 HEAD_DIMS = (64, 72, 80)  # the head dims the kernel takes
 OTHER_HEAD_DIMS_ITEM = "ROADMAP Queue 2, K4′: head dims other than 64, 72 and 80"
@@ -93,21 +97,24 @@ def _check_head_dim(what: str, width: int, num_heads: int) -> int:
     return width // num_heads
 
 
-def _check_bf16(what: str, *ts: torch.Tensor) -> None:
+def _check_operands(what: str, *ts: torch.Tensor) -> torch.dtype:
+    """The operands' one compute dtype (bf16 or fp32); raises on another
+    dtype, a mix, or a non-contiguous or unaligned operand."""
+    dt = operand_dtype(what, *ts)
     for x in ts:
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"{what} kernel takes bf16, got {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16 != 0:
             raise ValueError(f"{what} kernel takes contiguous, 16-byte aligned operands")
+    return dt
 
 
-def _launch(what: str, q, k, v, out, B, H, N, D, in_strides, out_strides, device) -> None:
+def _launch(what: str, q, k, v, out, B, H, N, D, in_strides, out_strides, device,
+            dt: torch.dtype) -> None:
     if not (1 <= B <= 65535 and H <= 65535):
         raise ValueError(f"{what} kernel: batch {B} / heads {H} out of range")
     lib = library()
     with torch.cuda.device(device):
         err = lib.cor_seq_attention(
-            q, k, v, out, B, H, N, D, *in_strides, *out_strides,
+            q, k, v, out, B, H, N, D, *in_strides, *out_strides, int(dt == torch.float32),
             torch.cuda.current_stream(device).cuda_stream,
         )
     check(err, what)
@@ -119,14 +126,14 @@ def _attention_seq_qkv_kernel(qkv: torch.Tensor, num_heads: int) -> torch.Tensor
     B, N, C3 = qkv.shape
     C = C3 // 3
     D = _check_head_dim("attention_seq_qkv", C, num_heads)
-    _check_bf16("attention_seq_qkv", qkv)
+    dt = _check_operands("attention_seq_qkv", qkv)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     if N == 0:
         return out
     base, size = qkv.data_ptr(), qkv.element_size()
     _launch("attention_seq_qkv", base, base + C * size, base + 2 * C * size, out.data_ptr(),
-            B, num_heads, N, D, (N * C3, D, C3), (N * C, D, C), qkv.device)
-    attention_seq_qkv.launches += 1
+            B, num_heads, N, D, (N * C3, D, C3), (N * C, D, C), qkv.device, dt)
+    count_launch(attention_seq_qkv, dt)
     return out
 
 
@@ -137,7 +144,7 @@ def _attention_seq_kernel(q, k, v, num_heads: int) -> torch.Tensor:
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, N, D = q.shape
     _check_head_dim("attention_seq", H * D, H)
-    _check_bf16("attention_seq", q, k, v)
+    dt = _check_operands("attention_seq", q, k, v)
     if not (k.device == v.device == q.device):
         raise ValueError("attention_seq: q, k and v must be on one device")
     out = torch.empty_like(q)
@@ -145,12 +152,12 @@ def _attention_seq_kernel(q, k, v, num_heads: int) -> torch.Tensor:
         return out
     strides = (H * N * D, N * D, D)
     _launch("attention_seq", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, N,
-            D, strides, strides, q.device)
-    attention_seq.launches += 1
+            D, strides, strides, q.device, dt)
+    count_launch(attention_seq, dt)
     return out
 
 
 _attention_seq_qkv_diff = with_plain_vjp(_attention_seq_qkv_kernel, attention_seq_qkv_plain)
 _attention_seq_diff = with_plain_vjp(_attention_seq_kernel, attention_seq_plain)
-attention_seq_qkv.launches = 0
-attention_seq.launches = 0
+attention_seq_qkv.launches = attention_seq_qkv.launches_fp32 = 0
+attention_seq.launches = attention_seq.launches_fp32 = 0

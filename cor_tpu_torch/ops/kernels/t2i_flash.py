@@ -18,9 +18,12 @@ call): the image pass (one CTA per 64-row tile of a candidate: projections
 on the tensor cores, then the tile's flash partials: max, sum and the
 unnormalised [heads x T, d] product) and a combine over the tiles. The
 image pass is shared with stage 2 of the two-way layer kernel. The kernels
-take bf16 with C = 256, 8 heads, I = 128, 6 tokens and N a multiple of 64;
-any other CUDA input raises, and a CPU tensor takes the plain version. With
-autograd recording it raises: ``cor_tpu``'s kernel has no backward either.
+take C = 256, 8 heads, I = 128, 6 tokens and N a multiple of 64, in bf16 or
+fp32 (keys, kpe and q_tok of one dtype; in fp32 the projections run in
+3xTF32 on the tensor cores and nothing is rounded); any other CUDA input
+raises, and a CPU tensor takes the plain version. With autograd recording it
+raises: ``cor_tpu``'s kernel has no backward either. Launches are counted by
+dtype (``launches``: bf16, ``launches_fp32``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import math
 
 import torch
 
-from cor_tpu_torch.ops.kernels._build import check, library
+from cor_tpu_torch.ops.kernels._build import check, count_launch, library, operand_dtype
 from cor_tpu_torch.ops.diff import refuse_grad
 from cor_tpu_torch.ops.kernels.two_way_layer import (
     C_DIM,
@@ -67,6 +70,37 @@ def t2i_flash_kv(keys, wk, bk, wv, bv, kpe, q_tok, num_heads: int) -> torch.Tens
         return t2i_flash_kv_plain(keys, wk, bk, wv, bv, kpe, q_tok, num_heads)
     if keys.device.type != "cuda":
         raise ValueError(f"t2i_flash_kv: no kernel for device {keys.device}")
+    dt = _check(keys, wk, wv, kpe, q_tok, num_heads)
+    refuse_grad("t2i_flash_kv", keys, wk, bk, wv, bv, kpe, q_tok)
+    n, N, _ = keys.shape
+    dev = keys.device
+    w_kv, b_kv = _pack(wk, bk, wv, bv, dev, dt)
+    qt = (q_tok.float() / math.sqrt(INTERNAL // HEADS)).to(dt).contiguous()
+    tiles = N // ROW_TILE
+    f32 = dict(device=dev, dtype=torch.float32)
+    part_m = torch.empty((n, tiles, HEADS * TOKENS), **f32)
+    part_l = torch.empty((n, tiles, HEADS * TOKENS), **f32)
+    part_acc = torch.empty((n, tiles, HEADS * TOKENS, INTERNAL // HEADS), **f32)
+    out = torch.empty((n, TOKENS, INTERNAL), device=dev, dtype=dt)
+    is_f32 = int(dt == torch.float32)
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        check(lib.cor_t2i_image_pass(
+            keys.data_ptr(), 0, 0, 0, n, n, N, w_kv.data_ptr(), b_kv.data_ptr(),
+            kpe.data_ptr(), 0, qt.data_ptr(), 0,
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), is_f32, stream),
+            "t2i_flash_kv image pass")
+        check(lib.cor_t2i_combine(
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), tiles, n,
+            out.data_ptr(), is_f32, stream), "t2i_flash_kv combine")
+    count_launch(t2i_flash_kv, dt, LAUNCHES)
+    return out
+
+
+def _check(keys, wk, wv, kpe, q_tok, num_heads: int) -> torch.dtype:
+    """The compute dtype (bf16 or fp32) of keys, kpe and q_tok, or raise on
+    what the kernels do not take."""
     n, N, C = keys.shape
     if (C, num_heads, tuple(q_tok.shape[1:]), tuple(wk.shape), tuple(wv.shape)) != (
             C_DIM, HEADS, (TOKENS, INTERNAL), (INTERNAL, C_DIM), (INTERNAL, C_DIM)):
@@ -77,36 +111,19 @@ def t2i_flash_kv(keys, wk, bk, wv, bv, kpe, q_tok, num_heads: int) -> torch.Tens
     if N == 0 or N % ROW_TILE or kpe.shape != (N, INTERNAL) or q_tok.shape[0] != n:
         raise ValueError(f"t2i_flash_kv kernel: N {N} must be a multiple of {ROW_TILE}, "
                          f"kpe [N, {INTERNAL}], q_tok [{n}, ...]")
-    if keys.dtype != torch.bfloat16 or q_tok.dtype != torch.bfloat16 or kpe.dtype != torch.bfloat16:
-        raise TypeError(f"t2i_flash_kv kernel takes bf16, got {keys.dtype}")
+    dt = operand_dtype("t2i_flash_kv", keys, kpe, q_tok)
     if not keys.is_contiguous() or not kpe.is_contiguous() or n > 65535:
         raise ValueError("t2i_flash_kv kernel takes contiguous keys and kpe, n <= 65535")
-    refuse_grad("t2i_flash_kv", keys, wk, bk, wv, bv, kpe, q_tok)
-    dev = keys.device
-    w_kv, b_kv = cached_pack(wk, "_t2i_pack", (wk, bk, wv, bv), dev, lambda: (
-        torch.cat([wk.detach(), wv.detach()]).to(dev, torch.bfloat16).contiguous(),
-        torch.cat([bk.detach(), bv.detach()]).to(dev, torch.float32).contiguous()))
-    qt = (q_tok.float() / math.sqrt(INTERNAL // HEADS)).to(torch.bfloat16).contiguous()
-    tiles = N // ROW_TILE
-    f32 = dict(device=dev, dtype=torch.float32)
-    part_m = torch.empty((n, tiles, HEADS * TOKENS), **f32)
-    part_l = torch.empty((n, tiles, HEADS * TOKENS), **f32)
-    part_acc = torch.empty((n, tiles, HEADS * TOKENS, INTERNAL // HEADS), **f32)
-    out = torch.empty((n, TOKENS, INTERNAL), device=dev, dtype=torch.bfloat16)
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        check(lib.cor_t2i_image_pass(
-            keys.data_ptr(), 0, 0, 0, n, n, N, w_kv.data_ptr(), b_kv.data_ptr(),
-            kpe.data_ptr(), 0, qt.data_ptr(), 0,
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), stream),
-            "t2i_flash_kv image pass")
-        check(lib.cor_t2i_combine(
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), tiles, n,
-            out.data_ptr(), stream), "t2i_flash_kv combine")
-    t2i_flash_kv.launches += LAUNCHES
-    return out
+    return dt
+
+
+def _pack(wk, bk, wv, bv, device, dtype):
+    """The packed [k | v] weight in the compute dtype and its fp32 bias,
+    kept on ``wk`` (``cached_pack``: keyed by device and dtype)."""
+    return cached_pack(wk, "_t2i_pack", (wk, bk, wv, bv), device, dtype, lambda: (
+        torch.cat([wk.detach(), wv.detach()]).to(device, dtype).contiguous(),
+        torch.cat([bk.detach(), bv.detach()]).to(device, torch.float32).contiguous()))
 
 
 LAUNCHES = 2  # kernel launches per call on the card
-t2i_flash_kv.launches = 0
+t2i_flash_kv.launches = t2i_flash_kv.launches_fp32 = 0

@@ -34,9 +34,14 @@ per call): a token kernel (stage 1 and the t2i query), the image pass of
 ``t2i_flash.cu`` (stage 2's projections and per-tile flash partials), a
 token kernel (the partials' combine, the rest of stage 2, stage 3, the i2t
 keys and values), and an image kernel (stage 4). See the sources for what
-bounds each. The kernels take the SAM geometry only: bf16, C = 256, 8
-heads, internal width 128, 6 tokens, MLP 2048, N a multiple of 64. Any
-other CUDA input raises; a CPU tensor takes the plain version. ``cor_tpu``'s
+bounds each. The kernels take the SAM geometry only: C = 256, 8 heads,
+internal width 128, 6 tokens, MLP 2048, N a multiple of 64, in the compute
+dtype bf16 or fp32 (tokens, rows, PE projections of one dtype; the rows may
+be an int8 store, dequantised to it). In fp32 the image passes' products run
+in 3xTF32 on the tensor cores, the token kernels in fp32 FMAs, and nothing
+is rounded. Any other CUDA input raises; a CPU tensor takes the plain
+version. Launches are counted by dtype (``two_way_layer.launches``: bf16,
+``launches_fp32``). ``cor_tpu``'s
 kernel has no backward, and neither has this one: with autograd recording
 (an input or a weight that requires grad, grad mode on) it raises. Training
 runs the decoder's ``fused=False`` path.
@@ -51,7 +56,7 @@ import torch
 
 from cor_tpu_torch.ops.common import layer_norm
 from cor_tpu_torch.ops.diff import refuse_grad
-from cor_tpu_torch.ops.kernels._build import check, library
+from cor_tpu_torch.ops.kernels._build import check, count_launch, library, operand_dtype
 
 C_DIM, HEADS, INTERNAL, TOKENS, MLP_DIM = 256, 8, 128, 6, 2048
 ROW_TILE = 64  # image rows per CTA of the image passes
@@ -139,47 +144,50 @@ def two_way_layer_plain(
     return x.to(dt), z.to(dt)
 
 
-def cached_pack(holder, attr: str, tensors, device, make):
+def cached_pack(holder, attr: str, tensors, device, dtype, make):
     """``make()``, kept on ``holder`` as ``attr`` and made again only for
-    another device, or when one of ``tensors`` is another tensor (the
-    per-call copies of an eval under ``functional_call``): serving weights
-    are packed once."""
+    another device or compute dtype, or when one of ``tensors`` is another
+    tensor (the per-call copies of an eval under ``functional_call``):
+    serving weights are packed once, and a pack of one dtype never reaches
+    the kernel of the other."""
     stamp = [id(t) for t in tensors]
     cache = getattr(holder, attr, None)
-    if cache is None or cache[0] != device or cache[1] != stamp:
+    if cache is None or cache[0] != (device, dtype) or cache[1] != stamp:
         # the tensors ride along so that their ids stay theirs while cached
-        cache = (device, stamp, make(), tuple(tensors))
+        cache = ((device, dtype), stamp, make(), tuple(tensors))
         setattr(holder, attr, cache)
     return cache[2]
 
 
-def _pack(lp, device) -> dict:
-    """The layer's weights in the kernels' layouts, bf16 matrices [out, in]
-    and fp32 vectors (``cached_pack`` on the layer). Order and offsets are
-    those of ``csrc/two_way_layer.cu``."""
-    return cached_pack(lp, "_kernel_pack", list(lp.parameters()), device,
-                       lambda: _make_pack(lp, device))
+def _pack(lp, device, dtype) -> dict:
+    """The layer's weights in the kernels' layouts, matrices [out, in] in
+    the compute dtype and fp32 vectors (``cached_pack`` on the layer). Order
+    and offsets are those of ``csrc/two_way_layer.cu``."""
+    return cached_pack(lp, "_kernel_pack", list(lp.parameters()), device, dtype,
+                       lambda: _make_pack(lp, device, dtype))
 
 
-def _make_pack(lp, device) -> dict:
+def _make_pack(lp, device, dtype) -> dict:
     sa, t2i, i2t, mlp = lp.self_attn, lp.cross_attn_t2i, lp.cross_attn_i2t, lp.mlp
-    bf = lambda *ts: torch.cat([t.detach().reshape(-1).to(device, torch.bfloat16) for t in ts])  # noqa: E731
+    mat = lambda *ts: torch.cat([t.detach().reshape(-1).to(device, dtype) for t in ts])  # noqa: E731
     f32 = lambda *ts: torch.cat([t.detach().reshape(-1).to(device, torch.float32) for t in ts])  # noqa: E731
     return {
-        "wtok": bf(sa.q_proj.w, sa.k_proj.w, sa.v_proj.w, sa.out_proj.w, t2i.q_proj.w,
+        "wtok": mat(sa.q_proj.w, sa.k_proj.w, sa.v_proj.w, sa.out_proj.w, t2i.q_proj.w,
                    t2i.out_proj.w, mlp.lin1.w, mlp.lin2.w, i2t.k_proj.w, i2t.v_proj.w),
         "btok": f32(sa.q_proj.b, sa.k_proj.b, sa.v_proj.b, sa.out_proj.b,
                     lp.norm1.scale, lp.norm1.bias, t2i.q_proj.b, t2i.out_proj.b,
                     lp.norm2.scale, lp.norm2.bias, mlp.lin1.b, mlp.lin2.b,
                     lp.norm3.scale, lp.norm3.bias, i2t.k_proj.b, i2t.v_proj.b),
-        "w_img": bf(t2i.k_proj.w, t2i.v_proj.w, i2t.q_proj.w).reshape(3 * INTERNAL, C_DIM),
+        "w_img": mat(t2i.k_proj.w, t2i.v_proj.w, i2t.q_proj.w).reshape(3 * INTERNAL, C_DIM),
         "b_img": f32(t2i.k_proj.b, t2i.v_proj.b, i2t.q_proj.b),
-        "wo_i": bf(i2t.out_proj.w).reshape(C_DIM, INTERNAL),
+        "wo_i": mat(i2t.out_proj.w).reshape(C_DIM, INTERNAL),
         "bo_ln4": f32(i2t.out_proj.b, lp.norm4.scale, lp.norm4.bias),
     }
 
 
-def _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale) -> None:
+def _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale) -> torch.dtype:
+    """The compute dtype (bf16 or fp32), or raise on what the kernels do
+    not take."""
     sa, t2i = lp.self_attn, lp.cross_attn_t2i
     n, T, C = tokens.shape
     N = keys.shape[1]
@@ -189,8 +197,8 @@ def _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale) -> None
             f"two_way_layer kernel takes the SAM geometry (C {C_DIM}, {TOKENS} tokens, "
             f"{HEADS} heads, internal {INTERNAL}, MLP {MLP_DIM}); got C {C}, {T} tokens, "
             f"{sa.num_heads} heads, internal {t2i.q_proj.w.shape[0]}, MLP {lp.mlp.lin1.w.shape[0]}")
-    if tokens.dtype != torch.bfloat16 or qpe_tok.dtype != torch.bfloat16:
-        raise TypeError(f"two_way_layer kernel takes bf16 tokens, got {tokens.dtype}")
+    dt = operand_dtype("two_way_layer", tokens, qpe_tok, kpe, qpe_img,
+                       None if scale is not None else keys)
     if keys.dim() != 3 or keys.shape[2] != C or N % ROW_TILE or N == 0:
         raise ValueError(f"two_way_layer kernel takes rows [*, N, {C}] with N % {ROW_TILE} == 0, "
                          f"got {tuple(keys.shape)}")
@@ -199,21 +207,19 @@ def _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale) -> None
             raise TypeError("an int8 store takes idx and fp32 scales")
         if scale.shape != (keys.shape[0],):
             raise ValueError(f"scales {tuple(scale.shape)} for a store of {keys.shape[0]} rows")
-    elif keys.dtype != torch.bfloat16:
-        raise TypeError(f"two_way_layer kernel takes bf16 rows (or an int8 store), got {keys.dtype}")
     if idx is None and keys.shape[0] != n:
         raise ValueError(f"{keys.shape[0]} row blocks for {n} candidates")
     if idx is not None and (idx.dtype != torch.int32 or idx.shape != (n,)):
         raise ValueError(f"idx must be int32 [{n}], got {idx.dtype} {tuple(idx.shape)}")
-    if kpe.shape != (N, INTERNAL) or qpe_img.shape != (N, INTERNAL) or \
-            kpe.dtype != torch.bfloat16 or qpe_img.dtype != torch.bfloat16:
-        raise ValueError("kpe and qpe_img must be bf16 [N, 128]")
+    if kpe.shape != (N, INTERNAL) or qpe_img.shape != (N, INTERNAL):
+        raise ValueError("kpe and qpe_img must be [N, 128]")
     for name, t in (("tokens", tokens), ("qpe_tok", qpe_tok), ("keys", keys), ("kpe", kpe),
                     ("qpe_img", qpe_img), ("idx", idx), ("scale", scale)):
         if t is not None and (t.device != tokens.device or not t.is_contiguous()):
             raise ValueError(f"two_way_layer kernel: {name} must be contiguous on {tokens.device}")
     if n > 65535:
         raise ValueError(f"two_way_layer kernel: {n} candidates in one call (at most 65535)")
+    return dt
 
 
 def two_way_layer(
@@ -229,55 +235,56 @@ def two_way_layer(
                                    idx, scale)
     if tokens.device.type != "cuda":
         raise ValueError(f"two_way_layer: no kernel for device {tokens.device}")
-    _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale)
+    dt = _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale)
     refuse_grad("two_way_layer", tokens, qpe_tok, keys, kpe, qpe_img, *lp.parameters())
     n = tokens.shape[0]
     S, N = keys.shape[0], keys.shape[1]
     dev = tokens.device
-    pk = _pack(lp, dev)
+    pk = _pack(lp, dev, dt)
     tiles = N // ROW_TILE
     f32 = dict(device=dev, dtype=torch.float32)
-    bf = dict(device=dev, dtype=torch.bfloat16)
+    cd = dict(device=dev, dtype=dt)  # the compute dtype
     x_mid = torch.empty((n, TOKENS, C_DIM), **f32)
-    qt = torch.empty((n, TOKENS, INTERNAL), **bf)
-    q_img = torch.empty((n, N, INTERNAL), **bf)
+    qt = torch.empty((n, TOKENS, INTERNAL), **cd)
+    q_img = torch.empty((n, N, INTERNAL), **cd)
     part_m = torch.empty((n, tiles, HEADS * TOKENS), **f32)
     part_l = torch.empty((n, tiles, HEADS * TOKENS), **f32)
     part_acc = torch.empty((n, tiles, HEADS * TOKENS, INTERNAL // HEADS), **f32)
-    tokens_out = torch.empty((n, TOKENS, C_DIM), **bf)
-    k_i = torch.empty((n, TOKENS, INTERNAL), **bf)
-    v_i = torch.empty((n, TOKENS, INTERNAL), **bf)
-    keys_out = torch.empty((n, N, C_DIM), **bf)
+    tokens_out = torch.empty((n, TOKENS, C_DIM), **cd)
+    k_i = torch.empty((n, TOKENS, INTERNAL), **cd)
+    v_i = torch.empty((n, TOKENS, INTERNAL), **cd)
+    keys_out = torch.empty((n, N, C_DIM), **cd)
     idx_p = 0 if idx is None else idx.data_ptr()
     scale_p = 0 if scale is None else scale.data_ptr()
     int8 = int(scale is not None)
     self_scale = 1.0 / math.sqrt(C_DIM // HEADS)
     cross_scale = 1.0 / math.sqrt(INTERNAL // HEADS)
+    is_f32 = int(dt == torch.float32)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         check(lib.cor_twl_tokens_in(
             tokens.data_ptr(), qpe_tok.data_ptr(), pk["wtok"].data_ptr(), pk["btok"].data_ptr(),
             int(skip_pe), self_scale, cross_scale, eps, n,
-            x_mid.data_ptr(), qt.data_ptr(), stream), "two_way_layer tokens_in")
+            x_mid.data_ptr(), qt.data_ptr(), is_f32, stream), "two_way_layer tokens_in")
         check(lib.cor_t2i_image_pass(
             keys.data_ptr(), int8, idx_p, scale_p, S, n, N,
             pk["w_img"].data_ptr(), pk["b_img"].data_ptr(), kpe.data_ptr(), qpe_img.data_ptr(),
             qt.data_ptr(), q_img.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), stream),
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), is_f32, stream),
             "two_way_layer image t2i")
         check(lib.cor_twl_tokens_mid(
             x_mid.data_ptr(), qpe_tok.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), tiles, pk["wtok"].data_ptr(), pk["btok"].data_ptr(), eps, n,
-            tokens_out.data_ptr(), k_i.data_ptr(), v_i.data_ptr(), stream),
+            tokens_out.data_ptr(), k_i.data_ptr(), v_i.data_ptr(), is_f32, stream),
             "two_way_layer tokens_mid")
         check(lib.cor_twl_image_i2t(
             keys.data_ptr(), int8, idx_p, scale_p, S, n, N, q_img.data_ptr(),
             k_i.data_ptr(), v_i.data_ptr(), pk["wo_i"].data_ptr(), pk["bo_ln4"].data_ptr(),
-            eps, cross_scale, keys_out.data_ptr(), stream), "two_way_layer image i2t")
-    two_way_layer.launches += LAUNCHES
+            eps, cross_scale, keys_out.data_ptr(), is_f32, stream), "two_way_layer image i2t")
+    count_launch(two_way_layer, dt, LAUNCHES)
     return tokens_out, keys_out
 
 
 LAUNCHES = 4  # kernel launches per call on the card
-two_way_layer.launches = 0
+two_way_layer.launches = two_way_layer.launches_fp32 = 0

@@ -52,10 +52,14 @@ kernel: its gradient is the VJP of its plain version, recomputed in the
 backward (``ops.diff.with_plain_vjp``; ``cor_tpu``'s ``with_oracle_vjp``).
 
 Each takes the plain version for a tensor on the CPU and its kernel for a
-CUDA tensor: bf16 with head_dim 64 (SAM-base and SAM-large) or 80
-(sam_huge), H, W (K7: the window) <= 64. Any other CUDA input raises, naming
-the ROADMAP item that ports it. They never fall back from a kernel to a
-plain version.
+CUDA tensor: head_dim 64 (SAM-base and SAM-large) or 80 (sam_huge), H, W
+(K7: the window) <= 64. K6 and K7 take bf16 or fp32 (qkv and the factors of
+one dtype; in fp32 the products run in 3xTF32 on the tensor cores and
+nothing is rounded); K6b takes bf16 only, and an fp32 backward raises
+naming its ROADMAP row (@fp32-K6b). Any other CUDA input raises, naming the
+ROADMAP item that ports it. They never fall back from a kernel to a plain
+version. Launches are counted by dtype: ``launches`` (bf16) and
+``launches_fp32`` on each entry.
 """
 
 from __future__ import annotations
@@ -65,12 +69,13 @@ from typing import Tuple
 import torch
 
 from cor_tpu_torch.ops.diff import with_plain_vjp
-from cor_tpu_torch.ops.kernels._build import check, library
+from cor_tpu_torch.ops.kernels._build import check, count_launch, library, operand_dtype
 
 MAX_SIDE = 64  # H, W <= 64: the tile's bias rows are staged in shared memory
 # the head dims K6, K6b and K7 take, and the ROADMAP row that ports others
 HEAD_DIMS = (64, 80)
 OTHER_DIMS_ITEM = "ROADMAP Queue 2, K4′ / K6 / K7: head dims other than 64 and 80"
+FP32_K6B_ITEM = "ROADMAP Queue 2, @fp32-K6b (K6b in fp32)"
 
 
 def vit_attention_relpos_plain(
@@ -145,10 +150,10 @@ def _check_head_dim(qkv, num_heads, what: str) -> int:
     return C // num_heads
 
 
-def _check(qkv, rel_h, rel_w, num_heads, hw, what: str, sides=None) -> int:
-    """The head_dim, or raise on what the kernel ``what`` does not take:
-    qkv [B, N, 3C] with N = H * W, the factors [B, heads, N, side] with
-    ``sides`` (default ``hw``) <= 64."""
+def _check(qkv, rel_h, rel_w, num_heads, hw, what: str, sides=None) -> Tuple[int, torch.dtype]:
+    """(head_dim, compute dtype), or raise on what the kernel ``what`` does
+    not take: qkv [B, N, 3C] with N = H * W, the factors [B, heads, N, side]
+    with ``sides`` (default ``hw``) <= 64, all three bf16 or all fp32."""
     H, W = hw
     kh, kw = sides or hw
     D = _check_head_dim(qkv, num_heads, what)
@@ -158,21 +163,20 @@ def _check(qkv, rel_h, rel_w, num_heads, hw, what: str, sides=None) -> int:
             f"{what} kernel takes N = H * W with bias sides <= {MAX_SIDE}; got N={N}, "
             f"H={H}, W={W}, sides {kh}, {kw}"
         )
+    dt = operand_dtype(what, qkv, rel_h, rel_w)
     for name, t, k in (("rel_h", rel_h, kh), ("rel_w", rel_w, kw)):
-        if t.shape != (B, num_heads, N, k) or t.dtype != qkv.dtype or t.device != qkv.device:
+        if t.shape != (B, num_heads, N, k) or t.device != qkv.device:
             raise ValueError(
                 f"{what} kernel: {name} must be [{B}, {num_heads}, {N}, {k}] "
-                f"{qkv.dtype} on {qkv.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
+                f"on {qkv.device}, got {tuple(t.shape)} on {t.device}"
             )
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"{what} kernel takes bf16, got {qkv.dtype}")
     if not (qkv.is_contiguous() and rel_h.is_contiguous() and rel_w.is_contiguous()) or (
         qkv.data_ptr() % 16 != 0
     ):
         raise ValueError(f"{what} kernel takes contiguous inputs, qkv 16-byte aligned")
     if not (1 <= B <= 65535 and num_heads <= 65535):
         raise ValueError(f"{what} kernel: batch {B} / heads {num_heads} out of range")
-    return D
+    return D, dt
 
 
 def _forward(qkv, rel_h, rel_w, num_heads: int, hw: Tuple[int, int]) -> torch.Tensor:
@@ -181,7 +185,7 @@ def _forward(qkv, rel_h, rel_w, num_heads: int, hw: Tuple[int, int]) -> torch.Te
         return vit_attention_relpos_plain(qkv, rel_h, rel_w, num_heads, hw)
     if qkv.device.type != "cuda":
         raise ValueError(f"vit_attention_relpos: no kernel for device {qkv.device}")
-    D = _check(qkv, rel_h, rel_w, num_heads, hw, "vit_attention_relpos")
+    D, dt = _check(qkv, rel_h, rel_w, num_heads, hw, "vit_attention_relpos")
     H, W = hw
     B, N, C3 = qkv.shape
     C = C3 // 3
@@ -190,11 +194,11 @@ def _forward(qkv, rel_h, rel_w, num_heads: int, hw: Tuple[int, int]) -> torch.Te
     with torch.cuda.device(qkv.device):
         err = lib.cor_vit_attention_relpos(
             qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
-            B, N, C, num_heads, H, W, float(D**-0.5),
+            B, N, C, num_heads, H, W, float(D**-0.5), int(dt == torch.float32),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     check(err, "vit_attention_relpos")
-    vit_attention_relpos.launches += 1
+    count_launch(vit_attention_relpos, dt)
     return out
 
 
@@ -213,7 +217,9 @@ def vit_attention_relpos_bwd(
         return vit_attention_relpos_bwd_plain(qkv, rel_h, rel_w, do, num_heads, hw)
     if qkv.device.type != "cuda":
         raise ValueError(f"vit_attention_relpos_bwd: no kernel for device {qkv.device}")
-    D = _check(qkv, rel_h, rel_w, num_heads, hw, "vit_attention_relpos_bwd")
+    D, dt = _check(qkv, rel_h, rel_w, num_heads, hw, "vit_attention_relpos_bwd")
+    if dt != torch.bfloat16:
+        raise TypeError(f"vit_attention_relpos_bwd kernel takes bf16, got {dt} ({FP32_K6B_ITEM})")
     H, W = hw
     B, N, C3 = qkv.shape
     C = C3 // 3
@@ -315,8 +321,8 @@ def _windows_forward(qkv, rel_h, rel_w, num_heads: int, window: int,
                          f"{tuple(qkv.shape)}")
     B, Hp, Wp, C3 = qkv.shape
     H, W = hw
-    D = _check(qkv.reshape(B, Hp * Wp, C3), rel_h, rel_w, num_heads, (Hp, Wp), what,
-               sides=(window, window))
+    D, dt = _check(qkv.reshape(B, Hp * Wp, C3), rel_h, rel_w, num_heads, (Hp, Wp), what,
+                   sides=(window, window))
     if not (1 <= window <= MAX_SIDE and Hp % window == 0 and Wp % window == 0
             and 1 <= H <= Hp and 1 <= W <= Wp):
         raise ValueError(f"{what} kernel: grid {Hp} x {Wp} must be whole windows of "
@@ -330,11 +336,11 @@ def _windows_forward(qkv, rel_h, rel_w, num_heads: int, window: int,
     with torch.cuda.device(qkv.device):
         err = lib.cor_vit_attention_relpos_windows(
             qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
-            B, Hp, Wp, H, W, C, num_heads, window, float(D**-0.5),
+            B, Hp, Wp, H, W, C, num_heads, window, float(D**-0.5), int(dt == torch.float32),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     check(err, what)
-    vit_attention_relpos_windows.launches += 1
+    count_launch(vit_attention_relpos_windows, dt)
     return out
 
 
@@ -355,6 +361,6 @@ def vit_attention_relpos_windows(
     return _windows_diff(qkv, rel_h, rel_w, num_heads, window, tuple(hw))
 
 
-vit_attention_relpos.launches = 0
-vit_attention_relpos_bwd.launches = 0
-vit_attention_relpos_windows.launches = 0
+vit_attention_relpos.launches = vit_attention_relpos.launches_fp32 = 0
+vit_attention_relpos_bwd.launches = vit_attention_relpos_bwd.launches_fp32 = 0
+vit_attention_relpos_windows.launches = vit_attention_relpos_windows.launches_fp32 = 0

@@ -55,7 +55,7 @@ def build_gallery(
     "pair_id"}, numpy) -> (embeddings [G, D], pair_ids [G], store
     [G, g, g, C] or None), on the model's device. The image embeddings come
     back as fp32 and are kept as ``store_dtype`` (fp16 halves the artifact;
-    the decode path computes in bf16)."""
+    the decode path computes in the compute dtype)."""
     encode = make_candidate_encoder(cfg)
     device = next(model.parameters()).device
     embs, ids, stores = [], [], []

@@ -1,0 +1,188 @@
+"""Check that the bf16 kernels give the same bits as those of another source
+tree of ``csrc/`` (an earlier commit's), on the card.
+
+    python3 -m cor_tpu_torch.tools.kernel_bits OLD_CSRC_DIR
+
+builds OLD_CSRC_DIR's ``*.cu`` into a library of its own (under
+``cor_tpu_torch/_build/``), runs every bf16 kernel wrapper at the served,
+built and trained shapes once through the current library and once through
+the old one, on identical inputs, and exits non-zero unless every output is
+equal bit for bit. The old library's entry points take no ``f32`` flag (the
+ABI before fp32); the wrappers' calls are adapted by dropping it, and a
+call with ``f32 = 1`` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from cor_tpu_torch.ops.kernels import _build
+
+# the entries whose flag the old ABI lacks: f32 is their second-to-last argument
+_FLAGGED = [name for name, sig in _build._SIGNATURES.items()
+            if name not in ("cor_layer_norm", "cor_vit_attention_relpos_bwd")]
+_WRAPPER_MODULES = ("layernorm", "seq_attention", "vit_attention", "two_way_layer", "t2i_flash",
+                    "decoder_tail")
+
+
+def build_old(csrc: Path) -> ctypes.CDLL:
+    """Compile ``csrc``'s sources into one library with the current flags."""
+    h = hashlib.sha256()
+    for src in sorted(csrc.glob("*.cu*")):
+        h.update(src.read_bytes())
+    out = _build.BUILD_DIR / f"libcor_kernels_old_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _build._nvcc()
+        objs, procs = [], []
+        for src in sorted(csrc.glob("*.cu")):
+            obj = out.with_name(f"{out.stem}.{src.stem}.o")
+            objs.append(obj)
+            procs.append(subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(obj),
+                                           str(src)], stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        for p in procs:
+            text = p.communicate()[0]
+            if p.returncode:
+                raise RuntimeError(f"nvcc failed on the old sources:\n{text}")
+        subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
+                        str(out), *map(str, objs)], check=True)
+    lib = ctypes.CDLL(str(out))
+    for name, sig in _build._SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(sig[:-2]) + [sig[-1]] if name in _FLAGGED else list(sig)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+class _OldABI:
+    """The old library behind the current calls: the f32 flag dropped."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in _FLAGGED:
+            return fn
+
+        def call(*args):
+            if args[-2]:
+                raise TypeError(f"{name}: the old library has no fp32 kernels")
+            return fn(*args[:-2], args[-1])
+
+        return call
+
+
+def use_library(lib) -> None:
+    """Point every kernel wrapper at ``lib`` (``None``: the current build)."""
+    import importlib
+
+    for mod in _WRAPPER_MODULES:
+        m = importlib.import_module(f"cor_tpu_torch.ops.kernels.{mod}")
+        m.library = _build.library if lib is None else (lambda lib=lib: lib)
+
+
+@torch.no_grad()
+def cases(device):
+    """(label, thunk) of every bf16 kernel at the main paths' shapes; each
+    thunk returns the kernel's outputs as a tuple of tensors."""
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+    from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
+    from cor_tpu_torch.ops.kernels.layernorm import layer_norm
+    from cor_tpu_torch.ops.kernels.seq_attention import attention_seq, attention_seq_qkv
+    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
+    from cor_tpu_torch.ops.kernels.vit_attention import (
+        vit_attention_relpos,
+        vit_attention_relpos_bwd,
+        vit_attention_relpos_windows,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    bf = torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa: E731
+    out = []
+    x = (2 * rnd(9216, 768) + 0.5).to(bf)
+    s, b = (1 + 0.1 * rnd(768)).to(bf), (0.1 * rnd(768)).to(bf)
+    out.append(("K5 [9216, 768]", lambda: (layer_norm(x, s, b, 1e-6),)))
+    for heads, D, n in ((12, 64, 576), (12, 64, 64), (16, 72, 729), (16, 72, 64), (16, 80, 100)):
+        qkv = rnd(16, n, 3 * heads * D).to(bf)
+        q, k, v = (rnd(4, heads, n, D).to(bf) for _ in range(3))
+        out.append((f"K4 d{D} n{n}", lambda qkv=qkv, h=heads: (attention_seq_qkv(qkv, h),)))
+        out.append((f"K4′ [B, H, N, D] d{D} n{n}",
+                    lambda q=q, k=k, v=v, h=heads: (attention_seq(q, k, v, h),)))
+    for heads, D in ((12, 64), (16, 80)):
+        for B, side in ((2, 64), (50, 14)):
+            N = side * side
+            qkv = rnd(B, N, 3 * heads * D).to(bf)
+            rh, rw = (0.3 * rnd(B, heads, N, side)).to(bf), (0.3 * rnd(B, heads, N, side)).to(bf)
+            do = rnd(B, N, heads * D).to(bf)
+            a = (qkv, rh, rw, heads, (side, side))
+            out.append((f"K6 d{D} [{B}, {N}]", lambda a=a: (vit_attention_relpos(*a),)))
+            out.append((f"K6b d{D} [{B}, {N}]",
+                        lambda a=a, do=do: vit_attention_relpos_bwd(a[0], a[1], a[2], do, *a[3:])))
+        qkv = rnd(2, 70, 70, 3 * heads * D).to(bf)
+        rh, rw = (0.3 * rnd(2, heads, 4900, 14)).to(bf), (0.3 * rnd(2, heads, 4900, 14)).to(bf)
+        a = (qkv, rh, rw, heads, 14, (64, 64))
+        out.append((f"K7 d{D} [2, 70, 70]", lambda a=a: (vit_attention_relpos_windows(*a),)))
+    dec = init_mask_decoder(CoreConfig(), 1).to(device, bf).eval()
+    n, N = 40, 4096
+    tokens, kpe, qpe = rnd(n, 6, 256).to(bf), (0.5 * rnd(N, 128)).to(bf), (0.5 * rnd(N, 128)).to(bf)
+    store = torch.randint(-127, 128, (256, N, 256), generator=gen, device=device, dtype=torch.int8)
+    scales = (0.5 * 4 / 127) * (1 + 0.1 * torch.rand(256, generator=gen, device=device))
+    idx = torch.randperm(256, generator=gen, device=device)[:n].to(torch.int32)
+    keys = (0.5 * rnd(n, N, 256)).to(bf)
+    lp0, lp1 = dec.transformer.layers
+    out.append(("K1 layer 0 int8 store", lambda: two_way_layer(
+        lp0, tokens, tokens, store, kpe, qpe, True, idx=idx, scale=scales)))
+    out.append(("K1 layer 1 bf16", lambda: two_way_layer(lp1, tokens, tokens, keys, kpe, qpe,
+                                                         False)))
+    fa = dec.transformer.final_attn_t2i
+    q_tok = rnd(n, 6, 128).to(bf)
+    out.append(("K2", lambda: (t2i_flash_kv(keys, fa.k_proj.w, fa.k_proj.b, fa.v_proj.w,
+                                            fa.v_proj.b, kpe, q_tok, 8),)))
+    up = dec.output_upscaling
+    hyper = rnd(n, 3, 32).to(bf)
+    out.append(("K3", lambda: (decoder_tail(keys.reshape(n, 64, 64, 256), up.convt1.w,
+                                            up.convt1.b, up.ln.scale, up.ln.bias, up.convt2.w,
+                                            up.convt2.b, hyper),)))
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 1 or not Path(argv[0]).is_dir():
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("FAIL: needs a CUDA card", file=sys.stderr)
+        return 2
+    device = torch.device("cuda")
+    old = _OldABI(build_old(Path(argv[0])))
+    differ = []
+    torch.set_grad_enabled(False)  # the decoder kernels take no autograd
+    for label, run in cases(device):
+        use_library(None)
+        new_out = run()
+        use_library(old)
+        old_out = run()
+        use_library(None)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(new_out, old_out))
+        print(f"  {label}: {'equal bit for bit' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            differ.append(label)
+    print(f"bf16 kernels against {argv[0]}: "
+          f"{'all equal bit for bit' if not differ else f'different: {differ}'}")
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -349,7 +349,8 @@ def test_cli_index_builds_on_the_cpu(tiny_index_config, tmp_path, capsys):
     np.testing.assert_array_equal(np.asarray(idx["store"]), store)
 
 
-@pytest.mark.parametrize("case", ["manifest", "checkpoint", "no_card", "fp32_on_the_card"])
+@pytest.mark.parametrize("case", ["manifest", "checkpoint", "no_card", "fp32_on_the_card",
+                                  "fp16_on_the_card"])
 def test_cli_index_refuses(tiny_index_config, tmp_path, capsys, monkeypatch, case):
     argv = ["--out", str(tmp_path / "idx"), "--synthetic", "2"]
     want = "--device cpu"
@@ -360,14 +361,21 @@ def test_cli_index_refuses(tiny_index_config, tmp_path, capsys, monkeypatch, cas
         cfg.write_text("load_sam_pretrained_checkpoint: /ckpt/sam.pth\n")
         argv, want = [*argv, "--config", str(cfg)], "load_sam_pretrained_checkpoint"
     else:
-        # without a card: the fp32 model (tiny_index_config's) is refused
-        # first, naming the ROADMAP row, before the card is looked for
+        # without a card: bf16 and the fp32 model (tiny_index_config's) both
+        # have kernels on the card, so the CLI gets as far as looking for it
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-        if case == "fp32_on_the_card":
-            want = "ROADMAP Queue 2, @fp32"
-        else:
+        want = "no CUDA card is available"
+        if case == "no_card":
             monkeypatch.setattr(EvalConfig, "core_config", lambda self: dataclasses.replace(
                 tiny_index_config, compute_dtype="bfloat16"))
+        elif case == "fp16_on_the_card":
+            # fp16 has no kernels: refused, naming its ROADMAP row, first
+            want = "ROADMAP Queue 2, @fp16"
+            monkeypatch.setattr(EvalConfig, "core_config", lambda self: dataclasses.replace(
+                tiny_index_config, compute_dtype="float16"))
+        else:
+            assert tiny_index_config.compute_dtype == "float32"
+            pcore.check_kernel_dtype(tiny_index_config, "cuda")
     with pytest.raises(SystemExit) as e:
         pcli.main(argv)
     assert e.value.code == 2

@@ -7,7 +7,8 @@ kernel-test tolerance (tests/test_pallas_kernels.py, test_kernel_vjp.py):
 atol = rtol = 1e-5 in fp32.
 
 The tests marked ``gpu`` hold each CUDA kernel against its plain version in
-bf16 at the serving path's shapes; they skip without a CUDA card. A machine
+bf16 and in fp32 (the fp32 kernels at cor_tpu's fp32 tolerances) at the
+serving path's shapes; they skip without a CUDA card. A machine
 with a card but without jax runs them with
 
     python -m pytest tests/test_torch_kernels.py -m gpu --noconftest
@@ -653,3 +654,187 @@ def test_decoder_kernels_refuse_grad(sam_decoder_bf16):
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the kernels in fp32 (compute_dtype float32; 3xTF32 products) against their
+# plain fp32 versions, TF32 off, at cor_tpu's fp32 tolerances (atol = rtol):
+# K5, K4/K4′ 1e-5 (test_pallas_kernels.py, test_kernel_vjp.py), K6/K7 and K1
+# 2e-4 (test_vit_attention_kernel.py, test_two_way_layer_kernel.py), K2 5e-4
+# (its only fp32 test, through the two-way transformer), K3 2e-4
+# (test_decoder_tail_kernel.py); fp32 launches are counted apart
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def fp32_device(cuda_device):
+    """The card with torch's fp32 matmuls and convolutions in full fp32."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield cuda_device
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def fp32_close(got, want, tol):
+    assert got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,C", [(16 * 576, 768), (8 * 4096, 256), (1001, 1152)])
+def test_layer_norm_kernel_matches_plain_fp32(fp32_device, rows, C):
+    g = torch.Generator(device=fp32_device).manual_seed(0)
+    x = 2 * torch.randn(rows, C, generator=g, device=fp32_device) + 0.5
+    s = 1 + 0.1 * torch.randn(C, generator=g, device=fp32_device)
+    b = 0.1 * torch.randn(C, generator=g, device=fp32_device)
+    before = (layer_norm.launches, layer_norm.launches_fp32)
+    got = layer_norm(x, s, b)
+    torch.cuda.synchronize()
+    assert (layer_norm.launches, layer_norm.launches_fp32) == (before[0], before[1] + 1)
+    fp32_close(got, layer_norm_plain(x, s, b), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n", [(64, 576), (64, 100), (72, 729), (72, 64), (80, 100)],
+                         ids=["d64-n576", "d64-n100", "d72-n729", "d72-n64", "d80-n100"])
+def test_attention_seq_qkv_kernel_matches_plain_fp32(fp32_device, d, n):
+    heads = 12 if d == 64 else 16
+    g = torch.Generator(device=fp32_device).manual_seed(0)
+    qkv = torch.randn(16, n, 3 * heads * d, generator=g, device=fp32_device)
+    before = (attention_seq_qkv.launches, attention_seq_qkv.launches_fp32)
+    got = attention_seq_qkv(qkv, heads)
+    torch.cuda.synchronize()
+    assert (attention_seq_qkv.launches, attention_seq_qkv.launches_fp32) == (before[0],
+                                                                             before[1] + 1)
+    fp32_close(got, attention_seq_qkv_plain(qkv, heads), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,n", [(72, 729), (80, 100), (64, 64)])
+def test_attention_seq_kernel_matches_plain_fp32(fp32_device, d, n):
+    g = torch.Generator(device=fp32_device).manual_seed(4)
+    q, k, v = (torch.randn(4, 16, n, d, generator=g, device=fp32_device) for _ in range(3))
+    before = attention_seq.launches_fp32
+    got = attention_seq(q, k, v, 16)
+    torch.cuda.synchronize()
+    assert attention_seq.launches_fp32 == before + 1
+    fp32_close(got, attention_seq_plain(q, k, v, 16), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,d", [(1, 64, 64, 64), (50, 14, 14, 64), (1, 64, 64, 80),
+                                     (50, 14, 14, 80)],
+                         ids=["global", "windowed", "global-d80", "windowed-d80"])
+def test_vit_attention_relpos_kernel_matches_plain_fp32(fp32_device, B, H, W, d):
+    heads = 12 if d == 64 else 16
+    g = torch.Generator(device=fp32_device).manual_seed(0)
+    N = H * W
+    qkv = torch.randn(B, N, 3 * heads * d, generator=g, device=fp32_device)
+    rel_h = 0.3 * torch.randn(B, heads, N, H, generator=g, device=fp32_device)
+    rel_w = 0.3 * torch.randn(B, heads, N, W, generator=g, device=fp32_device)
+    before = (vit_attention_relpos.launches, vit_attention_relpos.launches_fp32)
+    got = vit_attention_relpos(qkv, rel_h, rel_w, heads, (H, W))
+    torch.cuda.synchronize()
+    assert (vit_attention_relpos.launches, vit_attention_relpos.launches_fp32) == (
+        before[0], before[1] + 1)
+    fp32_close(got, vit_attention_relpos_plain(qkv, rel_h, rel_w, heads, (H, W)), 2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,hw", [(64, 64), (80, 64), (64, 10), (80, 14)],
+                         ids=["base-64", "huge-64", "base-10", "huge-exact14"])
+def test_vit_attention_relpos_windows_kernel_matches_plain_fp32(fp32_device, D, hw):
+    g = torch.Generator(device=fp32_device).manual_seed(5)
+    heads, ws = (12 if D == 64 else 16), 14
+    C, Hp, B = heads * D, -(-hw // 14) * 14, 2
+    qkv = torch.randn(B, Hp, Hp, 3 * C, generator=g, device=fp32_device)
+    rel_h = 0.3 * torch.randn(B, heads, Hp * Hp, ws, generator=g, device=fp32_device)
+    rel_w = 0.3 * torch.randn(B, heads, Hp * Hp, ws, generator=g, device=fp32_device)
+    before = vit_attention_relpos_windows.launches_fp32
+    got = vit_attention_relpos_windows(qkv, rel_h, rel_w, heads, ws, (hw, hw))
+    torch.cuda.synchronize()
+    assert vit_attention_relpos_windows.launches_fp32 == before + 1
+    fp32_close(got, vit_attention_relpos_windows_plain(qkv, rel_h, rel_w, heads, ws, (hw, hw)),
+               2e-4)
+
+
+@pytest.mark.gpu
+def test_vit_attention_relpos_bwd_kernel_refuses_fp32(fp32_device):
+    """K6b takes bf16 only: an fp32 backward raises naming its ROADMAP row
+    (the entry points refuse unfrozen fp32 training before that)."""
+    qkv = torch.zeros(1, 16, 3 * 128, device=fp32_device)
+    rel = torch.zeros(1, 2, 16, 4, device=fp32_device)
+    with pytest.raises(TypeError, match="@fp32-K6b"):
+        vit_attention_relpos_bwd(qkv, rel, rel, torch.zeros(1, 16, 128, device=fp32_device), 2,
+                                 (4, 4))
+
+
+@pytest.fixture(scope="module")
+def sam_decoder_fp32():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+
+    return init_mask_decoder(CoreConfig(), 1).to("cuda").eval()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["skip_pe", "pe", "store", "int8"])
+def test_two_way_layer_kernel_matches_plain_fp32(sam_decoder_fp32, fp32_device, case):
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer, two_way_layer_plain
+
+    lp = sam_decoder_fp32.transformer.layers[0 if case != "pe" else 1]
+    n = 8
+    x = {k: v.float() for k, v in decode_inputs(
+        n, S=12 if case in ("store", "int8") else None).items()}
+    keys, idx, scale = x["rows"], None, None
+    if case in ("store", "int8"):
+        idx = torch.tensor([11, 0, 3, 3, 7, 2, 9, 5], dtype=torch.int32, device="cuda")
+    if case == "int8":
+        scale = (keys.abs().amax(dim=(1, 2)) / 127.0).clamp_min(1e-12)
+        keys = torch.clamp(torch.round(keys / scale[:, None, None]), -127, 127).to(torch.int8)
+    args = (lp, x["tokens"], x["tokens"], keys, x["kpe"], x["qpe"], case != "pe")
+    with torch.no_grad():
+        before = (two_way_layer.launches, two_way_layer.launches_fp32)
+        got_t, got_k = two_way_layer(*args, idx=idx, scale=scale)
+        torch.cuda.synchronize()
+        assert (two_way_layer.launches, two_way_layer.launches_fp32) == (before[0],
+                                                                         before[1] + 4)
+        want_t, want_k = two_way_layer_plain(*args, idx=idx, scale=scale)
+    fp32_close(got_t, want_t, 2e-4)
+    fp32_close(got_k, want_k, 2e-4)
+
+
+@pytest.mark.gpu
+def test_t2i_flash_kv_kernel_matches_plain_fp32(sam_decoder_fp32, fp32_device):
+    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv, t2i_flash_kv_plain
+
+    fa = sam_decoder_fp32.transformer.final_attn_t2i
+    x = {k: v.float() for k, v in decode_inputs(8).items()}
+    q_tok = x["tokens"][..., :128].contiguous()
+    args = (x["rows"], fa.k_proj.w, fa.k_proj.b, fa.v_proj.w, fa.v_proj.b, x["kpe"], q_tok, 8)
+    with torch.no_grad():
+        before = t2i_flash_kv.launches_fp32
+        got = t2i_flash_kv(*args)
+        torch.cuda.synchronize()
+        assert t2i_flash_kv.launches_fp32 == before + 2
+        fp32_close(got, t2i_flash_kv_plain(*args), 5e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3])
+def test_decoder_tail_kernel_matches_plain_fp32(sam_decoder_fp32, fp32_device, m):
+    from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail, decoder_tail_plain
+
+    up = sam_decoder_fp32.output_upscaling
+    g = torch.Generator(device="cuda").manual_seed(1)
+    src = torch.randn(4, 64, 64, 256, generator=g, device="cuda")
+    hyper = torch.randn(4, m, 32, generator=g, device="cuda")
+    args = (src, up.convt1.w, up.convt1.b, up.ln.scale, up.ln.bias, up.convt2.w, up.convt2.b,
+            hyper)
+    with torch.no_grad():
+        before = decoder_tail.launches_fp32
+        got = decoder_tail(*args)
+        torch.cuda.synchronize()
+        assert decoder_tail.launches_fp32 == before + 1 and got.shape == (4, m, 256, 256)
+        fp32_close(got, decoder_tail_plain(*args), 2e-4)

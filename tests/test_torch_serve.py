@@ -265,6 +265,11 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False) 
             support_override=sup, decoder_override=dec,
             prompt_override=prompt_encoder.PromptEncoderConfig(16, (4, 4), (64, 64)))
         EvalConfig.core_config = lambda self: cfg
+        # fp32 has kernels on the card: the entry points take it for
+        # indexing, serving and frozen training
+        assert cfg.compute_dtype == "float32" and cfg.freeze_towers
+        core_model.check_kernel_dtype(cfg, "cuda")
+        core_model.check_kernel_dtype(cfg, "cuda", train=True)
         root = Path({str(tmp_path)!r})
         with contextlib.redirect_stdout(io.StringIO()):
             built = index_cli.main(["--out", str(root / "idx"), "--synthetic", "20",
@@ -494,10 +499,13 @@ def test_png_writer_decodes_to_native_encoders_pixels(rng):
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
 def test_fp32_is_refused_on_the_card_before_the_card_is_looked_for(tmp_path, capsys,
                                                                   monkeypatch, dtype):
-    """A compute dtype that has no kernels on the card (ROADMAP Queue 2's
-    @fp32 row) is refused by cli.serve and RetrievalServer before the card is
-    looked for or a model is built; with --device cpu / device="cpu" it runs
-    (the tests' fp32 configs)."""
+    """The dtype policy of cli.serve and RetrievalServer on the card: fp32
+    has kernels there (and serving never runs K6b, so a config with
+    freeze_towers: false is served too), so with the card hidden cli.serve
+    gets as far as looking for it; fp16 has none and is refused, naming
+    ROADMAP Queue 2's @fp16 row, before the card is looked for or a model is
+    built. With --device cpu / device="cpu" either runs (the tests' fp32
+    configs)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text(f"compute_dtype: {dtype}\n")
@@ -505,10 +513,15 @@ def test_fp32_is_refused_on_the_card_before_the_card_is_looked_for(tmp_path, cap
         pcli.main(["--config", str(cfg), "--gallery-index", str(tmp_path)])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "ROADMAP Queue 2, @fp32" in err and "--device cpu" in err
+    want = "no CUDA card is available" if dtype == "float32" else "ROADMAP Queue 2, @fp16"
+    assert want in err and "--device cpu" in err
     core_cfg = dataclasses.replace(EvalConfig().core_config(), compute_dtype=dtype)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2, @fp32"):
-        RetrievalServer(core_cfg, torch.nn.Linear(1, 1), {}, device="cuda")
+    if dtype == "float32":
+        pcore.check_kernel_dtype(core_cfg, "cuda")
+        pcore.check_kernel_dtype(dataclasses.replace(core_cfg, freeze_towers=False), "cuda")
+    else:
+        with pytest.raises(ValueError, match="ROADMAP Queue 2, @fp16"):
+            RetrievalServer(core_cfg, torch.nn.Linear(1, 1), {}, device="cuda")
     pcore.check_kernel_dtype(core_cfg, "cpu")
     pcore.check_kernel_dtype(EvalConfig().core_config(), "cuda")
     with pytest.raises(ValueError, match="Invalid compute_dtype"):

@@ -653,7 +653,8 @@ def test_cli_train_runs_an_epoch_and_resumes_on_the_cpu(tiny_train, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["manifest", "checkpoint", "mesh", "async", "no_card",
-                                  "fp32_on_the_card"])
+                                  "fp32_on_the_card", "fp32_frozen_on_the_card",
+                                  "fp16_on_the_card"])
 def test_cli_train_refuses(tiny_train, capsys, monkeypatch, case):
     argv = ["--config", str(tiny_train), "--synthetic"]
     want = "--device cpu"
@@ -665,32 +666,46 @@ def test_cli_train_refuses(tiny_train, capsys, monkeypatch, case):
         tiny_train.write_text(tiny_train.read_text() + extra)
         want = {"checkpoint": "item 5", "mesh": "item 9", "async": "item 11"}[case]
     else:
-        # without a card: the fp32 model (tiny_train's) is refused first,
-        # naming the ROADMAP row, before the card is looked for
+        # without a card: tiny_train's fp32 model with unfrozen towers needs
+        # K6b in fp32 and is refused first, naming its ROADMAP row, before the
+        # card is looked for; so is fp16 (no kernels); bf16, and fp32 with
+        # frozen towers, get as far as looking for the card
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        fp32 = TrainConfig.core_config
         if case == "fp32_on_the_card":
-            want = "ROADMAP Queue 2, @fp32"
+            want = "ROADMAP Queue 2, @fp32-K6b"
+        elif case == "fp32_frozen_on_the_card":
+            tiny_train.write_text(tiny_train.read_text().replace("freeze_towers: false",
+                                                                 "freeze_towers: true"))
+            want = "no CUDA card is available"
         else:
-            fp32 = TrainConfig.core_config
+            dt = "bfloat16" if case == "no_card" else "float16"
+            want = "no CUDA card is available" if case == "no_card" else "ROADMAP Queue 2, @fp16"
             monkeypatch.setattr(TrainConfig, "core_config", lambda self: dataclasses.replace(
-                fp32(self), compute_dtype="bfloat16"))
+                fp32(self), compute_dtype=dt))
     with pytest.raises(SystemExit) as e:
-        pcli.main(argv + (["--device", "cpu"] if case not in ("no_card", "fp32_on_the_card")
-                          else []))
+        pcli.main(argv + (["--device", "cpu"] if case in ("manifest", "checkpoint", "mesh",
+                                                          "async") else []))
     assert e.value.code == 2
     assert want in capsys.readouterr().err
 
 
 def test_trainer_refuses_fp32_on_the_card():
-    """The Trainer refuses a compute dtype without kernels on the card
-    (ROADMAP Queue 2's @fp32 row) before it builds its steps; on the CPU
-    it takes it."""
+    """The Trainer refuses, before it builds its steps, fp32 training with
+    unfrozen towers on the card (K6b takes bf16 only: ROADMAP Queue 2's
+    @fp32-K6b row) and fp16 (no kernels: @fp16); it takes fp32 with frozen
+    towers on the card, and any of them on the CPU."""
     from cor_tpu_torch.train.trainer import Trainer
 
     _, pc = configs(False)
-    assert pc.compute_dtype == "float32"
-    with pytest.raises(ValueError, match="ROADMAP Queue 2, @fp32"):
+    assert pc.compute_dtype == "float32" and not pc.freeze_towers
+    with pytest.raises(ValueError, match="ROADMAP Queue 2, @fp32-K6b"):
         Trainer(TrainConfig(), pc, None, lambda e: LR, None, "cuda")
+    with pytest.raises(ValueError, match="ROADMAP Queue 2, @fp16"):
+        Trainer(TrainConfig(), dataclasses.replace(pc, compute_dtype="float16", freeze_towers=True),
+                None, lambda e: LR, None, "cuda")
+    frozen = dataclasses.replace(pc, freeze_towers=True)
+    assert Trainer(TrainConfig(), frozen, None, lambda e: LR, None, "cuda").device.type == "cuda"
     assert Trainer(TrainConfig(), pc, None, lambda e: LR, None, "cpu").device.type == "cpu"
 
 
