@@ -68,11 +68,13 @@ Phases (any failure exits non-zero; no phase catches an exception):
     step and K6 24 (remat) plus 12 per val batch;
 16. training numerics: one unfrozen step at full width, batch 1 (rel-pos
     tables and pos_embed filled from a seed, no dropout, "add" fusion), on
-    the card in bf16 and on the CPU in fp32: loss within 2e-2, gradient
-    cosine >= 0.99 for a windowed block's qkv, a global block's rel_pos_h,
-    the patch embed, a SigLIP block's qkv and the decoder's first layer;
-    then the decoder alone on the card in bf16 against fp32 over 3 seeds
-    (each layer's q_proj gradient cosine, reported, not gated);
+    the card in bf16 and in fp32, each against the CPU in fp32: bf16 loss
+    within 2e-2 and gradient cosines >= 0.99, fp32 (K6b@fp32 once per block,
+    no bf16 launch) loss within 1e-4 and cosines >= 0.9999, for a windowed
+    block's qkv, a global block's rel_pos_h and qkv, the patch embed, a
+    SigLIP block's qkv and the decoder's first layer; then the decoder alone
+    on the card in bf16 against fp32 over 3 seeds (each layer's q_proj
+    gradient cosine, reported, not gated);
 17. training timings at batch 10, frozen and unfrozen: seconds per step
     (CUDA events, median and spread of 6 steps), samples/s, peak memory,
     and a torch.profiler breakdown of one unfrozen step by layer;
@@ -124,33 +126,44 @@ Phases (any failure exits non-zero; no phase catches an exception):
 27. the unfrozen CFG step (phase 26's trainer): launches of one step, s per
     step (CUDA events, 3 steps), samples/s, peak memory, a torch.profiler
     breakdown of one step;
-28. numerics at CFG: one unfrozen step at batch 1, GPU bf16 against CPU
-    fp32, with sam_huge cut to 4 blocks (block 3 global) at full width and
-    the towers at full depth: loss within 2e-2, gradient cosines >= 0.99;
+28. numerics at CFG: phase 16's check (GPU bf16 and GPU fp32 against CPU
+    fp32) with sam_huge cut to 4 blocks (block 3 global) at full width and
+    the towers at full depth;
 29. fp32 kernels (compute_dtype float32: 3xTF32 products): K5 at the
     towers', encoder's and neck's shapes, K4 at [16, 576, 2304] and
     [16, 64, 2304], K4′ at 72 (both entries) and 80, K6 at 64 and 80
-    (global and windowed), K7 at [2, 70, 70, 3C] (C 768 and 1280), K5 also
-    at the largest configuration's widths 1152 and 1280, K1
+    (global and windowed), K7 at [2, 70, 70, 3C] (C 768 and 1280), K6b at
+    64 and 80 (global and windowed; its errors against a float64 run
+    printed too), K5 also at the largest configuration's widths 1152 and
+    1280, K1
     (layer 0 from the 2,048-row int8 store, layer 1 on fp32 rows), K2, K1 +
     K2 through the two-way transformer, and K3, each against its plain fp32
     version with TF32 off at cor_tpu's fp32 tolerance (FP32_TOL), timed
     beside the plain version, the library call (SDPA, SDPA with the bias,
-    F.layer_norm) and the fp32 bound (PEAK_FP32_FLOP_S);
+    SDPA's backward with the bias, F.layer_norm) and the fp32 bound
+    (PEAK_FP32_FLOP_S);
 30. the fp32 paths at full SAM-base + ViT-B-16-SigLIP-384 width, on
     configs/vaild_config.yaml's and train_config_m3.yaml's keys with
     compute_dtype float32: cli.index --with-store (32 candidates), cli.serve
     --decode-masks --store-hbm --self-test 8 with the fp32 and --int8 scans
     (every response and PNG, exact fp32 launch counts, no bf16 launch), GPU
     fp32 against CPU fp32 cosines (queries and image embeddings >= 0.9999,
-    mask logits >= 0.999), frozen cli.train (the towers bit-identical, K1-K3
-    in its val step), and unfrozen fp32 cli.train refused naming @fp32-K6b
-    in a process that sees no card;
+    mask logits >= 0.999), cli.train frozen (the towers bit-identical, K1-K3
+    in its val step) and unfrozen (the towers moved; K6b@fp32 12 and K6@fp32
+    24 per step plus 12 per val batch; no bf16 launch);
 31. fp32 beside bf16, one index and the same weights: encode+scan at
     buckets 1, 4, 16, encode+scan+decode at 1 and 4, a batch-8 SAM-base
     encode (and fp32 with fused_window_indexing: K7's fp32 launches), a
-    frozen train step at batch 10 with its peak memory, and a torch.profiler
-    breakdown of one served call at bucket 4 in each dtype.
+    frozen and an unfrozen train step at batch 10 with their peak memory,
+    and a torch.profiler breakdown of one served call at bucket 4 in each
+    dtype and of one unfrozen fp32 step;
+32. the fp32 paths at CFG, full depth and width: cli.index --synthetic 16
+    (K6@fp32 32 and K5@fp32 66 per encoded batch), cli.serve over the
+    127,166-row gallery with the fp32 and --int8 scans (K4′@fp32 54 and
+    K5@fp32 110 per encoded batch), --decode-masks --store-hbm on the index,
+    unfrozen cli.train on m3's keys at batch 10 (K6b@fp32 32 per step),
+    every launch fp32; then the step's seconds (CUDA events), samples/s and
+    peak memory in one pass and split by grad_accum 2 (K6b@fp32 64).
 The line before the last lists every kernel ({"kernels": [...]}; an fp32
 instantiation is an entry of its own, name@fp32, with its fp32 launches);
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -196,6 +209,14 @@ MASK_AGREE_MIN = 0.99  # host-streamed fp16 vs int8 store: pixels that agree
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds of the kernel table
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
+
+
+START = time.perf_counter()
+
+
+def mark(what: str) -> None:
+    """The script's wall time so far, after ``what``."""
+    print(f"  [{time.perf_counter() - START:.1f} s since the start: {what} done]", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -248,10 +269,12 @@ def phase_build():
     print(f"phase 2 build: {path.name} in {dt:.1f} s", flush=True)
     # ptxas -v: per compiled kernel (template cases apart), registers, shared
     # memory and spill bytes
-    names = ("layer_norm_kernel", "seq_attention_kernel", "twl_tokens_in_kernel",
-             "t2i_image_kernel", "twl_tokens_mid_kernel", "twl_image_i2t_kernel",
-             "t2i_combine_kernel", "decoder_tail_kernel", "vit_attention_relpos_kernel",
-             "vit_attention_bwd_dq_kernel", "vit_attention_bwd_dkv_kernel")
+    names = ("layer_norm_kernel", "seq_attention_kernel", "seq_attention_f32_kernel",
+             "twl_tokens_in_kernel", "t2i_image_kernel", "twl_tokens_mid_kernel",
+             "twl_image_i2t_kernel", "t2i_combine_kernel", "decoder_tail_kernel",
+             "vit_attention_relpos_kernel", "vit_attention_relpos_f32_kernel",
+             "vit_attention_bwd_dq_kernel", "vit_attention_bwd_dkv_kernel",
+             "vit_attention_bwd_dq_f32_kernel", "vit_attention_bwd_dkv_f32_kernel")
     kernel, spills, regs = None, {}, {}
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -497,14 +520,26 @@ def read_counts():
     return out
 
 
+def save_synthetic_gallery(d) -> np.ndarray:
+    """A COR127K-sized index of seeded unit rows in ``d``; its pair ids."""
+    from cor_tpu_torch.retrieval.index import save_gallery_index
+
+    rng = np.random.default_rng(SEED)
+    gallery = rng.standard_normal((GALLERY_ROWS, DIM), dtype=np.float32)
+    gallery /= np.linalg.norm(gallery, axis=1, keepdims=True)
+    pair_ids = np.arange(GALLERY_ROWS, dtype=np.int64)
+    save_gallery_index(d, gallery, pair_ids)
+    return pair_ids
+
+
 def config_args(cfg_path) -> list:
     return [] if cfg_path is None else ["--config", str(cfg_path)]
 
 
-def phase_serve(index_dir, pair_ids, cfg_path=None, towers=BASE_TOWERS, phase=4):
+def phase_serve(index_dir, pair_ids, cfg_path=None, towers=BASE_TOWERS, phase=4, sfx=""):
     """``cli.serve.main`` --self-test 8 over the index, fp32 and --int8
     scans; every response and the launch counts (``towers``: K4, K5 per
-    encoded batch) checked."""
+    encoded batch; ``sfx`` "@fp32": the fp32 kernels') checked."""
     from cor_tpu_torch.cli import serve as cli
 
     ids = set(pair_ids.tolist())
@@ -534,10 +569,11 @@ def phase_serve(index_dir, pair_ids, cfg_path=None, towers=BASE_TOWERS, phase=4)
                 fail(f"{mode}: response {r['id']} names a pair_id outside the index")
         n = server.batches_encoded
         want = {k: 0 for k in c}
-        want.update(attention_seq_qkv=towers[0] * n, layer_norm=towers[1] * n)
+        want.update({"attention_seq_qkv" + sfx: towers[0] * n,
+                     "layer_norm" + sfx: towers[1] * n})
         print(f"  serve {mode}: {len(resps)} responses, {n} encoded batches (warmup included), "
               f"launches {c} (expected {want}), main() took {dt:.1f} s")
-        if c != want or min(c["layer_norm"], c["attention_seq_qkv"]) == 0:
+        if c != want or min(c["layer_norm" + sfx], c["attention_seq_qkv" + sfx]) == 0:
             fail(f"{mode}: kernel launch counts {c} != expected {want}")
         servers[mode], counts[mode] = server, c
         print(f"  first response ({mode}): {json.dumps(resps[0])[:300]}")
@@ -1251,9 +1287,10 @@ def phase_train(root: Path, keys=None, blocks: int = 12, phase: int = 15,
                 sfx: str = ""):
     """cli.train.main --synthetic at full width on m3's keys (with ``keys``:
     CFG's, or other overrides), in ``modes`` (frozen and unfrozen); the
-    launch counts of each run (``blocks``: the encoder's; ``sfx`` "@fp32":
-    the fp32 kernels', and no bf16 launch). Returns (counts, results, the
-    unfrozen Trainer if ``keep_unfrozen``)."""
+    launch counts of each run (``blocks``: the encoder's, run once per
+    microbatch of ``grad_accum``; ``sfx`` "@fp32": the fp32 kernels', and no
+    bf16 launch). Returns (counts, results, the unfrozen Trainer if
+    ``keep_unfrozen``)."""
     from cor_tpu_torch.cli import train as cli
     from cor_tpu_torch.config import load_train_config
     from cor_tpu_torch.models.core_model import init_core_model
@@ -1290,8 +1327,9 @@ def phase_train(root: Path, keys=None, blocks: int = 12, phase: int = 15,
         got = trainer.state.model.state_dict()
         same = {p: all(torch.equal(got[n].cpu(), fresh[n]) for n in fresh if n.startswith(p))
                 for p in TOWERS}
-        k6_want = (blocks if freeze else 2 * blocks) * steps + blocks * val_batches
-        k6b_want = 0 if freeze else blocks * steps
+        micro = cfg.grad_accum * steps  # encoder forwards of the train steps
+        k6_want = (blocks if freeze else 2 * blocks) * micro + blocks * val_batches
+        k6b_want = 0 if freeze else blocks * micro
         k6, k6b = c["vit_attention_relpos" + sfx], c["vit_attention_relpos_bwd" + sfx]
         print(f"  train {mode}: unchanged since init {same}; K6{sfx} {k6} (expected {k6_want}), "
               f"K6b{sfx} {k6b} (expected {k6b_want})")
@@ -1356,9 +1394,12 @@ def decoder_bf16_cosines(dec, pe, multimask: bool, seeds=(0, 1, 2)) -> dict:
 
 
 def phase_train_numerics(core_cfg=None, global_block: int = 2, phase: int = 16):
-    """One unfrozen step at batch 1 on the card in bf16 and on the CPU in
-    fp32 (``core_cfg``, default m3's model; ``global_block``: a global
-    block of its encoder); at m3's model also the decoder alone."""
+    """One unfrozen step at batch 1 on the card in bf16 and in fp32, each
+    against the same step on the CPU in fp32 on the same weights and batch
+    (``core_cfg``, default m3's model; ``global_block``: a global block of
+    its encoder): bf16 loss within 2e-2 and gradient cosines >= 0.99, fp32
+    (its launches all fp32, K6b@fp32 once per block) loss within 1e-4 and
+    cosines >= 0.9999; at m3's model also the decoder alone."""
     import copy
 
     from cor_tpu_torch.config import TrainConfig
@@ -1369,43 +1410,64 @@ def phase_train_numerics(core_cfg=None, global_block: int = 2, phase: int = 16):
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     model = init_core_model(cfg, SEED)
     model.image_encoder = filled_encoder(cfg)
-    gpu = copy.deepcopy(model).cuda()  # remat on, as the trainer runs it
-    # the CPU reference keeps every block's activations: no recompute
-    model.image_encoder.cfg = dataclasses.replace(model.image_encoder.cfg, remat_blocks=False)
     b = synthetic_batch(1, cfg)
     batch = {k: torch.from_numpy(b[k]) for k in ("query_img", "query_mask", "support_img",
                                                    "support_mask", "text")}
-    loss_g, _ = train_loss(cfg, gpu, {k: v.cuda() for k, v in batch.items()}, None)
-    loss_g.backward()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss_c, _ = train_loss(cfg32, model, batch, None)
-    loss_c.backward()
-    dt = time.perf_counter() - t0
     names = ("image_encoder.blocks.0.attn.qkv.w",
              f"image_encoder.blocks.{global_block}.attn.rel_pos_h",
              f"image_encoder.blocks.{global_block}.attn.qkv.w",
              "image_encoder.patch_embed.w", "support_branch.siglip.visual.blocks.0.attn.qkv.w",
              "mask_decoder.transformer.layers.0.self_attn.q_proj.w")
-    pg, pc = dict(gpu.named_parameters()), dict(model.named_parameters())
-    cos = {n: torch.nn.functional.cosine_similarity(  # in fp64: millions of terms
-        pg[n].grad.cpu().double().flatten()[None], pc[n].grad.double().flatten()[None]).item()
-        for n in names}
-    d = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
-    print(f"  unfrozen step, batch 1: loss GPU bf16 {loss_g.item():.6f}, CPU fp32 "
-          f"{loss_c.item():.6f} (relative {d:.3e}); gradient cosines {json.dumps(cos)} "
-          f"(CPU forward and backward {dt:.1f} s)")
-    if not d <= 2e-2 or min(cos.values()) < COS_MIN:
-        fail(f"GPU bf16 and CPU fp32 training steps disagree: loss {d}, cosines {cos}")
-    if core_cfg is None:
-        dec_cos = decoder_bf16_cosines(gpu.mask_decoder, gpu.prompt_encoder,
+    gpu_runs, kept = {}, None
+    for dt_name, c in (("bf16", cfg), ("fp32", cfg32)):
+        gpu = copy.deepcopy(model).cuda()  # remat on, as the trainer runs it
+        reset_counts()
+        loss_g, _ = train_loss(c, gpu, {k: v.cuda() for k, v in batch.items()}, None)
+        loss_g.backward()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        pg = dict(gpu.named_parameters())
+        gpu_runs[dt_name] = (loss_g.item(), {n: pg[n].grad.cpu().double() for n in names},
+                             counts)
+        if dt_name == "bf16" and core_cfg is None:
+            kept = gpu
+        del gpu, pg, loss_g
+        torch.cuda.empty_cache()
+    depth = cfg.encoder.depth
+    c32 = gpu_runs["fp32"][2]
+    if c32["vit_attention_relpos_bwd@fp32"] != depth or any(
+            c32[n] for n in kernel_wrappers()):
+        fail(f"the fp32 step on the card: launches {c32} (K6b@fp32 {depth}, no bf16 one, "
+             f"expected)")
+    # the CPU reference keeps every block's activations: no recompute
+    model.image_encoder.cfg = dataclasses.replace(model.image_encoder.cfg, remat_blocks=False)
+    t0 = time.perf_counter()
+    loss_c, _ = train_loss(cfg32, model, batch, None)
+    loss_c.backward()
+    dt = time.perf_counter() - t0
+    pc = dict(model.named_parameters())
+    for dt_name, (loss_g, grads, _), loss_tol, cos_min in (
+            ("bf16", gpu_runs["bf16"], 2e-2, COS_MIN),
+            ("fp32", gpu_runs["fp32"], FP32_STEP_LOSS, COS32_GRAD)):
+        cos = {n: torch.nn.functional.cosine_similarity(  # in fp64: millions of terms
+            grads[n].flatten()[None], pc[n].grad.double().flatten()[None]).item() for n in names}
+        d = abs(loss_g - loss_c.item()) / abs(loss_c.item())
+        print(f"  unfrozen step, batch 1: loss GPU {dt_name} {loss_g:.6f}, CPU fp32 "
+              f"{loss_c.item():.6f} (relative {d:.3e}); gradient cosines {json.dumps(cos)} "
+              f"(CPU forward and backward {dt:.1f} s)")
+        if not d <= loss_tol or min(cos.values()) < cos_min:
+            fail(f"GPU {dt_name} and CPU fp32 training steps disagree: loss {d} (limit "
+                 f"{loss_tol}), cosines {cos} (limit {cos_min})")
+    print(f"  the fp32 step's launches on the card: "
+          f"{ {k: v for k, v in c32.items() if v} }")
+    if kept is not None:
+        dec_cos = decoder_bf16_cosines(kept.mask_decoder, kept.prompt_encoder,
                                        cfg.multimask_output)
         print(f"  the decoder alone on the card, bf16 vs fp32, seeds 0-2: q_proj gradient "
               f"cosines {json.dumps(dec_cos)}")
-    del gpu, model
+    del kept, model
     torch.cuda.empty_cache()
     print(f"phase {phase} training numerics: ok", flush=True)
-    return d, cos
 
 
 def train_batch():
@@ -1622,7 +1684,6 @@ def phase_large(smi: str):
     """Phases 19-22 at CFG (sam_huge + ViT-SO400M-14-SigLIP-384). Returns
     the launch counts of its serving and build paths."""
     from cor_tpu_torch.config import load_eval_config
-    from cor_tpu_torch.retrieval.index import save_gallery_index
 
     with tempfile.TemporaryDirectory() as d:
         d = Path(d)
@@ -1633,11 +1694,7 @@ def phase_large(smi: str):
                                                  per_batch=(32, 66))
         print("phase 19 large-config gallery build: ok", flush=True)
 
-        rng = np.random.default_rng(SEED)
-        gallery = rng.standard_normal((GALLERY_ROWS, DIM), dtype=np.float32)
-        gallery /= np.linalg.norm(gallery, axis=1, keepdims=True)
-        pair_ids = np.arange(GALLERY_ROWS, dtype=np.int64)
-        save_gallery_index(d / "gallery", gallery, pair_ids)
+        pair_ids = save_synthetic_gallery(d / "gallery")
         servers, serve_counts = phase_serve(d / "gallery", pair_ids, cfg_path, LARGE_TOWERS,
                                             phase=20)
         dec_server, _, _ = serve_masks(
@@ -1798,31 +1855,37 @@ def phase_k7_encoders(smi: str):
     return counts
 
 
-def phase_large_train_timings(trainer, smi: str):
-    """On phase 26's unfrozen CFG trainer: one step's launches (K6b 32, K6
-    64, exactly), seconds per step (CUDA events, median and spread of 3
-    steps), samples/s, peak memory and a torch.profiler breakdown of one
-    step."""
-    from cor_tpu_torch.train.step import BATCH_KEYS
+def phase_large_train_timings(trainer, smi: str, sfx: str = "", phase: int = 27,
+                              grad_accum: int = 1, steps: int = 3, with_profile: bool = True):
+    """On an unfrozen CFG trainer (phase 26's; phase 32's in fp32, ``sfx``
+    "@fp32"), its step at batch 10 taken as ``grad_accum`` microbatches: one
+    step's launches (K6b 32 and K6 64 per microbatch, exactly; with ``sfx``
+    no bf16 launch), seconds per step (CUDA events, median and spread of
+    ``steps`` steps), samples/s, peak memory and (with ``with_profile``) a
+    torch.profiler breakdown of one step."""
+    from cor_tpu_torch.train.step import BATCH_KEYS, make_train_step
 
     cfg = trainer.cfg
     n = cfg.batch_size
     b = synthetic_batch(n, trainer.core_cfg)
     batch = {k: torch.from_numpy(b[k]).cuda() for k in BATCH_KEYS}
     batch["valid"] = torch.ones(n, device="cuda")
-    step = lambda: trainer.train_step(trainer.state, batch, cfg.lr)  # noqa: E731
-    blocks = trainer.core_cfg.encoder.depth
+    train_step = (trainer.train_step if grad_accum == cfg.grad_accum else
+                  make_train_step(trainer.core_cfg, cfg.seed, grad_accum=grad_accum))
+    step = lambda: train_step(trainer.state, batch, cfg.lr)  # noqa: E731
+    blocks = trainer.core_cfg.encoder.depth * grad_accum
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     loss = step()["total_loss"].item()
     c = read_counts()
-    if c["vit_attention_relpos_bwd"] != blocks or c["vit_attention_relpos"] != 2 * blocks or \
-            not np.isfinite(loss):
-        fail(f"CFG train step: launches {c} (K6b {blocks} and K6 {2 * blocks} expected), "
-             f"loss {loss}")
+    if c["vit_attention_relpos_bwd" + sfx] != blocks or \
+            c["vit_attention_relpos" + sfx] != 2 * blocks or not np.isfinite(loss) or (
+            sfx and any(c[n] for n in kernel_wrappers())):
+        fail(f"CFG train step{sfx}: launches {c} (K6b{sfx} {blocks} and K6{sfx} {2 * blocks} "
+             f"expected), loss {loss}")
     times = []
-    for _ in range(3):
+    for _ in range(steps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         step()
@@ -1831,11 +1894,12 @@ def phase_large_train_timings(trainer, smi: str):
         times.append(start.elapsed_time(end) / 1e3)
     med = statistics.median(times)
     out = {"s_per_step": med, "min_s": min(times), "max_s": max(times),
-           "samples_per_s": n / med, "batch": n, "loss": loss, "launches_per_step": c,
+           "samples_per_s": n / med, "batch": n, "grad_accum": grad_accum, "loss": loss,
+           "launches_per_step": {k: v for k, v in c.items() if v},
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "profile": profile(step, 1), "card": smi}
-    print(json.dumps({"large_train_timings": out}))
-    print("phase 27 training timings at CFG: ok", flush=True)
+           **({"profile": profile(step, 1)} if with_profile else {}), "card": smi}
+    print(json.dumps({f"large_train_timings{sfx}": out}))
+    print(f"phase {phase} training timings at CFG{sfx}, grad_accum {grad_accum}: ok", flush=True)
     return out
 
 
@@ -1860,19 +1924,69 @@ def phase_large_train(smi: str):
     return counts["unfrozen"]
 
 
+def phase_large_fp32(smi: str):
+    """Phase 32: the fp32 paths at CFG (sam_huge + ViT-SO400M-14-SigLIP-384,
+    full depth and width, compute_dtype float32) through the entry points:
+    cli.index (16 candidates: K6@fp32 32 and K5@fp32 66 per encoded batch),
+    cli.serve over the 127,166-row gallery with the fp32 and --int8 scans
+    (K4′@fp32 54 and K5@fp32 110 per encoded batch), --decode-masks
+    --store-hbm on the index, then unfrozen cli.train on m3's keys at batch
+    10 (K6b@fp32 32 per step: batch 10 fits in one pass), and that step's
+    timings in one pass and split in two microbatches by grad_accum (K6b@fp32
+    64 per step); no bf16 launch anywhere. Returns the launch counts of the
+    serving, build and training paths."""
+    keys = {**LARGE_KEYS, "compute_dtype": "float32"}
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        cfg_path = flat_config("vaild_config.yaml", d / "large32.yaml", **keys)
+        print(f"  CFG fp32 {cfg_path.name}: {json.dumps(keys)}", flush=True)
+        build_counts, build_s, idx = build_index(d / "index", LARGE_BUILD_ROWS, cfg_path,
+                                                 per_batch=(32, 66), sfx="@fp32")
+        pair_ids = save_synthetic_gallery(d / "gallery")
+        servers, serve_counts = phase_serve(d / "gallery", pair_ids, cfg_path, LARGE_TOWERS,
+                                            phase=32, sfx="@fp32")
+        del servers
+        dec_server, dec_counts, _ = serve_masks(
+            d / "index", set(idx["pair_ids"].tolist()), d / "masks",
+            "fp32 compute, hbm, sam_huge index", ["--store-hbm"], cfg_path, LARGE_TOWERS,
+            sfx="@fp32")
+        del dec_server
+        torch.cuda.empty_cache()
+        counts, results, trainer = phase_train(
+            d / "train", keys, blocks=32, phase=32, keep_unfrozen=True,
+            modes=(("unfrozen", False),), sfx="@fp32")
+    for ga in (1, 2):
+        phase_large_train_timings(trainer, smi, sfx="@fp32", phase=32, grad_accum=ga, steps=2,
+                                  with_profile=False)
+    del trainer
+    torch.cuda.empty_cache()
+    print(json.dumps({"large_fp32_paths": {
+        "build": {"rows": LARGE_BUILD_ROWS, "seconds": build_s,
+                  "launches": {k: v for k, v in build_counts.items() if v}},
+        "serve_launches": {k: v for k, v in serve_counts.items() if v},
+        "decode_serve_launches": {k: v for k, v in dec_counts.items() if v},
+        "train_unfrozen": {**results["unfrozen"],
+                           "launches": {k: v for k, v in counts["unfrozen"].items() if v}},
+        "card": smi}}))
+    print("phase 32 fp32 paths at CFG: ok", flush=True)
+    return {"serve": serve_counts, "build": build_counts, "train": counts["unfrozen"]}
+
+
 
 # ---------------------------------------------------------------------------
 # fp32 (compute_dtype float32): phases 29-31
 # ---------------------------------------------------------------------------
 
-# cor_tpu's own fp32 kernel tests against their oracles (atol = rtol): K5
-# tests/test_pallas_kernels.py:19, K4/K4′ test_kernel_vjp.py:96-98, K6/K7
-# test_vit_attention_kernel.py:22, K1 test_two_way_layer_kernel.py:43-44,
-# K1 + K2 through the two-way transformer :59-60 (K2's only fp32 test), K3
-# test_decoder_tail_kernel.py:31
+# cor_tpu's own fp32 kernel tests against their oracles (atol = rtol, or
+# (atol, rtol)): K5 tests/test_pallas_kernels.py:19, K4/K4′
+# test_kernel_vjp.py:96-98, K6/K7 test_vit_attention_kernel.py:22, K6b (the
+# gradient: global, multitile, windowed) test_kernel_vjp.py:167,187,210, K1
+# test_two_way_layer_kernel.py:43-44, K1 + K2 through the two-way
+# transformer :59-60 (K2's only fp32 test), K3 test_decoder_tail_kernel.py:31
 FP32_TOL = {"layer_norm": 1e-5, "attention_seq_qkv": 1e-5, "vit_attention_relpos": 2e-4,
-            "vit_attention_relpos_windows": 2e-4, "two_way_layer": 2e-4, "t2i_flash_kv": 5e-4,
-            "transformer": 5e-4, "decoder_tail": 2e-4}
+            "vit_attention_relpos_windows": 2e-4, "vit_attention_relpos_bwd": (1e-5, 1e-4),
+            "two_way_layer": 2e-4, "t2i_flash_kv": 5e-4, "transformer": 5e-4,
+            "decoder_tail": 2e-4}
 # fp32-accurate products on the tensor cores: 3xTF32, three TF32 products
 # (494.7 TFLOP/s dense, NVIDIA data sheet) per fp32 product; above the 67
 # TFLOP/s of fp32 on the CUDA cores, so the least time the card could take
@@ -1885,20 +1999,22 @@ def bound32(n_bytes: float, flops: float):
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def tol_err(tol: float, *pairs):
-    """(max |got - want|, max |got - want| / (tol + tol |want|)): the second
-    is <= 1 where allclose(atol=tol, rtol=tol) holds."""
+def tol_err(tol, *pairs):
+    """(max |got - want|, max |got - want| / (atol + rtol |want|)) with
+    ``tol`` atol = rtol, or (atol, rtol): the second is <= 1 where
+    allclose(atol, rtol) holds."""
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
     d = max((g.float() - w.float()).abs().max().item() for g, w in pairs)
-    r = max(((g.float() - w.float()).abs() / (tol + tol * w.float().abs())).max().item()
+    r = max(((g.float() - w.float()).abs() / (atol + rtol * w.float().abs())).max().item()
             for g, w in pairs)
     return d, r
 
 
-def check32(name: str, label: str, tol: float, pairs, kt, pt, b, lt=None, **extra):
+def check32(name: str, label: str, tol, pairs, kt, pt, b, lt=None, **extra):
     err, ratio = tol_err(tol, *pairs)
     lib = "" if lt is None else f", library {lt[0]:.4f} ms"
-    print(f"  {name} fp32 {label}: max|d| = {err:.3e}, max|d|/(tol + tol|plain|) = {ratio:.3f} "
-          f"(tol {tol:g}); kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain "
+    print(f"  {name} fp32 {label}: max|d| = {err:.3e}, max|d|/(atol + rtol|plain|) = "
+          f"{ratio:.3f} (tol {tol}); kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain "
           f"{pt[0]:.4f} ms{lib}, bound {b[0]:.4f} ms ({b[1]})", flush=True)
     if not ratio <= 1.0:
         fail(f"{name} fp32 ({label}) disagrees with its plain fp32 version: max|d| {err}, "
@@ -1975,6 +2091,7 @@ def phase_fp32_kernels(device):
         k4[label] = check32("K4 attention_seq_qkv", f"{label} [{BATCH}, {n}, {3 * C}]", tol,
                             pairs, kt, pt, b, lt)
         del q, k, v
+    out["attention_seq_qkv@72@fp32"] = dict(k4.pop("d72-vision"), text=k4.pop("d72-text"))
     out["attention_seq_qkv@fp32"] = dict(k4.pop("vision"), other_shapes=k4)
 
     # K6 at 64 and 80, global [2, 4096, 3C] and windowed [50, 196, 3C]
@@ -2000,7 +2117,10 @@ def phase_fp32_kernels(device):
                                          [(got, want)], kt, pt, b, lt)
             del bias, q, k, v, want
             torch.cuda.empty_cache()
-    out["vit_attention_relpos@fp32"] = dict(k6.pop("d64-global"), other_shapes=k6)
+    out["vit_attention_relpos@80@fp32"] = dict(k6.pop("d80-global"),
+                                               windowed=k6.pop("d80-windowed"))
+    out["vit_attention_relpos@fp32"] = dict(k6.pop("d64-global"),
+                                            windowed=k6.pop("d64-windowed"))
 
     # K7 at [2, 70, 70, 3C], windows of 14 cropped to 64 x 64, C 768 and 1280
     tol = FP32_TOL["vit_attention_relpos_windows"]
@@ -2032,9 +2152,98 @@ def phase_fp32_kernels(device):
         torch.cuda.empty_cache()
     out["vit_attention_relpos_windows@fp32"] = dict(k7.pop("sam_base"), other_shapes=k7)
 
+    k6b = k6b_fp32(device, gen)
+    out["vit_attention_relpos_bwd@fp32"] = dict(k6b["d64-global"], windowed=k6b["d64-windowed"])
+    out["vit_attention_relpos_bwd@80@fp32"] = dict(k6b["d80-global"],
+                                                   windowed=k6b["d80-windowed"])
     out.update(decoder_kernels_fp32(device, gen))
     print("phase 29 fp32 kernels: ok", flush=True)
     return out
+
+
+def k6b_fp64(qkv, rel_h, rel_w, do, heads: int, side: int):
+    """K6b's function in float64, image by image: (dqkv, drel_h, drel_w),
+    against which the kernel's and the plain version's errors are read."""
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    D = C // heads
+    out = []
+    for i in range(B):
+        q, k, v = (qkv[i, :, j * C:(j + 1) * C].double().reshape(N, heads, D).transpose(0, 1)
+                   for j in range(3))
+        qs = q * D**-0.5
+        logits = (qs @ k.transpose(-1, -2)).reshape(heads, N, side, side)
+        logits = logits + rel_h[i].double()[..., :, None] + rel_w[i].double()[..., None, :]
+        a = torch.softmax(logits.reshape(heads, N, N), dim=-1)
+        dof = do[i].double().reshape(N, heads, D).transpose(0, 1)
+        da = dof @ v.transpose(-1, -2)
+        dl = a * (da - (a * da).sum(dim=-1, keepdim=True))
+        merge = lambda x: x.transpose(0, 1).reshape(N, C)  # noqa: E731
+        dqkv = torch.cat([merge(dl @ k * D**-0.5), merge(dl.transpose(-1, -2) @ qs),
+                          merge(a.transpose(-1, -2) @ dof)], dim=-1)
+        dl4 = dl.reshape(heads, N, side, side)
+        out.append((dqkv, dl4.sum(dim=-1), dl4.sum(dim=-2)))
+        del logits, a, da, dl, dl4
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
+def k6b_fp32(device, gen):
+    """K6b@fp32 at SAM-base's 12 heads of 64 and sam_huge's 16 of 80, global
+    [2, 4096, 3C] and windowed [50, 196, 3C] ({"d64-global": entry, ...}),
+    against its plain fp32 backward
+    with TF32 off at cor_tpu's fp32 gradient tolerance; both errors against a
+    float64 run printed; timed beside the plain version and SDPA's fp32
+    backward with the materialised bias requiring grad."""
+    import torch.nn.functional as F
+
+    from cor_tpu_torch.ops.kernels.vit_attention import (
+        vit_attention_relpos_bwd,
+        vit_attention_relpos_bwd_plain,
+    )
+
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
+    tol = FP32_TOL["vit_attention_relpos_bwd"]
+    res = {}
+    for heads, D in ((12, 64), (16, 80)):
+        C = heads * D
+        for label, B, side in (("global", 2, GRID), ("windowed", 50, 14)):
+            N = side * side
+            qkv = rnd(B, N, 3 * C)
+            rel_h, rel_w = 0.3 * rnd(B, heads, N, side), 0.3 * rnd(B, heads, N, side)
+            do = rnd(B, N, C)
+            args = (qkv, rel_h, rel_w, do, heads, (side, side))
+            got = vit_attention_relpos_bwd(*args)
+            want = vit_attention_relpos_bwd_plain(*args)
+            exact = k6b_fp64(qkv, rel_h, rel_w, do, heads, side)
+            vs64 = {"kernel": [(g.double() - e).abs().max().item() for g, e in zip(got, exact)],
+                    "plain": [(w.double() - e).abs().max().item() for w, e in zip(want, exact)]}
+            del exact
+            print(f"  K6b fp32 d{D} {label}: max|d| against float64 (dqkv, drel_h, drel_w): "
+                  f"kernel {vs64['kernel']}, plain {vs64['plain']}", flush=True)
+            kt = cuda_ms(lambda: vit_attention_relpos_bwd(*args))
+            pt = cuda_ms(lambda: vit_attention_relpos_bwd_plain(*args), windows=3, iters=2)
+            with torch.enable_grad():  # SDPA's backward: autograd, the graph built once
+                q, k, v = (qkv[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
+                           .detach().requires_grad_() for i in range(3))
+                bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, heads, N, N)
+                bias = bias.requires_grad_()
+                o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+                do4 = do.unflatten(-1, (heads, D)).transpose(1, 2)
+                lt = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v, bias), do4,
+                                                         retain_graph=True), windows=5, iters=3)
+                del o, bias, q, k, v
+            # the five N x N x D products the gradient needs (the kernel runs
+            # nine: two recomputes of the logits and of do v^T in pass 1)
+            flops = 5 * 2 * N * N * D * B * heads
+            n_bytes = nbytes(qkv, rel_h, rel_w, do) + nbytes(*got)
+            b = bound32(n_bytes, flops)
+            res[f"d{D}-{label}"] = check32(
+                "K6b vit_attention_relpos_bwd", f"d{D} {label} [{B}, {N}, {3 * C}]", tol,
+                list(zip(got, want)), kt, pt, b, lt, max_abs_err_vs_float64=vs64,
+                bound_nine_products_ms=bound32(n_bytes, flops * 9 / 5)[0])
+            del got, want
+            torch.cuda.empty_cache()
+    return res
 
 
 @torch.no_grad()
@@ -2128,34 +2337,14 @@ def decoder_kernels_fp32(device, gen):
 
 FP32_BUILD_ROWS = 32  # candidates of the phase-30 build (4 encoded batches)
 COS32_EMB, COS32_MASK = 0.9999, 0.999  # GPU fp32 against CPU fp32, same weights
-
-
-def refuse_unfrozen_fp32(root: Path) -> str:
-    """``cli.train`` with freeze_towers: false in fp32, in a process that
-    sees no card: it must exit 2 naming @fp32-K6b (with the card hidden, a
-    refusal that came after looking for the card would name the card
-    instead)."""
-    import os
-
-    root.mkdir(parents=True, exist_ok=True)
-    cfg_path = m3_config(root, epoch=1, train_model_save_path=str(root / "ck"),
-                         freeze_towers=False, compute_dtype="float32")
-    proc = subprocess.run(
-        [sys.executable, "-m", "cor_tpu_torch.cli.train", "--config", str(cfg_path),
-         "--synthetic"], cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-        timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
-    last = (proc.stderr.strip().splitlines() or [""])[-1]
-    print(f"  unfrozen fp32 cli.train, card hidden: exit {proc.returncode}: {last[:300]}")
-    if proc.returncode != 2 or "@fp32-K6b" not in proc.stderr or (root / "ck").exists():
-        fail(f"unfrozen fp32 training was not refused naming @fp32-K6b before the card "
-             f"was looked for: exit {proc.returncode}, {proc.stderr[-1000:]}")
-    return last
+FP32_STEP_LOSS, COS32_GRAD = 1e-4, 0.9999  # an fp32 train step, GPU against CPU
 
 
 def phase_fp32_paths(root: Path):
     """Phase 30: the fp32 paths at full SAM-base + ViT-B-16-SigLIP-384 width
     through the entry points, with configs/vaild_config.yaml's and
-    configs/train_config_m3.yaml's keys and compute_dtype: float32."""
+    configs/train_config_m3.yaml's keys and compute_dtype: float32: the
+    build, serving with masks, and cli.train frozen and unfrozen."""
     from cor_tpu_torch.config import load_eval_config
 
     cfg_path = flat_config("vaild_config.yaml", root / "fp32.yaml", compute_dtype="float32")
@@ -2175,21 +2364,20 @@ def phase_fp32_paths(root: Path):
     m_cos = phase_decode_numerics(servers["fp32"], index_dir, rows=(0, 9, 17, 31), phase=30,
                                   cos_min=COS32_MASK)
     train_counts, train_res, _ = phase_train(root / "train", keys={"compute_dtype": "float32"},
-                                             phase=30, modes=(("frozen", True),), sfx="@fp32")
-    refusal = refuse_unfrozen_fp32(root / "refused")
+                                             phase=30, sfx="@fp32")
     print(json.dumps({"fp32_paths": {
         "build": {"rows": FP32_BUILD_ROWS, "seconds": build_s,
                   "launches": {k: v for k, v in build_counts.items() if v}},
         "serve_launches": {k: {n: v for n, v in c.items() if v} for k, c in serve_counts.items()},
         "min_cosine_vs_cpu_fp32": {"queries": q_cos, "image_embeddings_flat": cos_flat,
                                    "image_embeddings_pooled": cos_pool, "mask_logits": m_cos},
-        "train_frozen": {**train_res["frozen"],
-                         "launches": {k: v for k, v in train_counts["frozen"].items() if v}},
-        "unfrozen_refusal": refusal,
+        **{f"train_{mode}": {**train_res[mode],
+                             "launches": {k: v for k, v in train_counts[mode].items() if v}}
+           for mode in ("frozen", "unfrozen")},
     }}))
     print("phase 30 fp32 paths: ok", flush=True)
     return servers["fp32"], enc32, index_dir, ids, {
-        "build": build_counts, "serve": serve_counts["fp32"], "train": train_counts["frozen"]}
+        "build": build_counts, "serve": serve_counts["fp32"], "train": train_counts["unfrozen"]}
 
 
 def phase_fp32_timings(server32, enc32, index_dir: Path, ids: set, root: Path, smi: str):
@@ -2197,9 +2385,10 @@ def phase_fp32_timings(server32, enc32, index_dir: Path, ids: set, root: Path, s
     weights: encode+scan at buckets 1, 4, 16, encode+scan+decode at 1 and 4
     (--store-hbm; the scan over phase 30's 32 rows), a batch-8 SAM-base
     encode (and with fused_window_indexing: K7's fp32 launches), a frozen
-    train step at batch 10 with its peak memory; CUDA-event medians of 7
-    windows (7 steps) with their spread; a torch.profiler breakdown of one
-    served call at bucket 4 in each dtype. Returns K7's fp32 launches."""
+    and an unfrozen train step at batch 10 with their peak memory;
+    CUDA-event medians of 7 windows (7 steps) with their spread; a
+    torch.profiler breakdown of one served call at bucket 4 in each dtype
+    and of one unfrozen fp32 step. Returns K7's fp32 launches."""
     import copy
 
     from cor_tpu_torch.config import TrainConfig, load_eval_config
@@ -2271,16 +2460,22 @@ def phase_fp32_timings(server32, enc32, index_dir: Path, ids: set, root: Path, s
     torch.cuda.empty_cache()
 
     batch = train_batch()
-    steps = {}
-    for dt in ("bfloat16", "float32"):
-        steps[dt] = step_timings(dataclasses.replace(TrainConfig(), freeze_towers=True,
-                                                     compute_dtype=dt), batch, steps=7)
+    steps = {"frozen": {}, "unfrozen": {}}
+    for mode, freeze in (("frozen", True), ("unfrozen", False)):
+        for dt in ("bfloat16", "float32"):
+            steps[mode][dt] = step_timings(
+                dataclasses.replace(TrainConfig(), freeze_towers=freeze, compute_dtype=dt),
+                batch, steps=7, with_profile=not freeze and dt == "float32")
+    step_prof = steps["unfrozen"]["float32"].pop("profile")
     print(json.dumps({"fp32_timings": {
-        **out, "encode_batch8_ms": encode, "frozen_train_step": steps,
-        "batch": TrainConfig().batch_size, "index_rows": FP32_BUILD_ROWS, "k": 10, "card": smi}}))
+        **out, "encode_batch8_ms": encode, "frozen_train_step": steps["frozen"],
+        "unfrozen_train_step": steps["unfrozen"], "batch": TrainConfig().batch_size,
+        "index_rows": FP32_BUILD_ROWS, "k": 10, "card": smi}}))
     for dt, prof in profiles.items():
         print(json.dumps({"served_call_profile": {"dtype": dt, "bucket": 4, **prof,
                                                   "card": smi}}))
+    print(json.dumps({"unfrozen_fp32_step_profile": {"batch": TrainConfig().batch_size,
+                                                     **step_prof, "card": smi}}))
     print("phase 31 fp32 timings: ok", flush=True)
     return k7
 
@@ -2291,22 +2486,19 @@ def main():
               file=sys.stderr)
         sys.exit(2)
     # before any output: without the repository beside it, the script stops here
-    from cor_tpu_torch.retrieval.index import save_gallery_index
+    import cor_tpu_torch.retrieval.index  # noqa: F401
 
     name, smi = phase_device()
     phase_build()
     kernel_results = phase_kernels(torch.device("cuda"))
 
-    rng = np.random.default_rng(SEED)
-    gallery = rng.standard_normal((GALLERY_ROWS, DIM), dtype=np.float32)
-    gallery /= np.linalg.norm(gallery, axis=1, keepdims=True)
-    pair_ids = np.arange(GALLERY_ROWS, dtype=np.int64)
     with tempfile.TemporaryDirectory() as d:
-        save_gallery_index(d, gallery, pair_ids)
+        pair_ids = save_synthetic_gallery(d)
         servers, launches = phase_serve(d, pair_ids)
     phase_numerics(servers["fp32"])
     phase_timings(servers["fp32"], smi)
     del servers
+    mark("phases 1-6")
 
     with tempfile.TemporaryDirectory() as d:
         d = Path(d)
@@ -2318,6 +2510,7 @@ def main():
         phase_decode_numerics(dec_servers["host"], d / "index")
         phase_decode_timings(dec_servers, smi)
     del dec_servers
+    mark("phases 7-9")
 
     enc_kernels, ln_sam = phase_encoder_kernels(torch.device("cuda"))
     kernel_results["vit_attention_relpos"] = enc_kernels
@@ -2328,24 +2521,29 @@ def main():
     phase_build_timings(enc_gpu, smi)
     del enc_gpu
     torch.cuda.empty_cache()
+    mark("phases 10-13")
 
     kernel_results["vit_attention_relpos_bwd"] = phase_k6b(torch.device("cuda"))
     with tempfile.TemporaryDirectory() as d:
         train_launches, _, _ = phase_train(Path(d))
     phase_train_numerics()
     phase_train_timings(smi)
+    mark("phases 14-17")
 
     k4_72, k6_80, ln_large = phase_large_kernels(torch.device("cuda"))
     kernel_results["attention_seq_qkv@72"] = k4_72
     kernel_results["vit_attention_relpos@80"] = k6_80
     kernel_results["layer_norm"]["large_config_shapes"] = ln_large
     large_serve, large_build = phase_large(smi)
+    mark("phases 18-22")
 
     kernel_results["vit_attention_relpos_bwd@80"] = phase_k6b(torch.device("cuda"), 16, 80,
                                                               phase=23)
     kernel_results["vit_attention_relpos_windows"] = phase_k7(torch.device("cuda"))
     k7_launches = phase_k7_encoders(smi)
+    mark("phases 23-25")
     large_train = phase_large_train(smi)
+    mark("phases 26-28")
 
     kernel_results.update(phase_fp32_kernels(torch.device("cuda")))
     with tempfile.TemporaryDirectory() as d:
@@ -2353,6 +2551,9 @@ def main():
         k7_fp32 = phase_fp32_timings(server32, enc32, index32, ids32, Path(d), smi)
         del server32, enc32
     torch.cuda.empty_cache()
+    mark("phases 29-31")
+    large32 = phase_large_fp32(smi)
+    mark("phase 32")
 
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70",
@@ -2392,6 +2593,21 @@ def main():
         "vit_attention_relpos@fp32": ("cor_tpu_torch/csrc/vit_attention.cu",
                                       "cor_tpu/ops/pallas/vit_attention.py:284",
                                       fp32_launches["build"]),
+        # unfrozen fp32 training at the flagship (phase 30's cli.train)
+        "vit_attention_relpos_bwd@fp32": ("cor_tpu_torch/csrc/vit_attention_bwd.cu",
+                                          "cor_tpu/ops/pallas/vit_attention.py:459",
+                                          fp32_launches["train"]),
+        # the largest configuration's fp32 paths (phase 32): the SO400M towers
+        # served, the sam_huge build, unfrozen training
+        "attention_seq_qkv@72@fp32": ("cor_tpu_torch/csrc/seq_attention.cu",
+                                      "cor_tpu/ops/pallas/seq_attention.py:49",
+                                      large32["serve"]),
+        "vit_attention_relpos@80@fp32": ("cor_tpu_torch/csrc/vit_attention.cu",
+                                         "cor_tpu/ops/pallas/vit_attention.py:284",
+                                         large32["build"]),
+        "vit_attention_relpos_bwd@80@fp32": ("cor_tpu_torch/csrc/vit_attention_bwd.cu",
+                                             "cor_tpu/ops/pallas/vit_attention.py:459",
+                                             large32["train"]),
         "vit_attention_relpos_windows@fp32": ("cor_tpu_torch/csrc/vit_attention.cu",
                                               "cor_tpu/ops/pallas/vit_attention.py:180",
                                               k7_fp32),

@@ -67,7 +67,7 @@ def main(argv=None):
     if not args.synthetic:
         parser.error(f"only --synthetic is ported: a manifest needs {MANIFEST_ITEM}")
     try:
-        check_kernel_dtype(cfg.core_config(), args.device, train=True)
+        check_kernel_dtype(cfg.core_config(), args.device)
     except ValueError as e:
         parser.error(str(e))
     if args.device == "cuda" and not torch.cuda.is_available():

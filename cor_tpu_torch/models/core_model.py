@@ -29,7 +29,6 @@ from cor_tpu_torch.models.sam_decoder import MaskDecoder, MaskDecoderConfig, mas
 from cor_tpu_torch.models.sam_encoder import SamEncoder, SamEncoderConfig, sam_encoder_config
 from cor_tpu_torch.models.support_branch import SupportBranch, SupportBranchConfig
 from cor_tpu_torch.ops.common import reset_all
-from cor_tpu_torch.ops.kernels.vit_attention import FP32_K6B_ITEM
 
 
 @dataclass(frozen=True)
@@ -93,19 +92,19 @@ class CoreConfig:
         return dt
 
 
-# the compute dtypes the card's kernels take, and the ROADMAP row that ports
-# another (FP32_K6B_ITEM: K6b, the encoder's attention backward, in fp32)
+# the compute dtypes the card's kernels take (forward and backward), and the
+# ROADMAP row that ports another
 KERNEL_DTYPES = ("bfloat16", "float32")
 FP16_ITEM = "ROADMAP Queue 2, @fp16 (the kernels in fp16)"
 
 
-def check_kernel_dtype(cfg: CoreConfig, device, train: bool = False) -> None:
+def check_kernel_dtype(cfg: CoreConfig, device) -> None:
     """Refuse, off the CPU, a compute dtype that the card's kernels do not
-    take, naming the ROADMAP row that ports it; with ``train``, also fp32
-    training with unfrozen towers, whose encoder backward (K6b) takes bf16
-    only. The CPU runs any float dtype through the kernels' plain versions.
-    The entry points call this before they look for the card, so that the
-    refusal comes before any model is built."""
+    take, naming the ROADMAP row that ports it (fp16: @fp16). bf16 and fp32
+    serve, build and train, frozen or unfrozen (the encoder's attention
+    backward, K6b, takes both). The CPU runs any float dtype through the
+    kernels' plain versions. The entry points call this before they look for
+    the card, so that the refusal comes before any model is built."""
     dt = cfg.dtype  # raises on a name that is no float dtype
     if torch.device(device).type == "cpu":
         return
@@ -113,11 +112,6 @@ def check_kernel_dtype(cfg: CoreConfig, device, train: bool = False) -> None:
         raise ValueError(
             f"compute_dtype {cfg.compute_dtype} ({dt}) has no kernels on the card, which take "
             f"{' and '.join(KERNEL_DTYPES)}: {FP16_ITEM}; --device cpu runs it on the CPU")
-    if train and cfg.compute_dtype == "float32" and not cfg.freeze_towers:
-        raise ValueError(
-            "training with freeze_towers: false in float32 needs the encoder's attention "
-            f"backward (K6b) in fp32, which takes bf16 only: {FP32_K6B_ITEM}; train it in "
-            "bfloat16, with frozen towers, or with --device cpu")
 
 
 def describe(cfg: CoreConfig) -> str:

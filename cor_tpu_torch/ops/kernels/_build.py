@@ -59,10 +59,10 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, *(ctypes.c_int,) * 8, ctypes.c_float, _I, _VP,
     ),
     # qkv, rel_h, rel_w, dout, dqkv, drel_h, drel_w, stats, B, N, C, num_heads, H, W, scale,
-    # stream (bf16 only)
+    # f32, stream
     "cor_vit_attention_relpos_bwd": (
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _VP,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _I, _VP,
     ),
     # tokens, qpe, wt, bt, skip_pe, self_scale, cross_scale, eps, n, x_out, qt_out, f32,
     # stream
@@ -186,6 +186,7 @@ def check(err: int, what: str) -> None:
 
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the compute dtypes the kernels take
+FP16_ITEM = "ROADMAP Queue 2, @fp16"  # the row that ports the kernels to fp16
 
 
 def operand_dtype(what: str, *ts) -> torch.dtype:
@@ -194,8 +195,9 @@ def operand_dtype(what: str, *ts) -> torch.dtype:
     two, before anything launches."""
     dts = {t.dtype for t in ts if t is not None}
     if len(dts) != 1 or next(iter(dts)) not in KERNEL_DTYPES:
+        fp16 = f" (fp16: {FP16_ITEM})" if torch.float16 in dts else ""
         raise TypeError(f"{what} kernel takes bf16 or fp32 operands, all of one dtype; got "
-                        f"{', '.join(sorted(str(d) for d in dts))}")
+                        f"{', '.join(sorted(str(d) for d in dts))}{fp16}")
     return dts.pop()
 
 

@@ -53,13 +53,12 @@ backward (``ops.diff.with_plain_vjp``; ``cor_tpu``'s ``with_oracle_vjp``).
 
 Each takes the plain version for a tensor on the CPU and its kernel for a
 CUDA tensor: head_dim 64 (SAM-base and SAM-large) or 80 (sam_huge), H, W
-(K7: the window) <= 64. K6 and K7 take bf16 or fp32 (qkv and the factors of
-one dtype; in fp32 the products run in 3xTF32 on the tensor cores and
-nothing is rounded); K6b takes bf16 only, and an fp32 backward raises
-naming its ROADMAP row (@fp32-K6b). Any other CUDA input raises, naming the
-ROADMAP item that ports it. They never fall back from a kernel to a plain
-version. Launches are counted by dtype: ``launches`` (bf16) and
-``launches_fp32`` on each entry.
+(K7: the window) <= 64. K6, K6b and K7 take bf16 or fp32 (qkv, the factors
+and K6b's cotangent of one dtype; in fp32 the products run in 3xTF32 on the
+tensor cores and nothing is rounded). Any other CUDA input raises, naming
+the ROADMAP item that ports it (fp16: @fp16). They never fall back from a
+kernel to a plain version. Launches are counted by dtype: ``launches``
+(bf16) and ``launches_fp32`` on each entry.
 """
 
 from __future__ import annotations
@@ -75,7 +74,6 @@ MAX_SIDE = 64  # H, W <= 64: the tile's bias rows are staged in shared memory
 # the head dims K6, K6b and K7 take, and the ROADMAP row that ports others
 HEAD_DIMS = (64, 80)
 OTHER_DIMS_ITEM = "ROADMAP Queue 2, K4′ / K6 / K7: head dims other than 64 and 80"
-FP32_K6B_ITEM = "ROADMAP Queue 2, @fp32-K6b (K6b in fp32)"
 
 
 def vit_attention_relpos_plain(
@@ -218,8 +216,6 @@ def vit_attention_relpos_bwd(
     if qkv.device.type != "cuda":
         raise ValueError(f"vit_attention_relpos_bwd: no kernel for device {qkv.device}")
     D, dt = _check(qkv, rel_h, rel_w, num_heads, hw, "vit_attention_relpos_bwd")
-    if dt != torch.bfloat16:
-        raise TypeError(f"vit_attention_relpos_bwd kernel takes bf16, got {dt} ({FP32_K6B_ITEM})")
     H, W = hw
     B, N, C3 = qkv.shape
     C = C3 // 3
@@ -235,11 +231,11 @@ def vit_attention_relpos_bwd(
         err = lib.cor_vit_attention_relpos_bwd(
             qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), do.data_ptr(),
             dqkv.data_ptr(), drel_h.data_ptr(), drel_w.data_ptr(), stats.data_ptr(),
-            B, N, C, num_heads, H, W, float(D**-0.5),
+            B, N, C, num_heads, H, W, float(D**-0.5), int(dt == torch.float32),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     check(err, "vit_attention_relpos_bwd")
-    vit_attention_relpos_bwd.launches += 1
+    count_launch(vit_attention_relpos_bwd, dt)
     return dqkv, drel_h, drel_w
 
 

@@ -7,15 +7,16 @@ builds OLD_CSRC_DIR's ``*.cu`` into a library of its own (under
 ``cor_tpu_torch/_build/``), runs every bf16 kernel wrapper at the served,
 built and trained shapes once through the current library and once through
 the old one, on identical inputs, and exits non-zero unless every output is
-equal bit for bit. The old library's entry points take no ``f32`` flag (the
-ABI before fp32); the wrappers' calls are adapted by dropping it, and a
-call with ``f32 = 1`` raises.
+equal bit for bit. An old entry point whose declaration in OLD_CSRC_DIR
+takes no ``f32`` flag (the ABI before the kernel took fp32) is called with
+the flag dropped, and a call with ``f32 = 1`` to it raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -24,15 +25,31 @@ import torch
 
 from cor_tpu_torch.ops.kernels import _build
 
-# the entries whose flag the old ABI lacks: f32 is their second-to-last argument
-_FLAGGED = [name for name, sig in _build._SIGNATURES.items()
-            if name not in ("cor_layer_norm", "cor_vit_attention_relpos_bwd")]
+# the entries that take f32 (their second-to-last argument) in the current ABI
+_FLAGGED = [name for name in _build._SIGNATURES if name != "cor_layer_norm"]
+
+
+def lacking_flag(csrc: Path) -> list:
+    """The flagged entries whose ``extern "C"`` declaration in ``csrc`` has
+    no ``f32`` parameter."""
+    text = "".join(src.read_text() for src in sorted(csrc.glob("*.cu")))
+    out = []
+    for name in _FLAGGED:
+        decl = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+        if decl is None:
+            raise ValueError(f"{csrc} declares no {name}")
+        if not re.search(r"\bf32\b", decl.group(1)):
+            out.append(name)
+    return out
+
+
 _WRAPPER_MODULES = ("layernorm", "seq_attention", "vit_attention", "two_way_layer", "t2i_flash",
                     "decoder_tail")
 
 
-def build_old(csrc: Path) -> ctypes.CDLL:
-    """Compile ``csrc``'s sources into one library with the current flags."""
+def build_old(csrc: Path, lacking) -> ctypes.CDLL:
+    """Compile ``csrc``'s sources into one library with the current flags;
+    ``lacking``: the entries declared there without the f32 flag."""
     h = hashlib.sha256()
     for src in sorted(csrc.glob("*.cu*")):
         h.update(src.read_bytes())
@@ -56,20 +73,21 @@ def build_old(csrc: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     for name, sig in _build._SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = list(sig[:-2]) + [sig[-1]] if name in _FLAGGED else list(sig)
+        fn.argtypes = list(sig[:-2]) + [sig[-1]] if name in lacking else list(sig)
         fn.restype = ctypes.c_int
     return lib
 
 
 class _OldABI:
-    """The old library behind the current calls: the f32 flag dropped."""
+    """The old library behind the current calls: the f32 flag dropped where
+    the old entry lacks it."""
 
-    def __init__(self, lib):
-        self._lib = lib
+    def __init__(self, lib, lacking):
+        self._lib, self._lacking = lib, lacking
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
-        if name not in _FLAGGED:
+        if name not in self._lacking:
             return fn
 
         def call(*args):
@@ -165,7 +183,9 @@ def main(argv=None) -> int:
         print("FAIL: needs a CUDA card", file=sys.stderr)
         return 2
     device = torch.device("cuda")
-    old = _OldABI(build_old(Path(argv[0])))
+    lacking = lacking_flag(Path(argv[0]))
+    print(f"entries without the f32 flag in {argv[0]}: {lacking}")
+    old = _OldABI(build_old(Path(argv[0]), lacking), lacking)
     differ = []
     torch.set_grad_enabled(False)  # the decoder kernels take no autograd
     for label, run in cases(device):

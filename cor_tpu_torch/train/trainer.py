@@ -72,7 +72,7 @@ class Trainer:
     def __init__(self, cfg, core_cfg, state: TrainState, lr_schedule: Callable[[int], float],
                  logger, device, writer=None, profile_steps: int = 0, profile_dir=None):
         check_single_device(cfg)
-        check_kernel_dtype(core_cfg, device, train=True)
+        check_kernel_dtype(core_cfg, device)
         self.cfg = cfg
         self.core_cfg = core_cfg
         self.state = state

@@ -759,14 +759,40 @@ def test_vit_attention_relpos_windows_kernel_matches_plain_fp32(fp32_device, D, 
 
 
 @pytest.mark.gpu
-def test_vit_attention_relpos_bwd_kernel_refuses_fp32(fp32_device):
-    """K6b takes bf16 only: an fp32 backward raises naming its ROADMAP row
-    (the entry points refuse unfrozen fp32 training before that)."""
-    qkv = torch.zeros(1, 16, 3 * 128, device=fp32_device)
-    rel = torch.zeros(1, 2, 16, 4, device=fp32_device)
-    with pytest.raises(TypeError, match="@fp32-K6b"):
-        vit_attention_relpos_bwd(qkv, rel, rel, torch.zeros(1, 16, 128, device=fp32_device), 2,
-                                 (4, 4))
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("B,H,W", [(2, 8, 8), (3, 14, 14), (1, 64, 64), (2, 5, 13)],
+                         ids=["grid8", "window14", "global", "rect"])
+def test_vit_attention_relpos_bwd_kernel_matches_plain_fp32(fp32_device, B, H, W, d):
+    """K6b in fp32 (3xTF32) against its plain fp32 backward with TF32 off, at
+    the bf16 test's shapes: one fp32 launch, no bf16 one; dqkv, drel_h and
+    drel_w within cor_tpu's fp32 gradient tolerance for this attention
+    (tests/test_kernel_vjp.py: atol 1e-5, rtol 1e-4)."""
+    g = torch.Generator(device=fp32_device).manual_seed(1)
+    N, heads = H * W, (12 if d == 64 else 16)
+    C = heads * d
+    qkv = torch.randn(B, N, 3 * C, generator=g, device=fp32_device)
+    rel_h = 0.3 * torch.randn(B, heads, N, H, generator=g, device=fp32_device)
+    rel_w = 0.3 * torch.randn(B, heads, N, W, generator=g, device=fp32_device)
+    do = torch.randn(B, N, C, generator=g, device=fp32_device)
+    before = (vit_attention_relpos_bwd.launches, vit_attention_relpos_bwd.launches_fp32)
+    got = vit_attention_relpos_bwd(qkv, rel_h, rel_w, do, heads, (H, W))
+    torch.cuda.synchronize()
+    assert (vit_attention_relpos_bwd.launches, vit_attention_relpos_bwd.launches_fp32) == (
+        before[0], before[1] + 1)
+    want = vit_attention_relpos_bwd_plain(qkv, rel_h, rel_w, do, heads, (H, W))
+    for name, a, b in zip(("dqkv", "drel_h", "drel_w"), got, want):
+        assert a.dtype == b.dtype == torch.float32, name
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=name)
+
+
+@pytest.mark.gpu
+def test_vit_attention_relpos_bwd_kernel_refuses_fp16(cuda_device):
+    """fp16 has no kernels: K6b raises naming its ROADMAP row before anything
+    launches."""
+    qkv = torch.zeros(1, 16, 3 * 128, device=cuda_device, dtype=torch.float16)
+    rel = torch.zeros(1, 2, 16, 4, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16 or fp32 .*@fp16"):
+        vit_attention_relpos_bwd(qkv, rel, rel, torch.zeros_like(qkv[..., :128]), 2, (4, 4))
 
 
 @pytest.fixture(scope="module")

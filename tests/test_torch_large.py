@@ -475,3 +475,82 @@ def test_cli_serve_at_the_slice_config_matches_cor_tpu(slice_run, tmp_path, mode
             mw = read_png(tmp_path / "jax" / f"{i}_{pid}.png")
             assert mg.shape == (16, 16) and set(np.unique(mg)) <= {0, 255}
             assert np.all(np.abs(logits[i, j][mg != mw]) < 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# unfrozen fp32 training at the largest configuration's shapes, with grad_accum
+# ---------------------------------------------------------------------------
+
+
+def test_unfrozen_fp32_grad_accum_step_at_the_slice_config_matches_cor_tpu():
+    """One unfrozen fp32 train step with grad_accum 2 at the slice config (the
+    SO400M-shaped towers, the sam_huge-shaped encoder: 2 blocks of 2 heads of
+    80, block 1 global; no dropout, "add" fusion) on a batch of 4 whose last
+    row is padding, against cor_tpu's accumulation on the same weights and
+    rows: the loss terms, grad_norm and every parameter after the AdamW
+    update, at test_torch_train.py's tolerances for the unfrozen step. The
+    port runs K6b's plain fp32 backward where cor_tpu runs its K6b through
+    the lane-pad shim in interpret mode."""
+    import optax
+
+    from cor_tpu.train import optim as joptim
+    from cor_tpu.train.step import _write_lr
+    from cor_tpu_torch.train import optim as poptim
+    from cor_tpu_torch.train.step import TrainState, make_train_step
+    from tests.test_torch_train import LR, assert_update_matches, global_norm, j_loss_fn
+
+    jc, pc = slice_configs()
+    jc = dataclasses.replace(jc, freeze_towers=False, support_override=dataclasses.replace(
+        jc.support_override, proj_dropout=0.0, fusion="add"))
+    pc = dataclasses.replace(pc, freeze_towers=False, support_override=dataclasses.replace(
+        pc.support_override, proj_dropout=0.0, fusion="add"))
+    tree = to_cor_tpu_tree(pcore.init_core_model(pc, 8))
+    tree["image_encoder"] = fill(tree["image_encoder"], np.random.default_rng(18))
+    rng = np.random.default_rng(9)
+    qm = np.zeros((4, 64, 64, 1), np.float32)
+    for i in range(4):  # a non-empty foreground and background in every row
+        r0, c0 = rng.integers(0, 32, 2)
+        qm[i, r0:r0 + 21, c0:c0 + 32] = 1.0
+    batch = {
+        "query_img": rng.standard_normal((4, 64, 64, 3), dtype=np.float32),
+        "support_img": rng.standard_normal((4, 76, 76, 3), dtype=np.float32),
+        "text": rng.integers(2, 64, (4, 16)).astype(np.int32),
+        "support_mask": (rng.random((4, 76, 76, 1)) > 0.5).astype(np.float32),
+        "query_mask": qm,
+        "valid": np.array([1, 1, 1, 0], np.float32),
+    }
+
+    jparams = jax.tree.map(jnp.asarray, tree)
+    grad = jax.jit(jax.value_and_grad(j_loss_fn(jc), has_aux=True))
+    g_acc, aux_acc = None, {}
+    for a in range(2):
+        mb = {k: jnp.asarray(v[2 * a:2 * a + 2]) for k, v in batch.items()}
+        (_, aux), g = grad(jparams, mb)
+        w = float(batch["valid"][2 * a:2 * a + 2].sum())
+        g = jax.tree.map(lambda x: w * np.asarray(x), g)
+        g_acc = g if g_acc is None else jax.tree.map(np.add, g_acc, g)
+        aux_acc = {k: aux_acc.get(k, 0.0) + w * float(v) for k, v in aux.items()}
+    g_acc = jax.tree.map(lambda x: x / 3.0, g_acc)
+    tx, _ = joptim.make_optimizer(jparams, "AdamW", lr=LR, freeze_towers=False)
+
+    @jax.jit  # one graph: eager optax compiles each of its ops per leaf
+    def update(params, grads):
+        updates, _ = tx.update(grads, _write_lr(tx.init(params), jnp.float32(LR)), params)
+        return optax.apply_updates(params, updates)
+
+    j_after = jax.tree.map(np.asarray, update(jparams, jax.tree.map(jnp.asarray, g_acc)))
+
+    model = load_cor_tpu_params(pcore.init_core_model(pc, 0), tree)
+    opt, _ = poptim.make_optimizer(model, "AdamW", lr=LR, freeze_towers=False)
+    pm = make_train_step(pc, seed=0, grad_accum=2)(
+        TrainState(model, opt), {k: torch.from_numpy(v) for k, v in batch.items()}, LR)
+    for k in ("seg_loss", "fg_loss", "bg_loss", "total_loss"):
+        np.testing.assert_allclose(float(pm[k]), aux_acc[k] / 3.0, rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    np.testing.assert_allclose(float(pm["grad_norm"]), global_norm(g_acc), rtol=1e-4)
+    assert_update_matches(to_cor_tpu_tree(model), j_after, tree, g_acc)
+    moved = flatten_tree(to_cor_tpu_tree(model))
+    before = flatten_tree(tree)
+    for leaf in ("image_encoder.blocks.1.attn.rel_pos_h",
+                 "support_branch.siglip.visual.blocks.0.attn.qkv.w"):
+        assert not np.array_equal(moved[leaf], before[leaf]), leaf

@@ -266,10 +266,11 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False) 
             prompt_override=prompt_encoder.PromptEncoderConfig(16, (4, 4), (64, 64)))
         EvalConfig.core_config = lambda self: cfg
         # fp32 has kernels on the card: the entry points take it for
-        # indexing, serving and frozen training
+        # indexing, serving and training, frozen or not
         assert cfg.compute_dtype == "float32" and cfg.freeze_towers
         core_model.check_kernel_dtype(cfg, "cuda")
-        core_model.check_kernel_dtype(cfg, "cuda", train=True)
+        core_model.check_kernel_dtype(
+            core_model.CoreConfig(compute_dtype="float32", freeze_towers=False), "cuda")
         root = Path({str(tmp_path)!r})
         with contextlib.redirect_stdout(io.StringIO()):
             built = index_cli.main(["--out", str(root / "idx"), "--synthetic", "20",

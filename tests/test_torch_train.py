@@ -666,14 +666,14 @@ def test_cli_train_refuses(tiny_train, capsys, monkeypatch, case):
         tiny_train.write_text(tiny_train.read_text() + extra)
         want = {"checkpoint": "item 5", "mesh": "item 9", "async": "item 11"}[case]
     else:
-        # without a card: tiny_train's fp32 model with unfrozen towers needs
-        # K6b in fp32 and is refused first, naming its ROADMAP row, before the
-        # card is looked for; so is fp16 (no kernels); bf16, and fp32 with
-        # frozen towers, get as far as looking for the card
+        # without a card: fp16 (no kernels) is refused first, naming its
+        # ROADMAP row, before the card is looked for; bf16, and tiny_train's
+        # fp32 model with unfrozen towers or frozen, get as far as looking
+        # for the card
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         fp32 = TrainConfig.core_config
         if case == "fp32_on_the_card":
-            want = "ROADMAP Queue 2, @fp32-K6b"
+            want = "no CUDA card is available"
         elif case == "fp32_frozen_on_the_card":
             tiny_train.write_text(tiny_train.read_text().replace("freeze_towers: false",
                                                                  "freeze_towers: true"))
@@ -690,17 +690,16 @@ def test_cli_train_refuses(tiny_train, capsys, monkeypatch, case):
     assert want in capsys.readouterr().err
 
 
-def test_trainer_refuses_fp32_on_the_card():
-    """The Trainer refuses, before it builds its steps, fp32 training with
-    unfrozen towers on the card (K6b takes bf16 only: ROADMAP Queue 2's
-    @fp32-K6b row) and fp16 (no kernels: @fp16); it takes fp32 with frozen
-    towers on the card, and any of them on the CPU."""
+def test_trainer_takes_fp32_and_refuses_fp16_on_the_card():
+    """The Trainer takes fp32 training on the card with unfrozen towers (K6b
+    takes fp32) and with frozen ones, and refuses fp16 (no kernels: ROADMAP
+    Queue 2's @fp16 row) before it builds its steps; it takes any of them on
+    the CPU."""
     from cor_tpu_torch.train.trainer import Trainer
 
     _, pc = configs(False)
     assert pc.compute_dtype == "float32" and not pc.freeze_towers
-    with pytest.raises(ValueError, match="ROADMAP Queue 2, @fp32-K6b"):
-        Trainer(TrainConfig(), pc, None, lambda e: LR, None, "cuda")
+    assert Trainer(TrainConfig(), pc, None, lambda e: LR, None, "cuda").device.type == "cuda"
     with pytest.raises(ValueError, match="ROADMAP Queue 2, @fp16"):
         Trainer(TrainConfig(), dataclasses.replace(pc, compute_dtype="float16", freeze_towers=True),
                 None, lambda e: LR, None, "cuda")
