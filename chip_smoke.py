@@ -120,12 +120,14 @@ Phases (any failure exits non-zero; no phase catches an exception):
     12 / 32), cosine >= 0.999 between the two, ms per batch;
 26. training at CFG: ``cli.train.main --synthetic`` on m3's keys with
     sam_huge and ViT-SO400M-14-SigLIP-384, frozen then unfrozen, at full
-    depth and width, batch 10: finite losses, the val line, the saves;
-    frozen, the towers bit-identical and no K6b launch; unfrozen, the towers
-    moved, K6b 32 launches per step and K6 64 plus 32 per val batch;
-27. the unfrozen CFG step (phase 26's trainer): launches of one step, s per
-    step (CUDA events, 3 steps), samples/s, peak memory, a torch.profiler
-    breakdown of one step;
+    width, batch 10, sam_huge cut to its first 4 blocks (block 3 global, as
+    in phase 28; phase 32 trains it at full depth in fp32): finite losses,
+    the val line, the saves; frozen, the towers bit-identical and no K6b
+    launch; unfrozen, the towers moved, K6b 4 launches per step and K6 8
+    plus 4 per val batch;
+27. the unfrozen CFG step (phase 26's trainer, 4 blocks): launches of one
+    step, s per step (CUDA events, 3 steps), samples/s, peak memory, a
+    torch.profiler breakdown of one step;
 28. numerics at CFG: phase 16's check (GPU bf16 and GPU fp32 against CPU
     fp32) with sam_huge cut to 4 blocks (block 3 global) at full width and
     the towers at full depth;
@@ -163,7 +165,28 @@ Phases (any failure exits non-zero; no phase catches an exception):
     K5@fp32 110 per encoded batch), --decode-masks --store-hbm on the index,
     unfrozen cli.train on m3's keys at batch 10 (K6b@fp32 32 per step),
     every launch fp32; then the step's seconds (CUDA events), samples/s and
-    peak memory in one pass and split by grad_accum 2 (K6b@fp32 64).
+    peak memory in one pass and split by grad_accum 2 (K6b@fp32 64);
+33. the decoder kernels at SAM's stock prompts' token counts, 40 candidates
+    on the 64 x 64 grid, bf16 and fp32 (TF32 off): K1 at 5, 7 and 8 tokens
+    (layer 0 from the 2,048-row int8 store, layer 1 on rows), K2 at 5, 7, 8,
+    9, 16 and 32, K8a (proj_q_t2i_flash) and K8b (i2t_attention_fused) at 9,
+    11, 16 and 32, each against its plain version (bf16: max relative error
+    <= 2e-2; fp32: K1 and K8b 2e-4, K2 and K8a 5e-4), timed beside the plain
+    version and the bound;
+34. SAM's stock prompts at full width: the SAM-base encoder (full depth,
+    tables and pos_embed filled) embeds 2 query images; the full prompt
+    encoder (random weights from a seed, on the card and on the CPU) encodes
+    13 prompt sets (a mask; 1, 2, 3, 10, 26 points; a box; a box and 4
+    points; those up to 11 tokens again with a 256 x 256 mask prompt: 5 to
+    32 tokens); mask_decoder(fused=True, multimask) decodes each on the card
+    in bf16 and fp32 and on the CPU in fp32, same weights: mask-logit cosine
+    >= 0.99 (bf16) and >= 0.999999 (fp32), predicted IoU within 2e-2 (bf16),
+    the fp32 error beside cor_tpu's decoder tolerance, exact launches per
+    call (K1 8, K2 2, K3 1 up to 8 tokens; K8a 4, K8b 2, K2 2, K3 1 above);
+    one store-indexed decode at 9 tokens from an int8 store (gather and
+    dequantisation in torch, then K8a/K8b), cosine >= 0.99; the decode's ms
+    at batch 8 and 6, 8, 9, 16, 32 tokens in bf16 and fp32, and a
+    torch.profiler breakdown at 16 tokens.
 The line before the last lists every kernel ({"kernels": [...]}; an fp32
 instantiation is an entry of its own, name@fp32, with its fp32 launches);
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -488,9 +511,10 @@ def decoder_kernels(device):
 
 def kernel_wrappers():
     from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
+    from cor_tpu_torch.ops.kernels.i2t_attention import i2t_attention_fused
     from cor_tpu_torch.ops.kernels.layernorm import layer_norm
     from cor_tpu_torch.ops.kernels.seq_attention import attention_seq, attention_seq_qkv
-    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
+    from cor_tpu_torch.ops.kernels.t2i_flash import proj_q_t2i_flash, t2i_flash_kv
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
     from cor_tpu_torch.ops.kernels.vit_attention import (
         vit_attention_relpos,
@@ -503,7 +527,8 @@ def kernel_wrappers():
             "two_way_layer": two_way_layer, "t2i_flash_kv": t2i_flash_kv,
             "decoder_tail": decoder_tail, "vit_attention_relpos": vit_attention_relpos,
             "vit_attention_relpos_bwd": vit_attention_relpos_bwd,
-            "vit_attention_relpos_windows": vit_attention_relpos_windows}
+            "vit_attention_relpos_windows": vit_attention_relpos_windows,
+            "proj_q_t2i_flash": proj_q_t2i_flash, "i2t_attention_fused": i2t_attention_fused}
 
 
 def reset_counts():
@@ -838,7 +863,8 @@ def phase_decode_timings(servers, smi):
 # first group that matches takes the kernel)
 KERNEL_GROUPS = (
     # the image pass with q_img (kEmitQ, the last template argument) is K1's
-    ("K1 two_way_layer", ("twl_", "true, true>", "false, true>")),
+    # or K8a's, the i2t image kernel K1's or K8b's (the route decides)
+    ("two-way layers: K1, or K8a + K8b", ("twl_", "true, true>", "false, true>")),
     ("K2 t2i_flash_kv", ("t2i_image_kernel", "t2i_combine")),
     ("K3 decoder_tail", ("decoder_tail_kernel",)),
     ("K4 attention_seq_qkv", ("seq_attention",)),
@@ -1337,7 +1363,8 @@ def phase_train(root: Path, keys=None, blocks: int = 12, phase: int = 15,
             fail(f"train frozen: a frozen part moved: {same}")
         if not freeze and (same[TOWERS[0]] or same[TOWERS[1]] or not same[TOWERS[3]]):
             fail(f"train unfrozen: a tower did not move, or the PE matrix did: {same}")
-        idle = ("vit_attention_relpos_bwd", "attention_seq", "vit_attention_relpos_windows")
+        idle = ("vit_attention_relpos_bwd", "attention_seq", "vit_attention_relpos_windows",
+                "proj_q_t2i_flash", "i2t_attention_fused")
         if k6 != k6_want or k6b != k6b_want or min(
                 c[n + sfx] for n in kernel_wrappers() if n not in idle) == 0 or (
                 sfx and any(c[n] for n in kernel_wrappers())):
@@ -1903,15 +1930,43 @@ def phase_large_train_timings(trainer, smi: str, sfx: str = "", phase: int = 27,
     return out
 
 
-def phase_large_train(smi: str):
-    """Phases 26-28: cli.train at CFG frozen and unfrozen, the unfrozen
-    step's timings, and its numerics at batch 1 with sam_huge cut to 4
-    blocks (one global) at full width."""
+LARGE_TRAIN_BLOCKS = 4  # phases 26-27's sam_huge depth: blocks 0-2 windowed, 3 global
+
+
+@contextlib.contextmanager
+def train_encoder_depth(blocks: int):
+    """cli.train's models with the image encoder cut to its first ``blocks``
+    blocks (the last of them global) at full width: TrainConfig.core_config
+    patched while the block runs."""
     from cor_tpu_torch.config import TrainConfig
 
-    with tempfile.TemporaryDirectory() as d:
-        counts, _, trainer = phase_train(Path(d), LARGE_KEYS, blocks=32, phase=26,
-                                         keep_unfrozen=True)
+    full = TrainConfig.core_config
+
+    def cut(self):
+        cfg = full(self)
+        return dataclasses.replace(cfg, encoder_override=dataclasses.replace(
+            cfg.encoder, depth=blocks, global_attn_indexes=(blocks - 1,)))
+
+    TrainConfig.core_config = cut
+    try:
+        yield
+    finally:
+        TrainConfig.core_config = full
+
+
+def phase_large_train(smi: str):
+    """Phases 26-28: cli.train at CFG frozen and unfrozen with sam_huge cut
+    to LARGE_TRAIN_BLOCKS blocks at full width (the towers at full depth),
+    the unfrozen step's timings, and its numerics at batch 1 with sam_huge
+    cut to 4 blocks (one global) at full width."""
+    from cor_tpu_torch.config import TrainConfig
+
+    with tempfile.TemporaryDirectory() as d, train_encoder_depth(LARGE_TRAIN_BLOCKS):
+        print(f"  training at CFG: sam_huge cut to {LARGE_TRAIN_BLOCKS} blocks (block "
+              f"{LARGE_TRAIN_BLOCKS - 1} global) at full width, the towers at full depth",
+              flush=True)
+        counts, _, trainer = phase_train(Path(d), LARGE_KEYS, blocks=LARGE_TRAIN_BLOCKS,
+                                         phase=26, keep_unfrozen=True)
     phase_large_train_timings(trainer, smi)
     del trainer
     torch.cuda.empty_cache()
@@ -2480,6 +2535,323 @@ def phase_fp32_timings(server32, enc32, index_dir: Path, ids: set, root: Path, s
     return k7
 
 
+# ---------------------------------------------------------------------------
+# SAM's stock prompts: phases 33-34
+# ---------------------------------------------------------------------------
+
+K1_TOKENS = (5, 7, 8)  # K1 beside phase 3's 6: a mask or no prompt, 1 or 2 points, a box
+K2_TOKENS = (5, 7, 8, 9, 16, 32)
+K8_TOKENS = (9, 11, 16, 32)  # 3 points; a box and 4 points; 10 points; 26 points
+K8_ROW_TOKENS = 16  # the kernels line's K8a/K8b row (phase 34's profile)
+# the tolerances of phase 33 in fp32 (cor_tpu's: K8b tests/test_pallas_kernels.py:119)
+FP32_TOL.update({"proj_q_t2i_flash": 5e-4, "i2t_attention_fused": 2e-4})
+TOKEN_MACS = 8.6e6 / 6  # the token side of a two-way layer, per token and candidate
+
+
+def token_check(name, label, dt, pairs, kt, pt, b, tol):
+    """bf16: max |kernel - plain| / max |plain| <= DECODE_REL; fp32: check32
+    at ``tol``. Returns the entry."""
+    if dt == torch.float32:
+        return check32(name, label, tol, pairs, kt, pt, b)
+    err = max(rel_err(g, w) for g, w in pairs)
+    print(f"  {name} {label}: max|d|/max|plain| = {err:.3e}; kernel {kt[0]:.4f} ms "
+          f"[{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})",
+          flush=True)
+    if not err <= DECODE_REL:
+        fail(f"{name} ({label}) disagrees with its plain version: {err}")
+    return entry(abs_err(*pairs), kt, pt, b, max_rel_err=err)
+
+
+@torch.no_grad()
+def phase_token_kernels(device):
+    """Phase 33: K1 at 5, 7 and 8 tokens (layer 0 from the 2,048-row int8
+    store, layer 1 on rows), K2 at 5 to 32, K8a and K8b at 9, 11, 16 and 32,
+    each against its plain version at 40 candidates on the 64 x 64 grid, in
+    bf16 and in fp32 (TF32 off), timed beside the plain version and the
+    bound. Returns the kernels line's entries."""
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+    from cor_tpu_torch.ops.kernels.i2t_attention import (
+        i2t_attention_fused,
+        i2t_attention_fused_plain,
+    )
+    from cor_tpu_torch.ops.kernels.t2i_flash import (
+        proj_q_t2i_flash,
+        proj_q_t2i_flash_plain,
+        t2i_flash_kv,
+        t2i_flash_kv_plain,
+    )
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer, two_way_layer_plain
+
+    n, N, C, I = CANDIDATES, GRID * GRID, SAM_C, 128
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    store = torch.randint(-127, 128, (STORE_ROWS, N, C), generator=gen, device=device,
+                          dtype=torch.int8)
+    scales = (0.5 * 4 / 127) * (1 + 0.1 * torch.rand(STORE_ROWS, generator=gen, device=device))
+    idx = torch.randperm(STORE_ROWS, generator=gen, device=device)[:n].to(torch.int32)
+    out = {}
+    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "@fp32")):
+        bnd = bound if dt == torch.bfloat16 else bound32
+        el = torch.finfo(dt).bits // 8
+        dec = init_mask_decoder(CoreConfig(), 1).to(device, dt).eval()
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=device).to(dt)  # noqa: E731
+        keys, kpe, qpe = 0.5 * rnd(n, N, C), 0.5 * rnd(N, I), 0.5 * rnd(N, I)
+        lp0, lp1 = dec.transformer.layers
+        w_bytes = sum(p.numel() * p.element_size() for p in lp0.parameters())
+        k1, k2, k8a, k8b = {}, {}, {}, {}
+        for T in K1_TOKENS:
+            tokens = rnd(n, T, C)
+            flops = n * (2 * N * C * 3 * I + 2 * N * I * C + 4 * 2 * N * T * I +
+                         2 * TOKEN_MACS * T)
+            for label, lp, rows, kw, skip, rows_bytes in (
+                    ("layer 0, int8 store-indexed", lp0, store, dict(idx=idx, scale=scales),
+                     True, n * N * C + 8 * n),
+                    ("layer 1, rows", lp1, keys, {}, False, nbytes(keys))):
+                args = (lp, tokens, tokens, rows, kpe, qpe, skip)
+                got, want = two_way_layer(*args, **kw), two_way_layer_plain(*args, **kw)
+                kt = cuda_ms(lambda: two_way_layer(*args, **kw))
+                pt = cuda_ms(lambda: two_way_layer_plain(*args, **kw), iters=3)
+                b = bnd(rows_bytes + nbytes(tokens, kpe, qpe, *got) + nbytes(tokens) + w_bytes,
+                        flops)
+                k1[f"T{T} {label}"] = token_check(
+                    "K1 two_way_layer", f"T {T} {label} [{n}, {N}, {C}]", dt,
+                    list(zip(got, want)), kt, pt, b, FP32_TOL["two_way_layer"])
+        fa = dec.transformer.final_attn_t2i
+        for T in K2_TOKENS:
+            q_tok = rnd(n, T, I)
+            args = (keys, fa.k_proj.w, fa.k_proj.b, fa.v_proj.w, fa.v_proj.b, kpe, q_tok, 8)
+            got, want = t2i_flash_kv(*args), t2i_flash_kv_plain(*args)
+            kt, pt = cuda_ms(lambda: t2i_flash_kv(*args)), cuda_ms(lambda: t2i_flash_kv_plain(*args))
+            b = bnd(nbytes(keys, kpe, q_tok, got) + 2 * I * C * el,
+                    n * (2 * N * C * 2 * I + 4 * N * T * I))
+            k2[f"T{T}"] = token_check("K2 t2i_flash_kv", f"T {T} [{n}, {N}, {C}]", dt,
+                                      [(got, want)], kt, pt, b, FP32_TOL["t2i_flash_kv"])
+        t2i, i2t = lp1.cross_attn_t2i, lp1.cross_attn_i2t
+        for T in K8_TOKENS:
+            q_tok = rnd(n, T, I)
+            args = (keys, t2i.k_proj.w, t2i.k_proj.b, t2i.v_proj.w, t2i.v_proj.b, i2t.q_proj.w,
+                    i2t.q_proj.b, kpe, qpe, q_tok, 8)
+            got, want = proj_q_t2i_flash(*args), proj_q_t2i_flash_plain(*args)
+            kt = cuda_ms(lambda: proj_q_t2i_flash(*args))
+            pt = cuda_ms(lambda: proj_q_t2i_flash_plain(*args), iters=3)
+            b = bnd(nbytes(keys, kpe, qpe, q_tok, *got) + 3 * I * C * el,
+                    n * (2 * N * C * 3 * I + 4 * N * T * I))
+            k8a[f"T{T}"] = token_check("K8a proj_q_t2i_flash", f"T {T} [{n}, {N}, {C}]", dt,
+                                       list(zip(got, want)), kt, pt, b,
+                                       FP32_TOL["proj_q_t2i_flash"])
+            q_img, k_tok, v_tok = 0.5 * rnd(n, N, I), rnd(n, T, I), rnd(n, T, I)
+            args = (q_img, keys, k_tok, v_tok, i2t.out_proj.w, i2t.out_proj.b, lp1.norm4.scale,
+                    lp1.norm4.bias, 8)
+            got, want = i2t_attention_fused(*args), i2t_attention_fused_plain(*args)
+            kt = cuda_ms(lambda: i2t_attention_fused(*args))
+            pt = cuda_ms(lambda: i2t_attention_fused_plain(*args), iters=3)
+            b = bnd(nbytes(q_img, keys, k_tok, v_tok, got) + I * C * el,
+                    n * (4 * N * T * I + 2 * N * I * C))
+            k8b[f"T{T}"] = token_check("K8b i2t_attention_fused", f"T {T} [{n}, {N}, {C}]",
+                                       dt, [(got, want)], kt, pt, b,
+                                       FP32_TOL["i2t_attention_fused"])
+        row = f"T{K8_ROW_TOKENS}"
+        out[f"proj_q_t2i_flash{sfx}"] = dict(k8a[row], at_tokens=k8a)
+        out[f"i2t_attention_fused{sfx}"] = dict(k8b[row], at_tokens=k8b)
+        out[f"two_way_layer{sfx} at_tokens"], out[f"t2i_flash_kv{sfx} at_tokens"] = k1, k2
+        del dec, keys
+    del store
+    torch.cuda.empty_cache()
+    print("phase 33 kernels at 5 to 32 tokens: ok", flush=True)
+    return out
+
+
+# phase 34's prompt sets per image: (label, points, box, mask prompt); points
+# alone get a pad point, so T = 5 + points + 1, with a box 5 + points + 2
+PROMPT_SETS = (("a mask", 0, False, True), ("1 point", 1, False, False),
+               ("a box", 0, True, False), ("2 points", 2, False, False),
+               ("3 points", 3, False, False), ("a box and 4 points", 4, True, False),
+               ("10 points", 10, False, False), ("26 points", 26, False, False),
+               ("1 point + mask", 1, False, True), ("a box + mask", 0, True, True),
+               ("2 points + mask", 2, False, True), ("3 points + mask", 3, False, True),
+               ("a box and 4 points + mask", 4, True, True))
+COS32_PROMPT = 0.999999  # GPU fp32 against CPU fp32 mask logits, the same weights and inputs
+DECODE_TOL32 = 1e-4  # cor_tpu's fused-decoder tolerance (tests/test_pallas_kernels.py:72)
+IOU_TOL = 2e-2  # predicted IoU, GPU bf16 against CPU fp32, relative to max(1, |IoU|)
+DECODE_TIMING_TOKENS = (6, 8, 9, 16, 32)
+
+
+def prompt_tokens(points: int, box: bool) -> int:
+    return 5 + points + (2 if box else (1 if points else 0))
+
+
+def route_launches(T: int) -> dict:
+    """Each decoder wrapper's launches in one fused decode of T tokens."""
+    if T <= 8:
+        return {"two_way_layer": 8, "t2i_flash_kv": 2, "decoder_tail": 1,
+                "proj_q_t2i_flash": 0, "i2t_attention_fused": 0}
+    return {"two_way_layer": 0, "t2i_flash_kv": 2, "decoder_tail": 1, "proj_q_t2i_flash": 4,
+            "i2t_attention_fused": 2}
+
+
+@torch.no_grad()
+def phase_prompts(smi: str):
+    """Phase 34: SAM's stock prompts at full width. The SAM-base encoder
+    (full depth, tables and pos_embed filled) embeds 2 query images; the full
+    prompt encoder (random weights from a seed) encodes PROMPT_SETS for each;
+    mask_decoder(fused=True, multimask) decodes them on the card in bf16 and
+    in fp32 and on the CPU in fp32 with the same weights; one store-indexed
+    decode at 9 tokens from an int8 store; launch counts per call; decode
+    timings at batch 8 and a profile at 16 tokens. Returns the launches of
+    the prompt path, by wrapper."""
+    import copy
+
+    from cor_tpu_torch.config import EvalConfig
+    from cor_tpu_torch.models.core_model import _cast, init_mask_decoder
+    from cor_tpu_torch.models.prompt_encoder import (
+        PromptEncoderConfig,
+        dense_positional_encoding,
+        full_prompt_encoder,
+        init_full_prompt_encoder,
+    )
+    from cor_tpu_torch.models.sam_decoder import mask_decoder
+    from cor_tpu_torch.retrieval.engine import quantize_candidate_store_host
+    from cor_tpu_torch.retrieval.index import make_candidate_encoder
+
+    cfg = EvalConfig().core_config()
+    enc = _cast(filled_encoder(cfg).eval().cuda(), cfg.dtype)
+    b = synthetic_batch(2, cfg)
+    _, emb = make_candidate_encoder(cfg)(enc, torch.from_numpy(b["query_img"]).cuda(),
+                                         torch.from_numpy(b["query_mask"]).cuda())
+    emb = emb.float()
+    del enc
+    if emb.shape != (2, GRID, GRID, SAM_C) or not torch.isfinite(emb).all():
+        fail(f"the query images' embeddings are malformed: {tuple(emb.shape)}")
+    pcfg = PromptEncoderConfig()
+    penc = init_full_prompt_encoder(pcfg, SEED + 5)
+    dec32 = init_mask_decoder(cfg, SEED + 1).eval()
+    decs = {"cpu": dec32, "fp32": copy.deepcopy(dec32).cuda(),
+            "bf16": copy.deepcopy(dec32).to("cuda", torch.bfloat16)}
+    pe = dense_positional_encoding(penc.pe_layer.gaussian_matrix, pcfg.image_embedding_size)
+    rng = np.random.default_rng(SEED + 6)
+    size = pcfg.input_image_size[0]
+
+    def prompt_args(points: int, box: bool, mask: bool) -> dict:
+        kw = {}
+        if points:
+            coords = rng.uniform(0, size, (2, points, 2)).astype(np.float32)
+            labels = (rng.random((2, points)) < 0.7).astype(np.int64)  # mostly positive
+            kw["points"] = (torch.from_numpy(coords), torch.from_numpy(labels))
+        if box:
+            lo = rng.uniform(0, size / 2, (2, 2))
+            kw["boxes"] = torch.from_numpy(np.concatenate(
+                [lo, lo + rng.uniform(64, size / 2, (2, 2))], 1).astype(np.float32))
+        if mask:
+            kw["masks"] = torch.from_numpy(rng.standard_normal(
+                (2, 4 * GRID, 4 * GRID, 1)).astype(np.float32))
+        return kw
+
+    def decode(where: str, sparse, dense, img, **store):
+        dt = torch.bfloat16 if where == "bf16" else torch.float32
+        dev = "cpu" if where == "cpu" else "cuda"
+        cast = lambda x: None if x is None else x.to(dev, dt)  # noqa: E731
+        masks, iou, _ = mask_decoder(decs[where], img.to(dev) if store else cast(img),
+                                     cast(pe), cast(sparse), cast(dense), True, **store)
+        return masks.float().cpu(), iou.float().cpu()
+
+    penc_gpu = copy.deepcopy(penc).cuda()
+    totals = {k: 0 for k in read_counts()}
+    results = []
+    for label, points, box, mask in PROMPT_SETS:
+        T = prompt_tokens(points, box)
+        kw = prompt_args(points, box, mask)
+        sparse, dense = full_prompt_encoder(penc, pcfg, batch=2, **kw)
+        sparse_g, dense_g = full_prompt_encoder(
+            penc_gpu, pcfg, batch=2, **{k: tuple(x.cuda() for x in v) if k == "points"
+                                        else v.cuda() for k, v in kw.items()})
+        pe_err = max(rel_err(sparse_g.cpu(), sparse) if points or box else 0.0,
+                     rel_err(dense_g.cpu(), dense))
+        if sparse.shape != (2, T - 5, SAM_C) or pe_err > 1e-5:
+            fail(f"prompt {label}: sparse {tuple(sparse.shape)} for {T} tokens, the card's "
+                 f"prompt encoder off the CPU's by {pe_err}")
+        want_m, want_iou = decode("cpu", sparse, dense, emb.cpu())
+        got = {}
+        for where in ("bf16", "fp32"):
+            reset_counts()
+            got[where] = decode(where, sparse_g, dense_g, emb)
+            torch.cuda.synchronize()
+            c = read_counts()
+            want_c = {k + ("@fp32" if where == "fp32" else ""): v
+                      for k, v in route_launches(T).items()}
+            if {k: c[k] for k in want_c} != want_c or sum(c.values()) != sum(want_c.values()):
+                fail(f"prompt {label} ({T} tokens, {where}): launches {c}, expected {want_c}")
+            for k, v in c.items():
+                totals[k] += v
+        cos = {w: torch.nn.functional.cosine_similarity(
+            got[w][0].flatten(1), want_m.flatten(1)).min().item() for w in got}
+        scale = want_m.abs().max().item()
+        err32 = (got["fp32"][0] - want_m).abs().max().item() / scale
+        iou_err = (got["bf16"][1] - want_iou).abs().max().item() / max(
+            1.0, want_iou.abs().max().item())
+        fg = {w: ((got[w][0] > 0) & (want_m > 0)).sum().item() /
+              max(1, ((got[w][0] > 0) | (want_m > 0)).sum().item()) for w in got}
+        results.append({"prompt": label, "tokens": T, "route": "K1" if T <= 8 else "K8a/K8b",
+                        "cos_bf16": cos["bf16"], "cos_fp32": cos["fp32"],
+                        "max_err_fp32_over_scale": err32, "iou_err_bf16": iou_err,
+                        "mask_iou_bf16": fg["bf16"], "mask_iou_fp32": fg["fp32"]})
+        print(f"  prompt {label} ({T} tokens, {results[-1]['route']}): mask-logit cosine to "
+              f"the CPU's fp32 bf16 {cos['bf16']:.6f}, fp32 {cos['fp32']:.8f}; fp32 max|d| / "
+              f"max|logit| {err32:.3e} (cor_tpu's decoder tolerance {DECODE_TOL32:g}); "
+              f"predicted IoU bf16 |d| {iou_err:.3e}; binarised-mask IoU bf16 {fg['bf16']:.4f}, "
+              f"fp32 {fg['fp32']:.6f}", flush=True)
+        if not all(torch.isfinite(g[0]).all() and g[0].shape == (2, 3, 4 * GRID, 4 * GRID)
+                   for g in got.values()):
+            fail(f"prompt {label}: masks malformed")
+        if cos["bf16"] < COS_MIN or cos["fp32"] < COS32_PROMPT or iou_err > IOU_TOL:
+            fail(f"prompt {label}: the card's decode disagrees with the CPU's: {results[-1]}")
+
+    # a store-indexed decode at 9 tokens: the int8 store's rows gathered and
+    # dequantised in torch, then K8a/K8b
+    no_mask = penc.no_mask_embed[0].numpy()
+    rows = np.concatenate([emb.cpu().numpy(), rng.standard_normal((2, GRID, GRID, SAM_C))
+                           .astype(np.float32)]).astype(np.float16)
+    q, s = (torch.from_numpy(a) for a in quantize_candidate_store_host(rows, no_mask))
+    sidx = torch.tensor([1, 0, 3], dtype=torch.int32)
+    kw = prompt_args(3, False, False)
+    kw["points"] = tuple(torch.cat([x, x[:1]]) for x in kw["points"])
+    sparse, _ = full_prompt_encoder(penc, pcfg, **kw)
+    want_m, _ = decode("cpu", sparse, None, q, store_idx=sidx, store_scale=s)
+    reset_counts()
+    got_m, _ = decode("bf16", sparse, None, q.cuda(), store_idx=sidx.cuda(),
+                      store_scale=s.cuda())
+    torch.cuda.synchronize()
+    c = read_counts()
+    for k, v in c.items():
+        totals[k] += v
+    cos_store = torch.nn.functional.cosine_similarity(got_m.flatten(1),
+                                                      want_m.flatten(1)).min().item()
+    print(f"  store-indexed decode, 9 tokens, int8 store (3 of 4 rows): cosine to the CPU's "
+          f"fp32 {cos_store:.6f}; launches {({k: v for k, v in c.items() if v})}", flush=True)
+    if {k: c[k] for k in route_launches(9)} != route_launches(9) or cos_store < COS_MIN:
+        fail(f"store-indexed decode at 9 tokens: launches {c}, cosine {cos_store}")
+
+    # timings: one fused decode of a batch of 8 (candidates of one image
+    # embedding each) at T tokens, bf16 and fp32; a profile at 16 tokens
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    timings = {}
+    for where, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        img8 = (0.5 * torch.randn(8, GRID, GRID, SAM_C, generator=gen, device="cuda")).to(dt)
+        dense8 = (0.1 * torch.randn(8, GRID, GRID, SAM_C, generator=gen, device="cuda")).to(dt)
+        pe8 = pe.to("cuda", dt)
+        for T in DECODE_TIMING_TOKENS:
+            sp = torch.randn(8, T - 5, SAM_C, generator=gen, device="cuda").to(dt)
+            call = lambda sp=sp: mask_decoder(decs[where], img8, pe8, sp, dense8, True)  # noqa: E731
+            timings[f"{where} T{T}"] = dict(zip(("ms", "min_ms", "max_ms"), cuda_ms(call, iters=5)))
+            if where == "bf16" and T == K8_ROW_TOKENS:
+                prof = profile(call, 3)
+    print(json.dumps({"prompt_decode_timings": {"batch": 8, "ms": timings, "card": smi}}))
+    print(json.dumps({"prompt_decode_profile": {"batch": 8, "tokens": K8_ROW_TOKENS, **prof,
+                                                "card": smi}}))
+    print(json.dumps({"prompt_numerics": results + [{"prompt": "3 points, int8 store",
+                                                     "tokens": 9, "cos_bf16": cos_store}]}))
+    print("phase 34 SAM's stock prompts: ok", flush=True)
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this check runs on a GPU only",
@@ -2555,6 +2927,14 @@ def main():
     large32 = phase_large_fp32(smi)
     mark("phase 32")
 
+    token_kernels = phase_token_kernels(torch.device("cuda"))
+    for key in ("two_way_layer", "t2i_flash_kv", "two_way_layer@fp32", "t2i_flash_kv@fp32"):
+        kernel_results[key]["at_tokens"] = token_kernels.pop(f"{key} at_tokens")
+    kernel_results.update(token_kernels)
+    mark("phase 33")
+    prompt_launches = phase_prompts(smi)
+    mark("phase 34")
+
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70",
                        launches),
@@ -2618,6 +2998,15 @@ def main():
                               "cor_tpu/ops/pallas/t2i_flash.py:220", fp32_launches["serve"]),
         "decoder_tail@fp32": ("cor_tpu_torch/csrc/decoder_tail.cu",
                               "cor_tpu/ops/pallas/decoder_tail.py:150", fp32_launches["serve"]),
+        # SAM's stock prompts (phase 34): K8a and K8b above 8 tokens, bf16 and fp32
+        "proj_q_t2i_flash": ("cor_tpu_torch/csrc/t2i_flash.cu",
+                             "cor_tpu/ops/pallas/t2i_flash.py:163", prompt_launches),
+        "proj_q_t2i_flash@fp32": ("cor_tpu_torch/csrc/t2i_flash.cu",
+                                  "cor_tpu/ops/pallas/t2i_flash.py:163", prompt_launches),
+        "i2t_attention_fused": ("cor_tpu_torch/csrc/two_way_layer.cu",
+                                "cor_tpu/ops/pallas/i2t_attention.py:105", prompt_launches),
+        "i2t_attention_fused@fp32": ("cor_tpu_torch/csrc/two_way_layer.cu",
+                                     "cor_tpu/ops/pallas/i2t_attention.py:105", prompt_launches),
     }
     kernels = []
     for kname, res in kernel_results.items():

@@ -6,7 +6,12 @@
 // over operands in shared memory, the loading of one 64-row tile of image
 // rows (bf16, or an int8 store row dequantised as the TPU kernel does it),
 // and warp reductions. Geometry of the SAM decoder: C = 256 channels, 8
-// heads, internal width 128 (head_dim 16 in the cross attentions), 6 tokens.
+// heads, internal width 128 (head_dim 16 in the cross attentions), and 5 to
+// kMaxTok tokens: iou + 4 mask tokens + the sparse prompts (none for a mask
+// or no prompt, n + 1 for n points, 2 for a box, n + 2 for a box and n
+// points). The token count T is a template parameter of the two-way layer's
+// token kernels (T 5 to 8) and a run-time argument of the image passes and
+// the combines; 8 T (head, token) query rows take part in the t2i attention.
 //
 // The decoder kernels are templated on their element type T: uint16_t for
 // bf16 and float for fp32 (cor_tpu's compute_dtype float32). Elem<T> reads,
@@ -28,9 +33,8 @@ namespace cor {
 constexpr int kC = 256;        // transformer_dim
 constexpr int kI = 128;        // cross-attention internal width (downsample 2)
 constexpr int kHeads = 8;
-constexpr int kTok = 6;        // iou + 4 mask tokens + 1 prompt token
+constexpr int kMaxTok = 32;    // the most tokens a decode may have
 constexpr int kCrossD = kI / kHeads;   // 16
-constexpr int kQ = kHeads * kTok;      // 48 (head, token) query rows
 constexpr int kRows = 64;      // image rows per CTA of an image pass
 constexpr int kLdC = kC + 8;   // padded shared row strides (bf16 elements):
 constexpr int kLdI = kI + 8;   // rows 4 banks apart, conflict-free fragments
@@ -231,22 +235,23 @@ __device__ __forceinline__ void load_pair(const void* src, int row, int N, int r
   }
 }
 
-// The t2i flash partials of query q (of kQ), channel d (of kCrossD), merged
-// over the `tiles` row tiles of one candidate (tile j at base + j):
+// The t2i flash partials of query q (of nq = 8 T), channel d (of kCrossD),
+// merged over the `tiles` row tiles of one candidate (tile j at base + j):
 // sum_j acc_j e^(m_j - m) / sum_j l_j e^(m_j - m) with m = max_j m_j. Two
 // passes, unrolled so that the loads of 8 tiles are in flight at once and no
 // exponential waits on the one before it.
 __device__ __forceinline__ float combine_partials(const float* __restrict__ part_m,
                                                   const float* __restrict__ part_l,
                                                   const float* __restrict__ part_acc,
-                                                  int64_t base, int tiles, int q, int d) {
+                                                  int64_t base, int tiles, int nq, int q,
+                                                  int d) {
   float m = -INFINITY;
 #pragma unroll 8
-  for (int j = 0; j < tiles; ++j) m = fmaxf(m, __ldg(part_m + (base + j) * kQ + q));
+  for (int j = 0; j < tiles; ++j) m = fmaxf(m, __ldg(part_m + (base + j) * nq + q));
   float l = 0.f, acc = 0.f;
 #pragma unroll 8
   for (int j = 0; j < tiles; ++j) {
-    const int64_t pq = (base + j) * kQ + q;
+    const int64_t pq = (base + j) * nq + q;
     const float a = expf(__ldg(part_m + pq) - m);
     l += __ldg(part_l + pq) * a;
     acc += __ldg(part_acc + pq * kCrossD + d) * a;

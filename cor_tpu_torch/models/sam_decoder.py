@@ -7,9 +7,10 @@ PyTorch, as ``cor_tpu`` runs it in XLA.
   token -> image attention, ReLU MLP, image -> token attention, 4 LNs,
   attention downsample 2) and a final token -> image attention + LN
   (reference transformer.py:16-106). Each block runs through
-  ``ops/kernels/two_way_layer`` and the final attention through
-  ``ops/kernels/t2i_flash``; the image PE enters through the projections
-  only (``proj(keys) + proj(key_pe)``, with ``key_pe`` kept batch-1).
+  ``ops/kernels/two_way_layer`` (or K8a/K8b, below) and the final attention
+  through ``ops/kernels/t2i_flash``; the image PE enters through the
+  projections only (``proj(keys) + proj(key_pe)``, with ``key_pe`` kept
+  batch-1).
 - ``MaskDecoder``: tokens = [iou_token; mask_tokens; sparse prompt], the
   transformer against image embedding + dense prompt, the upscale tail and
   hypernetwork dot in ``ops/kernels/decoder_tail``, and the IoU head
@@ -24,11 +25,17 @@ no backward and refuse to be differentiated.
 ``fused=True`` routes as ``cor_tpu`` does (``layer_route``, its
 ``layer_fused`` test): a grid of H * W a multiple of 1,024 rows, at most 8
 tokens and a width that the heads divide go through the per-layer kernel
-(K1); other geometries go through ``cor_tpu``'s K8a/K8b, which the port has
-not yet. Off the CPU, a decode that ``cor_tpu`` sends to K8a/K8b is refused
-naming their ROADMAP row, and one of 7 or 8 tokens (K1 in ``cor_tpu``; the
-port's K1 and K2 take 6) naming Queue 1's item 14, before any kernel runs.
-On the CPU the plain versions run every geometry.
+(K1, at 5 to 8 tokens); other geometries (SAM's stock prompts above 8
+tokens: ``prompt_encoder.full_prompt_encoder``) through
+``_two_way_block(fused=True)``: the token side in plain PyTorch, the
+token -> image attention and q_img in K8a (``ops/kernels/t2i_flash``
+``proj_q_t2i_flash``), the image -> token attention and the rows' LN in K8b
+(``ops/kernels/i2t_attention``), a store's rows gathered and dequantised
+first in PyTorch, as ``cor_tpu`` does in XLA. The final attention is K2 at
+every token count. Off the CPU, what the kernels do not take (more than 32
+tokens; a grid not 64 wide or not 256 channels) is refused before any
+kernel runs, naming its ROADMAP row. On the CPU the plain versions run
+every geometry.
 
 Parameters are named after ``cor_tpu``'s tree (``init_mask_decoder``), so the
 weight bridge maps a ``cor_tpu`` tree onto the module; the transposed-conv
@@ -54,19 +61,23 @@ from cor_tpu_torch.ops.common import (
     mlp_block,
     torch_uniform_,
 )
-from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
-from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
-from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
+from cor_tpu_torch.ops.kernels.decoder_tail import GRID_W, decoder_tail
+from cor_tpu_torch.ops.kernels.i2t_attention import i2t_attention_fused
+from cor_tpu_torch.ops.kernels.t2i_flash import (
+    C_DIM,
+    MAX_TOKENS,
+    proj_q_t2i_flash,
+    t2i_flash_kv,
+)
+from cor_tpu_torch.ops.kernels.two_way_layer import gather_rows, two_way_layer
 
 LN_EPS = 1e-5  # the two-way transformer's LayerNorms (the tail's is 1e-6)
 # cor_tpu's layer_fused test (models/sam_decoder.py:255-260): K1's row tile
 # and token pad (ops/pallas/two_way_layer.py:79-80)
 LAYER_ROW_TILE, LAYER_MAX_TOKENS = 1024, 8
-KERNEL_TOKENS = 6  # the tokens the port's K1 and K2 take
-K8_ITEM = ("ROADMAP Queue 2, K8a/K8b (the per-layer t2i and i2t kernels that cor_tpu runs "
-           "where its layer kernel does not)")
-TOKENS_ITEM = ("ROADMAP Queue 1, item 14 (the stock prompt encoder, with K1 and K2 at up to "
-               "8 tokens)")
+TOKENS_ROW = "ROADMAP Queue 2, @T>32 (decodes of more than 32 tokens)"
+GRID_ROW = ("ROADMAP Queue 2, @grid (decoder grids other than 64 wide and 256 channels, the "
+            "geometry of SAM's image encoder)")
 
 
 @dataclass(frozen=True)
@@ -171,10 +182,12 @@ def _ln(p: LayerNorm, x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
 
 
 def _two_way_block(lp: TwoWayBlock, queries, keys, query_pe, key_pe, num_heads: int,
-                   skip_first_layer_pe: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One TwoWayAttentionBlock as separate ops (cor_tpu ``_two_way_block``
-    with ``fused=False``): ``proj(keys + key_pe)`` as ``proj(keys) +
-    proj(key_pe)`` with ``key_pe`` [1, N, C] kept batch-1."""
+                   skip_first_layer_pe: bool,
+                   fused: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One TwoWayAttentionBlock (cor_tpu ``_two_way_block``): ``proj(keys +
+    key_pe)`` as ``proj(keys) + proj(key_pe)`` with ``key_pe`` [1, N, C] kept
+    batch-1. ``fused=False``: separate ops (differentiable); ``fused=True``:
+    the token side as separate ops, the image side in K8a and K8b."""
     if skip_first_layer_pe:
         queries = lp.self_attn(queries, queries, queries)
     else:
@@ -186,10 +199,16 @@ def _two_way_block(lp: TwoWayBlock, queries, keys, query_pe, key_pe, num_heads: 
     kpe = _matmul_nobias(t2i.k_proj, key_pe)
     qpe = _matmul_nobias(i2t.q_proj, key_pe)
     q_tok = t2i.q_proj(queries + query_pe)
-    k_img = t2i.k_proj(keys) + kpe
-    v_img = t2i.v_proj(keys)
-    q_img = i2t.q_proj(keys) + qpe
-    queries = queries + t2i.out_proj(attention_heads(q_tok, k_img, v_img, num_heads))
+    if fused:
+        q_img, t2i_out = proj_q_t2i_flash(
+            keys, t2i.k_proj.w, t2i.k_proj.b, t2i.v_proj.w, t2i.v_proj.b, i2t.q_proj.w,
+            i2t.q_proj.b, kpe[0], qpe[0], q_tok, num_heads)
+    else:
+        k_img = t2i.k_proj(keys) + kpe
+        v_img = t2i.v_proj(keys)
+        q_img = i2t.q_proj(keys) + qpe
+        t2i_out = attention_heads(q_tok, k_img, v_img, num_heads)
+    queries = queries + t2i.out_proj(t2i_out)
     queries = _ln(lp.norm2, queries)
 
     queries = queries + mlp_block(lp.mlp, queries, act=torch.relu)
@@ -197,8 +216,12 @@ def _two_way_block(lp: TwoWayBlock, queries, keys, query_pe, key_pe, num_heads: 
 
     k_tok = i2t.k_proj(queries + query_pe)
     v_tok = i2t.v_proj(queries)
-    attn_out = i2t.out_proj(attention_heads(q_img, k_tok, v_tok, num_heads))
-    keys = _ln(lp.norm4, keys + attn_out)
+    if fused:
+        keys = i2t_attention_fused(q_img, keys, k_tok, v_tok, i2t.out_proj.w, i2t.out_proj.b,
+                                   lp.norm4.scale, lp.norm4.bias, num_heads, LN_EPS)
+    else:
+        attn_out = i2t.out_proj(attention_heads(q_img, k_tok, v_tok, num_heads))
+        keys = _ln(lp.norm4, keys + attn_out)
     return queries, keys
 
 
@@ -229,25 +252,24 @@ def _conv_transpose_2x(p: ConvTranspose2x, x: torch.Tensor) -> torch.Tensor:
 def layer_route(n_rows: int, n_tokens: int, width: int, num_heads: int) -> str:
     """cor_tpu's routing of a fused decode of ``n_rows`` = H * W image rows
     and ``n_tokens`` tokens: "layer" (K1, one kernel per layer) or "k8"
-    (K8a/K8b)."""
+    (``_two_way_block(fused=True)``: K8a/K8b)."""
     if (n_rows % LAYER_ROW_TILE == 0 and n_tokens <= LAYER_MAX_TOKENS
             and width % num_heads == 0):
         return "layer"
     return "k8"
 
 
-def check_fused_geometry(n_rows: int, n_tokens: int, width: int, num_heads: int) -> None:
+def check_fused_geometry(grid_w: int, n_tokens: int, width: int) -> None:
     """Refuse, before any kernel runs, a fused decode on the card that the
-    port's kernels do not take, naming the ROADMAP item that ports it."""
-    if layer_route(n_rows, n_tokens, width, num_heads) == "k8":
-        raise ValueError(
-            f"a fused decode of {n_rows} image rows and {n_tokens} tokens runs through "
-            f"K8a/K8b in cor_tpu (not a multiple of {LAYER_ROW_TILE} rows, or more than "
-            f"{LAYER_MAX_TOKENS} tokens): {K8_ITEM}")
-    if n_tokens != KERNEL_TOKENS:
-        raise ValueError(
-            f"a fused decode of {n_tokens} tokens: the port's K1 and K2 take "
-            f"{KERNEL_TOKENS} ({TOKENS_ITEM})")
+    port's kernels do not take, naming the ROADMAP row that ports it. The
+    decoder always has 5 output tokens; K3 takes a grid 64 wide (so H * W is
+    a multiple of 64, the image passes' row tile) of 256 channels."""
+    if n_tokens > MAX_TOKENS:
+        raise ValueError(f"a fused decode of {n_tokens} tokens: the decoder kernels take at "
+                         f"most {MAX_TOKENS} ({TOKENS_ROW})")
+    if (grid_w, width) != (GRID_W, C_DIM):
+        raise ValueError(f"a fused decode on a grid {grid_w} wide of {width} channels: the "
+                         f"decoder kernels take {GRID_W} wide, {C_DIM} channels ({GRID_ROW})")
 
 
 def two_way_transformer(
@@ -268,19 +290,29 @@ def two_way_transformer(
         return _two_way_transformer_unfused(p, image_embedding, image_pe, point_embedding)
     if store_scale is not None and store_idx is None:
         raise ValueError("an int8 store needs store_idx")
+    T = point_embedding.shape[1]
     if image_embedding.device.type != "cpu":
-        check_fused_geometry(H * W, point_embedding.shape[1], C, p.cfg.num_heads)
+        check_fused_geometry(W, T, C)
     comp_dt = point_embedding.dtype if store_scale is not None else image_embedding.dtype
     keys = image_embedding.reshape(S, H * W, C)
     key_pe = image_pe.reshape(1, H * W, C).to(comp_dt)
     queries = query_pe = point_embedding
+    route = layer_route(H * W, T, C, p.cfg.num_heads)
+    if route == "k8" and store_idx is not None:
+        # cor_tpu's gather fallback (models/sam_decoder.py:321-327)
+        keys = gather_rows(keys, store_idx, store_scale, comp_dt)
     for i, lp in enumerate(p.layers):
-        kpe = _matmul_nobias(lp.cross_attn_t2i.k_proj, key_pe)[0]
-        qpe = _matmul_nobias(lp.cross_attn_i2t.q_proj, key_pe)[0]
-        queries, keys = two_way_layer(
-            lp, queries, query_pe, keys, kpe, qpe, skip_pe=(i == 0), eps=LN_EPS,
-            idx=store_idx if i == 0 else None, scale=store_scale if i == 0 else None,
-        )
+        if route == "k8":
+            queries, keys = _two_way_block(lp, queries, keys, query_pe, key_pe,
+                                           p.cfg.num_heads, skip_first_layer_pe=(i == 0),
+                                           fused=True)
+        else:
+            kpe = _matmul_nobias(lp.cross_attn_t2i.k_proj, key_pe)[0]
+            qpe = _matmul_nobias(lp.cross_attn_i2t.q_proj, key_pe)[0]
+            queries, keys = two_way_layer(
+                lp, queries, query_pe, keys, kpe, qpe, skip_pe=(i == 0), eps=LN_EPS,
+                idx=store_idx if i == 0 else None, scale=store_scale if i == 0 else None,
+            )
     fa = p.final_attn_t2i
     q_tok = fa.q_proj(queries + query_pe)
     kpe = _matmul_nobias(fa.k_proj, key_pe)[0]

@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 # every entry but cor_layer_norm takes its compute dtype as f32 (0: bf16, 1:
-# fp32) just before the stream
+# fp32) just before the stream; the decoder's entries take their token count
+# as n_tok, just after n
 _SIGNATURES = {
     # x, scale, bias, y, rows, cols, eps, x_bf16, w_bf16, stream
     "cor_layer_norm": (
@@ -64,32 +65,32 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _I, _VP,
     ),
-    # tokens, qpe, wt, bt, skip_pe, self_scale, cross_scale, eps, n, x_out, qt_out, f32,
-    # stream
+    # tokens, qpe, wt, bt, skip_pe, self_scale, cross_scale, eps, n, n_tok, x_out, qt_out,
+    # f32, stream
     "cor_twl_tokens_in": (
         _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, _VP, _VP, _I, _VP,
+        ctypes.c_int, _I, _VP, _VP, _I, _VP,
     ),
-    # src, src_int8, idx, scale, S, n, N, w, b, kpe, qpe, qt, q_img, part_m, part_l,
+    # src, src_int8, idx, scale, S, n, n_tok, N, w, b, kpe, qpe, qt, q_img, part_m, part_l,
     # part_acc, f32, stream
     "cor_t2i_image_pass": (
-        _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int,
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
     ),
-    # x_in, qpe, part_m, part_l, part_acc, tiles, wt, bt, eps, n, tokens_out, k_out,
+    # x_in, qpe, part_m, part_l, part_acc, tiles, wt, bt, eps, n, n_tok, tokens_out, k_out,
     # v_out, f32, stream
     "cor_twl_tokens_mid": (
-        _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_float, ctypes.c_int,
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_float, ctypes.c_int, _I,
         _VP, _VP, _VP, _I, _VP,
     ),
-    # src, src_int8, idx, scale, S, n, N, q_img, k_i, v_i, wo, bo_ln4, eps, cross_scale,
-    # keys_out, f32, stream
+    # src, src_int8, idx, scale, S, n, n_tok, N, q_img, k_i, v_i, wo, bo_ln4, eps,
+    # cross_scale, keys_out, f32, stream
     "cor_twl_image_i2t": (
-        _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int,
         _VP, _VP, _VP, _VP, _VP, ctypes.c_float, ctypes.c_float, _VP, _I, _VP,
     ),
-    # part_m, part_l, part_acc, tiles, n, out, f32, stream
-    "cor_t2i_combine": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _VP, _I, _VP),
+    # part_m, part_l, part_acc, tiles, n, n_tok, out, f32, stream
+    "cor_t2i_combine": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, _VP, _I, _VP),
     # src, w1t, w2t, vec, hyper, n, m, H, eps, out, f32, stream
     "cor_decoder_tail": (
         _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,

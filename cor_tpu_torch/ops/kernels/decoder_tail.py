@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from cor_tpu_torch.ops.common import conv_transpose_2x, gelu_poly, layer_norm
 from cor_tpu_torch.ops.diff import refuse_grad
 from cor_tpu_torch.ops.kernels._build import check, count_launch, library, operand_dtype
-from cor_tpu_torch.ops.kernels.two_way_layer import cached_pack
+from cor_tpu_torch.ops.kernels.t2i_flash import cached_pack
 
 C_IN, O1, O2, GRID_W = 256, 64, 32, 64
 

@@ -35,7 +35,10 @@ per call): a token kernel (stage 1 and the t2i query), the image pass of
 token kernel (the partials' combine, the rest of stage 2, stage 3, the i2t
 keys and values), and an image kernel (stage 4). See the sources for what
 bounds each. The kernels take the SAM geometry only: C = 256, 8 heads,
-internal width 128, 6 tokens, MLP 2048, N a multiple of 64, in the compute
+internal width 128, 5 to 8 tokens (the tokens at which ``cor_tpu`` runs its
+layer kernel: the mask decoder's 5 output tokens and up to 3 prompt tokens;
+the TPU kernel pads them to 8, the token kernels here are compiled for each
+count), MLP 2048, N a multiple of 64, in the compute
 dtype bf16 or fp32 (tokens, rows, PE projections of one dtype; the rows may
 be an int8 store, dequantised to it). In fp32 the image passes' products run
 in 3xTF32 on the tensor cores, the token kernels in fp32 FMAs, and nothing
@@ -57,9 +60,18 @@ import torch
 from cor_tpu_torch.ops.common import layer_norm
 from cor_tpu_torch.ops.diff import refuse_grad
 from cor_tpu_torch.ops.kernels._build import check, count_launch, library, operand_dtype
+from cor_tpu_torch.ops.kernels.i2t_attention import _heads, i2t_attention_fused_plain
+from cor_tpu_torch.ops.kernels.t2i_flash import (
+    C_DIM,
+    HEADS,
+    INTERNAL,
+    ROW_TILE,
+    cached_pack,
+    proj_q_t2i_flash_plain,
+)
 
-C_DIM, HEADS, INTERNAL, TOKENS, MLP_DIM = 256, 8, 128, 6, 2048
-ROW_TILE = 64  # image rows per CTA of the image passes
+MLP_DIM = 2048
+LAYER_TOKENS = (5, 6, 7, 8)  # the token counts the token kernels are compiled for
 
 
 def _lin(x: torch.Tensor, d) -> torch.Tensor:
@@ -77,11 +89,6 @@ def gather_rows(keys, idx, scale, dt) -> torch.Tensor:
     if scale is None:
         return rows.to(dt)
     return (rows.float() * scale.float()[rows_idx][:, None, None]).to(dt)
-
-
-def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
-    n, t, c = x.shape
-    return x.reshape(n, t, h, c // h).transpose(1, 2)  # [n, h, t, d]
 
 
 def _merge(x: torch.Tensor) -> torch.Tensor:
@@ -103,7 +110,6 @@ def two_way_layer_plain(
     sa, t2i, i2t = lp.self_attn, lp.cross_attn_t2i, lp.cross_attn_i2t
     H = sa.num_heads
     C = tokens.shape[-1]
-    I = t2i.q_proj.w.shape[0]
     x, qpe = tokens.float(), qpe_tok.float()
 
     # 1) token self-attention
@@ -116,17 +122,11 @@ def two_way_layer_plain(
     x = s if skip_pe else x + s
     x = layer_norm(x, lp.norm1.scale, lp.norm1.bias, eps)
 
-    # 2) token -> image attention; q_img for stage 4
-    cross = 1.0 / math.sqrt(I // H)
-    qt = r(_lin(r(x + qpe), t2i.q_proj) * cross)
-    rf = rows.float()
-    k_t = r(_lin(rf, t2i.k_proj) + kpe.float())
-    v_t = r(_lin(rf, t2i.v_proj))
-    q_img = r(_lin(rf, i2t.q_proj) + qpe_img.float())
-    logits = _heads(qt, H) @ _heads(k_t, H).transpose(-1, -2)  # [n, H, T, N]
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    av = (r(e) @ _heads(v_t, H)) / e.sum(dim=-1, keepdim=True)
-    x = x + _lin(r(_merge(av)), t2i.out_proj)
+    # 2) token -> image attention (K8a's function); q_img for stage 4
+    q_img, av = proj_q_t2i_flash_plain(
+        rows, t2i.k_proj.w, t2i.k_proj.b, t2i.v_proj.w, t2i.v_proj.b, i2t.q_proj.w,
+        i2t.q_proj.b, kpe, qpe_img, _lin(r(x + qpe), t2i.q_proj), H)
+    x = x + _lin(av.float(), t2i.out_proj)
     x = layer_norm(x, lp.norm2.scale, lp.norm2.bias, eps)
 
     # 3) token MLP (ReLU)
@@ -134,29 +134,13 @@ def two_way_layer_plain(
     x = x + _lin(r(h), lp.mlp.lin2)
     x = layer_norm(x, lp.norm3.scale, lp.norm3.bias, eps)
 
-    # 4) image -> token attention over the T tokens of each head
+    # 4) image -> token attention over the T tokens of each head (K8b's
+    # function)
     k_i = r(_lin(r(x + qpe), i2t.k_proj))
     v_i = r(_lin(r(x), i2t.v_proj))
-    l2 = _heads(r(q_img * cross), H) @ _heads(k_i, H).transpose(-1, -2)  # [n, H, N, T]
-    a2 = r(torch.softmax(l2, dim=-1))
-    o2 = _lin(r(_merge(a2 @ _heads(v_i, H))), i2t.out_proj)
-    z = layer_norm(rf + o2, lp.norm4.scale, lp.norm4.bias, eps)
-    return x.to(dt), z.to(dt)
-
-
-def cached_pack(holder, attr: str, tensors, device, dtype, make):
-    """``make()``, kept on ``holder`` as ``attr`` and made again only for
-    another device or compute dtype, or when one of ``tensors`` is another
-    tensor (the per-call copies of an eval under ``functional_call``):
-    serving weights are packed once, and a pack of one dtype never reaches
-    the kernel of the other."""
-    stamp = [id(t) for t in tensors]
-    cache = getattr(holder, attr, None)
-    if cache is None or cache[0] != (device, dtype) or cache[1] != stamp:
-        # the tensors ride along so that their ids stay theirs while cached
-        cache = ((device, dtype), stamp, make(), tuple(tensors))
-        setattr(holder, attr, cache)
-    return cache[2]
+    z = i2t_attention_fused_plain(q_img, rows, k_i, v_i, i2t.out_proj.w, i2t.out_proj.b,
+                                  lp.norm4.scale, lp.norm4.bias, H, eps)
+    return x.to(dt), z
 
 
 def _pack(lp, device, dtype) -> dict:
@@ -191,12 +175,13 @@ def _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale) -> torc
     sa, t2i = lp.self_attn, lp.cross_attn_t2i
     n, T, C = tokens.shape
     N = keys.shape[1]
-    if (C, T, sa.num_heads, t2i.q_proj.w.shape[0], lp.mlp.lin1.w.shape[0]) != (
-            C_DIM, TOKENS, HEADS, INTERNAL, MLP_DIM):
+    if (C, sa.num_heads, t2i.q_proj.w.shape[0], lp.mlp.lin1.w.shape[0]) != (
+            C_DIM, HEADS, INTERNAL, MLP_DIM) or T not in LAYER_TOKENS:
         raise ValueError(
-            f"two_way_layer kernel takes the SAM geometry (C {C_DIM}, {TOKENS} tokens, "
-            f"{HEADS} heads, internal {INTERNAL}, MLP {MLP_DIM}); got C {C}, {T} tokens, "
-            f"{sa.num_heads} heads, internal {t2i.q_proj.w.shape[0]}, MLP {lp.mlp.lin1.w.shape[0]}")
+            f"two_way_layer kernel takes the SAM geometry (C {C_DIM}, {LAYER_TOKENS[0]} to "
+            f"{LAYER_TOKENS[-1]} tokens, {HEADS} heads, internal {INTERNAL}, MLP {MLP_DIM}); got "
+            f"C {C}, {T} tokens, {sa.num_heads} heads, internal {t2i.q_proj.w.shape[0]}, MLP "
+            f"{lp.mlp.lin1.w.shape[0]}")
     dt = operand_dtype("two_way_layer", tokens, qpe_tok, kpe, qpe_img,
                        None if scale is not None else keys)
     if keys.dim() != 3 or keys.shape[2] != C or N % ROW_TILE or N == 0:
@@ -237,22 +222,22 @@ def two_way_layer(
         raise ValueError(f"two_way_layer: no kernel for device {tokens.device}")
     dt = _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale)
     refuse_grad("two_way_layer", tokens, qpe_tok, keys, kpe, qpe_img, *lp.parameters())
-    n = tokens.shape[0]
+    n, T = tokens.shape[0], tokens.shape[1]
     S, N = keys.shape[0], keys.shape[1]
     dev = tokens.device
     pk = _pack(lp, dev, dt)
     tiles = N // ROW_TILE
     f32 = dict(device=dev, dtype=torch.float32)
     cd = dict(device=dev, dtype=dt)  # the compute dtype
-    x_mid = torch.empty((n, TOKENS, C_DIM), **f32)
-    qt = torch.empty((n, TOKENS, INTERNAL), **cd)
+    x_mid = torch.empty((n, T, C_DIM), **f32)
+    qt = torch.empty((n, T, INTERNAL), **cd)
     q_img = torch.empty((n, N, INTERNAL), **cd)
-    part_m = torch.empty((n, tiles, HEADS * TOKENS), **f32)
-    part_l = torch.empty((n, tiles, HEADS * TOKENS), **f32)
-    part_acc = torch.empty((n, tiles, HEADS * TOKENS, INTERNAL // HEADS), **f32)
-    tokens_out = torch.empty((n, TOKENS, C_DIM), **cd)
-    k_i = torch.empty((n, TOKENS, INTERNAL), **cd)
-    v_i = torch.empty((n, TOKENS, INTERNAL), **cd)
+    part_m = torch.empty((n, tiles, HEADS * T), **f32)
+    part_l = torch.empty((n, tiles, HEADS * T), **f32)
+    part_acc = torch.empty((n, tiles, HEADS * T, INTERNAL // HEADS), **f32)
+    tokens_out = torch.empty((n, T, C_DIM), **cd)
+    k_i = torch.empty((n, T, INTERNAL), **cd)
+    v_i = torch.empty((n, T, INTERNAL), **cd)
     keys_out = torch.empty((n, N, C_DIM), **cd)
     idx_p = 0 if idx is None else idx.data_ptr()
     scale_p = 0 if scale is None else scale.data_ptr()
@@ -265,21 +250,21 @@ def two_way_layer(
         stream = torch.cuda.current_stream(dev).cuda_stream
         check(lib.cor_twl_tokens_in(
             tokens.data_ptr(), qpe_tok.data_ptr(), pk["wtok"].data_ptr(), pk["btok"].data_ptr(),
-            int(skip_pe), self_scale, cross_scale, eps, n,
+            int(skip_pe), self_scale, cross_scale, eps, n, T,
             x_mid.data_ptr(), qt.data_ptr(), is_f32, stream), "two_way_layer tokens_in")
         check(lib.cor_t2i_image_pass(
-            keys.data_ptr(), int8, idx_p, scale_p, S, n, N,
+            keys.data_ptr(), int8, idx_p, scale_p, S, n, T, N,
             pk["w_img"].data_ptr(), pk["b_img"].data_ptr(), kpe.data_ptr(), qpe_img.data_ptr(),
             qt.data_ptr(), q_img.data_ptr(),
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), is_f32, stream),
             "two_way_layer image t2i")
         check(lib.cor_twl_tokens_mid(
             x_mid.data_ptr(), qpe_tok.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), tiles, pk["wtok"].data_ptr(), pk["btok"].data_ptr(), eps, n,
+            part_acc.data_ptr(), tiles, pk["wtok"].data_ptr(), pk["btok"].data_ptr(), eps, n, T,
             tokens_out.data_ptr(), k_i.data_ptr(), v_i.data_ptr(), is_f32, stream),
             "two_way_layer tokens_mid")
         check(lib.cor_twl_image_i2t(
-            keys.data_ptr(), int8, idx_p, scale_p, S, n, N, q_img.data_ptr(),
+            keys.data_ptr(), int8, idx_p, scale_p, S, n, T, N, q_img.data_ptr(),
             k_i.data_ptr(), v_i.data_ptr(), pk["wo_i"].data_ptr(), pk["bo_ln4"].data_ptr(),
             eps, cross_scale, keys_out.data_ptr(), is_f32, stream), "two_way_layer image i2t")
     count_launch(two_way_layer, dt, LAUNCHES)

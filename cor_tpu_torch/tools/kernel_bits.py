@@ -9,7 +9,9 @@ built and trained shapes once through the current library and once through
 the old one, on identical inputs, and exits non-zero unless every output is
 equal bit for bit. An old entry point whose declaration in OLD_CSRC_DIR
 takes no ``f32`` flag (the ABI before the kernel took fp32) is called with
-the flag dropped, and a call with ``f32 = 1`` to it raises.
+the flag dropped, and a call with ``f32 = 1`` to it raises; one that takes
+no ``n_tok`` (the decoder's ABI before its kernels took 5 to 32 tokens) is
+called with the token count dropped, and a call with another than 6 raises.
 """
 
 from __future__ import annotations
@@ -25,31 +27,38 @@ import torch
 
 from cor_tpu_torch.ops.kernels import _build
 
-# the entries that take f32 (their second-to-last argument) in the current ABI
-_FLAGGED = [name for name in _build._SIGNATURES if name != "cor_layer_norm"]
+# the parameters an older ABI may lack, by entry: (name, position in the
+# current signature, the only value the old entry computes); f32 is every
+# entry's second-to-last argument but cor_layer_norm's, n_tok follows n
+_OPTIONAL = {name: [("f32", len(sig) - 2, 0)] for name, sig in _build._SIGNATURES.items()
+             if name != "cor_layer_norm"}
+for _name, _pos in (("cor_twl_tokens_in", 9), ("cor_t2i_image_pass", 6),
+                    ("cor_twl_tokens_mid", 10), ("cor_twl_image_i2t", 6), ("cor_t2i_combine", 5)):
+    _OPTIONAL[_name].append(("n_tok", _pos, 6))
 
 
-def lacking_flag(csrc: Path) -> list:
-    """The flagged entries whose ``extern "C"`` declaration in ``csrc`` has
-    no ``f32`` parameter."""
+def lacking(csrc: Path) -> dict:
+    """{entry: [(parameter, position, value), ...]}: the optional parameters
+    that the entry's ``extern "C"`` declaration in ``csrc`` lacks."""
     text = "".join(src.read_text() for src in sorted(csrc.glob("*.cu")))
-    out = []
-    for name in _FLAGGED:
+    out = {}
+    for name, params in _OPTIONAL.items():
         decl = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
         if decl is None:
             raise ValueError(f"{csrc} declares no {name}")
-        if not re.search(r"\bf32\b", decl.group(1)):
-            out.append(name)
+        missing = [p for p in params if not re.search(rf"\b{p[0]}\b", decl.group(1))]
+        if missing:
+            out[name] = missing
     return out
 
 
 _WRAPPER_MODULES = ("layernorm", "seq_attention", "vit_attention", "two_way_layer", "t2i_flash",
-                    "decoder_tail")
+                    "i2t_attention", "decoder_tail")
 
 
-def build_old(csrc: Path, lacking) -> ctypes.CDLL:
+def build_old(csrc: Path, missing: dict) -> ctypes.CDLL:
     """Compile ``csrc``'s sources into one library with the current flags;
-    ``lacking``: the entries declared there without the f32 flag."""
+    ``missing``: ``lacking(csrc)``."""
     h = hashlib.sha256()
     for src in sorted(csrc.glob("*.cu*")):
         h.update(src.read_bytes())
@@ -73,27 +82,32 @@ def build_old(csrc: Path, lacking) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     for name, sig in _build._SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = list(sig[:-2]) + [sig[-1]] if name in lacking else list(sig)
+        drop = {pos for _, pos, _ in missing.get(name, ())}
+        fn.argtypes = [a for i, a in enumerate(sig) if i not in drop]
         fn.restype = ctypes.c_int
     return lib
 
 
 class _OldABI:
-    """The old library behind the current calls: the f32 flag dropped where
-    the old entry lacks it."""
+    """The old library behind the current calls: the parameters the old
+    entry lacks dropped, after a check that they hold the one value it
+    computes."""
 
-    def __init__(self, lib, lacking):
-        self._lib, self._lacking = lib, lacking
+    def __init__(self, lib, missing):
+        self._lib, self._missing = lib, missing
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
-        if name not in self._lacking:
+        if name not in self._missing:
             return fn
 
         def call(*args):
-            if args[-2]:
-                raise TypeError(f"{name}: the old library has no fp32 kernels")
-            return fn(*args[:-2], args[-1])
+            drop = set()
+            for param, pos, value in self._missing[name]:
+                if args[pos] != value:
+                    raise TypeError(f"{name}: the old library takes only {param} = {value}")
+                drop.add(pos)
+            return fn(*(a for i, a in enumerate(args) if i not in drop))
 
         return call
 
@@ -115,7 +129,8 @@ def cases(device):
     from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
     from cor_tpu_torch.ops.kernels.layernorm import layer_norm
     from cor_tpu_torch.ops.kernels.seq_attention import attention_seq, attention_seq_qkv
-    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
+    from cor_tpu_torch.ops.kernels.i2t_attention import i2t_attention_fused
+    from cor_tpu_torch.ops.kernels.t2i_flash import proj_q_t2i_flash, t2i_flash_kv
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
     from cor_tpu_torch.ops.kernels.vit_attention import (
         vit_attention_relpos,
@@ -166,6 +181,16 @@ def cases(device):
     q_tok = rnd(n, 6, 128).to(bf)
     out.append(("K2", lambda: (t2i_flash_kv(keys, fa.k_proj.w, fa.k_proj.b, fa.v_proj.w,
                                             fa.v_proj.b, kpe, q_tok, 8),)))
+    # K8a and K8b run the image passes of K1 and K2: at 6 tokens the old
+    # library computes them too
+    t2i, i2t = lp1.cross_attn_t2i, lp1.cross_attn_i2t
+    out.append(("K8a at 6 tokens", lambda: proj_q_t2i_flash(
+        keys, t2i.k_proj.w, t2i.k_proj.b, t2i.v_proj.w, t2i.v_proj.b, i2t.q_proj.w, i2t.q_proj.b,
+        kpe, qpe, q_tok, 8)))
+    q_img = (0.5 * rnd(n, N, 128)).to(bf)
+    kv = rnd(n, 6, 128).to(bf), rnd(n, 6, 128).to(bf)
+    out.append(("K8b at 6 tokens", lambda: (i2t_attention_fused(
+        q_img, keys, *kv, i2t.out_proj.w, i2t.out_proj.b, lp1.norm4.scale, lp1.norm4.bias, 8),)))
     up = dec.output_upscaling
     hyper = rnd(n, 3, 32).to(bf)
     out.append(("K3", lambda: (decoder_tail(keys.reshape(n, 64, 64, 256), up.convt1.w,
@@ -183,9 +208,10 @@ def main(argv=None) -> int:
         print("FAIL: needs a CUDA card", file=sys.stderr)
         return 2
     device = torch.device("cuda")
-    lacking = lacking_flag(Path(argv[0]))
-    print(f"entries without the f32 flag in {argv[0]}: {lacking}")
-    old = _OldABI(build_old(Path(argv[0]), lacking), lacking)
+    missing = lacking(Path(argv[0]))
+    print(f"entries without f32 or n_tok in {argv[0]}: "
+          f"{ {name: [p for p, _, _ in ps] for name, ps in missing.items()} }")
+    old = _OldABI(build_old(Path(argv[0]), missing), missing)
     differ = []
     torch.set_grad_enabled(False)  # the decoder kernels take no autograd
     for label, run in cases(device):

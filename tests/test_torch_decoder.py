@@ -241,13 +241,14 @@ def test_fused_decode_routes_as_cor_tpu(rows, tokens, width, heads):
 
 
 @pytest.mark.parametrize("grid,tokens,want", [
-    (16, 6, "K8a/K8b"), (64, 9, "K8a/K8b"), (64, 7, "item 14"), (64, 8, "item 14"),
-    (64, 5, "item 14"), (64, 6, "no kernel for device meta")])
+    (48, 6, "@grid"), (64, 33, "@T>32"), (64, 5, "no kernel for device meta"),
+    (64, 7, "no kernel for device meta"), (64, 8, "no kernel for device meta"),
+    (64, 9, "no kernel for device meta")])
 def test_fused_decode_refuses_off_the_cpu_before_any_kernel(grid, tokens, want):
     """Off the CPU (here: the meta device, which has no kernels), a fused
-    decode that cor_tpu sends to K8a/K8b is refused naming their ROADMAP
-    row, and one of other than 6 tokens naming Queue 1's item 14, before any
-    kernel wrapper is reached; the SAM geometry reaches K1's wrapper."""
+    decode of more than 32 tokens, or on a grid other than 64 wide, is
+    refused naming its ROADMAP row before any kernel wrapper is reached; 5
+    to 8 tokens reach K1's wrapper and 9 K8a's (cor_tpu's K8 route)."""
     p = psd.TwoWayTransformer(psd.TwoWayTransformerConfig()).to("meta")
     emb = torch.empty(1, grid, grid, 256, device="meta")
     with pytest.raises(ValueError, match=want):

@@ -255,6 +255,63 @@ def test_wrappers_refuse_devices_without_a_kernel():
         vit_attention_relpos(torch.empty(1, 4, 384, device="meta"), rel, rel, 2, (2, 2))
 
 
+def current_declarations():
+    """{entry: [parameter names]} of the ``extern "C"`` entries in ``csrc/``."""
+    import re
+
+    from cor_tpu_torch.ops.kernels import _build
+
+    text = "".join(p.read_text() for p in sorted(_build.CSRC_DIR.glob("*.cu")))
+    return text, {m.group(1): [a.split()[-1].lstrip("*") for a in m.group(2).split(",")]
+                  for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text)}
+
+
+def test_kernel_bits_knows_where_the_optional_parameters_sit():
+    """tools/kernel_bits.py drops f32 and n_tok by position for an older
+    ``csrc/``: each position is that parameter's in the current entries, and
+    every entry is declared with the signature's length."""
+    from cor_tpu_torch.ops.kernels import _build
+    from cor_tpu_torch.tools import kernel_bits as kb
+
+    _, decls = current_declarations()
+    assert set(decls) == set(_build._SIGNATURES)
+    for name, sig in _build._SIGNATURES.items():
+        assert len(decls[name]) == len(sig), name
+    for name, params in kb._OPTIONAL.items():
+        for param, pos, _ in params:
+            assert decls[name][pos] == param, (name, param, decls[name])
+
+
+def test_kernel_bits_calls_an_older_abi_without_n_tok(tmp_path):
+    """Declarations without n_tok (the decoder's ABI at 6 tokens): the old
+    entries are called with it dropped, and with another count they raise."""
+    import re
+
+    from cor_tpu_torch.tools import kernel_bits as kb
+
+    text, _ = current_declarations()
+    (tmp_path / "old.cu").write_text(re.sub(r",\s*int n_tok", "", text))
+    missing = kb.lacking(tmp_path)
+    decoder = {"cor_twl_tokens_in", "cor_t2i_image_pass", "cor_twl_tokens_mid",
+               "cor_twl_image_i2t", "cor_t2i_combine"}
+    assert {n: [p for p, _, _ in ps] for n, ps in missing.items()} == {
+        n: ["n_tok"] for n in decoder}
+    got = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: got.append((name, args)) or 0
+
+    old = kb._OldABI(Lib(), missing)
+    # part_m, part_l, part_acc, tiles, n, n_tok, out, f32, stream
+    old.cor_t2i_combine("m", "l", "acc", 64, 40, 6, "out", 0, "s")
+    assert got == [("cor_t2i_combine", ("m", "l", "acc", 64, 40, "out", 0, "s"))]
+    with pytest.raises(TypeError, match="n_tok = 6"):
+        old.cor_t2i_combine("m", "l", "acc", 64, 40, 9, "out", 0, "s")
+    old.cor_layer_norm(1, 2)  # an entry the old ABI has as it is
+    assert got[-1] == ("cor_layer_norm", (1, 2))
+
+
 def test_vit_attention_relpos_windows_refuses_devices_without_a_kernel():
     """K7 on a device other than the CPU and the card raises."""
     rel = torch.empty(1, 2, 16, 2, device="meta")
@@ -483,25 +540,191 @@ def test_decoder_kernels_refuse_other_geometry(sam_decoder_bf16):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("grid,tokens,want", [(16, 6, "K8a/K8b"), (64, 7, "item 14"),
-                                              (64, 9, "K8a/K8b")])
+@pytest.mark.parametrize("grid,tokens,want", [(16, 6, "@grid"), (48, 9, "@grid"),
+                                              (64, 33, "@T>32")])
 def test_fused_decode_refuses_other_geometry_before_any_kernel(sam_decoder_bf16, grid, tokens,
                                                                want):
-    """On the card, ``mask_decoder(fused=True)`` refuses the geometries that
-    cor_tpu sends to K8a/K8b (naming their ROADMAP row) and 7 or 8 tokens
-    (K1 in cor_tpu; item 14 here) before any kernel is launched."""
+    """On the card, ``mask_decoder(fused=True)`` refuses what the decoder
+    kernels do not take (a grid other than 64 wide, more than 32 tokens),
+    naming its ROADMAP row, before any kernel is launched."""
     from cor_tpu_torch.models.sam_decoder import mask_decoder
     from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
-    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
+    from cor_tpu_torch.ops.kernels.i2t_attention import i2t_attention_fused
+    from cor_tpu_torch.ops.kernels.t2i_flash import proj_q_t2i_flash, t2i_flash_kv
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
 
-    wrappers = (two_way_layer, t2i_flash_kv, decoder_tail)
+    wrappers = (two_way_layer, t2i_flash_kv, decoder_tail, proj_q_t2i_flash, i2t_attention_fused)
     before = [w.launches for w in wrappers]
     emb = torch.zeros(1, grid, grid, 256, device="cuda", dtype=torch.bfloat16)
     sparse = torch.zeros(1, tokens - 5, 256, device="cuda", dtype=torch.bfloat16)
     with torch.no_grad(), pytest.raises(ValueError, match=want):
         mask_decoder(sam_decoder_bf16, emb, emb, sparse, emb, False)
     assert [w.launches for w in wrappers] == before
+
+
+# ---------------------------------------------------------------------------
+# SAM's stock prompts: K1 at 5, 7 and 8 tokens, K2 at 5 to 32, K8a and K8b
+# (above 8 tokens) against their plain versions, bf16 (max |d| / max |plain|
+# <= 2e-2) and fp32 (cor_tpu's fp32 tolerances: K1 and K8b 2e-4, K2 and K8a
+# 5e-4), and the fused mask decode at every route
+# ---------------------------------------------------------------------------
+
+
+def token_inputs(T, dtype, n=4, N=4096, seed=3):
+    g = torch.Generator(device="cuda").manual_seed(seed + T)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    return dict(tokens=rnd(n, T, 256).to(dtype), rows=(0.5 * rnd(n, N, 256)).to(dtype),
+                kpe=(0.5 * rnd(N, 128)).to(dtype), qpe=(0.5 * rnd(N, 128)).to(dtype),
+                q_img=(0.5 * rnd(n, N, 128)).to(dtype), k_tok=rnd(n, T, 128).to(dtype),
+                v_tok=rnd(n, T, 128).to(dtype))
+
+
+def close_at(dtype, got, want, tol32):
+    if dtype == torch.bfloat16:
+        assert rel_err(got, want) <= DECODE_REL
+    else:
+        fp32_close(got, want, tol32)
+
+
+def decoder_at(dtype):
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+
+    return init_mask_decoder(CoreConfig(), 1).to("cuda", dtype).eval()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", ["int8", "pe"])
+@pytest.mark.parametrize("T", [5, 7, 8])
+def test_two_way_layer_kernel_at_tokens_matches_plain(fp32_device, T, case, dtype):
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer, two_way_layer_plain
+
+    dec = decoder_at(dtype)
+    lp = dec.transformer.layers[0 if case == "int8" else 1]
+    x = token_inputs(T, dtype)
+    keys, kw = x["rows"], {}
+    if case == "int8":
+        f = keys.float()
+        scale = (f.abs().amax(dim=(1, 2)) / 127.0).clamp_min(1e-12)
+        keys = torch.clamp(torch.round(f / scale[:, None, None]), -127, 127).to(torch.int8)
+        kw = dict(idx=torch.tensor([3, 0, 2, 2], dtype=torch.int32, device="cuda"), scale=scale)
+    args = (lp, x["tokens"], x["tokens"], keys, x["kpe"], x["qpe"], case == "int8")
+    with torch.no_grad():
+        before = two_way_layer.launches + two_way_layer.launches_fp32
+        got_t, got_k = two_way_layer(*args, **kw)
+        torch.cuda.synchronize()
+        assert two_way_layer.launches + two_way_layer.launches_fp32 == before + 4
+        want_t, want_k = two_way_layer_plain(*args, **kw)
+    assert got_t.shape == (4, T, 256)
+    close_at(dtype, got_t, want_t, 2e-4)
+    close_at(dtype, got_k, want_k, 2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("T", [5, 7, 8, 9, 16, 17, 32])
+def test_t2i_flash_kv_kernel_at_tokens_matches_plain(fp32_device, T, dtype):
+    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv, t2i_flash_kv_plain
+
+    fa = decoder_at(dtype).transformer.final_attn_t2i
+    x = token_inputs(T, dtype)
+    args = (x["rows"], fa.k_proj.w, fa.k_proj.b, fa.v_proj.w, fa.v_proj.b, x["kpe"],
+            x["k_tok"], 8)
+    with torch.no_grad():
+        got = t2i_flash_kv(*args)
+        torch.cuda.synchronize()
+        close_at(dtype, got, t2i_flash_kv_plain(*args), 5e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("T", [9, 16, 17, 32])
+def test_proj_q_t2i_flash_kernel_matches_plain(fp32_device, T, dtype):
+    """K8a; at 17 tokens and above its bf16 logits leave the weight block's
+    space for their own."""
+    from cor_tpu_torch.ops.kernels.t2i_flash import proj_q_t2i_flash, proj_q_t2i_flash_plain
+
+    lp = decoder_at(dtype).transformer.layers[1]
+    t2i, i2t = lp.cross_attn_t2i, lp.cross_attn_i2t
+    x = token_inputs(T, dtype)
+    args = (x["rows"], t2i.k_proj.w, t2i.k_proj.b, t2i.v_proj.w, t2i.v_proj.b, i2t.q_proj.w,
+            i2t.q_proj.b, x["kpe"], x["qpe"], x["k_tok"], 8)
+    with torch.no_grad():
+        before = proj_q_t2i_flash.launches + proj_q_t2i_flash.launches_fp32
+        got_q, got_a = proj_q_t2i_flash(*args)
+        torch.cuda.synchronize()
+        assert proj_q_t2i_flash.launches + proj_q_t2i_flash.launches_fp32 == before + 2
+        want_q, want_a = proj_q_t2i_flash_plain(*args)
+    assert got_q.shape == (4, 4096, 128) and got_a.shape == (4, T, 128)
+    close_at(dtype, got_q, want_q, 5e-4)
+    close_at(dtype, got_a, want_a, 5e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("T", [9, 16, 32, "stability"])
+def test_i2t_attention_fused_kernel_matches_plain(fp32_device, T, dtype):
+    """K8b; "stability": cor_tpu's per-head case (tests/test_pallas_kernels.py:
+    76-119), head 0's keys biased by +300 so that its logits sit hundreds
+    above the other heads', at 9 tokens."""
+    from cor_tpu_torch.ops.kernels.i2t_attention import (
+        i2t_attention_fused,
+        i2t_attention_fused_plain,
+    )
+
+    lp = decoder_at(dtype).transformer.layers[0]
+    i2t = lp.cross_attn_i2t
+    x = token_inputs(9 if T == "stability" else T, dtype)
+    q_img, k_tok = x["q_img"], x["k_tok"]
+    if T == "stability":
+        k_tok = k_tok.float()
+        k_tok[..., :16] += 300.0
+        k_tok = k_tok.to(dtype)
+    args = (q_img, x["rows"], k_tok, x["v_tok"], i2t.out_proj.w, i2t.out_proj.b,
+            lp.norm4.scale, lp.norm4.bias, 8)
+    with torch.no_grad():
+        before = i2t_attention_fused.launches + i2t_attention_fused.launches_fp32
+        got = i2t_attention_fused(*args)
+        torch.cuda.synchronize()
+        assert i2t_attention_fused.launches + i2t_attention_fused.launches_fp32 == before + 1
+        want = i2t_attention_fused_plain(*args)
+    assert torch.isfinite(got).all()
+    close_at(dtype, got, want, 2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("sparse", [0, 3, 27])
+def test_mask_decoder_fused_at_tokens_matches_plain(fp32_device, monkeypatch, sparse, dtype):
+    """The fused mask decode at 5, 8 (K1) and 32 tokens (K8a/K8b), every
+    kernel launched as the route says, against the same decode through the
+    kernels' plain versions."""
+    from cor_tpu_torch.models import sam_decoder as psd
+    from cor_tpu_torch.ops.kernels import decoder_tail as dt_mod
+    from cor_tpu_torch.ops.kernels import i2t_attention as i2t_mod
+    from cor_tpu_torch.ops.kernels import t2i_flash as t2i_mod
+    from cor_tpu_torch.ops.kernels import two_way_layer as twl_mod
+
+    dec = decoder_at(dtype)
+    g = torch.Generator(device="cuda").manual_seed(sparse)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    img, pe, prompts = 0.5 * rnd(2, 64, 64, 256), 0.5 * rnd(1, 64, 64, 256), rnd(2, sparse, 256)
+    wrappers = (twl_mod.two_way_layer, t2i_mod.t2i_flash_kv, t2i_mod.proj_q_t2i_flash,
+                i2t_mod.i2t_attention_fused, dt_mod.decoder_tail)
+    with torch.no_grad():
+        before = [w.launches + w.launches_fp32 for w in wrappers]
+        got = psd.mask_decoder(dec, img, pe, prompts, None, True)
+        torch.cuda.synchronize()
+        counts = [w.launches + w.launches_fp32 - b for w, b in zip(wrappers, before)]
+        assert counts == ([8, 2, 0, 0, 1] if sparse <= 3 else [0, 2, 4, 2, 1])
+        # the same decode with the kernels' plain versions in their place
+        for mod, name in ((twl_mod, "two_way_layer"), (t2i_mod, "t2i_flash_kv"),
+                          (t2i_mod, "proj_q_t2i_flash"), (i2t_mod, "i2t_attention_fused"),
+                          (dt_mod, "decoder_tail")):
+            monkeypatch.setattr(psd, name, getattr(mod, f"{name}_plain"))
+        want = psd.mask_decoder(dec, img, pe, prompts, None, True)
+    assert got[0].shape == (2, 3, 256, 256)
+    close_at(dtype, got[0], want[0], 5e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -230,7 +230,8 @@ NO_JAX_LARGE = """
 """
 
 
-def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False) -> dict:
+def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
+                    prompts: bool = False) -> dict:
     """Block jax and cor_tpu, import every module of the port, build a
     gallery index with ``cli.index`` at the tiny config ``models`` and serve
     from it end to end: retrieval alone, and with masks decoded
@@ -238,7 +239,10 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False) 
     tiny epoch with ``cli.train`` (``unfrozen``: ``freeze_towers: false``,
     the encoder's backward through K6b's plain version, and an encode with
     ``fused_window_indexing``, K7's plain version, equal to the unflagged
-    one). Returns the first response."""
+    one); with ``prompts``, SAM's stock prompts (the full prompt encoder's
+    points, box and mask feeding the SAM decoder at full width on a 32 x 32
+    grid: K1's route at 5 and 8 tokens, K8a/K8b's at 9). Returns the first
+    response."""
     script = textwrap.dedent(f"""
         import contextlib, dataclasses, importlib, io, json, pkgutil, sys
         from pathlib import Path
@@ -308,6 +312,24 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False) 
             start = core_model.init_image_encoder(cfg, 44).blocks[0].attn.qkv.w
             moved = not torch.equal(trainer.state.model.image_encoder.blocks[0].attn.qkv.w, start)
             assert moved == {unfrozen!r}, moved
+        if {prompts!r}:
+            pcfg = prompt_encoder.PromptEncoderConfig(256, (32, 32), (512, 512))
+            penc = prompt_encoder.init_full_prompt_encoder(pcfg, 0)
+            mdec = core_model.init_mask_decoder(core_model.CoreConfig(), 1)
+            pe = prompt_encoder.dense_positional_encoding(penc.pe_layer.gaussian_matrix,
+                                                          (32, 32))
+            pts = (torch.rand(1, 2, 2) * 512, torch.ones(1, 2, dtype=torch.long))
+            box = torch.tensor([[10.0, 20.0, 300.0, 400.0]])
+            for kw, T in ((dict(masks=torch.randn(1, 128, 128, 1)), 5),
+                          (dict(points=pts), 8), (dict(points=pts, boxes=box), 9)):
+                sparse, dense = prompt_encoder.full_prompt_encoder(penc, pcfg, **kw)
+                assert sparse.shape == (1, T - 5, 256), sparse.shape
+                assert sam_decoder.layer_route(1024, T, 256, 8) == (
+                    "layer" if T <= 8 else "k8")
+                with torch.no_grad():
+                    m, iou, _ = sam_decoder.mask_decoder(
+                        mdec, torch.randn(1, 32, 32, 256), pe, sparse, dense, True)
+                assert m.shape == (1, 3, 128, 128) and torch.isfinite(m).all(), m.shape
         if {unfrozen!r}:
             flagged = dataclasses.replace(cfg, encoder_override=dataclasses.replace(
                 enc, fused_window_indexing=True))
@@ -334,8 +356,8 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False) 
 
 def test_port_runs_without_jax(tmp_path):
     """Without jax and cor_tpu: build, serve (with masks both ways) and train
-    an epoch at head_dim 64."""
-    run_without_jax(tmp_path, NO_JAX_BASE, train=True)
+    an epoch at head_dim 64, and decode from SAM's stock prompts."""
+    run_without_jax(tmp_path, NO_JAX_BASE, train=True, prompts=True)
 
 
 def test_port_runs_without_jax_at_the_largest_head_dims(tmp_path):
