@@ -121,7 +121,7 @@ Phases (any failure exits non-zero; no phase catches an exception):
 26. training at CFG: ``cli.train.main --synthetic`` on m3's keys with
     sam_huge and ViT-SO400M-14-SigLIP-384, frozen then unfrozen, at full
     width, batch 10, sam_huge cut to its first 4 blocks (block 3 global, as
-    in phase 28; phase 32 trains it at full depth in fp32): finite losses,
+    in phase 28; phase 32's fp32 training takes the same cut): finite losses,
     the val line, the saves; frozen, the towers bit-identical and no K6b
     launch; unfrozen, the towers moved, K6b 4 launches per step and K6 8
     plus 4 per val batch;
@@ -163,9 +163,10 @@ Phases (any failure exits non-zero; no phase catches an exception):
     (K6@fp32 32 and K5@fp32 66 per encoded batch), cli.serve over the
     127,166-row gallery with the fp32 and --int8 scans (K4′@fp32 54 and
     K5@fp32 110 per encoded batch), --decode-masks --store-hbm on the index,
-    unfrozen cli.train on m3's keys at batch 10 (K6b@fp32 32 per step),
-    every launch fp32; then the step's seconds (CUDA events), samples/s and
-    peak memory in one pass and split by grad_accum 2 (K6b@fp32 64);
+    unfrozen cli.train on m3's keys at batch 10 with sam_huge cut to 4
+    blocks (K6b@fp32 4 per step), every launch fp32; then the step's seconds
+    (CUDA events), samples/s and peak memory in one pass and split by
+    grad_accum 2 (K6b@fp32 8);
 33. the decoder kernels at SAM's stock prompts' token counts, 40 candidates
     on the 64 x 64 grid, bf16 and fp32 (TF32 off): K1 at 5, 7 and 8 tokens
     (layer 0 from the 2,048-row int8 store, layer 1 on rows), K2 at 5, 7, 8,
@@ -186,7 +187,22 @@ Phases (any failure exits non-zero; no phase catches an exception):
     one store-indexed decode at 9 tokens from an int8 store (gather and
     dequantisation in torch, then K8a/K8b), cosine >= 0.99; the decode's ms
     at batch 8 and 6, 8, 9, 16, 32 tokens in bf16 and fp32, and a
-    torch.profiler breakdown at 16 tokens.
+    torch.profiler breakdown at 16 tokens;
+35. the opt-in decode schedules' kernels at 40 candidates on the 64 x 64
+    grid, 5, 6 and 8 tokens, bf16 and fp32 (TF32 off): K1-dma
+    (two_way_layer_dma) against K1 bit for bit with rows, a store through
+    idx and an int8 store; K1-stack (two_way_stack_fused) and K1-grid
+    (two_way_grid_fused) against their plain version (bf16 max relative
+    error <= 2e-2; fp32 cor_tpu's transformer tolerance 5e-4) with and
+    without a store index, K1-grid's keys against two K1 launches bit for
+    bit; each timed beside its plain version (and K1-dma beside K1) and the
+    bound; then one fused decode of 8 per schedule flag (exact launches:
+    K1-stack or K1-grid and K3, 2 in all; an int8 store with GRID_FUSED or
+    STACK_FUSED goes to K1), its ms at 6 tokens and a profile of K1-grid's;
+36. cor_tpu_torch.tools.decode_bench at its defaults (the SAM-base decoder,
+    bf16, a 128-row store, 8 chunks of 128 candidates, 20 windows) for
+    each variant (layer, dma, stack, grid) and with --int8 for layer and
+    dma: exact launches per chunk, each JSON line printed.
 The line before the last lists every kernel ({"kernels": [...]}; an fp32
 instantiation is an entry of its own, name@fp32, with its fp32 launches);
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -297,10 +313,13 @@ def phase_build():
              "twl_image_i2t_kernel", "t2i_combine_kernel", "decoder_tail_kernel",
              "vit_attention_relpos_kernel", "vit_attention_relpos_f32_kernel",
              "vit_attention_bwd_dq_kernel", "vit_attention_bwd_dkv_kernel",
-             "vit_attention_bwd_dq_f32_kernel", "vit_attention_bwd_dkv_f32_kernel")
-    kernel, spills, regs = None, {}, {}
+             "vit_attention_bwd_dq_f32_kernel", "vit_attention_bwd_dkv_f32_kernel",
+             "dma_t2i_kernel", "dma_i2t_kernel", "two_way_fused_kernel")
+    kernel, spills, regs, done = None, {}, {}, []
     for line in path.with_suffix(".log").read_text().splitlines():
-        if "Compiling entry function" in line:
+        if line.startswith("# ") and ".cu: done " in line:
+            done.append(line[2:].replace(" after the build started", ""))
+        elif "Compiling entry function" in line:
             mangled = line.split("'")[1]
             kernel = next((n for n in names if n in mangled), mangled)
             rest = mangled[mangled.find(kernel) + len(kernel):]
@@ -315,6 +334,7 @@ def phase_build():
             print(f"  ptxas {k}: {regs[k]}; {spills.get(k, '')}")
     spilled = [k for k, v in spills.items() if not v.startswith("0 bytes stack frame, 0 bytes spill")]
     print(f"  ptxas: {len(regs)} kernels, spills in {spilled or 'none'}")
+    print(f"  nvcc, each source: {'; '.join(done)}", flush=True)
     return dt
 
 
@@ -522,13 +542,18 @@ def kernel_wrappers():
         vit_attention_relpos_windows,
     )
 
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer_dma
+    from cor_tpu_torch.ops.kernels.two_way_stack import two_way_grid_fused, two_way_stack_fused
+
     return {"layer_norm": layer_norm, "attention_seq_qkv": attention_seq_qkv,
             "attention_seq": attention_seq,
             "two_way_layer": two_way_layer, "t2i_flash_kv": t2i_flash_kv,
             "decoder_tail": decoder_tail, "vit_attention_relpos": vit_attention_relpos,
             "vit_attention_relpos_bwd": vit_attention_relpos_bwd,
             "vit_attention_relpos_windows": vit_attention_relpos_windows,
-            "proj_q_t2i_flash": proj_q_t2i_flash, "i2t_attention_fused": i2t_attention_fused}
+            "proj_q_t2i_flash": proj_q_t2i_flash, "i2t_attention_fused": i2t_attention_fused,
+            "two_way_layer_dma": two_way_layer_dma, "two_way_stack_fused": two_way_stack_fused,
+            "two_way_grid_fused": two_way_grid_fused}
 
 
 def reset_counts():
@@ -862,6 +887,8 @@ def phase_decode_timings(servers, smi):
 # device kernels by the layer they belong to (substrings of their names; the
 # first group that matches takes the kernel)
 KERNEL_GROUPS = (
+    ("K1-stack / K1-grid two_way_fused", ("two_way_fused",)),
+    ("K1-dma image passes", ("dma_t2i", "dma_i2t")),
     # the image pass with q_img (kEmitQ, the last template argument) is K1's
     # or K8a's, the i2t image kernel K1's or K8b's (the route decides)
     ("two-way layers: K1, or K8a + K8b", ("twl_", "true, true>", "false, true>")),
@@ -1364,7 +1391,8 @@ def phase_train(root: Path, keys=None, blocks: int = 12, phase: int = 15,
         if not freeze and (same[TOWERS[0]] or same[TOWERS[1]] or not same[TOWERS[3]]):
             fail(f"train unfrozen: a tower did not move, or the PE matrix did: {same}")
         idle = ("vit_attention_relpos_bwd", "attention_seq", "vit_attention_relpos_windows",
-                "proj_q_t2i_flash", "i2t_attention_fused")
+                "proj_q_t2i_flash", "i2t_attention_fused", "two_way_layer_dma",
+                "two_way_stack_fused", "two_way_grid_fused")
         if k6 != k6_want or k6b != k6b_want or min(
                 c[n + sfx] for n in kernel_wrappers() if n not in idle) == 0 or (
                 sfx and any(c[n] for n in kernel_wrappers())):
@@ -1986,10 +2014,11 @@ def phase_large_fp32(smi: str):
     cli.serve over the 127,166-row gallery with the fp32 and --int8 scans
     (K4′@fp32 54 and K5@fp32 110 per encoded batch), --decode-masks
     --store-hbm on the index, then unfrozen cli.train on m3's keys at batch
-    10 (K6b@fp32 32 per step: batch 10 fits in one pass), and that step's
-    timings in one pass and split in two microbatches by grad_accum (K6b@fp32
-    64 per step); no bf16 launch anywhere. Returns the launch counts of the
-    serving, build and training paths."""
+    10 with sam_huge cut to LARGE_TRAIN_BLOCKS blocks as in phases 26-27
+    (K6b@fp32 4 per step), and that step's timings in one pass and split in
+    two microbatches by grad_accum (K6b@fp32 8 per step); no bf16 launch
+    anywhere. Returns the launch counts of the serving, build and training
+    paths."""
     keys = {**LARGE_KEYS, "compute_dtype": "float32"}
     with tempfile.TemporaryDirectory() as d:
         d = Path(d)
@@ -2007,9 +2036,13 @@ def phase_large_fp32(smi: str):
             sfx="@fp32")
         del dec_server
         torch.cuda.empty_cache()
-        counts, results, trainer = phase_train(
-            d / "train", keys, blocks=32, phase=32, keep_unfrozen=True,
-            modes=(("unfrozen", False),), sfx="@fp32")
+        with train_encoder_depth(LARGE_TRAIN_BLOCKS):
+            print(f"  fp32 training at CFG: sam_huge cut to {LARGE_TRAIN_BLOCKS} blocks (block "
+                  f"{LARGE_TRAIN_BLOCKS - 1} global) at full width, the towers at full depth",
+                  flush=True)
+            counts, results, trainer = phase_train(
+                d / "train", keys, blocks=LARGE_TRAIN_BLOCKS, phase=32, keep_unfrozen=True,
+                modes=(("unfrozen", False),), sfx="@fp32")
     for ga in (1, 2):
         phase_large_train_timings(trainer, smi, sfx="@fp32", phase=32, grad_accum=ga, steps=2,
                                   with_profile=False)
@@ -2852,6 +2885,221 @@ def phase_prompts(smi: str):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the opt-in decode schedules: phases 35-36
+# ---------------------------------------------------------------------------
+
+SCHEDULE_TOKENS = (5, 6, 8)  # a mask or no prompt; the served decode; a box or 2 points
+SCHEDULE_STORE = 256  # phase 35's store rows (40 of them read through idx)
+SCHEDULE_ROW_TOKENS = 6  # the kernels line's rows: the served decode's token count
+
+
+def schedule_launches(variant: str, int8: bool = False) -> dict:
+    """The decoder wrappers' launches in one fused decode at 5 to 8 tokens
+    under ``variant``'s flag (an int8 store sends grid and stack to K1)."""
+    if variant in ("stack", "grid") and not int8:
+        return {f"two_way_{variant}_fused": 1, "decoder_tail": 1}
+    layer = "two_way_layer_dma" if variant == "dma" else "two_way_layer"
+    return {layer: 8, "t2i_flash_kv": 2, "decoder_tail": 1}
+
+
+@torch.no_grad()
+def phase_decode_schedules(device, smi: str):
+    """Phase 35: K1-dma, K1-stack and K1-grid at 40 candidates on the 64 x 64
+    grid, 5, 6 and 8 tokens, bf16 and fp32 (TF32 off): K1-dma against K1
+    bit for bit (rows, a store through idx, an int8 store); K1-stack and
+    K1-grid against their plain version (bf16 max relative error <= 2e-2,
+    fp32 cor_tpu's transformer tolerance 5e-4), with and without a store
+    index, and K1-grid's keys against two K1 launches bit for bit; each timed
+    beside its plain version and the bound. Then the launches of one fused
+    decode per schedule (an int8 store with GRID_FUSED goes to K1) and the
+    decode's ms at batch 8, in bf16 and fp32. Returns the kernels line's
+    entries and the decodes' launches by wrapper (the fp32 kernels' path)."""
+    from cor_tpu_torch.models import sam_decoder as sd
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+    from cor_tpu_torch.ops.kernels.two_way_layer import (
+        two_way_layer,
+        two_way_layer_dma,
+        two_way_layer_plain,
+    )
+    from cor_tpu_torch.ops.kernels.two_way_stack import (
+        two_way_grid_fused,
+        two_way_stack_fused,
+        two_way_stack_plain,
+    )
+    from cor_tpu_torch.tools.decode_bench import VARIANTS
+
+    n, N, C, I = CANDIDATES, GRID * GRID, SAM_C, 128
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    out = {}
+    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "@fp32")):
+        bnd = bound if dt == torch.bfloat16 else bound32
+        el = torch.finfo(dt).bits // 8
+        dec = init_mask_decoder(CoreConfig(), 1).to(device, dt).eval()
+        p = dec.transformer
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=device).to(dt)  # noqa: E731
+        keys = 0.5 * rnd(n, N, C)
+        store = 0.5 * rnd(SCHEDULE_STORE, N, C)
+        f = store.float()
+        scales = (f.abs().amax(dim=(1, 2)) / 127.0).clamp_min(1e-12)
+        store8 = torch.clamp(torch.round(f / scales[:, None, None]), -127, 127).to(torch.int8)
+        del f
+        idx = torch.randperm(SCHEDULE_STORE, generator=gen, device=device)[:n].to(torch.int32)
+        kpe, qpe = [0.5 * rnd(N, I) for _ in range(2)], [0.5 * rnd(N, I) for _ in range(2)]
+        kpe_f = 0.5 * rnd(N, I)
+        w_layer = sum(nbytes(*lp.parameters()) for lp in p.layers[:1])
+        w_all = nbytes(*p.parameters())
+        dma, stack, grid = {}, {}, {}
+        for T in SCHEDULE_TOKENS:
+            tokens = rnd(n, T, C)
+            layer_flops = n * (2 * N * C * 3 * I + 2 * N * I * C + 4 * 2 * N * T * I +
+                               2 * TOKEN_MACS * T)
+            for label, rows, kw, rows_bytes in (
+                    ("int8 store-indexed", store8, dict(idx=idx, scale=scales), n * N * C + 8 * n),
+                    ("store-indexed", store, dict(idx=idx), n * N * C * el + 4 * n),
+                    ("rows", keys, {}, nbytes(keys))):
+                args = (p.layers[0], tokens, tokens, rows, kpe[0], qpe[0], True)
+                got, want = two_way_layer_dma(*args, **kw), two_way_layer(*args, **kw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"K1-dma ({label}, {T} tokens, {dt}) differs from K1")
+                plain = two_way_layer_plain(*args, **kw)
+                kt = cuda_ms(lambda: two_way_layer_dma(*args, **kw))
+                k1t = cuda_ms(lambda: two_way_layer(*args, **kw))
+                pt = cuda_ms(lambda: two_way_layer_plain(*args, **kw), windows=3, iters=3)
+                b = bnd(rows_bytes + nbytes(tokens, kpe[0], qpe[0], *got) + nbytes(tokens) +
+                        w_layer, layer_flops)
+                e = token_check("K1-dma two_way_layer_dma", f"T {T} {label} [{n}, {N}, {C}]", dt,
+                                list(zip(got, plain)), kt, pt, b, FP32_TOL["two_way_layer"])
+                e.update(bits_equal_to_k1=True, k1_ms=k1t[0], k1_ms_min=k1t[1], k1_ms_max=k1t[2])
+                print(f"    K1-dma == K1 bit for bit; K1 {k1t[0]:.4f} ms [{k1t[1]:.4f}, "
+                      f"{k1t[2]:.4f}] in the same call", flush=True)
+                dma[f"T{T} {label}"] = e
+            fused_flops = 2 * layer_flops + n * (2 * N * C * 2 * I + 4 * N * T * I +
+                                                 2 * (I * C + C * I) * T)
+            for label, rows, kw, rows_bytes in (
+                    ("store-indexed", store, dict(idx=idx), n * N * C * el + 4 * n),
+                    ("rows", keys, {}, nbytes(keys))):
+                args = (p, tokens, tokens, rows, kpe, qpe, kpe_f)
+                b = bnd(rows_bytes + nbytes(tokens, *kpe, *qpe, kpe_f) + n * N * C * el +
+                        nbytes(tokens) + w_all, fused_flops)
+                for name, fn, res in (("stack", two_way_stack_fused, stack),
+                                      ("grid", two_way_grid_fused, grid)):
+                    got = fn(*args, **kw)
+                    want = two_way_stack_plain(*args, **kw, round_between_layers=name == "grid")
+                    torch.cuda.synchronize()
+                    kt = cuda_ms(lambda: fn(*args, **kw))
+                    pt = cuda_ms(lambda: two_way_stack_plain(
+                        *args, **kw, round_between_layers=name == "grid"), windows=3, iters=3)
+                    e = token_check(f"K1-{name} two_way_{name}_fused",
+                                    f"T {T} {label} [{n}, {N}, {C}]", dt, list(zip(got, want)),
+                                    kt, pt, b, FP32_TOL["transformer"])
+                    if name == "grid":
+                        t1, k1 = two_way_layer(p.layers[0], tokens, tokens, rows, kpe[0], qpe[0],
+                                               True, idx=kw.get("idx"))
+                        _, k2 = two_way_layer(p.layers[1], t1, tokens, k1, kpe[1], qpe[1], False)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got[1], k2):
+                            fail(f"K1-grid's keys ({label}, {T} tokens, {dt}) differ from two "
+                                 f"K1 launches'")
+                        e["keys_bits_equal_to_two_k1"] = True
+                        print("    K1-grid's keys == two K1 launches' bit for bit", flush=True)
+                    res[f"T{T} {label}"] = e
+        row = f"T{SCHEDULE_ROW_TOKENS}"
+        out[f"two_way_layer_dma{sfx}"] = dict(dma[f"{row} int8 store-indexed"], at_tokens=dma)
+        out[f"two_way_stack_fused{sfx}"] = dict(stack[f"{row} store-indexed"], at_tokens=stack)
+        out[f"two_way_grid_fused{sfx}"] = dict(grid[f"{row} store-indexed"], at_tokens=grid)
+        del keys, store, store8
+        torch.cuda.empty_cache()
+
+    # one fused decode of 8 per schedule, bf16 and fp32: its launches (the
+    # fp32 instantiations' path) and ms; a profile of K1-grid's in bf16
+    flags = {f: getattr(sd, f) for f in ("GRID_FUSED", "STACK_FUSED", "DMA_FUSED")}
+    totals = {k: 0 for k in read_counts()}
+    decodes = {}
+    try:
+        for dt, where in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            sfx = "@fp32" if dt == torch.float32 else ""
+            dec = init_mask_decoder(CoreConfig(), 1).to(device, dt).eval()
+            rnd = lambda *s: torch.randn(*s, generator=gen, device=device).to(dt)  # noqa: E731
+            img8, dense8 = 0.5 * rnd(8, GRID, GRID, C), 0.1 * rnd(8, GRID, GRID, C)
+            pe8, sparse = rnd(1, GRID, GRID, C), rnd(8, 1, C)
+            q8 = torch.randint(-127, 128, (16, GRID, GRID, C), generator=gen, device=device,
+                               dtype=torch.int8)
+            sc8 = torch.full((16,), 0.02, device=device)
+            idx8 = torch.arange(8, dtype=torch.int32, device=device) * 2
+            decodes[where] = {}
+            for variant, names in VARIANTS.items():
+                for f in flags:
+                    setattr(sd, f, f in names)
+                call = lambda: sd.mask_decoder(dec, img8, pe8, sparse, dense8, False)  # noqa: E731
+                for int8 in (False, True):
+                    reset_counts()
+                    if int8:
+                        m, _, _ = sd.mask_decoder(dec, q8, pe8, sparse, None, False,
+                                                  store_idx=idx8, store_scale=sc8)
+                    else:
+                        m, _, _ = call()
+                    torch.cuda.synchronize()
+                    c = read_counts()
+                    for k, v in c.items():
+                        totals[k] += v
+                    c = {k: v for k, v in c.items() if v}
+                    want = {k + sfx: v for k, v in schedule_launches(variant, int8).items()}
+                    if c != want or not torch.isfinite(m.float()).all():
+                        fail(f"a {where} {variant} decode"
+                             f"{' from an int8 store' if int8 else ''}: launches {c}, "
+                             f"expected {want}")
+                ms = cuda_ms(call, iters=5)
+                want = schedule_launches(variant)
+                decodes[where][variant] = {"launches": sum(want.values()), "ms": ms[0],
+                                           "min_ms": ms[1], "max_ms": ms[2]}
+                print(f"  {where} decode of 8 at 6 tokens, {variant}: {sum(want.values())} "
+                      f"decoder launches ({want}); {ms[0]:.4f} ms [{ms[1]:.4f}, {ms[2]:.4f}]",
+                      flush=True)
+                if variant == "grid" and where == "bf16":
+                    prof = profile(call, 3)
+            del dec
+    finally:
+        for f, v in flags.items():
+            setattr(sd, f, v)
+    print(json.dumps({"schedule_decode_timings": {"batch": 8, "tokens": 6, "ms": decodes,
+                                                  "card": smi}}))
+    print(json.dumps({"schedule_decode_profile": {"batch": 8, "tokens": 6, "variant": "grid",
+                                                  **prof, "card": smi}}))
+    print("phase 35 the decode schedules' kernels: ok", flush=True)
+    return out, totals
+
+
+def phase_decode_bench(smi: str):
+    """Phase 36: ``cor_tpu_torch.tools.decode_bench`` at its defaults (the
+    SAM-base decoder in bf16, a 128-row store, 8 chunks of 128 candidates,
+    20 windows) for each variant, and with --int8 for layer and dma; each
+    JSON line printed. The decode schedules' main path: returns each
+    wrapper's launches over the runs."""
+    from cor_tpu_torch.tools import decode_bench
+
+    totals = {k: 0 for k in read_counts()}
+    for variant, int8 in (("layer", False), ("layer", True), ("dma", False), ("dma", True),
+                          ("stack", False), ("grid", False)):
+        reset_counts()
+        res = decode_bench.run(variant, int8)
+        torch.cuda.synchronize()
+        c = read_counts()
+        for k, v in c.items():
+            totals[k] += v
+        # one decode per chunk, in the warm-up pass and in every window
+        want = schedule_launches(variant, int8)
+        runs = res["chunks"] * (1 + res["windows"])
+        if (res["launches_per_chunk"] != want
+                or {k: v for k, v in c.items() if v} != {k: v * runs for k, v in want.items()}):
+            fail(f"decode_bench {variant}{' --int8' if int8 else ''}: launches {c}, per chunk "
+                 f"{res['launches_per_chunk']}, expected {want} per chunk")
+        print(json.dumps(res), flush=True)
+    print("phase 36 decode_bench: ok", flush=True)
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this check runs on a GPU only",
@@ -2934,6 +3182,11 @@ def main():
     mark("phase 33")
     prompt_launches = phase_prompts(smi)
     mark("phase 34")
+    schedule_kernels, schedule_decodes = phase_decode_schedules(torch.device("cuda"), smi)
+    kernel_results.update(schedule_kernels)
+    mark("phase 35")
+    schedule_launches_ = phase_decode_bench(smi)
+    mark("phase 36")
 
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70",
@@ -3003,10 +3256,26 @@ def main():
                              "cor_tpu/ops/pallas/t2i_flash.py:163", prompt_launches),
         "proj_q_t2i_flash@fp32": ("cor_tpu_torch/csrc/t2i_flash.cu",
                                   "cor_tpu/ops/pallas/t2i_flash.py:163", prompt_launches),
-        "i2t_attention_fused": ("cor_tpu_torch/csrc/two_way_layer.cu",
+        "i2t_attention_fused": ("cor_tpu_torch/csrc/i2t_attention.cu",
                                 "cor_tpu/ops/pallas/i2t_attention.py:105", prompt_launches),
-        "i2t_attention_fused@fp32": ("cor_tpu_torch/csrc/two_way_layer.cu",
+        "i2t_attention_fused@fp32": ("cor_tpu_torch/csrc/i2t_attention.cu",
                                      "cor_tpu/ops/pallas/i2t_attention.py:105", prompt_launches),
+        # the opt-in decode schedules: decode_bench in bf16 (phase 36), the
+        # fp32 decodes of phase 35
+        "two_way_layer_dma": ("cor_tpu_torch/csrc/two_way_layer_dma.cu",
+                              "cor_tpu/ops/pallas/two_way_layer.py:610", schedule_launches_),
+        "two_way_layer_dma@fp32": ("cor_tpu_torch/csrc/two_way_layer_dma.cu",
+                                   "cor_tpu/ops/pallas/two_way_layer.py:610", schedule_decodes),
+        "two_way_stack_fused": ("cor_tpu_torch/csrc/two_way_stack.cuh",
+                                "cor_tpu/ops/pallas/two_way_layer.py:1236", schedule_launches_),
+        "two_way_stack_fused@fp32": ("cor_tpu_torch/csrc/two_way_stack.cuh",
+                                     "cor_tpu/ops/pallas/two_way_layer.py:1236",
+                                     schedule_decodes),
+        "two_way_grid_fused": ("cor_tpu_torch/csrc/two_way_stack.cuh",
+                               "cor_tpu/ops/pallas/two_way_layer.py:1135", schedule_launches_),
+        "two_way_grid_fused@fp32": ("cor_tpu_torch/csrc/two_way_stack.cuh",
+                                    "cor_tpu/ops/pallas/two_way_layer.py:1135",
+                                    schedule_decodes),
     }
     kernels = []
     for kname, res in kernel_results.items():
@@ -3015,6 +3284,9 @@ def main():
         key = kname.split("@")[0] + ("@fp32" if kname.endswith("@fp32") else "")
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": counts[key], **res})
+    idle = [k["name"] for k in kernels if not k["launches"] >= 1]
+    if idle:
+        fail(f"kernels that no path of this run launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -36,6 +36,7 @@ constexpr int kHeads = 8;
 constexpr int kMaxTok = 32;    // the most tokens a decode may have
 constexpr int kCrossD = kI / kHeads;   // 16
 constexpr int kRows = 64;      // image rows per CTA of an image pass
+constexpr int kImgThreads = 128;  // threads of an image pass: 4 warps of 16 rows
 constexpr int kLdC = kC + 8;   // padded shared row strides (bf16 elements):
 constexpr int kLdI = kI + 8;   // rows 4 banks apart, conflict-free fragments
 
@@ -177,6 +178,38 @@ __device__ __forceinline__ int source_row(const int* idx, int cand, int S) {
   return r < 0 ? 0 : (r > S - 1 ? S - 1 : r);
 }
 
+// 8 int8 values (a uint2) of a store row -> 8 bf16 (a uint4), and 4 int8
+// values (a uint32) -> 4 fp32: each value (int8 -> fp32) * scale, rounded to
+// the compute dtype (fp32 rounds nothing), the TPU kernel's rounding
+// (two_way_layer.py:382-389)
+__device__ __forceinline__ uint4 dequant8_bf16(uint2 q, float scale) {
+  const uint32_t w[2] = {q.x, q.y};
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int8_t lo = static_cast<int8_t>((w[j >> 1] >> (16 * (j & 1))) & 0xff);
+    const int8_t hi = static_cast<int8_t>((w[j >> 1] >> (16 * (j & 1) + 8)) & 0xff);
+    o[j] = pack_bf16x2(static_cast<float>(lo) * scale, static_cast<float>(hi) * scale);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ uint4 dequant4_f32(uint32_t w, float scale) {
+  float f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = static_cast<float>(static_cast<int8_t>((w >> (8 * j)) & 0xff)) * scale;
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+// 16 bytes of the compute dtype T dequantised from the int8 values at q8
+template <typename T>
+__device__ __forceinline__ uint4 dequant16(const int8_t* q8, float scale) {
+  if constexpr (sizeof(T) == 2)
+    return dequant8_bf16(*reinterpret_cast<const uint2*>(q8), scale);
+  else
+    return dequant4_f32(*reinterpret_cast<const uint32_t*>(q8), scale);
+}
+
 // Rows [r0, r0 + kRows) of source row `row` ([N, C]) -> sRows [kRows][Elem<T>::kLdC]
 // in the compute dtype T. An int8 row dequantises as T((int8 -> fp32) *
 // scale), the TPU kernel's rounding (two_way_layer.py:382-389); fp32 rounds
@@ -191,47 +224,82 @@ __device__ __forceinline__ void load_rows(T* sRows, const void* src, int row, in
     const int r = i / (kC / kVec);
     const int c = (i % (kC / kVec)) * kVec;
     uint4 v;
-    if (kInt8) {
-      const int8_t* q8 = static_cast<const int8_t*>(src) + base + r * kC + c;
-      if constexpr (sizeof(T) == 2) {
-        const uint2 q = *reinterpret_cast<const uint2*>(q8);
-        const uint32_t w[2] = {q.x, q.y};
-        uint32_t o[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int8_t lo = static_cast<int8_t>((w[j >> 1] >> (16 * (j & 1))) & 0xff);
-          const int8_t hi = static_cast<int8_t>((w[j >> 1] >> (16 * (j & 1) + 8)) & 0xff);
-          o[j] = pack_bf16x2(static_cast<float>(lo) * scale, static_cast<float>(hi) * scale);
-        }
-        v = make_uint4(o[0], o[1], o[2], o[3]);
-      } else {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(q8);
-        float f[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          f[j] = static_cast<float>(static_cast<int8_t>((w >> (8 * j)) & 0xff)) * scale;
-        v = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                       __float_as_uint(f[3]));
-      }
-    } else {
+    if (kInt8)
+      v = dequant16<T>(static_cast<const int8_t*>(src) + base + r * kC + c, scale);
+    else
       v = *reinterpret_cast<const uint4*>(static_cast<const T*>(src) + base + r * kC + c);
-    }
     *reinterpret_cast<uint4*>(sRows + r * kLd + c) = v;
   }
 }
 
-// Two consecutive channels (col, col + 1) of source row `row`, image row r,
-// as the compute dtype's values in fp32 (dequantised for an int8 store).
+// The same dequantisation out of shared memory: an int8 row tile sRaw
+// [kRows][kC] (as cp.async brought it) -> sRows [kRows][Elem<T>::kLdC]
+template <typename T>
+__device__ __forceinline__ void dequant_rows(T* sRows, const int8_t* sRaw, float scale, int tid,
+                                             int nthreads) {
+  constexpr int kVec = 16 / sizeof(T);
+  for (int i = tid; i < kRows * (kC / kVec); i += nthreads) {
+    const int r = i / (kC / kVec);
+    const int c = (i % (kC / kVec)) * kVec;
+    *reinterpret_cast<uint4*>(sRows + r * Elem<T>::kLdC + c) =
+        dequant16<T>(sRaw + r * kC + c, scale);
+  }
+}
+
+// Two consecutive channels (col, col + 1) of row r of a row tile [kRows][ld]
+// of the source type (the rows in device memory with ld = kC, or a tile
+// staged in shared memory), as the compute dtype's values in fp32
+// (dequantised for an int8 store).
 template <bool kInt8, typename T>
-__device__ __forceinline__ void load_pair(const void* src, int row, int N, int r, int col,
-                                          float scale, float& v0, float& v1) {
-  const int64_t off = (static_cast<int64_t>(row) * N + r) * kC + col;
+__device__ __forceinline__ void tile_pair(const void* tile, int ld, int r, int col, float scale,
+                                          float& v0, float& v1) {
+  const int64_t off = static_cast<int64_t>(r) * ld + col;
   if (kInt8) {
-    const int8_t* p = static_cast<const int8_t*>(src) + off;
+    const int8_t* p = static_cast<const int8_t*>(tile) + off;
     v0 = Elem<T>::round(static_cast<float>(p[0]) * scale);
     v1 = Elem<T>::round(static_cast<float>(p[1]) * scale);
   } else {
-    Elem<T>::get2(static_cast<const T*>(src) + off, v0, v1);
+    Elem<T>::get2(static_cast<const T*>(tile) + off, v0, v1);
+  }
+}
+
+// Row r0 of source row `row` of a [*, N, kC] tensor of the source type
+// (int8, or the compute dtype T): the base of a row tile in device memory.
+template <bool kInt8, typename T>
+__device__ __forceinline__ const void* row_tile(const void* src, int row, int N, int r0) {
+  const int64_t off = (static_cast<int64_t>(row) * N + r0) * kC;
+  if (kInt8) return static_cast<const int8_t*>(src) + off;
+  return static_cast<const T*>(src) + off;
+}
+
+// cp.async (sm_80+): 16 bytes from device to shared memory without a
+// register, bypassing L1, in commit groups that a thread waits for
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying rows [r0, r0 + kRows) of a [*, N, width] tensor (source row
+// `row`, `bytes_per_row` = width * element size, a multiple of 16) into
+// dst [kRows][ld_bytes / element size] in shared memory.
+__device__ __forceinline__ void copy_tile_async(void* dst, int ld_bytes, const void* src,
+                                                int row, int N, int r0, int bytes_per_row,
+                                                int tid, int nthreads) {
+  const char* s = static_cast<const char*>(src) +
+                  (static_cast<int64_t>(row) * N + r0) * bytes_per_row;
+  char* d = static_cast<char*>(dst);
+  const int chunks = bytes_per_row / 16;
+  for (int i = tid; i < kRows * chunks; i += nthreads) {
+    const int r = i / chunks, c = (i % chunks) * 16;
+    cp_async16(d + r * ld_bytes + c, s + static_cast<int64_t>(r) * bytes_per_row + c);
   }
 }
 
@@ -239,22 +307,27 @@ __device__ __forceinline__ void load_pair(const void* src, int row, int N, int r
 // merged over the `tiles` row tiles of one candidate (tile j at base + j):
 // sum_j acc_j e^(m_j - m) / sum_j l_j e^(m_j - m) with m = max_j m_j. Two
 // passes, unrolled so that the loads of 8 tiles are in flight at once and no
-// exponential waits on the one before it.
+// exponential waits on the one before it. kNc: the partials are read through
+// the non-coherent read-only path (__ldg), right for partials an earlier
+// kernel wrote; a kernel that wrote them itself (the fused transformer of
+// two_way_stack.cuh) reads them from L2 (__ldcg).
+template <bool kNc = true>
 __device__ __forceinline__ float combine_partials(const float* __restrict__ part_m,
                                                   const float* __restrict__ part_l,
                                                   const float* __restrict__ part_acc,
                                                   int64_t base, int tiles, int nq, int q,
                                                   int d) {
+  auto ld = [](const float* p) { return kNc ? __ldg(p) : __ldcg(p); };
   float m = -INFINITY;
 #pragma unroll 8
-  for (int j = 0; j < tiles; ++j) m = fmaxf(m, __ldg(part_m + (base + j) * nq + q));
+  for (int j = 0; j < tiles; ++j) m = fmaxf(m, ld(part_m + (base + j) * nq + q));
   float l = 0.f, acc = 0.f;
 #pragma unroll 8
   for (int j = 0; j < tiles; ++j) {
     const int64_t pq = (base + j) * nq + q;
-    const float a = expf(__ldg(part_m + pq) - m);
-    l += __ldg(part_l + pq) * a;
-    acc += __ldg(part_acc + pq * kCrossD + d) * a;
+    const float a = expf(ld(part_m + pq) - m);
+    l += ld(part_l + pq) * a;
+    acc += ld(part_acc + pq * kCrossD + d) * a;
   }
   return acc / l;
 }

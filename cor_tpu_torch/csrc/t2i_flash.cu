@@ -55,164 +55,30 @@
 // weight block [128][132], k and v [64][132], fp32; within the 232,448 a
 // block may take, so no tile is halved): one block per SM.
 
-#include "decoder_common.cuh"
+#include "t2i_flash.cuh"
 
 namespace {
 
 using namespace cor;
 
-constexpr int kThreads = 128;
-constexpr int kLdL = kRows + 1;
-// rows [kRows][kLdC], a 128 x 128 weight block [kI][kLdI], k and v [kRows][kLdI]
-// in T, the queries [nt][kI] fp32, and the logits [8 nt][kLdL] fp32 where they
-// do not fit in the weight block's space
-template <typename T>
-__host__ __device__ constexpr size_t weight_block_bytes() {
-  return sizeof(T) * kI * Elem<T>::kLdI;
-}
-__host__ __device__ constexpr size_t logits_bytes(int nt) {
-  return sizeof(float) * kHeads * nt * kLdL;
-}
-template <typename T>
-size_t smem_image(int nt) {
-  const size_t own = logits_bytes(nt) > weight_block_bytes<T>() ? logits_bytes(nt) : 0;
-  return sizeof(T) * (kRows * Elem<T>::kLdC + 2 * kRows * Elem<T>::kLdI) +
-         weight_block_bytes<T>() + sizeof(float) * nt * kI + own;
-}
-
 template <typename T, bool kInt8, bool kEmitQ>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kImgThreads)
 t2i_image_kernel(const void* __restrict__ src, const int* __restrict__ idx,
-                 const float* __restrict__ scale, int S, int N,
-                 const T* __restrict__ w,    // [(2 or 3) * kI][kC]: k | v (| q)
-                 const float* __restrict__ b,  // [(2 or 3) * kI]
-                 const T* __restrict__ kpe,  // [N][kI]
-                 const T* __restrict__ qpe,  // [N][kI] (kEmitQ)
-                 const T* __restrict__ qt,   // [n][nt][kI], scaled (and rounded)
-                 int nt,
-                 T* __restrict__ q_img,      // [n][N][kI] (kEmitQ)
-                 float* __restrict__ part_m, float* __restrict__ part_l,
+                 const float* __restrict__ scale, int S, int N, const T* __restrict__ w,
+                 const float* __restrict__ b, const T* __restrict__ kpe,
+                 const T* __restrict__ qpe, const T* __restrict__ qt, int nt,
+                 T* __restrict__ q_img, float* __restrict__ part_m, float* __restrict__ part_l,
                  float* __restrict__ part_acc) {
-  using E = Elem<T>;
-  constexpr int kLdR = E::kLdC, kLdW = E::kLdI, kLdKV = E::kLdI;
-  constexpr int kVec = 16 / sizeof(T);  // values per 16-byte chunk
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sRows = reinterpret_cast<T*>(smem);
-  T* sW = sRows + kRows * kLdR;
-  T* sK = sW + kI * kLdW;
-  T* sV = sK + kRows * kLdKV;
-  float* sQt = reinterpret_cast<float*>(sV + kRows * kLdKV);
-  // the logits: the weight block's space, after the projections, or their own
-  float* sL = logits_bytes(nt) > weight_block_bytes<T>() ? sQt + nt * kI
-                                                          : reinterpret_cast<float*>(sW);
-  const int nq = kHeads * nt;  // (head, token) query rows
-
-  const int tile = blockIdx.x, tiles = gridDim.x, cand = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
-  const int r0 = tile * kRows;
-  const int row = source_row(idx, cand, S);
-  const float sc = kInt8 ? scale[row] : 1.f;
-
-  load_rows<kInt8>(sRows, src, row, N, r0, sc, tid, kThreads);
-  for (int i = tid; i < nt * kI; i += kThreads)
-    sQt[i] = E::get(qt[static_cast<int64_t>(cand) * nt * kI + i]);
-
-  constexpr int kChunks = kEmitQ ? 3 : 2;
-  const int ra = warp * 16 + (lane >> 2), rb = ra + 8;
-#pragma unroll 1
-  for (int c = 0; c < kChunks; ++c) {
-    float acc[kI / 8][4];
-#pragma unroll
-    for (int n = 0; n < kI / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll 1
-    for (int kh = 0; kh < kC / kI; ++kh) {
-      __syncthreads();  // rows loaded; the previous weight block consumed
-      for (int i = tid; i < kI * (kI / kVec); i += kThreads) {
-        const int o = i / (kI / kVec), cv = (i % (kI / kVec)) * kVec;
-        *reinterpret_cast<uint4*>(sW + o * kLdW + cv) = *reinterpret_cast<const uint4*>(
-            w + static_cast<int64_t>(c * kI + o) * kC + kh * kI + cv);
-      }
-      __syncthreads();
-      warp_mma<kI / 8, kI>(acc, sRows + kh * kI, kLdR, sW, kLdW, warp * 16, lane);
-    }
-    // epilogue: + bias (+ the PE projection for k and q), rounded to T
-    const T* pe = c == 0 ? kpe : qpe;
-#pragma unroll
-    for (int n = 0; n < kI / 8; ++n) {
-      const int col = n * 8 + 2 * t;
-      const float b0 = b[c * kI + col], b1 = b[c * kI + col + 1];
-      float v0 = acc[n][0] + b0, v1 = acc[n][1] + b1, v2 = acc[n][2] + b0, v3 = acc[n][3] + b1;
-      if (c != 1) {
-        float pa0, pa1, pb0, pb1;
-        E::get2(pe + static_cast<int64_t>(r0 + ra) * kI + col, pa0, pa1);
-        E::get2(pe + static_cast<int64_t>(r0 + rb) * kI + col, pb0, pb1);
-        v0 += pa0;
-        v1 += pa1;
-        v2 += pb0;
-        v3 += pb1;
-      }
-      if (c == 0) {
-        E::put2(sK + ra * kLdKV + col, v0, v1);
-        E::put2(sK + rb * kLdKV + col, v2, v3);
-      } else if (c == 1) {
-        E::put2(sV + ra * kLdKV + col, v0, v1);
-        E::put2(sV + rb * kLdKV + col, v2, v3);
-      } else {
-        T* q = q_img + (static_cast<int64_t>(cand) * N + r0) * kI + col;
-        E::put2(q + static_cast<int64_t>(ra) * kI, v0, v1);
-        E::put2(q + static_cast<int64_t>(rb) * kI, v2, v3);
-      }
-    }
-  }
-  __syncthreads();  // k and v complete; the weight block's space is free
-
-  // logits of the 8 nt (head, token) queries against the tile's 64 rows
-  for (int e = tid; e < nq * kRows; e += kThreads) {
-    const int q = e / kRows, r = e % kRows, h = q / nt, tt = q % nt;
-    const float* qv = sQt + tt * kI + h * kCrossD;
-    const T* kv = sK + r * kLdKV + h * kCrossD;
-    float l = 0.f;
-#pragma unroll
-    for (int d = 0; d < kCrossD; ++d) l += qv[d] * E::get(kv[d]);
-    sL[q * kLdL + r] = l;
-  }
-  __syncthreads();
-  const int64_t pbase = static_cast<int64_t>(cand) * tiles + tile;
-  for (int q = warp; q < nq; q += kThreads / 32) {
-    const float la = sL[q * kLdL + lane], lb = sL[q * kLdL + lane + 32];
-    const float m = warp_max(fmaxf(la, lb));
-    const float ea = expf(la - m), eb = expf(lb - m);
-    const float l = warp_sum(ea + eb);
-    sL[q * kLdL + lane] = E::round(ea);  // rounded before the product with v
-    sL[q * kLdL + lane + 32] = E::round(eb);
-    if (lane == 0) {
-      part_m[pbase * nq + q] = m;
-      part_l[pbase * nq + q] = l;
-    }
-  }
-  __syncthreads();
-  for (int o = tid; o < nq * kCrossD; o += kThreads) {
-    const int q = o / kCrossD, d = o % kCrossD, h = q / nt;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int r = 0; r < kRows; ++r)
-      acc += sL[q * kLdL + r] * E::get(sV[r * kLdKV + h * kCrossD + d]);
-    part_acc[(pbase * nq + q) * kCrossD + d] = acc;
-  }
+  t2i_tile<T, kInt8, kEmitQ>(smem, src, idx, scale, S, N, w, b, kpe, qpe, qt, nt, q_img, part_m,
+                             part_l, part_acc, blockIdx.x, gridDim.x, blockIdx.y);
 }
 
-// out[cand][t][h*16 + d] = T(sum_tiles acc * exp(m_tile - m) / sum_tiles l * exp(m_tile - m))
 template <typename T>
 __global__ void __launch_bounds__(256)
 t2i_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
                    const float* __restrict__ part_acc, int tiles, int nt, T* __restrict__ out) {
-  const int cand = blockIdx.x, nq = kHeads * nt;
-  for (int o = threadIdx.x; o < nq * kCrossD; o += blockDim.x) {
-    const int q = o / kCrossD, d = o % kCrossD, h = q / nt, tt = q % nt;
-    const float v = combine_partials(part_m, part_l, part_acc,
-                                     static_cast<int64_t>(cand) * tiles, tiles, nq, q, d);
-    out[(static_cast<int64_t>(cand) * nt + tt) * kI + h * kCrossD + d] = Elem<T>::put(v);
-  }
+  t2i_combine_body<T>(part_m, part_l, part_acc, tiles, nt, out, blockIdx.x);
 }
 
 template <typename T, bool kInt8, bool kEmitQ>
@@ -225,7 +91,7 @@ int launch_image(const void* src, const int* idx, const float* scale, int S, int
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(N / kRows, n), kThreads, smem, stream>>>(
+  kernel<<<dim3(N / kRows, n), kImgThreads, smem, stream>>>(
       src, idx, scale, S, N, static_cast<const T*>(w), b, static_cast<const T*>(kpe),
       static_cast<const T*>(qpe), static_cast<const T*>(qt), nt, static_cast<T*>(q_img), pm, pl,
       pa);

@@ -30,6 +30,13 @@
 //     tensor cores, the residual with the (re-read, dequantised) rows, LN4,
 //     and the new rows in bf16.
 //
+// Each launch is a thin kernel around a __device__ body that takes its
+// work item (a candidate, or a tile of one) as arguments
+// (two_way_tokens.cuh, t2i_flash.cuh, i2t_attention.cuh): the opt-in
+// schedules run the same bodies, K1-dma's image passes over several tiles
+// per CTA (two_way_layer_dma.cu), K1-stack and K1-grid all of a
+// transformer's stages in one kernel (two_way_stack.cuh).
+//
 // The token kernels are small (T tokens x ~1.4 M MACs per layer and
 // candidate): each warp computes 4 whole output columns at a time (2 for the
 // MLP's 2048-wide input), its lanes walking the weight rows [out, in] with
@@ -70,89 +77,15 @@ namespace {
 
 using namespace cor;
 
-// Stage 1 and the t2i query.
-template <int NT>
-constexpr size_t smem_tokens_in() {
-  return sizeof(float) * (7 * NT * kC + kHeads * NT * NT);
-}
-
 template <typename T, int NT>
 __global__ void __launch_bounds__(kTokThreads)
 twl_tokens_in_kernel(const T* __restrict__ tokens, const T* __restrict__ qpe,
                      const T* __restrict__ wt, const float* __restrict__ bt, int skip_pe,
                      float self_scale, float cross_scale, float eps, float* __restrict__ x_out,
                      T* __restrict__ qt_out) {
-  using E = Elem<T>;
-  extern __shared__ __align__(16) unsigned char smem[];  // 59,392 B at NT = 8
-  float* sX = reinterpret_cast<float*>(smem);
-  float* sPe = sX + NT * kC;
-  float* sIn = sPe + NT * kC;
-  float* sIn2 = sIn + NT * kC;
-  float* sQ = sIn2 + NT * kC;
-  float* sK = sQ + NT * kC;
-  float* sV = sK + NT * kC;
-  float* sL = sV + NT * kC;  // [kHeads * NT * NT] logits, then probabilities
-
-  const int cand = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int64_t tbase = static_cast<int64_t>(cand) * NT * kC;
-  for (int i = tid; i < NT * kC; i += kTokThreads) {
-    const float x = E::get(tokens[tbase + i]), p = E::get(qpe[tbase + i]);
-    sX[i] = x;
-    sPe[i] = p;
-    sIn[i] = E::round(skip_pe ? x : x + p);
-    sIn2[i] = E::round(x);
-  }
-  __syncthreads();
-  tok_linear<T, NT, kC, kRound>(sIn, wt + kWqS, bt + kBqS, kC, sQ, kC, self_scale, warp, lane);
-  tok_linear<T, NT, kC, kRound>(sIn, wt + kWkS, bt + kBkS, kC, sK, kC, 1.f, warp, lane);
-  tok_linear<T, NT, kC, kRound>(sIn2, wt + kWvS, bt + kBvS, kC, sV, kC, 1.f, warp, lane);
-  __syncthreads();
-  for (int e = tid; e < kHeads * NT * NT; e += kTokThreads) {
-    const int h = e / (NT * NT), qi = (e / NT) % NT, kj = e % NT;
-    float l = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kSelfD; ++d) l += sQ[qi * kC + h * kSelfD + d] * sK[kj * kC + h * kSelfD + d];
-    sL[e] = l;
-  }
-  __syncthreads();
-  if (tid < kHeads * NT) {  // softmax of row (h, qi) over the NT keys
-    float* l = sL + tid * NT;
-    float m = l[0];
-    for (int j = 1; j < NT; ++j) m = fmaxf(m, l[j]);
-    float e[NT], s = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      e[j] = expf(l[j] - m);
-      s += e[j];
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) l[j] = E::round(e[j] / s);
-  }
-  __syncthreads();
-  for (int o = tid; o < NT * kC; o += kTokThreads) {  // P V, heads merged
-    const int tt = o / kC, c = o % kC, h = c / kSelfD;
-    const float* p = sL + (h * NT + tt) * NT;
-    float av = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) av += p[j] * sV[j * kC + c];
-    sIn[o] = E::round(av);
-  }
-  __syncthreads();
-  tok_linear<T, NT, kC, kPlain>(sIn, wt + kWoS, bt + kBoS, kC, sQ, kC, 1.f, warp, lane);
-  __syncthreads();
-  for (int i = tid; i < NT * kC; i += kTokThreads) sX[i] = skip_pe ? sQ[i] : sX[i] + sQ[i];
-  __syncthreads();
-  tok_layer_norm<NT>(sX, bt + kLn1S, bt + kLn1B, eps, warp, lane);
-  __syncthreads();
-  for (int i = tid; i < NT * kC; i += kTokThreads) {
-    x_out[tbase + i] = sX[i];
-    sIn[i] = E::round(sX[i] + sPe[i]);
-  }
-  __syncthreads();
-  tok_linear<T, NT, kC, kRound>(sIn, wt + kWqT, bt + kBqT, kI, sK, kI, cross_scale, warp, lane);
-  __syncthreads();
-  for (int i = tid; i < NT * kI; i += kTokThreads)
-    qt_out[static_cast<int64_t>(cand) * NT * kI + i] = E::put(sK[i]);
+  extern __shared__ __align__(16) unsigned char smem[];
+  tokens_in_body<T, NT, kTokWarps, T>(smem, tokens, false, qpe, wt, bt, skip_pe, self_scale,
+                                      cross_scale, eps, x_out, qt_out, blockIdx.x);
 }
 
 template <typename T, int NT>

@@ -10,12 +10,6 @@ namespace {
 
 using namespace cor;
 
-// The rest of stage 2, stage 3 and the i2t keys and values.
-template <int NT>
-constexpr size_t smem_tokens_mid() {
-  return sizeof(float) * (4 * NT * kC + NT * kMlp);
-}
-
 template <typename T, int NT>
 __global__ void __launch_bounds__(kTokThreads)
 twl_tokens_mid_kernel(const float* __restrict__ x_in, const T* __restrict__ qpe,
@@ -24,57 +18,9 @@ twl_tokens_mid_kernel(const float* __restrict__ x_in, const T* __restrict__ qpe,
                       const T* __restrict__ wt, const float* __restrict__ bt, float eps,
                       T* __restrict__ tokens_out, T* __restrict__ k_out,
                       T* __restrict__ v_out) {
-  using E = Elem<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sX = reinterpret_cast<float*>(smem);
-  float* sPe = sX + NT * kC;
-  float* sIn = sPe + NT * kC;
-  float* sTmp = sIn + NT * kC;
-  float* sH = sTmp + NT * kC;  // [NT][kMlp]
-
-  const int cand = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int64_t tbase = static_cast<int64_t>(cand) * NT * kC;
-  for (int i = tid; i < NT * kC; i += kTokThreads) {
-    sX[i] = x_in[tbase + i];
-    sPe[i] = E::get(qpe[tbase + i]);
-  }
-  // combine the image pass's per-tile flash partials -> t2i output [NT][kI]
-  const int64_t pbase = static_cast<int64_t>(cand) * tiles;
-  for (int o = tid; o < kHeads * NT * kCrossD; o += kTokThreads) {
-    const int q = o / kCrossD, d = o % kCrossD, h = q / NT, tt = q % NT;
-    sIn[tt * kI + h * kCrossD + d] =
-        E::round(combine_partials(part_m, part_l, part_acc, pbase, tiles, kHeads * NT, q, d));
-  }
-  __syncthreads();
-  tok_linear<T, NT, kI, kPlain>(sIn, wt + kWoT, bt + kBoT, kC, sTmp, kC, 1.f, warp, lane);
-  __syncthreads();
-  for (int i = tid; i < NT * kC; i += kTokThreads) sX[i] += sTmp[i];
-  __syncthreads();
-  tok_layer_norm<NT>(sX, bt + kLn2S, bt + kLn2B, eps, warp, lane);
-  __syncthreads();
-  for (int i = tid; i < NT * kC; i += kTokThreads) sIn[i] = E::round(sX[i]);
-  __syncthreads();
-  tok_linear<T, NT, kC, kReluRound>(sIn, wt + kW1, bt + kB1, kMlp, sH, kMlp, 1.f, warp, lane);
-  __syncthreads();
-  tok_linear<T, NT, kMlp, kPlain>(sH, wt + kW2, bt + kB2, kC, sTmp, kC, 1.f, warp, lane);
-  __syncthreads();
-  for (int i = tid; i < NT * kC; i += kTokThreads) sX[i] += sTmp[i];
-  __syncthreads();
-  tok_layer_norm<NT>(sX, bt + kLn3S, bt + kLn3B, eps, warp, lane);
-  __syncthreads();
-  for (int i = tid; i < NT * kC; i += kTokThreads) {
-    sIn[i] = E::round(sX[i] + sPe[i]);
-    sTmp[i] = E::round(sX[i]);
-    tokens_out[tbase + i] = E::put(sX[i]);
-  }
-  __syncthreads();
-  tok_linear<T, NT, kC, kRound>(sIn, wt + kWkI, bt + kBkI, kI, sH, kI, 1.f, warp, lane);
-  tok_linear<T, NT, kC, kRound>(sTmp, wt + kWvI, bt + kBvI, kI, sH + NT * kI, kI, 1.f, warp, lane);
-  __syncthreads();
-  for (int i = tid; i < NT * kI; i += kTokThreads) {
-    k_out[static_cast<int64_t>(cand) * NT * kI + i] = E::put(sH[i]);
-    v_out[static_cast<int64_t>(cand) * NT * kI + i] = E::put(sH[NT * kI + i]);
-  }
+  tokens_mid_body<T, NT, kTokWarps, T, true>(smem, x_in, qpe, part_m, part_l, part_acc, tiles,
+                                             wt, bt, eps, tokens_out, k_out, v_out, blockIdx.x);
 }
 
 template <typename T, int NT>

@@ -32,7 +32,11 @@ token -> image attention and q_img in K8a (``ops/kernels/t2i_flash``
 ``proj_q_t2i_flash``), the image -> token attention and the rows' LN in K8b
 (``ops/kernels/i2t_attention``), a store's rows gathered and dequantised
 first in PyTorch, as ``cor_tpu`` does in XLA. The final attention is K2 at
-every token count. Off the CPU, what the kernels do not take (more than 32
+every token count. The module flags ``GRID_FUSED``, ``STACK_FUSED`` and
+``DMA_FUSED`` select ``cor_tpu``'s other schedules of the K1 route, with its
+precedence and conditions: K1-grid, then K1-stack (the whole transformer and
+the final attention in one kernel, depth 2, no int8 store), else K1-dma for
+each layer. Off the CPU, what the kernels do not take (more than 32
 tokens; a grid not 64 wide or not 256 channels) is refused before any
 kernel runs, naming its ROADMAP row. On the CPU the plain versions run
 every geometry.
@@ -69,7 +73,17 @@ from cor_tpu_torch.ops.kernels.t2i_flash import (
     proj_q_t2i_flash,
     t2i_flash_kv,
 )
-from cor_tpu_torch.ops.kernels.two_way_layer import gather_rows, two_way_layer
+from cor_tpu_torch.ops.kernels.two_way_layer import gather_rows, two_way_layer, two_way_layer_dma
+from cor_tpu_torch.ops.kernels.two_way_stack import two_way_grid_fused, two_way_stack_fused
+
+# cor_tpu's opt-in decode schedules (models/sam_decoder.py:54-66), read at
+# each call: the whole depth-2 transformer as one kernel with the token
+# state fp32 throughout (K1-stack) or rounded between the layers (K1-grid;
+# checked first), where K1 would run and the store is not int8; else each
+# layer through K1-dma, K1 with its image passes behind a cp.async ring
+STACK_FUSED = False
+GRID_FUSED = False
+DMA_FUSED = False
 
 LN_EPS = 1e-5  # the two-way transformer's LayerNorms (the tail's is 1e-6)
 # cor_tpu's layer_fused test (models/sam_decoder.py:255-260): K1's row tile
@@ -298,9 +312,19 @@ def two_way_transformer(
     key_pe = image_pe.reshape(1, H * W, C).to(comp_dt)
     queries = query_pe = point_embedding
     route = layer_route(H * W, T, C, p.cfg.num_heads)
+    if (route == "layer" and len(p.layers) == 2 and store_scale is None
+            and (GRID_FUSED or STACK_FUSED)):
+        # cor_tpu's whole-transformer schedules (models/sam_decoder.py:262-297)
+        kpe_l = [_matmul_nobias(lp.cross_attn_t2i.k_proj, key_pe)[0] for lp in p.layers]
+        qpe_l = [_matmul_nobias(lp.cross_attn_i2t.q_proj, key_pe)[0] for lp in p.layers]
+        kpe_f = _matmul_nobias(p.final_attn_t2i.k_proj, key_pe)[0]
+        fused_fn = two_way_grid_fused if GRID_FUSED else two_way_stack_fused
+        return fused_fn(p, queries, query_pe, keys, kpe_l, qpe_l, kpe_f, idx=store_idx,
+                        eps=LN_EPS)
     if route == "k8" and store_idx is not None:
         # cor_tpu's gather fallback (models/sam_decoder.py:321-327)
         keys = gather_rows(keys, store_idx, store_scale, comp_dt)
+    layer_fn = two_way_layer_dma if DMA_FUSED else two_way_layer
     for i, lp in enumerate(p.layers):
         if route == "k8":
             queries, keys = _two_way_block(lp, queries, keys, query_pe, key_pe,
@@ -309,7 +333,7 @@ def two_way_transformer(
         else:
             kpe = _matmul_nobias(lp.cross_attn_t2i.k_proj, key_pe)[0]
             qpe = _matmul_nobias(lp.cross_attn_i2t.q_proj, key_pe)[0]
-            queries, keys = two_way_layer(
+            queries, keys = layer_fn(
                 lp, queries, query_pe, keys, kpe, qpe, skip_pe=(i == 0), eps=LN_EPS,
                 idx=store_idx if i == 0 else None, scale=store_scale if i == 0 else None,
             )

@@ -21,6 +21,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 import torch
@@ -91,6 +93,21 @@ _SIGNATURES = {
     ),
     # part_m, part_l, part_acc, tiles, n, n_tok, out, f32, stream
     "cor_t2i_combine": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, _VP, _I, _VP),
+    # K1-dma's image passes: cor_t2i_image_pass's and cor_twl_image_i2t's arguments
+    "cor_twl_dma_image_t2i": (
+        _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
+    ),
+    "cor_twl_dma_image_i2t": (
+        _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int,
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_float, ctypes.c_float, _VP, _I, _VP,
+    ),
+    # cluster, S, n, n_tok, N, ptrs (a host array of device pointers), self_scale,
+    # cross_scale, eps, f32, stream
+    "cor_two_way_fused": (
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int, _VP,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _VP,
+    ),
     # src, w1t, w2t, vec, hyper, n, m, H, eps, out, f32, stream
     "cor_decoder_tail": (
         _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -132,7 +149,8 @@ def build() -> Path:
     build writes to temporary names and renames the library into place, so
     two processes that build at once both end with a whole library. The
     compilers' output (with ``-Xptxas=-v``: registers, shared memory and
-    spills of every kernel) is kept beside the library as ``.log``."""
+    spills of every kernel) and when each finished are kept beside the
+    library as ``.log``."""
     out = library_path()
     if out.exists():
         return out
@@ -140,15 +158,25 @@ def build() -> Path:
     tag = f"{out.stem}.{os.getpid()}"
     nvcc = _nvcc()
     jobs = []
+    t0 = time.perf_counter()
     for src in (s for s in _sources() if s.suffix == ".cu"):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True)))
+    # each compiler's output, read as it runs, and the seconds it took
+    outs = {}
+    readers = [threading.Thread(target=lambda p=p: outs.__setitem__(
+        p, (p.communicate()[0], time.perf_counter() - t0))) for _, _, p in jobs]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
     logs, failed = [], []
     for cmd, obj, proc in jobs:
-        text = proc.communicate()[0]
-        logs.append(f"$ {' '.join(cmd)}\n{text}")
+        text, secs = outs[proc]
+        logs.append(f"$ {' '.join(cmd)}\n# {Path(cmd[-1]).name}: done {secs:.1f} s after the "
+                    f"build started\n{text}")
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")

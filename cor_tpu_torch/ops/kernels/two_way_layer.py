@@ -105,12 +105,20 @@ def two_way_layer_plain(
     ``lp`` is a ``TwoWayBlock``; ``kpe`` and ``qpe_img`` [N, I] are the
     bias-free projections of the image PE by t2i.k_proj and i2t.q_proj."""
     dt = tokens.dtype
-    r = lambda x: x.to(dt).float()  # noqa: E731 -- round to the compute dtype
     rows = gather_rows(keys, idx, scale, dt)
+    x, z = layer_math(lp, tokens.float(), qpe_tok.float(), rows, kpe, qpe_img, skip_pe, eps, dt)
+    return x.to(dt), z
+
+
+def layer_math(lp, x, qpe, rows, kpe, qpe_img, skip_pe: bool, eps: float,
+               dt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer on the fp32 token state ``x`` and ``rows`` of the compute
+    dtype ``dt``, each product operand rounded to ``dt``: (the fp32 state
+    after LN3, unrounded; the new rows in ``dt``)."""
+    r = lambda v: v.to(dt).float()  # noqa: E731 -- round to the compute dtype
     sa, t2i, i2t = lp.self_attn, lp.cross_attn_t2i, lp.cross_attn_i2t
     H = sa.num_heads
-    C = tokens.shape[-1]
-    x, qpe = tokens.float(), qpe_tok.float()
+    C = x.shape[-1]
 
     # 1) token self-attention
     qin = r(x if skip_pe else x + qpe)
@@ -140,7 +148,7 @@ def two_way_layer_plain(
     v_i = r(_lin(r(x), i2t.v_proj))
     z = i2t_attention_fused_plain(q_img, rows, k_i, v_i, i2t.out_proj.w, i2t.out_proj.b,
                                   lp.norm4.scale, lp.norm4.bias, H, eps)
-    return x.to(dt), z
+    return x, z
 
 
 def _pack(lp, device, dtype) -> dict:
@@ -214,14 +222,37 @@ def two_way_layer(
     """tokens [n, T, C], qpe_tok [n, T, C], keys [n, N, C] (or a store
     [S, N, C] with ``idx`` int32 [n], int8 with ``scale`` fp32 [S]),
     kpe / qpe_img [N, I] -> (tokens' [n, T, C], rows' [n, N, C])."""
+    return _layer(two_way_layer, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps, idx,
+                  scale)
+
+
+def two_way_layer_dma(
+    lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe: bool, eps: float = 1e-5,
+    idx: Optional[torch.Tensor] = None, scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1-dma: ``two_way_layer``'s function and arguments, its image passes
+    persistent over each candidate's row tiles behind a cp.async ring
+    (``csrc/two_way_layer_dma.cu``; replaces ``cor_tpu/ops/pallas/
+    two_way_layer.py:two_way_layer_dma``, its ``pallas_call`` at line 610).
+    On the card its outputs are K1's bit for bit; on the CPU it is K1's plain
+    version, ``two_way_layer_plain``. Four launches a call, counted on
+    ``two_way_layer_dma``."""
+    return _layer(two_way_layer_dma, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps, idx,
+                  scale)
+
+
+def _layer(fn, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps, idx, scale):
+    """K1 (``fn`` two_way_layer) or K1-dma (two_way_layer_dma): the token
+    kernels of two_way_layer{,_mid}.cu around K1's or K1-dma's image passes."""
+    name = fn.__name__
     if tokens.device.type == "cpu":
-        refuse_grad("two_way_layer", tokens, qpe_tok, keys, kpe, qpe_img, *lp.parameters())
+        refuse_grad(name, tokens, qpe_tok, keys, kpe, qpe_img, *lp.parameters())
         return two_way_layer_plain(lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps,
                                    idx, scale)
     if tokens.device.type != "cuda":
-        raise ValueError(f"two_way_layer: no kernel for device {tokens.device}")
+        raise ValueError(f"{name}: no kernel for device {tokens.device}")
     dt = _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale)
-    refuse_grad("two_way_layer", tokens, qpe_tok, keys, kpe, qpe_img, *lp.parameters())
+    refuse_grad(name, tokens, qpe_tok, keys, kpe, qpe_img, *lp.parameters())
     n, T = tokens.shape[0], tokens.shape[1]
     S, N = keys.shape[0], keys.shape[1]
     dev = tokens.device
@@ -242,34 +273,38 @@ def two_way_layer(
     idx_p = 0 if idx is None else idx.data_ptr()
     scale_p = 0 if scale is None else scale.data_ptr()
     int8 = int(scale is not None)
-    self_scale = 1.0 / math.sqrt(C_DIM // HEADS)
-    cross_scale = 1.0 / math.sqrt(INTERNAL // HEADS)
     is_f32 = int(dt == torch.float32)
     lib = library()
+    dma = fn is two_way_layer_dma
+    image_t2i = lib.cor_twl_dma_image_t2i if dma else lib.cor_t2i_image_pass
+    image_i2t = lib.cor_twl_dma_image_i2t if dma else lib.cor_twl_image_i2t
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         check(lib.cor_twl_tokens_in(
             tokens.data_ptr(), qpe_tok.data_ptr(), pk["wtok"].data_ptr(), pk["btok"].data_ptr(),
-            int(skip_pe), self_scale, cross_scale, eps, n, T,
-            x_mid.data_ptr(), qt.data_ptr(), is_f32, stream), "two_way_layer tokens_in")
-        check(lib.cor_t2i_image_pass(
+            int(skip_pe), SELF_SCALE, CROSS_SCALE, eps, n, T,
+            x_mid.data_ptr(), qt.data_ptr(), is_f32, stream), f"{name} tokens_in")
+        check(image_t2i(
             keys.data_ptr(), int8, idx_p, scale_p, S, n, T, N,
             pk["w_img"].data_ptr(), pk["b_img"].data_ptr(), kpe.data_ptr(), qpe_img.data_ptr(),
             qt.data_ptr(), q_img.data_ptr(),
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), is_f32, stream),
-            "two_way_layer image t2i")
+            f"{name} image t2i")
         check(lib.cor_twl_tokens_mid(
             x_mid.data_ptr(), qpe_tok.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), tiles, pk["wtok"].data_ptr(), pk["btok"].data_ptr(), eps, n, T,
             tokens_out.data_ptr(), k_i.data_ptr(), v_i.data_ptr(), is_f32, stream),
-            "two_way_layer tokens_mid")
-        check(lib.cor_twl_image_i2t(
+            f"{name} tokens_mid")
+        check(image_i2t(
             keys.data_ptr(), int8, idx_p, scale_p, S, n, T, N, q_img.data_ptr(),
             k_i.data_ptr(), v_i.data_ptr(), pk["wo_i"].data_ptr(), pk["bo_ln4"].data_ptr(),
-            eps, cross_scale, keys_out.data_ptr(), is_f32, stream), "two_way_layer image i2t")
-    count_launch(two_way_layer, dt, LAUNCHES)
+            eps, CROSS_SCALE, keys_out.data_ptr(), is_f32, stream), f"{name} image i2t")
+    count_launch(fn, dt, LAUNCHES)
     return tokens_out, keys_out
 
 
-LAUNCHES = 4  # kernel launches per call on the card
+LAUNCHES = 4  # kernel launches per call on the card, for K1 and K1-dma
+SELF_SCALE = 1.0 / math.sqrt(C_DIM // HEADS)
+CROSS_SCALE = 1.0 / math.sqrt(INTERNAL // HEADS)
 two_way_layer.launches = two_way_layer.launches_fp32 = 0
+two_way_layer_dma.launches = two_way_layer_dma.launches_fp32 = 0

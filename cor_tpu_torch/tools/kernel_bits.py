@@ -27,10 +27,17 @@ import torch
 
 from cor_tpu_torch.ops.kernels import _build
 
+# the entries compared (the kernels the main paths ran before the decode
+# schedules K1-dma, K1-stack and K1-grid came in: those have no older
+# version, and their own checks against K1 and their plain versions)
+_COMPARED = ("cor_layer_norm", "cor_seq_attention", "cor_vit_attention_relpos",
+             "cor_vit_attention_relpos_windows", "cor_vit_attention_relpos_bwd",
+             "cor_twl_tokens_in", "cor_t2i_image_pass", "cor_twl_tokens_mid",
+             "cor_twl_image_i2t", "cor_t2i_combine", "cor_decoder_tail")
 # the parameters an older ABI may lack, by entry: (name, position in the
 # current signature, the only value the old entry computes); f32 is every
 # entry's second-to-last argument but cor_layer_norm's, n_tok follows n
-_OPTIONAL = {name: [("f32", len(sig) - 2, 0)] for name, sig in _build._SIGNATURES.items()
+_OPTIONAL = {name: [("f32", len(_build._SIGNATURES[name]) - 2, 0)] for name in _COMPARED
              if name != "cor_layer_norm"}
 for _name, _pos in (("cor_twl_tokens_in", 9), ("cor_t2i_image_pass", 6),
                     ("cor_twl_tokens_mid", 10), ("cor_twl_image_i2t", 6), ("cor_t2i_combine", 5)):
@@ -80,7 +87,8 @@ def build_old(csrc: Path, missing: dict) -> ctypes.CDLL:
         subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
                         str(out), *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(out))
-    for name, sig in _build._SIGNATURES.items():
+    for name in _COMPARED:
+        sig = _build._SIGNATURES[name]
         fn = getattr(lib, name)
         drop = {pos for _, pos, _ in missing.get(name, ())}
         fn.argtypes = [a for i, a in enumerate(sig) if i not in drop]
@@ -122,9 +130,12 @@ def use_library(lib) -> None:
 
 
 @torch.no_grad()
-def cases(device):
+def cases(device, token_counts: bool = True):
     """(label, thunk) of every bf16 kernel at the main paths' shapes; each
-    thunk returns the kernel's outputs as a tuple of tensors."""
+    thunk returns the kernel's outputs as a tuple of tensors. The decoder
+    kernels run at 6 tokens, and with ``token_counts`` also at every count
+    the main paths give them: K1 at 5 to 8, K2 at 5 to 32, K8a and K8b at 9
+    to 32 (an older library without ``n_tok`` computes 6 only)."""
     from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
     from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
     from cor_tpu_torch.ops.kernels.layernorm import layer_norm
@@ -167,32 +178,39 @@ def cases(device):
         out.append((f"K7 d{D} [2, 70, 70]", lambda a=a: (vit_attention_relpos_windows(*a),)))
     dec = init_mask_decoder(CoreConfig(), 1).to(device, bf).eval()
     n, N = 40, 4096
-    tokens, kpe, qpe = rnd(n, 6, 256).to(bf), (0.5 * rnd(N, 128)).to(bf), (0.5 * rnd(N, 128)).to(bf)
+    kpe, qpe = (0.5 * rnd(N, 128)).to(bf), (0.5 * rnd(N, 128)).to(bf)
     store = torch.randint(-127, 128, (256, N, 256), generator=gen, device=device, dtype=torch.int8)
     scales = (0.5 * 4 / 127) * (1 + 0.1 * torch.rand(256, generator=gen, device=device))
     idx = torch.randperm(256, generator=gen, device=device)[:n].to(torch.int32)
     keys = (0.5 * rnd(n, N, 256)).to(bf)
-    lp0, lp1 = dec.transformer.layers
-    out.append(("K1 layer 0 int8 store", lambda: two_way_layer(
-        lp0, tokens, tokens, store, kpe, qpe, True, idx=idx, scale=scales)))
-    out.append(("K1 layer 1 bf16", lambda: two_way_layer(lp1, tokens, tokens, keys, kpe, qpe,
-                                                         False)))
-    fa = dec.transformer.final_attn_t2i
-    q_tok = rnd(n, 6, 128).to(bf)
-    out.append(("K2", lambda: (t2i_flash_kv(keys, fa.k_proj.w, fa.k_proj.b, fa.v_proj.w,
-                                            fa.v_proj.b, kpe, q_tok, 8),)))
-    # K8a and K8b run the image passes of K1 and K2: at 6 tokens the old
-    # library computes them too
-    t2i, i2t = lp1.cross_attn_t2i, lp1.cross_attn_i2t
-    out.append(("K8a at 6 tokens", lambda: proj_q_t2i_flash(
-        keys, t2i.k_proj.w, t2i.k_proj.b, t2i.v_proj.w, t2i.v_proj.b, i2t.q_proj.w, i2t.q_proj.b,
-        kpe, qpe, q_tok, 8)))
     q_img = (0.5 * rnd(n, N, 128)).to(bf)
-    kv = rnd(n, 6, 128).to(bf), rnd(n, 6, 128).to(bf)
-    out.append(("K8b at 6 tokens", lambda: (i2t_attention_fused(
-        q_img, keys, *kv, i2t.out_proj.w, i2t.out_proj.b, lp1.norm4.scale, lp1.norm4.bias, 8),)))
+    lp0, lp1 = dec.transformer.layers
+    fa = dec.transformer.final_attn_t2i
+    t2i, i2t = lp1.cross_attn_t2i, lp1.cross_attn_i2t
     up = dec.output_upscaling
     hyper = rnd(n, 3, 32).to(bf)
+    counts = (5, 6, 7, 8, 9, 16, 32) if token_counts else (6,)
+    for T in counts:
+        tokens, q_tok = rnd(n, T, 256).to(bf), rnd(n, T, 128).to(bf)
+        kv = rnd(n, T, 128).to(bf), rnd(n, T, 128).to(bf)
+        if T <= 8:
+            out.append((f"K1 layer 0 int8 store, {T} tokens",
+                        lambda tokens=tokens: two_way_layer(lp0, tokens, tokens, store, kpe, qpe,
+                                                            True, idx=idx, scale=scales)))
+            out.append((f"K1 layer 1 bf16, {T} tokens",
+                        lambda tokens=tokens: two_way_layer(lp1, tokens, tokens, keys, kpe, qpe,
+                                                            False)))
+        out.append((f"K2, {T} tokens", lambda q_tok=q_tok: (t2i_flash_kv(
+            keys, fa.k_proj.w, fa.k_proj.b, fa.v_proj.w, fa.v_proj.b, kpe, q_tok, 8),)))
+        if T == 6 or T > 8:
+            # K8a and K8b run the image passes of K1 and K2: at 6 tokens an
+            # older library computes them too
+            out.append((f"K8a, {T} tokens", lambda q_tok=q_tok: proj_q_t2i_flash(
+                keys, t2i.k_proj.w, t2i.k_proj.b, t2i.v_proj.w, t2i.v_proj.b, i2t.q_proj.w,
+                i2t.q_proj.b, kpe, qpe, q_tok, 8)))
+            out.append((f"K8b, {T} tokens", lambda kv=kv: (i2t_attention_fused(
+                q_img, keys, *kv, i2t.out_proj.w, i2t.out_proj.b, lp1.norm4.scale,
+                lp1.norm4.bias, 8),)))
     out.append(("K3", lambda: (decoder_tail(keys.reshape(n, 64, 64, 256), up.convt1.w,
                                             up.convt1.b, up.ln.scale, up.ln.bias, up.convt2.w,
                                             up.convt2.b, hyper),)))
@@ -214,7 +232,7 @@ def main(argv=None) -> int:
     old = _OldABI(build_old(Path(argv[0]), missing), missing)
     differ = []
     torch.set_grad_enabled(False)  # the decoder kernels take no autograd
-    for label, run in cases(device):
+    for label, run in cases(device, token_counts="cor_twl_tokens_in" not in missing):
         use_library(None)
         new_out = run()
         use_library(old)

@@ -728,6 +728,169 @@ def test_mask_decoder_fused_at_tokens_matches_plain(fp32_device, monkeypatch, sp
 
 
 # ---------------------------------------------------------------------------
+# the opt-in decode schedules: K1-dma against K1 bit for bit; K1-stack and
+# K1-grid against their plain version (bf16 2e-2, fp32 cor_tpu's transformer
+# tolerance 5e-4) and K1-grid's keys against two K1 launches bit for bit;
+# what they refuse, before any launch; the fused decode under each flag
+# ---------------------------------------------------------------------------
+
+
+def schedule_inputs(dtype, T, n=4, S=8, seed=5):
+    g = torch.Generator(device="cuda").manual_seed(seed + T)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    store = 0.5 * rnd(S, 4096, 256)
+    scale = (store.abs().amax(dim=(1, 2)) / 127.0).clamp_min(1e-12)
+    store8 = torch.clamp(torch.round(store / scale[:, None, None]), -127, 127).to(torch.int8)
+    return dict(tokens=rnd(n, T, 256).to(dtype), rows=(0.5 * rnd(n, 4096, 256)).to(dtype),
+                store=store.to(dtype), store8=store8, scale=scale,
+                idx=torch.tensor([5, 0, 7, 2], dtype=torch.int32, device="cuda")[:n],
+                pes=[(0.5 * rnd(4096, 128)).to(dtype) for _ in range(5)])
+
+
+def both_launches(fn):
+    return fn.launches + fn.launches_fp32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", ["rows", "store", "int8"])
+@pytest.mark.parametrize("T", [5, 8])
+def test_two_way_layer_dma_kernel_equals_k1(fp32_device, T, case, dtype):
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer, two_way_layer_dma
+
+    lp = decoder_at(dtype).transformer.layers[0]
+    x = schedule_inputs(dtype, T)
+    rows, kw = {"rows": (x["rows"], {}), "store": (x["store"], dict(idx=x["idx"])),
+                "int8": (x["store8"], dict(idx=x["idx"], scale=x["scale"]))}[case]
+    args = (lp, x["tokens"], x["tokens"], rows, x["pes"][0], x["pes"][1], True)
+    with torch.no_grad():
+        before = both_launches(two_way_layer_dma)
+        got = two_way_layer_dma(*args, **kw)
+        torch.cuda.synchronize()
+        assert both_launches(two_way_layer_dma) == before + 4
+        want = two_way_layer(*args, **kw)
+        torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("indexed", [False, True], ids=["rows", "store"])
+@pytest.mark.parametrize("kind", ["stack", "grid"])
+def test_two_way_stack_and_grid_kernels_match_plain(fp32_device, kind, indexed, dtype):
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
+    from cor_tpu_torch.ops.kernels import two_way_stack as tws
+
+    p = decoder_at(dtype).transformer
+    x = schedule_inputs(dtype, 6)
+    rows, kw = (x["store"], dict(idx=x["idx"])) if indexed else (x["rows"], {})
+    pes = x["pes"]
+    args = (p, x["tokens"], x["tokens"], rows, pes[:2], pes[2:4], pes[4])
+    fn = tws.two_way_grid_fused if kind == "grid" else tws.two_way_stack_fused
+    with torch.no_grad():
+        before = both_launches(fn)
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert both_launches(fn) == before + 1
+        want = tws.two_way_stack_plain(*args, **kw, round_between_layers=kind == "grid")
+        if kind == "grid":
+            t1, k1 = two_way_layer(p.layers[0], x["tokens"], x["tokens"], rows, pes[0], pes[2],
+                                   True, **kw)
+            k2 = two_way_layer(p.layers[1], t1, x["tokens"], k1, pes[1], pes[3], False)[1]
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], k2)
+    for g, w in zip(got, want):
+        close_at(dtype, g, w, 5e-4)
+
+
+@pytest.mark.gpu
+def test_decode_schedules_refuse_before_any_kernel(fp32_device):
+    """K1-stack and K1-grid take no int8 store (cor_tpu's neither); the three
+    take K1's geometry; each refusal comes before any launch."""
+    from cor_tpu_torch.ops.kernels import two_way_stack as tws
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer_dma
+
+    p = decoder_at(torch.bfloat16).transformer
+    x = schedule_inputs(torch.bfloat16, 6)
+    pes = x["pes"]
+    wrappers = (two_way_layer_dma, tws.two_way_stack_fused, tws.two_way_grid_fused)
+    before = [both_launches(w) for w in wrappers]
+    with torch.no_grad():
+        for fn in (tws.two_way_stack_fused, tws.two_way_grid_fused):
+            with pytest.raises(TypeError, match="int8"):
+                fn(p, x["tokens"], x["tokens"], x["store8"], pes[:2], pes[2:4], pes[4],
+                   idx=x["idx"])
+            with pytest.raises(ValueError, match="5 to 8 tokens"):
+                t9 = torch.zeros(4, 9, 256, device="cuda", dtype=torch.bfloat16)
+                fn(p, t9, t9, x["rows"], pes[:2], pes[2:4], pes[4])
+            with pytest.raises(ValueError, match="depth 2"):
+                fn(p, x["tokens"], x["tokens"], x["rows"], pes[:1], pes[2:3], pes[4])
+        with pytest.raises(ValueError, match="N % 64"):
+            two_way_layer_dma(p.layers[0], x["tokens"], x["tokens"], x["rows"][:, :100],
+                              pes[0][:100], pes[1][:100], True)
+    assert [both_launches(w) for w in wrappers] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("flag", ["DMA_FUSED", "STACK_FUSED", "GRID_FUSED", "GRID+int8"])
+def test_mask_decoder_schedules_launch_as_routed(fp32_device, monkeypatch, flag, dtype):
+    """The fused mask decode of 2 candidates at 6 tokens under each flag:
+    K1-dma 8 launches with K2 and K3, K1-stack or K1-grid 1 with K3; an int8
+    store with GRID_FUSED runs K1. Its masks against the same decode through
+    the plain versions."""
+    from cor_tpu_torch.models import sam_decoder as psd
+    from cor_tpu_torch.ops.kernels import decoder_tail as dt_mod
+    from cor_tpu_torch.ops.kernels import t2i_flash as t2i_mod
+    from cor_tpu_torch.ops.kernels import two_way_layer as twl_mod
+    from cor_tpu_torch.ops.kernels import two_way_stack as tws
+
+    monkeypatch.setattr(psd, "GRID_FUSED" if flag == "GRID+int8" else flag, True)
+    dec = decoder_at(dtype)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    pe, prompts = (0.5 * rnd(1, 64, 64, 256)).to(dtype), rnd(2, 1, 256).to(dtype)
+    kw = {}
+    if flag.endswith("int8"):
+        store = 0.5 * rnd(3, 64, 64, 256)
+        scale = (store.abs().amax(dim=(1, 2, 3)) / 127.0).clamp_min(1e-12)
+        img = torch.clamp(torch.round(store / scale[:, None, None, None]), -127, 127).to(
+            torch.int8)
+        kw = dict(store_idx=torch.tensor([2, 0], dtype=torch.int32, device="cuda"),
+                  store_scale=scale)
+        dense = None
+    else:
+        img, dense = (0.5 * rnd(2, 64, 64, 256)).to(dtype), (0.1 * rnd(2, 64, 64, 256)).to(dtype)
+    wrappers = {"two_way_layer": twl_mod.two_way_layer,
+                "two_way_layer_dma": twl_mod.two_way_layer_dma,
+                "two_way_stack_fused": tws.two_way_stack_fused,
+                "two_way_grid_fused": tws.two_way_grid_fused,
+                "t2i_flash_kv": t2i_mod.t2i_flash_kv, "decoder_tail": dt_mod.decoder_tail}
+    want_counts = {"DMA_FUSED": {"two_way_layer_dma": 8, "t2i_flash_kv": 2, "decoder_tail": 1},
+                   "STACK_FUSED": {"two_way_stack_fused": 1, "decoder_tail": 1},
+                   "GRID_FUSED": {"two_way_grid_fused": 1, "decoder_tail": 1},
+                   "GRID+int8": {"two_way_layer": 8, "t2i_flash_kv": 2, "decoder_tail": 1}}[flag]
+    with torch.no_grad():
+        before = {k: both_launches(w) for k, w in wrappers.items()}
+        got = psd.mask_decoder(dec, img, pe, prompts, dense, True, **kw)
+        torch.cuda.synchronize()
+        counts = {k: both_launches(w) - before[k] for k, w in wrappers.items()}
+        assert {k: v for k, v in counts.items() if v} == want_counts
+        for mod, name in ((twl_mod, "two_way_layer"), (twl_mod, "two_way_layer_dma"),
+                          (t2i_mod, "t2i_flash_kv"), (dt_mod, "decoder_tail")):
+            plain = {"two_way_layer_dma": twl_mod.two_way_layer_plain}.get(
+                name, getattr(mod, f"{name}_plain", None))
+            monkeypatch.setattr(psd, name, plain)
+        for name, rnd_l in (("two_way_stack_fused", False), ("two_way_grid_fused", True)):
+            monkeypatch.setattr(psd, name, lambda *a, _r=rnd_l, **k: tws.two_way_stack_plain(
+                *a, **k, round_between_layers=_r))
+        want = psd.mask_decoder(dec, img, pe, prompts, dense, True, **kw)
+    assert got[0].shape == (2, 3, 256, 256) and torch.isfinite(got[0].float()).all()
+    close_at(dtype, got[0], want[0], 5e-4)
+
+
+# ---------------------------------------------------------------------------
 # training through the kernels: K6b against its plain version; K4, K5 and K6
 # pass their gradients (K6 through K6b, K4 and K5 through their plain
 # versions' recompute); K1, K2 and K3 refuse to be differentiated

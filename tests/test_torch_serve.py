@@ -241,8 +241,10 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
     ``fused_window_indexing``, K7's plain version, equal to the unflagged
     one); with ``prompts``, SAM's stock prompts (the full prompt encoder's
     points, box and mask feeding the SAM decoder at full width on a 32 x 32
-    grid: K1's route at 5 and 8 tokens, K8a/K8b's at 9). Returns the first
-    response."""
+    grid: K1's route at 5 and 8 tokens, K8a/K8b's at 9), and the opt-in
+    decode schedules (a decode under each of sam_decoder's DMA_FUSED,
+    STACK_FUSED and GRID_FUSED against K1's route, and decode_bench's run
+    on the CPU for each variant). Returns the first response."""
     script = textwrap.dedent(f"""
         import contextlib, dataclasses, importlib, io, json, pkgutil, sys
         from pathlib import Path
@@ -330,6 +332,22 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
                     m, iou, _ = sam_decoder.mask_decoder(
                         mdec, torch.randn(1, 32, 32, 256), pe, sparse, dense, True)
                 assert m.shape == (1, 3, 128, 128) and torch.isfinite(m).all(), m.shape
+            # the opt-in decode schedules: each flag's route in fp32 gives
+            # K1's route's masks; decode_bench runs each variant
+            from cor_tpu_torch.tools import decode_bench
+            img, dense = torch.randn(2, 32, 32, 256), None
+            sparse = torch.randn(2, 1, 256)
+            with torch.no_grad():
+                base = sam_decoder.mask_decoder(mdec, img, pe, sparse, dense, False)[0]
+                for flag in ("DMA_FUSED", "STACK_FUSED", "GRID_FUSED"):
+                    setattr(sam_decoder, flag, True)
+                    m = sam_decoder.mask_decoder(mdec, img, pe, sparse, dense, False)[0]
+                    setattr(sam_decoder, flag, False)
+                    assert torch.allclose(m, base, atol=1e-4, rtol=1e-4), flag
+            for variant in ("layer", "dma", "stack", "grid"):
+                res = decode_bench.run(variant, variant == "dma", store=2, chunks=1, iters=1,
+                                       chunk=1, device="cpu")
+                assert res["device"] == "cpu" and res["ms_per_chunk"] > 0, res
         if {unfrozen!r}:
             flagged = dataclasses.replace(cfg, encoder_override=dataclasses.replace(
                 enc, fused_window_indexing=True))
@@ -356,7 +374,8 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
 
 def test_port_runs_without_jax(tmp_path):
     """Without jax and cor_tpu: build, serve (with masks both ways) and train
-    an epoch at head_dim 64, and decode from SAM's stock prompts."""
+    an epoch at head_dim 64, decode from SAM's stock prompts, decode under
+    each opt-in schedule's flag and run decode_bench."""
     run_without_jax(tmp_path, NO_JAX_BASE, train=True, prompts=True)
 
 
