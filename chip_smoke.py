@@ -4,7 +4,13 @@
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
 Phases (any failure exits non-zero; no phase catches an exception):
- 1. device: the card's name and power limit (nvidia-smi), TF32 switched off;
+ 1. device: the card's name and power limit (nvidia-smi), and torch's TF32
+    flags as found. Each phase prints the flags it finds on entry; the
+    kernel-check phases (3, 10, 14, 18, 23-24, 29, 33, 35, 37) turn TF32
+    off for themselves, so that the plain fp32 versions they hold the
+    kernels to are full fp32, and restore it; every other phase runs the
+    entry points under torch's default flags (cuDNN TF32 allowed), as a
+    user's run does;
  2. build: every CUDA kernel from cor_tpu_torch/csrc (one nvcc per source,
     in parallel), with each kernel's registers and spills from ptxas;
  3. kernels: each kernel against its plain PyTorch version on identical bf16
@@ -202,7 +208,25 @@ Phases (any failure exits non-zero; no phase catches an exception):
 36. cor_tpu_torch.tools.decode_bench at its defaults (the SAM-base decoder,
     bf16, a 128-row store, 8 chunks of 128 candidates, 20 windows) for
     each variant (layer, dma, stack, grid) and with --int8 for layer and
-    dma: exact launches per chunk, each JSON line printed.
+    dma: exact launches per chunk, each JSON line printed;
+37. the last two TPU kernels, whose only callers in either package are
+    tests: their entry points once per dtype (K5′ add_layer_norm forward,
+    and forward and backward through autograd, at [32768, 256]; K9
+    fused_upscale2_hyper at x [40, 128, 128, 64], O 32, N 4; exact launches,
+    the kernels line's count), then K5′ at K5's shapes ([9216, 768], [32768,
+    768], [32768, 256], [11664, 1152], [32768, 1280]) and K9 at cor_tpu's
+    test shape and the decoder's (N 1 and 4), bf16 and fp32 (TF32 off),
+    each against its plain version (K5′ bf16 max relative error <= 2e-2,
+    fp32 1e-5, one fp32 backward at 1e-5; K9 1e-4 in both), timed beside
+    the plain version, the library call or composition and the bound (K5′
+    beside F.layer_norm(x + y), two calls, and x + y followed by K5; K9
+    beside F.conv_transpose2d + F.gelu + torch.einsum and K3 on the
+    [40, 64, 64, 256] input whose maps are as large);
+38. P6 under torch's default flags: the fp32 SAM-base neck and the decoder's
+    first upscale on the card, run as the port ran them before the repair
+    (raw cuDNN calls, TF32 allowed) and through its helpers (TF32 off for
+    the call, forward and backward), against the CPU in fp32 (the helpers'
+    outputs and input gradients within 1e-5 relative), with their ms.
 The line before the last lists every kernel ({"kernels": [...]}; an fp32
 instantiation is an entry of its own, name@fp32, with its fp32 launches);
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -288,13 +312,9 @@ def phase_device():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0].strip()
     print(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     print(f"phase 1 device: {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"python {sys.version.split()[0]}; "
-          f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+          f"python {sys.version.split()[0]}; torch's defaults: {tf32_flags()}", flush=True)
     return name, smi
 
 
@@ -314,7 +334,8 @@ def phase_build():
              "vit_attention_relpos_kernel", "vit_attention_relpos_f32_kernel",
              "vit_attention_bwd_dq_kernel", "vit_attention_bwd_dkv_kernel",
              "vit_attention_bwd_dq_f32_kernel", "vit_attention_bwd_dkv_f32_kernel",
-             "dma_t2i_kernel", "dma_i2t_kernel", "two_way_fused_kernel")
+             "dma_t2i_kernel", "dma_i2t_kernel", "two_way_fused_kernel",
+             "upscale2_hyper_kernel")
     kernel, spills, regs, done = None, {}, {}, []
     for line in path.with_suffix(".log").read_text().splitlines():
         if line.startswith("# ") and ".cu: done " in line:
@@ -532,7 +553,7 @@ def decoder_kernels(device):
 def kernel_wrappers():
     from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
     from cor_tpu_torch.ops.kernels.i2t_attention import i2t_attention_fused
-    from cor_tpu_torch.ops.kernels.layernorm import layer_norm
+    from cor_tpu_torch.ops.kernels.layernorm import add_layer_norm, layer_norm
     from cor_tpu_torch.ops.kernels.seq_attention import attention_seq, attention_seq_qkv
     from cor_tpu_torch.ops.kernels.t2i_flash import proj_q_t2i_flash, t2i_flash_kv
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
@@ -544,8 +565,11 @@ def kernel_wrappers():
 
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer_dma
     from cor_tpu_torch.ops.kernels.two_way_stack import two_way_grid_fused, two_way_stack_fused
+    from cor_tpu_torch.ops.kernels.upscale import fused_upscale2_hyper
 
-    return {"layer_norm": layer_norm, "attention_seq_qkv": attention_seq_qkv,
+    return {"layer_norm": layer_norm, "add_layer_norm": add_layer_norm,
+            "fused_upscale2_hyper": fused_upscale2_hyper,
+            "attention_seq_qkv": attention_seq_qkv,
             "attention_seq": attention_seq,
             "two_way_layer": two_way_layer, "t2i_flash_kv": t2i_flash_kv,
             "decoder_tail": decoder_tail, "vit_attention_relpos": vit_attention_relpos,
@@ -1392,7 +1416,8 @@ def phase_train(root: Path, keys=None, blocks: int = 12, phase: int = 15,
             fail(f"train unfrozen: a tower did not move, or the PE matrix did: {same}")
         idle = ("vit_attention_relpos_bwd", "attention_seq", "vit_attention_relpos_windows",
                 "proj_q_t2i_flash", "i2t_attention_fused", "two_way_layer_dma",
-                "two_way_stack_fused", "two_way_grid_fused")
+                "two_way_stack_fused", "two_way_grid_fused", "add_layer_norm",
+                "fused_upscale2_hyper")
         if k6 != k6_want or k6b != k6b_want or min(
                 c[n + sfx] for n in kernel_wrappers() if n not in idle) == 0 or (
                 sfx and any(c[n] for n in kernel_wrappers())):
@@ -3100,6 +3125,298 @@ def phase_decode_bench(smi: str):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the last two TPU kernels: phase 37
+# ---------------------------------------------------------------------------
+
+# K5′ at K5's shapes: the towers' (ViT-B-16 vision rows, batch 16), the SAM
+# encoder's and the decoder's, SO400M's, sam_huge's
+ADD_LN_SHAPES = ((9216, 768), (32768, 768), (32768, 256), (11664, 1152), (32768, 1280))
+ADD_LN_ROW = (32768, 256)  # the kernels line's K5′ row
+# K9: cor_tpu's own test's shape (tests/test_pallas_kernels.py:43), and the
+# SAM decoder's last upscale at 40 candidates (x [40, 128, 128, 64], O 32)
+# with the N 1 of select_mask and the N 4 of its mask tokens
+K9_SHAPES = ((2, 8, 8, 64, 32, 3), (40, 128, 128, 64, 32, 1), (40, 128, 128, 64, 32, 4))
+K9_ROW = K9_SHAPES[-1]
+# cor_tpu's fp32 tolerances (K5′ tests/test_pallas_kernels.py:39, K9 :58);
+# K9 in bf16 at its fp32 tolerance: both versions take the same rounded
+# operands into fp32 arithmetic
+FP32_TOL.update({"add_layer_norm": 1e-5, "fused_upscale2_hyper": 1e-4})
+K9_BF16_TOL = 1e-4
+# fp32 outside the tensor cores (NVIDIA data sheet, H100 SXM): K9's bias,
+# GELU (erf by Abramowitz-Stegun: 17 flops counted in csrc/upscale.cu) and
+# hypernetwork product per output channel value
+PEAK_FP32_SIMT_FLOP_S = 67e12
+K9_GELU_FLOPS = 17
+
+
+def tf32_flags() -> str:
+    return (f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+            f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+
+@contextlib.contextmanager
+def phase_flags(phases: str, tf32_off: bool):
+    """Print the TF32 flags that ``phases`` find on entry. A kernel-check
+    phase (``tf32_off``) holds kernels against plain versions whose fp32
+    products must be full fp32: it turns TF32 off for its own time and
+    restores the flags after. Every other phase runs the entry points under
+    the flags as torch sets them, so that what a user's run computes is what
+    gets checked."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    print(f"  {phases}: on entry {tf32_flags()}"
+          f"{'; TF32 off for the kernel checks' if tf32_off else ''}", flush=True)
+    if tf32_off:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def k9_bound(x, hyper, out, O: int, dt):
+    """K9's least time: the bytes (x, the packed w and b, hyper, the
+    output), the first product on the tensor cores, or the bias, GELU and
+    hypernetwork product on the CUDA cores, whichever is the largest."""
+    B, H, W, C = x.shape
+    vals = B * H * W * 4 * O  # output channel values of the transposed conv
+    t_bytes = (nbytes(x, hyper, out) + 4 * C * O * x.element_size() + 4 * O) / PEAK_BYTES_S
+    t_tc = 2 * vals * C / (PEAK_BF16_FLOP_S if dt == torch.bfloat16 else PEAK_FP32_FLOP_S)
+    t_simt = vals * (K9_GELU_FLOPS + 2 * hyper.shape[1]) / PEAK_FP32_SIMT_FLOP_S
+    return (1e3 * max(t_bytes, t_tc, t_simt),
+            "bytes" if t_bytes >= max(t_tc, t_simt) else "operations")
+
+
+def phase_last_kernels(device):
+    """Phase 37: K5′ (add_layer_norm) and K9 (fused_upscale2_hyper), whose
+    only callers in either package are tests: first their entry points
+    once per dtype (the path the kernels line counts: K5′ forward, and
+    forward and backward through autograd; K9 at the decoder's shape), then
+    each against its plain version at K5's shapes and at K9's (bf16 and
+    fp32, TF32 off), timed beside the plain version, the library call or
+    composition and the bound; K5′ beside x + y followed by K5, K9 beside
+    K3 on the [40, 64, 64, 256] input whose maps are as large."""
+    import torch.nn.functional as F
+
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+    from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
+    from cor_tpu_torch.ops.kernels.layernorm import (
+        add_layer_norm,
+        add_layer_norm_plain,
+        layer_norm,
+    )
+    from cor_tpu_torch.ops.kernels.upscale import fused_upscale2_hyper, fused_upscale2_hyper_plain
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 37)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa: E731
+    dtypes = ((torch.bfloat16, ""), (torch.float32, "@fp32"))
+
+    def k9_inputs(B, H, W, C, O, N, dt):
+        return (rnd(B, H, W, C).to(dt), 0.1 * rnd(C, 2, 2, O), 0.1 * rnd(O),
+                rnd(B, N, O).to(dt))
+
+    # the path: each entry point as a user calls it
+    reset_counts()
+    rows, C = ADD_LN_ROW
+    for dt, _ in dtypes:
+        x, y = rnd(rows, C).to(dt), rnd(rows, C).to(dt)
+        s, b = 1 + 0.1 * rnd(C), 0.1 * rnd(C)
+        with torch.no_grad():
+            add_layer_norm(x, y, s, b)
+            fused_upscale2_hyper(*k9_inputs(*K9_ROW, dt))
+        xs = [t.clone().requires_grad_(True) for t in (x, y, s, b)]
+        torch.autograd.grad(add_layer_norm(*xs).float().square().sum(), xs)
+    torch.cuda.synchronize()
+    path = read_counts()
+    want = {k: 2 if k.startswith("add_layer_norm") else 1
+            for k in ("add_layer_norm", "add_layer_norm@fp32", "fused_upscale2_hyper",
+                      "fused_upscale2_hyper@fp32")}
+    got = {k: path[k] for k in want}
+    others = {k: v for k, v in path.items() if v and k not in want}
+    print(f"  phase 37 path: launches {got} (want {want}; others {others})", flush=True)
+    if got != want or others:
+        fail(f"phase 37's entry points launched {got} and {others}, not {want}")
+
+    out = {}
+    for dt, sfx in dtypes:
+        bnd = bound if dt == torch.bfloat16 else bound32
+        # K5′
+        rows_out = {}
+        for rows, C in ADD_LN_SHAPES:
+            x, y = (2 * rnd(rows, C) + 0.5).to(dt), rnd(rows, C).to(dt)
+            s, b = (1 + 0.1 * rnd(C)).to(dt), (0.1 * rnd(C)).to(dt)
+            before = (add_layer_norm.launches, add_layer_norm.launches_fp32)
+            with torch.no_grad():
+                got, want = add_layer_norm(x, y, s, b), add_layer_norm_plain(x, y, s, b)
+            torch.cuda.synchronize()
+            calls = (add_layer_norm.launches - before[0], add_layer_norm.launches_fp32 - before[1])
+            if calls != ((1, 0) if dt == torch.bfloat16 else (0, 1)):
+                fail(f"add_layer_norm launched {calls} for one call")
+            kt = cuda_ms(lambda: add_layer_norm(x, y, s, b))
+            pt = cuda_ms(lambda: add_layer_norm_plain(x, y, s, b), iters=3)
+            lt = cuda_ms(lambda: F.layer_norm(x + y, (C,), s, b, 1e-6))
+            k5t = cuda_ms(lambda: layer_norm(x + y, s, b))
+            bd = bnd(nbytes(x, y, got, s, b), 9 * x.numel())
+            label = f"[{rows}, {C}]"
+            extra = dict(library_calls="F.layer_norm(x + y): two calls (the add, the norm)",
+                         add_then_k5_ms=k5t[0])
+            if dt == torch.float32:
+                res = check32("K5′ add_layer_norm", label, FP32_TOL["add_layer_norm"],
+                              [(got, want)], kt, pt, bd, lt, **extra)
+            else:
+                err = rel_err(got, want)
+                print(f"  K5′ add_layer_norm {label} bf16: max|d|/max|plain| = {err:.3e}; "
+                      f"kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, "
+                      f"F.layer_norm(x + y) {lt[0]:.4f} ms, x + y then K5 {k5t[0]:.4f} ms, "
+                      f"bound {bd[0]:.4f} ms ({bd[1]})", flush=True)
+                if not err <= KERNEL_TOL:
+                    fail(f"add_layer_norm {label} bf16 disagrees with its plain version: {err}")
+                res = entry(abs_err((got, want)), kt, pt, bd, lt, max_rel_err=err, **extra)
+            rows_out[label] = res
+        if dt == torch.float32:
+            # one fp32 backward through the plain VJP against the plain autograd
+            x, y = rnd(*ADD_LN_ROW), rnd(*ADD_LN_ROW)
+            s, b = 1 + 0.1 * rnd(ADD_LN_ROW[1]), 0.1 * rnd(ADD_LN_ROW[1])
+            dout = rnd(*ADD_LN_ROW)
+            grads = []
+            for fn in (add_layer_norm, add_layer_norm_plain):
+                ts = [t.clone().requires_grad_(True) for t in (x, y, s, b)]
+                grads.append(torch.autograd.grad(fn(*ts), ts, dout))
+            err, ratio = tol_err(FP32_TOL["add_layer_norm"], *zip(*grads))
+            print(f"  K5′ add_layer_norm fp32 backward {list(ADD_LN_ROW)}: max|d| = {err:.3e}, "
+                  f"{ratio:.3f} of the tolerance", flush=True)
+            if not ratio <= 1.0:
+                fail(f"add_layer_norm's backward disagrees with the plain autograd: {err}")
+        out[f"add_layer_norm{sfx}"] = dict(rows_out[f"[{ADD_LN_ROW[0]}, {ADD_LN_ROW[1]}]"],
+                                           at_shapes=rows_out)
+
+        # K9, and K3 on the input whose maps are as large
+        dec = init_mask_decoder(CoreConfig(), 1).to(device, dt).eval()
+        up = dec.output_upscaling
+        src, hyper3 = rnd(CANDIDATES, GRID, GRID, SAM_C).to(dt), rnd(CANDIDATES, 4, 32).to(dt)
+        k3_args = (src, up.convt1.w, up.convt1.b, up.ln.scale, up.ln.bias, up.convt2.w,
+                   up.convt2.b, hyper3)
+        with torch.no_grad():
+            k3t = cuda_ms(lambda: decoder_tail(*k3_args))
+        del dec, src
+        k9_out = {}
+        for shape in K9_SHAPES:
+            B, H, W, C, O, N = shape
+            x, w, b, h = k9_inputs(*shape, dt)
+            before = (fused_upscale2_hyper.launches, fused_upscale2_hyper.launches_fp32)
+            with torch.no_grad():
+                got, want = fused_upscale2_hyper(x, w, b, h), fused_upscale2_hyper_plain(x, w, b, h)
+            torch.cuda.synchronize()
+            calls = (fused_upscale2_hyper.launches - before[0],
+                     fused_upscale2_hyper.launches_fp32 - before[1])
+            if calls != ((1, 0) if dt == torch.bfloat16 else (0, 1)):
+                fail(f"fused_upscale2_hyper launched {calls} for one call")
+            with torch.no_grad():
+                kt = cuda_ms(lambda: fused_upscale2_hyper(x, w, b, h))
+                pt = cuda_ms(lambda: fused_upscale2_hyper_plain(x, w, b, h), iters=3)
+                xn, wn, hb = x.permute(0, 3, 1, 2), w.to(dt).permute(0, 3, 1, 2), h
+                ct = cuda_ms(lambda: torch.einsum(
+                    "bnc,bchw->bnhw", hb, F.gelu(F.conv_transpose2d(xn, wn, b.to(dt), stride=2))),
+                    iters=3)
+            bd = k9_bound(x, h, got, O, dt)
+            label = f"x {list(x.shape)}, O {O}, N {N}"
+            tol = FP32_TOL["fused_upscale2_hyper"] if dt == torch.float32 else K9_BF16_TOL
+            err, ratio = tol_err(tol, (got, want))
+            same_maps = (B, H, W) == (CANDIDATES, 2 * GRID, 2 * GRID)
+            print(f"  K9 fused_upscale2_hyper {label} {str(dt)[6:]}: max|d| = {err:.3e}, "
+                  f"{ratio:.3f} of the tolerance {tol}; kernel {kt[0]:.4f} ms [{kt[1]:.4f}, "
+                  f"{kt[2]:.4f}], plain {pt[0]:.4f} ms, conv_transpose2d + gelu + einsum "
+                  f"{ct[0]:.4f} ms{f', K3 (N 4) {k3t[0]:.4f} ms' if same_maps else ''}, "
+                  f"bound {bd[0]:.4f} ms ({bd[1]})", flush=True)
+            if not ratio <= 1.0:
+                fail(f"fused_upscale2_hyper {label} disagrees with its plain version: {err}")
+            k9_out[label] = entry(err, kt, pt, bd, None, tol=tol, tol_ratio=ratio,
+                                  composition_ms=ct[0],
+                                  **({"k3_same_maps_ms": k3t[0]} if same_maps else {}))
+        B, H, W, C, O, N = K9_ROW
+        out[f"fused_upscale2_hyper{sfx}"] = dict(
+            k9_out[f"x {[B, H, W, C]}, O {O}, N {N}"], at_shapes=k9_out,
+            composition="F.conv_transpose2d + F.gelu + torch.einsum (no single call)")
+    for k in out:
+        out[k]["path"] = "phase 37's calls of the entry points: no caller in either package"
+    torch.cuda.empty_cache()
+    print(f"phase 37 K5′ and K9: ok in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out, path
+
+
+def phase_p6(device):
+    """Phase 38: P6, the fp32 convolutions under torch's default flags (cuDNN
+    TF32 allowed). The SAM-base neck (1x1 768 -> 256, then 3x3 256 -> 256, on
+    [2, 64, 64, 768]) and the decoder's first upscale (2x2 stride 2, 256 ->
+    64, on [10, 64, 64, 256], the training path's), each run on the card as
+    the port ran them before the repair (F.conv2d / F.conv_transpose2d under
+    the flags as found) and through the port's helpers (ops.common.conv2d,
+    sam_decoder._conv_transpose_2x: TF32 off for the call, forward and
+    backward), against the same inputs on the CPU in fp32: max |d| / max
+    |cpu| of the outputs and of the input gradients, and each one's ms."""
+    import torch.nn.functional as F
+
+    from cor_tpu_torch.models.sam_decoder import ConvTranspose2x, _conv_transpose_2x
+    from cor_tpu_torch.ops.common import conv2d
+
+    if not torch.backends.cudnn.allow_tf32:
+        fail("phase 38 measures P6 under torch's default flags: cuDNN TF32 allowed")
+    gen = torch.Generator().manual_seed(SEED + 38)
+    x = torch.randn(2, 64, 64, 768, generator=gen)
+    w1 = torch.randn(256, 768, 1, 1, generator=gen) / 768 ** 0.5
+    w2 = torch.randn(256, 256, 3, 3, generator=gen) / 48
+    y = torch.randn(10, 64, 64, 256, generator=gen)
+    up = ConvTranspose2x(256, 64)
+    with torch.no_grad():
+        up.w.copy_(torch.randn(256, 2, 2, 64, generator=gen) / 32)
+        up.b.zero_()
+
+    def neck_raw(x, w1, w2):
+        h = F.conv2d(x.permute(0, 3, 1, 2), w1)
+        return F.conv2d(h, w2, padding=1).permute(0, 2, 3, 1)
+
+    def neck_port(x, w1, w2):
+        return conv2d(conv2d(x, w1), w2, padding=1)
+
+    def up_raw(y, mod):
+        return F.conv_transpose2d(y.permute(0, 3, 1, 2), mod.w.permute(0, 3, 1, 2),
+                                  stride=2).permute(0, 2, 3, 1) + mod.b
+
+    def run(fn, dev, *args):
+        """(output, the gradient of sum(out^2) by the first input)"""
+        a = [t.to(dev) for t in args]
+        a[0].requires_grad_(True)
+        out = fn(*a)
+        return out.detach().cpu(), torch.autograd.grad(out.square().sum(), a[0])[0].cpu()
+
+    res = {}
+    up_gpu = ConvTranspose2x(256, 64).to(device)
+    up_gpu.load_state_dict(up.state_dict())
+    for name, raw, port, cpu_fn, args in (
+            ("neck", neck_raw, neck_port, neck_port, (x, w1, w2)),
+            ("upscale", lambda y: up_raw(y, up_gpu), lambda y: _conv_transpose_2x(up_gpu, y),
+             lambda y: _conv_transpose_2x(up, y), (y,))):
+        want = run(cpu_fn, torch.device("cpu"), *args)
+        row = {}
+        for label, fn in (("before (raw cuDNN calls)", raw), ("after (port helpers)", port)):
+            got = run(fn, device, *args)
+            errs = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)]
+            dev_args = [t.to(device) for t in args]
+            with torch.no_grad():
+                t = cuda_ms(lambda: fn(*dev_args), windows=5, iters=5)
+            row[label] = {"out_rel_err": errs[0], "grad_rel_err": errs[1], "ms": t[0]}
+            print(f"  P6 {name} fp32 {label}: max|d|/max|cpu| out {errs[0]:.3e}, input grad "
+                  f"{errs[1]:.3e}; forward {t[0]:.4f} ms [{t[1]:.4f}, {t[2]:.4f}]", flush=True)
+        res[name] = row
+        if not max(row["after (port helpers)"][k] for k in ("out_rel_err", "grad_rel_err")) <= 1e-5:
+            fail(f"P6: the port's fp32 {name} is off the CPU's fp32 by more than 1e-5")
+    if not torch.backends.cudnn.allow_tf32:
+        fail("the port's fp32 convolutions left cuDNN's TF32 flag changed")
+    print(json.dumps({"p6_fp32_convolutions": res}))
+    print("phase 38 P6: ok", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this check runs on a GPU only",
@@ -3110,17 +3427,21 @@ def main():
 
     name, smi = phase_device()
     phase_build()
-    kernel_results = phase_kernels(torch.device("cuda"))
+    cuda = torch.device("cuda")
+    # the kernel-check phases take TF32 off for themselves; every other phase
+    # runs under torch's flags as a user's run finds them
+    with phase_flags("phase 3", tf32_off=True):
+        kernel_results = phase_kernels(cuda)
 
-    with tempfile.TemporaryDirectory() as d:
+    with phase_flags("phases 4-6", tf32_off=False), tempfile.TemporaryDirectory() as d:
         pair_ids = save_synthetic_gallery(d)
         servers, launches = phase_serve(d, pair_ids)
-    phase_numerics(servers["fp32"])
-    phase_timings(servers["fp32"], smi)
+        phase_numerics(servers["fp32"])
+        phase_timings(servers["fp32"], smi)
     del servers
     mark("phases 1-6")
 
-    with tempfile.TemporaryDirectory() as d:
+    with phase_flags("phases 7-9", tf32_off=False), tempfile.TemporaryDirectory() as d:
         d = Path(d)
         t0 = time.perf_counter()
         store_ids = write_store_index(d / "index")
@@ -3132,61 +3453,82 @@ def main():
     del dec_servers
     mark("phases 7-9")
 
-    enc_kernels, ln_sam = phase_encoder_kernels(torch.device("cuda"))
+    with phase_flags("phase 10", tf32_off=True):
+        enc_kernels, ln_sam = phase_encoder_kernels(cuda)
     kernel_results["vit_attention_relpos"] = enc_kernels
     kernel_results["layer_norm"]["sam_encoder_shapes"] = ln_sam
-    with tempfile.TemporaryDirectory() as d:
-        build_launches, _ = phase_build_index(Path(d) / "index")
-    enc_gpu, _, _ = phase_encoder_numerics()
-    phase_build_timings(enc_gpu, smi)
+    with phase_flags("phases 11-13", tf32_off=False):
+        with tempfile.TemporaryDirectory() as d:
+            build_launches, _ = phase_build_index(Path(d) / "index")
+        enc_gpu, _, _ = phase_encoder_numerics()
+        phase_build_timings(enc_gpu, smi)
     del enc_gpu
     torch.cuda.empty_cache()
     mark("phases 10-13")
 
-    kernel_results["vit_attention_relpos_bwd"] = phase_k6b(torch.device("cuda"))
-    with tempfile.TemporaryDirectory() as d:
-        train_launches, _, _ = phase_train(Path(d))
-    phase_train_numerics()
-    phase_train_timings(smi)
+    with phase_flags("phase 14", tf32_off=True):
+        kernel_results["vit_attention_relpos_bwd"] = phase_k6b(cuda)
+    with phase_flags("phases 15-17", tf32_off=False):
+        with tempfile.TemporaryDirectory() as d:
+            train_launches, _, _ = phase_train(Path(d))
+        phase_train_numerics()
+        phase_train_timings(smi)
     mark("phases 14-17")
 
-    k4_72, k6_80, ln_large = phase_large_kernels(torch.device("cuda"))
+    with phase_flags("phase 18", tf32_off=True):
+        k4_72, k6_80, ln_large = phase_large_kernels(cuda)
     kernel_results["attention_seq_qkv@72"] = k4_72
     kernel_results["vit_attention_relpos@80"] = k6_80
     kernel_results["layer_norm"]["large_config_shapes"] = ln_large
-    large_serve, large_build = phase_large(smi)
+    with phase_flags("phases 19-22", tf32_off=False):
+        large_serve, large_build = phase_large(smi)
     mark("phases 18-22")
 
-    kernel_results["vit_attention_relpos_bwd@80"] = phase_k6b(torch.device("cuda"), 16, 80,
-                                                              phase=23)
-    kernel_results["vit_attention_relpos_windows"] = phase_k7(torch.device("cuda"))
-    k7_launches = phase_k7_encoders(smi)
+    with phase_flags("phases 23-24", tf32_off=True):
+        kernel_results["vit_attention_relpos_bwd@80"] = phase_k6b(cuda, 16, 80, phase=23)
+        kernel_results["vit_attention_relpos_windows"] = phase_k7(cuda)
+    with phase_flags("phase 25", tf32_off=False):
+        k7_launches = phase_k7_encoders(smi)
     mark("phases 23-25")
-    large_train = phase_large_train(smi)
+    with phase_flags("phases 26-28", tf32_off=False):
+        large_train = phase_large_train(smi)
     mark("phases 26-28")
 
-    kernel_results.update(phase_fp32_kernels(torch.device("cuda")))
-    with tempfile.TemporaryDirectory() as d:
+    with phase_flags("phase 29", tf32_off=True):
+        kernel_results.update(phase_fp32_kernels(cuda))
+    with phase_flags("phases 30-31", tf32_off=False), tempfile.TemporaryDirectory() as d:
         server32, enc32, index32, ids32, fp32_launches = phase_fp32_paths(Path(d))
         k7_fp32 = phase_fp32_timings(server32, enc32, index32, ids32, Path(d), smi)
         del server32, enc32
     torch.cuda.empty_cache()
     mark("phases 29-31")
-    large32 = phase_large_fp32(smi)
+    with phase_flags("phase 32", tf32_off=False):
+        large32 = phase_large_fp32(smi)
     mark("phase 32")
 
-    token_kernels = phase_token_kernels(torch.device("cuda"))
+    with phase_flags("phase 33", tf32_off=True):
+        token_kernels = phase_token_kernels(cuda)
     for key in ("two_way_layer", "t2i_flash_kv", "two_way_layer@fp32", "t2i_flash_kv@fp32"):
         kernel_results[key]["at_tokens"] = token_kernels.pop(f"{key} at_tokens")
     kernel_results.update(token_kernels)
     mark("phase 33")
-    prompt_launches = phase_prompts(smi)
+    with phase_flags("phase 34", tf32_off=False):
+        prompt_launches = phase_prompts(smi)
     mark("phase 34")
-    schedule_kernels, schedule_decodes = phase_decode_schedules(torch.device("cuda"), smi)
+    with phase_flags("phase 35", tf32_off=True):
+        schedule_kernels, schedule_decodes = phase_decode_schedules(cuda, smi)
     kernel_results.update(schedule_kernels)
     mark("phase 35")
-    schedule_launches_ = phase_decode_bench(smi)
+    with phase_flags("phase 36", tf32_off=False):
+        schedule_launches_ = phase_decode_bench(smi)
     mark("phase 36")
+    with phase_flags("phase 37", tf32_off=True):
+        last_kernels, last_launches = phase_last_kernels(cuda)
+    kernel_results.update(last_kernels)
+    mark("phase 37")
+    with phase_flags("phase 38", tf32_off=False):
+        phase_p6(cuda)
+    mark("phase 38")
 
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70",
@@ -3276,6 +3618,16 @@ def main():
         "two_way_grid_fused@fp32": ("cor_tpu_torch/csrc/two_way_stack.cuh",
                                     "cor_tpu/ops/pallas/two_way_layer.py:1135",
                                     schedule_decodes),
+        # the last two TPU kernels, whose only callers are tests: phase 37's
+        # calls of their entry points
+        "add_layer_norm": ("cor_tpu_torch/csrc/layernorm.cu",
+                           "cor_tpu/ops/pallas/layernorm.py:100", last_launches),
+        "add_layer_norm@fp32": ("cor_tpu_torch/csrc/layernorm.cu",
+                                "cor_tpu/ops/pallas/layernorm.py:100", last_launches),
+        "fused_upscale2_hyper": ("cor_tpu_torch/csrc/upscale.cu",
+                                 "cor_tpu/ops/pallas/upscale.py:104", last_launches),
+        "fused_upscale2_hyper@fp32": ("cor_tpu_torch/csrc/upscale.cu",
+                                      "cor_tpu/ops/pallas/upscale.py:104", last_launches),
     }
     kernels = []
     for kname, res in kernel_results.items():

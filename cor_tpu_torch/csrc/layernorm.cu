@@ -1,19 +1,27 @@
-// LayerNorm over the last axis, fp32 statistics, output in the input dtype.
+// LayerNorm over the last axis, fp32 statistics, output in the input dtype;
+// and LayerNorm(x + y), the residual add fused in front of it.
 //
-// Replaces the TPU kernel cor_tpu/ops/pallas/layernorm.py:layer_norm_pallas
-// (_layer_norm_pallas_impl, its pallas_call at line 70). Same numerics as its
-// _ln_block: fp32 mean, then the biased variance as mean((x - mean)^2) in a
-// second pass over the row, y = (x - mean) * rsqrt(var + eps) * scale + bias.
+// Replaces the TPU kernels cor_tpu/ops/pallas/layernorm.py:layer_norm_pallas
+// (_layer_norm_pallas_impl, its pallas_call at line 70) and
+// add_layer_norm_pallas (_add_layer_norm_pallas_impl, line 100). Same
+// numerics as their _ln_block: fp32 mean, then the biased variance as
+// mean((x - mean)^2) in a second pass over the row, y = (x - mean) *
+// rsqrt(var + eps) * scale + bias. The fused add (_add_ln_kernel) takes
+// x + y in fp32 and never rounds the sum; cor_tpu's XLA fallback (C % 128
+// != 0, or rows that do not tile) rounds it to x's dtype, this kernel does
+// not at any shape.
 //
 // What bounds it on the H100: bytes. One row of C elements is read once and
-// written once (2 * C * sizeof(T) bytes) for about 8 * C flops, far below the
-// card's ~295 flop/byte ridge. The design therefore touches device memory
-// exactly once each way: one warp owns one row and keeps the whole row in
-// registers (ITEMS = ceil(C / 32) values per lane, 24 at C = 768), so the two
-// statistics passes and the normalising pass read registers, not memory.
-// Lanes read neighbouring elements (element i * 32 + lane), so every warp
-// load is one coalesced transaction. Ragged rows (any row count) need no
-// fallback: a warp past the last row returns, and a ragged C is masked.
+// written once (2 * C * sizeof(T) bytes; the add: one more read) for about
+// 8 * C flops, far below the card's ~295 flop/byte ridge. The design
+// therefore touches device memory exactly once each way: one warp owns one
+// row and keeps the whole row in registers (ITEMS = ceil(C / 32) values per
+// lane, 24 at C = 768), so the two statistics passes and the normalising
+// pass read registers, not memory; the add happens in those registers as
+// the two rows are loaded. Lanes read neighbouring elements (element i * 32
+// + lane), so every warp load is one coalesced transaction. Ragged rows
+// (any row count) need no fallback: a warp past the last row returns, and a
+// ragged C is masked.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,11 +55,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int ITEMS, typename TX, typename TW>
+// kAdd: the row is x + r (r of type TR, summed in fp32); without it r is
+// not read and the kernel is K5's.
+template <int ITEMS, bool kAdd, typename TX, typename TR, typename TW>
 __global__ void __launch_bounds__(kWarps * 32)
-layer_norm_kernel(const TX* __restrict__ x, const TW* __restrict__ scale,
-                  const TW* __restrict__ bias, TX* __restrict__ y,
-                  int64_t rows, int cols, float eps) {
+layer_norm_kernel(const TX* __restrict__ x, const TR* __restrict__ r,
+                  const TW* __restrict__ scale, const TW* __restrict__ bias,
+                  TX* __restrict__ y, int64_t rows, int cols, float eps) {
   const int lane = threadIdx.x & 31;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -63,7 +73,10 @@ layer_norm_kernel(const TX* __restrict__ x, const TW* __restrict__ scale,
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i) {
     const int c = i * 32 + lane;
-    v[i] = c < cols ? to_f32(xr[c]) : 0.f;
+    if constexpr (kAdd)
+      v[i] = c < cols ? to_f32(xr[c]) + to_f32(r[row * cols + c]) : 0.f;
+    else
+      v[i] = c < cols ? to_f32(xr[c]) : 0.f;
     sum += v[i];
   }
   const float mean = warp_sum(sum) / static_cast<float>(cols);
@@ -87,21 +100,22 @@ layer_norm_kernel(const TX* __restrict__ x, const TW* __restrict__ scale,
   }
 }
 
-template <typename TX, typename TW>
-cudaError_t launch(const void* x, const void* scale, const void* bias, void* y,
+template <bool kAdd, typename TX, typename TR, typename TW>
+cudaError_t launch(const void* x, const void* r, const void* scale, const void* bias, void* y,
                    int64_t rows, int cols, float eps, cudaStream_t stream) {
   const int items = (cols + 31) / 32;
   const dim3 grid(static_cast<unsigned>((rows + kWarps - 1) / kWarps));
   const dim3 block(kWarps * 32);
   const TX* xp = static_cast<const TX*>(x);
+  const TR* rp = static_cast<const TR*>(r);
   const TW* sp = static_cast<const TW*>(scale);
   const TW* bp = static_cast<const TW*>(bias);
   TX* yp = static_cast<TX*>(y);
-#define COR_LN_CASE(N)                                                              \
-  if (items <= N) {                                                                 \
-    layer_norm_kernel<N, TX, TW><<<grid, block, 0, stream>>>(xp, sp, bp, yp, rows, \
-                                                             cols, eps);            \
-    return cudaGetLastError();                                                      \
+#define COR_LN_CASE(N)                                                             \
+  if (items <= N) {                                                                \
+    layer_norm_kernel<N, kAdd, TX, TR, TW><<<grid, block, 0, stream>>>(            \
+        xp, rp, sp, bp, yp, rows, cols, eps);                                      \
+    return cudaGetLastError();                                                     \
   }
   COR_LN_CASE(4)
   COR_LN_CASE(8)
@@ -114,6 +128,16 @@ cudaError_t launch(const void* x, const void* scale, const void* bias, void* y,
   return cudaErrorInvalidValue;
 }
 
+// LayerNorm(x + r) with r's element type picked at run time
+template <typename TX, typename TW>
+cudaError_t launch_add(const void* x, const void* r, int r_bf16, const void* scale,
+                       const void* bias, void* y, int64_t rows, int cols, float eps,
+                       cudaStream_t stream) {
+  if (r_bf16)
+    return launch<true, TX, __nv_bfloat16, TW>(x, r, scale, bias, y, rows, cols, eps, stream);
+  return launch<true, TX, float, TW>(x, r, scale, bias, y, rows, cols, eps, stream);
+}
+
 }  // namespace
 
 // x, y: [rows, cols] contiguous, fp32 (x_bf16 = 0) or bf16 (x_bf16 = 1).
@@ -124,11 +148,31 @@ extern "C" int cor_layer_norm(const void* x, const void* scale, const void* bias
                               void* stream) {
   if (rows < 1 || cols < 1 || cols > 64 * 32) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
   if (x_bf16 && w_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, bias, y, rows, cols, eps, s);
+    return launch<false, bf, bf, bf>(x, nullptr, scale, bias, y, rows, cols, eps, s);
   if (x_bf16)
-    return launch<__nv_bfloat16, float>(x, scale, bias, y, rows, cols, eps, s);
+    return launch<false, bf, bf, float>(x, nullptr, scale, bias, y, rows, cols, eps, s);
   if (w_bf16)
-    return launch<float, __nv_bfloat16>(x, scale, bias, y, rows, cols, eps, s);
-  return launch<float, float>(x, scale, bias, y, rows, cols, eps, s);
+    return launch<false, float, float, bf>(x, nullptr, scale, bias, y, rows, cols, eps, s);
+  return launch<false, float, float, float>(x, nullptr, scale, bias, y, rows, cols, eps, s);
+}
+
+// LayerNorm(x + y) -> out. x, y: [rows, cols] contiguous, each fp32 (*_bf16
+// = 0) or bf16 (1); out: [rows, cols] in x's type. scale, bias: [cols], fp32
+// (w_bf16 = 0) or bf16 (1). cols <= 2048; rows >= 1. Returns the launch's
+// cudaError_t.
+extern "C" int cor_add_layer_norm(const void* x, const void* y, const void* scale,
+                                  const void* bias, void* out, long long rows, int cols,
+                                  float eps, int x_bf16, int y_bf16, int w_bf16, void* stream) {
+  if (rows < 1 || cols < 1 || cols > 64 * 32) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  if (x_bf16 && w_bf16)
+    return launch_add<bf, bf>(x, y, y_bf16, scale, bias, out, rows, cols, eps, s);
+  if (x_bf16)
+    return launch_add<bf, float>(x, y, y_bf16, scale, bias, out, rows, cols, eps, s);
+  if (w_bf16)
+    return launch_add<float, bf>(x, y, y_bf16, scale, bias, out, rows, cols, eps, s);
+  return launch_add<float, float>(x, y, y_bf16, scale, bias, out, rows, cols, eps, s);
 }

@@ -52,7 +52,6 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cor_tpu_torch.ops.attention import AttentionQKV, attention_heads
@@ -60,6 +59,7 @@ from cor_tpu_torch.ops.common import (
     LayerNorm,
     MlpBlock,
     MlpStack,
+    convolution,
     gelu,
     layer_norm,
     mlp_block,
@@ -259,7 +259,8 @@ def _two_way_transformer_unfused(p: TwoWayTransformer, image_embedding, image_pe
 def _conv_transpose_2x(p: ConvTranspose2x, x: torch.Tensor) -> torch.Tensor:
     """2 x 2 stride-2 transposed convolution, NHWC in x.dtype, the bias added
     after the product is rounded (cor_tpu ``_conv_transpose_2x``)."""
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), p.w.to(x.dtype).permute(0, 3, 1, 2), stride=2)
+    y = convolution(x.permute(0, 3, 1, 2), p.w.to(x.dtype).permute(0, 3, 1, 2), stride=2,
+                    transposed=True)
     return y.permute(0, 2, 3, 1) + p.b.to(x.dtype)
 
 

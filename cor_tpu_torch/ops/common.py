@@ -24,6 +24,7 @@ explicit ``torch.Generator``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple, Union
 
@@ -78,6 +79,72 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) ->
     return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
+@contextlib.contextmanager
+def _cudnn_full_fp32():
+    """cuDNN with TF32 off for the calls inside, the flag restored after.
+
+    Torch's default is ``torch.backends.cudnn.allow_tf32 = True``, under which
+    an fp32 convolution on the card multiplies in TF32 (a 10-bit mantissa);
+    ``cor_tpu``'s fp32 convolutions are full fp32. Only this flag is touched
+    (``torch.backends.cudnn.flags`` would reset benchmark and determinism
+    too), through the one API that torch 2.11 and 2.13 both take without a
+    warning."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def _pair(v) -> list:
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+class _Fp32Conv(torch.autograd.Function):
+    """An fp32 convolution, transposed or not, with TF32 off in the forward
+    and in the backward: autograd's own backward would read the global flag
+    when it runs, outside any scope the forward set."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding, groups, transposed):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, groups, transposed, None if b is None else list(b.shape))
+        conv = F.conv_transpose2d if transposed else F.conv2d
+        with _cudnn_full_fp32():
+            return conv(x, w, b, stride=stride, padding=padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, groups, transposed, b_shape = ctx.conf
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                ctx.needs_input_grad[2] and b_shape is not None]
+        with _cudnn_full_fp32():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                g, x, w, b_shape, stride, padding, [1, 1], transposed, [0, 0], groups, mask)
+        return gx, gw, gb, None, None, None, None
+
+
+def convolution(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    stride: int = 1,
+    padding: Union[int, Tuple[int, int]] = 0,
+    groups: int = 1,
+    transposed: bool = False,
+) -> torch.Tensor:
+    """``F.conv2d`` (or ``F.conv_transpose2d``), NCHW, x and w of one dtype.
+    In fp32 the products are full fp32, forward and backward, whatever
+    ``torch.backends.cudnn.allow_tf32`` says outside; other dtypes run as
+    torch runs them."""
+    if x.dtype != torch.float32:
+        conv = F.conv_transpose2d if transposed else F.conv2d
+        return conv(x, w, b, stride=stride, padding=padding, groups=groups)
+    return _Fp32Conv.apply(x, w, b, _pair(stride), _pair(padding), groups, transposed)
+
+
 def conv2d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -86,8 +153,9 @@ def conv2d(
     padding: Union[int, Tuple[int, int]] = 0,
     groups: int = 1,
 ) -> torch.Tensor:
-    """NHWC convolution with an OIHW weight (torch.nn.Conv2d semantics)."""
-    y = F.conv2d(
+    """NHWC convolution with an OIHW weight (torch.nn.Conv2d semantics);
+    fp32 in full fp32 (``convolution``)."""
+    y = convolution(
         x.permute(0, 3, 1, 2), w.to(x.dtype), None if b is None else b.to(x.dtype),
         stride=stride, padding=padding, groups=groups,
     )
@@ -102,9 +170,10 @@ def conv_transpose_2x(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torc
 
     ``F.conv_transpose2d`` takes [C_in, C_out, kh, kw] and applies it without
     a flip (cor_tpu pre-flips only because ``lax.conv_transpose`` flips).
-    Output in x.dtype."""
-    y = F.conv_transpose2d(
-        x.permute(0, 3, 1, 2), w.to(x.dtype).permute(0, 3, 1, 2), b.to(x.dtype), stride=2
+    Output in x.dtype; fp32 in full fp32 (``convolution``)."""
+    y = convolution(
+        x.permute(0, 3, 1, 2), w.to(x.dtype).permute(0, 3, 1, 2), b.to(x.dtype), stride=2,
+        transposed=True,
     )
     return y.permute(0, 2, 3, 1).contiguous()
 
@@ -143,6 +212,24 @@ def gelu_poly(x: torch.Tensor) -> torch.Tensor:
     for c in _PHI_COEF[-2::-1]:
         p = p * t2 + c
     return x * (0.5 + t * p)
+
+
+# erf by Abramowitz-Stegun 7.1.26 (|error| < 1.5e-7): the coefficients of
+# cor_tpu.ops.pallas.upscale._erf, whose Pallas kernel (K9) has no erf
+_ERF_AS = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+_ERF_AS_P = 0.3275911
+
+
+def gelu_erf_as(x: torch.Tensor) -> torch.Tensor:
+    """GELU with erf by Abramowitz-Stegun 7.1.26: the port's copy of
+    ``cor_tpu.ops.pallas.upscale._gelu_exact``, K9's GELU in every dtype
+    (same dtype in and out)."""
+    z = x * 0.7071067811865476
+    az = z.abs()
+    t = 1.0 / (1.0 + _ERF_AS_P * az)
+    a1, a2, a3, a4, a5 = _ERF_AS
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    return 0.5 * x * (1.0 + torch.sign(z) * (1.0 - poly * torch.exp(-az * az)))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

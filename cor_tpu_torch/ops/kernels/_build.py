@@ -38,14 +38,19 @@ NVCC_FLAGS = (
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
-# every entry but cor_layer_norm takes its compute dtype as f32 (0: bf16, 1:
-# fp32) just before the stream; the decoder's entries take their token count
-# as n_tok, just after n
+# every entry but cor_layer_norm and cor_add_layer_norm takes its compute
+# dtype as f32 (0: bf16, 1: fp32) just before the stream; the decoder's
+# entries take their token count as n_tok, just after n
 _SIGNATURES = {
     # x, scale, bias, y, rows, cols, eps, x_bf16, w_bf16, stream
     "cor_layer_norm": (
         _VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, _VP,
+    ),
+    # x, y, scale, bias, out, rows, cols, eps, x_bf16, y_bf16, w_bf16, stream
+    "cor_add_layer_norm": (
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP,
     ),
     # q, k, v, out, B, H, N, D, in_b, in_h, in_n, out_b, out_h, out_n, f32, stream
     "cor_seq_attention": (
@@ -108,6 +113,8 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int, _VP,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _VP,
     ),
+    # x, wt, b, hyper, out, B, H, W, C, O, N, f32, stream
+    "cor_fused_upscale2_hyper": (_VP, _VP, _VP, _VP, _VP, *(ctypes.c_int,) * 6, _I, _VP),
     # src, w1t, w2t, vec, hyper, n, m, H, eps, out, f32, stream
     "cor_decoder_tail": (
         _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,

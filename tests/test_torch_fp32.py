@@ -184,3 +184,105 @@ def test_packs_are_keyed_by_dtype(sam_decoder, kernel):
     assert all(not torch.equal(m, m.to(torch.bfloat16).float()) for m in seen["fp32"][0])
     again = packs(sam_decoder, torch.bfloat16)[kernel][0]
     assert all(a is b for a, b in zip(again, seen["bf16"][1]))
+
+
+# ---------------------------------------------------------------------------
+# fp32 convolutions in full fp32 (ROADMAP Queue 3, P6)
+# ---------------------------------------------------------------------------
+
+
+def tiny_fp32_config():
+    """A tiny CORE config at compute_dtype float32 whose every convolution
+    runs: the SAM neck (1x1, 3x3), the mask adapter's convs, the decoder's
+    upscale, the prompt encoder's mask convs."""
+    from cor_tpu_torch.models import pooling, prompt_encoder, sam_decoder, siglip, support_branch
+
+    towers = siglip.SigLIPConfig(siglip.SigLIPVisionConfig(32, 16, 128, 1, 2),
+                                 siglip.SigLIPTextConfig(8, 64, 128, 1, 2))
+    sup = support_branch.SupportBranchConfig(
+        prompt_dim=16, proj_hidden=24, siglip_override=towers,
+        adapter_override=pooling.MaskAdapterConfig(128, 16, 8, 16, 4))
+    dec = sam_decoder.MaskDecoderConfig(
+        transformer_dim=16, iou_head_hidden_dim=16,
+        transformer=sam_decoder.TwoWayTransformerConfig(2, 16, 2, 32))
+    enc = pcore.SamEncoderConfig(64, 16, embed_dim=32, depth=2, num_heads=2, out_chans=16,
+                                 window_size=3, global_attn_indexes=(1,))
+    return pcore.CoreConfig(compute_dtype="float32", freeze_towers=False, encoder_override=enc,
+                            support_override=sup, decoder_override=dec,
+                            prompt_override=prompt_encoder.PromptEncoderConfig(16, (4, 4),
+                                                                               (64, 64)))
+
+
+@pytest.fixture
+def conv_flags():
+    """Every aten convolution, forward and backward (whoever calls it: the
+    port's helpers, autograd), run from here on, as (kind, input dtype,
+    cuDNN allow_tf32 at the call)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    calls = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is aten.convolution.default:
+                kind = "conv_transpose2d" if args[6] else "conv2d"
+                calls.append((kind, args[0].dtype, torch.backends.cudnn.allow_tf32))
+            elif func is aten.convolution_backward.default:
+                calls.append(("backward", args[1].dtype, torch.backends.cudnn.allow_tf32))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        yield calls
+
+
+@pytest.mark.parametrize("default", [True, False], ids=["tf32-allowed", "tf32-off"])
+def test_fp32_convolutions_run_with_tf32_off(conv_flags, monkeypatch, default):
+    """P6: under either global cuDNN setting, an fp32 encode, a fused=False
+    decode, a prompt encode with a mask prompt and an unfrozen fp32 train
+    step run every convolution, forward and backward, with TF32 off; bf16
+    convolutions run under the global flag as found; the flag is left as it
+    was."""
+    from cor_tpu_torch.models import prompt_encoder as ppe
+    from cor_tpu_torch.models import sam_decoder as psd
+    from cor_tpu_torch.ops.common import conv2d, conv_transpose_2x
+    from cor_tpu_torch.train import optim as poptim
+    from cor_tpu_torch.train.step import TrainState, make_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", default)
+    cfg = tiny_fp32_config()
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        emb = pcore.init_image_encoder(cfg, 2)(torch.randn(2, 64, 64, 3, generator=g))
+        dec = pcore.init_mask_decoder(cfg, 1)
+        pe = torch.randn(1, 4, 4, 16, generator=g)
+        masks, _, _ = psd.mask_decoder(dec, emb, pe, torch.randn(2, 1, 16, generator=g), emb,
+                                       False, fused=False)
+        penc = ppe.init_full_prompt_encoder(cfg.prompt, 0)
+        _, dense = ppe.full_prompt_encoder(penc, cfg.prompt,
+                                           masks=torch.randn(2, 16, 16, 1, generator=g))
+    assert masks.dtype == dense.dtype == torch.float32
+    model = pcore.init_core_model(cfg, 0)
+    opt, _ = poptim.make_optimizer(model, "AdamW", lr=1e-3, freeze_towers=False)
+    qm = torch.zeros(2, 64, 64, 1)
+    qm[:, 8:30, 10:40] = 1.0
+    batch = {"query_img": torch.randn(2, 64, 64, 3, generator=g),
+             "support_img": torch.randn(2, 32, 32, 3, generator=g),
+             "text": torch.randint(2, 64, (2, 8), generator=g, dtype=torch.int32),
+             "support_mask": (torch.rand(2, 32, 32, 1, generator=g) > 0.5).float(),
+             "query_mask": qm, "valid": torch.ones(2)}
+    m = make_train_step(cfg, seed=0)(TrainState(model, opt), batch, 1e-3)
+    assert torch.isfinite(m["total_loss"])
+    kinds = {k for k, dt, _ in conv_flags if dt == torch.float32}
+    assert kinds == {"conv2d", "conv_transpose2d", "backward"}, kinds
+    assert not [c for c in conv_flags if c[1] != torch.float32 or c[2]], conv_flags
+    # bf16 is left to torch: each call sees the global flag as it was
+    conv_flags.clear()
+    x = torch.randn(1, 4, 4, 16, generator=g).bfloat16()
+    conv2d(x, torch.randn(8, 16, 3, 3, generator=g), padding=1)
+    conv_transpose_2x(x, torch.randn(16, 2, 2, 8, generator=g), torch.zeros(8))
+    psd._conv_transpose_2x(dec.output_upscaling.convt1, x)
+    assert conv_flags == [("conv2d", torch.bfloat16, default),
+                          ("conv_transpose2d", torch.bfloat16, default),
+                          ("conv_transpose2d", torch.bfloat16, default)]
+    assert torch.backends.cudnn.allow_tf32 == default

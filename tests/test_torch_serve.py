@@ -244,7 +244,9 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
     grid: K1's route at 5 and 8 tokens, K8a/K8b's at 9), and the opt-in
     decode schedules (a decode under each of sam_decoder's DMA_FUSED,
     STACK_FUSED and GRID_FUSED against K1's route, and decode_bench's run
-    on the CPU for each variant). Returns the first response."""
+    on the CPU for each variant). Then K5′ (add_layer_norm, forward and
+    backward) and K9 (fused_upscale2_hyper) on the CPU. Returns the first
+    response."""
     script = textwrap.dedent(f"""
         import contextlib, dataclasses, importlib, io, json, pkgutil, sys
         from pathlib import Path
@@ -348,6 +350,17 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
                 res = decode_bench.run(variant, variant == "dma", store=2, chunks=1, iters=1,
                                        chunk=1, device="cpu")
                 assert res["device"] == "cpu" and res["ms_per_chunk"] > 0, res
+        # the last two kernels' entry points on the CPU: K5' forward and
+        # backward, K9 forward
+        from cor_tpu_torch.ops.kernels.layernorm import add_layer_norm
+        from cor_tpu_torch.ops.kernels.upscale import fused_upscale2_hyper
+        ln_in = [torch.randn(2, 5, 96).requires_grad_(True) for _ in range(2)]
+        ln_out = add_layer_norm(*ln_in, torch.ones(96), torch.zeros(96))
+        ln_grads = torch.autograd.grad(ln_out.square().sum(), ln_in)
+        assert all(torch.isfinite(gr).all() for gr in ln_grads)
+        up = fused_upscale2_hyper(torch.randn(2, 4, 4, 16), torch.randn(16, 2, 2, 8),
+                                  torch.randn(8), torch.randn(2, 3, 8))
+        assert up.shape == (2, 3, 8, 8) and torch.isfinite(up).all(), up.shape
         if {unfrozen!r}:
             flagged = dataclasses.replace(cfg, encoder_override=dataclasses.replace(
                 enc, fused_window_indexing=True))
