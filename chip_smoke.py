@@ -26,7 +26,8 @@ Phases (any failure exits non-zero; no phase catches an exception):
  5. numerics: GPU bf16 queries against the same weights' CPU fp32 queries,
     per-query cosine >= 0.99;
  6. timings: encode+scan latency per batch bucket (1, 4, 16) and responses/s
-    of the self-test loop, with the card's name and power limit;
+    of the self-test loop, with the card's name and power limit, beside
+    820e02d's run (before K4/K4′ and K6b were redesigned);
  7. decode serve: a synthetic 2,048-row index with a [2048, 64, 64, 256]
     fp16 store (4 GiB on disk, written in chunks), then ``cli.serve.main``
     with --decode-masks, --self-test 8, --max-batch 4, --k 10, host-streamed
@@ -60,11 +61,13 @@ Phases (any failure exits non-zero; no phase catches an exception):
     the CLI build, the reckoned time for 127,166 candidates, and a
     torch.profiler breakdown of one batch-8 encode with the GELU and the
     window partition timed alone at the encoder's shapes;
-14. K6b: the backward kernel against its plain version at the global shape
+14. K6b: the backward kernel, given K6's out and row log-sum-exp as
+    autograd saves them, against its plain version at the global shape
     (qkv [2, 4096, 2304]) and the windowed one ([50, 196, 2304]), random
     bias factors and cotangent, max relative error <= 2e-2 for dqkv, drel_h
     and drel_w; timed beside the plain version and the autograd backward
-    of SDPA with the materialised bias requiring grad;
+    of SDPA with the materialised bias requiring grad (the bound counts the
+    gradient's five N x N x D products; the kernel runs seven);
 15. training: ``cor_tpu_torch.cli.train.main --synthetic`` on
     configs/train_config_m3.yaml's keys (epoch 1: 4 steps at batch 10, a
     2-batch val epoch), frozen and with ``freeze_towers: false``: finite
@@ -83,7 +86,8 @@ Phases (any failure exits non-zero; no phase catches an exception):
     gradient cosine, reported, not gated);
 17. training timings at batch 10, frozen and unfrozen: seconds per step
     (CUDA events, median and spread of 6 steps), samples/s, peak memory,
-    and a torch.profiler breakdown of one unfrozen step by layer;
+    and a torch.profiler breakdown of one unfrozen step by layer; the
+    unfrozen s/step beside 820e02d's;
 18. the largest configuration's kernels: K4′ (head_dim 72) at
     ViT-SO400M-14-SigLIP-384's qkv [16, 729, 3456] and [16, 64, 3456]
     through both entries (fused QKV and [B, H, N, D]), K6 at sam_huge's
@@ -105,16 +109,17 @@ Phases (any failure exits non-zero; no phase catches an exception):
     0.99); one candidate through sam_huge at full depth (rel-pos tables and
     pos_embed filled) GPU bf16 against CPU fp32 (cosine >= 0.99); one
     ``core_forward`` at CFG, batch 2, on the card;
-22. timings at CFG: encode+scan latency at buckets 1, 4, 16;
+22. timings at CFG: encode+scan latency at buckets 1, 4, 16 (beside
+    820e02d's);
     encode+scan+decode at bucket 4 (--store-hbm); the sam_huge encode at
     batch 1 and 8 with candidates/s and the reckoned time for 127,166
     candidates; the CPU init time of the random weights; peak memory; a
     torch.profiler breakdown of one bucket-16 query encode and one batch-8
     image encode;
 23. K6b at sam_huge's head_dim 80 (global [2, 4096, 3840], windowed
-    [50, 196, 3840]) against its plain backward, max relative error <= 2e-2
-    (as at 64), timed beside the plain version, SDPA's backward with the
-    bias and the bound;
+    [50, 196, 3840]), given K6's out and lse, against its plain backward,
+    max relative error <= 2e-2 (as at 64), timed beside the plain version,
+    SDPA's backward with the bias and the bound;
 24. K7 at SAM-base's and sam_huge's padded grids (qkv [2, 70, 70, 2304] and
     [2, 70, 70, 3840], windows of 14, cropped to 64 x 64) against its plain
     version (<= 2e-2) and, bit for bit, K6 on the partitioned windows; timed
@@ -132,8 +137,8 @@ Phases (any failure exits non-zero; no phase catches an exception):
     launch; unfrozen, the towers moved, K6b 4 launches per step and K6 8
     plus 4 per val batch;
 27. the unfrozen CFG step (phase 26's trainer, 4 blocks): launches of one
-    step, s per step (CUDA events, 3 steps), samples/s, peak memory, a
-    torch.profiler breakdown of one step;
+    step, s per step (CUDA events, 3 steps; beside 820e02d's), samples/s,
+    peak memory, a torch.profiler breakdown of one step;
 28. numerics at CFG: phase 16's check (GPU bf16 and GPU fp32 against CPU
     fp32) with sam_huge cut to 4 blocks (block 3 global) at full width and
     the towers at full depth;
@@ -272,6 +277,16 @@ MASK_AGREE_MIN = 0.99  # host-streamed fp16 vs int8 store: pixels that agree
 # H100 SXM peaks (NVIDIA data sheet, dense): the bounds of the kernel table
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
+# the end-to-end figures before K4/K4′ and K6b were redesigned (this
+# script's run of 820e02d on an H100 80GB HBM3 at 700 W): median [min, max]
+BEFORE_REDESIGN = {
+    "timings": {"1": (22.964, 21.311, 23.458), "4": (22.806, 22.424, 24.250),
+                "16": (34.750, 34.714, 34.907)},  # phase 6, encode+scan ms
+    "large_timings": {"1": (28.498, 27.120, 30.643), "4": (44.959, 44.214, 45.349),
+                      "16": (130.079, 130.054, 130.107)},  # phase 22
+    "train_unfrozen": (1.0681, 1.0372, 1.1689),  # phase 17, s per step
+    "large_train": (1.1315, 1.1033, 1.1963),  # phase 27, s per step (4 blocks)
+}
 
 
 START = time.perf_counter()
@@ -333,6 +348,7 @@ def phase_build():
              "twl_image_i2t_kernel", "t2i_combine_kernel", "decoder_tail_kernel",
              "vit_attention_relpos_kernel", "vit_attention_relpos_f32_kernel",
              "vit_attention_bwd_dq_kernel", "vit_attention_bwd_dkv_kernel",
+             "vit_attention_bwd_prep_kernel",
              "vit_attention_bwd_dq_f32_kernel", "vit_attention_bwd_dkv_f32_kernel",
              "dma_t2i_kernel", "dma_i2t_kernel", "two_way_fused_kernel",
              "upscale2_hyper_kernel")
@@ -716,6 +732,11 @@ def phase_timings(server, smi, key="timings", phase=6):
         }
     }
     print(json.dumps(out))
+    before = BEFORE_REDESIGN[key]
+    print("  encode+scan ms, this run against 820e02d's (before the K4 redesign): " + "; ".join(
+        f"bucket {b} {latency[b]['ms']:.3f} [{latency[b]['min_ms']:.3f}, "
+        f"{latency[b]['max_ms']:.3f}] vs {before[b][0]:.3f} [{before[b][1]:.3f}, "
+        f"{before[b][2]:.3f}]" for b in before))
     print(f"phase {phase} timings: ok", flush=True)
 
 
@@ -1279,14 +1300,16 @@ def phase_build_timings(enc_gpu, smi: str):
 
 def phase_k6b(device, heads: int = 12, D: int = 64, phase: int = 14):
     """K6b against its plain backward at the global and windowed shapes
-    (``heads`` of ``D``: SAM-base's 12 of 64, sam_huge's 16 of 80), timed
-    beside the plain version and SDPA's autograd backward with the
-    materialised bias requiring grad."""
+    (``heads`` of ``D``: SAM-base's 12 of 64, sam_huge's 16 of 80), given
+    the forward's out and lse as autograd saves them, timed beside the plain
+    version and SDPA's autograd backward with the materialised bias
+    requiring grad (given its saved forward likewise)."""
     import torch.nn.functional as F
 
     from cor_tpu_torch.ops.kernels.vit_attention import (
         vit_attention_relpos_bwd,
         vit_attention_relpos_bwd_plain,
+        vit_attention_relpos_with_lse,
     )
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5 if D == 64 else SEED + 8)
@@ -1301,7 +1324,9 @@ def phase_k6b(device, heads: int = 12, D: int = 64, phase: int = 14):
         rel_w = (0.3 * rnd(B, heads, N, side)).to(bf16)
         do = rnd(B, N, C).to(bf16)
         args = (qkv, rel_h, rel_w, do, heads, (side, side))
-        got = vit_attention_relpos_bwd(*args)
+        out_fwd, lse = vit_attention_relpos_with_lse(*args[:3], heads, (side, side))
+        stats = dict(out=out_fwd, lse=lse)
+        got = vit_attention_relpos_bwd(*args, **stats)
         want = vit_attention_relpos_bwd_plain(*args)
         torch.cuda.synchronize()
         errs = [rel_err(g, w) for g, w in zip(got, want)]
@@ -1309,7 +1334,7 @@ def phase_k6b(device, heads: int = 12, D: int = 64, phase: int = 14):
         if not all(torch.isfinite(g.float()).all() for g in got) or max(errs) > DECODE_REL:
             fail(f"vit_attention_relpos_bwd ({label}) disagrees with its plain version: "
                  f"dqkv {errs[0]}, drel_h {errs[1]}, drel_w {errs[2]}")
-        kt = cuda_ms(lambda: vit_attention_relpos_bwd(*args))
+        kt = cuda_ms(lambda: vit_attention_relpos_bwd(*args, **stats))
         pt = cuda_ms(lambda: vit_attention_relpos_bwd_plain(*args), windows=3, iters=2)
         del want
         # the library call: autograd's backward of SDPA with the additive
@@ -1323,15 +1348,19 @@ def phase_k6b(device, heads: int = 12, D: int = 64, phase: int = 14):
         lt = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v, bias), do4, retain_graph=True),
                      windows=5, iters=3)
         del o, bias, q, k, v
-        # the five N x N x D products the gradient needs: the logits' recompute
-        # q k^T, do v^T, a^T do, dl k and dl^T q
+        # the bound: the five N x N x D products the gradient needs (the
+        # logits' recompute q k^T, do v^T, a^T do, dl k and dl^T q) on the
+        # inputs (with the forward's out and lse) and outputs; the kernel runs
+        # seven (S, dP and dQ in its dq pass; S^T, dP^T, dV and dK in its dk/dv
+        # pass)
         flops = 5 * 2 * N * N * D * B * heads
-        b = bound(nbytes(qkv, rel_h, rel_w, do) + nbytes(*got), flops)
+        b = bound(nbytes(qkv, rel_h, rel_w, do, out_fwd, lse) + nbytes(*got), flops)
         print(f"  K6b vit_attention_relpos_bwd head_dim {D} {label} [{B}, {N}, {3 * C}]: "
               f"max|d|/max|plain| = "
               f"dqkv {errs[0]:.3e}, drel_h {errs[1]:.3e}, drel_w {errs[2]:.3e}; kernel "
-              f"{kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, SDPA backward "
-              f"with the bias {lt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})", flush=True)
+              f"{kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}] (7 products), plain {pt[0]:.4f} ms, "
+              f"SDPA backward with the bias {lt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}, the 5 "
+              f"products the gradient needs)", flush=True)
         out[label] = entry(err_abs, kt, pt, b, lt, max_rel_err=max(errs))
         del got
         torch.cuda.empty_cache()
@@ -1616,6 +1645,9 @@ def phase_train_timings(smi: str):
     del h, y, g
     torch.cuda.empty_cache()
     print(json.dumps({"train_timings": {**out, "batch": TrainConfig().batch_size, "card": smi}}))
+    u, before = out["unfrozen"], BEFORE_REDESIGN["train_unfrozen"]
+    print(f"  unfrozen s/step {u['s_per_step']:.4f} [{u['min_s']:.4f}, {u['max_s']:.4f}] against "
+          f"820e02d's (before the K6b redesign) {before[0]:.4f} [{before[1]:.4f}, {before[2]:.4f}]")
     print("phase 17 training timings: ok", flush=True)
     return out
 
@@ -1979,6 +2011,10 @@ def phase_large_train_timings(trainer, smi: str, sfx: str = "", phase: int = 27,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            **({"profile": profile(step, 1)} if with_profile else {}), "card": smi}
     print(json.dumps({f"large_train_timings{sfx}": out}))
+    if not sfx and grad_accum == 1:
+        before = BEFORE_REDESIGN["large_train"]
+        print(f"  s/step {med:.4f} [{min(times):.4f}, {max(times):.4f}] against 820e02d's (before "
+              f"the K6b redesign) {before[0]:.4f} [{before[1]:.4f}, {before[2]:.4f}]")
     print(f"phase {phase} training timings at CFG{sfx}, grad_accum {grad_accum}: ok", flush=True)
     return out
 
@@ -3543,7 +3579,7 @@ def main():
                          "cor_tpu/ops/pallas/decoder_tail.py:150", dec_launches),
         "vit_attention_relpos": ("cor_tpu_torch/csrc/vit_attention.cu",
                                  "cor_tpu/ops/pallas/vit_attention.py:284", build_launches),
-        "vit_attention_relpos_bwd": ("cor_tpu_torch/csrc/vit_attention_bwd.cu",
+        "vit_attention_relpos_bwd": ("cor_tpu_torch/csrc/vit_attention_bwd_wgmma.cuh",
                                      "cor_tpu/ops/pallas/vit_attention.py:459",
                                      train_launches["unfrozen"]),
         # the largest configuration's paths: K4′ is the same kernel at head_dim
@@ -3554,7 +3590,7 @@ def main():
                                     "cor_tpu/ops/pallas/vit_attention.py:284", large_build),
         # unfrozen training at CFG (cli.train), and the sam_huge encoder with
         # fused_window_indexing (make_candidate_encoder, one batch of 8)
-        "vit_attention_relpos_bwd@80": ("cor_tpu_torch/csrc/vit_attention_bwd.cu",
+        "vit_attention_relpos_bwd@80": ("cor_tpu_torch/csrc/vit_attention_bwd_wgmma.cuh",
                                         "cor_tpu/ops/pallas/vit_attention.py:459", large_train),
         "vit_attention_relpos_windows": ("cor_tpu_torch/csrc/vit_attention.cu",
                                          "cor_tpu/ops/pallas/vit_attention.py:180", k7_launches),

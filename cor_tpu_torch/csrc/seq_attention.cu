@@ -18,35 +18,53 @@
 // What bounds it on the H100: at the SigLIP towers' shapes (N = 576, 729 or
 // 64) a (batch, head) pair is 4 * N^2 * D flops on 4 * N * D * 2 bytes,
 // about 290 flop/byte at N = 576, next to the card's ~295 flop/byte ridge,
-// and the products are small (64 x 64 x D tiles). So both the bytes and the
-// rate of small matrix products count. The design:
-//  - one block of 4 warps per (64-query tile, head, batch); each warp owns 16
-//    query rows, so the SO400M vision tower at B = 16 launches
-//    12 * 16 * 16 = 3,072 blocks and fills the 132 SMs many times over;
-//  - K and V of the (batch, head) stream through shared memory in 64-key
-//    tiles with 16-byte loads (a row of D bf16 is D / 8 of them: 9 at 72);
-//    V is stored transposed there so that its tensor-core operand is one
-//    32-bit shared load per register;
-//  - logits and P.V run on the tensor cores with mma.sync m16n8k16 bf16 and
-//    fp32 accumulation. The logits' product runs over D rounded up to the
-//    mma's k of 16: at D = 72 a fifth k-step reads columns 72..79 of the Q
-//    and K tiles, which are zero in shared memory, so it adds exactly 0.
-//    P.V is D / 8 n-tiles of 8 (9 at 72, 10 at 80);
-//  - the softmax is online (flash-style) in fp32, in the log2 domain, with
-//    the row max and row sum reduced across the four lanes that share a row;
-//  - P is rounded to bf16 before P.V, as the TPU kernel rounds its
-//    probabilities to the compute dtype; here P is unnormalised and the
-//    division by the row sum happens once, in fp32, at the end.
-// Padded shared-memory rows keep the fragment loads free of bank conflicts:
-// the Q and K tiles' rows are 72 bf16 (36 words) at D = 64 and 88 bf16 (44
-// words) at D = 72 and 80, where 80 (40 words) would put fragment rows g and
-// g + 4 on one bank; V^T's rows hold 64 keys and are 72 bf16 at every D.
-// Ragged N is masked: keys past N get -inf logits, query rows past N are
-// computed on zeros and not stored. wgmma and TMA are left for later.
+// and the products are small (64 x 64 x D tiles). What the first (mma.sync)
+// design lost was the overlap of loads and products: every K/V tile went
+// through registers between two __syncthreads while the tensor cores
+// waited. Measured on the H100 (PERF.md), the wgmma design is bound
+// by moving the K/V tiles from L2 to shared memory: sharing each tile
+// between two warpgroups did more than cheaper softmax arithmetic, a
+// software-pipelined warpgroup or another stage of the ring.
 //
-// fp32 (cor_tpu's compute_dtype float32): seq_attention_f32_kernel, the same
-// blocks, tiles and online softmax on fp32 operands, with every product in
-// 3xTF32 on mma.sync m16n8k8 (mma_tf32x3.cuh): fp32 accuracy on the tensor
+// The bf16 kernel (seq_attention_kernel<D>), FlashAttention-3-shaped, on
+// wgmma (wgmma.cuh):
+//  - one block per (128 query rows, head, batch): two consumer warpgroups
+//    (64 rows each, 16 a warp) and a producer of two warps, 320 threads. A
+//    sequence of one key tile (N <= 64, the text towers) takes blocks of 64
+//    rows and one warpgroup, which live shorter;
+//  - every thread of the block starts the copies of Q and the first K
+//    tile; then the producer copies the 64-key V tiles and the other K
+//    tiles, with cp.async into a ring of kStages = 3 stages in wgmma's
+//    core-matrix layout, zero-filling keys past N and D = 72's pad columns;
+//    a full and an empty mbarrier per stage hand each stage over
+//    (wgmma.cuh), so up to three tiles are on the way while the warpgroups
+//    compute, and the first logits wait for no V;
+//  - S = Q K^T is wgmma m64n64k16 with Q and K from shared memory, both
+//    K-major, over D rounded up to 16 (at D = 72 a fifth k-step reads
+//    columns 72..79 of Q and K, zero in shared memory: it adds exactly 0);
+//  - O += P V is wgmma m64nDk16 (N = 64, 72, 80) with P as bf16 register
+//    fragments and V's [key][d] tile as an N-major B operand: no
+//    transposed copy of V;
+//  - the softmax is online in fp32, in the log2 domain, with the row max
+//    and row sum reduced across the four lanes that share a row; P is
+//    rounded to bf16 before P.V, as the TPU kernel rounds its probabilities
+//    to the compute dtype; the division by the row sum happens once, in
+//    fp32, at the end. Keys past N get -inf logits; query rows past N are
+//    computed on zeros and not stored. The sums run in the first design's
+//    order: its outputs are the same bits.
+// Dynamic shared memory: two Q tiles [64][Dk] and three stages of K [64][Dk]
+// and V [64][D] (Dk = D rounded up to 16): 65,536 bytes at D = 64, 78,848
+// at 72, 81,920 at 80, plus the barriers (one Q tile less for N <= 64); 98
+// registers at most, two blocks an SM. TMA is not used: its 128-byte
+// swizzle wants 64-bf16 rows, which 72 and 80 are not, and the fused QKV's
+// column pad at 72 would read the next head; cp.async places any 16-byte
+// chunk.
+//
+// fp32 (cor_tpu's compute_dtype float32): seq_attention_f32_kernel, the
+// first design kept: one block of 4 warps per (64-query tile, head, batch),
+// 16 query rows per warp, the 64-key K and V tiles staged through registers
+// between two __syncthreads, the same online softmax on fp32 operands, with
+// every product in 3xTF32 on mma.sync m16n8k8 (mma_tf32x3.cuh): fp32 accuracy on the tensor
 // cores, three TF32 products per fp32 one. Nothing is rounded (P included),
 // as cor_tpu rounds to the compute dtype. The tiles are [64][D + 4] fp32
 // (68, 76, 84 words: 4 mod 8, conflict-free TF32 fragment loads; D = 72 is
@@ -57,25 +75,34 @@
 // D = 80. What bounds it: operations (three products per product).
 
 #include "decoder_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block (16 per warp)
-constexpr int kBK = 64;        // keys per shared-memory tile
-constexpr int kLdv = kBK + 8;  // padded row stride of the V^T tile [d][key], in bf16
-constexpr int kThreads = 128;  // 4 warps
+namespace wg = cor::wg;
 
-// the shapes that follow from the head_dim D
+constexpr int kBQ = 64;        // the fp32 kernel: query rows per block (16 per warp)
+constexpr int kBK = 64;        // keys per shared-memory tile
+constexpr int kThreads = 128;  // the fp32 kernel: 4 warps
+constexpr int kMaxGroups = 2;  // bf16: consumer warpgroups a block, 64 query rows each
+constexpr int kProducers = 64;  // bf16: the producer's two warps
+constexpr int kStages = 3;     // the bf16 kernel's K/V ring
+
+// the bf16 kernel's tiles, from the head_dim D
 template <int D>
-struct HeadDim {
+struct Tiles {
   static_assert(D % 8 == 0, "a row of D bf16 is whole 16-byte chunks");
   static constexpr int kDk = (D + 15) / 16 * 16;  // the logits' product depth
-  static constexpr int kLdq = D == 64 ? 72 : 88;  // row stride of the Q and K tiles
-  static_assert(kLdq >= kDk && (kLdq / 2) % 8 == 4, "conflict-free fragment rows");
+  static constexpr int kChQK = kDk / 8;           // chunks of a Q or K row, pad included
+  static constexpr int kChV = D / 8;              // chunks of a V row
+  static constexpr int kQK = 64 * kDk;            // bf16 elements of a 64-row Q or K tile
+  static constexpr int kV = kBK * D;
+  // shared memory of a block of `groups` consumer warpgroups
+  static constexpr int smem(int groups) {
+    return (groups * kQK + kStages * (kQK + kV)) * 2 + (1 + 2 * kStages) * 8;
+  }
 };
 
-using cor::lds32;
-using cor::mma_bf16_16816;
 using cor::pack_bf16x2;
 
 // S (a 64-key tile of this lane's rows g and g + 8) into the log2 domain,
@@ -97,133 +124,139 @@ __device__ __forceinline__ void scale_mask_max(float (&s)[kBK / 8][4], int k0, i
 
 // q, k, v: element (b, h, n, d) at b * in_b + h * in_h + n * in_n + d (the
 // three share strides); out: at b * out_b + h * out_h + n * out_n + d.
+// A block of blockDim.x = groups * 128 + kProducers threads takes the
+// groups * 64 query rows from blockIdx.x * groups * 64.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxGroups * 128 + kProducers)
 seq_attention_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                      const uint16_t* __restrict__ v, uint16_t* __restrict__ out, int N,
                      int64_t in_b, int64_t in_h, int64_t in_n, int64_t out_b, int64_t out_h,
                      int64_t out_n, float scale_log2) {
-  constexpr int kDk = HeadDim<D>::kDk;
-  constexpr int kLdq = HeadDim<D>::kLdq;
-  constexpr int kChunks = kDk / 8;  // 16-byte chunks of a tile row, the zero pad included
-  __shared__ __align__(16) uint16_t sQ[kBQ * kLdq];
-  __shared__ __align__(16) uint16_t sK[kBK * kLdq];  // [key][d]
-  __shared__ __align__(16) uint16_t sVt[D * kLdv];   // [d][key]
+  using T = Tiles<D>;
+  const int groups = (blockDim.x - kProducers) / 128;
+  const int consumers = groups * 128;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem);  // groups x [query][Dk]
+  uint16_t* sK = sQ + groups * T::kQK;                // kStages x [key][Dk]
+  uint16_t* sV = sK + kStages * T::kQK;               // kStages x [key][D]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * T::kV);
+  uint64_t* full = q_full + 1;       // stage s holds the next K/V tile
+  uint64_t* empty = full + kStages;  // stage s is consumed
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * groups * 64;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int tiles = (N + kBK - 1) / kBK;
+  const int64_t head = blockIdx.z * in_b + blockIdx.y * in_h;
+  if (tid == 0) {
+    wg::mbar_init(q_full, 2 * blockDim.x);
+    for (int s = 0; s < kStages; ++s) {
+      wg::mbar_init(&full[s], 2 * kProducers);
+      wg::mbar_init(&empty[s], consumers);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+  // every thread starts the copies of Q and the first K tile (the first
+  // product needs no V): a block's first tiles are on their way sooner
+  for (int w = 0; w < groups; ++w)
+    wg::load_tile<T::kChQK, D / 8>(sQ + w * T::kQK, q + head, in_n, q0 + 64 * w, N, tid,
+                                   blockDim.x);
+  wg::load_tile<T::kChQK, D / 8>(sK, k + head, in_n, 0, N, tid, blockDim.x);
+  wg::mbar_arrive_copies(q_full);
+  wg::mbar_arrive(q_full);
+
+  if (tid >= consumers) {
+    // the producer warps: the V tiles and the other K tiles through the ring
+    const int lane = tid - consumers;
+    for (int j = 0; j < tiles; ++j) {
+      const int s = j % kStages;
+      if (j >= kStages) wg::mbar_wait(&empty[s], (j / kStages - 1) & 1);
+      if (j > 0)
+        wg::load_tile<T::kChQK, D / 8>(sK + s * T::kQK, k + head, in_n, j * kBK, N, lane,
+                                       kProducers);
+      wg::load_tile<T::kChV, D / 8>(sV + s * T::kV, v + head, in_n, j * kBK, N, lane,
+                                    kProducers);
+      wg::mbar_arrive_copies(&full[s]);
+      wg::mbar_arrive(&full[s]);
+    }
+    cor::cp_async_wait<0>();  // exit with no copy in flight
+    return;
+  }
+
+  // consumer warpgroup cw: query rows q0 + 64 cw .. + 63
+  const int cw = tid >> 7;
+  const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
-  const int64_t head = b * in_b + h * in_h;
-  const uint16_t* qh = q + head;
-  const uint16_t* kh = k + head;
-  const uint16_t* vh = v + head;
-
-  // Q tile -> shared (rows past N and columns past D are zero)
-  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c8 = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (c8 < D && q0 + r < N)
-      val = *reinterpret_cast<const uint4*>(qh + (q0 + r) * in_n + c8);
-    *reinterpret_cast<uint4*>(&sQ[r * kLdq + c8]) = val;
-  }
-  __syncthreads();
-
-  // this warp's 16 query rows as m16k16 A fragments, one per 16 columns of D
-  const int wr = warp * 16;
-  uint32_t qa[kDk / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < kDk / 16; ++kc) {
-    const uint16_t* p = sQ + (wr + g) * kLdq + kc * 16 + 2 * t;
-    qa[kc][0] = lds32(p);
-    qa[kc][1] = lds32(p + 8 * kLdq);
-    qa[kc][2] = lds32(p + 8);
-    qa[kc][3] = lds32(p + 8 * kLdq + 8);
-  }
-
+  const uint32_t q_addr = wg::smem_u32(sQ + cw * T::kQK);
+  const uint32_t k_addr = wg::smem_u32(sK);
+  const uint32_t v_addr = wg::smem_u32(sV);
   float o[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 domain
   float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
+  wg::mbar_wait(q_full, 0);
+  wg::fence_proxy_async();
 
-  for (int k0 = 0; k0 < N; k0 += kBK) {
-    __syncthreads();  // the previous K/V tile is fully consumed
-    for (int i = tid; i < kBK * kChunks; i += kThreads) {
-      const int r = i / kChunks;
-      const int c8 = (i % kChunks) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (c8 < D && k0 + r < N) {
-        kv = *reinterpret_cast<const uint4*>(kh + (k0 + r) * in_n + c8);
-        vv = *reinterpret_cast<const uint4*>(vh + (k0 + r) * in_n + c8);
-      }
-      *reinterpret_cast<uint4*>(&sK[r * kLdq + c8]) = kv;
-      if (c8 < D) {
-        const uint32_t w[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sVt[(c8 + 2 * j) * kLdv + r] = static_cast<uint16_t>(w[j] & 0xffffu);
-          sVt[(c8 + 2 * j + 1) * kLdv + r] = static_cast<uint16_t>(w[j] >> 16);
-        }
-      }
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % kStages;
+    if (j > 0) {
+      wg::mbar_wait(&full[s], (j / kStages) & 1);
+      wg::fence_proxy_async();
     }
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys, 8 n-tiles of 8 keys
-    float s[kBK / 8][4];
+    // S = Q K^T: 64 rows x 64 keys
+    float sc[kBK / 8][4];
+    wg::fence();
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < kDk / 16; ++kc) {
-        const uint16_t* p = sK + (n * 8 + g) * kLdq + kc * 16 + 2 * t;
-        mma_bf16_16816(s[n], qa[kc], lds32(p), lds32(p + 8));
-      }
-    }
+    for (int kc = 0; kc < T::kDk / 16; ++kc)
+      wg::mma_ss_n64<0>(sc, wg::desc_k(q_addr, T::kChQK, kc),
+                        wg::desc_k(k_addr + s * T::kQK * 2, T::kChQK, kc), kc > 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(sc);
 
     // scale into the log2 domain, mask keys past N, tile row max
     float mt[2];
-    scale_mask_max(s, k0, N, t, scale_log2, mt);
+    scale_mask_max(sc, j * kBK, N, t, scale_log2, mt);
     cor::softmax_rescale(mt, m_run, l_run, o);
 
-    // P = exp2(S - m) in fp32 for the row sums, bf16 A fragments for P.V:
-    // accumulator tiles 2kc and 2kc+1 are exactly the A fragment of keys
-    // 16kc .. 16kc+15
+    // P = exp2(S - m) in fp32 for the row sums, bf16 A fragments for P.V
     uint32_t pa[kBK / 16][4];
 #pragma unroll
     for (int n = 0; n < kBK / 8; ++n) {
-      const float p0 = exp2f(s[n][0] - m_run[0]);
-      const float p1 = exp2f(s[n][1] - m_run[0]);
-      const float p2 = exp2f(s[n][2] - m_run[1]);
-      const float p3 = exp2f(s[n][3] - m_run[1]);
+      const float p0 = exp2f(sc[n][0] - m_run[0]);
+      const float p1 = exp2f(sc[n][1] - m_run[0]);
+      const float p2 = exp2f(sc[n][2] - m_run[1]);
+      const float p3 = exp2f(sc[n][3] - m_run[1]);
       l_run[0] += p0 + p1;
       l_run[1] += p2 + p3;
       pa[n >> 1][(n & 1) * 2 + 0] = pack_bf16x2(p0, p1);
       pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16x2(p2, p3);
     }
 
-    // O += P V: B[key][d] = V[key][d], read from the transposed tile
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-      for (int kc = 0; kc < kBK / 16; ++kc) {
-        const uint16_t* p = sVt + (n * 8 + g) * kLdv + kc * 16 + 2 * t;
-        mma_bf16_16816(o[n], pa[kc], lds32(p), lds32(p + 8));
-      }
+    // O += P V: V's [key][d] tile is the N-major B operand
+    if (j == 0) {
+      wg::mbar_wait(&full[0], 0);  // the first V tile
+      wg::fence_proxy_async();
     }
+    wg::fence_regs(o);
+    wg::fence();
+#pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc)
+      wg::mma_rs<D, 1>(o, pa[kc], wg::desc_n(v_addr + s * T::kV * 2, T::kChV, kc), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(o);
+    wg::mbar_arrive(&empty[s]);
   }
 
   float inv[2];
   cor::softmax_inverse_sums(l_run, inv);
-  const int qa_row = q0 + wr + g;
+  const int qa_row = q0 + cw * 64 + warp * 16 + g;
   const int qb_row = qa_row + 8;
-  uint16_t* dst = out + b * out_b + h * out_h + 2 * t;
+  uint16_t* dst = out + blockIdx.z * out_b + blockIdx.y * out_h + 2 * t;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     if (qa_row < N)
@@ -346,18 +379,29 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int N,
            int64_t in_b, int64_t in_h, int64_t in_n, int64_t out_b, int64_t out_h,
            int64_t out_n, int f32, void* stream) {
-  const dim3 grid((N + kBQ - 1) / kBQ, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32)
+  if (f32) {
+    const dim3 grid((N + kBQ - 1) / kBQ, H, B);
     seq_attention_f32_kernel<D><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(out), N, in_b, in_h, in_n, out_b, out_h, out_n, scale_log2);
-  else
-    seq_attention_kernel<D><<<grid, kThreads, 0, s>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), N, in_b, in_h, in_n, out_b,
-        out_h, out_n, scale_log2);
+    return cudaGetLastError();
+  }
+  // two consumer warpgroups share each K/V tile, halving the tiles' traffic;
+  // a sequence of one key tile (the text towers' 64) takes one, whose blocks
+  // are shorter-lived
+  const int groups = N > kBK ? kMaxGroups : 1;
+  const int smem = Tiles<D>::smem(groups);
+  static int raised[wg::kMaxDevices];
+  const cudaError_t err = wg::raise_shared_memory(
+      reinterpret_cast<const void*>(seq_attention_kernel<D>), Tiles<D>::smem(2), raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + 64 * groups - 1) / (64 * groups), H, B);
+  seq_attention_kernel<D><<<grid, groups * 128 + kProducers, smem, s>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), N, in_b, in_h, in_n, out_b,
+      out_h, out_n, scale_log2);
   return cudaGetLastError();
 }
 

@@ -47,7 +47,9 @@
 // bank; 44 words do not), V^T [D][72], the bias rows 2 x [64][72]: 46,080
 // bytes at 64 and 52,480 at 80, above the 48 KiB a launch gets without
 // cudaFuncSetAttribute. wgmma, TMA and a pipelined K/V ring are left for
-// later.
+// later. With a non-null lse (the forward autograd records) each row's
+// log-sum-exp of the logits, natural log, is written into [B, heads, N]
+// for K6b; out's bits do not change.
 //
 // K7, the same kernel with the window partition in its indexing (kWin):
 // replaces cor_tpu/ops/pallas/vit_attention.py:
@@ -170,12 +172,15 @@ __device__ __forceinline__ void bias_mask_max(float (&s)[kBK / 8][4], const T* r
 // One (image or window, head, 64-query tile). K6 (kWin false): the N = H * W
 // tokens of image blockIdx.z, rows of qkv [B, N, 3C]. K7 (kWin true): the
 // N = ws * ws tokens of window blockIdx.z % nW of image blockIdx.z / nW,
-// read by strides out of qkv [B, Hp, Wp, 3C] (H = W = ws).
+// read by strides out of qkv [B, Hp, Wp, 3C] (H = W = ws). Four blocks an
+// SM, as the shared memory allows: 128 registers at most (the lse epilogue
+// took 133 at D = 80 without the bound, and a block an SM with them).
 template <int D, bool kWin>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __restrict__ rel_h,
                             const uint16_t* __restrict__ rel_w, uint16_t* __restrict__ out,
-                            int N, int C, int H, int W, float scale, WindowGrid wg) {
+                            float* __restrict__ lse, int N, int C, int H, int W, float scale,
+                            WindowGrid wg) {
   constexpr int kLds = HeadDim<D>::kLdq;
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* sQ = reinterpret_cast<uint16_t*>(smem);
@@ -324,6 +329,17 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
 
   float inv[2];
   cor::softmax_inverse_sums(l_run, inv);
+  // K6 for K6b: each row's log-sum-exp of the logits, natural log, into
+  // lse [B, heads, N] (l_run now holds the whole row sums)
+  if (!kWin && lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + wr + g + 8 * r;
+      if (i < N)
+        lse[(static_cast<int64_t>(b) * gridDim.y + h) * N + i] =
+            (m_run[r] + log2f(l_run[r])) * 0.6931471805599453f;
+    }
+  }
   // the output rows of this lane's two queries: [B, N, C] (K6), or the
   // cropped [B, Hout, Wout, C] grid (K7); -1: not written (past N, or a pad
   // row or column of the grid)
@@ -512,9 +528,9 @@ vit_attention_relpos_f32_kernel(const float* __restrict__ qkv, const float* __re
 
 // blocks: B images (K6) or B * wg.nW windows (K7); f32: fp32 operands
 template <int D, bool kWin>
-int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out, int blocks, int N,
-           int C, int num_heads, int H, int W, float scale, WindowGrid wg, int f32,
-           void* stream) {
+int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out, void* lse,
+           int blocks, int N, int C, int num_heads, int H, int W, float scale, WindowGrid wg,
+           int f32, void* stream) {
   const dim3 grid((N + kBQ - 1) / kBQ, num_heads, blocks);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f32) {
@@ -534,7 +550,8 @@ int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out, int
   if (err != cudaSuccess) return err;
   vit_attention_relpos_kernel<D, kWin><<<grid, kThreads, smem, s>>>(
       static_cast<const uint16_t*>(qkv), static_cast<const uint16_t*>(rel_h),
-      static_cast<const uint16_t*>(rel_w), static_cast<uint16_t*>(out), N, C, H, W, scale, wg);
+      static_cast<const uint16_t*>(rel_w), static_cast<uint16_t*>(out),
+      static_cast<float*>(lse), N, C, H, W, scale, wg);
   return cudaGetLastError();
 }
 
@@ -543,24 +560,26 @@ int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out, int
 // qkv: [B, N, 3C] bf16 (f32 = 0) or fp32 (f32 = 1) contiguous, 16-byte
 // aligned, C = num_heads * D with D in {64, 80}. rel_h: [B, num_heads, N, H],
 // rel_w: [B, num_heads, N, W] contiguous, N = H * W, H and W <= 64. out:
-// [B, N, C] contiguous. All four of one type.
+// [B, N, C] contiguous. All four of one type. lse: null, or (bf16 only) fp32
+// [B, num_heads, N] that takes each row's log-sum-exp of the logits (natural
+// log), the statistics K6b reads; the fp32 kernel ignores it.
 // scale: D^-1/2. Returns the launch's cudaError_t (cudaErrorInvalidValue for
 // shapes the kernel does not take; a refused shared-memory size or launch as
 // the runtime reports it).
 extern "C" int cor_vit_attention_relpos(const void* qkv, const void* rel_h, const void* rel_w,
-                                        void* out, int B, int N, int C, int num_heads, int H,
-                                        int W, float scale, int f32, void* stream) {
+                                        void* out, void* lse, int B, int N, int C, int num_heads,
+                                        int H, int W, float scale, int f32, void* stream) {
   if (B < 1 || N < 1 || num_heads < 1 || C % num_heads != 0 || B > 65535 ||
       num_heads > 65535 || H < 1 || W < 1 || H > kMaxSide || W > kMaxSide || H * W != N)
     return cudaErrorInvalidValue;
   const WindowGrid none{};
   switch (C / num_heads) {
     case 64:
-      return launch<64, false>(qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, none,
-                               f32, stream);
+      return launch<64, false>(qkv, rel_h, rel_w, out, lse, B, N, C, num_heads, H, W, scale,
+                               none, f32, stream);
     case 80:
-      return launch<80, false>(qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, none,
-                               f32, stream);
+      return launch<80, false>(qkv, rel_h, rel_w, out, lse, B, N, C, num_heads, H, W, scale,
+                               none, f32, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -586,11 +605,11 @@ extern "C" int cor_vit_attention_relpos_windows(const void* qkv, const void* rel
   const int N = window * window;
   switch (C / num_heads) {
     case 64:
-      return launch<64, true>(qkv, rel_h, rel_w, out, B * nW, N, C, num_heads, window, window,
-                              scale, wg, f32, stream);
+      return launch<64, true>(qkv, rel_h, rel_w, out, nullptr, B * nW, N, C, num_heads, window,
+                              window, scale, wg, f32, stream);
     case 80:
-      return launch<80, true>(qkv, rel_h, rel_w, out, B * nW, N, C, num_heads, window, window,
-                              scale, wg, f32, stream);
+      return launch<80, true>(qkv, rel_h, rel_w, out, nullptr, B * nW, N, C, num_heads, window,
+                              window, scale, wg, f32, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -57,20 +57,20 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         *(ctypes.c_longlong,) * 6, _I, _VP,
     ),
-    # qkv, rel_h, rel_w, out, B, N, C, num_heads, H, W, scale, f32, stream
+    # qkv, rel_h, rel_w, out, lse, B, N, C, num_heads, H, W, scale, f32, stream
     "cor_vit_attention_relpos": (
-        _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, _I, _VP,
     ),
     # qkv, rel_h, rel_w, out, B, Hp, Wp, H, W, C, num_heads, window, scale, f32, stream
     "cor_vit_attention_relpos_windows": (
         _VP, _VP, _VP, _VP, *(ctypes.c_int,) * 8, ctypes.c_float, _I, _VP,
     ),
-    # qkv, rel_h, rel_w, dout, dqkv, drel_h, drel_w, stats, B, N, C, num_heads, H, W, scale,
-    # f32, stream
+    # qkv, rel_h, rel_w, dout, out, lse, dqkv, drel_h, drel_w, stats, B, N, C, num_heads, H,
+    # W, scale, f32, stream
     "cor_vit_attention_relpos_bwd": (
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _I, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _I, _VP,
     ),
     # tokens, qpe, wt, bt, skip_pe, self_scale, cross_scale, eps, n, n_tok, x_out, qt_out,
     # f32, stream

@@ -37,7 +37,14 @@ fp32, ``a`` and ``dl`` rounded to the compute dtype before the products,
 ``dk``/``dv`` accumulated in fp32 and rounded once, ``drel`` summed in fp32
 and returned in the factors' dtype. (The TPU kernel shifts its concatenated
 keys by their column mean; ``rowsum(dl) = 0`` makes that shift vanish from
-the gradient, so it is left out here.)
+the gradient, so it is left out here.) The bf16 kernel takes the forward's
+statistics, as SDPA's and FlashAttention's backwards do: each row's
+log-sum-exp of the logits, which K6 writes beside its output when autograd
+records it (``lse`` [B, heads, N] fp32), and ``rowsum(a * da)`` computed as
+``rowsum(do * out)`` in fp32 over the forward's bf16 ``out``. That departs
+from ``cor_tpu``'s exact sum by the rounding of ``out`` (a known difference,
+ROADMAP Queue 3); the plain version and the fp32 kernel keep the exact sum
+and take ``out`` and ``lse`` without reading them.
 
 ``vit_attention_relpos_windows`` replaces
 ``cor_tpu/ops/pallas/vit_attention.py:vit_attention_relpos_windows_pallas``
@@ -63,7 +70,7 @@ kernel to a plain version. Launches are counted by dtype: ``launches``
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -71,6 +78,7 @@ from cor_tpu_torch.ops.diff import with_plain_vjp
 from cor_tpu_torch.ops.kernels._build import check, count_launch, library, operand_dtype
 
 MAX_SIDE = 64  # H, W <= 64: the tile's bias rows are staged in shared memory
+MAX_BWD_WIDTH = 4096  # K6b in bf16: C <= 4096 (delta sums C / 8 partials in shared memory)
 # the head dims K6, K6b and K7 take, and the ROADMAP row that ports others
 HEAD_DIMS = (64, 80)
 OTHER_DIMS_ITEM = "ROADMAP Queue 2, K4′ / K6 / K7: head dims other than 64 and 80"
@@ -82,8 +90,11 @@ def vit_attention_relpos_plain(
     rel_w: torch.Tensor,
     num_heads: int,
     hw: Tuple[int, int],
-) -> torch.Tensor:
-    """The plain PyTorch version, with materialised fp32 logits."""
+    with_lse: bool = False,
+):
+    """The plain PyTorch version, with materialised fp32 logits; with
+    ``with_lse``, (out, the rows' log-sum-exp of the logits [B, heads, N]
+    fp32)."""
     H, W = hw
     B, N, C3 = qkv.shape
     C = C3 // 3
@@ -94,10 +105,12 @@ def vit_attention_relpos_plain(
     logits = torch.einsum("bqhd,bkhd->bhqk", qs, k.float()).reshape(B, num_heads, N, H, W)
     logits = logits + rel_h.float()[..., :, None] + rel_w.float()[..., None, :]
     logits = logits.reshape(B, num_heads, N, N)
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
     s = e.sum(dim=-1)  # [B, heads, N]
     out = torch.einsum("bhqk,bkhd->bqhd", e.to(dt).float(), v.float())
-    return (out / s.transpose(1, 2)[..., None]).to(dt).reshape(B, N, C)
+    out = (out / s.transpose(1, 2)[..., None]).to(dt).reshape(B, N, C)
+    return (out, m[..., 0] + torch.log(s)) if with_lse else out
 
 
 def vit_attention_relpos_bwd_plain(
@@ -107,9 +120,13 @@ def vit_attention_relpos_bwd_plain(
     do: torch.Tensor,
     num_heads: int,
     hw: Tuple[int, int],
+    out: Optional[torch.Tensor] = None,
+    lse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain backward: (dqkv [B, N, 3C] in qkv's dtype, drel_h, drel_w in
-    the factors' dtypes) for the cotangent ``do`` [B, N, C] of the output."""
+    the factors' dtypes) for the cotangent ``do`` [B, N, C] of the output,
+    with ``cor_tpu``'s exact ``rowsum(a * da)``; the forward's ``out`` and
+    ``lse`` are taken and not read."""
     H, W = hw
     B, N, C3 = qkv.shape
     C = C3 // 3
@@ -177,10 +194,15 @@ def _check(qkv, rel_h, rel_w, num_heads, hw, what: str, sides=None) -> Tuple[int
     return D, dt
 
 
-def _forward(qkv, rel_h, rel_w, num_heads: int, hw: Tuple[int, int]) -> torch.Tensor:
-    """K6 on a CUDA tensor, the plain version on the CPU."""
+def _forward(qkv, rel_h, rel_w, num_heads: int, hw: Tuple[int, int], with_lse: bool = False):
+    """(out, lse): K6 on a CUDA tensor, the plain version on the CPU. lse,
+    the rows' log-sum-exp [B, heads, N] fp32 that K6b reads, with
+    ``with_lse`` in bf16 or on the CPU; else None (the fp32 backward
+    recomputes its statistics)."""
     if qkv.device.type == "cpu":
-        return vit_attention_relpos_plain(qkv, rel_h, rel_w, num_heads, hw)
+        if with_lse:
+            return vit_attention_relpos_plain(qkv, rel_h, rel_w, num_heads, hw, with_lse=True)
+        return vit_attention_relpos_plain(qkv, rel_h, rel_w, num_heads, hw), None
     if qkv.device.type != "cuda":
         raise ValueError(f"vit_attention_relpos: no kernel for device {qkv.device}")
     D, dt = _check(qkv, rel_h, rel_w, num_heads, hw, "vit_attention_relpos")
@@ -188,16 +210,32 @@ def _forward(qkv, rel_h, rel_w, num_heads: int, hw: Tuple[int, int]) -> torch.Te
     B, N, C3 = qkv.shape
     C = C3 // 3
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    lse = None
+    if with_lse and dt == torch.bfloat16:
+        lse = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device)
     lib = library()
     with torch.cuda.device(qkv.device):
         err = lib.cor_vit_attention_relpos(
             qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
-            B, N, C, num_heads, H, W, float(D**-0.5), int(dt == torch.float32),
-            torch.cuda.current_stream(qkv.device).cuda_stream,
+            None if lse is None else lse.data_ptr(), B, N, C, num_heads, H, W, float(D**-0.5),
+            int(dt == torch.float32), torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     check(err, "vit_attention_relpos")
     count_launch(vit_attention_relpos, dt)
-    return out
+    return out, lse
+
+
+def vit_attention_relpos_with_lse(
+    qkv: torch.Tensor,
+    rel_h: torch.Tensor,
+    rel_w: torch.Tensor,
+    num_heads: int,
+    hw: Tuple[int, int],
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K6 as autograd's forward runs it: (out, lse), the statistics
+    ``vit_attention_relpos_bwd`` takes (lse None in fp32 on the card). One
+    launch of ``vit_attention_relpos``; no autograd."""
+    return _forward(qkv, rel_h, rel_w, num_heads, tuple(hw), with_lse=True)
 
 
 def vit_attention_relpos_bwd(
@@ -207,10 +245,16 @@ def vit_attention_relpos_bwd(
     do: torch.Tensor,
     num_heads: int,
     hw: Tuple[int, int],
+    out: Optional[torch.Tensor] = None,
+    lse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K6b on a CUDA tensor, the plain backward on the CPU: (dqkv, drel_h,
-    drel_w). One call is the kernel's two passes (dq and the factors'
-    gradients, then dk and dv) and counts one launch."""
+    drel_w). ``out`` and ``lse``: the forward's output and its rows'
+    log-sum-exp (``vit_attention_relpos_with_lse``), which the bf16 kernel
+    needs and raises without; fp32 and the plain version do not read them.
+    One call is the kernel's passes (bf16: bf16(q * scale) and delta, dq and
+    the factors' gradients, dk and dv; fp32: dq and the factors' gradients,
+    dk and dv) and counts one launch."""
     if qkv.device.type == "cpu":
         return vit_attention_relpos_bwd_plain(qkv, rel_h, rel_w, do, num_heads, hw)
     if qkv.device.type != "cuda":
@@ -223,13 +267,34 @@ def vit_attention_relpos_bwd(
     if do.shape != (B, N, C) or do.device != qkv.device:
         raise ValueError(f"vit_attention_relpos_bwd: do must be [{B}, {N}, {C}] on {qkv.device}, "
                          f"got {tuple(do.shape)} on {do.device}")
+    rows = B * num_heads * N
+    if dt == torch.bfloat16:
+        if out is None or lse is None:
+            raise ValueError("vit_attention_relpos_bwd: the bf16 kernel takes the forward's out "
+                             "and lse (vit_attention_relpos_with_lse)")
+        if (out.shape != (B, N, C) or out.dtype != dt or not out.is_contiguous()
+                or out.data_ptr() % 16 != 0 or lse.shape != (B, num_heads, N)
+                or lse.dtype != torch.float32 or not lse.is_contiguous()
+                or out.device != qkv.device or lse.device != qkv.device):
+            raise ValueError(
+                f"vit_attention_relpos_bwd: out must be a contiguous [{B}, {N}, {C}] bf16 and "
+                f"lse a contiguous [{B}, {num_heads}, {N}] fp32 on {qkv.device}")
+        if C > MAX_BWD_WIDTH:
+            raise ValueError(f"vit_attention_relpos_bwd kernel takes widths up to "
+                             f"{MAX_BWD_WIDTH}, got {C}")
+        # delta, then bf16(q * scale) 16-byte aligned (csrc: k6b::qs_offset_floats)
+        stats = torch.empty(-(-rows // 4) * 4 + -(-B * N * C // 2), dtype=torch.float32,
+                            device=qkv.device)
+    else:
+        stats = torch.empty((2, rows), dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
-    stats = torch.empty((2, B, num_heads, N), dtype=torch.float32, device=qkv.device)
+    bf16 = dt == torch.bfloat16
     lib = library()
     with torch.cuda.device(qkv.device):
         err = lib.cor_vit_attention_relpos_bwd(
             qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), do.data_ptr(),
+            out.data_ptr() if bf16 else None, lse.data_ptr() if bf16 else None,
             dqkv.data_ptr(), drel_h.data_ptr(), drel_w.data_ptr(), stats.data_ptr(),
             B, N, C, num_heads, H, W, float(D**-0.5), int(dt == torch.float32),
             torch.cuda.current_stream(qkv.device).cuda_stream,
@@ -240,19 +305,23 @@ def vit_attention_relpos_bwd(
 
 
 class _VitAttentionRelpos(torch.autograd.Function):
-    """K6 forward, K6b backward (the plain versions on the CPU)."""
+    """K6 forward, K6b backward (the plain versions on the CPU). Where a
+    gradient is wanted the forward writes its rows' log-sum-exp too, and
+    saves it and its output for the backward."""
 
     @staticmethod
     def forward(ctx, qkv, rel_h, rel_w, num_heads, hw):
         ctx.num_heads, ctx.hw = num_heads, hw
-        ctx.save_for_backward(qkv, rel_h, rel_w)
-        return _forward(qkv, rel_h, rel_w, num_heads, hw)
+        out, lse = _forward(qkv, rel_h, rel_w, num_heads, hw,
+                            with_lse=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(qkv, rel_h, rel_w, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        qkv, rel_h, rel_w = ctx.saved_tensors
+        qkv, rel_h, rel_w, out, lse = ctx.saved_tensors
         dqkv, drel_h, drel_w = vit_attention_relpos_bwd(qkv, rel_h, rel_w, do, ctx.num_heads,
-                                                        ctx.hw)
+                                                        ctx.hw, out=out, lse=lse)
         return dqkv, drel_h, drel_w, None, None
 
 

@@ -1,17 +1,33 @@
 """Check that the bf16 kernels give the same bits as those of another source
-tree of ``csrc/`` (an earlier commit's), on the card.
+tree of ``csrc/`` (an earlier commit's), on the card, and time the ones
+that were redesigned against it.
 
     python3 -m cor_tpu_torch.tools.kernel_bits OLD_CSRC_DIR
+    python3 -m cor_tpu_torch.tools.kernel_bits OLD_CSRC_DIR --time
 
 builds OLD_CSRC_DIR's ``*.cu`` into a library of its own (under
 ``cor_tpu_torch/_build/``), runs every bf16 kernel wrapper at the served,
 built and trained shapes once through the current library and once through
 the old one, on identical inputs, and exits non-zero unless every output is
-equal bit for bit. An old entry point whose declaration in OLD_CSRC_DIR
-takes no ``f32`` flag (the ABI before the kernel took fp32) is called with
-the flag dropped, and a call with ``f32 = 1`` to it raises; one that takes
-no ``n_tok`` (the decoder's ABI before its kernels took 5 to 32 tokens) is
-called with the token count dropped, and a call with another than 6 raises.
+equal bit for bit. The entries whose sums now run in another order (K4/K4′,
+``cor_seq_attention``, and K6b, ``cor_vit_attention_relpos_bwd``, both
+redesigned on wgmma) are not compared; ``--time`` times them instead,
+through the old library and the current one in one process on the same
+inputs (old, new, new, old: CUDA-event medians of CUDA-graph replays),
+prints each shape's
+milliseconds and the largest difference of the two outputs relative to the
+old one's max, one JSON line per shape, and exits non-zero if a new kernel
+is slower than the old one at any shape; then the query encode of the
+SigLIP towers (K4's caller) at the serving buckets through each library.
+
+An old entry point whose declaration in OLD_CSRC_DIR takes no ``f32`` flag
+(the ABI before the kernel took fp32) is called with the flag dropped, and a
+call with ``f32 = 1`` to it raises; one that takes no ``n_tok`` (the
+decoder's ABI before its kernels took 5 to 32 tokens) is called with the
+token count dropped, and a call with another than 6 raises. K6's ``lse``
+and K6b's ``out`` and ``lse`` (the forward's statistics, before the
+redesign) are dropped whatever they hold: the old K6 writes no ``lse`` and
+the old K6b reads neither.
 """
 
 from __future__ import annotations
@@ -27,21 +43,26 @@ import torch
 
 from cor_tpu_torch.ops.kernels import _build
 
-# the entries compared (the kernels the main paths ran before the decode
-# schedules K1-dma, K1-stack and K1-grid came in: those have no older
+# the entries compared bit for bit (the kernels the main paths ran before the
+# decode schedules K1-dma, K1-stack and K1-grid came in: those have no older
 # version, and their own checks against K1 and their plain versions)
-_COMPARED = ("cor_layer_norm", "cor_seq_attention", "cor_vit_attention_relpos",
-             "cor_vit_attention_relpos_windows", "cor_vit_attention_relpos_bwd",
+_COMPARED = ("cor_layer_norm", "cor_vit_attention_relpos", "cor_vit_attention_relpos_windows",
              "cor_twl_tokens_in", "cor_t2i_image_pass", "cor_twl_tokens_mid",
              "cor_twl_image_i2t", "cor_t2i_combine", "cor_decoder_tail")
+# the redesigned entries: timed (--time), not compared
+_TIMED = ("cor_seq_attention", "cor_vit_attention_relpos_bwd")
+_ENTRIES = _COMPARED + _TIMED
 # the parameters an older ABI may lack, by entry: (name, position in the
-# current signature, the only value the old entry computes); f32 is every
-# entry's second-to-last argument but cor_layer_norm's, n_tok follows n
-_OPTIONAL = {name: [("f32", len(_build._SIGNATURES[name]) - 2, 0)] for name in _COMPARED
+# current signature, the only value the old entry computes, or None: dropped
+# whatever it holds); f32 is every entry's second-to-last argument but
+# cor_layer_norm's, n_tok follows n
+_OPTIONAL = {name: [("f32", len(_build._SIGNATURES[name]) - 2, 0)] for name in _ENTRIES
              if name != "cor_layer_norm"}
 for _name, _pos in (("cor_twl_tokens_in", 9), ("cor_t2i_image_pass", 6),
                     ("cor_twl_tokens_mid", 10), ("cor_twl_image_i2t", 6), ("cor_t2i_combine", 5)):
     _OPTIONAL[_name].append(("n_tok", _pos, 6))
+_OPTIONAL["cor_vit_attention_relpos"].append(("lse", 4, None))
+_OPTIONAL["cor_vit_attention_relpos_bwd"] += [("out", 4, None), ("lse", 5, None)]
 
 
 def lacking(csrc: Path) -> dict:
@@ -87,7 +108,7 @@ def build_old(csrc: Path, missing: dict) -> ctypes.CDLL:
         subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
                         str(out), *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(out))
-    for name in _COMPARED:
+    for name in _ENTRIES:
         sig = _build._SIGNATURES[name]
         fn = getattr(lib, name)
         drop = {pos for _, pos, _ in missing.get(name, ())}
@@ -112,7 +133,7 @@ class _OldABI:
         def call(*args):
             drop = set()
             for param, pos, value in self._missing[name]:
-                if args[pos] != value:
+                if value is not None and args[pos] != value:
                     raise TypeError(f"{name}: the old library takes only {param} = {value}")
                 drop.add(pos)
             return fn(*(a for i, a in enumerate(args) if i not in drop))
@@ -139,14 +160,13 @@ def cases(device, token_counts: bool = True):
     from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
     from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
     from cor_tpu_torch.ops.kernels.layernorm import layer_norm
-    from cor_tpu_torch.ops.kernels.seq_attention import attention_seq, attention_seq_qkv
     from cor_tpu_torch.ops.kernels.i2t_attention import i2t_attention_fused
     from cor_tpu_torch.ops.kernels.t2i_flash import proj_q_t2i_flash, t2i_flash_kv
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
     from cor_tpu_torch.ops.kernels.vit_attention import (
         vit_attention_relpos,
-        vit_attention_relpos_bwd,
         vit_attention_relpos_windows,
+        vit_attention_relpos_with_lse,
     )
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -156,22 +176,17 @@ def cases(device, token_counts: bool = True):
     x = (2 * rnd(9216, 768) + 0.5).to(bf)
     s, b = (1 + 0.1 * rnd(768)).to(bf), (0.1 * rnd(768)).to(bf)
     out.append(("K5 [9216, 768]", lambda: (layer_norm(x, s, b, 1e-6),)))
-    for heads, D, n in ((12, 64, 576), (12, 64, 64), (16, 72, 729), (16, 72, 64), (16, 80, 100)):
-        qkv = rnd(16, n, 3 * heads * D).to(bf)
-        q, k, v = (rnd(4, heads, n, D).to(bf) for _ in range(3))
-        out.append((f"K4 d{D} n{n}", lambda qkv=qkv, h=heads: (attention_seq_qkv(qkv, h),)))
-        out.append((f"K4′ [B, H, N, D] d{D} n{n}",
-                    lambda q=q, k=k, v=v, h=heads: (attention_seq(q, k, v, h),)))
     for heads, D in ((12, 64), (16, 80)):
         for B, side in ((2, 64), (50, 14)):
             N = side * side
             qkv = rnd(B, N, 3 * heads * D).to(bf)
             rh, rw = (0.3 * rnd(B, heads, N, side)).to(bf), (0.3 * rnd(B, heads, N, side)).to(bf)
-            do = rnd(B, N, heads * D).to(bf)
             a = (qkv, rh, rw, heads, (side, side))
             out.append((f"K6 d{D} [{B}, {N}]", lambda a=a: (vit_attention_relpos(*a),)))
-            out.append((f"K6b d{D} [{B}, {N}]",
-                        lambda a=a, do=do: vit_attention_relpos_bwd(a[0], a[1], a[2], do, *a[3:])))
+            # the forward autograd records: out with the rows' lse written
+            # (the old library writes none; out is compared)
+            out.append((f"K6 d{D} [{B}, {N}] writing lse",
+                        lambda a=a: vit_attention_relpos_with_lse(*a)[:1]))
         qkv = rnd(2, 70, 70, 3 * heads * D).to(bf)
         rh, rw = (0.3 * rnd(2, heads, 4900, 14)).to(bf), (0.3 * rnd(2, heads, 4900, 14)).to(bf)
         a = (qkv, rh, rw, heads, 14, (64, 64))
@@ -217,8 +232,191 @@ def cases(device, token_counts: bool = True):
     return out
 
 
+@torch.no_grad()
+def timed_cases(device):
+    """(label, thunk, bound inputs) of the redesigned kernels at the main
+    paths' shapes: K4 at ViT-B's [16, 576] and [16, 64] (12 heads of 64),
+    K4′ at SO400M's [16, 729] and [16, 64] (16 heads of 72) through both
+    entries, K6b at SAM-base's and sam_huge's global [2, 4096] and windowed
+    [50, 196] shapes given the forward's out and lse."""
+    from cor_tpu_torch.ops.kernels.seq_attention import attention_seq, attention_seq_qkv
+    from cor_tpu_torch.ops.kernels.vit_attention import (
+        vit_attention_relpos_bwd,
+        vit_attention_relpos_with_lse,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    bf = torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa: E731
+    out = []
+    for heads, D, n in ((12, 64, 576), (12, 64, 64), (16, 72, 729), (16, 72, 64)):
+        C = heads * D
+        qkv = rnd(16, n, 3 * C).to(bf)
+        out.append((f"K4 d{D} [16, {n}, {3 * C}]",
+                    lambda qkv=qkv, h=heads: (attention_seq_qkv(qkv, h),)))
+        if D == 72:
+            q, k, v = (qkv[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
+                       .contiguous() for i in range(3))
+            out.append((f"K4′ [B, H, N, D] d{D} [16, {heads}, {n}, {D}]",
+                        lambda q=q, k=k, v=v, h=heads: (attention_seq(q, k, v, h),)))
+    for heads, D in ((12, 64), (16, 80)):
+        for B, side in ((2, 64), (50, 14)):
+            N = side * side
+            qkv = rnd(B, N, 3 * heads * D).to(bf)
+            rh, rw = (0.3 * rnd(B, heads, N, side)).to(bf), (0.3 * rnd(B, heads, N, side)).to(bf)
+            do = rnd(B, N, heads * D).to(bf)
+            o, lse = vit_attention_relpos_with_lse(qkv, rh, rw, heads, (side, side))
+            out.append((f"K6b d{D} [{B}, {N}, {3 * heads * D}]",
+                        lambda a=(qkv, rh, rw, do, heads, (side, side)), o=o, lse=lse:
+                        vit_attention_relpos_bwd(*a, out=o, lse=lse)))
+    return out
+
+
+def _ms(run, windows: int = 7, iters: int = 10) -> float:
+    """The median device milliseconds per call over ``windows`` replays of a
+    CUDA graph of ``iters`` calls (CUDA events), after a warm-up: the host's
+    launch overhead, which sets a small kernel's eager time, stays out."""
+    import statistics
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            run()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    return statistics.median(per_call)
+
+
+def _device_us(run) -> dict:
+    """{kernel name: device microseconds} of one call (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key[:60]: round(e.device_time_total, 1) for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
+@torch.no_grad()
+def tower_cases(device):
+    """(label, thunk) of K4's end-to-end caller: the SigLIP towers' query
+    encode (an image and its text, bf16, random weights from a seed) of
+    ViT-B-16-SigLIP-384 (24 K4 launches) and ViT-SO400M-14-SigLIP-384 (54)
+    at the serving buckets 1, 4 and 16."""
+    from cor_tpu_torch.models.siglip import SIGLIP_MODELS, SigLIP
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    out = []
+    for name in ("ViT-B-16-SigLIP-384", "ViT-SO400M-14-SigLIP-384"):
+        cfg = SIGLIP_MODELS[name]
+        model = SigLIP(cfg).to(device)
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+        model = model.to(torch.bfloat16).eval()
+        for b in (1, 4, 16):
+            images = torch.rand(b, 384, 384, 3, generator=gen, device=device).to(torch.bfloat16)
+            tokens = torch.randint(0, cfg.text.vocab_size, (b, cfg.text.context_length),
+                                   generator=gen, device=device)
+            out.append((f"query encode {name} bucket {b}",
+                        lambda m=model, i=images, t=tokens: m(i, t)))
+    return out
+
+
+def _eager_ms(run, windows: int = 7, iters: int = 3) -> float:
+    """The median milliseconds per call of ``run`` launched from the host
+    (CUDA events over ``iters`` calls, ``windows`` windows), as a server
+    runs it: the host's launches included."""
+    import statistics
+
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            run()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    return statistics.median(per_call)
+
+
+def time_towers(old, device, card: str) -> None:
+    """The towers' query encode through ``old`` and the current library
+    (old, new, new, old; host-launched, CUDA events, and as CUDA-graph
+    replays: the device's time alone); one JSON line each."""
+    import json
+
+    for label, run in tower_cases(device):
+        times = {"old": [], "new": [], "old_graph": [], "new_graph": []}
+        for which in ("old", "new", "new", "old"):
+            use_library(old if which == "old" else None)
+            times[which].append(_eager_ms(run))
+            times[f"{which}_graph"].append(_ms(run, iters=3))
+        use_library(None)
+        print(json.dumps({"e2e": label, "old_ms": times["old"], "new_ms": times["new"],
+                          "old_graph_ms": times["old_graph"], "new_graph_ms": times["new_graph"],
+                          "card": card}), flush=True)
+
+
+def time_redesigned(old, device) -> int:
+    """Time every case of ``timed_cases`` through ``old`` and the current
+    library (old, new, new, old; CUDA graphs of 10 calls); one JSON line
+    each, with each call's kernels' device time (torch.profiler).
+    Returns 1 if a new kernel is slower than the old one anywhere."""
+    import json
+    import subprocess as sp
+
+    smi = sp.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                 capture_output=True, text=True).stdout.strip().splitlines()
+    card = smi[0].strip() if smi else torch.cuda.get_device_name(0)
+    slower = []
+    for label, run in timed_cases(device):
+        use_library(old)
+        old_out = run()
+        use_library(None)
+        new_out = run()
+        torch.cuda.synchronize()
+        diff = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                   for a, b in zip(new_out, old_out))
+        times = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            use_library(old if which == "old" else None)
+            times[which].append(_ms(run))
+        old_us = _device_us(run)
+        use_library(None)
+        t_old, t_new = min(times["old"]), min(times["new"])
+        print(json.dumps({"kernel": label, "old_ms": times["old"], "new_ms": times["new"],
+                          "speedup": t_old / t_new, "max_rel_diff": diff, "card": card,
+                          "old_kernels_us": old_us, "new_kernels_us": _device_us(run)}),
+              flush=True)
+        if t_new > t_old:
+            slower.append(label)
+    print(f"redesigned kernels against the old library: "
+          f"{'faster at every shape' if not slower else f'slower at {slower}'}")
+    time_towers(old, device, card)
+    return 1 if slower else 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    timing = "--time" in argv
+    argv = [a for a in argv if a != "--time"]
     if len(argv) != 1 or not Path(argv[0]).is_dir():
         print(__doc__, file=sys.stderr)
         return 2
@@ -227,11 +425,13 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda")
     missing = lacking(Path(argv[0]))
-    print(f"entries without f32 or n_tok in {argv[0]}: "
+    print(f"entries without f32, n_tok, out or lse in {argv[0]}: "
           f"{ {name: [p for p, _, _ in ps] for name, ps in missing.items()} }")
     old = _OldABI(build_old(Path(argv[0]), missing), missing)
-    differ = []
     torch.set_grad_enabled(False)  # the decoder kernels take no autograd
+    if timing:
+        return time_redesigned(old, device)
+    differ = []
     for label, run in cases(device, token_counts="cor_twl_tokens_in" not in missing):
         use_library(None)
         new_out = run()

@@ -32,6 +32,7 @@ from cor_tpu_torch.ops.kernels.vit_attention import (
     vit_attention_relpos_bwd,
     vit_attention_relpos_bwd_plain,
     vit_attention_relpos_plain,
+    vit_attention_relpos_with_lse,
     vit_attention_relpos_windows,
     vit_attention_relpos_windows_plain,
 )
@@ -908,9 +909,10 @@ def bf16_leaves(g, *shapes, scale=1.0):
                          ids=["grid8", "window14", "global", "rect"])
 def test_vit_attention_relpos_bwd_kernel_matches_plain_bf16(cuda_device, B, H, W, d):
     """K6b against its plain backward on the same bf16 inputs, at SAM-base's
-    12 heads of 64 and sam_huge's 16 of 80 (scale 80^-1/2; 124,928 and 87,040
-    bytes of dynamic shared memory): dqkv, drel_h and drel_w within 2e-2 of
-    their max |plain| (the kernel's fp32 sums run tile by tile)."""
+    12 heads of 64 and sam_huge's 16 of 80 (scale 80^-1/2), given the
+    forward's out and lse as autograd gives them: dqkv, drel_h and drel_w
+    within 2e-2 of their max |plain| (the kernel's fp32 sums run tile by
+    tile, and its delta is rowsum(do * out) over the bf16 out)."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     N, heads = H * W, (12 if d == 64 else 16)
     C, bf = heads * d, torch.bfloat16
@@ -918,8 +920,11 @@ def test_vit_attention_relpos_bwd_kernel_matches_plain_bf16(cuda_device, B, H, W
     rel_h = (0.3 * torch.randn(B, heads, N, H, generator=g, device=cuda_device)).to(bf)
     rel_w = (0.3 * torch.randn(B, heads, N, W, generator=g, device=cuda_device)).to(bf)
     do = torch.randn(B, N, C, generator=g, device=cuda_device).to(bf)
+    out, lse = vit_attention_relpos_with_lse(qkv, rel_h, rel_w, heads, (H, W))
+    with pytest.raises(ValueError, match="takes the forward's out and lse"):
+        vit_attention_relpos_bwd(qkv, rel_h, rel_w, do, heads, (H, W))
     before = vit_attention_relpos_bwd.launches
-    got = vit_attention_relpos_bwd(qkv, rel_h, rel_w, do, heads, (H, W))
+    got = vit_attention_relpos_bwd(qkv, rel_h, rel_w, do, heads, (H, W), out=out, lse=lse)
     torch.cuda.synchronize()
     assert vit_attention_relpos_bwd.launches == before + 1
     want = vit_attention_relpos_bwd_plain(qkv, rel_h, rel_w, do, heads, (H, W))
