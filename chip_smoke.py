@@ -930,8 +930,14 @@ def phase_decode_timings(servers, smi):
 
 
 # device kernels by the layer they belong to (substrings of their names; the
-# first group that matches takes the kernel)
+# first group that matches takes the kernel). K6b, K7 and K6 come first: the
+# rel-pos kernels' template arguments (D, kWin, ...) would match the two-way
+# layers' patterns.
 KERNEL_GROUPS = (
+    ("K6b vit_attention_relpos_bwd", ("vit_attention_bwd",)),
+    ("K7 vit_attention_relpos_windows", ("relpos_kernel<64, true", "relpos_kernel<80, true",
+                                         "f32_kernel<64, true", "f32_kernel<80, true")),
+    ("K6 vit_attention_relpos", ("vit_attention_relpos",)),
     ("K1-stack / K1-grid two_way_fused", ("two_way_fused",)),
     ("K1-dma image passes", ("dma_t2i", "dma_i2t")),
     # the image pass with q_img (kEmitQ, the last template argument) is K1's
@@ -941,9 +947,6 @@ KERNEL_GROUPS = (
     ("K3 decoder_tail", ("decoder_tail_kernel",)),
     ("K4 attention_seq_qkv", ("seq_attention",)),
     ("K5 layer_norm", ("layer_norm_kernel",)),
-    ("K6b vit_attention_relpos_bwd", ("vit_attention_bwd",)),
-    ("K7 vit_attention_relpos_windows", ("kernel<64, true>", "kernel<80, true>")),
-    ("K6 vit_attention_relpos", ("vit_attention_relpos",)),
     ("cuDNN convs", ("fprop", "conv", "cudnn", "nchwToNhwc", "nhwcToNchw")),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -2310,32 +2313,6 @@ def phase_fp32_kernels(device):
     return out
 
 
-def k6b_fp64(qkv, rel_h, rel_w, do, heads: int, side: int):
-    """K6b's function in float64, image by image: (dqkv, drel_h, drel_w),
-    against which the kernel's and the plain version's errors are read."""
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    D = C // heads
-    out = []
-    for i in range(B):
-        q, k, v = (qkv[i, :, j * C:(j + 1) * C].double().reshape(N, heads, D).transpose(0, 1)
-                   for j in range(3))
-        qs = q * D**-0.5
-        logits = (qs @ k.transpose(-1, -2)).reshape(heads, N, side, side)
-        logits = logits + rel_h[i].double()[..., :, None] + rel_w[i].double()[..., None, :]
-        a = torch.softmax(logits.reshape(heads, N, N), dim=-1)
-        dof = do[i].double().reshape(N, heads, D).transpose(0, 1)
-        da = dof @ v.transpose(-1, -2)
-        dl = a * (da - (a * da).sum(dim=-1, keepdim=True))
-        merge = lambda x: x.transpose(0, 1).reshape(N, C)  # noqa: E731
-        dqkv = torch.cat([merge(dl @ k * D**-0.5), merge(dl.transpose(-1, -2) @ qs),
-                          merge(a.transpose(-1, -2) @ dof)], dim=-1)
-        dl4 = dl.reshape(heads, N, side, side)
-        out.append((dqkv, dl4.sum(dim=-1), dl4.sum(dim=-2)))
-        del logits, a, da, dl, dl4
-    return tuple(torch.stack(x) for x in zip(*out))
-
-
 def k6b_fp32(device, gen):
     """K6b@fp32 at SAM-base's 12 heads of 64 and sam_huge's 16 of 80, global
     [2, 4096, 3C] and windowed [50, 196, 3C] ({"d64-global": entry, ...}),
@@ -2348,7 +2325,9 @@ def k6b_fp32(device, gen):
     from cor_tpu_torch.ops.kernels.vit_attention import (
         vit_attention_relpos_bwd,
         vit_attention_relpos_bwd_plain,
+        vit_attention_relpos_with_lse,
     )
+    from cor_tpu_torch.tools.k6b_accuracy import k6b_float64
 
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
     tol = FP32_TOL["vit_attention_relpos_bwd"]
@@ -2361,15 +2340,18 @@ def k6b_fp32(device, gen):
             rel_h, rel_w = 0.3 * rnd(B, heads, N, side), 0.3 * rnd(B, heads, N, side)
             do = rnd(B, N, C)
             args = (qkv, rel_h, rel_w, do, heads, (side, side))
-            got = vit_attention_relpos_bwd(*args)
+            # the forward's out and lse, as autograd saves them
+            out_fwd, lse = vit_attention_relpos_with_lse(qkv, rel_h, rel_w, heads, (side, side))
+            stats = dict(out=out_fwd, lse=lse)
+            got = vit_attention_relpos_bwd(*args, **stats)
             want = vit_attention_relpos_bwd_plain(*args)
-            exact = k6b_fp64(qkv, rel_h, rel_w, do, heads, side)
+            exact = k6b_float64(qkv, rel_h, rel_w, do, heads, (side, side))
             vs64 = {"kernel": [(g.double() - e).abs().max().item() for g, e in zip(got, exact)],
                     "plain": [(w.double() - e).abs().max().item() for w, e in zip(want, exact)]}
             del exact
             print(f"  K6b fp32 d{D} {label}: max|d| against float64 (dqkv, drel_h, drel_w): "
                   f"kernel {vs64['kernel']}, plain {vs64['plain']}", flush=True)
-            kt = cuda_ms(lambda: vit_attention_relpos_bwd(*args))
+            kt = cuda_ms(lambda: vit_attention_relpos_bwd(*args, **stats))
             pt = cuda_ms(lambda: vit_attention_relpos_bwd_plain(*args), windows=3, iters=2)
             with torch.enable_grad():  # SDPA's backward: autograd, the graph built once
                 q, k, v = (qkv[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
@@ -2382,14 +2364,16 @@ def k6b_fp32(device, gen):
                                                          retain_graph=True), windows=5, iters=3)
                 del o, bias, q, k, v
             # the five N x N x D products the gradient needs (the kernel runs
-            # nine: two recomputes of the logits and of do v^T in pass 1)
+            # seven: the logits and do v^T again in the dk/dv pass), on the
+            # inputs, the forward's out and lse, and the gradients
             flops = 5 * 2 * N * N * D * B * heads
-            n_bytes = nbytes(qkv, rel_h, rel_w, do) + nbytes(*got)
+            n_bytes = nbytes(qkv, rel_h, rel_w, do, out_fwd, lse) + nbytes(*got)
             b = bound32(n_bytes, flops)
             res[f"d{D}-{label}"] = check32(
                 "K6b vit_attention_relpos_bwd", f"d{D} {label} [{B}, {N}, {3 * C}]", tol,
                 list(zip(got, want)), kt, pt, b, lt, max_abs_err_vs_float64=vs64,
-                bound_nine_products_ms=bound32(n_bytes, flops * 9 / 5)[0])
+                bound_seven_products_ms=bound32(n_bytes, flops * 7 / 5)[0])
+            del out_fwd, lse, stats
             del got, want
             torch.cuda.empty_cache()
     return res

@@ -696,11 +696,14 @@ vit_attention_bwd_dkv_kernel(const uint16_t* __restrict__ qkv, const uint16_t* _
   }
 }
 
+// static: its records of the attributes raised are this library's own (a
+// template's static locals are otherwise one object across every library
+// loaded that instantiates it, and tools/kernel_bits.py loads two)
 template <int D>
-int launch_bf16(const void* qkv, const void* rel_h, const void* rel_w, const void* dout,
-                const void* out, const void* lse, void* dqkv, void* drel_h, void* drel_w,
-                void* stats, int B, int N, int C, int num_heads, int H, int W, float scale,
-                cudaStream_t st) {
+static int launch_bf16(const void* qkv, const void* rel_h, const void* rel_w, const void* dout,
+                       const void* out, const void* lse, void* dqkv, void* drel_h, void* drel_w,
+                       void* stats, int B, int N, int C, int num_heads, int H, int W, float scale,
+                       cudaStream_t st) {
   if (C > kMaxC || out == nullptr || lse == nullptr) return cudaErrorInvalidValue;
   float* delta = static_cast<float*>(stats);
   uint16_t* qs = reinterpret_cast<uint16_t*>(

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the redesigned bf16 attention kernels
-// (K4/K4' in seq_attention.cu, K6b in vit_attention_bwd_wgmma.cuh): warpgroup
+// (K4/K4' in seq_attention.cu, K6/K7 in vit_attention.cu, K6b in
+// vit_attention_bwd_wgmma.cuh): warpgroup
 // matrix products (wgmma.mma_async), mbarriers, and cp.async copies into the
 // layout wgmma reads from shared memory.
 //
@@ -125,6 +126,15 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
 }
+// consumer warpgroup cw's (0 or 1) own barrier, of a block with two (named
+// barrier 1 + cw, 128 threads; ids fixed at compile time, so that ptxas
+// reserves two barriers and not all sixteen)
+__device__ __forceinline__ void group_sync(int cw) {
+  if (cw == 0)
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
 
 // cp.async of 16 (4) bytes, the bytes past src_bytes zero-filled (src_bytes
 // 0 or the full size)
@@ -139,18 +149,19 @@ __device__ __forceinline__ void cp4(void* dst, const void* src, uint32_t src_byt
                : "memory");
 }
 
-// Host side: raise `kernel`'s dynamic shared memory to `bytes` and ask for
-// all of L1 as shared memory, once per device and size (`raised`: the bytes
-// set so far, per device). The attributes persist, so no launch after the
-// first pays the two runtime calls.
+// Host side: raise `kernel`'s dynamic shared memory to `bytes` and (with
+// max_shared) ask for all of L1 as shared memory, once per device and size
+// (`raised`: the bytes set so far, per device). The attributes persist, so
+// no launch after the first pays the runtime calls.
 constexpr int kMaxDevices = 64;
-inline cudaError_t raise_shared_memory(const void* kernel, int bytes, int (&raised)[kMaxDevices]) {
+inline cudaError_t raise_shared_memory(const void* kernel, int bytes, int (&raised)[kMaxDevices],
+                                       bool max_shared = true) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && raised[dev] >= bytes) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess && max_shared)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = bytes;

@@ -37,14 +37,16 @@ fp32, ``a`` and ``dl`` rounded to the compute dtype before the products,
 ``dk``/``dv`` accumulated in fp32 and rounded once, ``drel`` summed in fp32
 and returned in the factors' dtype. (The TPU kernel shifts its concatenated
 keys by their column mean; ``rowsum(dl) = 0`` makes that shift vanish from
-the gradient, so it is left out here.) The bf16 kernel takes the forward's
-statistics, as SDPA's and FlashAttention's backwards do: each row's
-log-sum-exp of the logits, which K6 writes beside its output when autograd
-records it (``lse`` [B, heads, N] fp32), and ``rowsum(a * da)`` computed as
-``rowsum(do * out)`` in fp32 over the forward's bf16 ``out``. That departs
-from ``cor_tpu``'s exact sum by the rounding of ``out`` (a known difference,
-ROADMAP Queue 3); the plain version and the fp32 kernel keep the exact sum
-and take ``out`` and ``lse`` without reading them.
+the gradient, so it is left out here.) The kernel takes the forward's
+statistics, as SDPA's and FlashAttention's backwards do, in bf16 and fp32
+alike: each row's log-sum-exp of the logits, which K6 writes beside its
+output when autograd records it (``lse`` [B, heads, N] fp32), and
+``rowsum(a * da)`` computed as ``rowsum(do * out)`` in fp32 over the
+forward's ``out``. In bf16 that departs from ``cor_tpu``'s exact sum by the
+rounding of ``out`` (a known difference, ROADMAP Queue 3); in fp32 the dq
+pass corrects both statistics from its own sums (see the source). The plain
+version keeps the exact sum and takes ``out`` and ``lse`` without reading
+them.
 
 ``vit_attention_relpos_windows`` replaces
 ``cor_tpu/ops/pallas/vit_attention.py:vit_attention_relpos_windows_pallas``
@@ -78,7 +80,7 @@ from cor_tpu_torch.ops.diff import with_plain_vjp
 from cor_tpu_torch.ops.kernels._build import check, count_launch, library, operand_dtype
 
 MAX_SIDE = 64  # H, W <= 64: the tile's bias rows are staged in shared memory
-MAX_BWD_WIDTH = 4096  # K6b in bf16: C <= 4096 (delta sums C / 8 partials in shared memory)
+MAX_BWD_WIDTH = 4096  # K6b: C <= 4096 (delta sums C / 8 or C / 4 partials in shared memory)
 # the head dims K6, K6b and K7 take, and the ROADMAP row that ports others
 HEAD_DIMS = (64, 80)
 OTHER_DIMS_ITEM = "ROADMAP Queue 2, K4′ / K6 / K7: head dims other than 64 and 80"
@@ -197,8 +199,7 @@ def _check(qkv, rel_h, rel_w, num_heads, hw, what: str, sides=None) -> Tuple[int
 def _forward(qkv, rel_h, rel_w, num_heads: int, hw: Tuple[int, int], with_lse: bool = False):
     """(out, lse): K6 on a CUDA tensor, the plain version on the CPU. lse,
     the rows' log-sum-exp [B, heads, N] fp32 that K6b reads, with
-    ``with_lse`` in bf16 or on the CPU; else None (the fp32 backward
-    recomputes its statistics)."""
+    ``with_lse``; else None."""
     if qkv.device.type == "cpu":
         if with_lse:
             return vit_attention_relpos_plain(qkv, rel_h, rel_w, num_heads, hw, with_lse=True)
@@ -211,7 +212,7 @@ def _forward(qkv, rel_h, rel_w, num_heads: int, hw: Tuple[int, int], with_lse: b
     C = C3 // 3
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     lse = None
-    if with_lse and dt == torch.bfloat16:
+    if with_lse:
         lse = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device)
     lib = library()
     with torch.cuda.device(qkv.device):
@@ -233,8 +234,8 @@ def vit_attention_relpos_with_lse(
     hw: Tuple[int, int],
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K6 as autograd's forward runs it: (out, lse), the statistics
-    ``vit_attention_relpos_bwd`` takes (lse None in fp32 on the card). One
-    launch of ``vit_attention_relpos``; no autograd."""
+    ``vit_attention_relpos_bwd`` takes. One launch of
+    ``vit_attention_relpos``; no autograd."""
     return _forward(qkv, rel_h, rel_w, num_heads, tuple(hw), with_lse=True)
 
 
@@ -250,11 +251,10 @@ def vit_attention_relpos_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K6b on a CUDA tensor, the plain backward on the CPU: (dqkv, drel_h,
     drel_w). ``out`` and ``lse``: the forward's output and its rows'
-    log-sum-exp (``vit_attention_relpos_with_lse``), which the bf16 kernel
-    needs and raises without; fp32 and the plain version do not read them.
-    One call is the kernel's passes (bf16: bf16(q * scale) and delta, dq and
-    the factors' gradients, dk and dv; fp32: dq and the factors' gradients,
-    dk and dv) and counts one launch."""
+    log-sum-exp (``vit_attention_relpos_with_lse``), which the kernel needs
+    and raises without; the plain version does not read them. One call is
+    the kernel's three passes (delta, and in bf16 bf16(q * scale); dq and the
+    factors' gradients; dk and dv) and counts one launch."""
     if qkv.device.type == "cpu":
         return vit_attention_relpos_bwd_plain(qkv, rel_h, rel_w, do, num_heads, hw)
     if qkv.device.type != "cuda":
@@ -268,33 +268,34 @@ def vit_attention_relpos_bwd(
         raise ValueError(f"vit_attention_relpos_bwd: do must be [{B}, {N}, {C}] on {qkv.device}, "
                          f"got {tuple(do.shape)} on {do.device}")
     rows = B * num_heads * N
+    if out is None or lse is None:
+        raise ValueError("vit_attention_relpos_bwd: the kernel takes the forward's out and lse "
+                         "(vit_attention_relpos_with_lse)")
+    if (out.shape != (B, N, C) or out.dtype != dt or not out.is_contiguous()
+            or out.data_ptr() % 16 != 0 or lse.shape != (B, num_heads, N)
+            or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or out.device != qkv.device or lse.device != qkv.device):
+        raise ValueError(
+            f"vit_attention_relpos_bwd: out must be a contiguous [{B}, {N}, {C}] {dt} and "
+            f"lse a contiguous [{B}, {num_heads}, {N}] fp32 on {qkv.device}")
+    if C > MAX_BWD_WIDTH:
+        raise ValueError(f"vit_attention_relpos_bwd kernel takes widths up to "
+                         f"{MAX_BWD_WIDTH}, got {C}")
     if dt == torch.bfloat16:
-        if out is None or lse is None:
-            raise ValueError("vit_attention_relpos_bwd: the bf16 kernel takes the forward's out "
-                             "and lse (vit_attention_relpos_with_lse)")
-        if (out.shape != (B, N, C) or out.dtype != dt or not out.is_contiguous()
-                or out.data_ptr() % 16 != 0 or lse.shape != (B, num_heads, N)
-                or lse.dtype != torch.float32 or not lse.is_contiguous()
-                or out.device != qkv.device or lse.device != qkv.device):
-            raise ValueError(
-                f"vit_attention_relpos_bwd: out must be a contiguous [{B}, {N}, {C}] bf16 and "
-                f"lse a contiguous [{B}, {num_heads}, {N}] fp32 on {qkv.device}")
-        if C > MAX_BWD_WIDTH:
-            raise ValueError(f"vit_attention_relpos_bwd kernel takes widths up to "
-                             f"{MAX_BWD_WIDTH}, got {C}")
         # delta, then bf16(q * scale) 16-byte aligned (csrc: k6b::qs_offset_floats)
         stats = torch.empty(-(-rows // 4) * 4 + -(-B * N * C // 2), dtype=torch.float32,
                             device=qkv.device)
     else:
+        # delta and the dq pass's corrected lse (the first design took the
+        # same for its own lse and delta)
         stats = torch.empty((2, rows), dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
-    bf16 = dt == torch.bfloat16
     lib = library()
     with torch.cuda.device(qkv.device):
         err = lib.cor_vit_attention_relpos_bwd(
             qkv.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), do.data_ptr(),
-            out.data_ptr() if bf16 else None, lse.data_ptr() if bf16 else None,
+            out.data_ptr(), lse.data_ptr(),
             dqkv.data_ptr(), drel_h.data_ptr(), drel_w.data_ptr(), stats.data_ptr(),
             B, N, C, num_heads, H, W, float(D**-0.5), int(dt == torch.float32),
             torch.cuda.current_stream(qkv.device).cuda_stream,

@@ -3,7 +3,7 @@ tree of ``csrc/`` (an earlier commit's), on the card, and time the ones
 that were redesigned against it.
 
     python3 -m cor_tpu_torch.tools.kernel_bits OLD_CSRC_DIR
-    python3 -m cor_tpu_torch.tools.kernel_bits OLD_CSRC_DIR --time
+    python3 -m cor_tpu_torch.tools.kernel_bits OLD_CSRC_DIR --time [--only K6,K7] [--draws 4]
 
 builds OLD_CSRC_DIR's ``*.cu`` into a library of its own (under
 ``cor_tpu_torch/_build/``), runs every bf16 kernel wrapper at the served,
@@ -11,28 +11,37 @@ built and trained shapes once through the current library and once through
 the old one, on identical inputs, and exits non-zero unless every output is
 equal bit for bit. The entries whose sums now run in another order (K4/K4′,
 ``cor_seq_attention``, and K6b, ``cor_vit_attention_relpos_bwd``, both
-redesigned on wgmma) are not compared; ``--time`` times them instead,
-through the old library and the current one in one process on the same
-inputs (old, new, new, old: CUDA-event medians of CUDA-graph replays),
-prints each shape's
+redesigned on wgmma) are not compared. ``--time`` times the redesigned
+kernels (K4/K4′, K6/K7 on wgmma, K6b in bf16 and fp32) through the old
+library and the current one in one process on the same inputs (old, new,
+new, old: CUDA-event medians of CUDA-graph replays), prints each shape's
 milliseconds and the largest difference of the two outputs relative to the
-old one's max, one JSON line per shape, and exits non-zero if a new kernel
-is slower than the old one at any shape; then the query encode of the
-SigLIP towers (K4's caller) at the serving buckets through each library.
+old one's max (and for K6b in fp32 each library's largest error against
+float64), one JSON line per shape, and exits non-zero if a new kernel is
+slower than the old one at any shape; then the end-to-end callers through
+each library: the query encode of the SigLIP towers (K4's) at the serving
+buckets and the SAM image encode (K6's) at SAM-base batch 1 and 8 and
+sam_huge batch 1. ``--only`` keeps the cases whose label holds one of the
+comma-separated parts; ``--draws N`` reads K6b in fp32's errors against
+float64 on N draws of its inputs.
 
 An old entry point whose declaration in OLD_CSRC_DIR takes no ``f32`` flag
 (the ABI before the kernel took fp32) is called with the flag dropped, and a
 call with ``f32 = 1`` to it raises; one that takes no ``n_tok`` (the
 decoder's ABI before its kernels took 5 to 32 tokens) is called with the
 token count dropped, and a call with another than 6 raises. K6's ``lse``
-and K6b's ``out`` and ``lse`` (the forward's statistics, before the
-redesign) are dropped whatever they hold: the old K6 writes no ``lse`` and
-the old K6b reads neither.
+and K6b's ``out`` and ``lse`` (the forward's statistics, before the bf16
+redesign) are dropped whatever they hold where the old entry lacks them: the
+old K6 writes no ``lse`` and the old K6b reads neither. A K6b in fp32 of
+the first design takes them and reads neither (it recomputes its own
+statistics into twice the scratch the current one needs, which the wrapper
+allocates).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import re
 import subprocess
@@ -233,42 +242,91 @@ def cases(device, token_counts: bool = True):
 
 
 @torch.no_grad()
-def timed_cases(device):
-    """(label, thunk, bound inputs) of the redesigned kernels at the main
-    paths' shapes: K4 at ViT-B's [16, 576] and [16, 64] (12 heads of 64),
-    K4′ at SO400M's [16, 729] and [16, 64] (16 heads of 72) through both
-    entries, K6b at SAM-base's and sam_huge's global [2, 4096] and windowed
-    [50, 196] shapes given the forward's out and lse."""
+def timed_cases(device, draw: int = 0):
+    """(label, make) of the redesigned kernels at the main paths' shapes;
+    ``make()`` builds the case's inputs (random, from seeds that ``draw``
+    offsets) and returns its thunk. K4 at ViT-B's [16, 576] and [16, 64] (12 heads of 64), K4′
+    at SO400M's [16, 729] and [16, 64] (16 heads of 72) through both
+    entries; K6 at SAM-base's (12 heads of 64) and sam_huge's (16 of 80)
+    global [2, 4096] and windowed [50, 196] shapes, with and without the
+    rows' lse written, in bf16 and fp32 (whose kernel kept its design and
+    now writes the lse too); K7 at both encoders' padded grid [2, 70, 70];
+    K6b in bf16 and in fp32 at K6's four shapes, given the forward's out and
+    lse."""
     from cor_tpu_torch.ops.kernels.seq_attention import attention_seq, attention_seq_qkv
     from cor_tpu_torch.ops.kernels.vit_attention import (
+        vit_attention_relpos,
         vit_attention_relpos_bwd,
+        vit_attention_relpos_windows,
         vit_attention_relpos_with_lse,
     )
 
-    gen = torch.Generator(device=device).manual_seed(1)
     bf = torch.bfloat16
-    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa: E731
+
+    def rnd(seed, *shape, dtype=bf, mul=1.0):
+        gen = torch.Generator(device=device).manual_seed(seed + 100 * draw)
+        return (mul * torch.randn(*shape, generator=gen, device=device)).to(dtype)
+
     out = []
     for heads, D, n in ((12, 64, 576), (12, 64, 64), (16, 72, 729), (16, 72, 64)):
         C = heads * D
-        qkv = rnd(16, n, 3 * C).to(bf)
-        out.append((f"K4 d{D} [16, {n}, {3 * C}]",
-                    lambda qkv=qkv, h=heads: (attention_seq_qkv(qkv, h),)))
+
+        def k4(heads=heads, n=n, C=C):
+            qkv = rnd(1, 16, n, 3 * C)
+            return lambda: (attention_seq_qkv(qkv, heads),)
+
+        out.append((f"K4 d{D} [16, {n}, {3 * C}]", k4))
         if D == 72:
-            q, k, v = (qkv[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
-                       .contiguous() for i in range(3))
-            out.append((f"K4′ [B, H, N, D] d{D} [16, {heads}, {n}, {D}]",
-                        lambda q=q, k=k, v=v, h=heads: (attention_seq(q, k, v, h),)))
+            def k4b(heads=heads, n=n, C=C, D=D):
+                q, k, v = (rnd(1, 16, n, 3 * C)[..., i * C:(i + 1) * C]
+                           .unflatten(-1, (heads, D)).transpose(1, 2).contiguous()
+                           for i in range(3))
+                return lambda: (attention_seq(q, k, v, heads),)
+
+            out.append((f"K4′ [B, H, N, D] d{D} [16, {heads}, {n}, {D}]", k4b))
     for heads, D in ((12, 64), (16, 80)):
+        C = heads * D
         for B, side in ((2, 64), (50, 14)):
             N = side * side
-            qkv = rnd(B, N, 3 * heads * D).to(bf)
-            rh, rw = (0.3 * rnd(B, heads, N, side)).to(bf), (0.3 * rnd(B, heads, N, side)).to(bf)
-            do = rnd(B, N, heads * D).to(bf)
-            o, lse = vit_attention_relpos_with_lse(qkv, rh, rw, heads, (side, side))
-            out.append((f"K6b d{D} [{B}, {N}, {3 * heads * D}]",
-                        lambda a=(qkv, rh, rw, do, heads, (side, side)), o=o, lse=lse:
-                        vit_attention_relpos_bwd(*a, out=o, lse=lse)))
+
+            def k6_args(B=B, N=N, C=C, side=side, heads=heads, dtype=bf):
+                return (rnd(2, B, N, 3 * C, dtype=dtype),
+                        rnd(3, B, heads, N, side, dtype=dtype, mul=0.3),
+                        rnd(4, B, heads, N, side, dtype=dtype, mul=0.3), heads, (side, side))
+
+            def k6(k6_args=k6_args, with_lse=False, dtype=bf):
+                a = k6_args(dtype=dtype)
+                if with_lse:  # the forward autograd records: out with the rows' lse
+                    return lambda: (vit_attention_relpos_with_lse(*a)[0],)
+                return lambda: (vit_attention_relpos(*a),)
+
+            def k6b(k6_args=k6_args, dtype=bf, B=B, N=N, C=C):
+                a = k6_args(dtype=dtype)
+                do = rnd(5, B, N, C, dtype=dtype)
+                o, lse = vit_attention_relpos_with_lse(*a)
+                run = lambda: vit_attention_relpos_bwd(*a[:3], do, *a[3:], out=o, lse=lse)  # noqa: E731
+                if dtype == torch.float32:
+                    from cor_tpu_torch.tools.k6b_accuracy import k6b_float64
+
+                    run.exact = lambda: k6b_float64(*a[:3], do, *a[3:])
+                return run
+
+            label = f"[{B}, {N}, {3 * C}]"
+            out.append((f"K6 d{D} {label}", k6))
+            out.append((f"K6 d{D} {label} writing lse", functools.partial(k6, with_lse=True)))
+            out.append((f"K6b d{D} {label}", k6b))
+            f32 = torch.float32
+            out.append((f"K6@fp32 d{D} {label}", functools.partial(k6, dtype=f32)))
+            out.append((f"K6@fp32 d{D} {label} writing lse",
+                        functools.partial(k6, with_lse=True, dtype=f32)))
+            out.append((f"K6b@fp32 d{D} {label}", functools.partial(k6b, dtype=f32)))
+
+        def k7(heads=heads, C=C):
+            a = (rnd(6, 2, 70, 70, 3 * C), rnd(7, 2, heads, 4900, 14, mul=0.3),
+                 rnd(8, 2, heads, 4900, 14, mul=0.3), heads, 14, (64, 64))
+            return lambda: (vit_attention_relpos_windows(*a),)
+
+        out.append((f"K7 d{D} [2, 70, 70, {3 * C}]", k7))
     return out
 
 
@@ -335,6 +393,27 @@ def tower_cases(device):
     return out
 
 
+@torch.no_grad()
+def encode_cases(device):
+    """(label, make) of K6's end-to-end caller: the SAM image encode (bf16,
+    random weights from a seed, the rel-pos tables and pos_embed filled) of
+    SAM-base at batch 1 and 8 (12 K6 launches an encode) and sam_huge at
+    batch 1 (32); ``make()`` builds the encoder and images."""
+    from cor_tpu_torch.models.sam_encoder import SamEncoder, sam_encoder_config
+
+    def make(name, b):
+        gen = torch.Generator(device=device).manual_seed(3)
+        model = SamEncoder(sam_encoder_config(name)).to(device)
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+        model = model.to(torch.bfloat16).eval()
+        images = torch.rand(b, 1024, 1024, 3, generator=gen, device=device).to(torch.bfloat16)
+        return lambda: model(images)
+
+    return [(f"image encode {name} batch {b}", lambda name=name, b=b: make(name, b))
+            for name, b in (("sam_base", 1), ("sam_base", 8), ("sam_huge", 1))]
+
+
 def _eager_ms(run, windows: int = 7, iters: int = 3) -> float:
     """The median milliseconds per call of ``run`` launched from the host
     (CUDA events over ``iters`` calls, ``windows`` windows), as a server
@@ -356,29 +435,55 @@ def _eager_ms(run, windows: int = 7, iters: int = 3) -> float:
     return statistics.median(per_call)
 
 
-def time_towers(old, device, card: str) -> None:
-    """The towers' query encode through ``old`` and the current library
-    (old, new, new, old; host-launched, CUDA events, and as CUDA-graph
-    replays: the device's time alone); one JSON line each."""
+def time_e2e(old, device, card: str, only=()) -> None:
+    """The towers' query encode (K4's caller) and the SAM image encode
+    (K6's) through ``old`` and the current library (old, new, new, old;
+    host-launched, CUDA events, and for the towers as CUDA-graph replays too:
+    the device's time alone; the encoder copies its rel-pos indices from the
+    host at each call, which a graph cannot capture); one JSON line each."""
     import json
 
-    for label, run in tower_cases(device):
+    cases = [(label, lambda run=run: run, True) for label, run in tower_cases(device)]
+    cases += [(label, make, False) for label, make in encode_cases(device)]
+    for label, make, graph in cases:
+        if only and not any(o in label for o in only):
+            continue
+        use_library(None)
+        run = make()
         times = {"old": [], "new": [], "old_graph": [], "new_graph": []}
         for which in ("old", "new", "new", "old"):
             use_library(old if which == "old" else None)
             times[which].append(_eager_ms(run))
-            times[f"{which}_graph"].append(_ms(run, iters=3))
+            if graph:
+                times[f"{which}_graph"].append(_ms(run, iters=3))
         use_library(None)
         print(json.dumps({"e2e": label, "old_ms": times["old"], "new_ms": times["new"],
                           "old_graph_ms": times["old_graph"], "new_graph_ms": times["new_graph"],
                           "card": card}), flush=True)
+        del run
+        torch.cuda.empty_cache()
 
 
-def time_redesigned(old, device) -> int:
-    """Time every case of ``timed_cases`` through ``old`` and the current
-    library (old, new, new, old; CUDA graphs of 10 calls); one JSON line
-    each, with each call's kernels' device time (torch.profiler).
-    Returns 1 if a new kernel is slower than the old one anywhere."""
+def float64_errors(old, run) -> dict:
+    """Both libraries' largest |error| of a K6b-in-fp32 case's outputs
+    against its float64 yardstick (``run.exact``)."""
+    use_library(old)
+    old_out = run()
+    use_library(None)
+    new_out = run()
+    exact = run.exact()
+    return {name: [(x.double() - e).abs().max().item() for x, e in zip(outs, exact)]
+            for name, outs in (("old", old_out), ("new", new_out))}
+
+
+def time_redesigned(old, device, only=(), draws: int = 1) -> int:
+    """Time every case of ``timed_cases`` (those whose label holds one of
+    ``only``, if given) through ``old`` and the current library (old, new,
+    new, old; CUDA graphs of 10 calls); one JSON line each, with each call's
+    kernels' device time (torch.profiler) and, for K6b in fp32, both
+    libraries' largest errors against float64 (on ``draws`` draws of the
+    inputs). Returns 1 if a new kernel is slower than the old one
+    anywhere."""
     import json
     import subprocess as sp
 
@@ -386,7 +491,11 @@ def time_redesigned(old, device) -> int:
                  capture_output=True, text=True).stdout.strip().splitlines()
     card = smi[0].strip() if smi else torch.cuda.get_device_name(0)
     slower = []
-    for label, run in timed_cases(device):
+    for label, make in timed_cases(device):
+        if only and not any(o in label for o in only):
+            continue
+        use_library(None)  # the inputs (and a forward's lse) from the current library
+        run = make()
         use_library(old)
         old_out = run()
         use_library(None)
@@ -394,6 +503,17 @@ def time_redesigned(old, device) -> int:
         torch.cuda.synchronize()
         diff = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
                    for a, b in zip(new_out, old_out))
+        line = {"kernel": label}
+        del old_out, new_out
+        if hasattr(run, "exact"):
+            line["max_abs_err_vs_float64"] = float64_errors(old, run)
+            for draw in range(1, draws):
+                use_library(None)
+                again = dict(timed_cases(device, draw))[label]()
+                line.setdefault("max_abs_err_vs_float64_other_draws", []).append(
+                    float64_errors(old, again))
+                del again
+            torch.cuda.empty_cache()
         times = {"old": [], "new": []}
         for which in ("old", "new", "new", "old"):
             use_library(old if which == "old" else None)
@@ -401,15 +521,17 @@ def time_redesigned(old, device) -> int:
         old_us = _device_us(run)
         use_library(None)
         t_old, t_new = min(times["old"]), min(times["new"])
-        print(json.dumps({"kernel": label, "old_ms": times["old"], "new_ms": times["new"],
-                          "speedup": t_old / t_new, "max_rel_diff": diff, "card": card,
-                          "old_kernels_us": old_us, "new_kernels_us": _device_us(run)}),
-              flush=True)
+        line.update(old_ms=times["old"], new_ms=times["new"], speedup=t_old / t_new,
+                    max_rel_diff=diff, card=card, old_kernels_us=old_us,
+                    new_kernels_us=_device_us(run))
+        print(json.dumps(line), flush=True)
         if t_new > t_old:
             slower.append(label)
+        del run
+        torch.cuda.empty_cache()
     print(f"redesigned kernels against the old library: "
           f"{'faster at every shape' if not slower else f'slower at {slower}'}")
-    time_towers(old, device, card)
+    time_e2e(old, device, card, only)
     return 1 if slower else 0
 
 
@@ -417,6 +539,15 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     timing = "--time" in argv
     argv = [a for a in argv if a != "--time"]
+    only, draws = (), 1
+    if "--only" in argv:  # --only LABEL_PART,...: time only the cases whose label holds one
+        i = argv.index("--only")
+        only = tuple(argv[i + 1].split(",")) if i + 1 < len(argv) else ()
+        argv = argv[:i] + argv[i + 2:]
+    if "--draws" in argv:  # --draws N: K6b in fp32's errors on N draws of its inputs
+        i = argv.index("--draws")
+        draws = int(argv[i + 1]) if i + 1 < len(argv) else 1
+        argv = argv[:i] + argv[i + 2:]
     if len(argv) != 1 or not Path(argv[0]).is_dir():
         print(__doc__, file=sys.stderr)
         return 2
@@ -430,7 +561,7 @@ def main(argv=None) -> int:
     old = _OldABI(build_old(Path(argv[0]), missing), missing)
     torch.set_grad_enabled(False)  # the decoder kernels take no autograd
     if timing:
-        return time_redesigned(old, device)
+        return time_redesigned(old, device, only, draws)
     differ = []
     for label, run in cases(device, token_counts="cor_twl_tokens_in" not in missing):
         use_library(None)

@@ -1155,8 +1155,9 @@ def test_vit_attention_relpos_windows_kernel_matches_plain_fp32(fp32_device, D, 
                          ids=["grid8", "window14", "global", "rect"])
 def test_vit_attention_relpos_bwd_kernel_matches_plain_fp32(fp32_device, B, H, W, d):
     """K6b in fp32 (3xTF32) against its plain fp32 backward with TF32 off, at
-    the bf16 test's shapes: one fp32 launch, no bf16 one; dqkv, drel_h and
-    drel_w within cor_tpu's fp32 gradient tolerance for this attention
+    the bf16 test's shapes, given the forward's out and lse as autograd
+    gives them: one fp32 launch, no bf16 one; dqkv, drel_h and drel_w within
+    cor_tpu's fp32 gradient tolerance for this attention
     (tests/test_kernel_vjp.py: atol 1e-5, rtol 1e-4)."""
     g = torch.Generator(device=fp32_device).manual_seed(1)
     N, heads = H * W, (12 if d == 64 else 16)
@@ -1165,8 +1166,9 @@ def test_vit_attention_relpos_bwd_kernel_matches_plain_fp32(fp32_device, B, H, W
     rel_h = 0.3 * torch.randn(B, heads, N, H, generator=g, device=fp32_device)
     rel_w = 0.3 * torch.randn(B, heads, N, W, generator=g, device=fp32_device)
     do = torch.randn(B, N, C, generator=g, device=fp32_device)
+    out, lse = vit_attention_relpos_with_lse(qkv, rel_h, rel_w, heads, (H, W))
     before = (vit_attention_relpos_bwd.launches, vit_attention_relpos_bwd.launches_fp32)
-    got = vit_attention_relpos_bwd(qkv, rel_h, rel_w, do, heads, (H, W))
+    got = vit_attention_relpos_bwd(qkv, rel_h, rel_w, do, heads, (H, W), out=out, lse=lse)
     torch.cuda.synchronize()
     assert (vit_attention_relpos_bwd.launches, vit_attention_relpos_bwd.launches_fp32) == (
         before[0], before[1] + 1)
