@@ -19,6 +19,9 @@ Phases (any failure exits non-zero; no phase catches an exception):
     on the 64 x 64 grid, K1's layer 0 out of a 2,048-row int8 store), both
     timed with CUDA events beside the one PyTorch call that computes the
     same function where there is one (SDPA for K4, F.layer_norm for K5);
+    K4, K5 and their library calls (here and in phases 18, 29 and 37, K4′
+    and K5′ too) also as CUDA-graph replays (``device_ms``,
+    ``library_device_ms``), which leave the host's launches out;
  4. serve: a synthetic 127,166 x 256 gallery index (the COR127K triplet
     count), then ``cor_tpu_torch.cli.serve.main`` with --self-test 8 at full
     ViT-B-16-SigLIP-384 width (random weights from seed 0), fp32 and --int8
@@ -321,6 +324,19 @@ def cuda_ms(fn, windows: int = 7, iters: int = 10):
     return statistics.median(per_call), min(per_call), max(per_call)
 
 
+def device_times(kernel, library=None) -> dict:
+    """The median device milliseconds of the kernel's call and of its
+    library call, as CUDA-graph replays (the host's launches, which set a
+    small kernel's time in ``cuda_ms``, stay out): {"device_ms": ...,
+    "library_device_ms": ...}."""
+    from cor_tpu_torch.tools.kernel_bits import graph_ms
+
+    out = {"device_ms": graph_ms(kernel)}
+    if library is not None:
+        out["library_device_ms"] = graph_ms(library)
+    return out
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -418,10 +434,14 @@ def phase_kernels(device):
         ln_err = max(ln_err, err)
         ln_t[tower] = (cuda_ms(lambda: layer_norm(x, scale, bias, 1e-6)),
                        cuda_ms(lambda: layer_norm_plain(x, scale, bias, 1e-6)),
-                       cuda_ms(lambda: F.layer_norm(x, (768,), scale, bias, 1e-6)))
+                       cuda_ms(lambda: F.layer_norm(x, (768,), scale, bias, 1e-6)),
+                       device_times(lambda: layer_norm(x, scale, bias, 1e-6),
+                                    lambda: F.layer_norm(x, (768,), scale, bias, 1e-6)))
+        dev = ln_t[tower][3]
         print(f"  K5 layer_norm [{n}, 768] bf16: max|d|={err:.3e} kernel "
               f"{ln_t[tower][0][0]:.4f} ms, plain {ln_t[tower][1][0]:.4f} ms, "
-              f"F.layer_norm {ln_t[tower][2][0]:.4f} ms")
+              f"F.layer_norm {ln_t[tower][2][0]:.4f} ms; graph replays: kernel "
+              f"{dev['device_ms']:.4f} ms, F.layer_norm {dev['library_device_ms']:.4f} ms")
         if tower == "vision":
             ln_bound = bound(nbytes(x, scale, bias) + nbytes(x), 8 * x.numel())
     # fp32 input and ragged row count: the same kernel, other template cases
@@ -432,7 +452,8 @@ def phase_kernels(device):
     if ln_err > KERNEL_TOL or err32 > 1e-4:
         fail(f"layer_norm kernel disagrees with its plain version: {ln_err} (bf16), {err32} (fp32)")
     v = ln_t["vision"]
-    results["layer_norm"] = entry(ln_err, v[0], v[1], ln_bound, v[2])
+    results["layer_norm"] = entry(ln_err, v[0], v[1], ln_bound, v[2], **v[3],
+                                  text=ln_t["text"][3])
 
     # K4 sequence attention at qkv [B, N, 3*768], 12 heads
     at_err, at_t = 0.0, {}
@@ -448,10 +469,14 @@ def phase_kernels(device):
                        for i in range(3))
             at_t[tower] = (cuda_ms(lambda: attention_seq_qkv(qkv, 12)),
                            cuda_ms(lambda: attention_seq_qkv_plain(qkv, 12)),
-                           cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
+                           cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                           device_times(lambda: attention_seq_qkv(qkv, 12),
+                                        lambda: F.scaled_dot_product_attention(q, k, v)))
+            dev = at_t[tower][3]
             print(f"  K4 attention_seq_qkv [{BATCH}, {n}, 2304] bf16: max|d|={err:.3e} kernel "
                   f"{at_t[tower][0][0]:.4f} ms, plain {at_t[tower][1][0]:.4f} ms, "
-                  f"SDPA {at_t[tower][2][0]:.4f} ms")
+                  f"SDPA {at_t[tower][2][0]:.4f} ms; graph replays: kernel "
+                  f"{dev['device_ms']:.4f} ms, SDPA {dev['library_device_ms']:.4f} ms")
             if tower == "vision":
                 at_bound = bound(nbytes(qkv) + nbytes(got), 4 * BATCH * 12 * n * n * 64)
         else:
@@ -459,7 +484,8 @@ def phase_kernels(device):
     if at_err > KERNEL_TOL:
         fail(f"attention_seq_qkv kernel disagrees with its plain version: {at_err}")
     v = at_t["vision"]
-    results["attention_seq_qkv"] = entry(at_err, v[0], v[1], at_bound, v[2])
+    results["attention_seq_qkv"] = entry(at_err, v[0], v[1], at_bound, v[2], **v[3],
+                                         text=at_t["text"][3])
     results.update(decoder_kernels(device))
     print("phase 3 kernels: ok", flush=True)
     return results
@@ -1699,15 +1725,21 @@ def phase_large_kernels(device):
         kt4 = cuda_ms(lambda: attention_seq(q, k, v, heads))
         pt = cuda_ms(lambda: attention_seq_qkv_plain(qkv, heads), iters=3)
         lt = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        dev = device_times(lambda: attention_seq_qkv(qkv, heads),
+                           lambda: F.scaled_dot_product_attention(q, k, v))
+        dev["bhnd_entry_device_ms"] = device_times(
+            lambda: attention_seq(q, k, v, heads))["device_ms"]
         b = bound(nbytes(qkv) + nbytes(got), 4 * BATCH * heads * n * n * D)
         print(f"  K4′ head_dim 72 [{BATCH}, {n}, {3 * C}]: max|d|/max|plain| = {errs[0]:.3e} "
               f"fused, {errs[1]:.3e} [B, H, N, D]; kernel {kt[0]:.4f} ms [{kt[1]:.4f}, "
               f"{kt[2]:.4f}] fused, {kt4[0]:.4f} ms [B, H, N, D], plain {pt[0]:.4f} ms, SDPA "
-              f"{lt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+              f"{lt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); graph replays: kernel "
+              f"{dev['device_ms']:.4f} ms fused, {dev['bhnd_entry_device_ms']:.4f} ms "
+              f"[B, H, N, D], SDPA {dev['library_device_ms']:.4f} ms")
         if not max(errs) <= DECODE_REL:
             fail(f"K4′ ({tower}) disagrees with its plain version: {errs}")
         k4[tower] = entry(abs_err((got, want), (got4, want4)), kt, pt, b, lt,
-                          max_rel_err=max(errs), bhnd_entry_ms=kt4[0])
+                          max_rel_err=max(errs), bhnd_entry_ms=kt4[0], **dev)
         del q, k, v
 
     heads, D = 16, 80
@@ -1748,12 +1780,16 @@ def phase_large_kernels(device):
         kt = cuda_ms(lambda: layer_norm(x, scale, bias, 1e-6))
         pt = cuda_ms(lambda: layer_norm_plain(x, scale, bias, 1e-6))
         lt = cuda_ms(lambda: F.layer_norm(x, (C,), scale, bias, 1e-6))
+        dev = device_times(lambda: layer_norm(x, scale, bias, 1e-6),
+                           lambda: F.layer_norm(x, (C,), scale, bias, 1e-6))
         b = bound(2 * nbytes(x) + nbytes(scale, bias), 8 * x.numel())
         print(f"  K5 layer_norm [{rows}, {C}] bf16: max|d|={err:.3e} kernel {kt[0]:.4f} ms, "
-              f"plain {pt[0]:.4f} ms, F.layer_norm {lt[0]:.4f} ms, bound {b[0]:.4f} ms")
+              f"plain {pt[0]:.4f} ms, F.layer_norm {lt[0]:.4f} ms, bound {b[0]:.4f} ms; graph "
+              f"replays: kernel {dev['device_ms']:.4f} ms, F.layer_norm "
+              f"{dev['library_device_ms']:.4f} ms")
         if err > KERNEL_TOL:
             fail(f"layer_norm kernel disagrees with its plain version at C={C}: {err}")
-        ln[f"[{rows},{C}]"] = entry(err, kt, pt, b, lt)
+        ln[f"[{rows},{C}]"] = entry(err, kt, pt, b, lt, **dev)
     torch.cuda.empty_cache()
     print("phase 18 large-config kernels: ok", flush=True)
     return dict(k4["vision"], text=k4["text"]), dict(k6["global"], windowed=k6["windowed"]), ln
@@ -2165,9 +2201,12 @@ def tol_err(tol, *pairs):
 def check32(name: str, label: str, tol, pairs, kt, pt, b, lt=None, **extra):
     err, ratio = tol_err(tol, *pairs)
     lib = "" if lt is None else f", library {lt[0]:.4f} ms"
+    dev = "" if "device_ms" not in extra else (
+        f"; graph replays: kernel {extra['device_ms']:.4f} ms, library "
+        f"{extra['library_device_ms']:.4f} ms")
     print(f"  {name} fp32 {label}: max|d| = {err:.3e}, max|d|/(atol + rtol|plain|) = "
           f"{ratio:.3f} (tol {tol}); kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain "
-          f"{pt[0]:.4f} ms{lib}, bound {b[0]:.4f} ms ({b[1]})", flush=True)
+          f"{pt[0]:.4f} ms{lib}, bound {b[0]:.4f} ms ({b[1]}){dev}", flush=True)
     if not ratio <= 1.0:
         fail(f"{name} fp32 ({label}) disagrees with its plain fp32 version: max|d| {err}, "
              f"{ratio} x its tolerance {tol}")
@@ -2216,9 +2255,11 @@ def phase_fp32_kernels(device):
         kt = cuda_ms(lambda: layer_norm(x, scale, bias, 1e-6))
         pt = cuda_ms(lambda: layer_norm_plain(x, scale, bias, 1e-6))
         lt = cuda_ms(lambda: F.layer_norm(x, (C,), scale, bias, 1e-6))
+        dev = device_times(lambda: layer_norm(x, scale, bias, 1e-6),
+                           lambda: F.layer_norm(x, (C,), scale, bias, 1e-6))
         b = bound32(2 * nbytes(x) + nbytes(scale, bias), 8 * x.numel())
         ln[f"[{rows},{C}]"] = check32("K5 layer_norm", f"[{rows}, {C}]", tol, [(got, want)], kt,
-                                      pt, b, lt)
+                                      pt, b, lt, **dev)
     first = f"[{BATCH * 576},768]"
     out["layer_norm@fp32"] = dict(ln.pop(first), other_shapes=ln)
 
@@ -2239,9 +2280,13 @@ def phase_fp32_kernels(device):
         kt = cuda_ms(lambda: attention_seq_qkv(qkv, heads))
         pt = cuda_ms(lambda: attention_seq_qkv_plain(qkv, heads), iters=3)
         lt = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        dev = device_times(lambda: attention_seq_qkv(qkv, heads),
+                           lambda: F.scaled_dot_product_attention(q, k, v))
+        dev["bhnd_entry_device_ms"] = device_times(
+            lambda: attention_seq(q, k, v, heads))["device_ms"]
         b = bound32(nbytes(qkv) + nbytes(got), 4 * BATCH * heads * n * n * D)
         k4[label] = check32("K4 attention_seq_qkv", f"{label} [{BATCH}, {n}, {3 * C}]", tol,
-                            pairs, kt, pt, b, lt)
+                            pairs, kt, pt, b, lt, **dev)
         del q, k, v
     out["attention_seq_qkv@72@fp32"] = dict(k4.pop("d72-vision"), text=k4.pop("d72-text"))
     out["attention_seq_qkv@fp32"] = dict(k4.pop("vision"), other_shapes=k4)
@@ -3280,7 +3325,9 @@ def phase_last_kernels(device):
             bd = bnd(nbytes(x, y, got, s, b), 9 * x.numel())
             label = f"[{rows}, {C}]"
             extra = dict(library_calls="F.layer_norm(x + y): two calls (the add, the norm)",
-                         add_then_k5_ms=k5t[0])
+                         add_then_k5_ms=k5t[0],
+                         **device_times(lambda: add_layer_norm(x, y, s, b),
+                                        lambda: F.layer_norm(x + y, (C,), s, b, 1e-6)))
             if dt == torch.float32:
                 res = check32("K5′ add_layer_norm", label, FP32_TOL["add_layer_norm"],
                               [(got, want)], kt, pt, bd, lt, **extra)
@@ -3289,7 +3336,9 @@ def phase_last_kernels(device):
                 print(f"  K5′ add_layer_norm {label} bf16: max|d|/max|plain| = {err:.3e}; "
                       f"kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, "
                       f"F.layer_norm(x + y) {lt[0]:.4f} ms, x + y then K5 {k5t[0]:.4f} ms, "
-                      f"bound {bd[0]:.4f} ms ({bd[1]})", flush=True)
+                      f"bound {bd[0]:.4f} ms ({bd[1]}); graph replays: kernel "
+                      f"{extra['device_ms']:.4f} ms, F.layer_norm(x + y) "
+                      f"{extra['library_device_ms']:.4f} ms", flush=True)
                 if not err <= KERNEL_TOL:
                     fail(f"add_layer_norm {label} bf16 disagrees with its plain version: {err}")
                 res = entry(abs_err((got, want)), kt, pt, bd, lt, max_rel_err=err, **extra)
@@ -3551,7 +3600,7 @@ def main():
     mark("phase 38")
 
     sources = {
-        "layer_norm": ("cor_tpu_torch/csrc/layernorm.cu", "cor_tpu/ops/pallas/layernorm.py:70",
+        "layer_norm": ("cor_tpu_torch/csrc/layernorm.cuh", "cor_tpu/ops/pallas/layernorm.py:70",
                        launches),
         "attention_seq_qkv": ("cor_tpu_torch/csrc/seq_attention.cu",
                               "cor_tpu/ops/pallas/seq_attention.py:99", launches),
@@ -3580,7 +3629,7 @@ def main():
                                          "cor_tpu/ops/pallas/vit_attention.py:180", k7_launches),
         # compute_dtype float32 (phases 29-31): the fp32 instantiations of the
         # same sources, launched by the fp32 build, serving and frozen training
-        "layer_norm@fp32": ("cor_tpu_torch/csrc/layernorm.cu",
+        "layer_norm@fp32": ("cor_tpu_torch/csrc/layernorm.cuh",
                             "cor_tpu/ops/pallas/layernorm.py:70", fp32_launches["serve"]),
         "attention_seq_qkv@fp32": ("cor_tpu_torch/csrc/seq_attention.cu",
                                    "cor_tpu/ops/pallas/seq_attention.py:99",
@@ -3640,9 +3689,9 @@ def main():
                                     schedule_decodes),
         # the last two TPU kernels, whose only callers are tests: phase 37's
         # calls of their entry points
-        "add_layer_norm": ("cor_tpu_torch/csrc/layernorm.cu",
+        "add_layer_norm": ("cor_tpu_torch/csrc/layernorm_add.cu",
                            "cor_tpu/ops/pallas/layernorm.py:100", last_launches),
-        "add_layer_norm@fp32": ("cor_tpu_torch/csrc/layernorm.cu",
+        "add_layer_norm@fp32": ("cor_tpu_torch/csrc/layernorm_add.cu",
                                 "cor_tpu/ops/pallas/layernorm.py:100", last_launches),
         "fused_upscale2_hyper": ("cor_tpu_torch/csrc/upscale.cu",
                                  "cor_tpu/ops/pallas/upscale.py:104", last_launches),

@@ -60,19 +60,44 @@
 // column pad at 72 would read the next head; cp.async places any 16-byte
 // chunk.
 //
-// fp32 (cor_tpu's compute_dtype float32): seq_attention_f32_kernel, the
-// first design kept: one block of 4 warps per (64-query tile, head, batch),
-// 16 query rows per warp, the 64-key K and V tiles staged through registers
-// between two __syncthreads, the same online softmax on fp32 operands, with
-// every product in 3xTF32 on mma.sync m16n8k8 (mma_tf32x3.cuh): fp32 accuracy on the tensor
-// cores, three TF32 products per fp32 one. Nothing is rounded (P included),
-// as cor_tpu rounds to the compute dtype. The tiles are [64][D + 4] fp32
-// (68, 76, 84 words: 4 mod 8, conflict-free TF32 fragment loads; D = 72 is
-// 9 whole k-steps of 8, no zero columns), Q shares its tile with K (Q lives
-// in registers once loaded), and V stays [key][d]: P's accumulator tiles are
-// the A operand of P.V in the permuted key order of mma_tf32x3.cuh, so V's
-// B fragments read keys 2t and 2t + 1. 43,008 bytes of shared memory at
-// D = 80. What bounds it: operations (three products per product).
+// fp32 (cor_tpu's compute_dtype float32): seq_attention_f32_kernel<D>, the
+// same structure on wgmma's tf32 products, every product in 3xTF32 (fp32
+// accuracy on the tensor cores: big = tf32(x) and small = tf32(x - big),
+// both rounded to nearest with ties away, and a.b = small_a.big_b +
+// big_a.small_b + big_a.big_b, small.small dropped; mma_tf32x3.cuh). Nothing
+// is rounded to a narrower type, P included, as cor_tpu rounds to the compute
+// dtype. What bounds it: operations, three TF32 products per fp32 one. The
+// first design (4 warps of mma.sync, every B fragment split again by each
+// warp at each load, tiles staged through registers between two
+// __syncthreads) reached 14% of the bound. Here:
+//  - one block per (128 query rows, head, batch): two consumer warpgroups
+//    and a producer warpgroup, 384 threads. The producer loads each 64-key K
+//    and V tile into registers (the next tile's loads in flight while it
+//    waits for a stage), splits it once into its TF32 halves and stores both
+//    in wgmma's K-major core-matrix layout; full and empty mbarriers per
+//    stage hand K and V over separately, so the next K tile is split while
+//    the warpgroups run P.V, and the next V tile while they run Q K^T. Each
+//    warpgroup splits its 64 Q rows once, into shared memory;
+//  - tf32 wgmma takes both shared operands K-major only (the transpose flags
+//    are for 16-bit types), so V is stored transposed, [d][key], with the
+//    keys within each 8 in the order of P's register fragments (the
+//    accumulator tile n of S is the A fragment of k-step n in the permuted
+//    key order of mma_tf32x3.cuh). Each lane rotates the element it stores
+//    with its lane index, so the transposing stores meet no bank conflict;
+//  - S = Q K^T: wgmma m64n64k8 with Q and K from shared memory, small.big
+//    and big.small over D, then big.big; O += P V: wgmma m64nDk8 with P's
+//    halves as register A fragments and V^T's halves from shared memory, in
+//    the same order;
+//  - the online softmax as in bf16 (log2 domain, fp32), the division by the
+//    row sum once at the end;
+//  - shared memory: two Q tiles and `stages` K and V^T tiles, each as its
+//    two halves: 196,608 bytes at D = 64 and 221,184 at 72 (two stages),
+//    163,840 at 80 (one), one block an SM; 168 registers. A sequence of one
+//    key tile (the text towers' N = 64) takes a block of one warpgroup and
+//    no producer, which stages K and V itself beside Q (V's transposed split
+//    while the S product runs): 256-thread blocks of 168 registers would
+//    leave one block an SM and run the text towers' 192-256 blocks in two
+//    waves.
 
 #include "decoder_common.cuh"
 #include "wgmma.cuh"
@@ -81,12 +106,11 @@ namespace {
 
 namespace wg = cor::wg;
 
-constexpr int kBQ = 64;        // the fp32 kernel: query rows per block (16 per warp)
 constexpr int kBK = 64;        // keys per shared-memory tile
-constexpr int kThreads = 128;  // the fp32 kernel: 4 warps
-constexpr int kMaxGroups = 2;  // bf16: consumer warpgroups a block, 64 query rows each
+constexpr int kMaxGroups = 2;  // consumer warpgroups a block, 64 query rows each
 constexpr int kProducers = 64;  // bf16: the producer's two warps
 constexpr int kStages = 3;     // the bf16 kernel's K/V ring
+constexpr int kProducersF32 = 128;  // fp32: the producer warpgroup (loads and splits)
 
 // the bf16 kernel's tiles, from the head_dim D
 template <int D>
@@ -268,102 +292,294 @@ seq_attention_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
   }
 }
 
-// The fp32 case: q, k, v, out fp32, element (b, h, n, d) as above.
+// the fp32 kernel's tiles, from the head_dim D: every tile is stored twice,
+// as its TF32 big and small halves, in wgmma's K-major core-matrix layout
+// (wgmma.cuh; 4 fp32 a 16-byte chunk)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct F32Tiles {
+  static_assert(D % 8 == 0, "whole k-steps of 8");
+  static constexpr int kCh = D / 4;        // chunks of a Q or K row
+  static constexpr int kChV = kBK / 4;     // chunks of a V^T row (64 keys)
+  static constexpr int kTile = kBK * D;    // floats of one half of a Q, K or V^T tile
+  static constexpr int kPer = kBK * kCh / kProducersF32;  // chunks of a tile a thread moves
+  static constexpr int kMaxStages = D == 80 ? 1 : 2;      // what 227 KB hold beside two Q tiles
+  // bytes: groups x Q (big, small), stages x (K big, small, V^T big, small),
+  // four barriers a stage
+  static constexpr int smem(int groups, int stages) {
+    return (2 * groups + 4 * stages) * kTile * 4 + 4 * stages * 8;
+  }
+};
+
+// the float offset of chunk c of row r in a K-major tile of ch chunks a row
+__device__ __forceinline__ int f32_chunk(int r, int c, int ch) {
+  return ((r >> 3) * ch + c) * 32 + (r & 7) * 4;
+}
+
+// element e (0..3, run time) of v
+__device__ __forceinline__ float f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// a chunk split into its TF32 halves, stored at off of big and small
+__device__ __forceinline__ void store_split4(float* big, float* small, int off, float4 v) {
+  uint4 b, s;
+  cor::split_tf32(v.x, b.x, s.x);
+  cor::split_tf32(v.y, b.y, s.y);
+  cor::split_tf32(v.z, b.z, s.z);
+  cor::split_tf32(v.w, b.w, s.w);
+  *reinterpret_cast<uint4*>(big + off) = b;
+  *reinterpret_cast<uint4*>(small + off) = s;
+}
+
+// Chunk f of a 64-row tile (thread p's u-th: f = p + 128 u): its row and
+// 16-byte column. Eight consecutive threads take the eight rows of one core
+// matrix, so their 16-byte stores fill 128 contiguous bytes.
+template <int kCh>
+__device__ __forceinline__ void chunk_of(int f, int& row, int& c) {
+  const int rg = f / (8 * kCh), rem = f - rg * 8 * kCh;
+  c = rem >> 3;
+  row = rg * 8 + (rem & 7);
+}
+
+// Thread p (of 128) of a 64-row tile of src (row r at src + r * in_n, rows
+// from r0; rows >= N zeros): its kPer chunks into registers
+template <int D>
+__device__ __forceinline__ void fetch_tile(const float* src, int64_t in_n, int r0, int N, int p,
+                                           float4 (&r)[F32Tiles<D>::kPer]) {
+  using T = F32Tiles<D>;
+#pragma unroll
+  for (int u = 0; u < T::kPer; ++u) {
+    int row, c;
+    chunk_of<T::kCh>(p + kProducersF32 * u, row, c);
+    r[u] = r0 + row < N
+               ? __ldg(reinterpret_cast<const float4*>(src + (r0 + row) * in_n) + c)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// ... split into TF32 halves and stored as a [row][d] tile (big at dst,
+// small kTile floats on)
+template <int D>
+__device__ __forceinline__ void store_rows_split(float* dst, int p,
+                                                 const float4 (&r)[F32Tiles<D>::kPer]) {
+  using T = F32Tiles<D>;
+#pragma unroll
+  for (int u = 0; u < T::kPer; ++u) {
+    int row, c;
+    chunk_of<T::kCh>(p + kProducersF32 * u, row, c);
+    store_split4(dst, dst + T::kTile, f32_chunk(row, c, T::kCh), r[u]);
+  }
+}
+
+// ... or transposed, as V^T [d][key] with the keys within each 8 in the
+// order of P's register fragments (key 2t at position t, 2t + 1 at t + 4;
+// mma_tf32x3.cuh). Lane l stores element (i + l % 2 + 2 ((l / 16) % 2)) % 4
+// of its chunk at step i: the 32 lanes' stores then fall in 32 banks.
+template <int D>
+__device__ __forceinline__ void store_vt_split(float* dst, int p,
+                                               const float4 (&r)[F32Tiles<D>::kPer]) {
+  using T = F32Tiles<D>;
+  const int lane = p & 31;
+  const int shift = (lane & 1) + 2 * ((lane >> 4) & 1);
+#pragma unroll
+  for (int u = 0; u < T::kPer; ++u) {
+    int row, c;
+    chunk_of<T::kCh>(p + kProducersF32 * u, row, c);
+    const int pos = (row & ~7) + ((row & 7) >> 1) + 4 * (row & 1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = (i + shift) & 3;
+      const int d = 4 * c + e;
+      const int off = ((d >> 3) * T::kChV + (pos >> 2)) * 32 + (d & 7) * 4 + (pos & 3);
+      uint32_t big, small;
+      cor::split_tf32(f4_at(r[u], e), big, small);
+      dst[off] = __uint_as_float(big);
+      dst[T::kTile + off] = __uint_as_float(small);
+    }
+  }
+}
+
+// The fp32 case: q, k, v, out fp32, element (b, h, n, d) as above. A block
+// of blockDim.x = groups * 128 + kProducersF32 threads takes the groups * 64
+// query rows from blockIdx.x * groups * 64, with a ring of `stages` K and
+// V^T stages. kSolo (one key tile: N <= 64): a block of 128 threads and no
+// producer, whose warpgroup stages K and V itself beside Q; two such blocks
+// fit an SM's registers.
+template <int D, bool kSolo>
+__global__ void __launch_bounds__(kSolo ? 128 : kMaxGroups * 128 + kProducersF32, kSolo ? 2 : 1)
 seq_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ out, int N,
                          int64_t in_b, int64_t in_h, int64_t in_n, int64_t out_b, int64_t out_h,
-                         int64_t out_n, float scale_log2) {
-  static_assert(D % 8 == 0, "whole k-steps of 8");
-  constexpr int kLd = D + 4;  // 4 mod 8 words: conflict-free TF32 fragments
-  constexpr int kChunks = D / 4;  // 16-byte chunks of a row
-  __shared__ __align__(16) float sQK[kBK * kLd];  // the Q tile, then each K tile [key][d]
-  __shared__ __align__(16) float sV[kBK * kLd];   // [key][d]
+                         int64_t out_n, float scale_log2, int stages) {
+  using T = F32Tiles<D>;
+  constexpr bool solo = kSolo;
+  const int groups = solo ? 1 : (blockDim.x - kProducersF32) / 128;
+  const int consumers = groups * 128;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);    // groups x (big, small) [query][D]
+  float* sK = sQ + 2 * groups * T::kTile;        // stages x (big, small) [key][D]
+  float* sV = sK + 2 * stages * T::kTile;        // stages x (big, small) [d][key]
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(sV + 2 * stages * T::kTile);
+  uint64_t* k_empty = k_full + stages;
+  uint64_t* v_full = k_empty + stages;
+  uint64_t* v_empty = v_full + stages;
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * groups * 64;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int tiles = (N + kBK - 1) / kBK;
+  const int64_t head = blockIdx.z * in_b + blockIdx.y * in_h;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      wg::mbar_init(&k_full[s], kProducersF32);
+      wg::mbar_init(&v_full[s], kProducersF32);
+      wg::mbar_init(&k_empty[s], consumers);
+      wg::mbar_init(&v_empty[s], consumers);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (!solo && tid >= consumers) {
+    // The producer warpgroup: K and V tiles from device memory into
+    // registers (the next one's loads in flight while it waits for a stage),
+    // split once into TF32 halves and stored: K as [key][d], V transposed to
+    // [d][key] (the tf32 B operand of P.V must be K-major)
+    const int p = tid - consumers;
+    float4 kr[T::kPer], vr[T::kPer];
+    fetch_tile<D>(k + head, in_n, 0, N, p, kr);
+    for (int j = 0; j < tiles; ++j) {
+      const int s = stages == 1 ? 0 : j & 1;
+      const uint32_t ph = (stages == 1 ? j : j >> 1) & 1;
+      fetch_tile<D>(v + head, in_n, j * kBK, N, p, vr);
+      if (j >= stages) wg::mbar_wait(&k_empty[s], ph ^ 1);
+      store_rows_split<D>(sK + 2 * s * T::kTile, p, kr);
+      wg::fence_proxy_async();
+      wg::mbar_arrive(&k_full[s]);
+      if (j + 1 < tiles) fetch_tile<D>(k + head, in_n, (j + 1) * kBK, N, p, kr);
+      if (j >= stages) wg::mbar_wait(&v_empty[s], ph ^ 1);
+      store_vt_split<D>(sV + 2 * s * T::kTile, p, vr);
+      wg::fence_proxy_async();
+      wg::mbar_arrive(&v_full[s]);
+    }
+    return;
+  }
+
+  // consumer warpgroup cw: query rows q0 + 64 cw .. + 63
+  const int cw = tid >> 7;
+  const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int64_t head = b * in_b + h * in_h;
-  const float* qh = q + head;
-  const float* kh = k + head;
-  const float* vh = v + head;
-
-  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c4 = (i % kChunks) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < N) val = *reinterpret_cast<const float4*>(qh + (q0 + r) * in_n + c4);
-    *reinterpret_cast<float4*>(&sQK[r * kLd + c4]) = val;
+  float* qb = sQ + 2 * cw * T::kTile;
+  float4 vr[solo ? T::kPer : 1];  // kSolo: the V tile, in flight while Q and K are split
+  {
+    // Q, split once into its halves by the warpgroup that reads it (and,
+    // without a producer, the one K tile; V's is split while S runs)
+    float4 qr[T::kPer];
+    fetch_tile<D>(q + head, in_n, q0 + cw * 64, N, tid & 127, qr);
+    if constexpr (solo) {
+      float4 kr[T::kPer];
+      fetch_tile<D>(k + head, in_n, 0, N, tid, kr);
+      fetch_tile<D>(v + head, in_n, 0, N, tid, vr);
+      store_rows_split<D>(sK, tid, kr);
+    }
+    store_rows_split<D>(qb, tid & 127, qr);
+    wg::fence_proxy_async();
+    wg::group_sync(cw);
   }
-  __syncthreads();
-  const int wr = warp * 16;
-  cor::FragA qa[D / 8];
-#pragma unroll
-  for (int kc = 0; kc < D / 8; ++kc) qa[kc] = cor::load_a_tf32(sQK, kLd, wr, kc * 8, g, t);
-
+  const uint32_t qb_addr = wg::smem_u32(qb);
+  const uint32_t qs_addr = qb_addr + T::kTile * 4;
   float o[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 domain
+  float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
 
-  for (int k0 = 0; k0 < N; k0 += kBK) {
-    __syncthreads();  // the Q fragments, or the previous K/V tile, are consumed
-    for (int i = tid; i < kBK * kChunks; i += kThreads) {
-      const int r = i / kChunks;
-      const int c4 = (i % kChunks) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kv;
-      if (k0 + r < N) {
-        kv = *reinterpret_cast<const float4*>(kh + (k0 + r) * in_n + c4);
-        vv = *reinterpret_cast<const float4*>(vh + (k0 + r) * in_n + c4);
-      }
-      *reinterpret_cast<float4*>(&sQK[r * kLd + c4]) = kv;
-      *reinterpret_cast<float4*>(&sV[r * kLd + c4]) = vv;
+  for (int j = 0; j < tiles; ++j) {
+    const int s = stages == 1 ? 0 : j & 1;
+    const uint32_t ph = (stages == 1 ? j : j >> 1) & 1;
+    const uint32_t kb_addr = wg::smem_u32(sK + 2 * s * T::kTile);
+    const uint32_t ks_addr = kb_addr + T::kTile * 4;
+    const uint32_t vb_addr = wg::smem_u32(sV + 2 * s * T::kTile);
+    const uint32_t vs_addr = vb_addr + T::kTile * 4;
+    if (!solo) {
+      wg::mbar_wait(&k_full[s], ph);
+      wg::fence_proxy_async();
     }
-    __syncthreads();
-
-    float s[kBK / 8][4];
+    // S = Q K^T in 3xTF32: small.big + big.small, then big.big
+    float sc[kBK / 8][4];
+    wg::fence();
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int kc = 0; kc < D / 8; ++kc)
+      wg::mma_tf32_ss_n64(sc, wg::desc_k(qs_addr, T::kCh, kc), wg::desc_k(kb_addr, T::kCh, kc),
+                          kc > 0);
 #pragma unroll
-      for (int kc = 0; kc < D / 8; ++kc)
-        cor::mma_tf32x3(s[n], qa[kc], cor::load_b_tf32(sQK, kLd, n * 8, kc * 8, g, t));
+    for (int kc = 0; kc < D / 8; ++kc)
+      wg::mma_tf32_ss_n64(sc, wg::desc_k(qb_addr, T::kCh, kc), wg::desc_k(ks_addr, T::kCh, kc),
+                          1);
+#pragma unroll
+    for (int kc = 0; kc < D / 8; ++kc)
+      wg::mma_tf32_ss_n64(sc, wg::desc_k(qb_addr, T::kCh, kc), wg::desc_k(kb_addr, T::kCh, kc),
+                          1);
+    wg::commit();
+    if constexpr (solo) {
+      store_vt_split<D>(sV, tid, vr);
+      wg::fence_proxy_async();
     }
+    wg::wait<0>();
+    wg::fence_regs(sc);
+    if (!solo) wg::mbar_arrive(&k_empty[s]);
 
     float mt[2];
-    scale_mask_max(s, k0, N, t, scale_log2, mt);
+    scale_mask_max(sc, j * kBK, N, t, scale_log2, mt);
     cor::softmax_rescale(mt, m_run, l_run, o);
 
-    // O += P V, one k-step of 8 keys per accumulator tile of S, in the
-    // permuted key order (keys 2t, 2t + 1 of the tile)
+    // P = exp2(S - m) in fp32, split into TF32 A fragments of k-step n in the
+    // permuted key order: {c0, c2, c1, c3} of accumulator tile n
+    uint32_t pb[kBK / 8][4], ps[kBK / 8][4];
 #pragma unroll
     for (int n = 0; n < kBK / 8; ++n) {
-      const float p0 = exp2f(s[n][0] - m_run[0]);
-      const float p1 = exp2f(s[n][1] - m_run[0]);
-      const float p2 = exp2f(s[n][2] - m_run[1]);
-      const float p3 = exp2f(s[n][3] - m_run[1]);
+      const float p0 = exp2f(sc[n][0] - m_run[0]);
+      const float p1 = exp2f(sc[n][1] - m_run[0]);
+      const float p2 = exp2f(sc[n][2] - m_run[1]);
+      const float p3 = exp2f(sc[n][3] - m_run[1]);
       l_run[0] += p0 + p1;
       l_run[1] += p2 + p3;
-      const cor::FragA pa = cor::a_from_c_tf32(p0, p1, p2, p3);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        cor::mma_tf32x3(o[j], pa, cor::load_b_tf32_kn_paired(sV, kLd, n * 8, j * 8, g, t));
+      cor::split_tf32(p0, pb[n][0], ps[n][0]);
+      cor::split_tf32(p2, pb[n][1], ps[n][1]);
+      cor::split_tf32(p1, pb[n][2], ps[n][2]);
+      cor::split_tf32(p3, pb[n][3], ps[n][3]);
     }
+
+    // O += P V in 3xTF32, V^T's [d][key] tile the K-major B operand
+    if constexpr (solo) {
+      wg::group_sync(cw);  // every thread's V^T stores
+    } else {
+      wg::mbar_wait(&v_full[s], ph);
+      wg::fence_proxy_async();
+    }
+    wg::fence_regs(o);
+    wg::fence();
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+      wg::mma_tf32_rs<D>(o, ps[n], wg::desc_k(vb_addr, T::kChV, n), 1);
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+      wg::mma_tf32_rs<D>(o, pb[n], wg::desc_k(vs_addr, T::kChV, n), 1);
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+      wg::mma_tf32_rs<D>(o, pb[n], wg::desc_k(vb_addr, T::kChV, n), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(o);
+    if (!solo) wg::mbar_arrive(&v_empty[s]);
   }
 
   float inv[2];
   cor::softmax_inverse_sums(l_run, inv);
-  const int qa_row = q0 + wr + g;
+  const int qa_row = q0 + cw * 64 + warp * 16 + g;
   const int qb_row = qa_row + 8;
-  float* dst = out + b * out_b + h * out_h + 2 * t;
+  float* dst = out + blockIdx.z * out_b + blockIdx.y * out_h + 2 * t;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     if (qa_row < N)
@@ -381,23 +597,34 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
            int64_t out_n, int f32, void* stream) {
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32) {
-    const dim3 grid((N + kBQ - 1) / kBQ, H, B);
-    seq_attention_f32_kernel<D><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(out), N, in_b, in_h, in_n, out_b, out_h, out_n, scale_log2);
-    return cudaGetLastError();
-  }
   // two consumer warpgroups share each K/V tile, halving the tiles' traffic;
   // a sequence of one key tile (the text towers' 64) takes one, whose blocks
   // are shorter-lived
   const int groups = N > kBK ? kMaxGroups : 1;
+  const dim3 grid((N + 64 * groups - 1) / (64 * groups), H, B);
+  if (f32) {
+    using T = F32Tiles<D>;
+    // one key tile (the text towers' 64): one stage, and one warpgroup
+    // without a producer (two such blocks fit an SM's registers)
+    const int stages = N > kBK ? T::kMaxStages : 1;
+    const auto kernel = N > kBK ? seq_attention_f32_kernel<D, false>
+                                : seq_attention_f32_kernel<D, true>;
+    static int raised32[2][wg::kMaxDevices];
+    const cudaError_t err = wg::raise_shared_memory(
+        reinterpret_cast<const void*>(kernel),
+        N > kBK ? T::smem(kMaxGroups, T::kMaxStages) : T::smem(1, 1), raised32[N <= kBK]);
+    if (err != cudaSuccess) return err;
+    const int threads = N > kBK ? groups * 128 + kProducersF32 : 128;
+    kernel<<<grid, threads, T::smem(groups, stages), s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(out), N, in_b, in_h, in_n, out_b, out_h, out_n, scale_log2, stages);
+    return cudaGetLastError();
+  }
   const int smem = Tiles<D>::smem(groups);
   static int raised[wg::kMaxDevices];
   const cudaError_t err = wg::raise_shared_memory(
       reinterpret_cast<const void*>(seq_attention_kernel<D>), Tiles<D>::smem(2), raised);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + 64 * groups - 1) / (64 * groups), H, B);
   seq_attention_kernel<D><<<grid, groups * 128 + kProducers, smem, s>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), N, in_b, in_h, in_n, out_b,

@@ -14,7 +14,13 @@ differ by that one rounding of the sum.
 
 On the H100 the kernel is bound by bytes (one read of each input and one
 write, ~8 flops per element); it keeps each row in one warp's registers so
-that memory is touched once each way. See the source for the design.
+that memory is touched once each way, moves 16 bytes a lane per access
+(lanes own contiguous chunks of a row), keeps scale and bias in fp32 in
+shared memory for all the rows a persistent block takes, and has the next
+row's loads in flight while a row reduces.
+A row that is not whole 16-byte chunks, or an input that is not 16-byte
+aligned, takes the same kernel's scalar instantiation, counted as the same
+launch. See ``csrc/layernorm.cuh`` for the design.
 
 ``layer_norm`` and ``add_layer_norm`` take the plain version for a tensor
 on the CPU, and the kernel for a CUDA tensor: x (and y) in fp32 or bf16,
@@ -39,7 +45,7 @@ from cor_tpu_torch.ops.common import layer_norm as layer_norm_plain
 from cor_tpu_torch.ops.diff import needs_grad, with_plain_vjp
 from cor_tpu_torch.ops.kernels._build import check, count_launch, library
 
-MAX_COLS = 2048  # 64 values per lane of one warp, the kernel's largest case
+MAX_COLS = 2048  # the widest row: scale and bias in the kernel's shared memory
 _FLOAT = (torch.float32, torch.bfloat16)
 
 

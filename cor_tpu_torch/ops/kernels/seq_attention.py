@@ -17,9 +17,13 @@ plain PyTorch versions, through two entries.
 Logits and softmax in fp32; probabilities rounded to the compute dtype before
 the product with v; the scale is 1/sqrt(D) of the true D.
 
-On the H100 the kernel is bound by bytes and by the rate of small (64 x 64)
-matrix products; it reads q/k/v in place and keeps logits out of memory
-(tensor-core mma.sync, online softmax). See the source for the design.
+On the H100 both instantiations read q/k/v in place and keep the logits out
+of memory (online softmax over 64-key tiles) on Hopper's warpgroup products
+(``wgmma``), two consumer warpgroups of 64 query rows sharing each K/V tile
+that a producer stages: in bf16 (bound by moving the tiles from L2 to shared
+memory) through a cp.async ring; in fp32 (bound by operations, three TF32
+products per fp32 one) the producer splits each tile once into its TF32
+halves, V transposed, for the 3xTF32 products. See the source for the design.
 
 Each entry takes its plain version for a tensor on the CPU, and the kernel
 for a CUDA tensor. The kernel takes bf16 or fp32 (the compute dtype; every

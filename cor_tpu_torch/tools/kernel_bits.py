@@ -11,19 +11,22 @@ built and trained shapes once through the current library and once through
 the old one, on identical inputs, and exits non-zero unless every output is
 equal bit for bit. The entries whose sums now run in another order (K4/K4′,
 ``cor_seq_attention``, and K6b, ``cor_vit_attention_relpos_bwd``, both
-redesigned on wgmma) are not compared. ``--time`` times the redesigned
-kernels (K4/K4′, K6/K7 on wgmma, K6b in bf16 and fp32) through the old
-library and the current one in one process on the same inputs (old, new,
-new, old: CUDA-event medians of CUDA-graph replays), prints each shape's
-milliseconds and the largest difference of the two outputs relative to the
-old one's max (and for K6b in fp32 each library's largest error against
-float64), one JSON line per shape, and exits non-zero if a new kernel is
-slower than the old one at any shape; then the end-to-end callers through
-each library: the query encode of the SigLIP towers (K4's) at the serving
-buckets and the SAM image encode (K6's) at SAM-base batch 1 and 8 and
-sam_huge batch 1. ``--only`` keeps the cases whose label holds one of the
-comma-separated parts; ``--draws N`` reads K6b in fp32's errors against
-float64 on N draws of its inputs.
+redesigned on wgmma; K5 and K5′, ``cor_layer_norm`` and
+``cor_add_layer_norm``, whose lanes own contiguous chunks of a row since
+their redesign) are not compared. ``--time`` times the redesigned kernels
+(K4/K4′ in bf16 and fp32, K6/K7 on wgmma, K6b in bf16 and fp32, K5/K5′ in
+bf16 and fp32) through the old library and the current one in one process
+on the same inputs (old, new, new, old: CUDA-event medians of CUDA-graph
+replays), prints each shape's milliseconds and the largest difference of
+the two outputs relative to the old one's max (and for K6b in fp32 each
+library's largest error against float64), one JSON line per shape, and
+exits non-zero if a new kernel is slower than the old one at any shape; then
+the end-to-end callers through each library: the query encode of the SigLIP
+towers (K4's and K5's) in bf16 and fp32 at the serving buckets and the SAM
+image encode (K6's and K5's) at SAM-base batch 1 and 8 and sam_huge batch 1.
+``--only`` keeps the cases whose label holds one of the comma-separated
+parts; ``--draws N`` reads K6b in fp32's errors against float64 on N draws
+of its inputs.
 
 An old entry point whose declaration in OLD_CSRC_DIR takes no ``f32`` flag
 (the ABI before the kernel took fp32) is called with the flag dropped, and a
@@ -55,18 +58,19 @@ from cor_tpu_torch.ops.kernels import _build
 # the entries compared bit for bit (the kernels the main paths ran before the
 # decode schedules K1-dma, K1-stack and K1-grid came in: those have no older
 # version, and their own checks against K1 and their plain versions)
-_COMPARED = ("cor_layer_norm", "cor_vit_attention_relpos", "cor_vit_attention_relpos_windows",
+_COMPARED = ("cor_vit_attention_relpos", "cor_vit_attention_relpos_windows",
              "cor_twl_tokens_in", "cor_t2i_image_pass", "cor_twl_tokens_mid",
              "cor_twl_image_i2t", "cor_t2i_combine", "cor_decoder_tail")
 # the redesigned entries: timed (--time), not compared
-_TIMED = ("cor_seq_attention", "cor_vit_attention_relpos_bwd")
+_TIMED = ("cor_seq_attention", "cor_vit_attention_relpos_bwd", "cor_layer_norm",
+          "cor_add_layer_norm")
 _ENTRIES = _COMPARED + _TIMED
 # the parameters an older ABI may lack, by entry: (name, position in the
 # current signature, the only value the old entry computes, or None: dropped
-# whatever it holds); f32 is every entry's second-to-last argument but
-# cor_layer_norm's, n_tok follows n
+# whatever it holds); f32 is every entry's second-to-last argument but the
+# LayerNorms' (their dtype flags are always there), n_tok follows n
 _OPTIONAL = {name: [("f32", len(_build._SIGNATURES[name]) - 2, 0)] for name in _ENTRIES
-             if name != "cor_layer_norm"}
+             if name not in ("cor_layer_norm", "cor_add_layer_norm")}
 for _name, _pos in (("cor_twl_tokens_in", 9), ("cor_t2i_image_pass", 6),
                     ("cor_twl_tokens_mid", 10), ("cor_twl_image_i2t", 6), ("cor_t2i_combine", 5)):
     _OPTIONAL[_name].append(("n_tok", _pos, 6))
@@ -168,7 +172,6 @@ def cases(device, token_counts: bool = True):
     to 32 (an older library without ``n_tok`` computes 6 only)."""
     from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
     from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
-    from cor_tpu_torch.ops.kernels.layernorm import layer_norm
     from cor_tpu_torch.ops.kernels.i2t_attention import i2t_attention_fused
     from cor_tpu_torch.ops.kernels.t2i_flash import proj_q_t2i_flash, t2i_flash_kv
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
@@ -182,9 +185,6 @@ def cases(device, token_counts: bool = True):
     bf = torch.bfloat16
     rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa: E731
     out = []
-    x = (2 * rnd(9216, 768) + 0.5).to(bf)
-    s, b = (1 + 0.1 * rnd(768)).to(bf), (0.1 * rnd(768)).to(bf)
-    out.append(("K5 [9216, 768]", lambda: (layer_norm(x, s, b, 1e-6),)))
     for heads, D in ((12, 64), (16, 80)):
         for B, side in ((2, 64), (50, 14)):
             N = side * side
@@ -245,14 +245,18 @@ def cases(device, token_counts: bool = True):
 def timed_cases(device, draw: int = 0):
     """(label, make) of the redesigned kernels at the main paths' shapes;
     ``make()`` builds the case's inputs (random, from seeds that ``draw``
-    offsets) and returns its thunk. K4 at ViT-B's [16, 576] and [16, 64] (12 heads of 64), K4′
-    at SO400M's [16, 729] and [16, 64] (16 heads of 72) through both
-    entries; K6 at SAM-base's (12 heads of 64) and sam_huge's (16 of 80)
-    global [2, 4096] and windowed [50, 196] shapes, with and without the
-    rows' lse written, in bf16 and fp32 (whose kernel kept its design and
-    now writes the lse too); K7 at both encoders' padded grid [2, 70, 70];
-    K6b in bf16 and in fp32 at K6's four shapes, given the forward's out and
-    lse."""
+    offsets) and returns its thunk. K4 at ViT-B's [16, 576] and [16, 64]
+    (12 heads of 64), K4′ at SO400M's [16, 729] and [16, 64] (16 heads of
+    72) through both entries, in bf16 and fp32 (K4@fp32 through both entries
+    too); K5 and K5′ at the towers' [9216, 768], the SAM encoder's [32768,
+    768], its neck's [32768, 256], SO400M's [11664, 1152] and sam_huge's
+    [32768, 1280], in bf16 (bf16 weights) and fp32; K6 at SAM-base's (12
+    heads of 64) and sam_huge's (16 of 80) global [2, 4096] and windowed
+    [50, 196] shapes, with and without the rows' lse written, in bf16 and
+    fp32 (whose kernel kept its design and now writes the lse too); K7 at
+    both encoders' padded grid [2, 70, 70]; K6b in bf16 and in fp32 at K6's
+    four shapes, given the forward's out and lse."""
+    from cor_tpu_torch.ops.kernels.layernorm import add_layer_norm, layer_norm
     from cor_tpu_torch.ops.kernels.seq_attention import attention_seq, attention_seq_qkv
     from cor_tpu_torch.ops.kernels.vit_attention import (
         vit_attention_relpos,
@@ -268,22 +272,35 @@ def timed_cases(device, draw: int = 0):
         return (mul * torch.randn(*shape, generator=gen, device=device)).to(dtype)
 
     out = []
-    for heads, D, n in ((12, 64, 576), (12, 64, 64), (16, 72, 729), (16, 72, 64)):
-        C = heads * D
+    for dt, sfx in ((bf, ""), (torch.float32, "@fp32")):
+        for heads, D, n in ((12, 64, 576), (12, 64, 64), (16, 72, 729), (16, 72, 64)):
+            C = heads * D
 
-        def k4(heads=heads, n=n, C=C):
-            qkv = rnd(1, 16, n, 3 * C)
-            return lambda: (attention_seq_qkv(qkv, heads),)
+            def k4(heads=heads, n=n, C=C, dt=dt):
+                qkv = rnd(1, 16, n, 3 * C, dtype=dt)
+                return lambda: (attention_seq_qkv(qkv, heads),)
 
-        out.append((f"K4 d{D} [16, {n}, {3 * C}]", k4))
-        if D == 72:
-            def k4b(heads=heads, n=n, C=C, D=D):
-                q, k, v = (rnd(1, 16, n, 3 * C)[..., i * C:(i + 1) * C]
-                           .unflatten(-1, (heads, D)).transpose(1, 2).contiguous()
-                           for i in range(3))
-                return lambda: (attention_seq(q, k, v, heads),)
+            out.append((f"K4{sfx} d{D} [16, {n}, {3 * C}]", k4))
+            if D == 72 or sfx:
+                def k4b(heads=heads, n=n, C=C, D=D, dt=dt):
+                    q, k, v = (rnd(1, 16, n, 3 * C, dtype=dt)[..., i * C:(i + 1) * C]
+                               .unflatten(-1, (heads, D)).transpose(1, 2).contiguous()
+                               for i in range(3))
+                    return lambda: (attention_seq(q, k, v, heads),)
 
-            out.append((f"K4′ [B, H, N, D] d{D} [16, {heads}, {n}, {D}]", k4b))
+                out.append((f"K4′{sfx} [B, H, N, D] d{D} [16, {heads}, {n}, {D}]", k4b))
+    for dt, sfx in ((bf, ""), (torch.float32, "@fp32")):
+        for rows, C in ((9216, 768), (32768, 768), (32768, 256), (11664, 1152), (32768, 1280)):
+            def k5(rows=rows, C=C, dt=dt, add=False):
+                x = rnd(9, rows, C, dtype=dt, mul=2.0)
+                s, b = 1 + rnd(10, C, dtype=dt, mul=0.1), rnd(11, C, dtype=dt, mul=0.1)
+                if add:
+                    y = rnd(12, rows, C, dtype=dt)
+                    return lambda: (add_layer_norm(x, y, s, b, 1e-6),)
+                return lambda: (layer_norm(x, s, b, 1e-6),)
+
+            out.append((f"K5{sfx} [{rows}, {C}]", k5))
+            out.append((f"K5′{sfx} [{rows}, {C}]", functools.partial(k5, add=True)))
     for heads, D in ((12, 64), (16, 80)):
         C = heads * D
         for B, side in ((2, 64), (50, 14)):
@@ -330,7 +347,7 @@ def timed_cases(device, draw: int = 0):
     return out
 
 
-def _ms(run, windows: int = 7, iters: int = 10) -> float:
+def graph_ms(run, windows: int = 7, iters: int = 10) -> float:
     """The median device milliseconds per call over ``windows`` replays of a
     CUDA graph of ``iters`` calls (CUDA events), after a warm-up: the host's
     launch overhead, which sets a small kernel's eager time, stays out."""
@@ -370,27 +387,35 @@ def _device_us(run) -> dict:
 
 @torch.no_grad()
 def tower_cases(device):
-    """(label, thunk) of K4's end-to-end caller: the SigLIP towers' query
-    encode (an image and its text, bf16, random weights from a seed) of
-    ViT-B-16-SigLIP-384 (24 K4 launches) and ViT-SO400M-14-SigLIP-384 (54)
-    at the serving buckets 1, 4 and 16."""
+    """(label, make) of K4's and K5's end-to-end caller: the SigLIP towers'
+    query encode (an image and its text, random weights from a seed) of
+    ViT-B-16-SigLIP-384 (24 K4 and 50 K5 launches) and
+    ViT-SO400M-14-SigLIP-384 (54 and 110) at the serving buckets 1, 4 and 16,
+    in bf16 and in fp32 (``compute_dtype: float32``: K4@fp32, K5@fp32);
+    ``make()`` builds the model (once for its buckets) and inputs and returns
+    the thunk."""
     from cor_tpu_torch.models.siglip import SIGLIP_MODELS, SigLIP
 
-    gen = torch.Generator(device=device).manual_seed(2)
-    out = []
-    for name in ("ViT-B-16-SigLIP-384", "ViT-SO400M-14-SigLIP-384"):
-        cfg = SIGLIP_MODELS[name]
-        model = SigLIP(cfg).to(device)
-        for p in model.parameters():
+    @functools.lru_cache(maxsize=1)
+    def model(name, dt):
+        gen = torch.Generator(device=device).manual_seed(2)
+        m = SigLIP(SIGLIP_MODELS[name]).to(device)
+        for p in m.parameters():
             p.normal_(0.0, 0.02, generator=gen)
-        model = model.to(torch.bfloat16).eval()
-        for b in (1, 4, 16):
-            images = torch.rand(b, 384, 384, 3, generator=gen, device=device).to(torch.bfloat16)
-            tokens = torch.randint(0, cfg.text.vocab_size, (b, cfg.text.context_length),
-                                   generator=gen, device=device)
-            out.append((f"query encode {name} bucket {b}",
-                        lambda m=model, i=images, t=tokens: m(i, t)))
-    return out
+        return m.to(dt).eval()
+
+    def make(name, dt, b):
+        cfg, m = SIGLIP_MODELS[name], model(name, dt)
+        gen = torch.Generator(device=device).manual_seed(3 + b)
+        images = torch.rand(b, 384, 384, 3, generator=gen, device=device).to(dt)
+        tokens = torch.randint(0, cfg.text.vocab_size, (b, cfg.text.context_length),
+                               generator=gen, device=device)
+        return lambda: m(images, tokens)
+
+    return [(f"query encode {name}{sfx} bucket {b}", functools.partial(make, name, dt, b))
+            for dt, sfx in ((torch.bfloat16, ""), (torch.float32, " fp32"))
+            for name in ("ViT-B-16-SigLIP-384", "ViT-SO400M-14-SigLIP-384")
+            for b in (1, 4, 16)]
 
 
 @torch.no_grad()
@@ -443,7 +468,7 @@ def time_e2e(old, device, card: str, only=()) -> None:
     host at each call, which a graph cannot capture); one JSON line each."""
     import json
 
-    cases = [(label, lambda run=run: run, True) for label, run in tower_cases(device)]
+    cases = [(label, make, True) for label, make in tower_cases(device)]
     cases += [(label, make, False) for label, make in encode_cases(device)]
     for label, make, graph in cases:
         if only and not any(o in label for o in only):
@@ -455,7 +480,7 @@ def time_e2e(old, device, card: str, only=()) -> None:
             use_library(old if which == "old" else None)
             times[which].append(_eager_ms(run))
             if graph:
-                times[f"{which}_graph"].append(_ms(run, iters=3))
+                times[f"{which}_graph"].append(graph_ms(run, iters=3))
         use_library(None)
         print(json.dumps({"e2e": label, "old_ms": times["old"], "new_ms": times["new"],
                           "old_graph_ms": times["old_graph"], "new_graph_ms": times["new_graph"],
@@ -517,7 +542,7 @@ def time_redesigned(old, device, only=(), draws: int = 1) -> int:
         times = {"old": [], "new": []}
         for which in ("old", "new", "new", "old"):
             use_library(old if which == "old" else None)
-            times[which].append(_ms(run))
+            times[which].append(graph_ms(run))
         old_us = _device_us(run)
         use_library(None)
         t_old, t_new = min(times["old"]), min(times["new"])
