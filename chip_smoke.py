@@ -363,7 +363,9 @@ def phase_build():
     # memory and spill bytes
     names = ("layer_norm_kernel", "seq_attention_kernel", "seq_attention_f32_kernel",
              "twl_tokens_in_kernel", "t2i_image_kernel", "twl_tokens_mid_kernel",
-             "twl_image_i2t_kernel", "t2i_combine_kernel", "decoder_tail_kernel",
+             "twl_image_i2t_kernel", "twl_t2i_kernel", "twl_i2t_kernel",
+             "twl_tokens_in_cluster_kernel", "twl_tokens_mid_cluster_kernel",
+             "t2i_combine_kernel", "decoder_tail_kernel",
              "vit_attention_relpos_kernel", "vit_attention_relpos_f32_kernel",
              "vit_attention_bwd_dq_kernel", "vit_attention_bwd_dkv_kernel",
              "vit_attention_bwd_prep_kernel",
@@ -501,6 +503,21 @@ def abs_err(*pairs) -> float:
     return max((g.float() - w.float()).abs().max().item() for g, w in pairs)
 
 
+def k1_by_launch(label: str, args, kw) -> dict:
+    """K1's device milliseconds by launch and for the layer's four launches
+    together (``tools/kernel_bits.py`` ``k1_split``: CUDA-graph replays of
+    ``two_way_layer.layer_launches``, which counts no launch), printed with
+    the seconds the timing took."""
+    from cor_tpu_torch.tools.kernel_bits import k1_split
+
+    t0 = time.perf_counter()
+    split = k1_split(*args, **kw)
+    print(f"    K1 {label} by launch (device ms, graph replays): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f" [{time.perf_counter() - t0:.1f} s]", flush=True)
+    return split
+
+
 @torch.no_grad()
 def decoder_kernels(device):
     """K1 (layer 0 out of a 2,048-row int8 store, and a bf16 layer 1), K2 and
@@ -552,7 +569,8 @@ def decoder_kernels(device):
               f"bound {b[0]:.4f} ms ({b[1]})")
         if not err <= DECODE_REL:
             fail(f"two_way_layer kernel ({label}) disagrees with its plain version: {err}")
-        k1[label] = entry(abs_err((got_t, want_t), (got_k, want_k)), kt, pt, b, max_rel_err=err)
+        k1[label] = entry(abs_err((got_t, want_t), (got_k, want_k)), kt, pt, b, max_rel_err=err,
+                          device_split_ms=k1_by_launch(label, args, kw))
     # the served layer 0 is the row of the table; layer 1 rides along
     out["two_way_layer"] = dict(k1["layer 0, int8 store-indexed"],
                                 layer1=k1["layer 1, bf16"])
@@ -2479,7 +2497,8 @@ def decoder_kernels_fp32(device, gen):
         b = bound32(rows_bytes + nbytes(tokens, kpe, qpe, got_t, got_k) + nbytes(tokens) + w_bytes,
                     layer_flops)
         k1[label] = check32("K1 two_way_layer", f"{label} [{n}, {N}, {C}]", tol,
-                            [(got_t, want_t), (got_k, want_k)], kt, pt, b)
+                            [(got_t, want_t), (got_k, want_k)], kt, pt, b,
+                            device_split_ms=k1_by_launch(f"{label} fp32", args, kw))
     out["two_way_layer@fp32"] = dict(k1["layer 0, int8 store-indexed"],
                                      layer1=k1["layer 1, fp32"])
 

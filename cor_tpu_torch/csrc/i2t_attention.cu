@@ -1,5 +1,6 @@
-// Stage 4 of the two-way layer (two_way_layer.cu says what the layer's four
-// launches do and what bounds them), and cor_tpu's K8b: per (64-row tile,
+// cor_tpu's K8b, and the body of stage 4 of the two-way layer that K1-dma,
+// K1-stack and K1-grid run (K1's own is twl_i2t.cu; two_way_layer.cu says
+// what the layer's four launches do and what bounds them): per (64-row tile,
 // candidate), the image -> token softmax over the T tokens of each head, its
 // product with the tokens' values, the out-projection [128 -> 256] on the
 // tensor cores, the residual with the (re-read, dequantised) rows, LN4, and
@@ -54,17 +55,18 @@ int launch_i2t(const void* src, const int* idx, const float* scale, int S, int n
 
 }  // namespace
 
-// src/idx/scale/S as for cor_t2i_image_pass; q_img T [n][N][128]; k_i, v_i
-// T [n][n_tok][128]; wo T [256][128]; bo_ln4 fp32 [3][256]; keys_out T
-// [n][N][256]. Also K8b (ops/kernels/i2t_attention.py): bf16 or fp32 rows,
-// no idx, the tokens' keys and values from its caller.
+// src/idx/S as for cor_t2i_image_pass (src_int8 must be 0: K1's int8 store
+// takes cor_twl_i2t); q_img T [n][N][128]; k_i, v_i T [n][n_tok][128]; wo T
+// [256][128]; bo_ln4 fp32 [3][256]; keys_out T [n][N][256]. K8b
+// (ops/kernels/i2t_attention.py): bf16 or fp32 rows, no idx, the tokens'
+// keys and values from its caller.
 extern "C" int cor_twl_image_i2t(const void* src, int src_int8, const void* idx,
                                  const void* scale, int S, int n, int n_tok, int N,
                                  const void* q_img, const void* k_i, const void* v_i,
                                  const void* wo, const void* bo_ln4, float eps, float cross_scale,
                                  void* keys_out, int f32, void* stream) {
   if (n < 1 || n > 65535 || n_tok < 1 || n_tok > kMaxTok || N < kRows || N % kRows || S < 1 ||
-      (src_int8 && (!scale || !idx)))
+      src_int8)
     return cudaErrorInvalidValue;
   const int* ip = static_cast<const int*>(idx);
   const float* sp = static_cast<const float*>(scale);
@@ -74,6 +76,5 @@ extern "C" int cor_twl_image_i2t(const void* src, int src_int8, const void* idx,
     return launch(src, ip, sp, S, n, n_tok, N, q_img, k_i, v_i, wo, bl, eps, cross_scale,
                   keys_out, s);
   };
-  if (f32) return src_int8 ? go(launch_i2t<float, true>) : go(launch_i2t<float, false>);
-  return src_int8 ? go(launch_i2t<uint16_t, true>) : go(launch_i2t<uint16_t, false>);
+  return f32 ? go(launch_i2t<float, false>) : go(launch_i2t<uint16_t, false>);
 }

@@ -15,8 +15,9 @@
 // tiles of a candidate run in parallel, so the work is two launches:
 //
 //  1. cor_t2i_image_pass: one CTA of 4 warps per (64-row tile, candidate).
-//     The tile's rows are loaded once into shared memory (an int8 store row
-//     is gathered through idx and dequantised on the way), then projected on
+//     The tile's rows are loaded once into shared memory (a store row
+//     through idx; an int8 store is K1's alone, whose own pass, twl_t2i.cu,
+//     dequantises it), then projected on
 //     the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate) against
 //     the packed [k | v | q] weight, staged in 128 x 128 shared-memory
 //     blocks. k and v stay in shared memory; the i2t query q_img (+ its PE)
@@ -99,21 +100,20 @@ int launch_image(const void* src, const int* idx, const float* scale, int S, int
 }
 
 template <typename T>
-int image_pass(const void* src, int src_int8, const int* ip, const float* sp, int S, int n,
-               int nt, int N, const void* w, const float* bp, const void* kpe, const void* qpe,
-               const void* qt, void* q_img, float* pm, float* pl, float* pa, cudaStream_t s) {
+int image_pass(const void* src, const int* ip, const float* sp, int S, int n, int nt, int N,
+               const void* w, const float* bp, const void* kpe, const void* qpe, const void* qt,
+               void* q_img, float* pm, float* pl, float* pa, cudaStream_t s) {
   auto go = [&](auto launch) {
     return launch(src, ip, sp, S, n, nt, N, w, bp, kpe, qpe, qt, q_img, pm, pl, pa, s);
   };
-  if (src_int8)
-    return qpe ? go(launch_image<T, true, true>) : go(launch_image<T, true, false>);
   return qpe ? go(launch_image<T, false, true>) : go(launch_image<T, false, false>);
 }
 
 }  // namespace
 
 // The image pass. Compute dtype T: bf16 (f32 = 0) or fp32 (f32 = 1). src: T
-// rows [S][N][256], or an int8 store with fp32 scale [S]; idx: int32 [n]
+// rows [S][N][256] (src_int8 must be 0: K1's int8 store takes cor_twl_t2i);
+// idx: int32 [n]
 // store rows, or null (candidate b reads src[b]); n_tok: the tokens T, 1 to
 // 32; w: T [2 or 3][128][256] (k | v | q projections, [out, in]); b: fp32 [2
 // or 3][128]; kpe, qpe: T [N][128]; qt: T [n][n_tok][128], scaled; q_img: T
@@ -125,8 +125,7 @@ extern "C" int cor_t2i_image_pass(const void* src, int src_int8, const void* idx
                                   const void* qt, void* q_img, void* part_m, void* part_l,
                                   void* part_acc, int f32, void* stream) {
   if (n < 1 || n > 65535 || n_tok < 1 || n_tok > kMaxTok || N < kRows || N % kRows || S < 1 ||
-      (src_int8 && !scale) ||
-      (src_int8 && !idx) || (qpe != nullptr) != (q_img != nullptr))
+      src_int8 || (qpe != nullptr) != (q_img != nullptr))
     return cudaErrorInvalidValue;
   const int* ip = static_cast<const int*>(idx);
   const float* sp = static_cast<const float*>(scale);
@@ -135,10 +134,10 @@ extern "C" int cor_t2i_image_pass(const void* src, int src_int8, const void* idx
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f32 ? image_pass<float>(src, src_int8, ip, sp, S, n, n_tok, N, w, bp, kpe, qpe, qt,
-                                 q_img, pm, pl, pa, s)
-             : image_pass<uint16_t>(src, src_int8, ip, sp, S, n, n_tok, N, w, bp, kpe, qpe, qt,
-                                    q_img, pm, pl, pa, s);
+  return f32 ? image_pass<float>(src, ip, sp, S, n, n_tok, N, w, bp, kpe, qpe, qt, q_img, pm,
+                                 pl, pa, s)
+             : image_pass<uint16_t>(src, ip, sp, S, n, n_tok, N, w, bp, kpe, qpe, qt, q_img, pm,
+                                    pl, pa, s);
 }
 
 // The combine of the final attention and of K8a: out T [n][n_tok][128] (f32

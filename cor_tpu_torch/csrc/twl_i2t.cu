@@ -1,0 +1,531 @@
+// K1's image -> token pass (stage 4 of the two-way layer, two_way_layer.cu),
+// redesigned for Hopper: the entry cor_twl_i2t, K1's own. It computes what
+// cor_twl_image_i2t (i2t_attention.cu) computes for K1: per row and head the
+// softmax over the T tokens' keys of the scaled query q_img, its product with
+// the tokens' values, the out-projection [128 -> 256], + bias + the rows
+// (re-read, an int8 store row dequantised), LN4, the new rows.
+//
+// Replaces, with the three other launches of the layer, the TPU kernel
+// cor_tpu/ops/pallas/two_way_layer.py:two_way_layer_fused (its pallas_calls
+// at lines 978, 998 and 1012). K8b and the opt-in schedules keep the shared
+// stage-4 body of i2t_attention.cuh.
+//
+// What held the shared pass back on the H100 (measured by launch, PERF.md):
+// one CTA of 4 warps per 64-row tile staged the whole out-projection weight
+// (256 x 128, 64 KiB in bf16) into shared memory for every tile, with
+// nothing overlapping it, its per-(row, head) softmax read the tokens' keys
+// and values with 4-way bank conflicts, and its epilogue read the rows and
+// wrote the new rows 4 bytes a thread, 8 rows an instruction. Here:
+//
+//  - a persistent grid, one CTA an SM, walks work items of two consecutive
+//    64-row tiles of a candidate, one per consumer warpgroup. The weight
+//    streams through a ring of shared-memory blocks of 256 outputs x kKB
+//    inputs in wgmma's K-major core-matrix layout, handed over by full and
+//    empty mbarriers, every block serving both tiles: in bf16 four blocks,
+//    the whole weight, each moved by one TMA bulk copy out of the weight
+//    laid out block by block (the wrapper's pack); in fp32 two producer
+//    warps load each block a block ahead and split it once into its TF32
+//    halves. A third producer warp copies each group's next q_img tile in
+//    once the group's attention has read the last one, and in bf16 its
+//    next rows tile once its new rows are out, so both loads run under the
+//    products and the epilogue of the tile before;
+//  - the producer warpgroup hands registers to the consumers (setmaxnreg:
+//    bf16 40 and 232 a thread, fp32 128 and 184): the epilogue holds 128
+//    accumulators and spilled at the launch's 168;
+//  - thread (row, head) runs the shared body's softmax and product with the
+//    values in its order (so bf16 keeps the bits); a warp's 32 threads take
+//    32 rows of one head, so the tokens' keys and values are broadcast reads
+//    and the query rows 16-byte reads of a padded tile; the attention output
+//    goes to shared memory in the layout the product reads: bf16
+//    core-matrix [64][128], fp32 [64][132];
+//  - the out-projection is wgmma m64n256: bf16 with both operands in shared
+//    memory, the same products in the same k order as the shared body's
+//    mma.sync (its bits); fp32 in 3xTF32 with the attention output's
+//    fragments split as they are loaded, the A operand from registers. Its
+//    accumulators have mma.sync's layout, so the residual, LN4 and the
+//    stores are the shared body's epilogue; in bf16 the residual comes from
+//    the staged rows and the new rows go back through the same tile, then
+//    out 16 bytes a thread, whole rows a warp (fp32, whose tiles would not
+//    fit beside its split weight blocks, reads and writes device memory).
+//
+// Shared memory: the ring (bf16 4 x 16 KiB, fp32 2 x 32 KiB), per consumer
+// warpgroup its q_img tile ([64][136] bf16, [64][132] fp32), in bf16 its
+// rows tile ([64][264]; an int8 tile [64][272 B] under it), its attention
+// output (bf16 16 KiB, fp32 33,792 B) and the candidate's token keys and
+// values [8][128] fp32, and the bias and LN4 vectors: 220,288 B in bf16,
+// 220,256 in fp32.
+//
+// What bounds it: per candidate 1 MiB of q_img and 2 MiB of bf16 rows read
+// (0.5 MiB as int8) and 2 MiB of new rows written, 0.27 GFLOP of
+// out-projection (3x in fp32's 3xTF32: operations there) and 8 x 4096 x 2 x
+// 16 T MACs of the softmax on the CUDA cores.
+
+#include "decoder_common.cuh"
+#include "tf32_tiles.cuh"
+#include "wgmma.cuh"
+#include "twl_hopper.cuh"
+
+namespace {
+
+using namespace cor;
+
+constexpr int kMaxT = 8;   // K1's tokens: 5 to 8 (the entry takes 1 to 8)
+constexpr int kGroups = 2;  // consumer warpgroups, one 64-row tile each
+// the producer warpgroup: in bf16 one thread of warp 0 streams the weight by
+// TMA bulk copies, in fp32 warps 0-1 split it; warp 2 loads the tiles
+constexpr int kProd = 128;
+constexpr int kWThreads = 64;
+
+template <typename T>
+struct I2tL;
+template <>
+struct I2tL<uint16_t> {
+  static constexpr int kKB = 32, kStages = 4;
+  // registers a thread, handed from the producer to the consumers (the
+  // epilogue holds 128 accumulators; 168 each spilled)
+  static constexpr int kProdRegs = 40, kConsRegs = 232;
+  static constexpr int kAV = kRows * kI * 2;  // core-matrix [64][128]
+  static constexpr int kLdQ = kI + 8;          // q_img's tile [64][136]
+  static constexpr int kLdO = kC + 8;          // the rows' and new rows' tile [64][264]
+  static constexpr bool kStageRows = true;
+};
+template <>
+struct I2tL<float> {
+  static constexpr int kKB = 16, kStages = 2;
+  // the producer splits the weight: at 104 it spilled and the pass lost
+  // more than the consumers' spills at 168 had cost; at 128 neither spills
+  static constexpr int kProdRegs = 128, kConsRegs = 184;
+  static constexpr int kAV = kRows * (kI + 4) * 4;  // [64][132]
+  static constexpr int kLdQ = kI + 4;
+  static constexpr int kLdO = 0;
+  static constexpr bool kStageRows = false;  // read and written in device memory
+};
+constexpr int kLdRaw = kC + 16;  // an int8 row tile's stride in bytes, staged for bf16
+
+// A block of 384 threads starts with 168 registers a thread (65,536 / 384,
+// rounded down to 8); what the consumers take on must be what the producer
+// gave up, or their setmaxnreg.inc waits for ever
+constexpr int kLaunchRegs = 168;
+template <typename L>
+constexpr bool regs_balance() {
+  return (kLaunchRegs - L::kProdRegs) * 128 >= (L::kConsRegs - kLaunchRegs) * kGroups * 128;
+}
+static_assert(regs_balance<I2tL<uint16_t>>() && regs_balance<I2tL<float>>(),
+              "the consumers take more registers than the producer gives up");
+
+template <typename T>
+struct I2tSmem {
+  using L = I2tL<T>;
+  // a weight block: [256][kKB] of bf16, or the two TF32 halves of one of fp32
+  static constexpr int kStageBytes = kC * L::kKB * (sizeof(T) == 2 ? 2 : 8);
+  static constexpr int kBlocks = kI / L::kKB;
+  static constexpr int kQ = kRows * L::kLdQ * sizeof(T);
+  static constexpr int kO = kRows * L::kLdO * sizeof(T);
+  static constexpr int kGroupBytes = kQ + kO + L::kAV + 2 * kMaxT * kI * 4;
+  static constexpr int kBytes = L::kStages * kStageBytes + kGroups * kGroupBytes + 3 * kC * 4 +
+                                (2 * L::kStages + 4 * kGroups) * 8;
+};
+
+// fp32: the producer's chunks of weight block kb (inputs kb * kKB ..) of wo
+// [kC][kI], loaded into registers (fetch_wo_block, a block ahead), then split
+// into their TF32 halves and stored into a ring stage (big, then small).
+constexpr int kChF32 = I2tL<float>::kKB / 4;
+constexpr int kPerF32 = kC * kChF32 / kWThreads;
+__device__ __forceinline__ void fetch_wo_block(const float* wo, int kb, int lane,
+                                               float4 (&r)[kPerF32]) {
+  const float* src = wo + kb * I2tL<float>::kKB;
+#pragma unroll
+  for (int u = 0; u < kPerF32; ++u) {
+    int o, ch;
+    tf32::chunk_of<kChF32>(lane + kWThreads * u, o, ch);
+    r[u] = __ldg(reinterpret_cast<const float4*>(src + o * kI) + ch);
+  }
+}
+__device__ __forceinline__ void place_wo_block(unsigned char* stage, int lane,
+                                               const float4 (&r)[kPerF32]) {
+  float* dst = reinterpret_cast<float*>(stage);
+#pragma unroll
+  for (int u = 0; u < kPerF32; ++u) {
+    int o, ch;
+    tf32::chunk_of<kChF32>(lane + kWThreads * u, o, ch);
+    tf32::store_split4(dst, dst + kC * I2tL<float>::kKB, tf32::chunk_offset(o, ch, kChF32),
+                       r[u]);
+  }
+}
+
+// One warp starts copying `rows` rows of `bytes` bytes each (a multiple of
+// 16), src rows contiguous, into dst with a row stride of ld bytes.
+__device__ __forceinline__ void copy_rows(unsigned char* dst, int ld, const void* src,
+                                          int rows, int bytes, int lane) {
+  const int ch = bytes / 16;
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+#pragma unroll 8
+  for (int f = lane; f < rows * ch; f += 32) {
+    const int r = f / ch, c = f % ch;
+    wg::cp16(dst + r * ld + c * 16, s + static_cast<int64_t>(r) * bytes + c * 16, 16u);
+  }
+}
+
+template <typename T, bool kInt8>
+__global__ void __launch_bounds__(kGroups * 128 + kProd, 1)
+twl_i2t_kernel(const void* __restrict__ src, const int* __restrict__ idx,
+               const float* __restrict__ scale, int S, int n, int N,
+               const T* __restrict__ q_img, const T* __restrict__ k_i,
+               const T* __restrict__ v_i, int nt, const T* __restrict__ wo,
+               const T* __restrict__ wo_blocks, const float* __restrict__ bo_ln, float eps,
+               float cross_scale,
+               T* __restrict__ out) {
+  using L = I2tL<T>;
+  using M = I2tSmem<T>;
+  using E = Elem<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem;
+  unsigned char* groups = smem + L::kStages * M::kStageBytes;
+  float* sBo = reinterpret_cast<float*>(groups + kGroups * M::kGroupBytes);  // bo, ln4 s, b
+  uint64_t* full = reinterpret_cast<uint64_t*>(sBo + 3 * kC);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* q_full = empty + L::kStages;  // [kGroups]: a group's q_img tile has landed
+  uint64_t* q_empty = q_full + kGroups;   // its attention has read it
+  uint64_t* rows_full = q_empty + kGroups;  // its rows tile has landed (bf16)
+  uint64_t* rows_empty = rows_full + kGroups;  // its new rows are out of it
+
+  const int tiles = N / kRows;
+  const int per_cand = (tiles + kGroups - 1) / kGroups;
+  const int items = n * per_cand;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      wg::mbar_init(&full[s], sizeof(T) == 2 ? 1 : 2 * kWThreads);
+      wg::mbar_init(&empty[s], kGroups * 128);
+    }
+    for (int gi = 0; gi < kGroups; ++gi) {
+      wg::mbar_init(&q_full[gi], 2 * 32);
+      wg::mbar_init(&q_empty[gi], 128);
+      wg::mbar_init(&rows_full[gi], 2 * 32);
+      wg::mbar_init(&rows_empty[gi], 128);
+    }
+    wg::mbar_init_fence();
+  }
+  for (int i = tid; i < 3 * kC; i += blockDim.x) sBo[i] = bo_ln[i];
+  __syncthreads();
+
+  if (tid >= kGroups * 128) {
+    if constexpr (L::kProdRegs != kLaunchRegs) wg::regs_dec<L::kProdRegs>();
+    const int p = tid - kGroups * 128, lane = tid & 31;
+    if (p < kWThreads) {
+      // the weight ring, kBlocks blocks an item
+      const int total = (items - blockIdx.x + gridDim.x - 1) / gridDim.x * M::kBlocks;
+      if constexpr (sizeof(T) == 2) {
+        // one bulk copy a block, from the weight laid out block by block as
+        // the ring holds it (wo_blocks)
+        if (p == 0) {
+          for (int j = 0; j < total; ++j) {
+            const int s = j % L::kStages;
+            if (j >= L::kStages) wg::mbar_wait(&empty[s], (j / L::kStages - 1) & 1);
+            wg::mbar_expect_tx(&full[s], M::kStageBytes);
+            wg::bulk_copy(ring + s * M::kStageBytes,
+                          wo_blocks + (j % M::kBlocks) * (M::kStageBytes / 2), M::kStageBytes,
+                          &full[s]);
+          }
+        }
+      } else {
+        float4 r[kPerF32];
+        fetch_wo_block(wo, 0, p, r);
+        for (int j = 0; j < total; ++j) {
+          const int s = j % L::kStages;
+          if (j >= L::kStages) wg::mbar_wait(&empty[s], (j / L::kStages - 1) & 1);
+          place_wo_block(ring + s * M::kStageBytes, p, r);
+          if (j + 1 < total) fetch_wo_block(wo, (j + 1) % M::kBlocks, p, r);
+          wg::mbar_arrive_copies(&full[s]);
+          wg::mbar_arrive(&full[s]);
+        }
+      }
+    } else if (p < kWThreads + 32) {
+      // the tiles: each group's q_img rows once its attention has read the
+      // last ones, and (bf16) its rows once its new rows are out
+      int it = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+        const int cand = item / per_cand;
+        for (int gi = 0; gi < kGroups; ++gi) {
+          const int tile = (item % per_cand) * kGroups + gi;
+          if (it > 0) wg::mbar_wait(&q_empty[gi], (it - 1) & 1);
+          if (tile < tiles)
+            copy_rows(groups + gi * M::kGroupBytes, L::kLdQ * sizeof(T),
+                      q_img + (static_cast<int64_t>(cand) * N + tile * kRows) * kI, kRows,
+                      kI * sizeof(T), lane);
+          wg::mbar_arrive_copies(&q_full[gi]);
+          wg::mbar_arrive(&q_full[gi]);
+        }
+        if constexpr (L::kStageRows) {
+          const int row = source_row(idx, cand, S);
+          for (int gi = 0; gi < kGroups; ++gi) {
+            const int tile = (item % per_cand) * kGroups + gi;
+            if (it > 0) wg::mbar_wait(&rows_empty[gi], (it - 1) & 1);
+            if (tile < tiles)
+              copy_rows(groups + gi * M::kGroupBytes + M::kQ,
+                        kInt8 ? kLdRaw : L::kLdO * int(sizeof(T)),
+                        row_tile<kInt8, T>(src, row, N, tile * kRows), kRows,
+                        kInt8 ? kC : kC * int(sizeof(T)), lane);
+            wg::mbar_arrive_copies(&rows_full[gi]);
+            wg::mbar_arrive(&rows_full[gi]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  if constexpr (L::kConsRegs != kLaunchRegs) wg::regs_inc<L::kConsRegs>();
+  const int cw = tid >> 7, tg = tid & 127, warp = tg >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* mine = groups + cw * M::kGroupBytes;
+  const T* sQ = reinterpret_cast<const T*>(mine);
+  unsigned char* sO = mine + M::kQ;  // bf16: the rows (raw int8 or T), then the new rows
+  T* sAV = reinterpret_cast<T*>(mine + M::kQ + M::kO);
+  float* sKi = reinterpret_cast<float*>(mine + M::kQ + M::kO + L::kAV);
+  float* sVi = sKi + kMaxT * kI;
+  const uint32_t av_addr = wg::smem_u32(sAV);
+  const uint32_t ring_addr = wg::smem_u32(ring);
+  int j = 0, it = 0, cur = -1;
+
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+    const int cand = item / per_cand;
+    const int tile = (item % per_cand) * kGroups + cw;
+    const bool valid = tile < tiles;
+    const int r0 = tile * kRows;
+    const int row = source_row(idx, cand, S);
+    const float sc = kInt8 ? scale[row] : 1.f;
+    wg::mbar_wait(&q_full[cw], it & 1);
+    if (valid) {
+      if (cand != cur) {  // the candidate's token keys and values
+        for (int i = tg; i < nt * kI; i += 128) {
+          sKi[i] = E::get(k_i[static_cast<int64_t>(cand) * nt * kI + i]);
+          sVi[i] = E::get(v_i[static_cast<int64_t>(cand) * nt * kI + i]);
+        }
+        cur = cand;
+        wg::group_sync(cw);
+      }
+      // per (row r, head h): the softmax over the nt tokens and its product
+      // with the values, in the shared body's order (i2t_attention.cuh)
+      const int r = tg & 63;
+#pragma unroll 1
+      for (int h = tg >> 6; h < kHeads; h += 2) {
+        float q[kCrossD];
+        wg::load16(sQ + r * L::kLdQ + h * kCrossD, q);
+#pragma unroll
+        for (int i = 0; i < kCrossD; ++i) q[i] = E::round(q[i] * cross_scale);
+        float l[kMaxT], m = -INFINITY;
+#pragma unroll
+        for (int tt = 0; tt < kMaxT; ++tt) {
+          if (tt >= nt) break;
+          float s = 0.f;
+#pragma unroll
+          for (int d = 0; d < kCrossD; ++d) s += q[d] * sKi[tt * kI + h * kCrossD + d];
+          l[tt] = s;
+          m = fmaxf(m, s);
+        }
+        float sum = 0.f;
+#pragma unroll
+        for (int tt = 0; tt < kMaxT; ++tt) {
+          if (tt >= nt) break;
+          l[tt] = expf(l[tt] - m);
+          sum += l[tt];
+        }
+        float a[kCrossD];
+#pragma unroll
+        for (int d = 0; d < kCrossD; ++d) a[d] = 0.f;
+#pragma unroll
+        for (int tt = 0; tt < kMaxT; ++tt) {
+          if (tt >= nt) break;
+          const float p = E::round(l[tt] / sum);
+          const float* v = sVi + tt * kI + h * kCrossD;
+#pragma unroll
+          for (int d = 0; d < kCrossD; ++d) a[d] += p * v[d];
+        }
+        if constexpr (sizeof(T) == 2) {
+          // chunks 2h and 2h + 1 of row r in the core-matrix layout
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            *reinterpret_cast<uint4*>(sAV + wg::cm_offset(r, h * kCrossD + 8 * c, kI / 8)) =
+                make_uint4(pack_bf16x2(a[8 * c], a[8 * c + 1]),
+                           pack_bf16x2(a[8 * c + 2], a[8 * c + 3]),
+                           pack_bf16x2(a[8 * c + 4], a[8 * c + 5]),
+                           pack_bf16x2(a[8 * c + 6], a[8 * c + 7]));
+        } else {
+#pragma unroll
+          for (int c = 0; c < kCrossD; c += 4)
+            *reinterpret_cast<float4*>(sAV + r * (kI + 4) + h * kCrossD + c) =
+                make_float4(a[c], a[c + 1], a[c + 2], a[c + 3]);
+        }
+      }
+    }
+    wg::mbar_arrive(&q_empty[cw]);
+    wg::group_sync(cw);  // the attention output complete
+    wg::fence_proxy_async();
+
+    // the out-projection [64 x kI] x [kI -> kC] over the ring's blocks
+    float acc[kC / 8][4];
+#pragma unroll
+    for (int q = 0; q < kC / 8; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
+    int prev = -1;
+#pragma unroll 1
+    for (int kb = 0; kb < M::kBlocks; ++kb, ++j) {
+      const int s = j % L::kStages;
+      wg::mbar_wait(&full[s], (j / L::kStages) & 1);
+      wg::fence_proxy_async();
+      const uint32_t stage = ring_addr + s * M::kStageBytes;
+      if constexpr (sizeof(T) == 2) {
+        wg::fence_regs(acc);
+        wg::fence();
+#pragma unroll
+        for (int kk = 0; kk < L::kKB / 16; ++kk)
+          wg::mma_ss_n256(acc, wg::desc_k(av_addr, kI / 8, kb * (L::kKB / 16) + kk),
+                          wg::desc_k(stage, L::kKB / 8, kk), 1);
+        wg::commit();
+        wg::wait<1>();
+        wg::fence_regs(acc);
+        if (prev >= 0) wg::mbar_arrive(&empty[prev]);
+        prev = s;
+      } else {
+        const float* av = reinterpret_cast<const float*>(sAV);
+        FragA a[L::kKB / 8];
+#pragma unroll
+        for (int kk = 0; kk < L::kKB / 8; ++kk)
+          a[kk] = load_a_tf32(av, kI + 4, warp * 16, kb * L::kKB + kk * 8, g, t);
+        constexpr uint32_t kHalf = kC * L::kKB * 4;
+        wg::fence_regs(acc);
+        wg::fence();
+#pragma unroll
+        for (int kk = 0; kk < L::kKB / 8; ++kk) {
+          wg::mma_tf32_rs_n256(acc, a[kk].small, wg::desc_k(stage, L::kKB / 4, kk), 1);
+          wg::mma_tf32_rs_n256(acc, a[kk].big, wg::desc_k(stage + kHalf, L::kKB / 4, kk), 1);
+          wg::mma_tf32_rs_n256(acc, a[kk].big, wg::desc_k(stage, L::kKB / 4, kk), 1);
+        }
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_regs(acc);
+        wg::mbar_arrive(&empty[s]);
+      }
+    }
+    if constexpr (sizeof(T) == 2) {
+      wg::wait<0>();
+      wg::fence_regs(acc);
+      wg::mbar_arrive(&empty[prev]);
+    }
+
+    // + bias + the rows, LayerNorm over kC: the shared body's epilogue, the
+    // rows read from (and, bf16, the new rows written through) the staged
+    // tile
+    if constexpr (L::kStageRows) wg::mbar_wait(&rows_full[cw], it & 1);
+    if (valid) {
+      const void* rows_tile = L::kStageRows ? static_cast<const void*>(sO)
+                                            : row_tile<kInt8, T>(src, row, N, r0);
+      const int ldr = !L::kStageRows ? kC : (kInt8 ? kLdRaw : L::kLdO);
+      const int ra = warp * 16 + g, rb = ra + 8;
+      float sa = 0.f, sb = 0.f;
+#pragma unroll
+      for (int q = 0; q < kC / 8; ++q) {
+        const int col = q * 8 + 2 * t;
+        float x0, x1, x2, x3;
+        tile_pair<kInt8, T>(rows_tile, ldr, ra, col, sc, x0, x1);
+        tile_pair<kInt8, T>(rows_tile, ldr, rb, col, sc, x2, x3);
+        acc[q][0] += sBo[col] + x0;
+        acc[q][1] += sBo[col + 1] + x1;
+        acc[q][2] += sBo[col] + x2;
+        acc[q][3] += sBo[col + 1] + x3;
+        sa += acc[q][0] + acc[q][1];
+        sb += acc[q][2] + acc[q][3];
+      }
+      const float ma = quad_sum(sa) / kC, mb = quad_sum(sb) / kC;
+      float va = 0.f, vb = 0.f;
+#pragma unroll
+      for (int q = 0; q < kC / 8; ++q) {
+        va += (acc[q][0] - ma) * (acc[q][0] - ma) + (acc[q][1] - ma) * (acc[q][1] - ma);
+        vb += (acc[q][2] - mb) * (acc[q][2] - mb) + (acc[q][3] - mb) * (acc[q][3] - mb);
+      }
+      const float ia = rsqrtf(quad_sum(va) / kC + eps), ib = rsqrtf(quad_sum(vb) / kC + eps);
+      const float* s4 = sBo + kC;
+      const float* b4 = sBo + 2 * kC;
+      T* oa;
+      T* ob;
+      if constexpr (L::kStageRows) {
+        wg::group_sync(cw);  // every row read (an int8 tile lies under the new rows)
+        oa = reinterpret_cast<T*>(sO) + ra * L::kLdO;
+        ob = reinterpret_cast<T*>(sO) + rb * L::kLdO;
+      } else {
+        oa = out + (static_cast<int64_t>(cand) * N + r0 + ra) * kC;
+        ob = out + (static_cast<int64_t>(cand) * N + r0 + rb) * kC;
+      }
+#pragma unroll
+      for (int q = 0; q < kC / 8; ++q) {
+        const int col = q * 8 + 2 * t;
+        E::put2(oa + col, (acc[q][0] - ma) * ia * s4[col] + b4[col],
+                (acc[q][1] - ma) * ia * s4[col + 1] + b4[col + 1]);
+        E::put2(ob + col, (acc[q][2] - mb) * ib * s4[col] + b4[col],
+                (acc[q][3] - mb) * ib * s4[col + 1] + b4[col + 1]);
+      }
+      if constexpr (L::kStageRows) {
+        // the new rows, 16 bytes a thread and whole rows a warp
+        wg::group_sync(cw);
+        constexpr int kCh = kC * sizeof(T) / 16;
+        T* o = out + (static_cast<int64_t>(cand) * N + r0) * kC;
+#pragma unroll 4
+        for (int f = tg; f < kRows * kCh; f += 128) {
+          const int r = f / kCh, ch = f % kCh;
+          *reinterpret_cast<uint4*>(o + r * kC + ch * (16 / sizeof(T))) =
+              *reinterpret_cast<const uint4*>(reinterpret_cast<const T*>(sO) + r * L::kLdO +
+                                              ch * (16 / sizeof(T)));
+        }
+      }
+    }
+    if constexpr (L::kStageRows) wg::mbar_arrive(&rows_empty[cw]);
+    wg::group_sync(cw);  // the attention output free for the next item
+  }
+}
+
+template <typename T, bool kInt8>
+int launch(const void* src, const int* idx, const float* scale, int S, int n, int nt, int N,
+           const void* q_img, const void* k_i, const void* v_i, const void* wo, const void* wob,
+           const float* bo_ln, float eps, float cross_scale, void* out, cudaStream_t stream) {
+  static int raised[wg::kMaxDevices] = {};
+  auto kernel = twl_i2t_kernel<T, kInt8>;
+  const int bytes = I2tSmem<T>::kBytes;
+  cudaError_t err = wg::raise_shared_memory(reinterpret_cast<const void*>(kernel), bytes, raised);
+  if (err != cudaSuccess) return err;
+  const int items = n * ((N / kRows + kGroups - 1) / kGroups);
+  const int sms = wg::sm_count();
+  const int grid = items < sms ? items : sms;
+  kernel<<<grid, kGroups * 128 + kProd, bytes, stream>>>(
+      src, idx, scale, S, n, N, static_cast<const T*>(q_img), static_cast<const T*>(k_i),
+      static_cast<const T*>(v_i), nt, static_cast<const T*>(wo), static_cast<const T*>(wob),
+      bo_ln, eps, cross_scale,
+      static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K1's stage 4: cor_twl_image_i2t's arguments (i2t_attention.cu) with n_tok
+// 1 to 8, and wo_blocks: in bf16 wo laid out as the ring's blocks (4 of
+// [256][32] in the core-matrix layout; the wrapper's pack), unread in fp32.
+// The same output (in bf16 the same bits).
+extern "C" int cor_twl_i2t(const void* src, int src_int8, const void* idx, const void* scale,
+                           int S, int n, int n_tok, int N, const void* q_img, const void* k_i,
+                           const void* v_i, const void* wo, const void* wo_blocks,
+                           const void* bo_ln4, float eps, float cross_scale, void* keys_out,
+                           int f32, void* stream) {
+  if (n < 1 || n > 65535 || n_tok < 1 || n_tok > kMaxT || N < kRows || N % kRows || S < 1 ||
+      (src_int8 && (!scale || !idx)) || (!f32 && !wo_blocks))
+    return cudaErrorInvalidValue;
+  const int* ip = static_cast<const int*>(idx);
+  const float* sp = static_cast<const float*>(scale);
+  const float* bl = static_cast<const float*>(bo_ln4);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto fn) {
+    return fn(src, ip, sp, S, n, n_tok, N, q_img, k_i, v_i, wo, wo_blocks, bl, eps, cross_scale,
+              keys_out, s);
+  };
+  if (f32) return src_int8 ? go(launch<float, true>) : go(launch<float, false>);
+  return src_int8 ? go(launch<uint16_t, true>) : go(launch<uint16_t, false>);
+}

@@ -13,31 +13,36 @@
 // attention needs the tokens after the MLP. So the layer is four launches,
 // each hand-written:
 //
-//  1. cor_twl_tokens_in (here), one CTA of 8 warps per candidate: token
-//     self-attention (8 heads of 32; no PE and no residual on the first
-//     layer), LN1, and the t2i query, scaled after its bias and rounded;
-//  2. cor_t2i_image_pass (t2i_flash.cu), one CTA per (64-row tile,
-//     candidate): the rows (int8 dequantised inside), their packed [k|v|q]
-//     projection on the tensor cores, q_img written out, and the t2i flash
-//     partials of the tile;
-//  3. cor_twl_tokens_mid (two_way_layer_mid.cu), one CTA per candidate: the partials'
-//     combine, the t2i out-projection, LN2, the ReLU MLP (256 -> 2048 ->
-//     256), LN3, and the i2t keys and values of the T tokens;
-//  4. cor_twl_image_i2t (i2t_attention.cu), one CTA per (64-row tile,
-//     candidate): the
-//     i2t softmax over the T tokens of each head (exact per-head max), its
-//     product with the values, the out-projection [128 -> 256] on the
-//     tensor cores, the residual with the (re-read, dequantised) rows, LN4,
-//     and the new rows in bf16.
+//  1. cor_twl_tokens_in_cluster (twl_tokens_in.cu), a cluster of 4 CTAs per
+//     candidate while they all fit at once (else cor_twl_tokens_in, here,
+//     one CTA per candidate): token self-attention (8 heads of 32; no PE and no residual
+//     on the first layer), LN1, and the t2i query, scaled after its bias and
+//     rounded;
+//  2. cor_twl_t2i (twl_t2i.cu), a persistent CTA an SM over (candidate,
+//     row tiles) items: the rows (int8 dequantised inside), their packed
+//     [k|v|q] projection on wgmma, q_img written out, and the t2i flash
+//     partials of each 64-row tile;
+//  3. cor_twl_tokens_mid_cluster (twl_tokens_mid.cu), as stage 1 (else
+//     cor_twl_tokens_mid, two_way_layer_mid.cu): the partials' combine, the t2i out-projection, LN2, the
+//     ReLU MLP (256 -> 2048 -> 256), LN3, and the i2t keys and values of the
+//     T tokens;
+//  4. cor_twl_i2t (twl_i2t.cu), a persistent CTA an SM over (candidate,
+//     row tiles) items: the i2t softmax over the T tokens of each head
+//     (exact per-head max), its product with the values, the out-projection
+//     [128 -> 256] on wgmma, the residual with the (re-read, dequantised)
+//     rows, LN4, and the new rows in bf16.
 //
-// Each launch is a thin kernel around a __device__ body that takes its
-// work item (a candidate, or a tile of one) as arguments
-// (two_way_tokens.cuh, t2i_flash.cuh, i2t_attention.cuh): the opt-in
-// schedules run the same bodies, K1-dma's image passes over several tiles
-// per CTA (two_way_layer_dma.cu), K1-stack and K1-grid all of a
-// transformer's stages in one kernel (two_way_stack.cuh).
+// The four are K1's own, redesigned for Hopper (their sources say how);
+// they compute what the shared __device__ bodies compute, bit for bit: the
+// token stages of two_way_tokens.cuh, which this file's cor_twl_tokens_in
+// and two_way_layer_mid.cu's cor_twl_tokens_mid run one CTA per candidate
+// for K1-dma, and the image bodies of t2i_flash.cuh and i2t_attention.cuh,
+// which K1-dma runs over several tiles per CTA (two_way_layer_dma.cu),
+// K1-stack and K1-grid within one kernel for a transformer's stages
+// (two_way_stack.cuh), and K2, K8a and K8b one tile per CTA (t2i_flash.cu,
+// i2t_attention.cu).
 //
-// The token kernels are small (T tokens x ~1.4 M MACs per layer and
+// The token stages are small (T tokens x ~1.4 M MACs per layer and
 // candidate): each warp computes 4 whole output columns at a time (2 for the
 // MLP's 2048-wide input), its lanes walking the weight rows [out, in] with
 // 16-byte loads all issued up front, and reducing with shuffles; the
@@ -48,8 +53,7 @@
 // read the rows twice (2 x 2 MiB in bf16, 2 x 0.5 MiB as int8), write and
 // read q_img (2 x 1 MiB), write the new rows (2 MiB), and do about 1.1 GFLOP
 // on the tensor cores, at the ~295 flop/byte ridge of the card: bytes and
-// operations both count. Keeping q_img and the rows on chip between the two
-// passes, wgmma and TMA are later work.
+// operations both count.
 //
 // fp32 (compute_dtype float32): the four kernels are templated on the
 // element type T (decoder_common.cuh's Elem<T>); the weights, tokens,

@@ -98,6 +98,27 @@ _SIGNATURES = {
     ),
     # part_m, part_l, part_acc, tiles, n, n_tok, out, f32, stream
     "cor_t2i_combine": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, _VP, _I, _VP),
+    # K1's stages 1 and 3 over a cluster of CTAs a candidate: cor_twl_tokens_in's and
+    # cor_twl_tokens_mid's arguments
+    "cor_twl_tokens_in_cluster": (
+        _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, _I, _VP, _VP, _I, _VP,
+    ),
+    "cor_twl_tokens_mid_cluster": (
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_float, ctypes.c_int, _I,
+        _VP, _VP, _VP, _I, _VP,
+    ),
+    # K1's own image passes (redesigned for Hopper): cor_t2i_image_pass's and
+    # cor_twl_image_i2t's arguments, each with the weight laid out as its ring's
+    # blocks after the weight (w_blocks, wo_blocks)
+    "cor_twl_t2i": (
+        _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
+    ),
+    "cor_twl_i2t": (
+        _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int,
+        _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_float, ctypes.c_float, _VP, _I, _VP,
+    ),
     # K1-dma's image passes: cor_t2i_image_pass's and cor_twl_image_i2t's arguments
     "cor_twl_dma_image_t2i": (
         _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int,

@@ -54,11 +54,15 @@ MIN_TOKENS, MAX_TOKENS = 5, 32  # the tokens of a decode: 5 output tokens + the 
 
 def cached_pack(holder, attr: str, tensors, device, dtype, make):
     """``make()``, kept on ``holder`` as ``attr`` and made again only for
-    another device or compute dtype, or when one of ``tensors`` is another
-    tensor (the per-call copies of an eval under ``functional_call``):
-    serving weights are packed once, and a pack of one dtype never reaches
-    the kernel of the other."""
-    stamp = [id(t) for t in tensors]
+    another device or compute dtype, when one of ``tensors`` is another
+    tensor (the per-call copies of an eval under ``functional_call``), or
+    when one was written in place since (its ``_version``: an optimizer's
+    step, a checkpoint's ``copy_``): serving weights are packed once, a pack
+    of one dtype never reaches the kernel of the other, and a validation
+    after a training epoch runs that epoch's weights. A tensor made under
+    ``torch.inference_mode`` keeps no version (those per-call copies are
+    new tensors at every call)."""
+    stamp = [(id(t), 0 if t.is_inference() else t._version) for t in tensors]
     cache = getattr(holder, attr, None)
     if cache is None or cache[0] != (device, dtype) or cache[1] != stamp:
         # the tensors ride along so that their ids stay theirs while cached

@@ -30,12 +30,21 @@ shifts by the exact per-head max (the TPU kernel shifts by the per-head
 mean, the same function).
 
 On the card the layer is four launches (``two_way_layer.launches`` adds 4
-per call): a token kernel (stage 1 and the t2i query), the image pass of
-``t2i_flash.cu`` (stage 2's projections and per-tile flash partials), a
-token kernel (the partials' combine, the rest of stage 2, stage 3, the i2t
-keys and values), and an image kernel (stage 4). See the sources for what
-bounds each. The kernels take the SAM geometry only: C = 256, 8 heads,
-internal width 128, 5 to 8 tokens (the tokens at which ``cor_tpu`` runs its
+per call): a token kernel (``csrc/twl_tokens_in.cu``: stage 1 and the t2i
+query), K1's image pass ``csrc/twl_t2i.cu`` (stage 2's projections and
+per-tile flash partials), a token kernel (``csrc/twl_tokens_mid.cu``: the
+partials' combine, the rest of stage 2, stage 3, the i2t keys and values),
+and K1's image pass ``csrc/twl_i2t.cu`` (stage 4). All four are K1's own,
+redesigned for Hopper (the token stages over a cluster of 4 CTAs a
+candidate while they all fit on the card at once, else one CTA a candidate,
+the image passes persistent on wgmma, the weights streamed through
+shared-memory rings by TMA bulk copies in bf16), and compute what the
+shared bodies of K1-dma, K2, K8a and K8b compute, bit for bit; their
+bf16 weights go in the pack a second time, laid out as the rings' blocks
+(``ring_blocks``). ``layer_launches`` returns the four launches unrun, for
+timing them one by one. See the sources for what bounds each. The kernels
+take the SAM geometry only: C = 256, 8 heads, internal width 128, 5 to 8
+tokens (the tokens at which ``cor_tpu`` runs its
 layer kernel: the mask decoder's 5 output tokens and up to 3 prompt tokens;
 the TPU kernel pads them to 8, the token kernels here are compiled for each
 count), MLP 2048, N a multiple of 64, in the compute
@@ -159,10 +168,34 @@ def _pack(lp, device, dtype) -> dict:
                        lambda: _make_pack(lp, device, dtype))
 
 
+def ring_blocks(w: torch.Tensor, kb: int, order=None) -> torch.Tensor:
+    """A weight [out, in] (bf16) laid out as the ring blocks of K1's image
+    passes (csrc/twl_t2i.cu, twl_i2t.cu), each a contiguous TMA bulk copy:
+    for each group of 128 outputs (in ``order``, or all outputs as one
+    group), its blocks of ``kb`` inputs, each [outputs][kb] in wgmma's
+    core-matrix layout (element (o, k) at ((o / 8) * kb / 8 + k / 8) * 64 +
+    (o % 8) * 8 + k % 8)."""
+    out, inp = w.shape
+    groups = [w] if order is None else [w[c * INTERNAL:(c + 1) * INTERNAL] for c in order]
+    blocks = []
+    for g in groups:
+        o = g.shape[0]
+        for k0 in range(0, inp, kb):
+            blk = g[:, k0:k0 + kb].reshape(o // 8, 8, kb // 8, 8).permute(0, 2, 1, 3)
+            blocks.append(blk.reshape(-1))
+    return torch.cat(blocks).contiguous()
+
+
+T2I_CHUNK_ORDER = (2, 0, 1)  # q, k, v: the order of the t2i pass's chunks (csrc/twl_t2i.cu)
+
+
 def _make_pack(lp, device, dtype) -> dict:
     sa, t2i, i2t, mlp = lp.self_attn, lp.cross_attn_t2i, lp.cross_attn_i2t, lp.mlp
     mat = lambda *ts: torch.cat([t.detach().reshape(-1).to(device, dtype) for t in ts])  # noqa: E731
     f32 = lambda *ts: torch.cat([t.detach().reshape(-1).to(device, torch.float32) for t in ts])  # noqa: E731
+    w_img = mat(t2i.k_proj.w, t2i.v_proj.w, i2t.q_proj.w).reshape(3 * INTERNAL, C_DIM)
+    wo_i = mat(i2t.out_proj.w).reshape(C_DIM, INTERNAL)
+    bf16 = dtype == torch.bfloat16
     return {
         "wtok": mat(sa.q_proj.w, sa.k_proj.w, sa.v_proj.w, sa.out_proj.w, t2i.q_proj.w,
                    t2i.out_proj.w, mlp.lin1.w, mlp.lin2.w, i2t.k_proj.w, i2t.v_proj.w),
@@ -170,10 +203,14 @@ def _make_pack(lp, device, dtype) -> dict:
                     lp.norm1.scale, lp.norm1.bias, t2i.q_proj.b, t2i.out_proj.b,
                     lp.norm2.scale, lp.norm2.bias, mlp.lin1.b, mlp.lin2.b,
                     lp.norm3.scale, lp.norm3.bias, i2t.k_proj.b, i2t.v_proj.b),
-        "w_img": mat(t2i.k_proj.w, t2i.v_proj.w, i2t.q_proj.w).reshape(3 * INTERNAL, C_DIM),
+        "w_img": w_img,
         "b_img": f32(t2i.k_proj.b, t2i.v_proj.b, i2t.q_proj.b),
-        "wo_i": mat(i2t.out_proj.w).reshape(C_DIM, INTERNAL),
+        "wo_i": wo_i,
         "bo_ln4": f32(i2t.out_proj.b, lp.norm4.scale, lp.norm4.bias),
+        # bf16: the image passes' weights as their rings' blocks (fp32 splits
+        # the weights as it streams them)
+        "w_img_blocks": ring_blocks(w_img, 64, T2I_CHUNK_ORDER) if bf16 else None,
+        "wo_i_blocks": ring_blocks(wo_i, 32) if bf16 else None,
     }
 
 
@@ -251,6 +288,23 @@ def _layer(fn, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps, idx, scale
                                    idx, scale)
     if tokens.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {tokens.device}")
+    launches, outs, dt = layer_launches(fn, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe,
+                                        eps, idx, scale)
+    with torch.cuda.device(tokens.device):
+        for _, launch in launches:
+            launch()
+    count_launch(fn, dt, LAUNCHES)
+    return outs
+
+
+def layer_launches(fn, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps=1e-5, idx=None,
+                   scale=None):
+    """The card's launches of one layer of ``fn`` (two_way_layer or
+    two_way_layer_dma), checked, packed and allocated but not run: ([(name,
+    launch), ...] in order, (tokens', rows'), the compute dtype). Each
+    ``launch()`` runs one kernel on the current stream and raises if it was
+    refused; ``tools/kernel_bits.py`` times them one by one. Counts nothing."""
+    name = fn.__name__
     dt = _check_geometry(lp, tokens, qpe_tok, keys, kpe, qpe_img, idx, scale)
     refuse_grad(name, tokens, qpe_tok, keys, kpe, qpe_img, *lp.parameters())
     n, T = tokens.shape[0], tokens.shape[1]
@@ -276,31 +330,92 @@ def _layer(fn, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps, idx, scale
     is_f32 = int(dt == torch.float32)
     lib = library()
     dma = fn is two_way_layer_dma
-    image_t2i = lib.cor_twl_dma_image_t2i if dma else lib.cor_t2i_image_pass
-    image_i2t = lib.cor_twl_dma_image_i2t if dma else lib.cor_twl_image_i2t
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        check(lib.cor_twl_tokens_in(
+    image_t2i = lib.cor_twl_dma_image_t2i if dma else lib.cor_twl_t2i
+    image_i2t = lib.cor_twl_dma_image_i2t if dma else lib.cor_twl_i2t
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    tokens_in_entry = lib.cor_twl_tokens_in if dma else lib.cor_twl_tokens_in_cluster
+
+    def tokens_in():
+        check(tokens_in_entry(
             tokens.data_ptr(), qpe_tok.data_ptr(), pk["wtok"].data_ptr(), pk["btok"].data_ptr(),
             int(skip_pe), SELF_SCALE, CROSS_SCALE, eps, n, T,
-            x_mid.data_ptr(), qt.data_ptr(), is_f32, stream), f"{name} tokens_in")
+            x_mid.data_ptr(), qt.data_ptr(), is_f32, stream()), f"{name} tokens_in")
+
+    blocks = [] if dma else [0 if pk[k] is None else pk[k].data_ptr()
+                             for k in ("w_img_blocks", "wo_i_blocks")]
+
+    def t2i():
         check(image_t2i(
             keys.data_ptr(), int8, idx_p, scale_p, S, n, T, N,
-            pk["w_img"].data_ptr(), pk["b_img"].data_ptr(), kpe.data_ptr(), qpe_img.data_ptr(),
-            qt.data_ptr(), q_img.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), is_f32, stream),
+            pk["w_img"].data_ptr(), *blocks[:1], pk["b_img"].data_ptr(), kpe.data_ptr(),
+            qpe_img.data_ptr(), qt.data_ptr(), q_img.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), is_f32, stream()),
             f"{name} image t2i")
-        check(lib.cor_twl_tokens_mid(
+
+    tokens_mid_entry = lib.cor_twl_tokens_mid if dma else lib.cor_twl_tokens_mid_cluster
+
+    def tokens_mid():
+        check(tokens_mid_entry(
             x_mid.data_ptr(), qpe_tok.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), tiles, pk["wtok"].data_ptr(), pk["btok"].data_ptr(), eps, n, T,
-            tokens_out.data_ptr(), k_i.data_ptr(), v_i.data_ptr(), is_f32, stream),
+            tokens_out.data_ptr(), k_i.data_ptr(), v_i.data_ptr(), is_f32, stream()),
             f"{name} tokens_mid")
+
+    def i2t():
         check(image_i2t(
             keys.data_ptr(), int8, idx_p, scale_p, S, n, T, N, q_img.data_ptr(),
-            k_i.data_ptr(), v_i.data_ptr(), pk["wo_i"].data_ptr(), pk["bo_ln4"].data_ptr(),
-            eps, CROSS_SCALE, keys_out.data_ptr(), is_f32, stream), f"{name} image i2t")
-    count_launch(fn, dt, LAUNCHES)
-    return tokens_out, keys_out
+            k_i.data_ptr(), v_i.data_ptr(), pk["wo_i"].data_ptr(), *blocks[1:],
+            pk["bo_ln4"].data_ptr(), eps, CROSS_SCALE, keys_out.data_ptr(), is_f32, stream()),
+            f"{name} image i2t")
+
+    launches = [("tokens_in", tokens_in), ("image_t2i", t2i), ("tokens_mid", tokens_mid),
+                ("image_i2t", i2t)]
+    return launches, (tokens_out, keys_out), dt
+
+
+# K1's image passes redesigned for Hopper (csrc/twl_t2i.cu, twl_i2t.cu): a
+# persistent grid of one CTA an SM, each walking work items of consecutive
+# 64-row tiles of a candidate, one tile per consumer warpgroup
+SMEM_LIMIT = 232_448  # the dynamic shared memory a block may take on the H100
+_T2I_TILES = {torch.bfloat16: 2, torch.float32: 1}  # tiles an item (consumer warpgroups)
+_I2T_TILES = 2
+
+
+def image_pass_smem(dtype: torch.dtype, T: int) -> dict:
+    """The dynamic shared memory of K1's two image passes at T tokens, as
+    the sources lay it out (``T2iSmem`` and ``I2tSmem``): {"t2i": bytes,
+    "i2t": bytes}."""
+    bf16 = dtype == torch.bfloat16
+    el = 2 if bf16 else 4
+    ld_i = INTERNAL + (8 if bf16 else 4)  # k and v rows: Elem<T>::kLdI
+    groups = _T2I_TILES[dtype]
+    stages, stage = (3, INTERNAL * 64 * 2) if bf16 else (4, INTERNAL * 16 * 8)
+    rows = ROW_TILE * C_DIM * 2 if bf16 else ROW_TILE * (C_DIM + 4) * 4
+    group = rows + 2 * ROW_TILE * ld_i * el + HEADS * T * (ROW_TILE + 4) * 4 + T * INTERNAL * 4
+    t2i = stages * stage + groups * group + 3 * INTERNAL * 4 + (2 * stages + 2 * groups) * 8
+    stages, stage = (4, C_DIM * 32 * 2) if bf16 else (2, C_DIM * 16 * 8)
+    av = ROW_TILE * INTERNAL * 2 if bf16 else ROW_TILE * (INTERNAL + 4) * 4
+    q_tile = ROW_TILE * ld_i * el  # q_img's tile, padded as k and v are
+    rows_tile = ROW_TILE * (C_DIM + 8) * 2 if bf16 else 0  # fp32 reads device memory
+    group = q_tile + rows_tile + av + 2 * max(LAYER_TOKENS) * INTERNAL * 4
+    i2t = stages * stage + _I2T_TILES * group + 3 * C_DIM * 4 + (2 * stages + 4 * _I2T_TILES) * 8
+    return {"t2i": t2i, "i2t": i2t}
+
+
+def image_pass_grid(dtype: torch.dtype, n: int, N: int, sms: int) -> dict:
+    """The launch geometry of K1's image passes for n candidates of N rows on
+    a card of ``sms`` SMs: {pass: (work items, CTAs, threads a CTA)}; every
+    CTA walks items blockIdx.x, + CTAs, ..."""
+    tiles = N // ROW_TILE
+    out = {}
+    for name, per, threads in (("t2i", _T2I_TILES[dtype], _T2I_TILES[dtype] * 128 + 128),
+                               ("i2t", _I2T_TILES, _I2T_TILES * 128 + 128)):
+        items = n * -(-tiles // per)
+        out[name] = (items, min(items, sms), threads)
+    return out
 
 
 LAUNCHES = 4  # kernel launches per call on the card, for K1 and K1-dma

@@ -26,9 +26,14 @@ the end-to-end callers through each library: the query encode of the SigLIP
 towers (K4's and K5's) in bf16 and fp32 at the serving buckets and the SAM
 image encode (K6's and K5's) in bf16 and fp32 at SAM-base batch 1 and 8 and
 sam_huge batch 1.
+K1, whose image passes were redesigned for Hopper (``cor_twl_t2i``,
+``cor_twl_i2t``) with the bits kept, is both compared and timed: in bf16
+and fp32, layer 0 out of an int8 store and layer 1 on rows, at 5, 6 and 8
+tokens and 40 and 128 candidates, each line with both libraries' device
+time by launch (``k1_split``), then the fused mask decode end to end.
 ``--only`` keeps the cases whose label holds one of the comma-separated
-parts; ``--draws N`` reads K6b in fp32's errors against float64 on N draws
-of its inputs.
+parts (``K1`` also the decode); ``--draws N`` reads K6b in fp32's errors
+against float64 on N draws of its inputs.
 
 An old entry point whose declaration in OLD_CSRC_DIR takes no ``f32`` flag
 (the ABI before the kernel took fp32) is called with the flag dropped, and a
@@ -67,6 +72,14 @@ _COMPARED = ("cor_vit_attention_relpos", "cor_vit_attention_relpos_windows",
 _TIMED = ("cor_seq_attention", "cor_vit_attention_relpos_bwd", "cor_layer_norm",
           "cor_add_layer_norm")
 _ENTRIES = _COMPARED + _TIMED
+# K1's own entries since its redesign for Hopper, and the shared entries an
+# older csrc/ without them ran K1 through: the old library serves a call to
+# the first by the second, without the argument at the position given (the
+# weight laid out as the new ring's blocks), or with all of them (None)
+_K1_ENTRIES = {"cor_twl_t2i": ("cor_t2i_image_pass", 9),
+               "cor_twl_i2t": ("cor_twl_image_i2t", 12),
+               "cor_twl_tokens_in_cluster": ("cor_twl_tokens_in", None),
+               "cor_twl_tokens_mid_cluster": ("cor_twl_tokens_mid", None)}
 # the parameters an older ABI may lack, by entry: (name, position in the
 # current signature, the only value the old entry computes, or None: dropped
 # whatever it holds); f32 is every entry's second-to-last argument but the
@@ -123,7 +136,7 @@ def build_old(csrc: Path, missing: dict) -> ctypes.CDLL:
         subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
                         str(out), *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(out))
-    for name in _ENTRIES:
+    for name in _ENTRIES + tuple(n for n in _K1_ENTRIES if hasattr(lib, n)):
         sig = _build._SIGNATURES[name]
         fn = getattr(lib, name)
         drop = {pos for _, pos, _ in missing.get(name, ())}
@@ -141,6 +154,10 @@ class _OldABI:
         self._lib, self._missing = lib, missing
 
     def __getattr__(self, name):
+        if name in _K1_ENTRIES and not hasattr(self._lib, name):
+            shared, pos = _K1_ENTRIES[name]
+            fn = getattr(self, shared)
+            return fn if pos is None else lambda *args: fn(*args[:pos], *args[pos + 1:])
         fn = getattr(self._lib, name)
         if name not in self._missing:
             return fn
@@ -352,6 +369,71 @@ def timed_cases(device, draw: int = 0):
     return out
 
 
+K1_TOKENS = (5, 6, 8)  # a mask or no prompt, one point (the served decode), a box
+K1_CANDIDATES = (40, 128)  # the served decode's candidates, decode_bench's chunk
+
+
+@torch.no_grad()
+def k1_cases(device, draw: int = 0):
+    """(label, make) of K1, redesigned for Hopper, at the fused decode's
+    shapes: layer 0 out of an int8 store of 256 rows [4096, 256] through idx
+    and layer 1 on rows [n, 4096, 256], at ``K1_TOKENS`` tokens and
+    ``K1_CANDIDATES`` candidates, in bf16 and fp32 (the SAM-base decoder's
+    layers, random weights from a seed). Each thunk carries ``split()``, its
+    device time by launch (``k1_split``)."""
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
+
+    N, S = 4096, 256
+
+    @functools.lru_cache(maxsize=1)
+    def shared(dt):
+        gen = torch.Generator(device=device).manual_seed(20 + 100 * draw)
+        dec = init_mask_decoder(CoreConfig(), 1).to(device, dt).eval()
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa: E731
+        kpe, qpe = (0.5 * rnd(N, 128)).to(dt), (0.5 * rnd(N, 128)).to(dt)
+        store = torch.randint(-127, 128, (S, N, 256), generator=gen, device=device,
+                              dtype=torch.int8)
+        scales = (0.5 * 4 / 127) * (1 + 0.1 * torch.rand(S, generator=gen, device=device))
+        return dec, kpe, qpe, store, scales
+
+    def make(dt, layer, T, n):
+        dec, kpe, qpe, store, scales = shared(dt)
+        gen = torch.Generator(device=device).manual_seed(21 + 100 * draw + T + n)
+        tokens = torch.randn(n, T, 256, generator=gen, device=device).to(dt)
+        if layer == 0:
+            idx = torch.randint(0, S, (n,), generator=gen, device=device, dtype=torch.int32)
+            args = (dec.transformer.layers[0], tokens, tokens, store, kpe, qpe, True)
+            kw = dict(idx=idx, scale=scales)
+        else:
+            keys = (0.5 * torch.randn(n, N, 256, generator=gen, device=device)).to(dt)
+            args = (dec.transformer.layers[1], tokens, tokens, keys, kpe, qpe, False)
+            kw = {}
+        run = lambda: two_way_layer(*args, **kw)  # noqa: E731
+        run.split = lambda: k1_split(*args, **kw)
+        return run
+
+    return [(f"K1{sfx} layer {layer} {'int8 store' if layer == 0 else 'rows'} [{n}, {N}], "
+             f"{T} tokens", functools.partial(make, dt, layer, T, n))
+            for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "@fp32"))
+            for layer in (0, 1) for T in K1_TOKENS for n in K1_CANDIDATES]
+
+
+@torch.no_grad()
+def k1_split(lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, idx=None, scale=None) -> dict:
+    """K1's device milliseconds by launch (``two_way_layer.layer_launches``;
+    each launch alone as CUDA-graph replays) and of the layer's launches
+    together, through the library the wrappers use now: {"tokens_in": ms,
+    "image_t2i": ms, "tokens_mid": ms, "image_i2t": ms, "layer": ms}."""
+    from cor_tpu_torch.ops.kernels.two_way_layer import layer_launches, two_way_layer
+
+    launches = layer_launches(two_way_layer, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe,
+                              idx=idx, scale=scale)[0]
+    out = {name: graph_ms(go) for name, go in launches}
+    out["layer"] = graph_ms(lambda: [go() for _, go in launches])
+    return out
+
+
 def graph_ms(run, windows: int = 7, iters: int = 10) -> float:
     """The median device milliseconds per call over ``windows`` replays of a
     CUDA graph of ``iters`` calls (CUDA events), after a warm-up: the host's
@@ -467,16 +549,51 @@ def _eager_ms(run, windows: int = 7, iters: int = 3) -> float:
     return statistics.median(per_call)
 
 
+@torch.no_grad()
+def decode_cases(device):
+    """(label, make) of K1's end-to-end caller: the fused mask decode
+    (``sam_decoder.mask_decoder`` out of an int8 store of 256 rows [64, 64,
+    256] through idx, one sparse prompt token a candidate: 6 tokens; K1's two
+    layers, K2 and K3) of the SAM-base decoder (random weights from a seed)
+    at ``K1_CANDIDATES`` candidates, in bf16 and fp32; ``make()`` builds the
+    decoder and inputs and returns the thunk."""
+    from cor_tpu_torch.models import sam_decoder
+    from cor_tpu_torch.models.core_model import CoreConfig, init_decode_model
+    from cor_tpu_torch.models.prompt_encoder import get_dense_pe
+    from cor_tpu_torch.tools.decode_bench import quantize_rows
+
+    def make(dt, n):
+        model = init_decode_model(CoreConfig(), 0).to(device, dt).eval()
+        gen = torch.Generator(device=device).manual_seed(22 + n)
+        raw = torch.randn(256, 64, 64, 256, generator=gen, device=device)
+        store, scales = quantize_rows(raw + model.prompt_encoder.no_mask_embed[0].float())
+        del raw
+        idx = torch.randint(0, 256, (n,), generator=gen, device=device, dtype=torch.int32)
+        prompts = torch.randn(n, 1, 256, generator=gen, device=device).to(dt)
+        pe = get_dense_pe(model.prompt_encoder).to(device, dt)
+        return lambda: sam_decoder.mask_decoder(model.mask_decoder, store, pe, prompts, None,
+                                                False, store_idx=idx, store_scale=scales)
+
+    return [(f"fused decode{sfx} [{n}, 4096], 6 tokens", functools.partial(make, dt, n))
+            for dt, sfx in ((torch.bfloat16, ""), (torch.float32, " fp32"))
+            for n in K1_CANDIDATES]
+
+
 def time_e2e(old, device, card: str, only=()) -> None:
-    """The towers' query encode (K4's caller) and the SAM image encode
-    (K6's) through ``old`` and the current library (old, new, new, old;
-    host-launched, CUDA events, and for the towers as CUDA-graph replays too:
-    the device's time alone; the encoder copies its rel-pos indices from the
-    host at each call, which a graph cannot capture); one JSON line each."""
+    """The towers' query encode (K4's caller), the SAM image encode (K6's)
+    and the fused mask decode (K1's) through ``old`` and the current library
+    (old, new, new, old; host-launched, CUDA events, and for the towers as
+    CUDA-graph replays too: the device's time alone; the encoder copies its
+    rel-pos indices from the host at each call, which a graph cannot capture,
+    and the decode's ms are mostly the device's); one JSON line each.
+    ``only``: the cases whose label holds one of its parts (K1 selects the
+    decode)."""
     import json
 
+    only = tuple(o if o != "K1" else "decode" for o in only)
     cases = [(label, make, True) for label, make in tower_cases(device)]
     cases += [(label, make, False) for label, make in encode_cases(device)]
+    cases += [(label, make, False) for label, make in decode_cases(device)]
     for label, make, graph in cases:
         if only and not any(o in label for o in only):
             continue
@@ -509,10 +626,11 @@ def float64_errors(old, run) -> dict:
 
 
 def time_redesigned(old, device, only=(), draws: int = 1) -> int:
-    """Time every case of ``timed_cases`` (those whose label holds one of
-    ``only``, if given) through ``old`` and the current library (old, new,
-    new, old; CUDA graphs of 10 calls); one JSON line each, with each call's
-    kernels' device time (torch.profiler) and, for K6b in fp32, both
+    """Time every case of ``timed_cases`` and ``k1_cases`` (those whose
+    label holds one of ``only``, if given) through ``old`` and the current
+    library (old, new, new, old; CUDA graphs of 10 calls); one JSON line
+    each, with each call's kernels' device time (torch.profiler), for K1
+    both libraries' device time by launch, and for K6b in fp32 both
     libraries' largest errors against float64 (on ``draws`` draws of the
     inputs). Returns 1 if a new kernel is slower than the old one
     anywhere."""
@@ -523,7 +641,7 @@ def time_redesigned(old, device, only=(), draws: int = 1) -> int:
                  capture_output=True, text=True).stdout.strip().splitlines()
     card = smi[0].strip() if smi else torch.cuda.get_device_name(0)
     slower = []
-    for label, make in timed_cases(device):
+    for label, make in timed_cases(device) + k1_cases(device):
         if only and not any(o in label for o in only):
             continue
         use_library(None)  # the inputs (and a forward's lse) from the current library
@@ -551,7 +669,11 @@ def time_redesigned(old, device, only=(), draws: int = 1) -> int:
             use_library(old if which == "old" else None)
             times[which].append(graph_ms(run))
         old_us = _device_us(run)
+        if hasattr(run, "split"):
+            line["old_split_ms"] = run.split()
         use_library(None)
+        if hasattr(run, "split"):
+            line["new_split_ms"] = run.split()
         t_old, t_new = min(times["old"]), min(times["new"])
         line.update(old_ms=times["old"], new_ms=times["new"], speedup=t_old / t_new,
                     max_rel_diff=diff, card=card, old_kernels_us=old_us,
