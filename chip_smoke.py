@@ -199,7 +199,7 @@ Phases (any failure exits non-zero; no phase catches an exception):
     in bf16 and fp32 and on the CPU in fp32, same weights: mask-logit cosine
     >= 0.99 (bf16) and >= 0.999999 (fp32), predicted IoU within 2e-2 (bf16),
     the fp32 error beside cor_tpu's decoder tolerance, exact launches per
-    call (K1 8, K2 2, K3 1 up to 8 tokens; K8a 4, K8b 2, K2 2, K3 1 above);
+    call (K1 8, K2 1, K3 1 up to 8 tokens; K8a 4, K8b 2, K2 1, K3 1 above);
     one store-indexed decode at 9 tokens from an int8 store (gather and
     dequantisation in torch, then K8a/K8b), cosine >= 0.99; the decode's ms
     at batch 8 and 6, 8, 9, 16, 32 tokens in bf16 and fp32, and a
@@ -365,7 +365,7 @@ def phase_build():
              "twl_tokens_in_kernel", "t2i_image_kernel", "twl_tokens_mid_kernel",
              "twl_image_i2t_kernel", "twl_t2i_kernel", "twl_i2t_kernel",
              "twl_tokens_in_cluster_kernel", "twl_tokens_mid_cluster_kernel",
-             "t2i_combine_kernel", "decoder_tail_kernel",
+             "t2i_combine_kernel", "t2i_final_kernel", "decoder_tail_kernel",
              "vit_attention_relpos_kernel", "vit_attention_relpos_f32_kernel",
              "vit_attention_bwd_dq_kernel", "vit_attention_bwd_dkv_kernel",
              "vit_attention_bwd_prep_kernel",
@@ -403,6 +403,34 @@ def bound(n_bytes: float, flops: float):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def k3_simt_flops(pixels: int, maps: int, dt) -> float:
+    """K3's work outside the tensor cores, counted from csrc/decoder_tail.cu
+    (an FMA 2): each of a pixel's 256 first-product values takes b1 (1), the
+    LayerNorm's mean, variance and scale (8), GELU (bf16: the _PHI_COEF
+    polynomial with its clamp, 18; fp32: the erf form, ~25) and bf16's
+    rounding (1); each of its 512 second-product values b2, GELU and
+    rounding; each map the dot (2 a value) and the quads' sums (128 a
+    pixel)."""
+    bf16 = dt == torch.bfloat16
+    gelu, rnd = (18, 1) if bf16 else (25, 0)
+    return pixels * (256 * (1 + 8 + gelu + rnd) + 512 * (1 + gelu + rnd) + maps * (2 * 512 + 128))
+
+
+def k3_bound(src, hyper, out, dt):
+    """K3's least time, the largest of three terms: the bytes (src, hyper, the
+    maps), the two products on the tensor cores (bf16, or fp32's 3xTF32),
+    and ``k3_simt_flops`` on the CUDA cores at 67 TFLOP/s. ((ms, "bytes" or
+    "operations"), the term: "bytes", "tensor cores" or "CUDA cores")."""
+    n, H, W, C = src.shape
+    pixels = n * H * W
+    peak = PEAK_BF16_FLOP_S if dt == torch.bfloat16 else PEAK_FP32_FLOP_S
+    terms = {"bytes": nbytes(src, hyper, out) / PEAK_BYTES_S,
+             "tensor cores": 2 * pixels * (C * 4 * 64 + 4 * 64 * 4 * 32) / peak,
+             "CUDA cores": k3_simt_flops(pixels, hyper.shape[1], dt) / PEAK_FP32_SIMT_FLOP_S}
+    term = max(terms, key=terms.get)
+    return (1e3 * terms[term], "bytes" if term == "bytes" else "operations"), term
 
 
 def entry(err, kern_t, plain_t, bound_ms_by, library_t=None, **extra):
@@ -582,14 +610,15 @@ def decoder_kernels(device):
     torch.cuda.synchronize()
     err = rel_err(got, want)
     kt, pt = cuda_ms(lambda: t2i_flash_kv(*args)), cuda_ms(lambda: t2i_flash_kv_plain(*args))
+    dev_t = device_times(lambda: t2i_flash_kv(*args))
     b = bound(nbytes(keys, kpe, q_tok, got) + 2 * I * C * 2,
               n * (2 * N * C * 2 * I + 4 * N * T * I))
     print(f"  K2 t2i_flash_kv [{n}, {N}, {C}]: max|d|/max|plain| = {err:.3e}; kernel "
-          f"{kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, "
-          f"bound {b[0]:.4f} ms ({b[1]})")
+          f"{kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], device (graph replays) "
+          f"{dev_t['device_ms']:.4f} ms, plain {pt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
     if not err <= DECODE_REL:
         fail(f"t2i_flash_kv kernel disagrees with its plain version: {err}")
-    out["t2i_flash_kv"] = entry(abs_err((got, want)), kt, pt, b, max_rel_err=err)
+    out["t2i_flash_kv"] = entry(abs_err((got, want)), kt, pt, b, max_rel_err=err, **dev_t)
 
     up = dec.output_upscaling
     src = keys.reshape(n, GRID, GRID, C)
@@ -600,13 +629,16 @@ def decoder_kernels(device):
     torch.cuda.synchronize()
     err = rel_err(got, want)
     kt, pt = cuda_ms(lambda: decoder_tail(*args)), cuda_ms(lambda: decoder_tail_plain(*args))
-    b = bound(nbytes(src, hyper, got), n * 2 * N * (C * 4 * 64 + 4 * 64 * 4 * 32))
+    dev_t = device_times(lambda: decoder_tail(*args))
+    b, term = k3_bound(src, hyper, got, bf16)
     print(f"  K3 decoder_tail [{n}, {GRID}, {GRID}, {C}] -> {tuple(got.shape)}: max|d|/max|plain| "
-          f"= {err:.3e}; kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, "
-          f"bound {b[0]:.4f} ms ({b[1]})")
+          f"= {err:.3e}; kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], device (graph "
+          f"replays) {dev_t['device_ms']:.4f} ms, plain {pt[0]:.4f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]}: {term})")
     if not err <= DECODE_REL:
         fail(f"decoder_tail kernel disagrees with its plain version: {err}")
-    out["decoder_tail"] = entry(abs_err((got, want)), kt, pt, b, max_rel_err=err)
+    out["decoder_tail"] = entry(abs_err((got, want)), kt, pt, b, max_rel_err=err, bound_term=term,
+                                **dev_t)
     del store
     torch.cuda.empty_cache()
     return out
@@ -878,7 +910,8 @@ def serve_masks(index_dir: Path, ids: set, out_dir: Path, mode: str, extra: list
     want = {k: 0 for k in c}
     want.update({"layer_norm" + sfx: towers[1] * e, "attention_seq_qkv" + sfx: towers[0] * e,
                  "two_way_layer" + sfx: two_way_layer.LAUNCHES * 2 * d,
-                 "t2i_flash_kv" + sfx: t2i_flash.LAUNCHES * d, "decoder_tail" + sfx: d})
+                 "t2i_flash_kv" + sfx: t2i_flash.FINAL_LAUNCHES * d,
+                 "decoder_tail" + sfx: d})
     fg = np.mean([m.mean() / 255 for m in masks.values()])
     print(f"  decode serve {mode}: {len(resps)} responses, {e} encoded batches, {d} decode "
           f"calls (warmup included), launches {c} (expected {want}), foreground share "
@@ -988,8 +1021,9 @@ KERNEL_GROUPS = (
     ("K1-dma image passes", ("dma_t2i", "dma_i2t")),
     # the image pass with q_img (kEmitQ, the last template argument) is K1's
     # or K8a's, the i2t image kernel K1's or K8b's (the route decides)
-    ("two-way layers: K1, or K8a + K8b", ("twl_", "true, true>", "false, true>")),
-    ("K2 t2i_flash_kv", ("t2i_image_kernel", "t2i_combine")),
+    ("two-way layers: K1, or K8a + K8b", ("twl_", "true, true>", "false, true>",
+                                          "t2i_combine")),
+    ("K2 t2i_flash_kv", ("t2i_final",)),
     ("K3 decoder_tail", ("decoder_tail_kernel",)),
     ("K4 attention_seq_qkv", ("seq_attention",)),
     ("K5 layer_norm", ("layer_norm_kernel",)),
@@ -2222,8 +2256,9 @@ def check32(name: str, label: str, tol, pairs, kt, pt, b, lt=None, **extra):
     err, ratio = tol_err(tol, *pairs)
     lib = "" if lt is None else f", library {lt[0]:.4f} ms"
     dev = "" if "device_ms" not in extra else (
-        f"; graph replays: kernel {extra['device_ms']:.4f} ms, library "
-        f"{extra['library_device_ms']:.4f} ms")
+        f"; graph replays: kernel {extra['device_ms']:.4f} ms" + (
+            f", library {extra['library_device_ms']:.4f} ms" if "library_device_ms" in extra
+            else ""))
     print(f"  {name} fp32 {label}: max|d| = {err:.3e}, max|d|/(atol + rtol|plain|) = "
           f"{ratio:.3f} (tol {tol}); kernel {kt[0]:.4f} ms [{kt[1]:.4f}, {kt[2]:.4f}], plain "
           f"{pt[0]:.4f} ms{lib}, bound {b[0]:.4f} ms ({b[1]}){dev}", flush=True)
@@ -2507,10 +2542,12 @@ def decoder_kernels_fp32(device, gen):
     args = (keys, fa.k_proj.w, fa.k_proj.b, fa.v_proj.w, fa.v_proj.b, kpe, q_tok, 8)
     got, want = t2i_flash_kv(*args), t2i_flash_kv_plain(*args)
     kt, pt = cuda_ms(lambda: t2i_flash_kv(*args)), cuda_ms(lambda: t2i_flash_kv_plain(*args))
+    dev_t = device_times(lambda: t2i_flash_kv(*args))
     b = bound32(nbytes(keys, kpe, q_tok, got) + 2 * I * C * 4,
                 n * (2 * N * C * 2 * I + 4 * N * T * I))
     out["t2i_flash_kv@fp32"] = check32("K2 t2i_flash_kv", f"[{n}, {N}, {C}]",
-                                       FP32_TOL["t2i_flash_kv"], [(got, want)], kt, pt, b)
+                                       FP32_TOL["t2i_flash_kv"], [(got, want)], kt, pt, b,
+                                       **dev_t)
 
     # K1 + K2 through the two-way transformer: layer 0 from the int8 store,
     # layer 1, the final attention's core, kernels against plain versions
@@ -2540,10 +2577,11 @@ def decoder_kernels_fp32(device, gen):
             hyper)
     got, want = decoder_tail(*args), decoder_tail_plain(*args)
     kt, pt = cuda_ms(lambda: decoder_tail(*args)), cuda_ms(lambda: decoder_tail_plain(*args))
-    b = bound32(nbytes(src, hyper, got), n * 2 * N * (C * 4 * 64 + 4 * 64 * 4 * 32))
+    dev_t = device_times(lambda: decoder_tail(*args))
+    b, term = k3_bound(src, hyper, got, torch.float32)
     out["decoder_tail@fp32"] = check32("K3 decoder_tail", f"[{n}, {GRID}, {GRID}, {C}] -> "
                                        f"{tuple(got.shape)}", FP32_TOL["decoder_tail"],
-                                       [(got, want)], kt, pt, b)
+                                       [(got, want)], kt, pt, b, bound_term=term, **dev_t)
     del store
     torch.cuda.empty_cache()
     return out
@@ -2841,10 +2879,12 @@ def prompt_tokens(points: int, box: bool) -> int:
 
 def route_launches(T: int) -> dict:
     """Each decoder wrapper's launches in one fused decode of T tokens."""
+    from cor_tpu_torch.ops.kernels.t2i_flash import FINAL_LAUNCHES as k2
+
     if T <= 8:
-        return {"two_way_layer": 8, "t2i_flash_kv": 2, "decoder_tail": 1,
+        return {"two_way_layer": 8, "t2i_flash_kv": k2, "decoder_tail": 1,
                 "proj_q_t2i_flash": 0, "i2t_attention_fused": 0}
-    return {"two_way_layer": 0, "t2i_flash_kv": 2, "decoder_tail": 1, "proj_q_t2i_flash": 4,
+    return {"two_way_layer": 0, "t2i_flash_kv": k2, "decoder_tail": 1, "proj_q_t2i_flash": 4,
             "i2t_attention_fused": 2}
 
 
@@ -3026,8 +3066,10 @@ def schedule_launches(variant: str, int8: bool = False) -> dict:
     under ``variant``'s flag (an int8 store sends grid and stack to K1)."""
     if variant in ("stack", "grid") and not int8:
         return {f"two_way_{variant}_fused": 1, "decoder_tail": 1}
+    from cor_tpu_torch.ops.kernels.t2i_flash import FINAL_LAUNCHES
+
     layer = "two_way_layer_dma" if variant == "dma" else "two_way_layer"
-    return {layer: 8, "t2i_flash_kv": 2, "decoder_tail": 1}
+    return {layer: 8, "t2i_flash_kv": FINAL_LAUNCHES, "decoder_tail": 1}
 
 
 @torch.no_grad()
@@ -3643,7 +3685,7 @@ def main():
                               "cor_tpu/ops/pallas/seq_attention.py:99", launches),
         "two_way_layer": ("cor_tpu_torch/csrc/two_way_layer.cu",
                           "cor_tpu/ops/pallas/two_way_layer.py:978", dec_launches),
-        "t2i_flash_kv": ("cor_tpu_torch/csrc/t2i_flash.cu",
+        "t2i_flash_kv": ("cor_tpu_torch/csrc/t2i_final.cu",
                          "cor_tpu/ops/pallas/t2i_flash.py:220", dec_launches),
         "decoder_tail": ("cor_tpu_torch/csrc/decoder_tail.cu",
                          "cor_tpu/ops/pallas/decoder_tail.py:150", dec_launches),
@@ -3695,7 +3737,7 @@ def main():
         "two_way_layer@fp32": ("cor_tpu_torch/csrc/two_way_layer.cu",
                                "cor_tpu/ops/pallas/two_way_layer.py:978",
                                fp32_launches["serve"]),
-        "t2i_flash_kv@fp32": ("cor_tpu_torch/csrc/t2i_flash.cu",
+        "t2i_flash_kv@fp32": ("cor_tpu_torch/csrc/t2i_final.cu",
                               "cor_tpu/ops/pallas/t2i_flash.py:220", fp32_launches["serve"]),
         "decoder_tail@fp32": ("cor_tpu_torch/csrc/decoder_tail.cu",
                               "cor_tpu/ops/pallas/decoder_tail.py:150", fp32_launches["serve"]),

@@ -98,6 +98,12 @@ _SIGNATURES = {
     ),
     # part_m, part_l, part_acc, tiles, n, n_tok, out, f32, stream
     "cor_t2i_combine": (_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, _VP, _I, _VP),
+    # K2: keys, n, n_tok, N, w, w_blocks, b, kpe, qt, part_m, part_l, part_acc, tickets, out,
+    # f32, stream
+    "cor_t2i_final": (
+        _VP, ctypes.c_int, _I, ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        _I, _VP,
+    ),
     # K1's stages 1 and 3 over a cluster of CTAs a candidate: cor_twl_tokens_in's and
     # cor_twl_tokens_mid's arguments
     "cor_twl_tokens_in_cluster": (
@@ -136,9 +142,9 @@ _SIGNATURES = {
     ),
     # x, wt, b, hyper, out, B, H, W, C, O, N, f32, stream
     "cor_fused_upscale2_hyper": (_VP, _VP, _VP, _VP, _VP, *(ctypes.c_int,) * 6, _I, _VP),
-    # src, w1t, w2t, vec, hyper, n, m, H, eps, out, f32, stream
+    # src, w1t, w2t, w_blocks, vec, hyper, n, m, H, eps, out, f32, stream
     "cor_decoder_tail": (
-        _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         _VP, _I, _VP,
     ),
 }

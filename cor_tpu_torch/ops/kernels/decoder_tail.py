@@ -21,8 +21,12 @@ function (tests hold it within 0.05 relative of cor_tpu's fp32 tail in
 bf16, as cor_tpu's own bf16 test does).
 
 On the card: one launch per call (``decoder_tail.launches`` in bf16,
-``launches_fp32`` in fp32), one CTA per grid row of a candidate and output
-map. The kernel takes C = 256, O1 = 64, O2 = 32 and a grid 64 pixels wide,
+``launches_fp32`` in fp32), redesigned for Hopper: persistent CTAs on
+``wgmma`` that take every map's dot from one pass over the pixels (in bf16
+four warpgroups, one a position, with W1 and W2 resident in shared memory,
+loaded from the wrapper's core-matrix pack ``_blocks``; in fp32 two, W1
+streamed and split into TF32 halves; ``csrc/decoder_tail.cu`` says how).
+The kernel takes C = 256, O1 = 64, O2 = 32 and a grid 64 pixels wide,
 src and hyper in bf16 or fp32, of one dtype (in fp32 both products run in
 3xTF32 on the tensor cores, nothing is rounded and GELU is exact); any other
 CUDA input raises, and a CPU tensor takes the plain version. With autograd
@@ -38,7 +42,7 @@ import torch.nn.functional as F
 from cor_tpu_torch.ops.common import conv_transpose_2x, gelu_poly, layer_norm
 from cor_tpu_torch.ops.diff import refuse_grad
 from cor_tpu_torch.ops.kernels._build import check, count_launch, library, operand_dtype
-from cor_tpu_torch.ops.kernels.t2i_flash import cached_pack
+from cor_tpu_torch.ops.kernels.t2i_flash import SMEM_LIMIT, cached_pack, ring_blocks
 
 C_IN, O1, O2, GRID_W = 256, 64, 32, 64
 
@@ -66,11 +70,14 @@ def decoder_tail(src, w1, b1, ln_scale, ln_bias, w2, b2, hyper, eps: float = 1e-
     m = hyper.shape[1]
     dev = src.device
     w1t, w2t, vec = _pack(w1, b1, ln_scale, ln_bias, w2, b2, dev, dt)
+    bf16 = dt == torch.bfloat16
+    w_blocks = _blocks(w1, b1, ln_scale, ln_bias, w2, b2, w1t, w2t) if bf16 else None
     out = torch.empty((n, m, 4 * H, 4 * W), device=dev, dtype=torch.float32)
     lib = library()
     with torch.cuda.device(dev):
         check(lib.cor_decoder_tail(
-            src.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), vec.data_ptr(), hyper.data_ptr(),
+            src.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
+            0 if w_blocks is None else w_blocks.data_ptr(), vec.data_ptr(), hyper.data_ptr(),
             n, m, H, eps, out.data_ptr(), int(dt == torch.float32),
             torch.cuda.current_stream(dev).cuda_stream), "decoder_tail")
     count_launch(decoder_tail, dt)
@@ -106,6 +113,29 @@ def _pack(w1, b1, ln_scale, ln_bias, w2, b2, device, dtype):
 
     return cached_pack(w1, "_tail_pack", (w1, b1, ln_scale, ln_bias, w2, b2), device, dtype,
                        make)
+
+
+def _blocks(w1, b1, ln_scale, ln_bias, w2, b2, w1t, w2t):
+    """The bf16 kernel's resident weights: ``_pack``'s w1t then w2t, each in
+    wgmma's core-matrix layout, one after the other as its shared memory
+    holds them (fp32 reads w1t and w2t), kept on ``w1`` beside the pack."""
+    return cached_pack(w1, "_tail_blocks", (w1, b1, ln_scale, ln_bias, w2, b2), w1t.device,
+                       w1t.dtype, lambda: torch.cat([ring_blocks(w1t, C_IN), ring_blocks(w2t, O1)]))
+
+
+def tail_smem(dtype: torch.dtype) -> int:
+    """The kernel's dynamic shared memory, as csrc/decoder_tail.cu lays it out:
+    bf16 (``TailB``) W1 and W2 resident, a 2-deep ring of row tiles, 4 maps'
+    staged rows per output row pair, the vectors, 8 mbarriers; fp32
+    (``TailF``) a row tile per warpgroup, W2's TF32 halves, a 3-stage ring of
+    W1's split [64][16] blocks, one map's staged rows per warpgroup, the
+    vectors, 10 mbarriers."""
+    vec = (3 * O1 + O2) * 4
+    rows, w1, w2 = GRID_W * C_IN * 2, 4 * O1 * C_IN * 2, 4 * O2 * O1 * 2
+    if dtype == torch.bfloat16:
+        return w1 + w2 + 2 * rows + 2 * 4 * 2 * 4 * GRID_W * 4 + vec + 8 * 8
+    return 2 * 2 * rows + 2 * 2 * w2 + 3 * O1 * 16 * 8 + 2 * 4 * 4 * GRID_W * 4 + vec + 10 * 8
+
 
 
 decoder_tail.launches = decoder_tail.launches_fp32 = 0

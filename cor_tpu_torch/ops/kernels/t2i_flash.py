@@ -1,5 +1,6 @@
 """The token -> image attention of the SAM two-way transformer: the CUDA
-kernels of ``csrc/t2i_flash.cu`` and their plain PyTorch versions.
+kernels of ``csrc/t2i_final.cu`` (K2) and ``csrc/t2i_flash.cu`` (K8a), and
+their plain PyTorch versions.
 
 Replaces ``cor_tpu/ops/pallas/t2i_flash.py``'s two kernels:
 
@@ -22,11 +23,15 @@ The queries are scaled and rounded to the compute dtype first, the
 exponentials are rounded before their product with v, and the division by
 the fp32 row sum comes last, as in the TPU kernels.
 
-On the card each is two launches (``launches`` adds 2 per call): the image
-pass (one CTA per 64-row tile of a candidate: projections on the tensor
-cores, q_img written out for K8a, then the tile's flash partials: max, sum
-and the unnormalised [heads x T, d] product) and a combine over the tiles.
-The image pass is shared with stage 2 of the two-way layer kernel. The
+On the card K2 is one launch (``FINAL_LAUNCHES``): K1's image pass
+redesigned for Hopper (``csrc/twl_t2i.cuh``) without its q chunk,
+persistent CTAs on ``wgmma`` that take the tokens 8 at a time, each tile's
+flash partials (max, sum and the unnormalised [heads x T, d] product)
+combined by the CTA that finishes a candidate's last tile (per-candidate
+tickets, ``_tickets``, which each launch leaves at zero). K8a is two
+launches (``LAUNCHES``): the shared image pass of ``csrc/t2i_flash.cuh``
+(one CTA per 64-row tile: projections on the tensor cores, q_img written
+out, the tile's partials) and a combine over the tiles. The
 kernels take C = 256, 8 heads, I = 128, T from 5 to 32 tokens (the mask
 decoder's 5 output tokens and up to 27 prompt tokens) and N a multiple of
 64, in bf16 or fp32 (keys, the PE projections and q_tok of one dtype; in
@@ -99,19 +104,28 @@ def proj_q_t2i_flash_plain(keys, wk, bk, wv, bv, wq, bq, kpe, qpe, q_tok, num_he
     return q_img, t2i_flash_kv_plain(keys, wk, bk, wv, bv, kpe, q_tok, num_heads)
 
 
-def _flash(keys, w, b, kpe, qpe, q_tok, dt, emit_q: bool):
-    """The image pass (with ``qpe``: q_img written too) and the combine:
-    (q_img or None, attention [n, T, I])."""
+def _partials(n, N, T, dev):
+    """The flash partials of n candidates' N // 64 row tiles at T tokens:
+    (max, sum) fp32 [n, tiles, 8 T] and acc [n, tiles, 8 T, 16]."""
+    tiles = N // ROW_TILE
+    f32 = dict(device=dev, dtype=torch.float32)
+    return (torch.empty((n, tiles, HEADS * T), **f32), torch.empty((n, tiles, HEADS * T), **f32),
+            torch.empty((n, tiles, HEADS * T, INTERNAL // HEADS), **f32))
+
+
+def _scaled_queries(q_tok, dt):
+    return (q_tok.float() / math.sqrt(INTERNAL // HEADS)).to(dt).contiguous()
+
+
+def _flash(keys, w, b, kpe, qpe, q_tok, dt):
+    """K8a: the shared image pass (q_img written too) and the combine: (q_img,
+    attention [n, T, I])."""
     n, N, _ = keys.shape
     T = q_tok.shape[1]
     dev = keys.device
-    qt = (q_tok.float() / math.sqrt(INTERNAL // HEADS)).to(dt).contiguous()
-    tiles = N // ROW_TILE
-    f32 = dict(device=dev, dtype=torch.float32)
-    part_m = torch.empty((n, tiles, HEADS * T), **f32)
-    part_l = torch.empty((n, tiles, HEADS * T), **f32)
-    part_acc = torch.empty((n, tiles, HEADS * T, INTERNAL // HEADS), **f32)
-    q_img = torch.empty((n, N, INTERNAL), device=dev, dtype=dt) if emit_q else None
+    qt = _scaled_queries(q_tok, dt)
+    parts = _partials(n, N, T, dev)
+    q_img = torch.empty((n, N, INTERNAL), device=dev, dtype=dt)
     out = torch.empty((n, T, INTERNAL), device=dev, dtype=dt)
     is_f32 = int(dt == torch.float32)
     lib = library()
@@ -119,14 +133,46 @@ def _flash(keys, w, b, kpe, qpe, q_tok, dt, emit_q: bool):
         stream = torch.cuda.current_stream(dev).cuda_stream
         check(lib.cor_t2i_image_pass(
             keys.data_ptr(), 0, 0, 0, n, n, T, N, w.data_ptr(), b.data_ptr(),
-            kpe.data_ptr(), qpe.data_ptr() if emit_q else 0, qt.data_ptr(),
-            q_img.data_ptr() if emit_q else 0,
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), is_f32, stream),
-            "t2i image pass")
-        check(lib.cor_t2i_combine(
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), tiles, n, T,
-            out.data_ptr(), is_f32, stream), "t2i combine")
+            kpe.data_ptr(), qpe.data_ptr(), qt.data_ptr(), q_img.data_ptr(),
+            *(p.data_ptr() for p in parts), is_f32, stream), "t2i image pass")
+        check(lib.cor_t2i_combine(*(p.data_ptr() for p in parts), N // ROW_TILE, n, T,
+                                  out.data_ptr(), is_f32, stream), "t2i combine")
     return q_img, out
+
+
+_TICKETS = {}  # device index -> K2's per-candidate tickets
+
+
+def _tickets(dev) -> torch.Tensor:
+    """K2's per-candidate tickets on ``dev``: int32 [65535], zeroed once;
+    every launch leaves them at zero, so a CUDA graph can replay a call.
+    Made at the first call on a device, which therefore must not be under a
+    CUDA graph's capture. Two K2 launches in flight at once on one device
+    (two streams) would share them: the port launches on one stream."""
+    if dev.index not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("t2i_flash_kv: call it once on this device before capturing it "
+                               "in a CUDA graph (its tickets are made at the first call)")
+        _TICKETS[dev.index] = torch.zeros(65535, dtype=torch.int32, device=dev)
+    return _TICKETS[dev.index]
+
+
+def _final(keys, w, b, w_blocks, kpe, q_tok, dt):
+    """K2: the final attention [n, T, I], one launch."""
+    n, N, _ = keys.shape
+    T = q_tok.shape[1]
+    dev = keys.device
+    qt = _scaled_queries(q_tok, dt)
+    parts = _partials(n, N, T, dev)
+    out = torch.empty((n, T, INTERNAL), device=dev, dtype=dt)
+    lib = library()
+    with torch.cuda.device(dev):
+        check(lib.cor_t2i_final(
+            keys.data_ptr(), n, T, N, w.data_ptr(), 0 if w_blocks is None else w_blocks.data_ptr(),
+            b.data_ptr(), kpe.data_ptr(), qt.data_ptr(), *(p.data_ptr() for p in parts),
+            _tickets(dev).data_ptr(), out.data_ptr(), int(dt == torch.float32),
+            torch.cuda.current_stream(dev).cuda_stream), "t2i final attention")
+    return out
 
 
 def t2i_flash_kv(keys, wk, bk, wv, bv, kpe, q_tok, num_heads: int) -> torch.Tensor:
@@ -139,8 +185,9 @@ def t2i_flash_kv(keys, wk, bk, wv, bv, kpe, q_tok, num_heads: int) -> torch.Tens
     dt = _check(keys, wk, wv, kpe, q_tok, num_heads)
     refuse_grad("t2i_flash_kv", keys, wk, bk, wv, bv, kpe, q_tok)
     w, b = _pack(wk, bk, wv, bv, keys.device, dt)
-    out = _flash(keys, w, b, kpe, None, q_tok, dt, emit_q=False)[1]
-    count_launch(t2i_flash_kv, dt, LAUNCHES)
+    w_blocks = _final_blocks(wk, bk, wv, bv, w) if dt == torch.bfloat16 else None
+    out = _final(keys, w, b, w_blocks, kpe, q_tok, dt)
+    count_launch(t2i_flash_kv, dt, FINAL_LAUNCHES)
     return out
 
 
@@ -155,7 +202,7 @@ def proj_q_t2i_flash(keys, wk, bk, wv, bv, wq, bq, kpe, qpe, q_tok, num_heads: i
     dt = _check(keys, wk, wv, kpe, q_tok, num_heads, wq, qpe)
     refuse_grad("proj_q_t2i_flash", keys, wk, bk, wv, bv, wq, bq, kpe, qpe, q_tok)
     w, b = _pack(wk, bk, wv, bv, keys.device, dt, wq, bq)
-    q_img, out = _flash(keys, w, b, kpe, qpe, q_tok, dt, emit_q=True)
+    q_img, out = _flash(keys, w, b, kpe, qpe, q_tok, dt)
     count_launch(proj_q_t2i_flash, dt, LAUNCHES)
     return q_img, out
 
@@ -186,6 +233,27 @@ def _check(keys, wk, wv, kpe, q_tok, num_heads: int, wq=None, qpe=None) -> torch
     return dt
 
 
+def ring_blocks(w: torch.Tensor, kb: int, order=None) -> torch.Tensor:
+    """A weight [out, in] (bf16) laid out as the ring blocks of the image
+    passes redesigned for Hopper (csrc/twl_t2i.cuh, twl_i2t.cu), each a
+    contiguous TMA bulk copy: for each group of 128 outputs (in ``order``, or
+    all outputs as one group), its blocks of ``kb`` inputs, each
+    [outputs][kb] in wgmma's core-matrix layout (element (o, k) at ((o / 8) *
+    kb / 8 + k / 8) * 64 + (o % 8) * 8 + k % 8)."""
+    out, inp = w.shape
+    groups = [w] if order is None else [w[c * INTERNAL:(c + 1) * INTERNAL] for c in order]
+    blocks = []
+    for g in groups:
+        o = g.shape[0]
+        for k0 in range(0, inp, kb):
+            blk = g[:, k0:k0 + kb].reshape(o // 8, 8, kb // 8, 8).permute(0, 2, 1, 3)
+            blocks.append(blk.reshape(-1))
+    return torch.cat(blocks).contiguous()
+
+
+FINAL_CHUNK_ORDER = (0, 1)  # k, v: the order of K2's chunks (csrc/twl_t2i.cuh)
+
+
 def _pack(wk, bk, wv, bv, device, dtype, wq=None, bq=None):
     """The packed [k | v (| q: K8a's)] weight in the compute dtype and its
     fp32 bias, kept on ``wk`` (``cached_pack``: keyed by device and dtype)."""
@@ -195,6 +263,35 @@ def _pack(wk, bk, wv, bv, device, dtype, wq=None, bq=None):
         torch.cat([b.detach() for b in bs]).to(device, torch.float32).contiguous()))
 
 
-LAUNCHES = 2  # kernel launches per call on the card
+def _final_blocks(wk, bk, wv, bv, w):
+    """K2's bf16 [k | v] weight ``w`` (``_pack``'s) laid out as its ring's
+    blocks (fp32 splits the weight as it streams it), kept on ``wk`` beside
+    the pack."""
+    return cached_pack(wk, "_t2i_blocks", (wk, bk, wv, bv), w.device, w.dtype,
+                       lambda: ring_blocks(w, 64, FINAL_CHUNK_ORDER))
+
+
+SMEM_LIMIT = 232_448  # the dynamic shared memory a block may take on the H100
+
+
+def final_smem(dtype: torch.dtype, T: int) -> int:
+    """K2's dynamic shared memory at T tokens, as csrc/twl_t2i.cuh lays it out
+    (``T2iSmem<T, true>``: the weight ring; per consumer warpgroup its row
+    tile, k, v, the logits and queries of at most 8 tokens; the bias, the
+    mbarriers and a ticket slot per warpgroup)."""
+    bf16 = dtype == torch.bfloat16
+    el, held, groups = (2 if bf16 else 4), min(T, 8), (2 if bf16 else 1)  # tiles an item
+    ld_i = INTERNAL + (8 if bf16 else 4)  # k and v rows: Elem<T>::kLdI
+    stages, stage = (3, INTERNAL * 64 * 2) if bf16 else (4, INTERNAL * 16 * 8)
+    rows = ROW_TILE * C_DIM * 2 if bf16 else ROW_TILE * (C_DIM + 4) * 4
+    group = (rows + 2 * ROW_TILE * ld_i * el + HEADS * held * (ROW_TILE + 4) * 4
+             + held * INTERNAL * 4)
+    return (stages * stage + groups * group + 2 * INTERNAL * 4 + (2 * stages + 2 * groups) * 8
+            + 4 * groups)
+
+
+FINAL_LAUNCHES = 1  # K2's kernel launches per call on the card: the combine folded in
+LAUNCHES = 2  # K8a's: the image pass and the combine
+
 t2i_flash_kv.launches = t2i_flash_kv.launches_fp32 = 0
 proj_q_t2i_flash.launches = proj_q_t2i_flash.launches_fp32 = 0

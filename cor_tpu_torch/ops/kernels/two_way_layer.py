@@ -39,9 +39,10 @@ redesigned for Hopper (the token stages over a cluster of 4 CTAs a
 candidate while they all fit on the card at once, else one CTA a candidate,
 the image passes persistent on wgmma, the weights streamed through
 shared-memory rings by TMA bulk copies in bf16), and compute what the
-shared bodies of K1-dma, K2, K8a and K8b compute, bit for bit; their
+shared bodies of K1-dma, K8a and K8b compute, bit for bit (K2 runs the t2i
+pass without its q chunk); their
 bf16 weights go in the pack a second time, laid out as the rings' blocks
-(``ring_blocks``). ``layer_launches`` returns the four launches unrun, for
+(``t2i_flash.ring_blocks``). ``layer_launches`` returns the four launches unrun, for
 timing them one by one. See the sources for what bounds each. The kernels
 take the SAM geometry only: C = 256, 8 heads, internal width 128, 5 to 8
 tokens (the tokens at which ``cor_tpu`` runs its
@@ -75,8 +76,10 @@ from cor_tpu_torch.ops.kernels.t2i_flash import (
     HEADS,
     INTERNAL,
     ROW_TILE,
+    SMEM_LIMIT,
     cached_pack,
     proj_q_t2i_flash_plain,
+    ring_blocks,
 )
 
 MLP_DIM = 2048
@@ -166,24 +169,6 @@ def _pack(lp, device, dtype) -> dict:
     and offsets are those of ``csrc/two_way_layer.cu``."""
     return cached_pack(lp, "_kernel_pack", list(lp.parameters()), device, dtype,
                        lambda: _make_pack(lp, device, dtype))
-
-
-def ring_blocks(w: torch.Tensor, kb: int, order=None) -> torch.Tensor:
-    """A weight [out, in] (bf16) laid out as the ring blocks of K1's image
-    passes (csrc/twl_t2i.cu, twl_i2t.cu), each a contiguous TMA bulk copy:
-    for each group of 128 outputs (in ``order``, or all outputs as one
-    group), its blocks of ``kb`` inputs, each [outputs][kb] in wgmma's
-    core-matrix layout (element (o, k) at ((o / 8) * kb / 8 + k / 8) * 64 +
-    (o % 8) * 8 + k % 8)."""
-    out, inp = w.shape
-    groups = [w] if order is None else [w[c * INTERNAL:(c + 1) * INTERNAL] for c in order]
-    blocks = []
-    for g in groups:
-        o = g.shape[0]
-        for k0 in range(0, inp, kb):
-            blk = g[:, k0:k0 + kb].reshape(o // 8, 8, kb // 8, 8).permute(0, 2, 1, 3)
-            blocks.append(blk.reshape(-1))
-    return torch.cat(blocks).contiguous()
 
 
 T2I_CHUNK_ORDER = (2, 0, 1)  # q, k, v: the order of the t2i pass's chunks (csrc/twl_t2i.cu)
@@ -379,7 +364,6 @@ def layer_launches(fn, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps=1e-
 # K1's image passes redesigned for Hopper (csrc/twl_t2i.cu, twl_i2t.cu): a
 # persistent grid of one CTA an SM, each walking work items of consecutive
 # 64-row tiles of a candidate, one tile per consumer warpgroup
-SMEM_LIMIT = 232_448  # the dynamic shared memory a block may take on the H100
 _T2I_TILES = {torch.bfloat16: 2, torch.float32: 1}  # tiles an item (consumer warpgroups)
 _I2T_TILES = 2
 

@@ -30,10 +30,16 @@ K1, whose image passes were redesigned for Hopper (``cor_twl_t2i``,
 ``cor_twl_i2t``) with the bits kept, is both compared and timed: in bf16
 and fp32, layer 0 out of an int8 store and layer 1 on rows, at 5, 6 and 8
 tokens and 40 and 128 candidates, each line with both libraries' device
-time by launch (``k1_split``), then the fused mask decode end to end.
+time by launch (``k1_split``), then the fused mask decode end to end. So
+are K2 (``cor_t2i_final``, one launch on K1's t2i pass; an older library
+runs it through ``cor_t2i_image_pass`` and ``cor_t2i_combine``) and K3
+(``cor_decoder_tail``, persistent on wgmma, every map from one pass; its
+``w_blocks`` dropped for an older library), redesigned for Hopper with the
+bits kept: K2 at 5, 6, 8, 16 and 32 tokens, K3 with 1 and 3 maps, both at
+40 and 128 candidates in bf16 and fp32 (``k2k3_cases``).
 ``--only`` keeps the cases whose label holds one of the comma-separated
-parts (``K1`` also the decode); ``--draws N`` reads K6b in fp32's errors
-against float64 on N draws of its inputs.
+parts (``K1``, ``K2`` and ``K3`` also the decode); ``--draws N`` reads K6b
+in fp32's errors against float64 on N draws of its inputs.
 
 An old entry point whose declaration in OLD_CSRC_DIR takes no ``f32`` flag
 (the ABI before the kernel took fp32) is called with the flag dropped, and a
@@ -90,6 +96,11 @@ for _name, _pos in (("cor_twl_tokens_in", 9), ("cor_t2i_image_pass", 6),
                     ("cor_twl_tokens_mid", 10), ("cor_twl_image_i2t", 6), ("cor_t2i_combine", 5)):
     _OPTIONAL[_name].append(("n_tok", _pos, 6))
 _OPTIONAL["cor_vit_attention_relpos"].append(("lse", 4, None))
+# K3's bf16 weights laid out as its shared memory holds them, since its redesign
+_OPTIONAL["cor_decoder_tail"].append(("w_blocks", 3, None))
+# K2's own entry since its redesign for Hopper; an older csrc/ without it runs
+# K2 through the shared image pass and the combine (_OldABI.cor_t2i_final)
+_K2_ENTRY = "cor_t2i_final"
 _OPTIONAL["cor_vit_attention_relpos_bwd"] += [("out", 4, None), ("lse", 5, None)]
 
 
@@ -136,7 +147,7 @@ def build_old(csrc: Path, missing: dict) -> ctypes.CDLL:
         subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
                         str(out), *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(out))
-    for name in _ENTRIES + tuple(n for n in _K1_ENTRIES if hasattr(lib, n)):
+    for name in _ENTRIES + tuple(n for n in (*_K1_ENTRIES, _K2_ENTRY) if hasattr(lib, n)):
         sig = _build._SIGNATURES[name]
         fn = getattr(lib, name)
         drop = {pos for _, pos, _ in missing.get(name, ())}
@@ -154,6 +165,8 @@ class _OldABI:
         self._lib, self._missing = lib, missing
 
     def __getattr__(self, name):
+        if name == _K2_ENTRY and not hasattr(self._lib, name):
+            return self._final
         if name in _K1_ENTRIES and not hasattr(self._lib, name):
             shared, pos = _K1_ENTRIES[name]
             fn = getattr(self, shared)
@@ -171,6 +184,14 @@ class _OldABI:
             return fn(*(a for i, a in enumerate(args) if i not in drop))
 
         return call
+
+    def _final(self, keys, n, n_tok, N, w, w_blocks, b, kpe, qt, pm, pl, pa, tickets, out, f32,
+               stream):
+        """K2 on a library without cor_t2i_final: the shared image pass, then
+        cor_t2i_combine (the tickets unused)."""
+        err = self.cor_t2i_image_pass(keys, 0, 0, 0, n, n, n_tok, N, w, b, kpe, 0, qt, 0, pm, pl,
+                                      pa, f32, stream)
+        return err or self.cor_t2i_combine(pm, pl, pa, N // 64, n, n_tok, out, f32, stream)
 
 
 def use_library(lib) -> None:
@@ -419,6 +440,58 @@ def k1_cases(device, draw: int = 0):
             for layer in (0, 1) for T in K1_TOKENS for n in K1_CANDIDATES]
 
 
+K2_TOKENS = (5, 6, 8, 16, 32)  # K1's counts, and the K8 route's above 8 (phase 34)
+K3_MAPS = (1, 3)  # the served decode's one map, SAM's multimask three
+
+
+@torch.no_grad()
+def k2k3_cases(device, draw: int = 0):
+    """(label, make) of K2 and K3, redesigned for Hopper, at the fused
+    decode's shapes: K2 (the final attention) on rows [n, 4096, 256] at
+    ``K2_TOKENS`` tokens, K3 (the upscale tail) on [n, 64, 64, 256] with
+    ``K3_MAPS`` maps, both at ``K1_CANDIDATES`` candidates, in bf16 and fp32
+    (the SAM-base decoder's weights, random from a seed)."""
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+    from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail
+    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv
+
+    N = 4096
+
+    @functools.lru_cache(maxsize=1)
+    def shared(dt):
+        gen = torch.Generator(device=device).manual_seed(30 + 100 * draw)
+        dec = init_mask_decoder(CoreConfig(), 1).to(device, dt).eval()
+        kpe = (0.5 * torch.randn(N, 128, generator=gen, device=device)).to(dt)
+        return dec, kpe
+
+    def rows(dt, n, seed):
+        gen = torch.Generator(device=device).manual_seed(seed + 100 * draw)
+        return (0.5 * torch.randn(n, N, 256, generator=gen, device=device)).to(dt), gen
+
+    def k2(dt, T, n):
+        dec, kpe = shared(dt)
+        keys, gen = rows(dt, n, 31 + T + n)
+        q_tok = torch.randn(n, T, 128, generator=gen, device=device).to(dt)
+        fa = dec.transformer.final_attn_t2i
+        return lambda: (t2i_flash_kv(keys, fa.k_proj.w, fa.k_proj.b, fa.v_proj.w, fa.v_proj.b,
+                                     kpe, q_tok, 8),)
+
+    def k3(dt, m, n):
+        dec, _ = shared(dt)
+        src, gen = rows(dt, n, 32 + m + n)
+        hyper = torch.randn(n, m, 32, generator=gen, device=device).to(dt)
+        up = dec.output_upscaling
+        return lambda: (decoder_tail(src.reshape(n, 64, 64, 256), up.convt1.w, up.convt1.b,
+                                     up.ln.scale, up.ln.bias, up.convt2.w, up.convt2.b, hyper),)
+
+    dts = ((torch.bfloat16, ""), (torch.float32, "@fp32"))
+    return ([(f"K2{sfx} [{n}, {N}, 256], {T} tokens", functools.partial(k2, dt, T, n))
+             for dt, sfx in dts for T in K2_TOKENS for n in K1_CANDIDATES]
+            + [(f"K3{sfx} [{n}, 64, 64, 256], {m} map{'s' if m > 1 else ''}",
+                functools.partial(k3, dt, m, n))
+               for dt, sfx in dts for m in K3_MAPS for n in K1_CANDIDATES])
+
+
 @torch.no_grad()
 def k1_split(lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, idx=None, scale=None) -> dict:
     """K1's device milliseconds by launch (``two_way_layer.layer_launches``;
@@ -581,19 +654,19 @@ def decode_cases(device):
 
 def time_e2e(old, device, card: str, only=()) -> None:
     """The towers' query encode (K4's caller), the SAM image encode (K6's)
-    and the fused mask decode (K1's) through ``old`` and the current library
-    (old, new, new, old; host-launched, CUDA events, and for the towers as
-    CUDA-graph replays too: the device's time alone; the encoder copies its
-    rel-pos indices from the host at each call, which a graph cannot capture,
-    and the decode's ms are mostly the device's); one JSON line each.
-    ``only``: the cases whose label holds one of its parts (K1 selects the
-    decode)."""
+    and the fused mask decode (K1's, K2's and K3's) through ``old`` and the
+    current library (old, new, new, old; host-launched, CUDA events, and for
+    the towers and the decode as CUDA-graph replays too: the device's time
+    alone; the encoder copies its rel-pos indices from the host at each
+    call, which a graph cannot capture); one JSON line each.
+    ``only``: the cases whose label holds one of its parts (K1, K2 and K3
+    select the decode)."""
     import json
 
-    only = tuple(o if o != "K1" else "decode" for o in only)
+    only = tuple(o if o not in ("K1", "K2", "K3") else "decode" for o in only)
     cases = [(label, make, True) for label, make in tower_cases(device)]
     cases += [(label, make, False) for label, make in encode_cases(device)]
-    cases += [(label, make, False) for label, make in decode_cases(device)]
+    cases += [(label, make, True) for label, make in decode_cases(device)]
     for label, make, graph in cases:
         if only and not any(o in label for o in only):
             continue
@@ -626,7 +699,7 @@ def float64_errors(old, run) -> dict:
 
 
 def time_redesigned(old, device, only=(), draws: int = 1) -> int:
-    """Time every case of ``timed_cases`` and ``k1_cases`` (those whose
+    """Time every case of ``timed_cases``, ``k1_cases`` and ``k2k3_cases`` (those whose
     label holds one of ``only``, if given) through ``old`` and the current
     library (old, new, new, old; CUDA graphs of 10 calls); one JSON line
     each, with each call's kernels' device time (torch.profiler), for K1
@@ -641,7 +714,7 @@ def time_redesigned(old, device, only=(), draws: int = 1) -> int:
                  capture_output=True, text=True).stdout.strip().splitlines()
     card = smi[0].strip() if smi else torch.cuda.get_device_name(0)
     slower = []
-    for label, make in timed_cases(device) + k1_cases(device):
+    for label, make in timed_cases(device) + k1_cases(device) + k2k3_cases(device):
         if only and not any(o in label for o in only):
             continue
         use_library(None)  # the inputs (and a forward's lse) from the current library

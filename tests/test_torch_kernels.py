@@ -493,7 +493,7 @@ def test_two_way_layer_kernel_matches_plain_bf16(sam_decoder_bf16, case):
 
 @pytest.mark.gpu
 def test_t2i_flash_kv_kernel_matches_plain_bf16(sam_decoder_bf16):
-    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv, t2i_flash_kv_plain
+    from cor_tpu_torch.ops.kernels.t2i_flash import FINAL_LAUNCHES, t2i_flash_kv, t2i_flash_kv_plain
 
     fa = sam_decoder_bf16.transformer.final_attn_t2i
     x = decode_inputs(8)
@@ -503,7 +503,7 @@ def test_t2i_flash_kv_kernel_matches_plain_bf16(sam_decoder_bf16):
         before = t2i_flash_kv.launches
         got = t2i_flash_kv(*args)
         torch.cuda.synchronize()
-        assert t2i_flash_kv.launches == before + 2
+        assert t2i_flash_kv.launches == before + FINAL_LAUNCHES
         assert rel_err(got, t2i_flash_kv_plain(*args)) <= DECODE_REL
 
 
@@ -717,7 +717,8 @@ def test_mask_decoder_fused_at_tokens_matches_plain(fp32_device, monkeypatch, sp
         got = psd.mask_decoder(dec, img, pe, prompts, None, True)
         torch.cuda.synchronize()
         counts = [w.launches + w.launches_fp32 - b for w, b in zip(wrappers, before)]
-        assert counts == ([8, 2, 0, 0, 1] if sparse <= 3 else [0, 2, 4, 2, 1])
+        k2 = t2i_mod.FINAL_LAUNCHES
+        assert counts == ([8, k2, 0, 0, 1] if sparse <= 3 else [0, k2, 4, 2, 1])
         # the same decode with the kernels' plain versions in their place
         for mod, name in ((twl_mod, "two_way_layer"), (t2i_mod, "t2i_flash_kv"),
                           (t2i_mod, "proj_q_t2i_flash"), (i2t_mod, "i2t_attention_fused"),
@@ -868,10 +869,11 @@ def test_mask_decoder_schedules_launch_as_routed(fp32_device, monkeypatch, flag,
                 "two_way_stack_fused": tws.two_way_stack_fused,
                 "two_way_grid_fused": tws.two_way_grid_fused,
                 "t2i_flash_kv": t2i_mod.t2i_flash_kv, "decoder_tail": dt_mod.decoder_tail}
-    want_counts = {"DMA_FUSED": {"two_way_layer_dma": 8, "t2i_flash_kv": 2, "decoder_tail": 1},
+    k2 = t2i_mod.FINAL_LAUNCHES
+    want_counts = {"DMA_FUSED": {"two_way_layer_dma": 8, "t2i_flash_kv": k2, "decoder_tail": 1},
                    "STACK_FUSED": {"two_way_stack_fused": 1, "decoder_tail": 1},
                    "GRID_FUSED": {"two_way_grid_fused": 1, "decoder_tail": 1},
-                   "GRID+int8": {"two_way_layer": 8, "t2i_flash_kv": 2, "decoder_tail": 1}}[flag]
+                   "GRID+int8": {"two_way_layer": 8, "t2i_flash_kv": k2, "decoder_tail": 1}}[flag]
     with torch.no_grad():
         before = {k: both_launches(w) for k, w in wrappers.items()}
         got = psd.mask_decoder(dec, img, pe, prompts, dense, True, **kw)
@@ -1226,7 +1228,7 @@ def test_two_way_layer_kernel_matches_plain_fp32(sam_decoder_fp32, fp32_device, 
 
 @pytest.mark.gpu
 def test_t2i_flash_kv_kernel_matches_plain_fp32(sam_decoder_fp32, fp32_device):
-    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv, t2i_flash_kv_plain
+    from cor_tpu_torch.ops.kernels.t2i_flash import FINAL_LAUNCHES, t2i_flash_kv, t2i_flash_kv_plain
 
     fa = sam_decoder_fp32.transformer.final_attn_t2i
     x = {k: v.float() for k, v in decode_inputs(8).items()}
@@ -1236,7 +1238,7 @@ def test_t2i_flash_kv_kernel_matches_plain_fp32(sam_decoder_fp32, fp32_device):
         before = t2i_flash_kv.launches_fp32
         got = t2i_flash_kv(*args)
         torch.cuda.synchronize()
-        assert t2i_flash_kv.launches_fp32 == before + 2
+        assert t2i_flash_kv.launches_fp32 == before + FINAL_LAUNCHES
         fp32_close(got, t2i_flash_kv_plain(*args), 5e-4)
 
 
