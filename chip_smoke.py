@@ -189,7 +189,8 @@ Phases (any failure exits non-zero; no phase catches an exception):
     9, 16 and 32, K8a (proj_q_t2i_flash) and K8b (i2t_attention_fused) at 9,
     11, 16 and 32, each against its plain version (bf16: max relative error
     <= 2e-2; fp32: K1 and K8b 2e-4, K2 and K8a 5e-4), timed beside the plain
-    version and the bound;
+    version and the bound, K8a and K8b (one launch each, on K1's Hopper
+    passes) also as CUDA-graph replays;
 34. SAM's stock prompts at full width: the SAM-base encoder (full depth,
     tables and pos_embed filled) embeds 2 query images; the full prompt
     encoder (random weights from a seed, on the card and on the CPU) encodes
@@ -365,7 +366,7 @@ def phase_build():
              "twl_tokens_in_kernel", "t2i_image_kernel", "twl_tokens_mid_kernel",
              "twl_image_i2t_kernel", "twl_t2i_kernel", "twl_i2t_kernel",
              "twl_tokens_in_cluster_kernel", "twl_tokens_mid_cluster_kernel",
-             "t2i_combine_kernel", "t2i_final_kernel", "decoder_tail_kernel",
+             "t2i_combine_kernel", "t2i_final_kernel", "t2i_proj_q_kernel", "decoder_tail_kernel",
              "vit_attention_relpos_kernel", "vit_attention_relpos_f32_kernel",
              "vit_attention_bwd_dq_kernel", "vit_attention_bwd_dkv_kernel",
              "vit_attention_bwd_prep_kernel",
@@ -1019,10 +1020,9 @@ KERNEL_GROUPS = (
     ("K6 vit_attention_relpos", ("vit_attention_relpos",)),
     ("K1-stack / K1-grid two_way_fused", ("two_way_fused",)),
     ("K1-dma image passes", ("dma_t2i", "dma_i2t")),
-    # the image pass with q_img (kEmitQ, the last template argument) is K1's
-    # or K8a's, the i2t image kernel K1's or K8b's (the route decides)
-    ("two-way layers: K1, or K8a + K8b", ("twl_", "true, true>", "false, true>",
-                                          "t2i_combine")),
+    # K1's four launches and K8b (twl_i2t) on K1's route, K8a and K8b on the
+    # K8 route (the route decides)
+    ("two-way layers: K1, or K8a + K8b", ("twl_", "t2i_proj_q")),
     ("K2 t2i_flash_kv", ("t2i_final",)),
     ("K3 decoder_tail", ("decoder_tail_kernel",)),
     ("K4 attention_seq_qkv", ("seq_attention",)),
@@ -2746,18 +2746,19 @@ FP32_TOL.update({"proj_q_t2i_flash": 5e-4, "i2t_attention_fused": 2e-4})
 TOKEN_MACS = 8.6e6 / 6  # the token side of a two-way layer, per token and candidate
 
 
-def token_check(name, label, dt, pairs, kt, pt, b, tol):
+def token_check(name, label, dt, pairs, kt, pt, b, tol, **extra):
     """bf16: max |kernel - plain| / max |plain| <= DECODE_REL; fp32: check32
-    at ``tol``. Returns the entry."""
+    at ``tol``. Returns the entry (with ``extra``, e.g. ``device_ms``)."""
     if dt == torch.float32:
-        return check32(name, label, tol, pairs, kt, pt, b)
+        return check32(name, label, tol, pairs, kt, pt, b, **extra)
     err = max(rel_err(g, w) for g, w in pairs)
+    dev = "" if "device_ms" not in extra else f"; graph replays {extra['device_ms']:.4f} ms"
     print(f"  {name} {label}: max|d|/max|plain| = {err:.3e}; kernel {kt[0]:.4f} ms "
-          f"[{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})",
-          flush=True)
+          f"[{kt[1]:.4f}, {kt[2]:.4f}], plain {pt[0]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})"
+          f"{dev}", flush=True)
     if not err <= DECODE_REL:
         fail(f"{name} ({label}) disagrees with its plain version: {err}")
-    return entry(abs_err(*pairs), kt, pt, b, max_rel_err=err)
+    return entry(abs_err(*pairs), kt, pt, b, max_rel_err=err, **extra)
 
 
 @torch.no_grad()
@@ -2766,7 +2767,9 @@ def phase_token_kernels(device):
     store, layer 1 on rows), K2 at 5 to 32, K8a and K8b at 9, 11, 16 and 32,
     each against its plain version at 40 candidates on the 64 x 64 grid, in
     bf16 and in fp32 (TF32 off), timed beside the plain version and the
-    bound. Returns the kernels line's entries."""
+    bound; K8a and K8b also as CUDA-graph replays (``device_ms``: the
+    device's time, the host's launches left out). Returns the kernels line's
+    entries."""
     from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
     from cor_tpu_torch.ops.kernels.i2t_attention import (
         i2t_attention_fused,
@@ -2780,6 +2783,7 @@ def phase_token_kernels(device):
     )
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer, two_way_layer_plain
 
+    t0 = time.perf_counter()
     n, N, C, I = CANDIDATES, GRID * GRID, SAM_C, 128
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     store = torch.randint(-127, 128, (STORE_ROWS, N, C), generator=gen, device=device,
@@ -2835,7 +2839,8 @@ def phase_token_kernels(device):
                     n * (2 * N * C * 3 * I + 4 * N * T * I))
             k8a[f"T{T}"] = token_check("K8a proj_q_t2i_flash", f"T {T} [{n}, {N}, {C}]", dt,
                                        list(zip(got, want)), kt, pt, b,
-                                       FP32_TOL["proj_q_t2i_flash"])
+                                       FP32_TOL["proj_q_t2i_flash"],
+                                       **device_times(lambda: proj_q_t2i_flash(*args)))
             q_img, k_tok, v_tok = 0.5 * rnd(n, N, I), rnd(n, T, I), rnd(n, T, I)
             args = (q_img, keys, k_tok, v_tok, i2t.out_proj.w, i2t.out_proj.b, lp1.norm4.scale,
                     lp1.norm4.bias, 8)
@@ -2846,7 +2851,8 @@ def phase_token_kernels(device):
                     n * (4 * N * T * I + 2 * N * I * C))
             k8b[f"T{T}"] = token_check("K8b i2t_attention_fused", f"T {T} [{n}, {N}, {C}]",
                                        dt, [(got, want)], kt, pt, b,
-                                       FP32_TOL["i2t_attention_fused"])
+                                       FP32_TOL["i2t_attention_fused"],
+                                       **device_times(lambda: i2t_attention_fused(*args)))
         row = f"T{K8_ROW_TOKENS}"
         out[f"proj_q_t2i_flash{sfx}"] = dict(k8a[row], at_tokens=k8a)
         out[f"i2t_attention_fused{sfx}"] = dict(k8b[row], at_tokens=k8b)
@@ -2854,7 +2860,8 @@ def phase_token_kernels(device):
         del dec, keys
     del store
     torch.cuda.empty_cache()
-    print("phase 33 kernels at 5 to 32 tokens: ok", flush=True)
+    print(f"phase 33 kernels at 5 to 32 tokens: ok in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return out
 
 
@@ -2880,12 +2887,13 @@ def prompt_tokens(points: int, box: bool) -> int:
 def route_launches(T: int) -> dict:
     """Each decoder wrapper's launches in one fused decode of T tokens."""
     from cor_tpu_torch.ops.kernels.t2i_flash import FINAL_LAUNCHES as k2
+    from cor_tpu_torch.ops.kernels.t2i_flash import LAUNCHES as k8a
 
     if T <= 8:
         return {"two_way_layer": 8, "t2i_flash_kv": k2, "decoder_tail": 1,
                 "proj_q_t2i_flash": 0, "i2t_attention_fused": 0}
-    return {"two_way_layer": 0, "t2i_flash_kv": k2, "decoder_tail": 1, "proj_q_t2i_flash": 4,
-            "i2t_attention_fused": 2}
+    return {"two_way_layer": 0, "t2i_flash_kv": k2, "decoder_tail": 1,
+            "proj_q_t2i_flash": 2 * k8a, "i2t_attention_fused": 2}
 
 
 @torch.no_grad()
@@ -3742,13 +3750,13 @@ def main():
         "decoder_tail@fp32": ("cor_tpu_torch/csrc/decoder_tail.cu",
                               "cor_tpu/ops/pallas/decoder_tail.py:150", fp32_launches["serve"]),
         # SAM's stock prompts (phase 34): K8a and K8b above 8 tokens, bf16 and fp32
-        "proj_q_t2i_flash": ("cor_tpu_torch/csrc/t2i_flash.cu",
+        "proj_q_t2i_flash": ("cor_tpu_torch/csrc/t2i_proj_q.cu",
                              "cor_tpu/ops/pallas/t2i_flash.py:163", prompt_launches),
-        "proj_q_t2i_flash@fp32": ("cor_tpu_torch/csrc/t2i_flash.cu",
+        "proj_q_t2i_flash@fp32": ("cor_tpu_torch/csrc/t2i_proj_q.cu",
                                   "cor_tpu/ops/pallas/t2i_flash.py:163", prompt_launches),
-        "i2t_attention_fused": ("cor_tpu_torch/csrc/i2t_attention.cu",
+        "i2t_attention_fused": ("cor_tpu_torch/csrc/twl_i2t.cu",
                                 "cor_tpu/ops/pallas/i2t_attention.py:105", prompt_launches),
-        "i2t_attention_fused@fp32": ("cor_tpu_torch/csrc/i2t_attention.cu",
+        "i2t_attention_fused@fp32": ("cor_tpu_torch/csrc/twl_i2t.cu",
                                      "cor_tpu/ops/pallas/i2t_attention.py:105", prompt_launches),
         # the opt-in decode schedules: decode_bench in bf16 (phase 36), the
         # fp32 decodes of phase 35

@@ -6,11 +6,14 @@
 // tensor cores, the residual with the (re-read, dequantised) rows, LN4, and
 // the new rows.
 //
-// Replaces, besides the layer's stage 4, the TPU kernel
+// The first port, besides the layer's stage 4, of the TPU kernel
 // cor_tpu/ops/pallas/i2t_attention.py:i2t_attention_fused (its pallas_call
 // at line 105), which cor_tpu's fused decode runs where its layer kernel
 // does not (above 8 tokens), with the tokens' keys and values computed
-// outside (ops/kernels/i2t_attention.py). T is a run-time argument, 1 to
+// outside; K8b runs K1's pass redesigned for Hopper since (twl_i2t.cu), and
+// no wrapper calls cor_twl_image_i2t now: it stays as the reference the
+// redesign keeps the bits of (tools/kernel_bits.py serves an older
+// library's K8b by it). T is a run-time argument, 1 to
 // kMaxTok = 32; the shared memory (the out-projection weight, the
 // attention output and the tokens' keys and values: 87,040 + 1,024 T bytes
 // in bf16, 168,960 + 1,024 T in fp32) is sized at launch. What bounds it on
@@ -58,8 +61,8 @@ int launch_i2t(const void* src, const int* idx, const float* scale, int S, int n
 // src/idx/S as for cor_t2i_image_pass (src_int8 must be 0: K1's int8 store
 // takes cor_twl_i2t); q_img T [n][N][128]; k_i, v_i T [n][n_tok][128]; wo T
 // [256][128]; bo_ln4 fp32 [3][256]; keys_out T [n][N][256]. K8b
-// (ops/kernels/i2t_attention.py): bf16 or fp32 rows, no idx, the tokens'
-// keys and values from its caller.
+// (its first port): bf16 or fp32 rows, no idx, the tokens' keys and values
+// from its caller.
 extern "C" int cor_twl_image_i2t(const void* src, int src_int8, const void* idx,
                                  const void* scale, int S, int n, int n_tok, int N,
                                  const void* q_img, const void* k_i, const void* v_i,

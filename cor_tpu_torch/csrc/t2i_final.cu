@@ -67,8 +67,9 @@ t2i_final_kernel(const T* __restrict__ keys, int n, int N, const T* __restrict__
                  float* __restrict__ part_m, float* __restrict__ part_l,
                  float* __restrict__ part_acc, int* __restrict__ tickets, T* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  t2i_pass<T, false, true>(smem, keys, nullptr, nullptr, n, n, N, w, w_blocks, b, kpe, nullptr,
-                           qt, nt, nullptr, part_m, part_l, part_acc, tickets, out);
+  t2i_pass<T, false, false, true>(smem, keys, nullptr, nullptr, n, n, N, w, w_blocks, b, kpe,
+                                  nullptr, qt, nt, nullptr, part_m, part_l, part_acc, tickets,
+                                  out);
 }
 
 template <typename T>
@@ -77,7 +78,7 @@ int launch(const void* keys, int n, int nt, int N, const void* w, const void* wb
            int* tickets, void* out, cudaStream_t stream) {
   // internal linkage (the anonymous namespace): each library keeps its own
   static int raised[wg::kMaxDevices] = {};
-  using M = T2iSmem<T, true>;
+  using M = T2iSmem<T, false, true>;
   auto kernel = t2i_final_kernel<T>;
   cudaError_t err =
       wg::raise_shared_memory(reinterpret_cast<const void*>(kernel), M::bytes(kMaxT), raised);

@@ -4,14 +4,16 @@
 //   k = bf16(rows @ Wk^T + bk + kpe),  v = bf16(rows @ Wv^T + bv)
 //   out[t, head h] = softmax_rows(qt_h[t] . k_h) v_h      (qt pre-scaled, bf16)
 //
-// Replaces the TPU kernel cor_tpu/ops/pallas/t2i_flash.py:proj_q_t2i_flash
-// (K8a, its pallas_call at line 163: the per-layer attention that also emits
-// the i2t query q_img = rows @ Wq^T + bq + qpe, where cor_tpu's fused decode
-// does not take its layer kernel); its image pass is also the t2i stage of the
-// opt-in decode schedules (K1-dma, K1-stack, K1-grid). K2, the final
-// attention (t2i_flash.py:t2i_flash_kv, its pallas_call at line 220), and K1
-// ran it too until each was redesigned for Hopper (t2i_final.cu, twl_t2i.cu),
-// and an older library's K2 is this pass and the combine. On the
+// The first port of the TPU kernel cor_tpu/ops/pallas/t2i_flash.py:
+// proj_q_t2i_flash (K8a, its pallas_call at line 163: the per-layer attention
+// that also emits the i2t query q_img = rows @ Wq^T + bq + qpe, where
+// cor_tpu's fused decode does not take its layer kernel); its image pass is
+// the t2i stage of the opt-in decode schedules (K1-dma, K1-stack, K1-grid).
+// K2, the final attention (t2i_flash.py:t2i_flash_kv, its pallas_call at line
+// 220), K1 and K8a ran it too until each was redesigned for Hopper
+// (t2i_final.cu, twl_t2i.cu, t2i_proj_q.cu): no wrapper calls these two
+// entries now; they stay as the reference the redesigns keep the bits of
+// (tools/kernel_bits.py serves an older library's K2 and K8a by them). On the
 // TPU one grid step holds a candidate's whole 2 MiB of rows in VMEM and
 // carries a running softmax across its sequential row tiles. On the H100 the
 // tiles of a candidate run in parallel, so the work is two launches:

@@ -7,8 +7,11 @@
 //
 // Replaces, with the three other launches of the layer, the TPU kernel
 // cor_tpu/ops/pallas/two_way_layer.py:two_way_layer_fused (its pallas_calls
-// at lines 978, 998 and 1012). K8b and the opt-in schedules keep the shared
-// stage-4 body of i2t_attention.cuh.
+// at lines 978, 998 and 1012), and, at 9 to 32 tokens (kWide), the TPU
+// kernel cor_tpu/ops/pallas/i2t_attention.py:i2t_attention_fused (its
+// pallas_call at line 105), K8b, which the K8 route runs with the tokens'
+// keys and values from torch (ops/kernels/i2t_attention.py). The opt-in
+// schedules keep the shared stage-4 body of i2t_attention.cuh.
 //
 // What held the shared pass back on the H100 (measured by launch, PERF.md):
 // one CTA of 4 warps per 64-row tile staged the whole out-projection weight
@@ -55,6 +58,23 @@
 // values [8][128] fp32, and the bias and LN4 vectors: 220,288 B in bf16,
 // 220,256 in fp32.
 //
+// K8b (kWide, 9 to 32 tokens): the tokens' keys and values [32][128] fp32,
+// four times K1's, would not fit twice. Both warpgroups of an item take two
+// tiles of one candidate, so the CTA holds one copy, loaded by both
+// warpgroups between two barriers of theirs when the candidate changes
+// (rows past the tokens zeroed). The attention output is written over its
+// q_img tile (each (row, head) is read, then written, by one thread; bf16
+// holds the tile in the core-matrix layout the product reads, [64][128]),
+// so a tile's q_img is released once the out-projection has read its
+// output, under the epilogue. In bf16 each logit is still summed over d in
+// order, 4 tokens side by side (K1: one), so the bits are the shared
+// body's; the unrolled loops over 32 tokens' logits and divisions spilled
+// ~780 B in fp32 and ran at ~1.7x K1's time, so fp32 (whose bits no check
+// holds) takes an online softmax over the tokens 4 at a time in a loop:
+// no spill, 1.5-1.6x faster (PERF.md). The softmax's CUDA-core work grows with
+// T: at 32 tokens it is 4x K1's at 8. kWide uses 201,856 B in bf16,
+// 169,056 in fp32.
+//
 // What bounds it: per candidate 1 MiB of q_img and 2 MiB of bf16 rows read
 // (0.5 MiB as int8) and 2 MiB of new rows written, 0.27 GFLOP of
 // out-projection (3x in fp32's 3xTF32: operations there) and 8 x 4096 x 2 x
@@ -69,7 +89,7 @@ namespace {
 
 using namespace cor;
 
-constexpr int kMaxT = 8;   // K1's tokens: 5 to 8 (the entry takes 1 to 8)
+constexpr int kMaxT = 8;   // K1's tokens: 5 to 8 (kWide takes 9 to kMaxTok = 32)
 constexpr int kGroups = 2;  // consumer warpgroups, one 64-row tile each
 // the producer warpgroup: in bf16 one thread of warp 0 streams the weight by
 // TMA bulk copies, in fp32 warps 0-1 split it; warp 2 loads the tiles
@@ -113,16 +133,24 @@ constexpr bool regs_balance() {
 static_assert(regs_balance<I2tL<uint16_t>>() && regs_balance<I2tL<float>>(),
               "the consumers take more registers than the producer gives up");
 
-template <typename T>
+template <typename T, bool kWide>
 struct I2tSmem {
   using L = I2tL<T>;
   // a weight block: [256][kKB] of bf16, or the two TF32 halves of one of fp32
   static constexpr int kStageBytes = kC * L::kKB * (sizeof(T) == 2 ? 2 : 8);
   static constexpr int kBlocks = kI / L::kKB;
-  static constexpr int kQ = kRows * L::kLdQ * sizeof(T);
+  // the q_img tile (kWide: the attention output written over it, bf16 in
+  // the core-matrix layout [64][128])
+  static constexpr int kQ =
+      kWide && sizeof(T) == 2 ? kRows * kI * 2 : kRows * L::kLdQ * int(sizeof(T));
   static constexpr int kO = kRows * L::kLdO * sizeof(T);
-  static constexpr int kGroupBytes = kQ + kO + L::kAV + 2 * kMaxT * kI * 4;
-  static constexpr int kBytes = L::kStages * kStageBytes + kGroups * kGroupBytes + 3 * kC * 4 +
+  static constexpr int kAV = kWide ? 0 : L::kAV;
+  static constexpr int kTok = kWide ? kMaxTok : kMaxT;  // the tokens held
+  // the tokens' keys and values [kTok][kI] fp32: per group, or (kWide) per CTA
+  static constexpr int kTokBytes = 2 * kTok * kI * 4;
+  static constexpr int kGroupBytes = kQ + kO + kAV + (kWide ? 0 : kTokBytes);
+  static constexpr int kBytes = L::kStages * kStageBytes + kGroups * kGroupBytes +
+                                (kWide ? kTokBytes : 0) + 3 * kC * 4 +
                                 (2 * L::kStages + 4 * kGroups) * 8;
 };
 
@@ -166,7 +194,39 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, int ld, const void
   }
 }
 
-template <typename T, bool kInt8>
+// One warp starts copying a q_img tile [kRows][kI] of bf16 (rows
+// contiguous) into dst in the core-matrix layout, eight lanes a core matrix.
+__device__ __forceinline__ void copy_q_cm(unsigned char* dst, const uint16_t* src, int lane) {
+  constexpr int kCh = kI / 8;
+#pragma unroll 8
+  for (int f = lane; f < kRows * kCh; f += 32) {
+    int r, c;
+    tf32::chunk_of<kCh>(f, r, c);
+    wg::cp16(dst + 2 * wg::cm_offset(r, 8 * c, kCh), src + r * kI + 8 * c, 16u);
+  }
+}
+
+// 16 values of row r, columns c0 .. c0 + 15, of a core-matrix bf16 tile of
+// kI / 8 chunks a row, as fp32
+__device__ __forceinline__ void load16_cm(const uint16_t* tile, int r, int c0, float (&v)[16]) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const uint4 u = *reinterpret_cast<const uint4*>(tile + wg::cm_offset(r, c0 + 8 * c, kI / 8));
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[8 * c + 2 * e] = bf2f(static_cast<uint16_t>(w[e] & 0xffffu));
+      v[8 * c + 2 * e + 1] = bf2f(static_cast<uint16_t>(w[e] >> 16));
+    }
+  }
+}
+
+// both consumer warpgroups (named barrier 3, 256 threads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+template <typename T, bool kInt8, bool kWide>
 __global__ void __launch_bounds__(kGroups * 128 + kProd, 1)
 twl_i2t_kernel(const void* __restrict__ src, const int* __restrict__ idx,
                const float* __restrict__ scale, int S, int n, int N,
@@ -176,12 +236,18 @@ twl_i2t_kernel(const void* __restrict__ src, const int* __restrict__ idx,
                float cross_scale,
                T* __restrict__ out) {
   using L = I2tL<T>;
-  using M = I2tSmem<T>;
+  using M = I2tSmem<T, kWide>;
   using E = Elem<T>;
+  // the tokens whose logits are summed side by side (fp32 kWide: a step of
+  // its online softmax)
+  constexpr int kTc = kWide ? 4 : 1;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   unsigned char* groups = smem + L::kStages * M::kStageBytes;
-  float* sBo = reinterpret_cast<float*>(groups + kGroups * M::kGroupBytes);  // bo, ln4 s, b
+  // kWide: the CTA's tokens' keys and values
+  float* sTok = reinterpret_cast<float*>(groups + kGroups * M::kGroupBytes);
+  float* sBo = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sTok) +
+                                        (kWide ? M::kTokBytes : 0));  // bo, ln4 s, b
   uint64_t* full = reinterpret_cast<uint64_t*>(sBo + 3 * kC);
   uint64_t* empty = full + L::kStages;
   uint64_t* q_full = empty + L::kStages;  // [kGroups]: a group's q_img tile has landed
@@ -249,10 +315,14 @@ twl_i2t_kernel(const void* __restrict__ src, const int* __restrict__ idx,
         for (int gi = 0; gi < kGroups; ++gi) {
           const int tile = (item % per_cand) * kGroups + gi;
           if (it > 0) wg::mbar_wait(&q_empty[gi], (it - 1) & 1);
-          if (tile < tiles)
-            copy_rows(groups + gi * M::kGroupBytes, L::kLdQ * sizeof(T),
-                      q_img + (static_cast<int64_t>(cand) * N + tile * kRows) * kI, kRows,
-                      kI * sizeof(T), lane);
+          const T* qsrc = q_img + (static_cast<int64_t>(cand) * N + tile * kRows) * kI;
+          if (tile < tiles) {
+            if constexpr (kWide && sizeof(T) == 2)
+              copy_q_cm(groups + gi * M::kGroupBytes, qsrc, lane);
+            else
+              copy_rows(groups + gi * M::kGroupBytes, L::kLdQ * sizeof(T), qsrc, kRows,
+                        kI * sizeof(T), lane);
+          }
           wg::mbar_arrive_copies(&q_full[gi]);
           wg::mbar_arrive(&q_full[gi]);
         }
@@ -280,11 +350,11 @@ twl_i2t_kernel(const void* __restrict__ src, const int* __restrict__ idx,
   const int cw = tid >> 7, tg = tid & 127, warp = tg >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   unsigned char* mine = groups + cw * M::kGroupBytes;
-  const T* sQ = reinterpret_cast<const T*>(mine);
+  T* sQ = reinterpret_cast<T*>(mine);
   unsigned char* sO = mine + M::kQ;  // bf16: the rows (raw int8 or T), then the new rows
-  T* sAV = reinterpret_cast<T*>(mine + M::kQ + M::kO);
-  float* sKi = reinterpret_cast<float*>(mine + M::kQ + M::kO + L::kAV);
-  float* sVi = sKi + kMaxT * kI;
+  T* sAV = kWide ? sQ : reinterpret_cast<T*>(mine + M::kQ + M::kO);
+  float* sKi = kWide ? sTok : reinterpret_cast<float*>(mine + M::kQ + M::kO + M::kAV);
+  float* sVi = sKi + M::kTok * kI;
   const uint32_t av_addr = wg::smem_u32(sAV);
   const uint32_t ring_addr = wg::smem_u32(ring);
   int j = 0, it = 0, cur = -1;
@@ -296,9 +366,21 @@ twl_i2t_kernel(const void* __restrict__ src, const int* __restrict__ idx,
     const int r0 = tile * kRows;
     const int row = source_row(idx, cand, S);
     const float sc = kInt8 ? scale[row] : 1.f;
+    if (kWide && cand != cur) {
+      // the candidate's token keys and values, once both groups are done
+      // with the last candidate's (rows nt .. kMaxTok - 1 zeroed)
+      consumers_sync();
+      for (int i = tid; i < kMaxTok * kI; i += kGroups * 128) {
+        const bool in = i < nt * kI;
+        sKi[i] = in ? E::get(k_i[static_cast<int64_t>(cand) * nt * kI + i]) : 0.f;
+        sVi[i] = in ? E::get(v_i[static_cast<int64_t>(cand) * nt * kI + i]) : 0.f;
+      }
+      cur = cand;
+      consumers_sync();
+    }
     wg::mbar_wait(&q_full[cw], it & 1);
     if (valid) {
-      if (cand != cur) {  // the candidate's token keys and values
+      if (!kWide && cand != cur) {  // the candidate's token keys and values
         for (int i = tg; i < nt * kI; i += 128) {
           sKi[i] = E::get(k_i[static_cast<int64_t>(cand) * nt * kI + i]);
           sVi[i] = E::get(v_i[static_cast<int64_t>(cand) * nt * kI + i]);
@@ -312,36 +394,86 @@ twl_i2t_kernel(const void* __restrict__ src, const int* __restrict__ idx,
 #pragma unroll 1
       for (int h = tg >> 6; h < kHeads; h += 2) {
         float q[kCrossD];
-        wg::load16(sQ + r * L::kLdQ + h * kCrossD, q);
+        if constexpr (kWide && sizeof(T) == 2)
+          load16_cm(reinterpret_cast<const uint16_t*>(sQ), r, h * kCrossD, q);
+        else
+          wg::load16(sQ + r * L::kLdQ + h * kCrossD, q);
 #pragma unroll
         for (int i = 0; i < kCrossD; ++i) q[i] = E::round(q[i] * cross_scale);
-        float l[kMaxT], m = -INFINITY;
-#pragma unroll
-        for (int tt = 0; tt < kMaxT; ++tt) {
-          if (tt >= nt) break;
-          float s = 0.f;
-#pragma unroll
-          for (int d = 0; d < kCrossD; ++d) s += q[d] * sKi[tt * kI + h * kCrossD + d];
-          l[tt] = s;
-          m = fmaxf(m, s);
-        }
-        float sum = 0.f;
-#pragma unroll
-        for (int tt = 0; tt < kMaxT; ++tt) {
-          if (tt >= nt) break;
-          l[tt] = expf(l[tt] - m);
-          sum += l[tt];
-        }
         float a[kCrossD];
+        if constexpr (kWide && sizeof(T) == 4) {
+          // fp32 (bits not kept): an online softmax over the tokens kTc at a
+          // time in a loop, with no array of every logit and one division
+          float m = -INFINITY, sum = 0.f;
 #pragma unroll
-        for (int d = 0; d < kCrossD; ++d) a[d] = 0.f;
+          for (int d = 0; d < kCrossD; ++d) a[d] = 0.f;
+#pragma unroll 1
+          for (int t0 = 0; t0 < nt; t0 += kTc) {
+            float s[kTc];
 #pragma unroll
-        for (int tt = 0; tt < kMaxT; ++tt) {
-          if (tt >= nt) break;
-          const float p = E::round(l[tt] / sum);
-          const float* v = sVi + tt * kI + h * kCrossD;
+            for (int u = 0; u < kTc; ++u) s[u] = 0.f;
 #pragma unroll
-          for (int d = 0; d < kCrossD; ++d) a[d] += p * v[d];
+            for (int d = 0; d < kCrossD; ++d)
+#pragma unroll
+              for (int u = 0; u < kTc; ++u)
+                s[u] += q[d] * sKi[(t0 + u) * kI + h * kCrossD + d];
+            float mc = m;
+#pragma unroll
+            for (int u = 0; u < kTc; ++u)
+              if (t0 + u < nt) mc = fmaxf(mc, s[u]);
+            const float c = expf(m - mc);  // 0 at the first chunk
+            sum *= c;
+#pragma unroll
+            for (int d = 0; d < kCrossD; ++d) a[d] *= c;
+#pragma unroll
+            for (int u = 0; u < kTc; ++u) {
+              const float e = t0 + u < nt ? expf(s[u] - mc) : 0.f;
+              const float* v = sVi + (t0 + u) * kI + h * kCrossD;
+              sum += e;
+#pragma unroll
+              for (int d = 0; d < kCrossD; ++d) a[d] += e * v[d];
+            }
+            m = mc;
+          }
+          const float inv = 1.f / sum;
+#pragma unroll
+          for (int d = 0; d < kCrossD; ++d) a[d] *= inv;
+        } else {
+          // the logits of kTc tokens side by side, each summed over d in order
+          float l[M::kTok], m = -INFINITY;
+#pragma unroll
+          for (int t0 = 0; t0 < M::kTok; t0 += kTc) {
+            if (t0 >= nt) break;
+            float s[kTc];
+#pragma unroll
+            for (int u = 0; u < kTc; ++u) s[u] = 0.f;
+#pragma unroll
+            for (int d = 0; d < kCrossD; ++d)
+#pragma unroll
+              for (int u = 0; u < kTc; ++u) s[u] += q[d] * sKi[(t0 + u) * kI + h * kCrossD + d];
+#pragma unroll
+            for (int u = 0; u < kTc; ++u) {
+              l[t0 + u] = s[u];
+              if (t0 + u < nt) m = fmaxf(m, s[u]);
+            }
+          }
+          float sum = 0.f;
+#pragma unroll
+          for (int tt = 0; tt < M::kTok; ++tt) {
+            if (tt >= nt) break;
+            l[tt] = expf(l[tt] - m);
+            sum += l[tt];
+          }
+#pragma unroll
+          for (int d = 0; d < kCrossD; ++d) a[d] = 0.f;
+#pragma unroll
+          for (int tt = 0; tt < M::kTok; ++tt) {
+            if (tt >= nt) break;
+            const float p = E::round(l[tt] / sum);
+            const float* v = sVi + tt * kI + h * kCrossD;
+#pragma unroll
+            for (int d = 0; d < kCrossD; ++d) a[d] += p * v[d];
+          }
         }
         if constexpr (sizeof(T) == 2) {
           // chunks 2h and 2h + 1 of row r in the core-matrix layout
@@ -360,7 +492,7 @@ twl_i2t_kernel(const void* __restrict__ src, const int* __restrict__ idx,
         }
       }
     }
-    wg::mbar_arrive(&q_empty[cw]);
+    if constexpr (!kWide) wg::mbar_arrive(&q_empty[cw]);
     wg::group_sync(cw);  // the attention output complete
     wg::fence_proxy_async();
 
@@ -413,6 +545,8 @@ twl_i2t_kernel(const void* __restrict__ src, const int* __restrict__ idx,
       wg::fence_regs(acc);
       wg::mbar_arrive(&empty[prev]);
     }
+    // kWide: the attention output, written over q_img's tile, is read
+    if constexpr (kWide) wg::mbar_arrive(&q_empty[cw]);
 
     // + bias + the rows, LayerNorm over kC: the shared body's epilogue, the
     // rows read from (and, bf16, the new rows written through) the staged
@@ -484,13 +618,13 @@ twl_i2t_kernel(const void* __restrict__ src, const int* __restrict__ idx,
   }
 }
 
-template <typename T, bool kInt8>
+template <typename T, bool kInt8, bool kWide>
 int launch(const void* src, const int* idx, const float* scale, int S, int n, int nt, int N,
            const void* q_img, const void* k_i, const void* v_i, const void* wo, const void* wob,
            const float* bo_ln, float eps, float cross_scale, void* out, cudaStream_t stream) {
   static int raised[wg::kMaxDevices] = {};
-  auto kernel = twl_i2t_kernel<T, kInt8>;
-  const int bytes = I2tSmem<T>::kBytes;
+  auto kernel = twl_i2t_kernel<T, kInt8, kWide>;
+  const int bytes = I2tSmem<T, kWide>::kBytes;
   cudaError_t err = wg::raise_shared_memory(reinterpret_cast<const void*>(kernel), bytes, raised);
   if (err != cudaSuccess) return err;
   const int items = n * ((N / kRows + kGroups - 1) / kGroups);
@@ -506,17 +640,18 @@ int launch(const void* src, const int* idx, const float* scale, int S, int n, in
 
 }  // namespace
 
-// K1's stage 4: cor_twl_image_i2t's arguments (i2t_attention.cu) with n_tok
-// 1 to 8, and wo_blocks: in bf16 wo laid out as the ring's blocks (4 of
-// [256][32] in the core-matrix layout; the wrapper's pack), unread in fp32.
-// The same output (in bf16 the same bits).
+// K1's stage 4 and K8b: cor_twl_image_i2t's arguments (i2t_attention.cu)
+// with n_tok 1 to 32 (above 8: K8b's kWide, which takes no int8 store), and
+// wo_blocks: in bf16 wo laid out as the ring's blocks (4 of [256][32] in the
+// core-matrix layout; the wrapper's pack), unread in fp32. The same output
+// (in bf16 the same bits).
 extern "C" int cor_twl_i2t(const void* src, int src_int8, const void* idx, const void* scale,
                            int S, int n, int n_tok, int N, const void* q_img, const void* k_i,
                            const void* v_i, const void* wo, const void* wo_blocks,
                            const void* bo_ln4, float eps, float cross_scale, void* keys_out,
                            int f32, void* stream) {
-  if (n < 1 || n > 65535 || n_tok < 1 || n_tok > kMaxT || N < kRows || N % kRows || S < 1 ||
-      (src_int8 && (!scale || !idx)) || (!f32 && !wo_blocks))
+  if (n < 1 || n > 65535 || n_tok < 1 || n_tok > kMaxTok || N < kRows || N % kRows || S < 1 ||
+      (src_int8 && (!scale || !idx || n_tok > kMaxT)) || (!f32 && !wo_blocks))
     return cudaErrorInvalidValue;
   const int* ip = static_cast<const int*>(idx);
   const float* sp = static_cast<const float*>(scale);
@@ -526,6 +661,8 @@ extern "C" int cor_twl_i2t(const void* src, int src_int8, const void* idx, const
     return fn(src, ip, sp, S, n, n_tok, N, q_img, k_i, v_i, wo, wo_blocks, bl, eps, cross_scale,
               keys_out, s);
   };
-  if (f32) return src_int8 ? go(launch<float, true>) : go(launch<float, false>);
-  return src_int8 ? go(launch<uint16_t, true>) : go(launch<uint16_t, false>);
+  if (n_tok > kMaxT)
+    return f32 ? go(launch<float, false, true>) : go(launch<uint16_t, false, true>);
+  if (f32) return src_int8 ? go(launch<float, true, false>) : go(launch<float, false, false>);
+  return src_int8 ? go(launch<uint16_t, true, false>) : go(launch<uint16_t, false, false>);
 }

@@ -12,8 +12,9 @@
 // Replaces, with the three other launches of the layer, the TPU kernel
 // cor_tpu/ops/pallas/two_way_layer.py:two_way_layer_fused (its pallas_calls
 // at lines 978, 998 and 1012). The pass's body is twl_t2i.cuh's, which K2
-// runs too without its q chunk (t2i_final.cu); K8a and the opt-in schedules
-// keep the shared image pass of t2i_flash.cuh.
+// runs too without its q chunk (t2i_final.cu) and K8a with the tokens taken
+// 8 at a time and the combine folded in (t2i_proj_q.cu); the opt-in
+// schedules keep the shared image pass of t2i_flash.cuh.
 //
 // What held the shared pass back on the H100 (measured by launch, PERF.md):
 // one CTA of 4 warps per 64-row tile staged the whole packed [k|v|q] weight
@@ -83,8 +84,8 @@ twl_t2i_kernel(const void* __restrict__ src, const int* __restrict__ idx,
                T* __restrict__ q_img, float* __restrict__ part_m, float* __restrict__ part_l,
                float* __restrict__ part_acc) {
   extern __shared__ __align__(128) unsigned char smem[];
-  t2i_pass<T, kInt8, false>(smem, src, idx, scale, S, n, N, w, w_blocks, b, kpe, qpe, qt, nt,
-                            q_img, part_m, part_l, part_acc, nullptr, nullptr);
+  t2i_pass<T, kInt8, true, false>(smem, src, idx, scale, S, n, N, w, w_blocks, b, kpe, qpe, qt,
+                                  nt, q_img, part_m, part_l, part_acc, nullptr, nullptr);
 }
 
 template <typename T, bool kInt8>
@@ -93,14 +94,14 @@ int launch(const void* src, const int* idx, const float* scale, int S, int n, in
            const void* qt, void* q_img, float* pm, float* pl, float* pa, cudaStream_t stream) {
   static int raised[wg::kMaxDevices] = {};
   auto kernel = twl_t2i_kernel<T, kInt8>;
-  const int bytes = T2iSmem<T, false>::bytes(kMaxT);
+  const int bytes = T2iSmem<T, true, false>::bytes(kMaxT);
   cudaError_t err = wg::raise_shared_memory(reinterpret_cast<const void*>(kernel), bytes, raised);
   if (err != cudaSuccess) return err;
   constexpr int G = T2iL<T>::kGroups;
   const int items = n * ((N / kRows + G - 1) / G);
   const int sms = wg::sm_count();
   const int grid = items < sms ? items : sms;
-  kernel<<<grid, G * 128 + kProd, T2iSmem<T, false>::bytes(nt), stream>>>(
+  kernel<<<grid, G * 128 + kProd, T2iSmem<T, true, false>::bytes(nt), stream>>>(
       src, idx, scale, S, n, N, static_cast<const T*>(w), static_cast<const T*>(wb), b,
       static_cast<const T*>(kpe),
       static_cast<const T*>(qpe), static_cast<const T*>(qt), nt, static_cast<T*>(q_img), pm, pl,

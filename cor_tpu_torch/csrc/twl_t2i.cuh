@@ -1,9 +1,13 @@
 // The token -> image pass of the SAM decoder redesigned for Hopper, shared
 // by K1's stage 2 (twl_t2i.cu, cor_twl_t2i: the k, v and q projections,
-// q_img written, the per-tile flash partials) and K2, the decoder's final
+// q_img written, the per-tile flash partials), K2, the decoder's final
 // token -> image attention (t2i_final.cu, cor_t2i_final: k and v only, 5 to
-// 32 tokens, the partials combined in the same launch). Each source says
-// what bounds its pass; the design is the one twl_t2i.cu describes.
+// 32 tokens, the partials combined in the same launch), and K8a, the K8
+// route's per-layer attention (t2i_proj_q.cu, cor_t2i_proj_q: K1's q chunk
+// with K2's tokens and combine). Two switches: kQ, the q chunk (q_img
+// written); kFold, the tokens up to kMaxTok taken kMaxT at a time and the
+// partials combined in the launch. Each source says what bounds its pass;
+// the design is the one twl_t2i.cu describes.
 #pragma once
 
 #include <math.h>
@@ -19,7 +23,7 @@ namespace cor {
 namespace t2i_hopper {
 
 // the tokens a pass holds in shared memory at once: K1's 5 to 8 (its entry
-// takes 1 to 8); K2 takes up to kMaxTok in groups of kMaxT
+// takes 1 to 8); K2 and K8a (kFold) take up to kMaxTok in groups of kMaxT
 constexpr int kMaxT = 8;
 constexpr int kProd = 128;       // the producer warpgroup
 // its threads that stream the weight, the rest loading the rows: in bf16 one
@@ -28,12 +32,12 @@ template <typename T>
 constexpr int kWThreads = sizeof(T) == 2 ? 32 : 64;
 constexpr int kLdL = kRows + 4;  // the logits' row stride: 16-byte aligned rows
 // the chunks of the packed weight [k | v (| q)] in the order an item takes
-// them: K1's q first, staged through k's buffer and written out in whole
-// rows; K2 (kFinal) has no q chunk
-template <bool kFinal>
-__host__ __device__ constexpr int chunk_at(int i) { return kFinal ? i : (i == 0 ? 2 : i - 1); }
-template <bool kFinal>
-constexpr int kChunks = kFinal ? 2 : 3;
+// them: with the q chunk (kQ: K1, K8a) q first, staged through k's buffer
+// and written out in whole rows; K2 has none
+template <bool kQ>
+__host__ __device__ constexpr int chunk_at(int i) { return kQ ? (i == 0 ? 2 : i - 1) : i; }
+template <bool kQ>
+constexpr int kChunks = kQ ? 3 : 2;
 
 // two consecutive values of the compute dtype, loaded as one register
 // (bf16) or two (fp32) and read back as fp32
@@ -76,25 +80,25 @@ struct T2iL<float> {
   static constexpr int kRowsBytes = kRows * (kC + 4) * 4;  // [64][260]
 };
 
-template <typename T, bool kFinal>
+template <typename T, bool kQ, bool kFold>
 struct T2iSmem {
   using L = T2iL<T>;
   static constexpr int kLdI = Elem<T>::kLdI;
   // a weight block: [128][kKB] of bf16, or the two TF32 halves of one of fp32
   static constexpr int kStageBytes = kI * L::kKB * (sizeof(T) == 2 ? 2 : 8);
-  static constexpr int kBlocks = kChunks<kFinal> * (kC / L::kKB);  // blocks of an item
+  static constexpr int kBlocks = kChunks<kQ> * (kC / L::kKB);  // blocks of an item
   static constexpr int kKV = kRows * kLdI * sizeof(T);
-  // the tokens held at once: K2 takes its queries kMaxT at a time
+  // the tokens held at once: kFold takes its queries kMaxT at a time
   static __host__ __device__ constexpr int held(int nt) {
-    return kFinal && nt > kMaxT ? kMaxT : nt;
+    return kFold && nt > kMaxT ? kMaxT : nt;
   }
   static __host__ __device__ constexpr int group_bytes(int nt) {
     return L::kRowsBytes + 2 * kKV + kHeads * held(nt) * kLdL * 4 + held(nt) * kI * 4;
   }
-  // + the bias, the mbarriers and (K2) a ticket slot per group
+  // + the bias, the mbarriers and (kFold) a ticket slot per group
   static __host__ __device__ constexpr int bytes(int nt) {
-    return L::kStages * kStageBytes + L::kGroups * group_bytes(nt) + kChunks<kFinal> * kI * 4 +
-           (2 * L::kStages + 2 * L::kGroups) * 8 + (kFinal ? 4 * L::kGroups : 0);
+    return L::kStages * kStageBytes + L::kGroups * group_bytes(nt) + kChunks<kQ> * kI * 4 +
+           (2 * L::kStages + 2 * L::kGroups) * 8 + (kFold ? 4 * L::kGroups : 0);
   }
 };
 
@@ -108,11 +112,11 @@ struct Bars {
 
 // Weight block `blk` of an item (chunk c = chunk_at(blk / (kC / kKB)), inputs
 // kb * kKB ..) of w [3 * kI][kC]
-template <typename T, bool kFinal>
+template <typename T, bool kQ>
 __device__ __forceinline__ const T* weight_block_src(const T* w, int blk) {
   using L = T2iL<T>;
   constexpr int kPer = kC / L::kKB;
-  return w + static_cast<int64_t>(chunk_at<kFinal>(blk / kPer)) * kI * kC +
+  return w + static_cast<int64_t>(chunk_at<kQ>(blk / kPer)) * kI * kC +
          (blk % kPer) * L::kKB;
 }
 
@@ -123,10 +127,10 @@ __device__ __forceinline__ const T* weight_block_src(const T* w, int blk) {
 constexpr int kChF32 = T2iL<float>::kKB / 4;
 constexpr int kPerF32 = kI * kChF32 / kWThreads<float>;  // chunks of a block a lane moves
 constexpr int kFetchDepth = 4;
-template <bool kFinal>
+template <bool kQ>
 __device__ __forceinline__ void fetch_weight_block(const float* w, int blk, int lane,
                                                    float4 (&r)[kPerF32]) {
-  const float* src = weight_block_src<float, kFinal>(w, blk);
+  const float* src = weight_block_src<float, kQ>(w, blk);
 #pragma unroll
   for (int u = 0; u < kPerF32; ++u) {
     int o, ch;
@@ -174,9 +178,9 @@ __device__ __forceinline__ void st_hint(float* p, float v, uint64_t policy) {
 // the producer's row threads (lane 0 .. kProd - kWThreads - 1): bf16 into the
 // core-matrix layout, fp32 into [64][260]; by cp.async, or an int8 store row
 // loaded kBatch chunks at a time, dequantised as load_rows does it and
-// stored. kStream (K2): the copies ask L2 to evict the rows first, which are
-// read once, so that what is read again (the PE projection, the weight
-// blocks, the partials of the combine) stays.
+// stored. kStream (kFold: K2, K8a): the copies ask L2 to evict the rows
+// first, which are read once, so that what is read again (the PE
+// projections, the weight blocks, the partials of the combine) stays.
 template <typename T, bool kInt8, bool kStream = false>
 __device__ __forceinline__ void load_row_tile(unsigned char* tile, const void* src, int row,
                                               int N, int r0, float scale, int lane) {
@@ -236,25 +240,27 @@ __device__ __forceinline__ void load_row_tile(unsigned char* tile, const void* s
 }
 
 // The items a CTA walks: K1's round-robin (blockIdx.x, + gridDim.x, ...);
-// K2's a contiguous range, so that a candidate's tiles end on a few CTAs
-// and the one that combines it (falling behind by the combine) is not the
-// last to finish the next candidates as well.
+// with the combine folded in (kFold) a contiguous range, so that a
+// candidate's tiles end on a few CTAs and the one that combines it (falling
+// behind by the combine) is not the last to finish the next candidates as
+// well.
 struct Items {
   int first;
   unsigned step;  // K1's loops step by gridDim.x, as they did before K2 shared them
   int end;
 };
-template <bool kFinal>
+template <bool kFold>
 __device__ __forceinline__ Items cta_items(int items) {
-  if constexpr (kFinal)
+  if constexpr (kFold)
     return {static_cast<int>(static_cast<int64_t>(blockIdx.x) * items / gridDim.x), 1u,
             static_cast<int>(static_cast<int64_t>(blockIdx.x + 1) * items / gridDim.x)};
   else
     return {static_cast<int>(blockIdx.x), gridDim.x, items};
 }
 
-// K2's combine of candidate `cand`'s partials (its `tiles` tiles at base),
-// by one consumer warpgroup (tg, cw) once every tile is out: cor_t2i_combine's
+// The folded combine (K2, K8a) of candidate `cand`'s partials (its `tiles`
+// tiles at base), by one consumer warpgroup (tg, cw) once every tile is
+// out: cor_t2i_combine's
 // function in its order (m the max over the tiles; l and acc summed over
 // them in order, each scaled by exp(m_tile - m); acc / l), for the held
 // token group's (at most 64) queries at a time. Thread (q = tg % 64, half
@@ -381,11 +387,12 @@ __device__ __forceinline__ void final_combine(const float* part_m, const float* 
 }
 
 // The pass, run by a block of kGroups consumer warpgroups and the producer
-// warpgroup over the dynamic shared memory smem. K1 (kFinal false): q_img
-// written, T 1 to kMaxT. K2 (kFinal): no q chunk, T 1 to kMaxTok in groups
-// of kMaxT; the last group to finish a candidate's tiles combines its
-// partials into out (final_combine), through the tickets.
-template <typename T, bool kInt8, bool kFinal>
+// warpgroup over the dynamic shared memory smem. kQ (K1, K8a): q_img
+// written. Without kFold (K1): T 1 to kMaxT, the partials written out. kFold
+// (K2, K8a): T 1 to kMaxTok in groups of kMaxT; the last group to finish a
+// candidate's tiles combines its partials into out (final_combine), through
+// the tickets.
+template <typename T, bool kInt8, bool kQ, bool kFold>
 __device__ __forceinline__ void t2i_pass(
     unsigned char* smem, const void* __restrict__ src, const int* __restrict__ idx,
     const float* __restrict__ scale, int S, int n, int N, const T* __restrict__ w,
@@ -394,16 +401,16 @@ __device__ __forceinline__ void t2i_pass(
     float* __restrict__ part_m, float* __restrict__ part_l, float* __restrict__ part_acc,
     int* __restrict__ tickets, T* __restrict__ out) {
   using L = T2iL<T>;
-  using M = T2iSmem<T, kFinal>;
+  using M = T2iSmem<T, kQ, kFold>;
   using E = Elem<T>;
   constexpr int G = L::kGroups;
-  constexpr int kNc = kChunks<kFinal>;
+  constexpr int kNc = kChunks<kQ>;
   unsigned char* ring = smem;
   unsigned char* groups = smem + L::kStages * M::kStageBytes;
   float* sB = reinterpret_cast<float*>(groups + G * M::group_bytes(nt));  // [kNc kI]: b
   uint64_t* bar = reinterpret_cast<uint64_t*>(sB + kNc * kI);
   const Bars bars{bar, bar + L::kStages, bar + 2 * L::kStages, bar + 2 * L::kStages + G};
-  int* sTicket = reinterpret_cast<int*>(bar + 2 * L::kStages + 2 * G);  // [G] (K2)
+  int* sTicket = reinterpret_cast<int*>(bar + 2 * L::kStages + 2 * G);  // [G] (kFold)
 
   const int tiles = N / kRows;
   const int per_cand = (tiles + G - 1) / G;
@@ -428,9 +435,9 @@ __device__ __forceinline__ void t2i_pass(
     const int p = tid - consumers;
     if (p < kWThreads<T>) {
       // the weight ring: kBlocks blocks an item, in the consumers' order
-      const Items r = cta_items<kFinal>(items);
+      const Items r = cta_items<kFold>(items);
       const int total =
-          (kFinal ? r.end - r.first : (items - blockIdx.x + gridDim.x - 1) / gridDim.x) *
+          (kFold ? r.end - r.first : (items - blockIdx.x + gridDim.x - 1) / gridDim.x) *
           M::kBlocks;
       if constexpr (sizeof(T) == 2) {
         // one bulk copy a block, from the weight laid out block by block as
@@ -449,7 +456,7 @@ __device__ __forceinline__ void t2i_pass(
         float4 r[kFetchDepth][kPerF32];
 #pragma unroll
         for (int d = 0; d < kFetchDepth; ++d)
-          if (d < total) fetch_weight_block<kFinal>(w, d % M::kBlocks, p, r[d]);
+          if (d < total) fetch_weight_block<kQ>(w, d % M::kBlocks, p, r[d]);
         for (int j0 = 0; j0 < total; j0 += kFetchDepth) {
 #pragma unroll
           for (int d = 0; d < kFetchDepth; ++d) {
@@ -460,7 +467,7 @@ __device__ __forceinline__ void t2i_pass(
             wg::mbar_arrive_copies(&bars.full[s]);
             wg::mbar_arrive(&bars.full[s]);
             if (j + kFetchDepth < total)
-              fetch_weight_block<kFinal>(w, (j + kFetchDepth) % M::kBlocks, p, r[d]);
+              fetch_weight_block<kQ>(w, (j + kFetchDepth) % M::kBlocks, p, r[d]);
           }
         }
       }
@@ -468,7 +475,7 @@ __device__ __forceinline__ void t2i_pass(
       // the rows: a group's tile of the next item once it has done its products
       const int lane = p - kWThreads<T>;
       int it = 0;
-      const Items r = cta_items<kFinal>(items);
+      const Items r = cta_items<kFold>(items);
       for (int item = r.first; item < r.end; item += r.step, ++it) {
         const int cand = item / per_cand;
         const int row = source_row(idx, cand, S);
@@ -477,7 +484,7 @@ __device__ __forceinline__ void t2i_pass(
           const int tile = (item % per_cand) * G + gi;
           if (it > 0) wg::mbar_wait(&bars.rows_empty[gi], (it - 1) & 1);
           if (tile < tiles)
-            load_row_tile<T, kInt8, kFinal>(groups + gi * M::group_bytes(nt), src, row, N,
+            load_row_tile<T, kInt8, kFold>(groups + gi * M::group_bytes(nt), src, row, N,
                                     tile * kRows, sc, lane);
           wg::mbar_arrive_copies(&bars.rows_full[gi]);
           wg::mbar_arrive(&bars.rows_full[gi]);
@@ -503,7 +510,7 @@ __device__ __forceinline__ void t2i_pass(
   const int ra = warp * 16 + g, rb = ra + 8;
   int j = 0, it = 0, cur = -1;
 
-  const Items r = cta_items<kFinal>(items);
+  const Items r = cta_items<kFold>(items);
   for (int item = r.first; item < r.end; item += r.step, ++it) {
     const int cand = item / per_cand;
     const int tile = (item % per_cand) * G + cw;
@@ -522,7 +529,7 @@ __device__ __forceinline__ void t2i_pass(
     // kC / kKB blocks of its 128 outputs
 #pragma unroll 1
     for (int ci = 0; ci < kNc; ++ci) {
-      const int c = chunk_at<kFinal>(ci);
+      const int c = chunk_at<kQ>(ci);
       // this thread's PE projection values for the epilogue (k and q), loaded
       // under the products: two rows x 16 column pairs
       typename Pair<T>::type pa[kI / 8], pb[kI / 8];
@@ -586,7 +593,7 @@ __device__ __forceinline__ void t2i_pass(
       }
       if (ci == kNc - 1) wg::mbar_arrive(&bars.rows_empty[cw]);  // the rows' last reader is done
       if (!valid) continue;
-      if (!kFinal && c == 0) wg::group_sync(cw);  // q's rows are out of k's buffer
+      if (kQ && c == 0) wg::group_sync(cw);  // q's rows are out of k's buffer
       // + bias (+ the PE projection for k and q), rounded to T: the shared
       // pass's epilogue; q goes through k's buffer
       T* dst = c == 1 ? sV : sK;
@@ -609,7 +616,7 @@ __device__ __forceinline__ void t2i_pass(
         E::put2(dst + ra * M::kLdI + col, v0, v1);
         E::put2(dst + rb * M::kLdI + col, v2, v3);
       }
-      if (!kFinal && c == 2) {
+      if (kQ && c == 2) {
         // q_img's 64 rows, 16 bytes a thread and whole rows a warp
         wg::group_sync(cw);
         constexpr int kCh = kI * sizeof(T) / 16;
@@ -627,11 +634,11 @@ __device__ __forceinline__ void t2i_pass(
     const int64_t pbase = static_cast<int64_t>(cand) * tiles + tile;
 
     // the attention over the tile, for the held tokens t0 .. t0 + ng - 1 at
-    // a time (K1: all of them; K2: kMaxT a group, the queries loaded for
+    // a time (K1: all of them; kFold: kMaxT a group, the queries loaded for
     // each), every (head, token) partial in the shared pass's order
     auto attend = [&](const int t0, const int ng) {
       const int nqg = kHeads * ng;  // the held (head, token) query rows
-      if (kFinal && held < nt) {
+      if (kFold && held < nt) {
         // this group's scaled queries (the last group's logits are done)
         for (int i = tg; i < ng * kI; i += 128)
           sQt[i] = E::get(qt[(static_cast<int64_t>(cand) * nt + t0) * kI + i]);
@@ -706,8 +713,8 @@ __device__ __forceinline__ void t2i_pass(
           sL[q * kLdL + lane + 32] = E::round(lb[i]);
           if (lane == 0) {
             // the query's index among all nq: head q / ng, token t0 + q % ng
-            const int gq = kFinal ? (q / ng) * nt + t0 + q % ng : q;
-            if constexpr (kFinal) {  // kept in L2 for the combine
+            const int gq = kFold ? (q / ng) * nt + t0 + q % ng : q;
+            if constexpr (kFold) {  // kept in L2 for the combine
               st_hint(part_m + pbase * nq + gq, m[i], l2_evict_last());
               st_hint(part_l + pbase * nq + gq, l[i], l2_evict_last());
             } else {
@@ -745,7 +752,7 @@ __device__ __forceinline__ void t2i_pass(
         for (int tt = 0; tt < kMaxT; ++tt) {
           if (tt >= ng) break;
           float* pa = part_acc + (pbase * nq + h * nt + t0 + tt) * kCrossD + d;
-          if constexpr (kFinal)
+          if constexpr (kFold)
             st_hint(pa, acc[tt], l2_evict_last());
           else
             *pa = acc[tt];
@@ -753,13 +760,13 @@ __device__ __forceinline__ void t2i_pass(
       }
       wg::group_sync(cw);  // k, v and the logits free for the next item (or group)
     };
-    if constexpr (kFinal) {
+    if constexpr (kFold) {
 #pragma unroll 1
       for (int t0 = 0; t0 < nt; t0 += kMaxT) attend(t0, min(kMaxT, nt - t0));
     } else {
       attend(0, nt);
     }
-    if constexpr (kFinal) {
+    if constexpr (kFold) {
       // the tile's partials are out; the group that completes the
       // candidate's tiles combines them (its ticket reset for the next
       // launch, which a CUDA graph's replay is)

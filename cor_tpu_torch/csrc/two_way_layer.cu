@@ -39,8 +39,8 @@
 // for K1-dma, and the image bodies of t2i_flash.cuh and i2t_attention.cuh,
 // which K1-dma runs over several tiles per CTA (two_way_layer_dma.cu),
 // K1-stack and K1-grid within one kernel for a transformer's stages
-// (two_way_stack.cuh), and K2, K8a and K8b one tile per CTA (t2i_flash.cu,
-// i2t_attention.cu).
+// (two_way_stack.cuh), and the first K2, K8a and K8b one tile per CTA
+// (t2i_flash.cu, i2t_attention.cu).
 //
 // The token stages are small (T tokens x ~1.4 M MACs per layer and
 // candidate): each warp computes 4 whole output columns at a time (2 for the
@@ -69,11 +69,11 @@
 // The token count: the two token kernels are templated on it (T = 5, 6, 7,
 // 8: their loops over the tokens unroll, and T = 6 is the code of the 6-token
 // kernel). The image passes take it at run time, up to kMaxTok = 32, with
-// their shared memory sized at launch, because the i2t kernel is also
+// their shared memory sized at launch, because the i2t kernel was also
 // cor_tpu's K8b (cor_tpu/ops/pallas/i2t_attention.py:i2t_attention_fused,
 // its pallas_call at line 105: the same stage 4 where cor_tpu's fused decode
 // does not take its layer kernel, above 8 tokens), called with its tokens'
-// keys and values computed outside (ops/kernels/i2t_attention.py).
+// keys and values computed outside (K8b runs twl_i2t.cu's pass since).
 
 #include "two_way_tokens.cuh"
 

@@ -104,6 +104,11 @@ _SIGNATURES = {
         _VP, ctypes.c_int, _I, ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
         _I, _VP,
     ),
+    # K8a: keys, n, n_tok, N, w, w_blocks, b, kpe, qpe, qt, q_img, part_m, part_l, part_acc,
+    # tickets, out, f32, stream
+    "cor_t2i_proj_q": (
+        _VP, ctypes.c_int, _I, ctypes.c_int, *(_VP,) * 12, _I, _VP,
+    ),
     # K1's stages 1 and 3 over a cluster of CTAs a candidate: cor_twl_tokens_in's and
     # cor_twl_tokens_mid's arguments
     "cor_twl_tokens_in_cluster": (

@@ -1,6 +1,6 @@
 """The image -> token attention block tail of the SAM two-way transformer
-(K8b): the CUDA kernel of ``csrc/two_way_layer.cu`` (the two-way layer's
-stage-4 image kernel) and its plain PyTorch version.
+(K8b): the CUDA kernel of ``csrc/twl_i2t.cu`` (K1's stage-4 image pass) and
+its plain PyTorch version.
 
 Replaces ``cor_tpu/ops/pallas/i2t_attention.py:i2t_attention_fused`` (its
 ``pallas_call`` at line 105). Per candidate, each image row attends to the
@@ -19,9 +19,15 @@ per-head mean: the same function.
 
 ``cor_tpu``'s fused decode runs it where its layer kernel (K1) does not,
 above 8 tokens. On the card it is one launch (``launches`` adds 1 per call)
-of the kernel that ends K1's layer: one CTA per 64-row tile of a candidate,
-the softmax on the CUDA cores, the out-projection on the tensor cores, the
-residual and the LayerNorm in its epilogue. It takes C = 256, 8 heads, I =
+of K1's image pass redesigned for Hopper, which ends K1's layer
+(``cor_twl_i2t``; above 8 tokens its wide instantiation: the tokens' keys
+and values held once a CTA, the attention output written over the q_img
+tile): persistent CTAs of two consumer warpgroups, the softmax on the CUDA
+cores in the shared body's order (bf16 keeps its bits; in fp32 above 8
+tokens an online softmax over the tokens 4 at a time), the out-projection
+on ``wgmma`` from a ring fed by TMA bulk copies (the weight laid out as the
+ring's blocks, K1's pack), the residual and the LayerNorm in its epilogue.
+It takes C = 256, 8 heads, I =
 128, T from 5 to 32 tokens and N a multiple of 64, in bf16 or fp32 (every
 operand of one dtype; in fp32 the out-projection runs in 3xTF32 and
 nothing is rounded); any other CUDA input raises, a CPU tensor takes the
@@ -47,6 +53,7 @@ from cor_tpu_torch.ops.kernels.t2i_flash import (
     MIN_TOKENS,
     ROW_TILE,
     cached_pack,
+    ring_blocks,
 )
 
 
@@ -85,19 +92,29 @@ def i2t_attention_fused(q_img, keys, k_tok, v_tok, w_out, b_out, ln_scale, ln_bi
     refuse_grad("i2t_attention_fused", *args)
     n, N, _ = keys.shape
     dev = keys.device
-    wo, bo_ln = cached_pack(w_out, "_i2t_pack", (w_out, b_out, ln_scale, ln_bias), dev, dt,
-                            lambda: (w_out.detach().to(dev, dt).contiguous(),
-                                     torch.cat([b_out.detach(), ln_scale.detach(),
-                                                ln_bias.detach()]).to(dev, torch.float32)))
+    wo, wo_blocks, bo_ln = cached_pack(
+        w_out, "_i2t_pack", (w_out, b_out, ln_scale, ln_bias), dev, dt,
+        lambda: _pack(w_out, b_out, ln_scale, ln_bias, dev, dt))
     out = torch.empty((n, N, C_DIM), device=dev, dtype=dt)
     with torch.cuda.device(dev):
-        check(library().cor_twl_image_i2t(
+        check(library().cor_twl_i2t(
             keys.data_ptr(), 0, 0, 0, n, n, k_tok.shape[1], N, q_img.data_ptr(),
-            k_tok.data_ptr(), v_tok.data_ptr(), wo.data_ptr(), bo_ln.data_ptr(), eps,
+            k_tok.data_ptr(), v_tok.data_ptr(), wo.data_ptr(),
+            0 if wo_blocks is None else wo_blocks.data_ptr(), bo_ln.data_ptr(), eps,
             1.0 / math.sqrt(INTERNAL // HEADS), out.data_ptr(), int(dt == torch.float32),
             torch.cuda.current_stream(dev).cuda_stream), "i2t_attention_fused")
     count_launch(i2t_attention_fused, dt)
     return out
+
+
+def _pack(w_out, b_out, ln_scale, ln_bias, dev, dt):
+    """(w_out [C, I] in the compute dtype, in bf16 laid out as the ring's
+    blocks too (K1's ``wo_i_blocks``; fp32 splits the weight as it streams
+    it), the fp32 [b_out | ln_scale | ln_bias])."""
+    wo = w_out.detach().to(dev, dt).contiguous()
+    return (wo, ring_blocks(wo, I2T_BLOCK) if dt == torch.bfloat16 else None,
+            torch.cat([b_out.detach(), ln_scale.detach(), ln_bias.detach()]).to(
+                dev, torch.float32))
 
 
 def _check(q_img, keys, k_tok, v_tok, w_out, num_heads: int) -> torch.dtype:
@@ -124,6 +141,31 @@ def _check(q_img, keys, k_tok, v_tok, w_out, num_heads: int) -> torch.dtype:
     if not all(t.is_contiguous() for t in (q_img, keys, k_tok, v_tok)) or n > 65535:
         raise ValueError("i2t_attention_fused kernel takes contiguous operands, n <= 65535")
     return dt
+
+
+I2T_BLOCK = 32  # the inputs of a ring block of the pass (csrc/twl_i2t.cu, bf16 kKB)
+_LAYER_TOKENS = 8  # K1's instantiation takes up to 8 tokens, the wide one 9 to 32
+
+
+def i2t_smem(dtype: torch.dtype, T: int) -> int:
+    """The pass's dynamic shared memory at T tokens, as csrc/twl_i2t.cu lays
+    it out (``I2tSmem<T, kWide>``): the ring; per consumer warpgroup its
+    q_img tile, in bf16 its rows tile, and up to 8 tokens its attention output
+    and the tokens' keys and values [8][I] fp32; above 8 the attention output
+    over the q_img tile (bf16 [64][128] in the core-matrix layout) and one
+    copy of the tokens' keys and values [32][I] fp32 a CTA; the bias and
+    LN4 vectors, the mbarriers."""
+    bf16 = dtype == torch.bfloat16
+    wide = T > _LAYER_TOKENS
+    stages, stage = (4, C_DIM * I2T_BLOCK * 2) if bf16 else (2, C_DIM * 16 * 8)
+    ld_q = INTERNAL + (8 if bf16 else 4)
+    q_tile = ROW_TILE * (INTERNAL * 2 if bf16 and wide else ld_q * (2 if bf16 else 4))
+    rows_tile = ROW_TILE * (C_DIM + 8) * 2 if bf16 else 0  # fp32 reads device memory
+    av = 0 if wide else (ROW_TILE * INTERNAL * 2 if bf16 else ROW_TILE * (INTERNAL + 4) * 4)
+    tok = 2 * (MAX_TOKENS if wide else _LAYER_TOKENS) * INTERNAL * 4
+    group = q_tile + rows_tile + av + (0 if wide else tok)
+    return (stages * stage + 2 * group + (tok if wide else 0) + 3 * C_DIM * 4
+            + (2 * stages + 8) * 8)
 
 
 i2t_attention_fused.launches = i2t_attention_fused.launches_fp32 = 0

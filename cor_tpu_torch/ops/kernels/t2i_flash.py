@@ -1,5 +1,5 @@
 """The token -> image attention of the SAM two-way transformer: the CUDA
-kernels of ``csrc/t2i_final.cu`` (K2) and ``csrc/t2i_flash.cu`` (K8a), and
+kernels of ``csrc/t2i_final.cu`` (K2) and ``csrc/t2i_proj_q.cu`` (K8a), and
 their plain PyTorch versions.
 
 Replaces ``cor_tpu/ops/pallas/t2i_flash.py``'s two kernels:
@@ -28,10 +28,10 @@ redesigned for Hopper (``csrc/twl_t2i.cuh``) without its q chunk,
 persistent CTAs on ``wgmma`` that take the tokens 8 at a time, each tile's
 flash partials (max, sum and the unnormalised [heads x T, d] product)
 combined by the CTA that finishes a candidate's last tile (per-candidate
-tickets, ``_tickets``, which each launch leaves at zero). K8a is two
-launches (``LAUNCHES``): the shared image pass of ``csrc/t2i_flash.cuh``
-(one CTA per 64-row tile: projections on the tensor cores, q_img written
-out, the tile's partials) and a combine over the tiles. The
+tickets, ``_tickets``, which each launch leaves at zero). K8a is one launch
+too (``LAUNCHES``): the same pass with K1's q chunk (q_img written out) and
+K2's tokens and folded combine, its weight in K1's ring blocks (chunks q,
+k, v), sharing K2's tickets. The
 kernels take C = 256, 8 heads, I = 128, T from 5 to 32 tokens (the mask
 decoder's 5 output tokens and up to 27 prompt tokens) and N a multiple of
 64, in bf16 or fp32 (keys, the PE projections and q_tok of one dtype; in
@@ -117,42 +117,21 @@ def _scaled_queries(q_tok, dt):
     return (q_tok.float() / math.sqrt(INTERNAL // HEADS)).to(dt).contiguous()
 
 
-def _flash(keys, w, b, kpe, qpe, q_tok, dt):
-    """K8a: the shared image pass (q_img written too) and the combine: (q_img,
-    attention [n, T, I])."""
-    n, N, _ = keys.shape
-    T = q_tok.shape[1]
-    dev = keys.device
-    qt = _scaled_queries(q_tok, dt)
-    parts = _partials(n, N, T, dev)
-    q_img = torch.empty((n, N, INTERNAL), device=dev, dtype=dt)
-    out = torch.empty((n, T, INTERNAL), device=dev, dtype=dt)
-    is_f32 = int(dt == torch.float32)
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        check(lib.cor_t2i_image_pass(
-            keys.data_ptr(), 0, 0, 0, n, n, T, N, w.data_ptr(), b.data_ptr(),
-            kpe.data_ptr(), qpe.data_ptr(), qt.data_ptr(), q_img.data_ptr(),
-            *(p.data_ptr() for p in parts), is_f32, stream), "t2i image pass")
-        check(lib.cor_t2i_combine(*(p.data_ptr() for p in parts), N // ROW_TILE, n, T,
-                                  out.data_ptr(), is_f32, stream), "t2i combine")
-    return q_img, out
-
-
-_TICKETS = {}  # device index -> K2's per-candidate tickets
+_TICKETS = {}  # device index -> the per-candidate tickets of K2 and K8a
 
 
 def _tickets(dev) -> torch.Tensor:
-    """K2's per-candidate tickets on ``dev``: int32 [65535], zeroed once;
-    every launch leaves them at zero, so a CUDA graph can replay a call.
-    Made at the first call on a device, which therefore must not be under a
-    CUDA graph's capture. Two K2 launches in flight at once on one device
-    (two streams) would share them: the port launches on one stream."""
+    """The per-candidate tickets of K2 and K8a on ``dev``: int32 [65535],
+    zeroed once; every launch of either leaves them at zero, so a CUDA graph
+    can replay a call. Made at the first call on a device, which therefore
+    must not be under a CUDA graph's capture. Two launches in flight at once
+    on one device (two streams) would share them: the port launches on one
+    stream."""
     if dev.index not in _TICKETS:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("t2i_flash_kv: call it once on this device before capturing it "
-                               "in a CUDA graph (its tickets are made at the first call)")
+            raise RuntimeError("t2i_flash_kv / proj_q_t2i_flash: call one of them once on this "
+                               "device before capturing it in a CUDA graph (their tickets are "
+                               "made at the first call)")
         _TICKETS[dev.index] = torch.zeros(65535, dtype=torch.int32, device=dev)
     return _TICKETS[dev.index]
 
@@ -173,6 +152,26 @@ def _final(keys, w, b, w_blocks, kpe, q_tok, dt):
             _tickets(dev).data_ptr(), out.data_ptr(), int(dt == torch.float32),
             torch.cuda.current_stream(dev).cuda_stream), "t2i final attention")
     return out
+
+
+def _proj_q(keys, w, b, w_blocks, kpe, qpe, q_tok, dt):
+    """K8a: (q_img [n, N, I], the attention [n, T, I]), one launch."""
+    n, N, _ = keys.shape
+    T = q_tok.shape[1]
+    dev = keys.device
+    qt = _scaled_queries(q_tok, dt)
+    parts = _partials(n, N, T, dev)
+    q_img = torch.empty((n, N, INTERNAL), device=dev, dtype=dt)
+    out = torch.empty((n, T, INTERNAL), device=dev, dtype=dt)
+    lib = library()
+    with torch.cuda.device(dev):
+        check(lib.cor_t2i_proj_q(
+            keys.data_ptr(), n, T, N, w.data_ptr(), 0 if w_blocks is None else w_blocks.data_ptr(),
+            b.data_ptr(), kpe.data_ptr(), qpe.data_ptr(), qt.data_ptr(), q_img.data_ptr(),
+            *(p.data_ptr() for p in parts), _tickets(dev).data_ptr(), out.data_ptr(),
+            int(dt == torch.float32), torch.cuda.current_stream(dev).cuda_stream),
+            "proj_q_t2i_flash")
+    return q_img, out
 
 
 def t2i_flash_kv(keys, wk, bk, wv, bv, kpe, q_tok, num_heads: int) -> torch.Tensor:
@@ -202,7 +201,8 @@ def proj_q_t2i_flash(keys, wk, bk, wv, bv, wq, bq, kpe, qpe, q_tok, num_heads: i
     dt = _check(keys, wk, wv, kpe, q_tok, num_heads, wq, qpe)
     refuse_grad("proj_q_t2i_flash", keys, wk, bk, wv, bv, wq, bq, kpe, qpe, q_tok)
     w, b = _pack(wk, bk, wv, bv, keys.device, dt, wq, bq)
-    q_img, out = _flash(keys, w, b, kpe, qpe, q_tok, dt)
+    w_blocks = _proj_q_blocks(wk, bk, wv, bv, wq, bq, w) if dt == torch.bfloat16 else None
+    q_img, out = _proj_q(keys, w, b, w_blocks, kpe, qpe, q_tok, dt)
     count_launch(proj_q_t2i_flash, dt, LAUNCHES)
     return q_img, out
 
@@ -252,6 +252,7 @@ def ring_blocks(w: torch.Tensor, kb: int, order=None) -> torch.Tensor:
 
 
 FINAL_CHUNK_ORDER = (0, 1)  # k, v: the order of K2's chunks (csrc/twl_t2i.cuh)
+PROJ_Q_CHUNK_ORDER = (2, 0, 1)  # q, k, v: the order of K1's and K8a's chunks
 
 
 def _pack(wk, bk, wv, bv, device, dtype, wq=None, bq=None):
@@ -271,12 +272,20 @@ def _final_blocks(wk, bk, wv, bv, w):
                        lambda: ring_blocks(w, 64, FINAL_CHUNK_ORDER))
 
 
+def _proj_q_blocks(wk, bk, wv, bv, wq, bq, w):
+    """K8a's bf16 [k | v | q] weight ``w`` (``_pack``'s) laid out as its
+    ring's blocks, K1's layout (chunks q, k, v), kept on ``wk`` beside the
+    pack."""
+    return cached_pack(wk, "_t2i_blocks3", (wk, bk, wv, bv, wq, bq), w.device, w.dtype,
+                       lambda: ring_blocks(w, 64, PROJ_Q_CHUNK_ORDER))
+
+
 SMEM_LIMIT = 232_448  # the dynamic shared memory a block may take on the H100
 
 
 def final_smem(dtype: torch.dtype, T: int) -> int:
     """K2's dynamic shared memory at T tokens, as csrc/twl_t2i.cuh lays it out
-    (``T2iSmem<T, true>``: the weight ring; per consumer warpgroup its row
+    (``T2iSmem<T, false, true>``: the weight ring; per consumer warpgroup its row
     tile, k, v, the logits and queries of at most 8 tokens; the bias, the
     mbarriers and a ticket slot per warpgroup)."""
     bf16 = dtype == torch.bfloat16
@@ -290,8 +299,15 @@ def final_smem(dtype: torch.dtype, T: int) -> int:
             + 4 * groups)
 
 
+def proj_q_smem(dtype: torch.dtype, T: int) -> int:
+    """K8a's dynamic shared memory at T tokens (``T2iSmem<T, true, true>``):
+    K2's layout with the q chunk's bias (K1's layout with K2's ticket
+    slots)."""
+    return final_smem(dtype, T) + INTERNAL * 4
+
+
 FINAL_LAUNCHES = 1  # K2's kernel launches per call on the card: the combine folded in
-LAUNCHES = 2  # K8a's: the image pass and the combine
+LAUNCHES = 1  # K8a's: q_img and the attention, the combine folded in
 
 t2i_flash_kv.launches = t2i_flash_kv.launches_fp32 = 0
 proj_q_t2i_flash.launches = proj_q_t2i_flash.launches_fp32 = 0

@@ -39,8 +39,9 @@ redesigned for Hopper (the token stages over a cluster of 4 CTAs a
 candidate while they all fit on the card at once, else one CTA a candidate,
 the image passes persistent on wgmma, the weights streamed through
 shared-memory rings by TMA bulk copies in bf16), and compute what the
-shared bodies of K1-dma, K8a and K8b compute, bit for bit (K2 runs the t2i
-pass without its q chunk); their
+shared bodies of K1-dma and the first K8a and K8b compute, bit for bit (K2
+runs the t2i pass without its q chunk, K8a with K2's tokens and combine,
+K8b the i2t pass above 8 tokens); their
 bf16 weights go in the pack a second time, laid out as the rings' blocks
 (``t2i_flash.ring_blocks``). ``layer_launches`` returns the four launches unrun, for
 timing them one by one. See the sources for what bounds each. The kernels
@@ -70,11 +71,17 @@ import torch
 from cor_tpu_torch.ops.common import layer_norm
 from cor_tpu_torch.ops.diff import refuse_grad
 from cor_tpu_torch.ops.kernels._build import check, count_launch, library, operand_dtype
-from cor_tpu_torch.ops.kernels.i2t_attention import _heads, i2t_attention_fused_plain
+from cor_tpu_torch.ops.kernels.i2t_attention import (
+    I2T_BLOCK,
+    _heads,
+    i2t_attention_fused_plain,
+    i2t_smem,
+)
 from cor_tpu_torch.ops.kernels.t2i_flash import (
     C_DIM,
     HEADS,
     INTERNAL,
+    PROJ_Q_CHUNK_ORDER,
     ROW_TILE,
     SMEM_LIMIT,
     cached_pack,
@@ -171,7 +178,7 @@ def _pack(lp, device, dtype) -> dict:
                        lambda: _make_pack(lp, device, dtype))
 
 
-T2I_CHUNK_ORDER = (2, 0, 1)  # q, k, v: the order of the t2i pass's chunks (csrc/twl_t2i.cu)
+T2I_CHUNK_ORDER = PROJ_Q_CHUNK_ORDER  # q, k, v: the t2i pass's chunks (csrc/twl_t2i.cu)
 
 
 def _make_pack(lp, device, dtype) -> dict:
@@ -195,7 +202,7 @@ def _make_pack(lp, device, dtype) -> dict:
         # bf16: the image passes' weights as their rings' blocks (fp32 splits
         # the weights as it streams them)
         "w_img_blocks": ring_blocks(w_img, 64, T2I_CHUNK_ORDER) if bf16 else None,
-        "wo_i_blocks": ring_blocks(wo_i, 32) if bf16 else None,
+        "wo_i_blocks": ring_blocks(wo_i, I2T_BLOCK) if bf16 else None,
     }
 
 
@@ -380,13 +387,7 @@ def image_pass_smem(dtype: torch.dtype, T: int) -> dict:
     rows = ROW_TILE * C_DIM * 2 if bf16 else ROW_TILE * (C_DIM + 4) * 4
     group = rows + 2 * ROW_TILE * ld_i * el + HEADS * T * (ROW_TILE + 4) * 4 + T * INTERNAL * 4
     t2i = stages * stage + groups * group + 3 * INTERNAL * 4 + (2 * stages + 2 * groups) * 8
-    stages, stage = (4, C_DIM * 32 * 2) if bf16 else (2, C_DIM * 16 * 8)
-    av = ROW_TILE * INTERNAL * 2 if bf16 else ROW_TILE * (INTERNAL + 4) * 4
-    q_tile = ROW_TILE * ld_i * el  # q_img's tile, padded as k and v are
-    rows_tile = ROW_TILE * (C_DIM + 8) * 2 if bf16 else 0  # fp32 reads device memory
-    group = q_tile + rows_tile + av + 2 * max(LAYER_TOKENS) * INTERNAL * 4
-    i2t = stages * stage + _I2T_TILES * group + 3 * C_DIM * 4 + (2 * stages + 4 * _I2T_TILES) * 8
-    return {"t2i": t2i, "i2t": i2t}
+    return {"t2i": t2i, "i2t": i2t_smem(dtype, T)}
 
 
 def image_pass_grid(dtype: torch.dtype, n: int, N: int, sms: int) -> dict:

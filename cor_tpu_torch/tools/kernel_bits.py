@@ -36,10 +36,19 @@ runs it through ``cor_t2i_image_pass`` and ``cor_t2i_combine``) and K3
 (``cor_decoder_tail``, persistent on wgmma, every map from one pass; its
 ``w_blocks`` dropped for an older library), redesigned for Hopper with the
 bits kept: K2 at 5, 6, 8, 16 and 32 tokens, K3 with 1 and 3 maps, both at
-40 and 128 candidates in bf16 and fp32 (``k2k3_cases``).
+40 and 128 candidates in bf16 and fp32 (``k2k3_cases``). So are K8a
+(``cor_t2i_proj_q``, one launch on K1's t2i pass with K2's folded combine;
+an older library runs it through ``cor_t2i_image_pass`` and
+``cor_t2i_combine``) and K8b (``cor_twl_i2t`` at 9 to 32 tokens; an older
+``cor_twl_i2t``, which takes at most 8, is served by ``cor_twl_image_i2t``),
+redesigned for Hopper with the bits kept: at 9, 11, 16 and 32 tokens, 40
+and 128 candidates, bf16 and fp32 (``k8_cases``), then the K8 route's fused
+decode at 16 tokens (``k8_decode_cases``), whose graph replays count among
+the cases that must be faster.
 ``--only`` keeps the cases whose label holds one of the comma-separated
-parts (``K1``, ``K2`` and ``K3`` also the decode); ``--draws N`` reads K6b
-in fp32's errors against float64 on N draws of its inputs.
+parts (``K1``, ``K2`` and ``K3`` also the decode at 6 tokens, ``K8a`` and
+``K8b`` the K8 route's); ``--draws N`` reads K6b in fp32's errors against
+float64 on N draws of its inputs.
 
 An old entry point whose declaration in OLD_CSRC_DIR takes no ``f32`` flag
 (the ABI before the kernel took fp32) is called with the flag dropped, and a
@@ -101,6 +110,9 @@ _OPTIONAL["cor_decoder_tail"].append(("w_blocks", 3, None))
 # K2's own entry since its redesign for Hopper; an older csrc/ without it runs
 # K2 through the shared image pass and the combine (_OldABI.cor_t2i_final)
 _K2_ENTRY = "cor_t2i_final"
+# K8a's own entry since its redesign for Hopper; an older csrc/ without it runs
+# K8a through the shared image pass and the combine (_OldABI.cor_t2i_proj_q)
+_K8A_ENTRY = "cor_t2i_proj_q"
 _OPTIONAL["cor_vit_attention_relpos_bwd"] += [("out", 4, None), ("lse", 5, None)]
 
 
@@ -117,6 +129,13 @@ def lacking(csrc: Path) -> dict:
         if missing:
             out[name] = missing
     return out
+
+
+def narrow_i2t(csrc: Path) -> bool:
+    """Whether ``csrc``'s ``cor_twl_i2t`` takes at most 8 tokens (K1's alone,
+    before K8b ran on it)."""
+    src = csrc / "twl_i2t.cu"
+    return src.exists() and "n_tok > kMaxT ||" in src.read_text()
 
 
 _WRAPPER_MODULES = ("layernorm", "seq_attention", "vit_attention", "two_way_layer", "t2i_flash",
@@ -147,7 +166,8 @@ def build_old(csrc: Path, missing: dict) -> ctypes.CDLL:
         subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
                         str(out), *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(out))
-    for name in _ENTRIES + tuple(n for n in (*_K1_ENTRIES, _K2_ENTRY) if hasattr(lib, n)):
+    for name in _ENTRIES + tuple(n for n in (*_K1_ENTRIES, _K2_ENTRY, _K8A_ENTRY)
+                                 if hasattr(lib, n)):
         sig = _build._SIGNATURES[name]
         fn = getattr(lib, name)
         drop = {pos for _, pos, _ in missing.get(name, ())}
@@ -159,14 +179,19 @@ def build_old(csrc: Path, missing: dict) -> ctypes.CDLL:
 class _OldABI:
     """The old library behind the current calls: the parameters the old
     entry lacks dropped, after a check that they hold the one value it
-    computes."""
+    computes; ``narrow_i2t``: its ``cor_twl_i2t`` takes at most 8 tokens, and
+    a call with more goes to ``cor_twl_image_i2t``."""
 
-    def __init__(self, lib, missing):
-        self._lib, self._missing = lib, missing
+    def __init__(self, lib, missing, narrow_i2t: bool = False):
+        self._lib, self._missing, self._narrow_i2t = lib, missing, narrow_i2t
 
     def __getattr__(self, name):
         if name == _K2_ENTRY and not hasattr(self._lib, name):
             return self._final
+        if name == _K8A_ENTRY and not hasattr(self._lib, name):
+            return self._proj_q
+        if name == "cor_twl_i2t" and self._narrow_i2t:
+            return self._i2t
         if name in _K1_ENTRIES and not hasattr(self._lib, name):
             shared, pos = _K1_ENTRIES[name]
             fn = getattr(self, shared)
@@ -192,6 +217,21 @@ class _OldABI:
         err = self.cor_t2i_image_pass(keys, 0, 0, 0, n, n, n_tok, N, w, b, kpe, 0, qt, 0, pm, pl,
                                       pa, f32, stream)
         return err or self.cor_t2i_combine(pm, pl, pa, N // 64, n, n_tok, out, f32, stream)
+
+    def _proj_q(self, keys, n, n_tok, N, w, w_blocks, b, kpe, qpe, qt, q_img, pm, pl, pa,
+                tickets, out, f32, stream):
+        """K8a on a library without cor_t2i_proj_q: the shared image pass
+        (q_img written), then cor_t2i_combine (the tickets unused)."""
+        err = self.cor_t2i_image_pass(keys, 0, 0, 0, n, n, n_tok, N, w, b, kpe, qpe, qt, q_img,
+                                      pm, pl, pa, f32, stream)
+        return err or self.cor_t2i_combine(pm, pl, pa, N // 64, n, n_tok, out, f32, stream)
+
+    def _i2t(self, *args):
+        """cor_twl_i2t on a library whose entry takes at most 8 tokens: above,
+        K8b's shared body (cor_twl_image_i2t, without wo_blocks)."""
+        if args[6] <= 8:
+            return self._lib.cor_twl_i2t(*args)
+        return self.cor_twl_image_i2t(*args[:12], *args[13:])
 
 
 def use_library(lib) -> None:
@@ -492,6 +532,56 @@ def k2k3_cases(device, draw: int = 0):
                for dt, sfx in dts for m in K3_MAPS for n in K1_CANDIDATES])
 
 
+K8_TOKENS = (9, 11, 16, 32)  # the K8 route: 3 points; a box and 4 points; 10; 26
+
+
+@torch.no_grad()
+def k8_cases(device, draw: int = 0):
+    """(label, make) of K8a and K8b, redesigned for Hopper on K1's image
+    passes, at the K8 route's shapes: rows [n, 4096, 256] (K8b: and q_img
+    [n, 4096, 128]) at ``K8_TOKENS`` tokens and ``K1_CANDIDATES``
+    candidates, in bf16 and fp32 (the SAM-base decoder's second layer,
+    random weights from a seed)."""
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+    from cor_tpu_torch.ops.kernels.i2t_attention import i2t_attention_fused
+    from cor_tpu_torch.ops.kernels.t2i_flash import proj_q_t2i_flash
+
+    N = 4096
+
+    @functools.lru_cache(maxsize=1)
+    def shared(dt):
+        gen = torch.Generator(device=device).manual_seed(40 + 100 * draw)
+        dec = init_mask_decoder(CoreConfig(), 1).to(device, dt).eval()
+        kpe, qpe = ((0.5 * torch.randn(N, 128, generator=gen, device=device)).to(dt)
+                    for _ in range(2))
+        return dec.transformer.layers[1], kpe, qpe
+
+    def k8a(dt, T, n):
+        lp, kpe, qpe = shared(dt)
+        gen = torch.Generator(device=device).manual_seed(41 + 100 * draw + T + n)
+        keys = (0.5 * torch.randn(n, N, 256, generator=gen, device=device)).to(dt)
+        q_tok = torch.randn(n, T, 128, generator=gen, device=device).to(dt)
+        t2i, i2t = lp.cross_attn_t2i, lp.cross_attn_i2t
+        return lambda: proj_q_t2i_flash(keys, t2i.k_proj.w, t2i.k_proj.b, t2i.v_proj.w,
+                                        t2i.v_proj.b, i2t.q_proj.w, i2t.q_proj.b, kpe, qpe,
+                                        q_tok, 8)
+
+    def k8b(dt, T, n):
+        lp, _, _ = shared(dt)
+        gen = torch.Generator(device=device).manual_seed(42 + 100 * draw + T + n)
+        keys = (0.5 * torch.randn(n, N, 256, generator=gen, device=device)).to(dt)
+        q_img = (0.5 * torch.randn(n, N, 128, generator=gen, device=device)).to(dt)
+        kv = [torch.randn(n, T, 128, generator=gen, device=device).to(dt) for _ in range(2)]
+        o = lp.cross_attn_i2t.out_proj
+        return lambda: (i2t_attention_fused(q_img, keys, *kv, o.w, o.b, lp.norm4.scale,
+                                            lp.norm4.bias, 8),)
+
+    return [(f"{name}{sfx} [{n}, {N}, 256], {T} tokens", functools.partial(fn, dt, T, n))
+            for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "@fp32"))
+            for name, fn in (("K8a", k8a), ("K8b", k8b))
+            for T in K8_TOKENS for n in K1_CANDIDATES]
+
+
 @torch.no_grad()
 def k1_split(lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, idx=None, scale=None) -> dict:
     """K1's device milliseconds by launch (``two_way_layer.layer_launches``;
@@ -652,21 +742,62 @@ def decode_cases(device):
             for n in K1_CANDIDATES]
 
 
-def time_e2e(old, device, card: str, only=()) -> None:
+K8_DECODE_TOKENS = 16  # 10 points, or a box and 8 points: the K8 route
+
+
+@torch.no_grad()
+def k8_decode_cases(device):
+    """(label, make) of K8a's and K8b's end-to-end caller: the fused mask
+    decode on the K8 route (``decode_cases``' int8 store and decoder,
+    ``K8_DECODE_TOKENS`` tokens: the rows gathered in torch, each layer's
+    token side in torch around K8a and K8b, then K2 and K3) at
+    ``K1_CANDIDATES`` candidates, in bf16 and fp32."""
+    from cor_tpu_torch.models import sam_decoder
+    from cor_tpu_torch.models.core_model import CoreConfig, init_decode_model
+    from cor_tpu_torch.models.prompt_encoder import get_dense_pe
+    from cor_tpu_torch.tools.decode_bench import quantize_rows
+
+    T = K8_DECODE_TOKENS
+
+    def make(dt, n):
+        model = init_decode_model(CoreConfig(), 0).to(device, dt).eval()
+        gen = torch.Generator(device=device).manual_seed(23 + n)
+        raw = torch.randn(256, 64, 64, 256, generator=gen, device=device)
+        store, scales = quantize_rows(raw + model.prompt_encoder.no_mask_embed[0].float())
+        del raw
+        idx = torch.randint(0, 256, (n,), generator=gen, device=device, dtype=torch.int32)
+        prompts = torch.randn(n, T - 5, 256, generator=gen, device=device).to(dt)
+        pe = get_dense_pe(model.prompt_encoder).to(device, dt)
+        return lambda: sam_decoder.mask_decoder(model.mask_decoder, store, pe, prompts, None,
+                                                False, store_idx=idx, store_scale=scales)
+
+    return [(f"fused decode{sfx} [{n}, 4096], {T} tokens, K8 route",
+             functools.partial(make, dt, n))
+            for dt, sfx in ((torch.bfloat16, ""), (torch.float32, " fp32"))
+            for n in K1_CANDIDATES]
+
+
+def time_e2e(old, device, card: str, only=()) -> list:
     """The towers' query encode (K4's caller), the SAM image encode (K6's)
-    and the fused mask decode (K1's, K2's and K3's) through ``old`` and the
-    current library (old, new, new, old; host-launched, CUDA events, and for
-    the towers and the decode as CUDA-graph replays too: the device's time
-    alone; the encoder copies its rel-pos indices from the host at each
-    call, which a graph cannot capture); one JSON line each.
-    ``only``: the cases whose label holds one of its parts (K1, K2 and K3
-    select the decode)."""
+    and the fused mask decode (K1's, K2's and K3's; on the K8 route K8a's and
+    K8b's) through ``old`` and the current library (old, new, new, old;
+    host-launched, CUDA events, and for the towers and the decode as
+    CUDA-graph replays too: the device's time alone; the encoder copies its
+    rel-pos indices from the host at each call, which a graph cannot
+    capture); one JSON line each. ``only``: the cases whose label holds one
+    of its parts (K1, K2 and K3 select the decode at 6 tokens, K8a and K8b
+    the K8 route's). Returns the K8 route's cases whose graph replays were
+    slower through the current library."""
     import json
 
-    only = tuple(o if o not in ("K1", "K2", "K3") else "decode" for o in only)
+    e2e = {"K1": "6 tokens", "K2": "6 tokens", "K3": "6 tokens", "K8a": "K8 route",
+           "K8b": "K8 route"}
+    only = tuple(e2e.get(o, o) for o in only)
     cases = [(label, make, True) for label, make in tower_cases(device)]
     cases += [(label, make, False) for label, make in encode_cases(device)]
     cases += [(label, make, True) for label, make in decode_cases(device)]
+    cases += [(label, make, True) for label, make in k8_decode_cases(device)]
+    slower = []
     for label, make, graph in cases:
         if only and not any(o in label for o in only):
             continue
@@ -682,8 +813,11 @@ def time_e2e(old, device, card: str, only=()) -> None:
         print(json.dumps({"e2e": label, "old_ms": times["old"], "new_ms": times["new"],
                           "old_graph_ms": times["old_graph"], "new_graph_ms": times["new_graph"],
                           "card": card}), flush=True)
+        if "K8 route" in label and min(times["new_graph"]) > min(times["old_graph"]):
+            slower.append(label)
         del run
         torch.cuda.empty_cache()
+    return slower
 
 
 def float64_errors(old, run) -> dict:
@@ -699,14 +833,15 @@ def float64_errors(old, run) -> dict:
 
 
 def time_redesigned(old, device, only=(), draws: int = 1) -> int:
-    """Time every case of ``timed_cases``, ``k1_cases`` and ``k2k3_cases`` (those whose
-    label holds one of ``only``, if given) through ``old`` and the current
-    library (old, new, new, old; CUDA graphs of 10 calls); one JSON line
+    """Time every case of ``timed_cases``, ``k1_cases``, ``k2k3_cases`` and
+    ``k8_cases`` (those whose label holds one of ``only``, if given) through
+    ``old`` and the current library (old, new, new, old; CUDA graphs of 10
+    calls); one JSON line
     each, with each call's kernels' device time (torch.profiler), for K1
     both libraries' device time by launch, and for K6b in fp32 both
     libraries' largest errors against float64 (on ``draws`` draws of the
     inputs). Returns 1 if a new kernel is slower than the old one
-    anywhere."""
+    anywhere, or the K8 route's decode (``time_e2e``) is."""
     import json
     import subprocess as sp
 
@@ -714,7 +849,8 @@ def time_redesigned(old, device, only=(), draws: int = 1) -> int:
                  capture_output=True, text=True).stdout.strip().splitlines()
     card = smi[0].strip() if smi else torch.cuda.get_device_name(0)
     slower = []
-    for label, make in timed_cases(device) + k1_cases(device) + k2k3_cases(device):
+    for label, make in (timed_cases(device) + k1_cases(device) + k2k3_cases(device)
+                        + k8_cases(device)):
         if only and not any(o in label for o in only):
             continue
         use_library(None)  # the inputs (and a forward's lse) from the current library
@@ -756,9 +892,9 @@ def time_redesigned(old, device, only=(), draws: int = 1) -> int:
             slower.append(label)
         del run
         torch.cuda.empty_cache()
-    print(f"redesigned kernels against the old library: "
+    slower += time_e2e(old, device, card, only)
+    print(f"redesigned kernels (and the K8 route's decode) against the old library: "
           f"{'faster at every shape' if not slower else f'slower at {slower}'}")
-    time_e2e(old, device, card, only)
     return 1 if slower else 0
 
 
@@ -785,7 +921,7 @@ def main(argv=None) -> int:
     missing = lacking(Path(argv[0]))
     print(f"entries without f32, n_tok, out or lse in {argv[0]}: "
           f"{ {name: [p for p, _, _ in ps] for name, ps in missing.items()} }")
-    old = _OldABI(build_old(Path(argv[0]), missing), missing)
+    old = _OldABI(build_old(Path(argv[0]), missing), missing, narrow_i2t(Path(argv[0])))
     torch.set_grad_enabled(False)  # the decoder kernels take no autograd
     if timing:
         return time_redesigned(old, device, only, draws)

@@ -643,7 +643,11 @@ def test_t2i_flash_kv_kernel_at_tokens_matches_plain(fp32_device, T, dtype):
 def test_proj_q_t2i_flash_kernel_matches_plain(fp32_device, T, dtype):
     """K8a; at 17 tokens and above its bf16 logits leave the weight block's
     space for their own."""
-    from cor_tpu_torch.ops.kernels.t2i_flash import proj_q_t2i_flash, proj_q_t2i_flash_plain
+    from cor_tpu_torch.ops.kernels.t2i_flash import (
+        LAUNCHES,
+        proj_q_t2i_flash,
+        proj_q_t2i_flash_plain,
+    )
 
     lp = decoder_at(dtype).transformer.layers[1]
     t2i, i2t = lp.cross_attn_t2i, lp.cross_attn_i2t
@@ -654,7 +658,7 @@ def test_proj_q_t2i_flash_kernel_matches_plain(fp32_device, T, dtype):
         before = proj_q_t2i_flash.launches + proj_q_t2i_flash.launches_fp32
         got_q, got_a = proj_q_t2i_flash(*args)
         torch.cuda.synchronize()
-        assert proj_q_t2i_flash.launches + proj_q_t2i_flash.launches_fp32 == before + 2
+        assert proj_q_t2i_flash.launches + proj_q_t2i_flash.launches_fp32 == before + LAUNCHES
         want_q, want_a = proj_q_t2i_flash_plain(*args)
     assert got_q.shape == (4, 4096, 128) and got_a.shape == (4, T, 128)
     close_at(dtype, got_q, want_q, 5e-4)
@@ -718,7 +722,8 @@ def test_mask_decoder_fused_at_tokens_matches_plain(fp32_device, monkeypatch, sp
         torch.cuda.synchronize()
         counts = [w.launches + w.launches_fp32 - b for w, b in zip(wrappers, before)]
         k2 = t2i_mod.FINAL_LAUNCHES
-        assert counts == ([8, k2, 0, 0, 1] if sparse <= 3 else [0, k2, 4, 2, 1])
+        k8a = 2 * t2i_mod.LAUNCHES
+        assert counts == ([8, k2, 0, 0, 1] if sparse <= 3 else [0, k2, k8a, 2, 1])
         # the same decode with the kernels' plain versions in their place
         for mod, name in ((twl_mod, "two_way_layer"), (t2i_mod, "t2i_flash_kv"),
                           (t2i_mod, "proj_q_t2i_flash"), (i2t_mod, "i2t_attention_fused"),
