@@ -296,11 +296,16 @@ BEFORE_REDESIGN = {
 
 
 START = time.perf_counter()
+_LAST_MARK = [START]
 
 
 def mark(what: str) -> None:
-    """The script's wall time so far, after ``what``."""
-    print(f"  [{time.perf_counter() - START:.1f} s since the start: {what} done]", flush=True)
+    """The script's wall time so far, and the seconds since the last mark (the
+    phase's own), after ``what``."""
+    now = time.perf_counter()
+    print(f"  [{now - START:.1f} s since the start, {now - _LAST_MARK[0]:.1f} s of its own: "
+          f"{what} done]", flush=True)
+    _LAST_MARK[0] = now
 
 
 def fail(msg: str) -> None:
@@ -3100,6 +3105,7 @@ def phase_decode_schedules(device, smi: str):
         two_way_layer_plain,
     )
     from cor_tpu_torch.ops.kernels.two_way_stack import (
+        launch_team,
         two_way_grid_fused,
         two_way_stack_fused,
         two_way_stack_plain,
@@ -3171,6 +3177,8 @@ def phase_decode_schedules(device, smi: str):
                     e = token_check(f"K1-{name} two_way_{name}_fused",
                                     f"T {T} {label} [{n}, {N}, {C}]", dt, list(zip(got, want)),
                                     kt, pt, b, FP32_TOL["transformer"])
+                    # the CTAs of a candidate's token stages, and of the grid
+                    e["team_ctas"], e["grid_ctas"] = launch_team(fn, n, T, N, dt)
                     if name == "grid":
                         t1, k1 = two_way_layer(p.layers[0], tokens, tokens, rows, kpe[0], qpe[0],
                                                True, idx=kw.get("idx"))

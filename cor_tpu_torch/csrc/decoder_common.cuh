@@ -307,17 +307,16 @@ __device__ __forceinline__ void copy_tile_async(void* dst, int ld_bytes, const v
 // merged over the `tiles` row tiles of one candidate (tile j at base + j):
 // sum_j acc_j e^(m_j - m) / sum_j l_j e^(m_j - m) with m = max_j m_j. Two
 // passes, unrolled so that the loads of 8 tiles are in flight at once and no
-// exponential waits on the one before it. kNc: the partials are read through
-// the non-coherent read-only path (__ldg), right for partials an earlier
-// kernel wrote; a kernel that wrote them itself (the fused transformer of
-// two_way_stack.cuh) reads them from L2 (__ldcg).
-template <bool kNc = true>
+// exponential waits on the one before it. The partials are read through the
+// non-coherent read-only path (__ldg), right for partials an earlier kernel
+// wrote (the fused transformer of two_way_stack.cuh, which writes its own,
+// has a copy of this arithmetic reading L2, combine_ordered).
 __device__ __forceinline__ float combine_partials(const float* __restrict__ part_m,
                                                   const float* __restrict__ part_l,
                                                   const float* __restrict__ part_acc,
                                                   int64_t base, int tiles, int nq, int q,
                                                   int d) {
-  auto ld = [](const float* p) { return kNc ? __ldg(p) : __ldcg(p); };
+  auto ld = [](const float* p) { return __ldg(p); };
   float m = -INFINITY;
 #pragma unroll 8
   for (int j = 0; j < tiles; ++j) m = fmaxf(m, ld(part_m + (base + j) * nq + q));

@@ -1,9 +1,8 @@
 // Stage 4 of the two-way layer (the first K1 and K8b) as __device__ bodies that take
 // their work item (a 64-row tile of a candidate) as arguments: i2t_attention.cu
 // wraps them in a kernel of one tile per CTA, two_way_layer_dma.cu runs the
-// tile body over several tiles per CTA behind a cp.async ring (K1-dma), and
-// two_way_stack.cuh over the tiles of a whole transformer (K1-stack,
-// K1-grid). i2t_attention.cu says what the stage computes and what bounds it.
+// tile body over several tiles per CTA behind a cp.async ring (K1-dma).
+// i2t_attention.cu says what the stage computes and what bounds it.
 #pragma once
 
 #include "decoder_common.cuh"

@@ -2,9 +2,8 @@
 // __device__ bodies that take their work item (a 64-row tile of a candidate,
 // or a candidate) as arguments: t2i_flash.cu wraps each in a kernel of one
 // work item per CTA (the first K1, K2 and K8a), two_way_layer_dma.cu runs the
-// tile body over several tiles per CTA behind a cp.async ring (K1-dma), and
-// two_way_stack.cuh over the work items of a whole transformer (K1-stack,
-// K1-grid). t2i_flash.cu says what the pass computes and what bounds it.
+// tile body over several tiles per CTA behind a cp.async ring (K1-dma).
+// t2i_flash.cu says what the pass computes and what bounds it.
 #pragma once
 
 #include "decoder_common.cuh"

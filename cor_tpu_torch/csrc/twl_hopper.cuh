@@ -31,6 +31,46 @@ static inline int sm_count() {
   return c;
 }
 
+// A persistent pass's work items that one CTA takes: first, first + step,
+// .. below end (item i: candidate i / the items a candidate)
+struct Items {
+  int first;
+  unsigned step;  // K1's loops step by gridDim.x, as they did before K2 shared them
+  int end;
+  __device__ __forceinline__ int count() const {
+    return end > first ? static_cast<int>((end - first + step - 1) / step) : 0;
+  }
+};
+// K1's persistent grids: CTA b takes items b, b + gridDim.x, ..
+struct RoundRobin {
+  __device__ __forceinline__ Items operator()(int items) const {
+    return {static_cast<int>(blockIdx.x), gridDim.x, items};
+  }
+};
+// the items a caller hands a pass, whatever the item count
+struct GivenItems {
+  Items r;
+  __device__ __forceinline__ Items operator()(int) const { return r; }
+};
+
+// Named barrier kId of kCount threads: arrive without waiting, or wait for
+// the kCount arrivals (this thread's among them)
+template <int kId, int kCount>
+__device__ __forceinline__ void bar_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(kId), "n"(kCount) : "memory");
+}
+template <int kId, int kCount>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kId), "n"(kCount) : "memory");
+}
+
+// Invalidate `count` mbarriers from bar on (one thread, once every thread is
+// done with them), so that their words may hold data or a new mbarrier
+__device__ __forceinline__ void mbar_inval(uint64_t* bar, int count) {
+  for (int i = 0; i < count; ++i)
+    asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar + i)) : "memory");
+}
+
 // d (64 x 128, fp32) {=, +=} A (64 x 16, bf16, shared, K-major) . B (16 x 128, bf16, shared, K-major)
 __device__ __forceinline__ void mma_ss_n128(float (&d)[16][4], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(

@@ -13,8 +13,9 @@
 // cor_tpu/ops/pallas/two_way_layer.py:two_way_layer_fused (its pallas_calls
 // at lines 978, 998 and 1012). The pass's body is twl_t2i.cuh's, which K2
 // runs too without its q chunk (t2i_final.cu) and K8a with the tokens taken
-// 8 at a time and the combine folded in (t2i_proj_q.cu); the opt-in
-// schedules keep the shared image pass of t2i_flash.cuh.
+// 8 at a time and the combine folded in (t2i_proj_q.cu), and K1-stack and
+// K1-grid in their layers and final attention (two_way_stack.cuh); only
+// K1-dma keeps the shared image pass of t2i_flash.cuh.
 //
 // What held the shared pass back on the H100 (measured by launch, PERF.md):
 // one CTA of 4 warps per 64-row tile staged the whole packed [k|v|q] weight

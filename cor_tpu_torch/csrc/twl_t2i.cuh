@@ -4,7 +4,10 @@
 // token -> image attention (t2i_final.cu, cor_t2i_final: k and v only, 5 to
 // 32 tokens, the partials combined in the same launch), and K8a, the K8
 // route's per-layer attention (t2i_proj_q.cu, cor_t2i_proj_q: K1's q chunk
-// with K2's tokens and combine). Two switches: kQ, the q chunk (q_img
+// with K2's tokens and combine), and the fused transformer of
+// two_way_stack.cuh (K1-stack, K1-grid: each layer's pass with its q chunk
+// and the final pass without it, over the items its schedule hands them, in
+// a block of three warpgroups). Two switches: kQ, the q chunk (q_img
 // written); kFold, the tokens up to kMaxTok taken kMaxT at a time and the
 // partials combined in the launch. Each source says what bounds its pass;
 // the design is the one twl_t2i.cu describes.
@@ -21,6 +24,9 @@
 
 namespace cor {
 namespace t2i_hopper {
+
+using wg::GivenItems;
+using wg::Items;
 
 // the tokens a pass holds in shared memory at once: K1's 5 to 8 (its entry
 // takes 1 to 8); K2 and K8a (kFold) take up to kMaxTok in groups of kMaxT
@@ -239,16 +245,11 @@ __device__ __forceinline__ void load_row_tile(unsigned char* tile, const void* s
   }
 }
 
-// The items a CTA walks: K1's round-robin (blockIdx.x, + gridDim.x, ...);
-// with the combine folded in (kFold) a contiguous range, so that a
-// candidate's tiles end on a few CTAs and the one that combines it (falling
-// behind by the combine) is not the last to finish the next candidates as
-// well.
-struct Items {
-  int first;
-  unsigned step;  // K1's loops step by gridDim.x, as they did before K2 shared them
-  int end;
-};
+// The items a CTA walks (wg::Items): K1's round-robin (blockIdx.x, +
+// gridDim.x, ...); with the combine folded in (kFold) a contiguous range,
+// so that a candidate's tiles end on a few CTAs and the one that combines it
+// (falling behind by the combine) is not the last to finish the next
+// candidates as well.
 template <bool kFold>
 __device__ __forceinline__ Items cta_items(int items) {
   if constexpr (kFold)
@@ -386,25 +387,54 @@ __device__ __forceinline__ void final_combine(const float* part_m, const float* 
   }
 }
 
-// The pass, run by a block of kGroups consumer warpgroups and the producer
-// warpgroup over the dynamic shared memory smem. kQ (K1, K8a): q_img
-// written. Without kFold (K1): T 1 to kMaxT, the partials written out. kFold
-// (K2, K8a): T 1 to kMaxTok in groups of kMaxT; the last group to finish a
-// candidate's tiles combines its partials into out (final_combine), through
-// the tickets.
-template <typename T, bool kInt8, bool kQ, bool kFold>
+// The pass's mbarriers in smem at T = nt, and their count: a kernel that
+// runs the pass more than once over the same shared memory, or puts other
+// data there afterwards, invalidates them once every thread is done
+// (two_way_stack.cuh).
+template <typename T, bool kQ, bool kFold>
+__device__ __forceinline__ uint64_t* t2i_bars(unsigned char* smem, int nt) {
+  using L = T2iL<T>;
+  using M = T2iSmem<T, kQ, kFold>;
+  return reinterpret_cast<uint64_t*>(smem + L::kStages * M::kStageBytes +
+                                     L::kGroups * M::group_bytes(nt) + kChunks<kQ> * kI * 4);
+}
+template <typename T>
+constexpr int kT2iBars = 2 * T2iL<T>::kStages + 2 * T2iL<T>::kGroups;
+
+// The items of a pass of `items` items (item i: candidate i / per_cand)
+// that this CTA walks without a schedule of its own: cta_items' order
+template <bool kFold>
+struct CtaItems {
+  __device__ __forceinline__ Items operator()(int items) const { return cta_items<kFold>(items); }
+};
+
+// The pass, run by a block of kThreads threads: kGroups consumer warpgroups
+// first, the producer warpgroup last, the warpgroups between (a fp32 pass
+// in a block of three) idle; over the dynamic shared memory smem. kQ (K1,
+// K8a): q_img written. Without kFold (K1): T 1 to kMaxT, the partials
+// written out. kFold (K2, K8a): T 1 to kMaxTok in groups of kMaxT; the last
+// group to finish a candidate's tiles combines its partials into out
+// (final_combine), through the tickets. walk(items): the items this CTA
+// takes (CtaItems: K1's, K2's and K8a's persistent grids). kFetch: fp32's
+// weight blocks a producer thread holds in flight; kPeEarly: the PE values
+// loaded under the products (else after them, 64 fewer live registers in
+// fp32).
+template <typename T, bool kInt8, bool kQ, bool kFold,
+          int kThreads = T2iL<T>::kGroups * 128 + kProd, int kFetch = kFetchDepth,
+          bool kPeEarly = true, typename Walk = CtaItems<kFold>>
 __device__ __forceinline__ void t2i_pass(
     unsigned char* smem, const void* __restrict__ src, const int* __restrict__ idx,
     const float* __restrict__ scale, int S, int n, int N, const T* __restrict__ w,
     const T* __restrict__ w_blocks, const float* __restrict__ b, const T* __restrict__ kpe,
     const T* __restrict__ qpe, const T* __restrict__ qt, int nt, T* __restrict__ q_img,
     float* __restrict__ part_m, float* __restrict__ part_l, float* __restrict__ part_acc,
-    int* __restrict__ tickets, T* __restrict__ out) {
+    int* __restrict__ tickets, T* __restrict__ out, Walk walk = Walk()) {
   using L = T2iL<T>;
   using M = T2iSmem<T, kQ, kFold>;
   using E = Elem<T>;
   constexpr int G = L::kGroups;
   constexpr int kNc = kChunks<kQ>;
+  static_assert(kThreads >= G * 128 + kProd && kThreads % 128 == 0, "the pass's warpgroups");
   unsigned char* ring = smem;
   unsigned char* groups = smem + L::kStages * M::kStageBytes;
   float* sB = reinterpret_cast<float*>(groups + G * M::group_bytes(nt));  // [kNc kI]: b
@@ -431,14 +461,12 @@ __device__ __forceinline__ void t2i_pass(
   for (int i = tid; i < kNc * kI; i += blockDim.x) sB[i] = b[i];
   __syncthreads();
 
-  if (tid >= consumers) {
-    const int p = tid - consumers;
+  if (tid >= kThreads - kProd) {
+    const int p = tid - (kThreads - kProd);
     if (p < kWThreads<T>) {
       // the weight ring: kBlocks blocks an item, in the consumers' order
-      const Items r = cta_items<kFold>(items);
-      const int total =
-          (kFold ? r.end - r.first : (items - blockIdx.x + gridDim.x - 1) / gridDim.x) *
-          M::kBlocks;
+      const Items r = walk(items);
+      const int total = r.count() * M::kBlocks;
       if constexpr (sizeof(T) == 2) {
         // one bulk copy a block, from the weight laid out block by block as
         // the ring holds it (w_blocks)
@@ -453,21 +481,21 @@ __device__ __forceinline__ void t2i_pass(
           }
         }
       } else {
-        float4 r[kFetchDepth][kPerF32];
+        float4 r[kFetch][kPerF32];
 #pragma unroll
-        for (int d = 0; d < kFetchDepth; ++d)
+        for (int d = 0; d < kFetch; ++d)
           if (d < total) fetch_weight_block<kQ>(w, d % M::kBlocks, p, r[d]);
-        for (int j0 = 0; j0 < total; j0 += kFetchDepth) {
+        for (int j0 = 0; j0 < total; j0 += kFetch) {
 #pragma unroll
-          for (int d = 0; d < kFetchDepth; ++d) {
+          for (int d = 0; d < kFetch; ++d) {
             const int j = j0 + d, s = j % L::kStages;
             if (j >= total) break;
             if (j >= L::kStages) wg::mbar_wait(&bars.empty[s], (j / L::kStages - 1) & 1);
             place_weight_block(ring + s * M::kStageBytes, p, r[d]);
             wg::mbar_arrive_copies(&bars.full[s]);
             wg::mbar_arrive(&bars.full[s]);
-            if (j + kFetchDepth < total)
-              fetch_weight_block<kQ>(w, (j + kFetchDepth) % M::kBlocks, p, r[d]);
+            if (j + kFetch < total)
+              fetch_weight_block<kQ>(w, (j + kFetch) % M::kBlocks, p, r[d]);
           }
         }
       }
@@ -475,7 +503,7 @@ __device__ __forceinline__ void t2i_pass(
       // the rows: a group's tile of the next item once it has done its products
       const int lane = p - kWThreads<T>;
       int it = 0;
-      const Items r = cta_items<kFold>(items);
+      const Items r = walk(items);
       for (int item = r.first; item < r.end; item += r.step, ++it) {
         const int cand = item / per_cand;
         const int row = source_row(idx, cand, S);
@@ -494,6 +522,7 @@ __device__ __forceinline__ void t2i_pass(
     cp_async_wait<0>();  // exit with no copy in flight
     return;
   }
+  if (tid >= consumers) return;  // a warpgroup the pass leaves idle
 
   // consumer warpgroup cw: the item's tile cw
   const int cw = tid >> 7, tg = tid & 127, warp = tg >> 5, lane = tid & 31;
@@ -510,7 +539,7 @@ __device__ __forceinline__ void t2i_pass(
   const int ra = warp * 16 + g, rb = ra + 8;
   int j = 0, it = 0, cur = -1;
 
-  const Items r = cta_items<kFold>(items);
+  const Items r = walk(items);
   for (int item = r.first; item < r.end; item += r.step, ++it) {
     const int cand = item / per_cand;
     const int tile = (item % per_cand) * G + cw;
@@ -533,14 +562,17 @@ __device__ __forceinline__ void t2i_pass(
       // this thread's PE projection values for the epilogue (k and q), loaded
       // under the products: two rows x 16 column pairs
       typename Pair<T>::type pa[kI / 8], pb[kI / 8];
-      if (c != 1 && valid) {
-        const T* pe = (c == 0 ? kpe : qpe) + static_cast<int64_t>(r0) * kI + 2 * t;
+      const T* pe = (c == 0 ? kpe : qpe) + static_cast<int64_t>(r0) * kI + 2 * t;
+      auto load_pe = [&]() {
+        if (c != 1 && valid) {
 #pragma unroll
-        for (int q = 0; q < kI / 8; ++q) {
-          pa[q] = Pair<T>::load(pe + ra * kI + q * 8);
-          pb[q] = Pair<T>::load(pe + rb * kI + q * 8);
+          for (int q = 0; q < kI / 8; ++q) {
+            pa[q] = Pair<T>::load(pe + ra * kI + q * 8);
+            pb[q] = Pair<T>::load(pe + rb * kI + q * 8);
+          }
         }
-      }
+      };
+      if constexpr (kPeEarly) load_pe();
       float acc[kI / 8][4];
 #pragma unroll
       for (int q = 0; q < kI / 8; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
@@ -593,6 +625,7 @@ __device__ __forceinline__ void t2i_pass(
       }
       if (ci == kNc - 1) wg::mbar_arrive(&bars.rows_empty[cw]);  // the rows' last reader is done
       if (!valid) continue;
+      if constexpr (!kPeEarly) load_pe();
       if (kQ && c == 0) wg::group_sync(cw);  // q's rows are out of k's buffer
       // + bias (+ the PE projection for k and q), rounded to T: the shared
       // pass's epilogue; q goes through k's buffer

@@ -70,7 +70,7 @@ twl_tokens_mid_cluster_kernel(const float* __restrict__ x_in, const T* __restric
   for (int o = tid; o < kHeads * NT * kCrossD; o += kTokThreads) {
     const int q = o / kCrossD, d = o % kCrossD, h = q / NT, tt = q % NT;
     sIn[tt * kI + h * kCrossD + d] = E::round(
-        combine_partials<true>(part_m, part_l, part_acc, pbase, tiles, kHeads * NT, q, d));
+        combine_partials(part_m, part_l, part_acc, pbase, tiles, kHeads * NT, q, d));
   }
   __syncthreads();
   tok_linear<T, NT, kI, kPlain, kClWarps>(sIn, wt + kWoT, bt + kBoT, kC, sTmp, kC, 1.f, cw,

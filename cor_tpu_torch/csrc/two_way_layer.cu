@@ -37,10 +37,10 @@
 // token stages of two_way_tokens.cuh, which this file's cor_twl_tokens_in
 // and two_way_layer_mid.cu's cor_twl_tokens_mid run one CTA per candidate
 // for K1-dma, and the image bodies of t2i_flash.cuh and i2t_attention.cuh,
-// which K1-dma runs over several tiles per CTA (two_way_layer_dma.cu),
-// K1-stack and K1-grid within one kernel for a transformer's stages
-// (two_way_stack.cuh), and the first K2, K8a and K8b one tile per CTA
-// (t2i_flash.cu, i2t_attention.cu).
+// which K1-dma runs over several tiles per CTA (two_way_layer_dma.cu), and
+// the first K2, K8a and K8b ran one tile per CTA (t2i_flash.cu,
+// i2t_attention.cu); K1-stack and K1-grid (two_way_stack.cuh) run K1's
+// redesigned passes and their own split of the token stages.
 //
 // The token stages are small (T tokens x ~1.4 M MACs per layer and
 // candidate): each warp computes 4 whole output columns at a time (2 for the
@@ -88,8 +88,8 @@ twl_tokens_in_kernel(const T* __restrict__ tokens, const T* __restrict__ qpe,
                      float self_scale, float cross_scale, float eps, float* __restrict__ x_out,
                      T* __restrict__ qt_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  tokens_in_body<T, NT, kTokWarps, T>(smem, tokens, false, qpe, wt, bt, skip_pe, self_scale,
-                                      cross_scale, eps, x_out, qt_out, blockIdx.x);
+  tokens_in_body<T, NT, kTokWarps>(smem, tokens, qpe, wt, bt, skip_pe, self_scale, cross_scale,
+                                   eps, x_out, qt_out, blockIdx.x);
 }
 
 template <typename T, int NT>

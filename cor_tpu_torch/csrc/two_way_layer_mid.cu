@@ -19,8 +19,8 @@ twl_tokens_mid_kernel(const float* __restrict__ x_in, const T* __restrict__ qpe,
                       T* __restrict__ tokens_out, T* __restrict__ k_out,
                       T* __restrict__ v_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  tokens_mid_body<T, NT, kTokWarps, T, true>(smem, x_in, qpe, part_m, part_l, part_acc, tiles,
-                                             wt, bt, eps, tokens_out, k_out, v_out, blockIdx.x);
+  tokens_mid_body<T, NT, kTokWarps>(smem, x_in, qpe, part_m, part_l, part_acc, tiles, wt, bt,
+                                    eps, tokens_out, k_out, v_out, blockIdx.x);
 }
 
 template <typename T, int NT>

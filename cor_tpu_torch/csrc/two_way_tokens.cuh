@@ -1,10 +1,11 @@
 // The two-way layer's token stages (two_way_layer.cu: stage 1,
 // two_way_layer_mid.cu: stage 3): the packed weights' offsets, the token
 // linears and LayerNorm, the stages' __device__ bodies, which take their
-// candidate as an argument (K1's token kernels run one per CTA of 8 warps;
-// the fused transformer of two_way_stack.cuh runs them, and its final
-// attention's token side, with 4 warps), and the dispatch on the token count
-// T (a template parameter of the token stages, 5 to 8).
+// candidate as an argument (K1's one-CTA token kernels and K1-dma's run one
+// per CTA of 8 warps; K1's cluster kernels, twl_tokens_{in,mid}.cu, and the
+// fused transformer, two_way_stack.cuh, split the same linears over several
+// CTAs), and the dispatch on the token count T (a template parameter of the
+// token stages, 5 to 8).
 #pragma once
 
 #include <type_traits>
@@ -49,15 +50,17 @@ enum Epi { kPlain = 0, kRound = 1, kReluRound = 2 };
 // would wait on L2 in turn), and each input value read from shared memory
 // serves all kCols columns.
 // kWarps: the warps of the block (the columns' split among them; each
-// column's sum is the same at any kWarps).
+// column's sum is the same at any kWarps), or nwarps, the warps of several
+// blocks that split the columns (the fused transformer's clusters, whose
+// size is chosen at launch; warp: this warp among them).
 template <typename T, int NT, int K, int E, int kWarps = kTokWarps>
 __device__ void tok_linear(const float* in, const T* __restrict__ W,
                            const float* __restrict__ bias, int O, float* out, int ldo, float mul,
-                           int warp, int lane) {
+                           int warp, int lane, int nwarps = kWarps) {
   constexpr int kChunks = (K + 255) / 256;  // 8-element pieces per lane
   constexpr int kWords = sizeof(T) / 2;     // 16-byte loads per piece: 1 (bf16), 2 (fp32)
   constexpr int kCols = kChunks >= 8 ? 2 / kWords : 4;
-  for (int j0 = warp * kCols; j0 < O; j0 += kWarps * kCols) {
+  for (int j0 = warp * kCols; j0 < O; j0 += nwarps * kCols) {
     uint4 wv[kCols][kChunks][kWords];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -161,7 +164,7 @@ __device__ void tok_layer_norm(float* x, const float* __restrict__ s, const floa
 }
 
 // A token state value as fp32: the compute dtype's, or the fp32 state of the
-// fused transformer; and its store as the compute dtype or as fp32.
+// fused transformer (two_way_stack.cuh); and its store in the compute dtype.
 __device__ __forceinline__ float tok_get(uint16_t v) { return bf2f(v); }
 __device__ __forceinline__ float tok_get(float v) { return v; }
 __device__ __forceinline__ void tok_put(uint16_t* p, float v) { *p = f2bf(v); }
@@ -169,17 +172,16 @@ __device__ __forceinline__ void tok_put(float* p, float v) { *p = v; }
 
 // Stage 1 and the t2i query, for candidate `cand`: token self-attention (8
 // heads of 32; no PE and no residual with skip_pe), LN1, the t2i query
-// scaled after its bias and rounded. tokens: TIn [n][NT][kC] (T, or the
-// fused transformer's fp32 state, rounded to T on the way in with round_in);
-// x_out: the fp32 state after LN1; qt_out: T [n][NT][kI].
+// scaled after its bias and rounded. tokens: T [n][NT][kC]; x_out: the fp32
+// state after LN1; qt_out: T [n][NT][kI].
 template <int NT>
 __host__ __device__ constexpr size_t smem_tokens_in() {
   return sizeof(float) * (7 * NT * kC + kHeads * NT * NT);
 }
 
-template <typename T, int NT, int kWarps, typename TIn>
+template <typename T, int NT, int kWarps>
 __device__ __forceinline__ void tokens_in_body(
-    unsigned char* smem, const TIn* __restrict__ tokens, bool round_in,
+    unsigned char* smem, const T* __restrict__ tokens,
     const T* __restrict__ qpe, const T* __restrict__ wt, const float* __restrict__ bt,
     int skip_pe, float self_scale, float cross_scale, float eps, float* __restrict__ x_out,
     T* __restrict__ qt_out, int cand) {
@@ -197,8 +199,7 @@ __device__ __forceinline__ void tokens_in_body(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int64_t tbase = static_cast<int64_t>(cand) * NT * kC;
   for (int i = tid; i < NT * kC; i += kThr) {
-    float x = tok_get(tokens[tbase + i]);
-    if (round_in) x = E::round(x);
+    const float x = E::get(tokens[tbase + i]);
     const float p = E::get(qpe[tbase + i]);
     sX[i] = x;
     sPe[i] = p;
@@ -261,22 +262,21 @@ __device__ __forceinline__ void tokens_in_body(
 }
 
 // The rest of stage 2, stage 3 and the i2t keys and values, for candidate
-// `cand`: the combine of the image pass's t2i partials (kNc: see
-// combine_partials), the t2i out-projection, LN2, the ReLU MLP (256 -> 2048
-// -> 256), LN3; the state into tokens_out (TOut: T, rounded, or the fused
-// transformer's fp32), the i2t keys and values of the NT tokens from the
-// unrounded state into k_out, v_out (T [n][NT][kI]).
+// `cand`: the combine of the image pass's t2i partials, the t2i
+// out-projection, LN2, the ReLU MLP (256 -> 2048 -> 256), LN3; the state
+// into tokens_out (T, rounded), the i2t keys and values of the NT tokens
+// from the unrounded state into k_out, v_out (T [n][NT][kI]).
 template <int NT>
 __host__ __device__ constexpr size_t smem_tokens_mid() {
   return sizeof(float) * (4 * NT * kC + NT * kMlp);
 }
 
-template <typename T, int NT, int kWarps, typename TOut, bool kNc>
+template <typename T, int NT, int kWarps>
 __device__ __forceinline__ void tokens_mid_body(
     unsigned char* smem, const float* __restrict__ x_in, const T* __restrict__ qpe,
     const float* __restrict__ part_m, const float* __restrict__ part_l,
     const float* __restrict__ part_acc, int tiles, const T* __restrict__ wt,
-    const float* __restrict__ bt, float eps, TOut* __restrict__ tokens_out,
+    const float* __restrict__ bt, float eps, T* __restrict__ tokens_out,
     T* __restrict__ k_out, T* __restrict__ v_out, int cand) {
   using E = Elem<T>;
   constexpr int kThr = kWarps * 32;
@@ -297,7 +297,7 @@ __device__ __forceinline__ void tokens_mid_body(
   for (int o = tid; o < kHeads * NT * kCrossD; o += kThr) {
     const int q = o / kCrossD, d = o % kCrossD, h = q / NT, tt = q % NT;
     sIn[tt * kI + h * kCrossD + d] = E::round(
-        combine_partials<kNc>(part_m, part_l, part_acc, pbase, tiles, kHeads * NT, q, d));
+        combine_partials(part_m, part_l, part_acc, pbase, tiles, kHeads * NT, q, d));
   }
   __syncthreads();
   tok_linear<T, NT, kI, kPlain, kWarps>(sIn, wt + kWoT, bt + kBoT, kC, sTmp, kC, 1.f, warp, lane);
@@ -331,68 +331,6 @@ __device__ __forceinline__ void tokens_mid_body(
     k_out[static_cast<int64_t>(cand) * NT * kI + i] = E::put(sH[i]);
     v_out[static_cast<int64_t>(cand) * NT * kI + i] = E::put(sH[NT * kI + i]);
   }
-}
-
-// The final attention's token side (cor_tpu two_way_layer.py:_final_body),
-// for candidate `cand` of the fused transformer, whose token state x_in
-// stays fp32: the query round((round(x + qpe) Wq^T + bq) * cross_scale)
-// into qt_out (T [n][NT][kI]); then, after the final image pass, the
-// combine of its partials (rounded), the out-projection Wo [kC][kI] + bo, the
-// residual and norm_final (nf: scale [kC], bias [kC]) into tokens_out
-// (T [n][NT][kC]).
-template <int NT>
-__host__ __device__ constexpr size_t smem_final_tokens() {
-  return sizeof(float) * 3 * NT * kC;
-}
-
-template <typename T, int NT, int kWarps>
-__device__ __forceinline__ void final_query_body(
-    unsigned char* smem, const float* __restrict__ x_in, const T* __restrict__ qpe,
-    const T* __restrict__ wq, const float* __restrict__ bq, float cross_scale,
-    T* __restrict__ qt_out, int cand) {
-  using E = Elem<T>;
-  constexpr int kThr = kWarps * 32;
-  float* sIn = reinterpret_cast<float*>(smem);
-  float* sQ = sIn + NT * kC;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int64_t tbase = static_cast<int64_t>(cand) * NT * kC;
-  for (int i = tid; i < NT * kC; i += kThr)
-    sIn[i] = E::round(x_in[tbase + i] + E::get(qpe[tbase + i]));
-  __syncthreads();
-  tok_linear<T, NT, kC, kRound, kWarps>(sIn, wq, bq, kI, sQ, kI, cross_scale, warp, lane);
-  __syncthreads();
-  for (int i = tid; i < NT * kI; i += kThr)
-    qt_out[static_cast<int64_t>(cand) * NT * kI + i] = E::put(sQ[i]);
-}
-
-template <typename T, int NT, int kWarps>
-__device__ __forceinline__ void final_tokens_body(
-    unsigned char* smem, const float* __restrict__ x_in, const float* __restrict__ part_m,
-    const float* __restrict__ part_l, const float* __restrict__ part_acc, int tiles,
-    const T* __restrict__ wo, const float* __restrict__ bo, const float* __restrict__ nf,
-    float eps, T* __restrict__ tokens_out, int cand) {
-  using E = Elem<T>;
-  constexpr int kThr = kWarps * 32;
-  float* sX = reinterpret_cast<float*>(smem);
-  float* sIn = sX + NT * kC;
-  float* sTmp = sIn + NT * kC;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int64_t tbase = static_cast<int64_t>(cand) * NT * kC;
-  for (int i = tid; i < NT * kC; i += kThr) sX[i] = x_in[tbase + i];
-  const int64_t pbase = static_cast<int64_t>(cand) * tiles;
-  for (int o = tid; o < kHeads * NT * kCrossD; o += kThr) {
-    const int q = o / kCrossD, d = o % kCrossD, h = q / NT, tt = q % NT;
-    sIn[tt * kI + h * kCrossD + d] = E::round(
-        combine_partials<false>(part_m, part_l, part_acc, pbase, tiles, kHeads * NT, q, d));
-  }
-  __syncthreads();
-  tok_linear<T, NT, kI, kPlain, kWarps>(sIn, wo, bo, kC, sTmp, kC, 1.f, warp, lane);
-  __syncthreads();
-  for (int i = tid; i < NT * kC; i += kThr) sX[i] += sTmp[i];
-  __syncthreads();
-  tok_layer_norm<NT, kWarps>(sX, nf, nf + kC, eps, warp, lane);
-  __syncthreads();
-  for (int i = tid; i < NT * kC; i += kThr) tokens_out[tbase + i] = E::put(sX[i]);
 }
 
 // The token count of the token kernels, a template parameter (T 5 to 8):

@@ -145,6 +145,9 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int, _VP,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, _I, _VP,
     ),
+    # cluster, n, n_tok, N, f32, team (int32 [2], host): the launch cor_two_way_fused
+    # would make
+    "cor_two_way_fused_team": (ctypes.c_int, ctypes.c_int, _I, ctypes.c_int, _I, _VP),
     # x, wt, b, hyper, out, B, H, W, C, O, N, f32, stream
     "cor_fused_upscale2_hyper": (_VP, _VP, _VP, _VP, _VP, *(ctypes.c_int,) * 6, _I, _VP),
     # src, w1t, w2t, w_blocks, vec, hyper, n, m, H, eps, out, f32, stream

@@ -23,15 +23,23 @@ by the final attention's k_proj (``kpe_final``). They return (queries
 contract after ``norm_final``.
 
 On the card each is one launch (``launches`` adds 1 per call, fp32 apart in
-``launches_fp32``) of the same kernel: K1-stack as a cooperative grid of the
-co-resident CTAs with a grid barrier between its ten stages, K1-grid as a
-cluster of 8 CTAs per candidate with a cluster barrier. The stages are K1's
-and K2's stage bodies, so K1-grid's keys are two K1 launches' bit for bit;
-K1-stack's tokens between the layers are not rounded, so its keys after the
-second layer are its own. The kernels take the SAM geometry of K1 (C 256, 8
-heads, I 128, MLP 2048, 5 to 8 tokens, N a multiple of 64); any other CUDA
-input raises before any launch, a CPU tensor takes the plain version, and
-with autograd recording they raise.
+``launches_fp32``) of the same persistent kernel, one 384-thread CTA an SM
+(a producer warpgroup, two consumer warpgroups): K1-stack as a cooperative
+grid of the co-resident CTAs with a grid barrier between its ten stages,
+K1-grid as a thread-block cluster per candidate with a cluster barrier. Its
+image stages are K1's and K2's passes redesigned for Hopper (``wgmma``
+behind TMA-fed weight rings: ``csrc/twl_t2i.cuh``, ``csrc/twl_i2t.cuh``),
+and each candidate's token stages are split over a cluster of CTAs through
+distributed shared memory, in K1's sums; so K1-grid's keys are two K1
+launches' bit for bit, and K1-stack's tokens between the layers are not
+rounded, so its keys after the second layer are its own. In bf16 the image
+passes read the weights laid out as their rings' blocks: each layer's from
+K1's pack (``two_way_layer._pack``) and the final ``[k | v]``'s from this
+module's ``_final_pack`` (K2's layout), all through ``cached_pack``. The
+kernels take the SAM geometry of K1 (C 256, 8 heads, I 128, MLP 2048, 5 to
+8 tokens, N a multiple of 64); any other CUDA input raises before any
+launch, a CPU tensor takes the plain version, and with autograd recording
+they raise.
 """
 
 from __future__ import annotations
@@ -46,19 +54,23 @@ from cor_tpu_torch.ops.diff import refuse_grad
 from cor_tpu_torch.ops.kernels._build import check, count_launch, library
 from cor_tpu_torch.ops.kernels.t2i_flash import (
     C_DIM,
+    FINAL_CHUNK_ORDER,
     HEADS,
     INTERNAL,
     ROW_TILE,
     cached_pack,
+    ring_blocks,
     t2i_flash_kv_plain,
 )
 from cor_tpu_torch.ops.kernels.two_way_layer import (
     CROSS_SCALE,
+    MLP_DIM,
     SELF_SCALE,
     _check_geometry,
     _lin,
     _pack,
     gather_rows,
+    image_pass_smem,
     layer_math,
 )
 
@@ -109,18 +121,39 @@ def two_way_grid_fused(
 def _final_pack(p, device, dtype) -> dict:
     """The final attention's weights in the kernel's layouts (``cached_pack``
     on the transformer): [k | v] [2 I, C] and [q_proj [I, C] | out_proj
-    [C, I]] in the compute dtype, their fp32 biases and norm_final's."""
+    [C, I]] in the compute dtype, their fp32 biases and norm_final's, and in
+    bf16 [k | v] laid out as the final pass's ring blocks (K2's, ``None`` in
+    fp32, which splits the weight as it streams it)."""
     fa, nf = p.final_attn_t2i, p.norm_final
     tensors = [*fa.parameters(), *nf.parameters()]
 
     def make():
         mat = lambda *ts: torch.cat([t.detach().reshape(-1).to(device, dtype) for t in ts])  # noqa: E731
         f32 = lambda *ts: torch.cat([t.detach().reshape(-1).to(device, torch.float32) for t in ts])  # noqa: E731
-        return {"wkv": mat(fa.k_proj.w, fa.v_proj.w), "bkv": f32(fa.k_proj.b, fa.v_proj.b),
+        wkv = mat(fa.k_proj.w, fa.v_proj.w)
+        blocks = (ring_blocks(wkv.reshape(2 * INTERNAL, C_DIM), 64, FINAL_CHUNK_ORDER)
+                  if dtype == torch.bfloat16 else None)
+        return {"wkv": wkv, "bkv": f32(fa.k_proj.b, fa.v_proj.b),
                 "wfin": mat(fa.q_proj.w, fa.out_proj.w),
-                "bfin": f32(fa.q_proj.b, fa.out_proj.b, nf.scale, nf.bias)}
+                "bfin": f32(fa.q_proj.b, fa.out_proj.b, nf.scale, nf.bias),
+                "wkv_blocks": blocks}
 
     return cached_pack(p, "_fused_final_pack", tensors, device, dtype, make)
+
+
+def fused_smem(dtype: torch.dtype, T: int) -> dict:
+    """The dynamic shared memory of the kernel's stages at T tokens, as
+    ``csrc/two_way_stack.cuh`` lays each out from offset 0 (``smem_fused``):
+    {stage: bytes, ..., "kernel": the largest, the launch's}. The image
+    stages are K1's passes and the t2i pass without the q chunk's bias; the
+    token stages' fp32 buffers are K1's token bodies'."""
+    img = image_pass_smem(dtype, T)
+    out = {"t2i": img["t2i"], "t2i_final": img["t2i"] - INTERNAL * 4, "i2t": img["i2t"],
+           "tokens_in": 4 * (7 * T * C_DIM + HEADS * T * T),
+           "tokens_mid": 4 * (4 * T * C_DIM + T * MLP_DIM),
+           "final_tokens": 4 * 3 * T * C_DIM}
+    out["kernel"] = max(out.values())
+    return out
 
 
 def _check(p, tokens, qpe_tok, keys, kpe_layers, qpe_img_layers, kpe_final, idx) -> torch.dtype:
@@ -148,20 +181,16 @@ def _check(p, tokens, qpe_tok, keys, kpe_layers, qpe_img_layers, kpe_final, idx)
     return dt
 
 
-def _fused(fn, p, tokens, qpe_tok, keys, kpe_layers, qpe_img_layers, kpe_final, idx, eps,
-           grid: bool):
-    name = fn.__name__
-    leaves = (tokens, qpe_tok, keys, *kpe_layers, *qpe_img_layers, kpe_final, *p.parameters())
-    if tokens.device.type == "cpu":
-        refuse_grad(name, *leaves)
-        return two_way_stack_plain(p, tokens, qpe_tok, keys, kpe_layers, qpe_img_layers,
-                                   kpe_final, idx, eps, round_between_layers=grid)
-    if tokens.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {tokens.device}")
-    dt = _check(p, tokens, qpe_tok, keys, kpe_layers, qpe_img_layers, kpe_final, idx)
-    refuse_grad(name, *leaves)
+def launch_pointers(p, tokens, qpe_tok, keys, kpe_layers, qpe_img_layers, kpe_final, idx,
+                    dt) -> list:
+    """The kernel's 55 operands in ``cor_two_way_fused``'s order (tensors,
+    ``None`` for a null pointer), its buffers allocated on the tokens'
+    device: the inputs, each layer's packs, the final attention's pack, the
+    per-stage buffers, the outputs (keys at 48, tokens at 49), then the bf16
+    ring blocks of each layer's image passes and of the final [k | v] (the
+    first 50 are the entry's first version's, which reads no more)."""
     n, T = tokens.shape[0], tokens.shape[1]
-    S, N = keys.shape[0], keys.shape[1]
+    N = keys.shape[1]
     dev = tokens.device
     tiles = N // ROW_TILE
     f32 = dict(device=dev, dtype=torch.float32)
@@ -186,15 +215,54 @@ def _fused(fn, p, tokens, qpe_tok, keys, kpe_layers, qpe_img_layers, kpe_final, 
                  qpe]
     ptrs += [kpe_final, fin["wkv"], fin["bkv"], fin["wfin"], fin["bfin"], *x_mid, *x_state, *qt,
              *q_img, *part_m, *part_l, *part_acc, *k_i, *v_i, keys1, keys_out, tokens_out]
+    for pk in packs:
+        ptrs += [pk["w_img_blocks"], pk["wo_i_blocks"]]
+    ptrs.append(fin["wkv_blocks"])
+    return ptrs
+
+
+def _fused(fn, p, tokens, qpe_tok, keys, kpe_layers, qpe_img_layers, kpe_final, idx, eps,
+           grid: bool):
+    name = fn.__name__
+    leaves = (tokens, qpe_tok, keys, *kpe_layers, *qpe_img_layers, kpe_final, *p.parameters())
+    if tokens.device.type == "cpu":
+        refuse_grad(name, *leaves)
+        return two_way_stack_plain(p, tokens, qpe_tok, keys, kpe_layers, qpe_img_layers,
+                                   kpe_final, idx, eps, round_between_layers=grid)
+    if tokens.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {tokens.device}")
+    dt = _check(p, tokens, qpe_tok, keys, kpe_layers, qpe_img_layers, kpe_final, idx)
+    refuse_grad(name, *leaves)
+    n, T = tokens.shape[0], tokens.shape[1]
+    S, N = keys.shape[0], keys.shape[1]
+    dev = tokens.device
+    ptrs = launch_pointers(p, tokens, qpe_tok, keys, kpe_layers, qpe_img_layers, kpe_final, idx,
+                           dt)
+    tokens_out, keys_out = ptrs[49], ptrs[48]
     arr = (ctypes.c_void_p * len(ptrs))(*[0 if t is None else t.data_ptr() for t in ptrs])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         check(library().cor_two_way_fused(
-            int(grid), S, n, T, N, ctypes.addressof(arr), SELF_SCALE, CROSS_SCALE,
-            eps, int(dt == torch.float32), stream), name)
+            int(grid) | CLUSTER_SIZE[name] << 8, S, n, T, N, ctypes.addressof(arr), SELF_SCALE,
+            CROSS_SCALE, eps, int(dt == torch.float32), stream), name)
     count_launch(fn, dt, 1)
     return tokens_out, keys_out
 
 
+def launch_team(fn, n: int, T: int, N: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """The launch ``fn`` (two_way_stack_fused or two_way_grid_fused) makes on
+    the current card for n candidates, T tokens and N rows, without making
+    it: (the CTAs of a candidate's token stages, the CTAs of the grid)."""
+    team = (ctypes.c_int * 2)()
+    grid = int(fn is two_way_grid_fused) | CLUSTER_SIZE[fn.__name__] << 8
+    check(library().cor_two_way_fused_team(grid, n, T, N, int(dtype == torch.float32),
+                                           ctypes.addressof(team)), f"{fn.__name__} team")
+    return team[0], team[1]
+
+
+# the CTAs a candidate's token stages take, by wrapper: 0, the kernel's own
+# choice (csrc/two_way_stack.cuh choose_cluster); 1, 2, 4 or 8 to measure
+# another (tools/cluster_sweep.py)
+CLUSTER_SIZE = {"two_way_stack_fused": 0, "two_way_grid_fused": 0}
 two_way_stack_fused.launches = two_way_stack_fused.launches_fp32 = 0
 two_way_grid_fused.launches = two_way_grid_fused.launches_fp32 = 0

@@ -44,7 +44,14 @@ an older library runs it through ``cor_t2i_image_pass`` and
 redesigned for Hopper with the bits kept: at 9, 11, 16 and 32 tokens, 40
 and 128 candidates, bf16 and fp32 (``k8_cases``), then the K8 route's fused
 decode at 16 tokens (``k8_decode_cases``), whose graph replays count among
-the cases that must be faster.
+the cases that must be faster. So are K1-stack and K1-grid
+(``cor_two_way_fused``, rebuilt on K1's and K2's Hopper passes with the bits
+kept; an older library's entry takes the same arguments and reads the first
+50 of the pointers): at 5, 6 and 8 tokens, 40 and 128 candidates, on rows and
+on a store through idx, bf16 and fp32 (``stack_cases``; compared in bf16 at
+40 candidates too). In ``--time`` every decoder case (K1, K2, K3, K8a, K8b,
+K1-stack, K1-grid) must also equal the old library's outputs bit for bit,
+and the exit code says so.
 ``--only`` keeps the cases whose label holds one of the comma-separated
 parts (``K1``, ``K2`` and ``K3`` also the decode at 6 tokens, ``K8a`` and
 ``K8b`` the K8 route's); ``--draws N`` reads K6b in fp32's errors against
@@ -77,12 +84,12 @@ import torch
 
 from cor_tpu_torch.ops.kernels import _build
 
-# the entries compared bit for bit (the kernels the main paths ran before the
-# decode schedules K1-dma, K1-stack and K1-grid came in: those have no older
-# version, and their own checks against K1 and their plain versions)
+# the entries compared bit for bit: the kernels of the main paths and K1-stack
+# and K1-grid (cor_two_way_fused, since their redesign on K1's and K2's
+# passes; K1-dma is held to K1's bits by its own checks)
 _COMPARED = ("cor_vit_attention_relpos", "cor_vit_attention_relpos_windows",
              "cor_twl_tokens_in", "cor_t2i_image_pass", "cor_twl_tokens_mid",
-             "cor_twl_image_i2t", "cor_t2i_combine", "cor_decoder_tail")
+             "cor_twl_image_i2t", "cor_t2i_combine", "cor_decoder_tail", "cor_two_way_fused")
 # the redesigned entries: timed (--time), not compared
 _TIMED = ("cor_seq_attention", "cor_vit_attention_relpos_bwd", "cor_layer_norm",
           "cor_add_layer_norm")
@@ -113,6 +120,9 @@ _K2_ENTRY = "cor_t2i_final"
 # K8a's own entry since its redesign for Hopper; an older csrc/ without it runs
 # K8a through the shared image pass and the combine (_OldABI.cor_t2i_proj_q)
 _K8A_ENTRY = "cor_t2i_proj_q"
+# K1-stack's and K1-grid's entry: 96bd5c1's takes the same arguments; its
+# pointer array is the first 50 of the current one (_OldABI.cor_two_way_fused)
+_FUSED_ENTRY = "cor_two_way_fused"
 _OPTIONAL["cor_vit_attention_relpos_bwd"] += [("out", 4, None), ("lse", 5, None)]
 
 
@@ -139,7 +149,7 @@ def narrow_i2t(csrc: Path) -> bool:
 
 
 _WRAPPER_MODULES = ("layernorm", "seq_attention", "vit_attention", "two_way_layer", "t2i_flash",
-                    "i2t_attention", "decoder_tail")
+                    "i2t_attention", "decoder_tail", "two_way_stack")
 
 
 def build_old(csrc: Path, missing: dict) -> ctypes.CDLL:
@@ -186,6 +196,8 @@ class _OldABI:
         self._lib, self._missing, self._narrow_i2t = lib, missing, narrow_i2t
 
     def __getattr__(self, name):
+        if name == _FUSED_ENTRY:
+            return self._fused
         if name == _K2_ENTRY and not hasattr(self._lib, name):
             return self._final
         if name == _K8A_ENTRY and not hasattr(self._lib, name):
@@ -226,6 +238,16 @@ class _OldABI:
                                       pm, pl, pa, f32, stream)
         return err or self.cor_t2i_combine(pm, pl, pa, N // 64, n, n_tok, out, f32, stream)
 
+    def _fused(self, cluster, *args):
+        """K1-stack and K1-grid on an older library: its entry takes the same
+        arguments and reads the first 50 of the pointers the current wrappers
+        hand it (the ring blocks follow them); the schedule alone in
+        ``cluster`` (0 or 1: no team size, which it has no notion of)."""
+        if cluster not in (0, 1):
+            raise TypeError(f"{_FUSED_ENTRY}: the old library takes cluster 0 or 1, got "
+                            f"{cluster:#x}")
+        return self._lib.cor_two_way_fused(cluster, *args)
+
     def _i2t(self, *args):
         """cor_twl_i2t on a library whose entry takes at most 8 tokens: above,
         K8b's shared body (cor_twl_image_i2t, without wo_blocks)."""
@@ -255,6 +277,7 @@ def cases(device, token_counts: bool = True):
     from cor_tpu_torch.ops.kernels.i2t_attention import i2t_attention_fused
     from cor_tpu_torch.ops.kernels.t2i_flash import proj_q_t2i_flash, t2i_flash_kv
     from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer
+    from cor_tpu_torch.ops.kernels.two_way_stack import two_way_grid_fused, two_way_stack_fused
     from cor_tpu_torch.ops.kernels.vit_attention import (
         vit_attention_relpos,
         vit_attention_relpos_windows,
@@ -318,6 +341,17 @@ def cases(device, token_counts: bool = True):
     out.append(("K3", lambda: (decoder_tail(keys.reshape(n, 64, 64, 256), up.convt1.w,
                                             up.convt1.b, up.ln.scale, up.ln.bias, up.convt2.w,
                                             up.convt2.b, hyper),)))
+    # K1-stack and K1-grid on the rows and on a bf16 store through idx
+    p = dec.transformer
+    kpe_f, qpe1, kpe1 = ((0.5 * rnd(N, 128)).to(bf) for _ in range(3))
+    store16 = (0.5 * rnd(256, N, 256)).to(bf)
+    for T in [t for t in counts if t <= 8]:
+        tokens = rnd(n, T, 256).to(bf)
+        for name, fn in (("K1-stack", two_way_stack_fused), ("K1-grid", two_way_grid_fused)):
+            for rows, kw, what in ((keys, {}, "rows"), (store16, dict(idx=idx), "store-indexed")):
+                out.append((f"{name} {what}, {T} tokens", lambda fn=fn, tokens=tokens, rows=rows,
+                            kw=kw: fn(p, tokens, tokens, rows, (kpe, kpe1), (qpe, qpe1), kpe_f,
+                                      **kw)))
     return out
 
 
@@ -582,6 +616,49 @@ def k8_cases(device, draw: int = 0):
             for T in K8_TOKENS for n in K1_CANDIDATES]
 
 
+STACK_TOKENS = (5, 6, 8)  # K1's counts (chip_smoke.py phase 35's)
+
+
+@torch.no_grad()
+def stack_cases(device, draw: int = 0):
+    """(label, make) of K1-stack and K1-grid, redesigned on K1's and K2's
+    Hopper passes, at the fused decode's shapes: the SAM-base decoder's
+    transformer (random weights from a seed) on rows [n, 4096, 256] and on a
+    store of 256 rows [4096, 256] through idx, at ``STACK_TOKENS`` tokens and
+    ``K1_CANDIDATES`` candidates, in bf16 and fp32."""
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+    from cor_tpu_torch.ops.kernels.two_way_stack import two_way_grid_fused, two_way_stack_fused
+
+    N, S = 4096, 256
+
+    @functools.lru_cache(maxsize=1)
+    def shared(dt):
+        gen = torch.Generator(device=device).manual_seed(50 + 100 * draw)
+        p = init_mask_decoder(CoreConfig(), 1).to(device, dt).eval().transformer
+        rnd = lambda *s: (0.5 * torch.randn(*s, generator=gen, device=device)).to(dt)  # noqa: E731
+        pes = [rnd(N, 128) for _ in range(5)]
+        return p, pes[:2], pes[2:4], pes[4], rnd(S, N, 256)
+
+    def make(fn, dt, T, n, indexed):
+        p, kpe, qpe, kpe_f, store = shared(dt)
+        gen = torch.Generator(device=device).manual_seed(51 + 100 * draw + T + n)
+        tokens = torch.randn(n, T, 256, generator=gen, device=device).to(dt)
+        if indexed:
+            rows = store
+            kw = dict(idx=torch.randint(0, S, (n,), generator=gen, device=device,
+                                        dtype=torch.int32))
+        else:
+            rows = (0.5 * torch.randn(n, N, 256, generator=gen, device=device)).to(dt)
+            kw = {}
+        return lambda: fn(p, tokens, tokens, rows, kpe, qpe, kpe_f, **kw)
+
+    return [(f"{name}{sfx} [{n}, {N}], {T} tokens, {'store-indexed' if ix else 'rows'}",
+             functools.partial(make, fn, dt, T, n, ix))
+            for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "@fp32"))
+            for name, fn in (("K1-stack", two_way_stack_fused), ("K1-grid", two_way_grid_fused))
+            for T in STACK_TOKENS for n in K1_CANDIDATES for ix in (False, True)]
+
+
 @torch.no_grad()
 def k1_split(lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, idx=None, scale=None) -> dict:
     """K1's device milliseconds by launch (``two_way_layer.layer_launches``;
@@ -833,24 +910,29 @@ def float64_errors(old, run) -> dict:
 
 
 def time_redesigned(old, device, only=(), draws: int = 1) -> int:
-    """Time every case of ``timed_cases``, ``k1_cases``, ``k2k3_cases`` and
-    ``k8_cases`` (those whose label holds one of ``only``, if given) through
-    ``old`` and the current library (old, new, new, old; CUDA graphs of 10
-    calls); one JSON line
-    each, with each call's kernels' device time (torch.profiler), for K1
-    both libraries' device time by launch, and for K6b in fp32 both
-    libraries' largest errors against float64 (on ``draws`` draws of the
-    inputs). Returns 1 if a new kernel is slower than the old one
-    anywhere, or the K8 route's decode (``time_e2e``) is."""
+    """Time every case of ``timed_cases``, ``k1_cases``, ``k2k3_cases``,
+    ``k8_cases`` and ``stack_cases`` (those whose label holds one of
+    ``only``, if given) through ``old`` and the current library (old, new,
+    new, old; CUDA graphs of 10 calls); one JSON line each, with each call's
+    kernels' device time (torch.profiler), for K1 both libraries' device
+    time by launch, for the decoder's kernels whether the outputs are the old
+    library's bit for bit, and for K6b in fp32 both libraries' largest errors
+    against float64 (on ``draws`` draws of the inputs). Returns 1 if a new
+    kernel is slower than the old one anywhere, or the K8 route's decode
+    (``time_e2e``) is, or a decoder kernel's bits differ."""
     import json
     import subprocess as sp
 
     smi = sp.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                  capture_output=True, text=True).stdout.strip().splitlines()
     card = smi[0].strip() if smi else torch.cuda.get_device_name(0)
-    slower = []
+    slower, differ = [], []
+    # the cases whose kernels keep the old library's bits (the decoder's,
+    # redesigned with their bits kept); the others' sums run in another order
+    keep = [label for label, _ in k1_cases(device) + k2k3_cases(device) + k8_cases(device)
+            + stack_cases(device)]
     for label, make in (timed_cases(device) + k1_cases(device) + k2k3_cases(device)
-                        + k8_cases(device)):
+                        + k8_cases(device) + stack_cases(device)):
         if only and not any(o in label for o in only):
             continue
         use_library(None)  # the inputs (and a forward's lse) from the current library
@@ -863,6 +945,10 @@ def time_redesigned(old, device, only=(), draws: int = 1) -> int:
         diff = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
                    for a, b in zip(new_out, old_out))
         line = {"kernel": label}
+        if label in keep:
+            line["bits_equal"] = all(torch.equal(a, b) for a, b in zip(new_out, old_out))
+            if not line["bits_equal"]:
+                differ.append(label)
         del old_out, new_out
         if hasattr(run, "exact"):
             line["max_abs_err_vs_float64"] = float64_errors(old, run)
@@ -894,8 +980,9 @@ def time_redesigned(old, device, only=(), draws: int = 1) -> int:
         torch.cuda.empty_cache()
     slower += time_e2e(old, device, card, only)
     print(f"redesigned kernels (and the K8 route's decode) against the old library: "
-          f"{'faster at every shape' if not slower else f'slower at {slower}'}")
-    return 1 if slower else 0
+          f"{'faster at every shape' if not slower else f'slower at {slower}'}; the "
+          f"decoder's kept their bits{'' if not differ else f' but at {differ}'}")
+    return 1 if slower or differ else 0
 
 
 def main(argv=None) -> int:
