@@ -3112,6 +3112,7 @@ def phase_decode_schedules(device, smi: str):
     )
     from cor_tpu_torch.tools.decode_bench import VARIANTS
 
+    t0 = time.perf_counter()
     n, N, C, I = CANDIDATES, GRID * GRID, SAM_C, 128
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
     out = {}
@@ -3252,7 +3253,8 @@ def phase_decode_schedules(device, smi: str):
                                                   "card": smi}}))
     print(json.dumps({"schedule_decode_profile": {"batch": 8, "tokens": 6, "variant": "grid",
                                                   **prof, "card": smi}}))
-    print("phase 35 the decode schedules' kernels: ok", flush=True)
+    print(f"phase 35 the decode schedules' kernels: ok in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return out, totals
 
 
@@ -3264,6 +3266,7 @@ def phase_decode_bench(smi: str):
     wrapper's launches over the runs."""
     from cor_tpu_torch.tools import decode_bench
 
+    t0 = time.perf_counter()
     totals = {k: 0 for k in read_counts()}
     for variant, int8 in (("layer", False), ("layer", True), ("dma", False), ("dma", True),
                           ("stack", False), ("grid", False)):
@@ -3281,7 +3284,7 @@ def phase_decode_bench(smi: str):
             fail(f"decode_bench {variant}{' --int8' if int8 else ''}: launches {c}, per chunk "
                  f"{res['launches_per_chunk']}, expected {want} per chunk")
         print(json.dumps(res), flush=True)
-    print("phase 36 decode_bench: ok", flush=True)
+    print(f"phase 36 decode_bench: ok in {time.perf_counter() - t0:.1f} s", flush=True)
     return totals
 
 

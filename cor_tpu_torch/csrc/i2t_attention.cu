@@ -1,6 +1,7 @@
-// cor_tpu's K8b, and the body of stage 4 of the two-way layer that K1-dma
-// runs (K1's own is twl_i2t.cu, which K8b, K1-stack and K1-grid run too;
-// two_way_layer.cu says
+// cor_tpu's K8b, and the body of stage 4 of the two-way layer that the first
+// designs ran (K1's own is twl_i2t.cu, which K8b, K1-dma, K1-stack and K1-grid
+// run too; no wrapper calls this entry now: tools/kernel_bits.py serves an
+// older library's K8b by it; two_way_layer.cu says
 // what the layer's four launches do and what bounds them): per (64-row tile,
 // candidate), the image -> token softmax over the T tokens of each head, its
 // product with the tokens' values, the out-projection [128 -> 256] on the

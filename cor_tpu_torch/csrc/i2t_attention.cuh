@@ -1,7 +1,7 @@
 // Stage 4 of the two-way layer (the first K1 and K8b) as __device__ bodies that take
 // their work item (a 64-row tile of a candidate) as arguments: i2t_attention.cu
-// wraps them in a kernel of one tile per CTA, two_way_layer_dma.cu runs the
-// tile body over several tiles per CTA behind a cp.async ring (K1-dma).
+// wraps them in a kernel of one tile per CTA (the first K1-dma ran the tile
+// body over several tiles per CTA behind a cp.async ring).
 // i2t_attention.cu says what the stage computes and what bounds it.
 #pragma once
 

@@ -7,8 +7,9 @@
 // The first port of the TPU kernel cor_tpu/ops/pallas/t2i_flash.py:
 // proj_q_t2i_flash (K8a, its pallas_call at line 163: the per-layer attention
 // that also emits the i2t query q_img = rows @ Wq^T + bq + qpe, where
-// cor_tpu's fused decode does not take its layer kernel); its image pass is
-// the t2i stage of K1-dma (K1-stack and K1-grid run twl_t2i.cuh's).
+// cor_tpu's fused decode does not take its layer kernel); no wrapper calls
+// these entries now (K1, K1-dma, K1-stack and K1-grid run twl_t2i.cuh's
+// pass): tools/kernel_bits.py serves an older library's K2 and K8a by them.
 // K2, the final attention (t2i_flash.py:t2i_flash_kv, its pallas_call at line
 // 220), K1 and K8a ran it too until each was redesigned for Hopper
 // (t2i_final.cu, twl_t2i.cu, t2i_proj_q.cu): no wrapper calls these two

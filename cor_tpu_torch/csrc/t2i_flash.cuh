@@ -1,8 +1,8 @@
 // The image pass of the token -> image attention and its combine, as
 // __device__ bodies that take their work item (a 64-row tile of a candidate,
 // or a candidate) as arguments: t2i_flash.cu wraps each in a kernel of one
-// work item per CTA (the first K1, K2 and K8a), two_way_layer_dma.cu runs the
-// tile body over several tiles per CTA behind a cp.async ring (K1-dma).
+// work item per CTA (the first K1, K2 and K8a; the first K1-dma ran the tile
+// body over several tiles per CTA behind a cp.async ring).
 // t2i_flash.cu says what the pass computes and what bounds it.
 #pragma once
 

@@ -11,8 +11,8 @@
 // kernel cor_tpu/ops/pallas/i2t_attention.py:i2t_attention_fused (its
 // pallas_call at line 105), K8b, which the K8 route runs with the tokens'
 // keys and values from torch (ops/kernels/i2t_attention.py). The pass's body
-// is twl_i2t.cuh's, which K1-stack and K1-grid run too (two_way_stack.cuh);
-// only K1-dma keeps the shared stage-4 body of i2t_attention.cuh.
+// is twl_i2t.cuh's, which K1-stack and K1-grid run too (two_way_stack.cuh),
+// and K1-dma with its rows moved by bulk copies (two_way_layer_dma.cu).
 //
 // What held the shared pass back on the H100 (measured by launch, PERF.md):
 // one CTA of 4 warps per 64-row tile staged the whole out-projection weight

@@ -3,13 +3,16 @@
 // the candidates or an int8 store), K8b, the K8 route's i2t block tail
 // (cor_twl_i2t at 9 to 32 tokens: kWide), and the fused transformer's two
 // layers (two_way_stack.cuh, K1-stack and K1-grid: each layer's stage 4 over
-// the items its schedule gives it). twl_i2t.cu describes the design and
-// what bounds it.
+// the items its schedule gives it), and K1-dma's stage 4 (kDma,
+// two_way_layer_dma.cu: the tiles brought in by bulk copies, the new rows
+// written by bulk stores). twl_i2t.cu describes the design and what bounds
+// it.
 #pragma once
 
 #include "decoder_common.cuh"
 #include "tf32_tiles.cuh"
 #include "wgmma.cuh"
+#include "tma.cuh"
 #include "twl_hopper.cuh"
 
 namespace cor {
@@ -64,9 +67,13 @@ constexpr bool regs_balance() {
 static_assert(regs_balance<I2tL<uint16_t>>() && regs_balance<I2tL<float>>(),
               "the consumers take more registers than the producer gives up");
 
-template <typename T, bool kWide>
+// kDma (K1-dma) in fp32: the attention output is written over the q_img tile
+// (no tile of its own), and one tile [64][260] (kShared) stages both groups'
+// new rows in turn
+template <typename T, bool kWide, bool kDma = false>
 struct I2tSmem {
   using L = I2tL<T>;
+  static constexpr bool kOne = kDma && sizeof(T) == 4;  // the shared rows tile
   // a weight block: [256][kKB] of bf16, or the two TF32 halves of one of fp32
   static constexpr int kStageBytes = kC * L::kKB * (sizeof(T) == 2 ? 2 : 8);
   static constexpr int kBlocks = kI / L::kKB;
@@ -75,15 +82,16 @@ struct I2tSmem {
   static constexpr int kQ =
       kWide && sizeof(T) == 2 ? kRows * kI * 2 : kRows * L::kLdQ * int(sizeof(T));
   static constexpr int kO = kRows * L::kLdO * sizeof(T);
-  static constexpr int kAV = kWide ? 0 : L::kAV;
+  static constexpr int kAV = kWide || kOne ? 0 : L::kAV;
   static constexpr int kTok = kWide ? kMaxTok : kMaxT;  // the tokens held
   // the tokens' keys and values [kTok][kI] fp32: per group, or (kWide) per CTA
   static constexpr int kTokBytes = 2 * kTok * kI * 4;
   static constexpr int kGroupBytes = kQ + kO + kAV + (kWide ? 0 : kTokBytes);
-  // the mbarriers, after the ring, the groups' buffers, the tokens and the
-  // vectors (kBars of them)
-  static constexpr int kBarsAt =
-      L::kStages * kStageBytes + kGroups * kGroupBytes + (kWide ? kTokBytes : 0) + 3 * kC * 4;
+  static constexpr int kShared = kOne ? kRows * (kC + 4) * 4 : 0;
+  // the mbarriers, after the ring, the groups' buffers, the tokens, the
+  // vectors and the shared rows tile (kBars of them)
+  static constexpr int kBarsAt = L::kStages * kStageBytes + kGroups * kGroupBytes +
+                                 (kWide ? kTokBytes : 0) + 3 * kC * 4 + kShared;
   static constexpr int kBars = 2 * L::kStages + 4 * kGroups;
   static constexpr int kBytes = kBarsAt + kBars * 8;
 };
@@ -155,6 +163,18 @@ __device__ __forceinline__ void load16_cm(const uint16_t* tile, int r, int c0, f
   }
 }
 
+// kDma: the 32 lanes of a warp start copying `rows` rows of `bytes` bytes
+// each (a multiple of 16), src rows contiguous, into dst with a row stride
+// of ld bytes, by bulk copies completing on bar (lane 0 arms it)
+__device__ __forceinline__ void bulk_rows(unsigned char* dst, int ld, const void* src, int bytes,
+                                          int lane, uint64_t* bar) {
+  if (lane == 0) wg::mbar_expect_tx(bar, kRows * bytes);
+  __syncwarp();
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  for (int r = lane; r < kRows; r += 32)
+    wg::bulk_copy(dst + r * ld, s + static_cast<int64_t>(r) * bytes, bytes, bar);
+}
+
 // both consumer warpgroups (named barrier 3, 256 threads)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 3, 256;\n" ::: "memory");
@@ -168,8 +188,13 @@ __device__ __forceinline__ void consumers_sync() {
 // they leave the pass, so that a kernel that runs other stages afterwards
 // (two_way_stack.cuh) finds every thread at kLaunchRegs again. kMove: the
 // registers moved at all (else every thread runs the pass at kLaunchRegs).
+// kDma (K1-dma, 1 to kMaxT tokens): the q_img tiles (and in bf16 the rows)
+// come in by bulk copies, and the new rows go out by bulk stores from their
+// staged tile, which is reused once the stores have read it; in fp32 the
+// rows are read from device memory as K1 reads them, and the new rows are
+// staged in one tile that the groups take in turn.
 template <typename T, bool kInt8, bool kWide, bool kRestore = false,
-          typename Walk = wg::RoundRobin, bool kMove = true>
+          typename Walk = wg::RoundRobin, bool kMove = true, bool kDma = false>
 __device__ __forceinline__ void i2t_pass(
     unsigned char* smem, const void* __restrict__ src, const int* __restrict__ idx,
     const float* __restrict__ scale, int S, int n, int N, const T* __restrict__ q_img,
@@ -177,8 +202,15 @@ __device__ __forceinline__ void i2t_pass(
     const T* __restrict__ wo_blocks, const float* __restrict__ bo_ln, float eps,
     float cross_scale, T* __restrict__ out, Walk walk = Walk()) {
   using L = I2tL<T>;
-  using M = I2tSmem<T, kWide>;
+  using M = I2tSmem<T, kWide, kDma>;
   using E = Elem<T>;
+  static_assert(!(kDma && kWide), "K1-dma's stage 4 takes at most kMaxT tokens");
+  // the new rows staged in shared memory (bf16, or fp32 kDma in the shared
+  // tile), and the rows read from there (bf16: the producer brings them)
+  constexpr bool kStage = L::kStageRows || kDma;
+  constexpr bool kRowsIn = L::kStageRows;
+  // the rows' (or new rows') stride in elements of the staged tile
+  constexpr int kLdO = L::kStageRows ? L::kLdO : kC + 4;
   // the tokens whose logits are summed side by side (fp32 kWide: a step of
   // its online softmax)
   constexpr int kTc = kWide ? 4 : 1;
@@ -188,7 +220,8 @@ __device__ __forceinline__ void i2t_pass(
   float* sTok = reinterpret_cast<float*>(groups + kGroups * M::kGroupBytes);
   float* sBo = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sTok) +
                                         (kWide ? M::kTokBytes : 0));  // bo, ln4 s, b
-  uint64_t* full = reinterpret_cast<uint64_t*>(sBo + 3 * kC);
+  unsigned char* shared_rows = reinterpret_cast<unsigned char*>(sBo + 3 * kC);  // M::kOne
+  uint64_t* full = reinterpret_cast<uint64_t*>(shared_rows + M::kShared);
   uint64_t* empty = full + L::kStages;
   uint64_t* q_full = empty + L::kStages;  // [kGroups]: a group's q_img tile has landed
   uint64_t* q_empty = q_full + kGroups;   // its attention has read it
@@ -205,9 +238,10 @@ __device__ __forceinline__ void i2t_pass(
       wg::mbar_init(&empty[s], kGroups * 128);
     }
     for (int gi = 0; gi < kGroups; ++gi) {
-      wg::mbar_init(&q_full[gi], 2 * 32);
+      // kDma: lane 0's arrival, with the bulk copies' bytes
+      wg::mbar_init(&q_full[gi], kDma ? 1 : 2 * 32);
       wg::mbar_init(&q_empty[gi], 128);
-      wg::mbar_init(&rows_full[gi], 2 * 32);
+      wg::mbar_init(&rows_full[gi], kDma ? 1 : 2 * 32);
       wg::mbar_init(&rows_empty[gi], 128);
     }
     wg::mbar_init_fence();
@@ -218,6 +252,29 @@ __device__ __forceinline__ void i2t_pass(
   if (tid >= kGroups * 128) {
     if constexpr (kMove && L::kProdRegs != kLaunchRegs) wg::regs_dec<L::kProdRegs>();
     const int p = tid - kGroups * 128, lane = tid & 31;
+    // kDma: item `item` (the it-th of this CTA, candidate cand)'s tiles by
+    // bulk copies: each group's q_img tile once its products have read the
+    // last one, then (bf16) its rows once its last new rows are out. A tile
+    // past the candidate's (an odd tile count) copies tile 0, unread.
+    auto dma_tiles = [&](int item, int it, int cand, int lane) {
+      for (int gi = 0; gi < kGroups; ++gi) {
+        const int tile = (item % per_cand) * kGroups + gi;
+        const int r0 = (tile < tiles ? tile : 0) * kRows;
+        if (it > 0) wg::mbar_wait(&q_empty[gi], (it - 1) & 1);
+        bulk_rows(groups + gi * M::kGroupBytes, L::kLdQ * int(sizeof(T)),
+                  q_img + (static_cast<int64_t>(cand) * N + r0) * kI, kI * int(sizeof(T)), lane,
+                  &q_full[gi]);
+      }
+      const int row = source_row(idx, cand, S);
+      for (int gi = 0; gi < kGroups && kRowsIn; ++gi) {
+        const int tile = (item % per_cand) * kGroups + gi;
+        const int r0 = (tile < tiles ? tile : 0) * kRows;
+        if (it > 0) wg::mbar_wait(&rows_empty[gi], (it - 1) & 1);
+        bulk_rows(groups + gi * M::kGroupBytes + M::kQ, kInt8 ? kLdRaw : kLdO * int(sizeof(T)),
+                  row_tile<kInt8, T>(src, row, N, r0), kInt8 ? kC : kC * int(sizeof(T)), lane,
+                  &rows_full[gi]);
+      }
+    };
     if (p < kWThreads) {
       // the weight ring, kBlocks blocks an item
       const int total = walk(items).count() * M::kBlocks;
@@ -253,6 +310,10 @@ __device__ __forceinline__ void i2t_pass(
       const Items r = walk(items);
       for (int item = r.first; item < r.end; item += r.step, ++it) {
         const int cand = item / per_cand;
+        if constexpr (kDma) {
+          dma_tiles(item, it, cand, lane);
+          continue;
+        }
         for (int gi = 0; gi < kGroups; ++gi) {
           const int tile = (item % per_cand) * kGroups + gi;
           if (it > 0) wg::mbar_wait(&q_empty[gi], (it - 1) & 1);
@@ -299,8 +360,10 @@ __device__ __forceinline__ void i2t_pass(
   const int g = lane >> 2, t = lane & 3;
   unsigned char* mine = groups + cw * M::kGroupBytes;
   T* sQ = reinterpret_cast<T*>(mine);
-  unsigned char* sO = mine + M::kQ;  // bf16: the rows (raw int8 or T), then the new rows
-  T* sAV = kWide ? sQ : reinterpret_cast<T*>(mine + M::kQ + M::kO);
+  // the staged rows (raw int8 or T), then the new rows: bf16 the group's own,
+  // fp32 kDma the shared tile
+  unsigned char* sO = M::kOne ? shared_rows : mine + M::kQ;
+  T* sAV = kWide || M::kOne ? sQ : reinterpret_cast<T*>(mine + M::kQ + M::kO);
   float* sKi = kWide ? sTok : reinterpret_cast<float*>(mine + M::kQ + M::kO + M::kAV);
   float* sVi = sKi + M::kTok * kI;
   const uint32_t av_addr = wg::smem_u32(sAV);
@@ -441,7 +504,7 @@ __device__ __forceinline__ void i2t_pass(
         }
       }
     }
-    if constexpr (!kWide) wg::mbar_arrive(&q_empty[cw]);
+    if constexpr (!kWide && !M::kOne) wg::mbar_arrive(&q_empty[cw]);
     wg::group_sync(cw);  // the attention output complete
     wg::fence_proxy_async();
 
@@ -494,17 +557,28 @@ __device__ __forceinline__ void i2t_pass(
       wg::fence_regs(acc);
       wg::mbar_arrive(&empty[prev]);
     }
-    // kWide: the attention output, written over q_img's tile, is read
-    if constexpr (kWide) wg::mbar_arrive(&q_empty[cw]);
+    // kWide, fp32 kDma: the attention output, written over q_img's tile, is read
+    if constexpr (kWide || M::kOne) wg::mbar_arrive(&q_empty[cw]);
 
     // + bias + the rows, LayerNorm over kC: the shared body's epilogue, the
     // rows read from (and, bf16, the new rows written through) the staged
     // tile
-    if constexpr (L::kStageRows) wg::mbar_wait(&rows_full[cw], it & 1);
+    if constexpr (kRowsIn) wg::mbar_wait(&rows_full[cw], it & 1);
+    // fp32 K1-dma: the shared tile's turn, once the other group's new rows
+    // of its last use are read out of it
+    auto take_turn = [&]() {
+      if constexpr (kStage && !kRowsIn) {
+        if (cw == 1)
+          wg::mbar_wait(&rows_empty[0], it & 1);
+        else if (it > 0)
+          wg::mbar_wait(&rows_empty[1], (it - 1) & 1);
+      }
+    };
+    if (!valid) take_turn();
     if (valid) {
-      const void* rows_tile = L::kStageRows ? static_cast<const void*>(sO)
-                                            : row_tile<kInt8, T>(src, row, N, r0);
-      const int ldr = !L::kStageRows ? kC : (kInt8 ? kLdRaw : L::kLdO);
+      const void* rows_tile = kRowsIn ? static_cast<const void*>(sO)
+                                      : row_tile<kInt8, T>(src, row, N, r0);
+      const int ldr = !kRowsIn ? kC : (kInt8 ? kLdRaw : kLdO);
       const int ra = warp * 16 + g, rb = ra + 8;
       float sa = 0.f, sb = 0.f;
 #pragma unroll
@@ -532,10 +606,13 @@ __device__ __forceinline__ void i2t_pass(
       const float* b4 = sBo + 2 * kC;
       T* oa;
       T* ob;
-      if constexpr (L::kStageRows) {
-        wg::group_sync(cw);  // every row read (an int8 tile lies under the new rows)
-        oa = reinterpret_cast<T*>(sO) + ra * L::kLdO;
-        ob = reinterpret_cast<T*>(sO) + rb * L::kLdO;
+      if constexpr (kStage) {
+        if constexpr (kRowsIn)
+          wg::group_sync(cw);  // every row read (an int8 tile lies under the new rows)
+        else
+          take_turn();
+        oa = reinterpret_cast<T*>(sO) + ra * kLdO;
+        ob = reinterpret_cast<T*>(sO) + rb * kLdO;
       } else {
         oa = out + (static_cast<int64_t>(cand) * N + r0 + ra) * kC;
         ob = out + (static_cast<int64_t>(cand) * N + r0 + rb) * kC;
@@ -548,7 +625,19 @@ __device__ __forceinline__ void i2t_pass(
         E::put2(ob + col, (acc[q][2] - mb) * ib * s4[col] + b4[col],
                 (acc[q][3] - mb) * ib * s4[col + 1] + b4[col + 1]);
       }
-      if constexpr (L::kStageRows) {
+      if constexpr (kDma) {
+        // the new rows by bulk stores, a row a store, by the lanes of warp 0,
+        // each waiting until its stores have read the tile before it frees it
+        wg::fence_proxy_async();
+        wg::group_sync(cw);
+        if (warp == 0) {
+          T* o = out + (static_cast<int64_t>(cand) * N + r0) * kC;
+          for (int r = lane; r < kRows; r += 32)
+            tma::store(o + r * kC, reinterpret_cast<const T*>(sO) + r * kLdO, kC * sizeof(T));
+          tma::store_commit();
+          tma::store_wait_read();
+        }
+      } else if constexpr (L::kStageRows) {
         // the new rows, 16 bytes a thread and whole rows a warp
         wg::group_sync(cw);
         constexpr int kCh = kC * sizeof(T) / 16;
@@ -562,7 +651,7 @@ __device__ __forceinline__ void i2t_pass(
         }
       }
     }
-    if constexpr (L::kStageRows) wg::mbar_arrive(&rows_empty[cw]);
+    if constexpr (kStage) wg::mbar_arrive(&rows_empty[cw]);
     wg::group_sync(cw);  // the attention output free for the next item
   }
   if constexpr (kMove && kRestore && L::kConsRegs != kLaunchRegs) {

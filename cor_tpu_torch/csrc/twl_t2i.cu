@@ -14,8 +14,8 @@
 // at lines 978, 998 and 1012). The pass's body is twl_t2i.cuh's, which K2
 // runs too without its q chunk (t2i_final.cu) and K8a with the tokens taken
 // 8 at a time and the combine folded in (t2i_proj_q.cu), and K1-stack and
-// K1-grid in their layers and final attention (two_way_stack.cuh); only
-// K1-dma keeps the shared image pass of t2i_flash.cuh.
+// K1-grid in their layers and final attention (two_way_stack.cuh), and
+// K1-dma with its rows brought in by the TMA (two_way_layer_dma.cu).
 //
 // What held the shared pass back on the H100 (measured by launch, PERF.md):
 // one CTA of 4 warps per 64-row tile staged the whole packed [k|v|q] weight

@@ -9,8 +9,9 @@
 // and the final pass without it, over the items its schedule hands them, in
 // a block of three warpgroups). Two switches: kQ, the q chunk (q_img
 // written); kFold, the tokens up to kMaxTok taken kMaxT at a time and the
-// partials combined in the launch. Each source says what bounds its pass;
-// the design is the one twl_t2i.cu describes.
+// partials combined in the launch; kDma (K1-dma, two_way_layer_dma.cu), the
+// rows brought in by the TMA, as K1-dma's header describes. Each source says
+// what bounds its pass; the design is the one twl_t2i.cu describes.
 #pragma once
 
 #include <math.h>
@@ -20,6 +21,7 @@
 #include "decoder_common.cuh"
 #include "tf32_tiles.cuh"
 #include "wgmma.cuh"
+#include "tma.cuh"
 #include "twl_hopper.cuh"
 
 namespace cor {
@@ -86,7 +88,7 @@ struct T2iL<float> {
   static constexpr int kRowsBytes = kRows * (kC + 4) * 4;  // [64][260]
 };
 
-template <typename T, bool kQ, bool kFold>
+template <typename T, bool kQ, bool kFold, bool kDma = false>
 struct T2iSmem {
   using L = T2iL<T>;
   static constexpr int kLdI = Elem<T>::kLdI;
@@ -101,10 +103,12 @@ struct T2iSmem {
   static __host__ __device__ constexpr int group_bytes(int nt) {
     return L::kRowsBytes + 2 * kKV + kHeads * held(nt) * kLdL * 4 + held(nt) * kI * 4;
   }
-  // + the bias, the mbarriers and (kFold) a ticket slot per group
+  // + the bias, the mbarriers, (kFold) a ticket slot per group and (kDma)
+  // an mbarrier per group for an int8 store's raw tile
   static __host__ __device__ constexpr int bytes(int nt) {
     return L::kStages * kStageBytes + L::kGroups * group_bytes(nt) + kChunks<kQ> * kI * 4 +
-           (2 * L::kStages + 2 * L::kGroups) * 8 + (kFold ? 4 * L::kGroups : 0);
+           (2 * L::kStages + 2 * L::kGroups) * 8 + (kFold ? 4 * L::kGroups : 0) +
+           (kDma ? 8 * L::kGroups : 0);
   }
 };
 
@@ -242,6 +246,107 @@ __device__ __forceinline__ void load_row_tile(unsigned char* tile, const void* s
       else
         wg::cp16(dst, static_cast<const T*>(src) + base + at, 16u);
     }
+  }
+}
+
+// K1-dma (kDma): the rows of a group's tile come in by the TMA, one thread
+// issuing the copies (kRowThreads producer threads load the rows).
+template <typename T>
+constexpr int kRowThreads = kProd - kWThreads<T>;
+constexpr int kRowsBar = 4;  // the row threads' named barrier (kDma, an int8 store)
+// where an int8 store's raw tile [64][256] lands: the top 16 KB of the
+// group's row tile, which its dequantised rows then fill
+template <typename T>
+constexpr int kRawAt = T2iL<T>::kRowsBytes - kRows * kC;
+
+// kDma, an int8 store: the raw tile at tile + kRawAt<T> dequantised as
+// load_rows does it into the row tile (bf16 as its 16-byte chunks,
+// [chunk][row][8]; fp32 [64][260]) by the row threads: first the values whose
+// place lies below the raw tile, then, once every row thread has read the
+// rest into registers, the rest over it.
+template <typename T>
+__device__ __forceinline__ void dequant_dma_tile(unsigned char* tile, float sc, int lane) {
+  constexpr int kThreads = kRowThreads<T>;
+  const int8_t* raw = reinterpret_cast<const int8_t*>(tile + kRawAt<T>);
+  if constexpr (sizeof(T) == 2) {
+    // chunk (c, r): 8 values, raw bytes r * kC + 8c, placed at (c * 64 + r) * 16;
+    // chunks 0 .. 15 lie below the raw tile
+    constexpr int kLow = 16 * kRows, kAll = 32 * kRows;
+    constexpr int kHigh = (kAll - kLow + kThreads - 1) / kThreads;
+    for (int f = lane; f < kLow; f += kThreads) {
+      const int c = f % 16, r = f / 16;
+      *reinterpret_cast<uint4*>(tile + (c * kRows + r) * 16) =
+          dequant8_bf16(*reinterpret_cast<const uint2*>(raw + r * kC + 8 * c), sc);
+    }
+    uint2 v[kHigh];
+#pragma unroll
+    for (int u = 0; u < kHigh; ++u) {
+      const int f = lane + u * kThreads;
+      if (f < kAll - kLow) {
+        const int c = 16 + f % 16, r = f / 16;
+        v[u] = *reinterpret_cast<const uint2*>(raw + r * kC + 8 * c);
+      }
+    }
+    wg::bar_sync<kRowsBar, kThreads>();
+#pragma unroll
+    for (int u = 0; u < kHigh; ++u) {
+      const int f = lane + u * kThreads;
+      if (f < kAll - kLow) {
+        const int c = 16 + f % 16, r = f / 16;
+        *reinterpret_cast<uint4*>(tile + (c * kRows + r) * 16) = dequant8_bf16(v[u], sc);
+      }
+    }
+  } else {
+    // chunk (r, c): 4 values, raw bytes r * kC + 4c, placed at row r, column
+    // 4c of [64][260]; rows 0 .. 47 lie below the raw tile
+    constexpr int kCh = kC / 4, kLd = kC + 4, kLowRows = 48;
+    static_assert(kLowRows * kLd * 4 <= kRawAt<float>, "the low rows overlap the raw tile");
+    constexpr int kHigh = ((kRows - kLowRows) * kCh + kThreads - 1) / kThreads;
+    float* rows = reinterpret_cast<float*>(tile);
+    for (int f = lane; f < kLowRows * kCh; f += kThreads) {
+      const int r = f / kCh, c = f % kCh;
+      *reinterpret_cast<uint4*>(rows + r * kLd + 4 * c) =
+          dequant4_f32(*reinterpret_cast<const uint32_t*>(raw + r * kC + 4 * c), sc);
+    }
+    uint32_t v[kHigh];
+#pragma unroll
+    for (int u = 0; u < kHigh; ++u) {
+      const int f = kLowRows * kCh + lane + u * kThreads;
+      v[u] = *reinterpret_cast<const uint32_t*>(raw + (f / kCh) * kC + 4 * (f % kCh));
+    }
+    wg::bar_sync<kRowsBar, kThreads>();
+#pragma unroll
+    for (int u = 0; u < kHigh; ++u) {
+      const int f = kLowRows * kCh + lane + u * kThreads;
+      *reinterpret_cast<uint4*>(rows + (f / kCh) * kLd + 4 * (f % kCh)) = dequant4_f32(v[u], sc);
+    }
+  }
+}
+
+// kDma: one thread starts the copies of source row `row`'s rows [r0, r0 +
+// 64) into a group's row tile, completing on bar: bf16 by the TMA as 32
+// column chunks ([chunk][row][8], rows_map over the rows [S N][kC]), fp32 as
+// 64 row copies into [64][260], an int8 store as one 16 KB copy of the raw
+// tile (at kRawAt).
+template <typename T, bool kInt8>
+__device__ __forceinline__ void dma_row_tile(unsigned char* tile, const void* src,
+                                             const CUtensorMap* rows_map, int row, int N, int r0,
+                                             uint64_t* bar) {
+  const int64_t first = static_cast<int64_t>(row) * N + r0;
+  // the tile's last writers and readers (the row threads' dequantised
+  // values, the consumers' products) come before this copy's writes
+  wg::fence_proxy_async();
+  if constexpr (kInt8) {
+    wg::mbar_expect_tx(bar, kRows * kC);
+    wg::bulk_copy(tile + kRawAt<T>, static_cast<const int8_t*>(src) + first * kC, kRows * kC, bar);
+  } else if constexpr (sizeof(T) == 2) {
+    wg::mbar_expect_tx(bar, kRows * kC * 2);
+    tma::load_chunks(tile, rows_map, kC / 8, 2, static_cast<int>(first), bar);
+  } else {
+    wg::mbar_expect_tx(bar, kRows * kC * 4);
+    const float* s = static_cast<const float*>(src) + first * kC;
+    for (int r = 0; r < kRows; ++r)
+      wg::bulk_copy(tile + r * (kC + 4) * 4, s + r * kC, kC * 4, bar);
   }
 }
 
@@ -418,29 +523,34 @@ struct CtaItems {
 // takes (CtaItems: K1's, K2's and K8a's persistent grids). kFetch: fp32's
 // weight blocks a producer thread holds in flight; kPeEarly: the PE values
 // loaded under the products (else after them, 64 fewer live registers in
-// fp32).
+// fp32). kDma (K1-dma; without kFold): the rows come in by the TMA
+// (dma_row_tile, rows_map in bf16) and the bf16 rows are read as their
+// column chunks.
 template <typename T, bool kInt8, bool kQ, bool kFold,
           int kThreads = T2iL<T>::kGroups * 128 + kProd, int kFetch = kFetchDepth,
-          bool kPeEarly = true, typename Walk = CtaItems<kFold>>
+          bool kPeEarly = true, typename Walk = CtaItems<kFold>, bool kDma = false>
 __device__ __forceinline__ void t2i_pass(
     unsigned char* smem, const void* __restrict__ src, const int* __restrict__ idx,
     const float* __restrict__ scale, int S, int n, int N, const T* __restrict__ w,
     const T* __restrict__ w_blocks, const float* __restrict__ b, const T* __restrict__ kpe,
     const T* __restrict__ qpe, const T* __restrict__ qt, int nt, T* __restrict__ q_img,
     float* __restrict__ part_m, float* __restrict__ part_l, float* __restrict__ part_acc,
-    int* __restrict__ tickets, T* __restrict__ out, Walk walk = Walk()) {
+    int* __restrict__ tickets, T* __restrict__ out, Walk walk = Walk(),
+    const CUtensorMap* rows_map = nullptr) {
   using L = T2iL<T>;
-  using M = T2iSmem<T, kQ, kFold>;
+  using M = T2iSmem<T, kQ, kFold, kDma>;
   using E = Elem<T>;
   constexpr int G = L::kGroups;
   constexpr int kNc = kChunks<kQ>;
   static_assert(kThreads >= G * 128 + kProd && kThreads % 128 == 0, "the pass's warpgroups");
+  static_assert(!(kDma && kFold), "K1-dma's pass writes its partials out");
   unsigned char* ring = smem;
   unsigned char* groups = smem + L::kStages * M::kStageBytes;
   float* sB = reinterpret_cast<float*>(groups + G * M::group_bytes(nt));  // [kNc kI]: b
   uint64_t* bar = reinterpret_cast<uint64_t*>(sB + kNc * kI);
   const Bars bars{bar, bar + L::kStages, bar + 2 * L::kStages, bar + 2 * L::kStages + G};
   int* sTicket = reinterpret_cast<int*>(bar + 2 * L::kStages + 2 * G);  // [G] (kFold)
+  uint64_t* raw_full = bar + 2 * L::kStages + 2 * G;  // [G] (kDma): a raw int8 tile has landed
 
   const int tiles = N / kRows;
   const int per_cand = (tiles + G - 1) / G;
@@ -453,8 +563,11 @@ __device__ __forceinline__ void t2i_pass(
       wg::mbar_init(&bars.empty[s], consumers);
     }
     for (int gi = 0; gi < G; ++gi) {
-      wg::mbar_init(&bars.rows_full[gi], 2 * (kProd - kWThreads<T>));
+      // kDma: the copying thread's arrival (an int8 store: the row threads',
+      // once they have dequantised the raw tile)
+      wg::mbar_init(&bars.rows_full[gi], !kDma ? 2 * kRowThreads<T> : kInt8 ? kRowThreads<T> : 1);
       wg::mbar_init(&bars.rows_empty[gi], 128);
+      if (kDma && kInt8) wg::mbar_init(&raw_full[gi], 1);
     }
     wg::mbar_init_fence();
   }
@@ -511,9 +624,22 @@ __device__ __forceinline__ void t2i_pass(
         for (int gi = 0; gi < G; ++gi) {
           const int tile = (item % per_cand) * G + gi;
           if (it > 0) wg::mbar_wait(&bars.rows_empty[gi], (it - 1) & 1);
+          unsigned char* dst = groups + gi * M::group_bytes(nt);
+          if constexpr (kDma) {
+            // a tile past the candidate's (an odd tile count) copies tile 0,
+            // which no consumer reads
+            const int r0 = (tile < tiles ? tile : 0) * kRows;
+            uint64_t* done = kInt8 ? &raw_full[gi] : &bars.rows_full[gi];
+            if (lane == 0) dma_row_tile<T, kInt8>(dst, src, rows_map, row, N, r0, done);
+            if constexpr (kInt8) {
+              wg::mbar_wait(&raw_full[gi], it & 1);
+              dequant_dma_tile<T>(dst, sc, lane);
+              wg::mbar_arrive(&bars.rows_full[gi]);
+            }
+            continue;
+          }
           if (tile < tiles)
-            load_row_tile<T, kInt8, kFold>(groups + gi * M::group_bytes(nt), src, row, N,
-                                    tile * kRows, sc, lane);
+            load_row_tile<T, kInt8, kFold>(dst, src, row, N, tile * kRows, sc, lane);
           wg::mbar_arrive_copies(&bars.rows_full[gi]);
           wg::mbar_arrive(&bars.rows_full[gi]);
         }
@@ -587,9 +713,12 @@ __device__ __forceinline__ void t2i_pass(
           wg::fence_regs(acc);
           wg::fence();
 #pragma unroll
-          for (int kk = 0; kk < L::kKB / 16; ++kk)
-            wg::mma_ss_n128(acc, wg::desc_k(rows_addr, kC / 8, kb * (L::kKB / 16) + kk),
+          for (int kk = 0; kk < L::kKB / 16; ++kk) {
+            const int ks = kb * (L::kKB / 16) + kk;
+            wg::mma_ss_n128(acc, kDma ? tma::desc_chunks(rows_addr, ks)
+                                      : wg::desc_k(rows_addr, kC / 8, ks),
                             wg::desc_k(stage, L::kKB / 8, kk), 1);
+          }
           wg::commit();
           // keep this block's products in flight; release the previous block
           wg::wait<1>();

@@ -7,7 +7,7 @@
 //
 // Replaces, with the three other launches of the layer, the TPU kernel
 // cor_tpu/ops/pallas/two_way_layer.py:two_way_layer_fused (its pallas_calls
-// at lines 978, 998 and 1012). K1-dma keeps cor_twl_tokens_in.
+// at lines 978, 998 and 1012). K1-dma runs it too.
 //
 // As twl_tokens_mid.cu: one CTA per candidate left 92 of the 132 SMs idle
 // at 40 candidates. A cluster of 4 CTAs takes a candidate while n x 4 CTAs

@@ -7,7 +7,7 @@
 //
 // Replaces, with the three other launches of the layer, the TPU kernel
 // cor_tpu/ops/pallas/two_way_layer.py:two_way_layer_fused (its pallas_calls
-// at lines 978, 998 and 1012). K1-dma keeps cor_twl_tokens_mid.
+// at lines 978, 998 and 1012). K1-dma runs it too.
 //
 // What held it back on the H100 (PERF.md): one CTA of 8 warps per candidate,
 // so 40 candidates use 40 of the 132 SMs, each reading the stage's ~1.3

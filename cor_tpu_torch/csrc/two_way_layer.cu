@@ -36,11 +36,12 @@
 // they compute what the shared __device__ bodies compute, bit for bit: the
 // token stages of two_way_tokens.cuh, which this file's cor_twl_tokens_in
 // and two_way_layer_mid.cu's cor_twl_tokens_mid run one CTA per candidate
-// for K1-dma, and the image bodies of t2i_flash.cuh and i2t_attention.cuh,
-// which K1-dma runs over several tiles per CTA (two_way_layer_dma.cu), and
-// the first K2, K8a and K8b ran one tile per CTA (t2i_flash.cu,
-// i2t_attention.cu); K1-stack and K1-grid (two_way_stack.cuh) run K1's
-// redesigned passes and their own split of the token stages.
+// (K1's cluster entries fall back to them above 66 candidates), and the
+// image bodies of t2i_flash.cuh and i2t_attention.cuh, which the first K2,
+// K8a, K8b and K1-dma ran (t2i_flash.cu, i2t_attention.cu); K1-dma runs K1's
+// passes with its rows moved by bulk copies (two_way_layer_dma.cu), K1-stack
+// and K1-grid (two_way_stack.cuh) K1's passes and their own split of the
+// token stages.
 //
 // The token stages are small (T tokens x ~1.4 M MACs per layer and
 // candidate): each warp computes 4 whole output columns at a time (2 for the

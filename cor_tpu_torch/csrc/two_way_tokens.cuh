@@ -1,8 +1,8 @@
 // The two-way layer's token stages (two_way_layer.cu: stage 1,
 // two_way_layer_mid.cu: stage 3): the packed weights' offsets, the token
 // linears and LayerNorm, the stages' __device__ bodies, which take their
-// candidate as an argument (K1's one-CTA token kernels and K1-dma's run one
-// per CTA of 8 warps; K1's cluster kernels, twl_tokens_{in,mid}.cu, and the
+// candidate as an argument (K1's one-CTA token kernels run one per CTA of 8
+// warps, above 66 candidates; K1's cluster kernels, twl_tokens_{in,mid}.cu, and the
 // fused transformer, two_way_stack.cuh, split the same linears over several
 // CTAs), and the dispatch on the token count T (a template parameter of the
 // token stages, 5 to 8).

@@ -130,14 +130,14 @@ _SIGNATURES = {
         _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int,
         _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_float, ctypes.c_float, _VP, _I, _VP,
     ),
-    # K1-dma's image passes: cor_t2i_image_pass's and cor_twl_image_i2t's arguments
+    # K1-dma's image passes: cor_twl_t2i's and cor_twl_i2t's arguments
     "cor_twl_dma_image_t2i": (
         _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int,
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
     ),
     "cor_twl_dma_image_i2t": (
         _VP, ctypes.c_int, _VP, _VP, ctypes.c_int, ctypes.c_int, _I, ctypes.c_int,
-        _VP, _VP, _VP, _VP, _VP, ctypes.c_float, ctypes.c_float, _VP, _I, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_float, ctypes.c_float, _VP, _I, _VP,
     ),
     # cluster, S, n, n_tok, N, ptrs (a host array of device pointers), self_scale,
     # cross_scale, eps, f32, stream

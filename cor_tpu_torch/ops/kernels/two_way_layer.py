@@ -1,6 +1,7 @@
 """One two-way transformer layer of the SAM mask decoder: the CUDA kernels
-``csrc/two_way_layer.cu`` (with the image pass of ``csrc/t2i_flash.cu``) and
-their plain PyTorch version.
+of K1 (``csrc/twl_tokens_in.cu``, ``twl_t2i.cu``, ``twl_tokens_mid.cu``,
+``twl_i2t.cu``) and K1-dma (``csrc/two_way_layer_dma.cu``) and their plain
+PyTorch version.
 
 Replaces ``cor_tpu/ops/pallas/two_way_layer.py:two_way_layer_fused`` (its
 ``pallas_call``s at lines 978, 998 and 1012): one TwoWayAttentionBlock
@@ -39,9 +40,10 @@ redesigned for Hopper (the token stages over a cluster of 4 CTAs a
 candidate while they all fit on the card at once, else one CTA a candidate,
 the image passes persistent on wgmma, the weights streamed through
 shared-memory rings by TMA bulk copies in bf16), and compute what the
-shared bodies of K1-dma and the first K8a and K8b compute, bit for bit (K2
-runs the t2i pass without its q chunk, K8a with K2's tokens and combine,
-K8b the i2t pass above 8 tokens); their
+first designs' bodies (``csrc/t2i_flash.cuh``, ``i2t_attention.cuh``)
+compute, bit for bit (K2 runs the t2i pass without its q chunk, K8a with
+K2's tokens and combine, K8b the i2t pass above 8 tokens, K1-dma both passes
+with the rows moved by bulk copies and stores); their
 bf16 weights go in the pack a second time, laid out as the rings' blocks
 (``t2i_flash.ring_blocks``). ``layer_launches`` returns the four launches unrun, for
 timing them one by one. See the sources for what bounds each. The kernels
@@ -259,8 +261,10 @@ def two_way_layer_dma(
     lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe: bool, eps: float = 1e-5,
     idx: Optional[torch.Tensor] = None, scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1-dma: ``two_way_layer``'s function and arguments, its image passes
-    persistent over each candidate's row tiles behind a cp.async ring
+    """K1-dma: ``two_way_layer``'s function and arguments, on K1's token
+    stages and K1's Hopper image passes with the rows moved by the kernels'
+    own asynchronous copies: the t2i pass's row tiles by the TMA, the i2t
+    pass's tiles by bulk copies and its new rows by bulk stores
     (``csrc/two_way_layer_dma.cu``; replaces ``cor_tpu/ops/pallas/
     two_way_layer.py:two_way_layer_dma``, its ``pallas_call`` at line 610).
     On the card its outputs are K1's bit for bit; on the CPU it is K1's plain
@@ -271,8 +275,8 @@ def two_way_layer_dma(
 
 
 def _layer(fn, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps, idx, scale):
-    """K1 (``fn`` two_way_layer) or K1-dma (two_way_layer_dma): the token
-    kernels of two_way_layer{,_mid}.cu around K1's or K1-dma's image passes."""
+    """K1 (``fn`` two_way_layer) or K1-dma (two_way_layer_dma): K1's token
+    stages around K1's or K1-dma's image passes."""
     name = fn.__name__
     if tokens.device.type == "cpu":
         refuse_grad(name, tokens, qpe_tok, keys, kpe, qpe_img, *lp.parameters())
@@ -328,29 +332,26 @@ def layer_launches(fn, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps=1e-
     def stream():
         return torch.cuda.current_stream(dev).cuda_stream
 
-    tokens_in_entry = lib.cor_twl_tokens_in if dma else lib.cor_twl_tokens_in_cluster
-
     def tokens_in():
-        check(tokens_in_entry(
+        check(lib.cor_twl_tokens_in_cluster(
             tokens.data_ptr(), qpe_tok.data_ptr(), pk["wtok"].data_ptr(), pk["btok"].data_ptr(),
             int(skip_pe), SELF_SCALE, CROSS_SCALE, eps, n, T,
             x_mid.data_ptr(), qt.data_ptr(), is_f32, stream()), f"{name} tokens_in")
 
-    blocks = [] if dma else [0 if pk[k] is None else pk[k].data_ptr()
-                             for k in ("w_img_blocks", "wo_i_blocks")]
+    # bf16: the weights laid out as the image passes' ring blocks (fp32: none)
+    w_blocks, wo_blocks = (0 if pk[k] is None else pk[k].data_ptr()
+                           for k in ("w_img_blocks", "wo_i_blocks"))
 
     def t2i():
         check(image_t2i(
             keys.data_ptr(), int8, idx_p, scale_p, S, n, T, N,
-            pk["w_img"].data_ptr(), *blocks[:1], pk["b_img"].data_ptr(), kpe.data_ptr(),
+            pk["w_img"].data_ptr(), w_blocks, pk["b_img"].data_ptr(), kpe.data_ptr(),
             qpe_img.data_ptr(), qt.data_ptr(), q_img.data_ptr(),
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), is_f32, stream()),
             f"{name} image t2i")
 
-    tokens_mid_entry = lib.cor_twl_tokens_mid if dma else lib.cor_twl_tokens_mid_cluster
-
     def tokens_mid():
-        check(tokens_mid_entry(
+        check(lib.cor_twl_tokens_mid_cluster(
             x_mid.data_ptr(), qpe_tok.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), tiles, pk["wtok"].data_ptr(), pk["btok"].data_ptr(), eps, n, T,
             tokens_out.data_ptr(), k_i.data_ptr(), v_i.data_ptr(), is_f32, stream()),
@@ -359,7 +360,7 @@ def layer_launches(fn, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, eps=1e-
     def i2t():
         check(image_i2t(
             keys.data_ptr(), int8, idx_p, scale_p, S, n, T, N, q_img.data_ptr(),
-            k_i.data_ptr(), v_i.data_ptr(), pk["wo_i"].data_ptr(), *blocks[1:],
+            k_i.data_ptr(), v_i.data_ptr(), pk["wo_i"].data_ptr(), wo_blocks,
             pk["bo_ln4"].data_ptr(), eps, CROSS_SCALE, keys_out.data_ptr(), is_f32, stream()),
             f"{name} image i2t")
 
@@ -388,6 +389,23 @@ def image_pass_smem(dtype: torch.dtype, T: int) -> dict:
     group = rows + 2 * ROW_TILE * ld_i * el + HEADS * T * (ROW_TILE + 4) * 4 + T * INTERNAL * 4
     t2i = stages * stage + groups * group + 3 * INTERNAL * 4 + (2 * stages + 2 * groups) * 8
     return {"t2i": t2i, "i2t": i2t_smem(dtype, T)}
+
+
+def dma_pass_smem(dtype: torch.dtype, T: int) -> dict:
+    """The dynamic shared memory of K1-dma's two image passes at T tokens
+    (``csrc/two_way_layer_dma.cu``: ``T2iSmem<T, true, false, true>`` and
+    ``I2tSmem<T, false, true>``), the same from rows, a store and an int8
+    store (an int8 store's raw tiles lie inside the row tiles): {"t2i":
+    bytes, "i2t": bytes}. The t2i pass is K1's with an mbarrier per consumer
+    warpgroup for the raw tiles; the i2t pass is K1's in bf16, and in fp32
+    writes the attention output over the q_img tile and stages the new rows
+    in one [64][260] tile that both warpgroups take in turn."""
+    t2i = image_pass_smem(dtype, T)["t2i"] + 8 * _T2I_TILES[dtype]
+    if dtype == torch.bfloat16:
+        return {"t2i": t2i, "i2t": i2t_smem(dtype, T)}
+    av = ROW_TILE * (INTERNAL + 4) * 4  # the attention output's own tile in K1's fp32 pass
+    rows = ROW_TILE * (C_DIM + 4) * 4
+    return {"t2i": t2i, "i2t": i2t_smem(dtype, T) - 2 * av + rows}
 
 
 def image_pass_grid(dtype: torch.dtype, n: int, N: int, sms: int) -> dict:

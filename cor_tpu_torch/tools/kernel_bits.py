@@ -52,6 +52,16 @@ on a store through idx, bf16 and fp32 (``stack_cases``; compared in bf16 at
 40 candidates too). In ``--time`` every decoder case (K1, K2, K3, K8a, K8b,
 K1-stack, K1-grid) must also equal the old library's outputs bit for bit,
 and the exit code says so.
+So is K1-dma (``cor_twl_dma_image_t2i`` and ``cor_twl_dma_image_i2t``,
+rebuilt on K1's Hopper passes with the rows moved by bulk copies and stores;
+an older library's entries take no ring blocks, ``w_blocks`` and
+``wo_blocks`` dropped): layer 0 from an int8 store, layer 1 on rows and on a
+store through idx, at 5, 6 and 8 tokens, 40 and 128 candidates, bf16 and
+fp32 (``dma_cases``), each line with both libraries' device time by launch,
+K1's time in the same call and whether K1-dma's outputs equal K1's bit for
+bit. K9 (``cor_fused_upscale2_hyper``, redesigned as a persistent kernel on
+wgmma, its sums in another order) is timed at ``K9_SHAPES`` in bf16 and
+fp32 (``k9_cases``) and held to its plain version within ``K9_TOL``.
 ``--only`` keeps the cases whose label holds one of the comma-separated
 parts (``K1``, ``K2`` and ``K3`` also the decode at 6 tokens, ``K8a`` and
 ``K8b`` the K8 route's); ``--draws N`` reads K6b in fp32's errors against
@@ -114,6 +124,12 @@ for _name, _pos in (("cor_twl_tokens_in", 9), ("cor_t2i_image_pass", 6),
 _OPTIONAL["cor_vit_attention_relpos"].append(("lse", 4, None))
 # K3's bf16 weights laid out as its shared memory holds them, since its redesign
 _OPTIONAL["cor_decoder_tail"].append(("w_blocks", 3, None))
+# K1-dma's image passes take K1's ring blocks since their redesign on K1's
+# passes; an older csrc/ (before K1-dma) lacks the entries
+_DMA_ENTRIES = ("cor_twl_dma_image_t2i", "cor_twl_dma_image_i2t")
+_K9_ENTRY = "cor_fused_upscale2_hyper"  # the same arguments since K9's port
+_OPTIONAL["cor_twl_dma_image_t2i"] = [("w_blocks", 9, None)]
+_OPTIONAL["cor_twl_dma_image_i2t"] = [("wo_blocks", 12, None)]
 # K2's own entry since its redesign for Hopper; an older csrc/ without it runs
 # K2 through the shared image pass and the combine (_OldABI.cor_t2i_final)
 _K2_ENTRY = "cor_t2i_final"
@@ -133,6 +149,8 @@ def lacking(csrc: Path) -> dict:
     out = {}
     for name, params in _OPTIONAL.items():
         decl = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+        if decl is None and name in _DMA_ENTRIES:
+            continue
         if decl is None:
             raise ValueError(f"{csrc} declares no {name}")
         missing = [p for p in params if not re.search(rf"\b{p[0]}\b", decl.group(1))]
@@ -149,7 +167,7 @@ def narrow_i2t(csrc: Path) -> bool:
 
 
 _WRAPPER_MODULES = ("layernorm", "seq_attention", "vit_attention", "two_way_layer", "t2i_flash",
-                    "i2t_attention", "decoder_tail", "two_way_stack")
+                    "i2t_attention", "decoder_tail", "two_way_stack", "upscale")
 
 
 def build_old(csrc: Path, missing: dict) -> ctypes.CDLL:
@@ -176,8 +194,8 @@ def build_old(csrc: Path, missing: dict) -> ctypes.CDLL:
         subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
                         str(out), *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(out))
-    for name in _ENTRIES + tuple(n for n in (*_K1_ENTRIES, _K2_ENTRY, _K8A_ENTRY)
-                                 if hasattr(lib, n)):
+    for name in _ENTRIES + tuple(n for n in (*_K1_ENTRIES, _K2_ENTRY, _K8A_ENTRY, *_DMA_ENTRIES,
+                                             _K9_ENTRY) if hasattr(lib, n)):
         sig = _build._SIGNATURES[name]
         fn = getattr(lib, name)
         drop = {pos for _, pos, _ in missing.get(name, ())}
@@ -514,6 +532,88 @@ def k1_cases(device, draw: int = 0):
             for layer in (0, 1) for T in K1_TOKENS for n in K1_CANDIDATES]
 
 
+@torch.no_grad()
+def dma_cases(device, draw: int = 0):
+    """(label, make) of K1-dma, rebuilt on K1's Hopper passes, at the fused
+    decode's shapes: layer 0 out of an int8 store of 256 rows [4096, 256]
+    through idx, layer 1 on rows [n, 4096, 256] and on a store of the
+    compute dtype through idx, at ``K1_TOKENS`` tokens and ``K1_CANDIDATES``
+    candidates, in bf16 and fp32 (the SAM-base decoder's layers, random
+    weights from a seed). Each thunk carries ``split()``, its device time by
+    launch, and ``k1``, K1 on the same inputs, whose bits it keeps."""
+    from cor_tpu_torch.models.core_model import CoreConfig, init_mask_decoder
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer, two_way_layer_dma
+
+    N, S = 4096, 256
+
+    @functools.lru_cache(maxsize=1)
+    def shared(dt):
+        gen = torch.Generator(device=device).manual_seed(70 + 100 * draw)
+        dec = init_mask_decoder(CoreConfig(), 1).to(device, dt).eval()
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa: E731
+        kpe, qpe = (0.5 * rnd(N, 128)).to(dt), (0.5 * rnd(N, 128)).to(dt)
+        store8 = torch.randint(-127, 128, (S, N, 256), generator=gen, device=device,
+                               dtype=torch.int8)
+        scales = (0.5 * 4 / 127) * (1 + 0.1 * torch.rand(S, generator=gen, device=device))
+        return dec, kpe, qpe, store8, scales, (0.5 * rnd(S, N, 256)).to(dt)
+
+    def make(dt, what, T, n):
+        dec, kpe, qpe, store8, scales, store = shared(dt)
+        gen = torch.Generator(device=device).manual_seed(71 + 100 * draw + T + n)
+        tokens = torch.randn(n, T, 256, generator=gen, device=device).to(dt)
+        idx = torch.randint(0, S, (n,), generator=gen, device=device, dtype=torch.int32)
+        if what == "int8 store":
+            args = (dec.transformer.layers[0], tokens, tokens, store8, kpe, qpe, True)
+            kw = dict(idx=idx, scale=scales)
+        else:
+            rows = store if what == "store-indexed" else (0.5 * torch.randn(
+                n, N, 256, generator=gen, device=device)).to(dt)
+            args = (dec.transformer.layers[1], tokens, tokens, rows, kpe, qpe, False)
+            kw = dict(idx=idx) if what == "store-indexed" else {}
+        run = lambda: two_way_layer_dma(*args, **kw)  # noqa: E731
+        run.split = lambda: k1_split(*args, **kw, fn=two_way_layer_dma)
+        run.k1 = lambda: two_way_layer(*args, **kw)
+        return run
+
+    return [(f"K1-dma{sfx} layer {0 if what == 'int8 store' else 1} {what} [{n}, {N}], "
+             f"{T} tokens", functools.partial(make, dt, what, T, n))
+            for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "@fp32"))
+            for what in ("int8 store", "rows", "store-indexed")
+            for T in K1_TOKENS for n in K1_CANDIDATES]
+
+
+# K9: cor_tpu's own test's shape and the SAM decoder's last upscale at 40
+# candidates with 1 and 4 maps (chip_smoke.py's K9_SHAPES): (B, H, W, C, O, N)
+K9_SHAPES = ((2, 8, 8, 64, 32, 3), (40, 128, 128, 64, 32, 1), (40, 128, 128, 64, 32, 4))
+K9_TOL = 1e-4  # cor_tpu's fp32 tolerance (tests/test_pallas_kernels.py:58), bf16 too
+
+
+@torch.no_grad()
+def k9_cases(device, draw: int = 0):
+    """(label, make) of K9 (fused_upscale2_hyper), redesigned for Hopper, at
+    ``K9_SHAPES`` in bf16 and fp32 (random inputs from a seed). Each thunk
+    carries ``plain``, its plain version, which it must match within
+    ``K9_TOL``."""
+    from cor_tpu_torch.ops.kernels.upscale import (
+        fused_upscale2_hyper,
+        fused_upscale2_hyper_plain,
+    )
+
+    def make(dt, shape):
+        B, H, W, C, O, N = shape
+        gen = torch.Generator(device=device).manual_seed(80 + 100 * draw + B + W)
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa: E731
+        x, h = rnd(B, H, W, C).to(dt), rnd(B, N, O).to(dt)
+        w, b = (rnd(C, 2, 2, O) / C ** 0.5).to(dt), 0.1 * rnd(O)
+        run = lambda: (fused_upscale2_hyper(x, w, b, h),)  # noqa: E731
+        run.plain = lambda: (fused_upscale2_hyper_plain(x, w, b, h),)
+        return run
+
+    return [(f"K9{sfx} x [{B}, {H}, {W}, {C}], O {O}, N {N}", functools.partial(make, dt, shape))
+            for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "@fp32"))
+            for shape in K9_SHAPES for B, H, W, C, O, N in (shape,)]
+
+
 K2_TOKENS = (5, 6, 8, 16, 32)  # K1's counts, and the K8 route's above 8 (phase 34)
 K3_MAPS = (1, 3)  # the served decode's one map, SAM's multimask three
 
@@ -660,15 +760,17 @@ def stack_cases(device, draw: int = 0):
 
 
 @torch.no_grad()
-def k1_split(lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, idx=None, scale=None) -> dict:
-    """K1's device milliseconds by launch (``two_way_layer.layer_launches``;
-    each launch alone as CUDA-graph replays) and of the layer's launches
-    together, through the library the wrappers use now: {"tokens_in": ms,
-    "image_t2i": ms, "tokens_mid": ms, "image_i2t": ms, "layer": ms}."""
+def k1_split(lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe, idx=None, scale=None,
+             fn=None) -> dict:
+    """K1's (or ``fn``'s: K1-dma) device milliseconds by launch
+    (``two_way_layer.layer_launches``; each launch alone as CUDA-graph
+    replays) and of the layer's launches together, through the library the
+    wrappers use now: {"tokens_in": ms, "image_t2i": ms, "tokens_mid": ms,
+    "image_i2t": ms, "layer": ms}."""
     from cor_tpu_torch.ops.kernels.two_way_layer import layer_launches, two_way_layer
 
-    launches = layer_launches(two_way_layer, lp, tokens, qpe_tok, keys, kpe, qpe_img, skip_pe,
-                              idx=idx, scale=scale)[0]
+    launches = layer_launches(fn or two_way_layer, lp, tokens, qpe_tok, keys, kpe, qpe_img,
+                              skip_pe, idx=idx, scale=scale)[0]
     out = {name: graph_ms(go) for name, go in launches}
     out["layer"] = graph_ms(lambda: [go() for _, go in launches])
     return out
@@ -930,9 +1032,10 @@ def time_redesigned(old, device, only=(), draws: int = 1) -> int:
     # the cases whose kernels keep the old library's bits (the decoder's,
     # redesigned with their bits kept); the others' sums run in another order
     keep = [label for label, _ in k1_cases(device) + k2k3_cases(device) + k8_cases(device)
-            + stack_cases(device)]
+            + stack_cases(device) + dma_cases(device)]
     for label, make in (timed_cases(device) + k1_cases(device) + k2k3_cases(device)
-                        + k8_cases(device) + stack_cases(device)):
+                        + k8_cases(device) + stack_cases(device) + dma_cases(device)
+                        + k9_cases(device)):
         if only and not any(o in label for o in only):
             continue
         use_library(None)  # the inputs (and a forward's lse) from the current library
@@ -949,6 +1052,17 @@ def time_redesigned(old, device, only=(), draws: int = 1) -> int:
             line["bits_equal"] = all(torch.equal(a, b) for a, b in zip(new_out, old_out))
             if not line["bits_equal"]:
                 differ.append(label)
+        if hasattr(run, "k1"):  # K1-dma: K1's bits, K1's time in the same call
+            line["bits_equal_to_k1"] = all(torch.equal(a, b) for a, b in zip(new_out, run.k1()))
+            line["k1_ms"] = [graph_ms(run.k1), graph_ms(run.k1)]
+            if not line["bits_equal_to_k1"]:
+                differ.append(f"{label} (against K1)")
+        if hasattr(run, "plain"):  # K9: within its tolerance of the plain version
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(new_out, run.plain()))
+            line.update(max_abs_err_vs_plain=err, tol=K9_TOL)
+            if err > K9_TOL:
+                differ.append(f"{label} (plain version: {err:.3e})")
         del old_out, new_out
         if hasattr(run, "exact"):
             line["max_abs_err_vs_float64"] = float64_errors(old, run)
@@ -981,7 +1095,8 @@ def time_redesigned(old, device, only=(), draws: int = 1) -> int:
     slower += time_e2e(old, device, card, only)
     print(f"redesigned kernels (and the K8 route's decode) against the old library: "
           f"{'faster at every shape' if not slower else f'slower at {slower}'}; the "
-          f"decoder's kept their bits{'' if not differ else f' but at {differ}'}")
+          f"decoder's kept their bits (K1-dma K1's, K9 within {K9_TOL} of its plain "
+          f"version){'' if not differ else f' but at {differ}'}")
     return 1 if slower or differ else 0
 
 
