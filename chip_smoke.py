@@ -12,7 +12,13 @@ Phases (any failure exits non-zero; no phase catches an exception):
     entry points under torch's default flags (cuDNN TF32 allowed), as a
     user's run does;
  2. build: every CUDA kernel from cor_tpu_torch/csrc (one nvcc per source,
-    in parallel), with each kernel's registers and spills from ptxas;
+    in parallel), with each kernel's registers and spills from ptxas; then
+    the twelve test files that hold tests marked `gpu` (GPU_TEST_FILES) in a
+    pytest process of their own, their count and
+    test_two_way_layer_dma_kernel_equals_k1's cases by name. From here on
+    the seeded CPU inits draw once per configuration
+    (``memoize_seeded_inits``): every entry point that asks again gets a
+    copy of the same weights;
  3. kernels: each kernel against its plain PyTorch version on identical bf16
     inputs at the serving path's shapes (K4, K5: batch 16 of
     ViT-B-16-SigLIP-384; K1, K2, K3: 40 candidates of the SAM-base decoder
@@ -32,7 +38,7 @@ Phases (any failure exits non-zero; no phase catches an exception):
     of the self-test loop, with the card's name and power limit, beside
     820e02d's run (before K4/K4′ and K6b were redesigned);
  7. decode serve: a synthetic 2,048-row index with a [2048, 64, 64, 256]
-    fp16 store (4 GiB on disk, written in chunks), then ``cli.serve.main``
+    fp16 store (4 GiB on disk, drawn on the card and written in chunks), then ``cli.serve.main``
     with --decode-masks, --self-test 8, --max-batch 4, --k 10, host-streamed
     and with --store-hbm; checks every response and PNG, every kernel's
     launch count per decode, and the two configurations' masks against each
@@ -238,6 +244,32 @@ Phases (any failure exits non-zero; no phase catches an exception):
     (raw cuDNN calls, TF32 allowed) and through its helpers (TF32 off for
     the call, forward and backward), against the CPU in fp32 (the helpers'
     outputs and input gradients within 1e-5 relative), with their ms.
+39. the Recall@K protocol (cor_tpu_torch.cli.retrieve,
+    retrieval/protocol.py) at SAM-base + ViT-B-16-SigLIP-384 in bf16 and
+    fp32 over 128 synthetic triplets, and at CFG in bf16 and fp32 over 32,
+    k 10, random weights from seeds (recall near chance): ``cli.retrieve
+    --rerank`` once (SAM-base bf16); one ``encode_manifest(keep_store=True)`` with the
+    CLI's seeded weights and the recalls from it with and without the IoU
+    rerank and with the int8 scan (recall@10 the same with and without the
+    rerank, or the phase fails); encode, scan and decode seconds and
+    candidates decoded per second (1,280 candidates in 10 chunks of 128 at
+    SAM-base, 320 in one call at CFG); launches per chunk (K1 8, K2 1, K3
+    1); one chunk's IoU through the kernels against the plain versions on
+    the card (bf16 within IOU_TOL of max(1, |IoU|), fp32 within
+    DECODE_TOL32), and the IoU-ranked ids against the plain versions' across
+    IoU gaps above that; then, at SAM-base (cut at CFG for time),
+    ``cli.index --with-store`` on the same triplets and ``cli.retrieve
+    --gallery-index`` with and without --rerank, whose recalls without it
+    equal the one pass's;
+40. TCP serving: ``cli.serve --tcp`` on loopback (SAM-base bf16,
+    --decode-masks --store-hbm, k 10) over phase 39's SAM-base index, in a
+    thread of this process, the clients in a process of their own; {4, 8}
+    closed-loop clients x --max-batch {4, 8}: responses/s, p50/p99
+    latency and requests a batch (K3 launches), every response's id back to its own
+    client with 10 results and 10 masks; then --rescore --int8 and --approx
+    served, one request at a time, against the fp32 scan's answers (ids
+    across score gaps above 1e-5, scores within 1e-5, cor_tpu's rescore
+    test tolerance).
 The line before the last lists every kernel ({"kernels": [...]}; an fp32
 instantiation is an entry of its own, name@fp32, with its fp32 launches);
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -766,7 +798,7 @@ def phase_numerics(server, ecfg=None, phase=5, cos_min=COS_MIN):
     q_gpu = server.encode_query(server.model, imgs, texts, masks).cpu()
     cfg = dataclasses.replace(ecfg.core_config(), compute_dtype="float32")
     t0 = time.perf_counter()
-    model_cpu = init_support_branch(cfg, ecfg.seed)  # the weights main() served
+    model_cpu = drawn(init_support_branch)(cfg, ecfg.seed)  # the weights main() served
     print(f"  support branch random init on the CPU: {time.perf_counter() - t0:.1f} s "
           f"({sum(p.numel() for p in model_cpu.parameters()) / 1e6:.1f} M parameters)")
     t0 = time.perf_counter()
@@ -837,9 +869,11 @@ def write_store_index(d: Path):
     save_gallery_index(d, emb, pair_ids)
     shape = (STORE_ROWS, GRID, GRID, SAM_C)
     store = np.lib.format.open_memmap(d / "store.npy", mode="w+", dtype=np.float16, shape=shape)
+    # drawn on the card (numpy's generator took ~40 s of the 4 GiB)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     for s in range(0, STORE_ROWS, 128):
-        store[s:s + 128] = (0.5 * rng.standard_normal((128, *shape[1:]), dtype=np.float32)
-                            ).astype(np.float16)
+        store[s:s + 128] = (0.5 * torch.randn((128, *shape[1:]), generator=gen, device="cuda")
+                            ).half().cpu().numpy()
     store.flush()
     del store
     meta = json.loads((d / "meta.json").read_text())
@@ -1199,13 +1233,15 @@ def phase_build_index(index_dir: Path):
     return c, dt
 
 
-def filled_encoder(cfg):
+def filled_encoder(cfg, draw: bool = False):
     """The CLI's image encoder (seed + 2) with its rel-pos tables and
-    pos_embed filled with seeded normals x 0.3 (zeros at init)."""
+    pos_embed filled with seeded normals x 0.3 (zeros at init); ``draw``
+    draws the weights even where the inits are memoised (to time it)."""
     from cor_tpu_torch.config import EvalConfig
     from cor_tpu_torch.models.core_model import init_image_encoder
 
-    enc = init_image_encoder(cfg, EvalConfig().seed + 2)
+    init = drawn(init_image_encoder) if draw else init_image_encoder
+    enc = init(cfg, EvalConfig().seed + 2)
     gen = torch.Generator().manual_seed(SEED + 4)
     with torch.no_grad():
         for name, prm in enc.named_parameters():
@@ -1251,7 +1287,7 @@ def phase_encoder_numerics(ecfg=None, phase=12, cos_min=COS_MIN):
     cfg = (ecfg or EvalConfig()).core_config()
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     t0 = time.perf_counter()
-    enc = filled_encoder(cfg).eval()
+    enc = filled_encoder(cfg, draw=True).eval()
     print(f"  image encoder random init on the CPU: {time.perf_counter() - t0:.1f} s "
           f"({sum(p.numel() for p in enc.parameters()) / 1e6:.1f} M parameters)")
     b = synthetic_batch(2, cfg)
@@ -1354,7 +1390,8 @@ def phase_build_timings(enc_gpu, smi: str):
     encode_ms["8, beside the loader"] = {"ms": contended[0], "min_ms": contended[1],
                                          "max_ms": contended[2]}
     # the CLI build without a store, model init and saving included
-    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()), \
+            drawing_inits():
         t0 = time.perf_counter()
         cli.main(["--out", d, "--synthetic", str(n_rows), "--batch-size", str(SAM_BATCH)])
         cli_s = time.perf_counter() - t0
@@ -3584,6 +3621,419 @@ def phase_p6(device):
     print("phase 38 P6: ok", flush=True)
 
 
+GPU_TEST_FILES = tuple(f"tests/test_torch_{name}.py" for name in (
+    "kernels", "upscale_add_ln", "attention_redesign", "vit_attention_redesign",
+    "redesign_fp32_seq_ln", "redesign_fp32_vit", "k1_redesign", "k2_k3_redesign",
+    "k8_redesign", "stack_grid_redesign", "dma_k9_redesign", "retrieve"))
+
+
+def phase_gpu_tests():
+    """Phase 2's second part: the test files marked `gpu`, in a pytest
+    process of their own on the library just built; their count, and
+    test_two_way_layer_dma_kernel_equals_k1's cases by name."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", *GPU_TEST_FILES, "-m", "gpu", "--noconftest", "-q",
+         "-rA", "-p", "no:cacheprovider"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=900,
+    )
+    lines = proc.stdout.splitlines()
+    summary = next((line.strip("= ") for line in reversed(lines)
+                    if " passed" in line or " failed" in line or " error" in line), "no summary")
+    dma = [line.split("::", 1)[1] for line in lines
+           if line.startswith("PASSED ") and "::test_two_way_layer_dma_kernel_equals_k1[" in line]
+    print(f"phase 2 gpu tests ({len(GPU_TEST_FILES)} files): {summary}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  test_two_way_layer_dma_kernel_equals_k1: {len(dma)} passed ({', '.join(dma)})",
+          flush=True)
+    if proc.returncode != 0 or not dma:
+        print("\n".join(lines[-60:]), proc.stderr[-3000:], sep="\n", file=sys.stderr)
+        fail(f"the gpu test files: {summary}")
+
+
+def memoize_seeded_inits() -> None:
+    """From here on in this process, core_model's seeded CPU inits (the
+    image encoder, the support branch, the decode model) draw once per
+    configuration part and seed: every entry point and phase that asks again
+    gets a copy of the same weights instead of drawing them again (~7 s for
+    SO400M's towers, ~6 s for sam_huge). Each keeps the first draw as
+    ``.drawn`` for the phases that time it."""
+    import copy
+
+    from cor_tpu_torch.models import core_model as cm
+
+    parts = {"init_image_encoder": lambda c: c.encoder, "init_support_branch": lambda c: c.support,
+             "init_decode_model": lambda c: (c.prompt, c.decoder)}
+    cache = {}
+
+    def memo(name, draw):
+        def init(cfg, seed):
+            key = (name, repr(parts[name](cfg)), seed)
+            if key not in cache:
+                cache[key] = draw(cfg, seed)
+            return copy.deepcopy(cache[key])
+        init.drawn = draw
+        return init
+
+    for name in parts:
+        setattr(cm, name, memo(name, getattr(cm, name)))
+
+
+def drawn(init):
+    """``init`` as it draws its weights, memoised or not."""
+    return getattr(init, "drawn", init)
+
+
+@contextlib.contextmanager
+def drawing_inits():
+    """core_model's inits drawing their weights inside (for a timing that
+    includes the model's init)."""
+    from cor_tpu_torch.models import core_model as cm
+
+    names = ("init_image_encoder", "init_support_branch", "init_decode_model")
+    saved = {name: getattr(cm, name) for name in names}
+    for name in names:
+        setattr(cm, name, drawn(saved[name]))
+    try:
+        yield
+    finally:
+        for name in names:
+            setattr(cm, name, saved[name])
+
+
+@contextlib.contextmanager
+def plain_decoder():
+    """The fused decoder with K1, K2 and K3 swapped for their plain versions
+    (as a CPU tensor would route), TF32 off."""
+    from cor_tpu_torch.models import sam_decoder as sd
+    from cor_tpu_torch.ops.kernels.decoder_tail import decoder_tail_plain
+    from cor_tpu_torch.ops.kernels.t2i_flash import t2i_flash_kv_plain
+    from cor_tpu_torch.ops.kernels.two_way_layer import two_way_layer_plain
+
+    saved = sd.two_way_layer, sd.t2i_flash_kv, sd.decoder_tail
+    sd.two_way_layer, sd.t2i_flash_kv, sd.decoder_tail = (two_way_layer_plain,
+                                                          t2i_flash_kv_plain, decoder_tail_plain)
+    try:
+        with phase_flags("  plain decode", tf32_off=True):
+            yield
+    finally:
+        sd.two_way_layer, sd.t2i_flash_kv, sd.decoder_tail = saved
+
+
+PROTOCOL_K = 10
+# label, config keys over vaild_config.yaml's, triplets, whether the path
+# drives cli.retrieve --rerank (once: the entry point) and the index route
+# (cli.index + cli.retrieve --gallery-index: at SAM-base, cut at CFG for time)
+PROTOCOL_PATHS = (
+    ("SAM-base bf16", {}, 128, True, True),
+    ("SAM-base fp32", {"compute_dtype": "float32"}, 128, False, True),
+    ("CFG bf16", LARGE_KEYS, 32, False, False),
+    ("CFG fp32", {**LARGE_KEYS, "compute_dtype": "float32"}, 32, False, False),
+)
+
+
+def rounded(recalls: dict) -> dict:
+    """A recall dict as cli.retrieve prints it."""
+    return {k: round(v, 4) if isinstance(v, float) else v for k, v in recalls.items()}
+
+
+def ids_agree_across_gaps(ids, ref_ids, ref_vals, tol) -> bool:
+    """The ranked ids agree wherever the reference's adjacent values (IoUs or
+    scores) differ by more than tol * max(1, |value|)."""
+    for got, want, v in zip(ids, ref_ids, ref_vals):
+        gap = tol * max(1.0, float(np.abs(v).max()))
+        for i in range(len(want)):
+            if ((i == 0 or v[i - 1] - v[i] > gap)
+                    and (i == len(want) - 1 or v[i] - v[i + 1] > gap) and got[i] != want[i]):
+                return False
+    return True
+
+
+def protocol_path(label: str, keys: dict, n: int, drive_cli: bool, index_route: bool,
+                  d: Path, smi: str) -> dict:
+    """One path of phase 39 (see its docstring); the index directory is
+    ``d / "index"``."""
+    from cor_tpu_torch.cli import index as index_cli
+    from cor_tpu_torch.cli import retrieve as retrieve_cli
+    from cor_tpu_torch.config import load_eval_config
+    from cor_tpu_torch.data.pipeline import DataLoader
+    from cor_tpu_torch.data.synthetic import SyntheticDataset
+    from cor_tpu_torch.models import core_model as cm
+    from cor_tpu_torch.models.prompt_encoder import get_dense_pe
+    from cor_tpu_torch.models.sam_decoder import mask_decoder
+    from cor_tpu_torch.retrieval import protocol as prot
+    from cor_tpu_torch.retrieval.engine import DECODE_CHUNK, RetrievalEngine
+
+    t_path = time.perf_counter()
+    d.mkdir(parents=True)
+    cfg_path = flat_config("vaild_config.yaml", d / "cfg.yaml", **keys)
+    cfg = load_eval_config(cfg_path)
+    core = cfg.core_config()
+    bf16 = core.compute_dtype == "bfloat16"
+    common = ["--config", str(cfg_path), "--synthetic", str(n), "--k", str(PROTOCOL_K),
+              "--batch-size", str(SAM_BATCH)]
+    out = {"card": smi, "triplets": n, "k": PROTOCOL_K}
+
+    def cli(main, *argv):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = main([*argv])
+        return res, time.perf_counter() - t0
+
+    # the entry point itself, one pass with the rerank
+    if drive_cli:
+        cli_rerank, out["cli_rerank_s"] = cli(retrieve_cli.main, *common, "--rerank")
+
+    # one encode of the same triplets with the CLI's seeded weights, then the
+    # recalls with and without the rerank and with the int8 scan
+    models = prot.prepare_models(core, cm.init_image_encoder(core, cfg.seed + 2),
+                                 cm.init_support_branch(core, cfg.seed),
+                                 cm.init_decode_model(core, cfg.seed), device="cuda")
+    sig = core.support.siglip
+    ds = SyntheticDataset(length=n, query_img_size=core.encoder.img_size,
+                          support_img_size=sig.vision.image_size,
+                          context_length=sig.text.context_length,
+                          vocab_size=sig.text.vocab_size, seed=cfg.seed)
+    t0 = time.perf_counter()
+    gallery, queries, _, store = prot.encode_manifest(
+        core, models, DataLoader(ds, SAM_BATCH, num_workers=cfg.num_workers), keep_store=True)
+    torch.cuda.synchronize()
+    out["encode_s"] = time.perf_counter() - t0
+    targets, ks = np.arange(n), (1, 5, PROTOCOL_K)
+    recalls = {
+        "scan": prot.scan_recall(gallery, queries, targets, ks),
+        "int8_scan": prot.scan_recall(gallery, queries, targets, ks, quantize=True),
+        "rerank": prot.scan_recall(gallery, queries, targets, ks,
+                                   make_retrieve=prot.make_decode_retriever(core, models, store)),
+    }
+    if drive_cli:
+        recalls["cli_rerank"] = cli_rerank
+        out["cli_equals_in_process"] = cli_rerank == rounded(recalls["rerank"])
+    if recalls["rerank"][f"recall@{PROTOCOL_K}"] != recalls["scan"][f"recall@{PROTOCOL_K}"]:
+        fail(f"phase 39 {label}: recall@{PROTOCOL_K} with the rerank differs from the scan's: "
+             f"{recalls}")
+
+    # stage times, the launches per chunk, and the decode against its plain versions
+    engine = RetrievalEngine(k=PROTOCOL_K, device="cuda")
+    engine.set_gallery(gallery)
+    engine.enable_store_decode(store)
+    q = torch.from_numpy(queries / np.linalg.norm(queries, axis=1, keepdims=True)).cuda()
+    dec = models.decode_model
+    pe = get_dense_pe(dec.prompt_encoder).to(core.dtype)
+    engine.retrieve(q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, scan_idx = engine.retrieve(q)
+    torch.cuda.synchronize()
+    out["scan_s"] = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    _, iou, idx = engine.retrieve_decode(q, dec.mask_decoder, pe)
+    torch.cuda.synchronize()
+    scan_decode_s = time.perf_counter() - t0
+    counts = read_counts()
+    B = n * PROTOCOL_K
+    chunk = DECODE_CHUNK if B > DECODE_CHUNK and B % DECODE_CHUNK == 0 else B
+    chunks = B // chunk
+    out["decode_s"] = scan_decode_s - out["scan_s"]
+    out["candidates_decoded_per_s"] = B / out["decode_s"]
+    out["chunks"] = f"{chunks} x {chunk}"
+    sfx = "" if bf16 else "@fp32"
+    want = {k: v * chunks for k, v in route_launches(6).items()}
+    got = {k: counts[k + sfx] for k in want}
+    out["launches"] = got
+    if got != want:
+        fail(f"phase 39 {label}: decoder launches {got}, expected {want} ({chunks} chunks)")
+    tol = IOU_TOL if bf16 else DECODE_TOL32
+    flat = scan_idx.reshape(-1)[:chunk].to(torch.int32)
+    prompts = q.to(core.dtype).repeat_interleave(PROTOCOL_K, dim=0)[:chunk, None, :]
+    with torch.inference_mode():
+        with phase_flags("  kernel decode of one chunk", tf32_off=True):
+            k_iou = mask_decoder(dec.mask_decoder, engine.store_q, pe, prompts, None, False,
+                                 store_idx=flat, store_scale=engine.store_scales)[1]
+        with plain_decoder():
+            p_iou = mask_decoder(dec.mask_decoder, engine.store_q, pe, prompts, None, False,
+                                 store_idx=flat, store_scale=engine.store_scales)[1]
+            _, piou, pidx = engine.retrieve_decode(q, dec.mask_decoder, pe)
+    err = ((k_iou.float() - p_iou.float()).abs() / p_iou.float().abs().clamp(min=1)).max().item()
+    ranked_err = ((iou - piou).abs() / piou.abs().clamp(min=1)).max().item()
+    out["iou_vs_plain"] = {"chunk_max_rel_err": err, "ranked_max_rel_err": ranked_err,
+                           "tol": tol, "max_abs_iou": piou.abs().max().item()}
+    agree = ids_agree_across_gaps(idx.cpu().numpy(), pidx.cpu().numpy(), piou.cpu().numpy(), tol)
+    out["ids_agree_across_gaps"] = agree
+    if not (err <= tol and ranked_err <= tol and agree and torch.isfinite(iou).all()):
+        fail(f"phase 39 {label}: the decode's IoU against its plain versions: {out}")
+    del engine, models, store, q
+    torch.cuda.empty_cache()
+
+    # the index route: cli.index --with-store, then cli.retrieve --gallery-index
+    if index_route:
+        _, out["cli_index_s"] = cli(index_cli.main, "--config", str(cfg_path), "--out",
+                                    str(d / "index"), "--synthetic", str(n), "--batch-size",
+                                    str(SAM_BATCH), "--with-store")
+        recalls["index"], out["cli_index_retrieve_s"] = cli(retrieve_cli.main, *common,
+                                                            "--gallery-index", str(d / "index"))
+        recalls["index_rerank"], out["cli_index_rerank_s"] = cli(
+            retrieve_cli.main, *common, "--gallery-index", str(d / "index"), "--rerank")
+        if recalls["index"] != rounded(recalls["scan"]):
+            fail(f"phase 39 {label}: the index route's recalls differ from the one pass's: "
+                 f"{recalls}")
+        if (recalls["index_rerank"][f"recall@{PROTOCOL_K}"]
+                != recalls["index"][f"recall@{PROTOCOL_K}"]):
+            fail(f"phase 39 {label}: the index route's rerank changed recall@{PROTOCOL_K}: "
+                 f"{recalls}")
+    out["recalls"] = recalls
+    out["recall_note"] = (f"random weights from seeds: chance is K / {n} at Recall@K")
+    out["seconds"] = time.perf_counter() - t_path
+    return out
+
+
+def phase_protocol(root: Path, smi: str) -> Path:
+    """Phase 39: the Recall@K protocol (see the module's docstring); returns
+    the SAM-base bf16 index for phase 40."""
+    results = {}
+    for label, keys, n, drive_cli, index_route in PROTOCOL_PATHS:
+        results[label] = protocol_path(label, keys, n, drive_cli, index_route,
+                                       root / label.replace(" ", "_"), smi)
+        r = results[label]
+        print(f"  {label}: {r['seconds']:.1f} s; recalls scan {r['recalls']['scan']}, rerank "
+              f"{r['recalls']['rerank']}, int8 {r['recalls']['int8_scan']}; encode "
+              f"{r['encode_s']:.2f} s, scan {r['scan_s'] * 1e3:.2f} ms, decode "
+              f"{r['decode_s'] * 1e3:.1f} ms ({r['chunks']}, "
+              f"{r['candidates_decoded_per_s']:.0f} candidates/s); {smi}", flush=True)
+        torch.cuda.empty_cache()
+    print(json.dumps({"protocol": results}))
+    print("phase 39 protocol: ok", flush=True)
+    return root / "SAM-base_bf16" / "index"
+
+
+SCORE_TOL_RESCORE = 1e-5  # cor_tpu's rescore test: true cosines (tests/test_retrieval.py:268)
+TCP_SEEDS = 16  # synthetic request seeds (their queries are memoised by the server)
+TCP_PER_CLIENT = 16
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_tcp_server(index_dir: Path, out_dir: Path, max_batch: int, *flags) -> int:
+    """cli.serve.main --tcp on loopback in a daemon thread (SAM-base bf16,
+    --decode-masks --store-hbm, k 10); its port once it listens."""
+    from cor_tpu_torch.cli import serve as serve_cli
+
+    ev, port = threading.Event(), free_port()
+    argv = ["--gallery-index", str(index_dir), "--k", str(PROTOCOL_K), "--max-batch",
+            str(max_batch), "--decode-masks", str(out_dir), "--store-hbm", "--tcp", str(port),
+            *flags]
+    threading.Thread(target=serve_cli.main, args=(argv,), kwargs={"ready_event": ev},
+                     daemon=True).start()
+    if not ev.wait(timeout=300):
+        fail(f"phase 40: cli.serve {' '.join(argv)} did not start listening")
+    return port
+
+
+# the TCP clients: a process of their own (no torch), so that their threads
+# do not share the server's interpreter; argv[1] is {"port", "clients",
+# "per", "seeds", "k"}; prints {"lat", "wall", "answers", "errors"}
+TCP_CLIENTS = """
+import json, socket, sys, threading, time
+a = json.loads(sys.argv[1])
+lat, errors, answers = [], [], {ci: [] for ci in range(a["clients"])}
+lock = threading.Lock()
+def client(ci):
+    try:
+        with socket.create_connection(("127.0.0.1", a["port"])) as s:
+            f = s.makefile("r")
+            for r in range(a["per"]):
+                rid = f"{ci}:{r}"
+                req = {"id": rid, "synthetic": (ci * a["per"] + r) % a["seeds"]}
+                t0 = time.perf_counter()
+                s.sendall((json.dumps(req) + "\\n").encode())
+                resp = json.loads(f.readline())
+                with lock:
+                    lat.append(time.perf_counter() - t0)
+                answers[ci].append(resp)
+                if (resp.get("id") != rid or len(resp.get("results", [])) != a["k"]
+                        or len(resp.get("masks", [])) != a["k"]):
+                    errors.append([rid, resp])
+    except Exception as e:
+        errors.append([ci, repr(e)])
+threads = [threading.Thread(target=client, args=(ci,)) for ci in range(a["clients"])]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(timeout=300)
+print(json.dumps({"lat": lat, "wall": time.perf_counter() - t0,
+                  "answers": [answers[ci] for ci in range(a["clients"])], "errors": errors}))
+"""
+
+
+def tcp_clients(port: int, clients: int, per: int):
+    """Closed-loop clients in a process of their own, each sending ``per``
+    requests one after another: (latencies in s, wall s, responses by
+    client, errors)."""
+    args = {"port": port, "clients": clients, "per": per, "seeds": TCP_SEEDS, "k": PROTOCOL_K}
+    proc = subprocess.run([sys.executable, "-c", TCP_CLIENTS, json.dumps(args)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"phase 40: the TCP clients failed: {proc.stderr[-2000:]}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    return r["lat"], r["wall"], r["answers"], r["errors"]
+
+
+def phase_tcp(index_dir: Path, root: Path, smi: str) -> dict:
+    """Phase 40: TCP serving (see the module's docstring)."""
+    sweep = {}
+    ports = {}
+    for mb in (4, 8):
+        ports[mb] = start_tcp_server(index_dir, root / f"tcp_masks_{mb}", mb)
+        tcp_clients(ports[mb], 1, TCP_SEEDS)  # the servers memoise the seeds' queries
+        for clients in (4, 8):
+            reset_counts()  # one decode (one K3 launch) per served batch
+            lat, wall, answers, errors = tcp_clients(ports[mb], clients, TCP_PER_CLIENT)
+            if errors or len(lat) != clients * TCP_PER_CLIENT:
+                fail(f"phase 40: {clients} clients at --max-batch {mb}: {errors[:3]}")
+            ms = np.array(lat) * 1e3
+            batches = read_counts()["decoder_tail"]
+            sweep[f"{clients} clients, --max-batch {mb}"] = {
+                "responses_per_s": len(lat) / wall, "p50_ms": float(np.percentile(ms, 50)),
+                "p99_ms": float(np.percentile(ms, 99)), "responses": len(lat),
+                "batches": batches, "mean_batch": len(lat) / max(batches, 1)}
+    # one client at a time: every request alone in its batch, so every scan
+    # sees the same query bits; --rescore --int8 and --approx against fp32
+    exact = tcp_clients(ports[4], 1, TCP_SEEDS)[2][0]
+    checks = {}
+    for flags in (("--rescore", "--int8"), ("--approx",)):
+        port = start_tcp_server(index_dir, root / f"tcp_masks{'_'.join(flags)}", 4, *flags)
+        got = tcp_clients(port, 1, TCP_SEEDS)[2][0]
+        score_err, same = 0.0, True
+        for g, w in zip(got, exact):
+            gs = np.array([r["score"] for r in g["results"]])
+            ws = np.array([r["score"] for r in w["results"]])
+            score_err = max(score_err, float(np.abs(gs - ws).max()))
+            same &= ids_agree_across_gaps([[r["pair_id"] for r in g["results"]]],
+                                  [[r["pair_id"] for r in w["results"]]], [ws], SCORE_TOL_RESCORE)
+        checks[" ".join(flags)] = {"max_abs_score_err": score_err, "ids_agree_across_gaps": same,
+                                   "tol": SCORE_TOL_RESCORE}
+        if score_err > SCORE_TOL_RESCORE or not same:
+            fail(f"phase 40: {' '.join(flags)} against the exact fp32 scan: {checks}")
+    out = {"sweep": sweep, "against_fp32_scan": checks, "card": smi,
+           "requests": "synthetic, 16 seeds; every response's id back to its own client, with "
+                       f"{PROTOCOL_K} results and {PROTOCOL_K} masks"}
+    for key, r in sweep.items():
+        print(f"  {key}: {r['responses_per_s']:.1f} responses/s, p50 {r['p50_ms']:.1f} ms, "
+              f"p99 {r['p99_ms']:.1f} ms, {r['mean_batch']:.2f} requests a batch; {smi}",
+              flush=True)
+    print(json.dumps({"tcp_serving": out}))
+    print("phase 40 TCP serving: ok", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this check runs on a GPU only",
@@ -3594,6 +4044,9 @@ def main():
 
     name, smi = phase_device()
     phase_build()
+    phase_gpu_tests()
+    mark("phase 2")
+    memoize_seeded_inits()
     cuda = torch.device("cuda")
     # the kernel-check phases take TF32 off for themselves; every other phase
     # runs under torch's flags as a user's run finds them
@@ -3696,6 +4149,11 @@ def main():
     with phase_flags("phase 38", tf32_off=False):
         phase_p6(cuda)
     mark("phase 38")
+    with phase_flags("phases 39-40", tf32_off=False), tempfile.TemporaryDirectory() as d:
+        index_dir = phase_protocol(Path(d), smi)
+        mark("phase 39")
+        phase_tcp(index_dir, Path(d), smi)
+    mark("phase 40")
 
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cuh", "cor_tpu/ops/pallas/layernorm.py:70",

@@ -37,8 +37,9 @@ every token count. The module flags ``GRID_FUSED``, ``STACK_FUSED`` and
 precedence and conditions: K1-grid, then K1-stack (the whole transformer and
 the final attention in one kernel, depth 2, no int8 store), else K1-dma for
 each layer. Off the CPU, what the kernels do not take (more than 32
-tokens; a grid not 64 wide or not 256 channels) is refused before any
-kernel runs, naming its ROADMAP row. On the CPU the plain versions run
+tokens; a grid not 64 wide or not 256 channels; more than 65,535
+candidates in one call) is refused before any kernel runs, naming its
+ROADMAP row. On the CPU the plain versions run
 every geometry.
 
 Parameters are named after ``cor_tpu``'s tree (``init_mask_decoder``), so the
@@ -92,6 +93,9 @@ LAYER_ROW_TILE, LAYER_MAX_TOKENS = 1024, 8
 TOKENS_ROW = "ROADMAP Queue 2, @T>32 (decodes of more than 32 tokens)"
 GRID_ROW = ("ROADMAP Queue 2, @grid (decoder grids other than 64 wide and 256 channels, the "
             "geometry of SAM's image encoder)")
+# the decoder kernels index candidates by a grid dimension and K2's tickets
+MAX_CANDIDATES = 65535
+CANDIDATES_ROW = "ROADMAP Queue 2, @n>65535 (a fused decode of more than 65,535 candidates)"
 
 
 @dataclass(frozen=True)
@@ -274,11 +278,15 @@ def layer_route(n_rows: int, n_tokens: int, width: int, num_heads: int) -> str:
     return "k8"
 
 
-def check_fused_geometry(grid_w: int, n_tokens: int, width: int) -> None:
+def check_fused_geometry(grid_w: int, n_tokens: int, width: int, n: int = 1) -> None:
     """Refuse, before any kernel runs, a fused decode on the card that the
     port's kernels do not take, naming the ROADMAP row that ports it. The
     decoder always has 5 output tokens; K3 takes a grid 64 wide (so H * W is
-    a multiple of 64, the image passes' row tile) of 256 channels."""
+    a multiple of 64, the image passes' row tile) of 256 channels; every
+    kernel at most ``MAX_CANDIDATES`` candidates (``n``) a call."""
+    if n > MAX_CANDIDATES:
+        raise ValueError(f"a fused decode of {n} candidates in one call: the decoder kernels "
+                         f"take at most {MAX_CANDIDATES} ({CANDIDATES_ROW})")
     if n_tokens > MAX_TOKENS:
         raise ValueError(f"a fused decode of {n_tokens} tokens: the decoder kernels take at "
                          f"most {MAX_TOKENS} ({TOKENS_ROW})")
@@ -307,7 +315,7 @@ def two_way_transformer(
         raise ValueError("an int8 store needs store_idx")
     T = point_embedding.shape[1]
     if image_embedding.device.type != "cpu":
-        check_fused_geometry(W, T, C)
+        check_fused_geometry(W, T, C, S if store_idx is None else store_idx.shape[0])
     comp_dt = point_embedding.dtype if store_scale is not None else image_embedding.dtype
     keys = image_embedding.reshape(S, H * W, C)
     key_pe = image_pe.reshape(1, H * W, C).to(comp_dt)

@@ -1,6 +1,5 @@
 """Online retrieval serving on one device, the PyTorch counterpart of
-``cor_tpu.retrieval.serve.RetrievalServer`` (without ``--approx``,
-``--rescore`` and the TCP front end).
+``cor_tpu.retrieval.serve.RetrievalServer``.
 
 A ``RetrievalServer`` owns the gallery (``RetrievalEngine``), the query
 encoder (the support branch: SigLIP towers, mask pooling, fusion and
@@ -23,7 +22,14 @@ The candidate-mask decode has two configurations, as in ``cor_tpu``:
 - ``store_hbm``: the store is quantised to int8 once (the no-mask prompt
   pre-baked) and kept on the device; the scan's top-k indices go straight
   into the decode, whose first layer reads and dequantises the store rows
-  itself, with no host round trip between scan and decode.
+  itself, with no host round trip between scan and decode. With
+  ``rescore`` the exact second stage runs on the device too, so the path
+  stays on the device (``cor_tpu`` splits its graph there for a host
+  stage).
+
+The scan options are the engine's (``retrieval/engine.py``): ``quantize``
+(int8), ``approx`` (``cor_tpu``'s approximate scan, run as the exact top
+k), ``rescore`` with ``rescore_width`` and ``recall_target``.
 
 Masks are binarised (``logit > 0``) and bit-packed on the device, fetched,
 and written as one PNG per candidate, ``{safe_id}_{pair_id}.png``, by a
@@ -111,6 +117,10 @@ class RetrievalServer:
         decode_model: Optional[DecodeModel] = None,
         decode_dir: Optional[str] = None,
         store_hbm: bool = False,
+        approx: bool = False,
+        rescore: bool = False,
+        rescore_width: int = 4,
+        recall_target: Optional[float] = None,
     ):
         """``model`` is a ``SupportBranch`` and ``decode_model`` (needed with
         ``decode_dir``) a ``DecodeModel``; the server moves both to ``device``
@@ -120,7 +130,10 @@ class RetrievalServer:
         self.device = torch.device(device)
         self.model = _cast(model.to(self.device), core_cfg.dtype).eval()
         self.k = min(k, len(index["pair_ids"]))
-        self.engine = RetrievalEngine(k=self.k, quantize=quantize, device=self.device)
+        self.engine = RetrievalEngine(
+            k=self.k, approx=approx, recall_target=recall_target, quantize=quantize,
+            rescore=rescore, rescore_width=rescore_width, device=self.device,
+        )
         self.engine.set_gallery(index["embeddings"])
         self.pair_ids = np.asarray(index["pair_ids"])
         self.store = index.get("store")  # [G, g, g, C] fp16 memory map, or None

@@ -11,9 +11,12 @@ import dataclasses
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import textwrap
+import threading
+import time
 from pathlib import Path
 
 import jax
@@ -106,15 +109,22 @@ def assert_same_answers(got, want, tol=1e-4):
                 assert gid[i] == wid[i], (i, gid, wid)
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
-def test_server_matches_cor_tpu_server(served, int8):
+SCANS = {"fp32": dict(), "int8": dict(quantize=True), "approx": dict(approx=True),
+         "rescore": dict(quantize=True, rescore=True, rescore_width=3)}
+
+
+@pytest.mark.parametrize("scan", list(SCANS))
+def test_server_matches_cor_tpu_server(served, scan):
+    """The fp32 and int8 scans, cor_tpu's approximate scan (the exact top k
+    in the port) and the int8 scan with the exact rescore (on the device in
+    the port, on the host in cor_tpu) answer as cor_tpu's server does."""
     jc, pc, params, idx_dir = served
     reqs = [{"id": f"r{i}", "synthetic": i} for i in range(5)]  # pads to a bucket of 8
     want = JaxRetrievalServer(jc, params, j_load_index(idx_dir), k=6,
-                              quantize=int8).handle_batch(reqs)
+                              **SCANS[scan]).handle_batch(reqs)
     model = load_cor_tpu_params(psb.SupportBranch(pc.support), params["support_branch"])
-    server = RetrievalServer(pc, model, load_gallery_index(idx_dir), k=6, quantize=int8,
-                             device="cpu")
+    server = RetrievalServer(pc, model, load_gallery_index(idx_dir), k=6, device="cpu",
+                             **SCANS[scan])
     got = server.handle_batch(reqs)
     assert all(len(r["results"]) == 6 for r in got)
     assert_same_answers(got, want)
@@ -192,14 +202,6 @@ def test_engine_scans_match_cor_tpu(rng):
     np.testing.assert_allclose(s.numpy(), got.topk(10, dim=1).values.numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("flag", [["--rescore"], ["--approx"], ["--tcp", "9000"]])
-def test_cli_refuses_later_slice_flags(tmp_path, capsys, flag):
-    with pytest.raises(SystemExit) as e:
-        pcli.main(["--gallery-index", str(tmp_path), *flag])
-    assert e.value.code == 2
-    assert "ROADMAP Queue 1" in capsys.readouterr().err
-
-
 def test_cli_refuses_configs_that_name_checkpoints(tmp_path, capsys):
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text("load_checkpoint_path: /ckpt/best.pth\n")
@@ -235,7 +237,8 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
     """Block jax and cor_tpu, import every module of the port, build a
     gallery index with ``cli.index`` at the tiny config ``models`` and serve
     from it end to end: retrieval alone, and with masks decoded
-    host-streamed and from the int8 store; with ``train``, then train one
+    host-streamed and from the int8 store, then run ``cli.retrieve --rerank``
+    and ``tools.recall_matrix`` at a small size; with ``train``, then train one
     tiny epoch with ``cli.train`` (``unfrozen``: ``freeze_towers: false``,
     the encoder's backward through K6b's plain version, and an encode with
     ``fused_window_indexing``, K7's plain version, equal to the unflagged
@@ -301,6 +304,17 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
             for r in dec_out:
                 assert len(r["masks"]) == 5 and all(Path(p).is_file() for p in r["masks"]), r
             assert [r["results"] for r in dec_out] == [r["results"] for r in out]
+        # the Recall@K protocol with the IoU rerank, and the scan's accuracy matrix
+        from cor_tpu_torch.cli import retrieve as retrieve_cli
+        from cor_tpu_torch.retrieval import protocol
+        from cor_tpu_torch.tools import recall_matrix
+        assert protocol.scan_recall is not None
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = retrieve_cli.main(["--synthetic", "6", "--batch-size", "3", "--k", "6",
+                                     "--rerank", "--device", "cpu"])
+            mat = recall_matrix.run(gallery_rows=600, queries=4, device="cpu")
+        assert rec["recall@6"] == 1.0 and rec["gallery_size"] == 6, rec
+        assert mat["sigma=0.05/qnoise=0.0"]["int8-approx+rescore"]["agree"] == 1.0, mat
         if {train!r}:
             from cor_tpu_torch.cli import train as train_cli
             from cor_tpu_torch.config import TrainConfig
@@ -610,3 +624,126 @@ def test_cli_serves_decode_masks_on_the_cpu(decode_served, tmp_path, capsys, mon
         pcli.main([*argv, "--store-hbm"])
     assert e.value.code == 2
     assert "store_hbm=True without decode_dir" in capsys.readouterr().err
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tcp_answers(port: int, reqs) -> list:
+    with socket.create_connection(("127.0.0.1", port)) as s:
+        f = s.makefile("r")
+        out = []
+        for r in reqs:
+            s.sendall((json.dumps(r) + "\n").encode())
+            out.append(json.loads(f.readline()))
+    return out
+
+
+@pytest.mark.parametrize("flags", [["--approx"], ["--int8", "--rescore"], ["--tcp"]],
+                         ids=["approx", "rescore", "tcp"])
+def test_cli_serves_approx_rescore_and_tcp(served, capsys, monkeypatch, flags):
+    """cli.serve --device cpu with --approx (the exact top k: the plain
+    scan's answers), --int8 --rescore (the exact fp32 cosines of a widened
+    int8 pool: the fp32 scan's answers within 1e-4) and --tcp PORT (a client
+    on loopback gets the stdio loop's answers within 1e-4)."""
+    _, pc, _, idx_dir = served
+    monkeypatch.setattr(EvalConfig, "core_config", lambda self: pc)
+    argv = ["--gallery-index", str(idx_dir), "--device", "cpu", "--k", "4", "--max-batch", "2"]
+    pcli.main([*argv, "--self-test", "3"])
+    want = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    reqs = [{"id": i, "synthetic": i} for i in range(3)]
+    if flags == ["--tcp"]:
+        ev, port = threading.Event(), free_port()
+        threading.Thread(target=pcli.main, args=([*argv, "--tcp", str(port)],),
+                         kwargs={"ready_event": ev}, daemon=True).start()
+        assert ev.wait(timeout=60) and ev.bound[1] == port
+        # one request at a time: buckets of 1, where the loop batched 2
+        assert_same_answers(tcp_answers(port, reqs), want)
+        return
+    server = pcli.main([*argv, "--self-test", "3", *flags])
+    got = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert server.engine.approx == ("--approx" in flags)
+    assert server.engine.k_scan == (16 if "--rescore" in flags else 4)
+    if "--rescore" in flags:
+        assert_same_answers(got, want)
+    else:
+        assert got == want
+
+
+def test_serve_tcp_multi_client():
+    """serve_tcp (tests/test_retrieval.py's test of cor_tpu's, on the port's):
+    concurrent clients over real sockets against a stub server, every
+    response routed back to the connection that sent its request, a
+    malformed line answered with an error in its own slot, batches drawn
+    across clients, and a half-closed pipelined client answered in full."""
+
+    class StubServer:
+        def __init__(self):
+            self.batch_sizes = []
+            self.lock = threading.Lock()
+
+        def handle_batch(self, reqs):
+            with self.lock:
+                self.batch_sizes.append(len(reqs))
+            # a slow device: the other clients' requests queue meanwhile, so
+            # the next batch must take requests of several clients
+            time.sleep(0.05)
+            return [{"id": r.get("id"), "echo": r.get("payload")} for r in reqs]
+
+        def handle(self, req):
+            return {"id": req.get("id"), "echo": req.get("payload")}
+
+    srv = StubServer()
+    ev = threading.Event()
+    threading.Thread(target=pcli.serve_tcp, args=(srv, "127.0.0.1", 0, 4, ev),
+                     daemon=True).start()
+    assert ev.wait(timeout=10)
+    host, port = ev.bound
+    n_clients, per = 4, 25
+    errors = []
+
+    def client(ci):
+        try:
+            with socket.create_connection((host, port)) as s:
+                f = s.makefile("r")
+                for r in range(per):
+                    payload = f"client{ci}-req{r}"
+                    s.sendall((json.dumps({"id": f"{ci}:{r}", "payload": payload}) + "\n")
+                              .encode())
+                    resp = json.loads(f.readline())
+                    assert resp == {"id": f"{ci}:{r}", "echo": payload}, resp
+        except Exception as e:  # surfaced in the main thread
+            errors.append((ci, repr(e)))
+
+    threads = [threading.Thread(target=client, args=(ci,)) for ci in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not errors, errors
+    assert sum(srv.batch_sizes) == n_clients * per
+    assert max(srv.batch_sizes) > 1, srv.batch_sizes
+
+    with socket.create_connection((host, port)) as s:
+        f = s.makefile("r")
+        s.sendall(b"this is not json\n")
+        assert "error" in json.loads(f.readline())
+        s.sendall((json.dumps({"id": "ok", "payload": "p"}) + "\n").encode())
+        assert json.loads(f.readline()) == {"id": "ok", "echo": "p"}
+
+    with socket.create_connection((host, port)) as s:
+        f = s.makefile("r")
+        m = 10
+        s.sendall(b"".join((json.dumps({"id": f"hc:{r}", "payload": f"p{r}"}) + "\n").encode()
+                           for r in range(m)))
+        s.shutdown(socket.SHUT_WR)
+        got = []
+        for _ in range(m):
+            line = f.readline()
+            assert line, f"connection closed after {len(got)}/{m} responses"
+            got.append(json.loads(line)["id"])
+        assert got == [f"hc:{r}" for r in range(m)]
+        assert f.readline() == ""  # then the server closes
