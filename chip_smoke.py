@@ -269,7 +269,30 @@ Phases (any failure exits non-zero; no phase catches an exception):
     client with 10 results and 10 masks; then --rescore --int8 and --approx
     served, one request at a time, against the fp32 scan's answers (ids
     across score gaps above 1e-5, scores within 1e-5, cor_tpu's rescore
-    test tolerance).
+    test tolerance);
+41. checkpoints at full width (SAM-base + ViT-B-16-SigLIP-384,
+    MaskAdapterPooling, the seeded fp32 model): saved as the port's
+    checkpoint directory, turned into the reference's .pth by
+    ``cli.export``, and written as a SAM .pth (its no_mask_embed changed)
+    and a SigLIP .bin by the port's exporters; ``load_trained_params`` of
+    the .pth and of the directory into a model seeded otherwise gives
+    every parameter bit for bit, ``build_model_with_query_support_feat``
+    from the .pth and the .bin gives the encoder, the decoder and the
+    towers bit for bit and leaves no_mask_embed at its fresh init; the
+    write and load seconds;
+42. evaluation from files: two splits of 12 triplets over two Dataset
+    folders written as PNGs by the port's writer (query images at 480 x
+    640, 768 x 1024, 900 x 1200 and 1024 x 1024, scanline filters 0-4;
+    gray masks, an RGB and a palette query mask; Targets 007 and 12; a
+    Compose = 1 row at each manifest's end), then ``cli.eval.main --soft``
+    with phase 41's .pth at the config's batch 10 (batches of 10 and 2 per
+    split): exact launches per batch (K4 24, K5 76, K6 12, K1 8, K2 1, K3
+    1), every hard and soft mask at its native size, no sample skipped, one
+    CSV row per manifest row with finite metrics in [0, 1], the first
+    batch's bf16 predictions against the port's CPU path in fp32 on the
+    same weights (cosine >= COS_MIN, its first EVAL_CPU_ROWS rows); then
+    the sweep again, warm: images/s, the loader's host wait, the forward's
+    device seconds (CUDA events) and the host's masks and metrics.
 The line before the last lists every kernel ({"kernels": [...]}; an fp32
 instantiation is an entry of its own, name@fp32, with its fp32 launches);
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -278,6 +301,7 @@ the last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import io
 import json
@@ -4034,6 +4058,274 @@ def phase_tcp(index_dir: Path, root: Path, smi: str) -> dict:
     return out
 
 
+# phases 41-42: evaluation from files at full width
+EVAL_NATIVE_HW = ((480, 640), (768, 1024), (900, 1200), (1024, 1024))  # query images' (h, w)
+EVAL_ROWS = 12  # a split's manifest rows kept; a 13th, Compose = 1, is dropped
+EVAL_CPU_ROWS = 1  # of the first batch, run again on the CPU in fp32 (~7 s a row)
+EVAL_PER_BATCH = {"attention_seq_qkv": 24, "layer_norm": 50 + 26, "vit_attention_relpos": 12,
+                  "two_way_layer": 8, "t2i_flash_kv": 1, "decoder_tail": 1}  # K4 K5 K6 K1 K2 K3
+
+
+def differing_leaves(a, b) -> list:
+    """The names of the leaves where two modules differ in any bit."""
+    sa, sb = a.state_dict(), b.state_dict()
+    if sorted(sa) != sorted(sb):
+        return sorted(set(sa) ^ set(sb))
+    return [k for k in sa if not torch.equal(sa[k], sb[k])]
+
+
+def phase_checkpoints(d: Path, smi: str) -> Path:
+    """Phase 41 (see the module's docstring); returns the reference .pth."""
+    import logging
+
+    from cor_tpu_torch.cli import export as export_cli
+    from cor_tpu_torch.config import EvalConfig
+    from cor_tpu_torch.models import core_model as cm
+    from cor_tpu_torch.models.build import build_model_with_query_support_feat
+    from cor_tpu_torch.train.checkpoint import save_checkpoint
+    from cor_tpu_torch.utils import convert, export
+
+    logger = logging.getLogger("chip_smoke.checkpoints")
+    core = EvalConfig().core_config()
+    secs = {}
+
+    def timed(key, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    model = cm.init_core_model(core, SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    timed("write_port_checkpoint", save_checkpoint, d, "best_model",
+          {"params": model.state_dict(), "epoch": 3, "loss": 0.25})
+    pth = d / "core.pth"
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = timed("cli_export", export_cli.main, ["--checkpoint", str(d / "best_model"),
+                                                        "--out", str(pth)])
+    sam = export.export_sam_state_dict(model)
+    sam["prompt_encoder.no_mask_embed.weight"] = sam["prompt_encoder.no_mask_embed.weight"] + 1
+    timed("write_sam_pth", export.save_state_dict, d / "sam.pth", sam)
+    timed("write_siglip_bin", export.save_state_dict, d / "siglip.bin",
+          export.export_siglip_state_dict(model.support_branch.siglip))
+    sizes = {f.name: round(f.stat().st_size / 2**20, 1) for f in (pth, d / "sam.pth",
+                                                                  d / "siglip.bin")}
+    other = cm.init_core_model(core, SEED + 1)
+    if not differing_leaves(model, other):
+        fail("phase 41: the two seeds drew the same weights")
+    timed("load_reference_pth", convert.load_trained_params, pth, core, other, logger)
+    if differing_leaves(model, other):
+        fail(f"phase 41: load_trained_params of the .pth differs in "
+             f"{differing_leaves(model, other)[:5]}")
+    third = cm.init_core_model(core, SEED + 1)
+    timed("load_port_checkpoint", convert.load_trained_params, d / "best_model", core, third,
+          logger)
+    if differing_leaves(model, third):
+        fail(f"phase 41: the port checkpoint's load differs in "
+             f"{differing_leaves(model, third)[:5]}")
+    del other, third
+    built, _ = timed("build_model", build_model_with_query_support_feat,
+                     sam_model=core.sam_model, siglip_model=core.siglip_model,
+                     sam_checkpoint_path=str(d / "sam.pth"),
+                     siglip_checkpoint_path=str(d / "siglip.bin"),
+                     mask_pooling=core.mask_pooling, compute_dtype=core.compute_dtype,
+                     seed=SEED + 1)
+    for part in ("image_encoder", "mask_decoder"):
+        if differing_leaves(getattr(model, part), getattr(built, part)):
+            fail(f"phase 41: build_model_with_query_support_feat's {part} is not the .pth's")
+    if differing_leaves(model.support_branch.siglip, built.support_branch.siglip):
+        fail("phase 41: build_model_with_query_support_feat's towers are not the .bin's")
+    fresh = cm.init_prompt_encoder(core, SEED + 1).no_mask_embed
+    nme = built.prompt_encoder.no_mask_embed
+    in_file = torch.from_numpy(sam["prompt_encoder.no_mask_embed.weight"])
+    if not torch.equal(nme, fresh) or torch.equal(nme, in_file):
+        fail("phase 41: no_mask_embed was loaded from the SAM .pth (it stays at its init)")
+    del built, model
+    out = {"card": smi, "model": f"{core.sam_model} + {core.siglip_model}, {core.mask_pooling}",
+           "parameters": n_params, "reference_keys": summary["n_keys"], "file_mib": sizes,
+           "seconds": secs, "bit_for_bit": True, "no_mask_embed_at_init": True}
+    print(f"  {n_params / 1e6:.1f} M parameters; write: port checkpoint "
+          f"{secs['write_port_checkpoint']:.2f} s, cli.export {secs['cli_export']:.2f} s "
+          f"({summary['n_keys']} keys), SAM .pth {secs['write_sam_pth']:.2f} s, SigLIP .bin "
+          f"{secs['write_siglip_bin']:.2f} s; load: the .pth {secs['load_reference_pth']:.2f} s, "
+          f"the port checkpoint {secs['load_port_checkpoint']:.2f} s, "
+          f"build_model_with_query_support_feat {secs['build_model']:.2f} s; files {sizes} MiB; "
+          f"{smi}", flush=True)
+    print(json.dumps({"checkpoints": out}))
+    print("phase 41 checkpoints: ok", flush=True)
+    return pth
+
+
+def blob(h: int, w: int, rng) -> np.ndarray:
+    """A uint8 0/255 ellipse at a seeded place."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    cy, cx = rng.uniform(0.3, 0.7, 2) * (h, w)
+    ry, rx = rng.uniform(0.15, 0.35, 2) * (h, w)
+    return ((((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) < 1).astype(np.uint8) * 255
+
+
+def write_eval_dataset(root: Path) -> dict:
+    """Phase 42's two splits of EVAL_ROWS triplets over two Dataset folders,
+    PNG files by the port's writer: RGB images (the query images at
+    EVAL_NATIVE_HW's sizes, their scanlines in filter types 0-4), gray masks
+    and, in Test_1, one RGB and one palette query mask; Targets 007 (the
+    folder 7) and 12; a Compose = 1 row at each manifest's end. Returns
+    {split: (csv path, [(Id, Query_mask, (h, w))])}."""
+    from cor_tpu_torch.utils.png import png_encode
+
+    rng = np.random.default_rng(SEED)
+    splits = {}
+    for s, split in enumerate(("Test_1", "Test_2")):
+        rows, kept = [], []
+        for i in range(EVAL_ROWS + 1):
+            pid, ds, target = 100 * (s + 1) + i, ("coco", "lvis")[i % 2], ("007", "12")[i // 2 % 2]
+            h, w = EVAL_NATIVE_HW[i % len(EVAL_NATIVE_HW)]
+            names = [f"{split}_{n}{i}.png" for n in ("q", "qm", "s", "sm")]
+            text = "" if i == 3 else f"the {('red', 'small', 'left')[i % 3]} object {i}"
+            rows.append(f"{pid},{int(i == EVAL_ROWS)},{ds},{target},{','.join(names)},{text}")
+            if i == EVAL_ROWS:
+                continue  # dropped by Compose: its files are never read
+            img_dir, mask_dir = root / ds / "image", root / ds / "mask"
+            for sub in (img_dir, mask_dir / str(int(target)), mask_dir / "sup"):
+                sub.mkdir(parents=True, exist_ok=True)
+            coarse = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+            img = np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:h, :w]
+            img = (img + rng.integers(0, 16, img.shape, dtype=np.uint8)).astype(np.uint8)
+            (img_dir / names[0]).write_bytes(png_encode(img, filter_type=i % 5))
+            mask = blob(h, w, rng)
+            if s == 0 and i == 1:
+                data = png_encode(np.repeat(mask[..., None], 3, axis=2))
+            elif s == 0 and i == 2:
+                data = png_encode((mask > 0).astype(np.uint8),
+                                  palette=np.array([[0, 0, 0], [255, 255, 255]], np.uint8))
+            else:
+                data = png_encode(mask)
+            (mask_dir / str(int(target)) / names[1]).write_bytes(data)
+            (img_dir / names[2]).write_bytes(png_encode(
+                rng.integers(0, 256, (300 + 7 * i, 400 - 5 * i, 3), dtype=np.uint8)))
+            (mask_dir / "sup" / names[3]).write_bytes(png_encode(blob(300 + 7 * i, 400 - 5 * i,
+                                                                      rng)))
+            kept.append((pid, names[1], (h, w)))
+        csv_path = root / f"{split}.csv"
+        csv_path.write_text("Id,Compose,Dataset,Target,Query_img,Query_mask,Support_img,"
+                            "Support_mask,Text\n" + "\n".join(rows) + "\n")
+        splits[split] = (csv_path, kept)
+    return splits
+
+
+def phase_eval(d: Path, pth: Path, smi: str) -> dict:
+    """Phase 42 (see the module's docstring)."""
+    import logging
+
+    from cor_tpu_torch.cli import eval as eval_cli
+    from cor_tpu_torch.config import load_eval_config
+    from cor_tpu_torch.eval import validator
+    from cor_tpu_torch.models import core_model as cm
+    from cor_tpu_torch.train.step import make_predict_step
+    from cor_tpu_torch.utils.convert import load_trained_params
+    from cor_tpu_torch.utils.png import read_image
+
+    t0 = time.perf_counter()
+    splits = write_eval_dataset(d / "dataset")
+    write_s = time.perf_counter() - t0
+    out_dir = d / "eval_out"
+    cfg_path = flat_config("vaild_config.yaml", d / "eval.yaml", dataset_path=str(d / "dataset"),
+                           val_csv_A=str(splits["Test_1"][0]), val_csv_B=str(splits["Test_2"][0]),
+                           vaild_model_save_path=str(out_dir), load_checkpoint_path=str(pth))
+    argv = ["--config", str(cfg_path), "--soft"]
+
+    # the main path once, counted, the first batch's predictions kept
+    first = {}
+    stream = validator.predict_stream
+
+    def recording(*args, **kw):
+        for batch, probs in stream(*args, **kw):
+            first.setdefault("batch", batch)
+            first.setdefault("probs", probs)
+            yield batch, probs
+
+    validator.predict_stream = recording
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        results = eval_cli.main(argv)
+    finally:
+        validator.predict_stream = stream
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    batches = sum(r["timing"]["batches"] for r in results.values())
+    per_batch = {k: counts[k] / batches for k in EVAL_PER_BATCH}
+    if per_batch != EVAL_PER_BATCH:
+        fail(f"phase 42: launches per batch {per_batch}, expected {EVAL_PER_BATCH}")
+    for split, (csv_path, kept) in splits.items():
+        r = results[split]
+        if r["skipped"] or len(r["hard"]) != EVAL_ROWS or len(r["soft"]) != EVAL_ROWS:
+            fail(f"phase 42 {split}: {len(r['hard'])} hard, {len(r['soft'])} soft masks, "
+                 f"{r['skipped']} skipped; {EVAL_ROWS} rows")
+        for pid, name, hw in kept:
+            for sub in ("pred_masks", "soft_pred_masks"):
+                m = read_image(out_dir / split / sub / f"{pid}_{name}", "L")
+                if m.shape != hw or (sub == "pred_masks" and not np.isin(m, (0, 255)).all()):
+                    fail(f"phase 42 {split}: {sub}/{pid}_{name} is {m.shape}, not {hw} (or not "
+                         "0/255)")
+        with open(out_dir / split / "val_metric.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        vals = np.array([[float(row[k]) for k in validator.METRIC_KEYS] for row in rows])
+        if ([int(row["Id"]) for row in rows] != [k[0] for k in kept]
+                or not (np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all())):
+            fail(f"phase 42 {split}: the metric CSV's rows: {rows}")
+
+    # the first batch's predictions against the port's CPU path in fp32
+    cfg = load_eval_config(cfg_path)
+    core32 = dataclasses.replace(cfg.core_config(), compute_dtype="float32")
+    cpu = cm.init_core_model(core32, cfg.seed)
+    load_trained_params(pth, core32, cpu, logging.getLogger("chip_smoke.eval"))
+    batch = {k: torch.from_numpy(np.asarray(first["batch"][k][:EVAL_CPU_ROWS]))
+             for k in ("query_img", "support_img", "support_mask", "text")}
+    t0 = time.perf_counter()
+    want = make_predict_step(core32)(cpu.eval(), batch)[..., 0].numpy()
+    cpu_s = time.perf_counter() - t0
+    got = first["probs"][:EVAL_CPU_ROWS]
+    cos = [float(np.dot(a.ravel(), b.ravel()) / (np.linalg.norm(a) * np.linalg.norm(b)))
+           for a, b in zip(got, want)]
+    del cpu
+    if min(cos) < COS_MIN:
+        fail(f"phase 42: the card's bf16 predictions against the CPU's fp32: cosines {cos} < "
+             f"{COS_MIN}")
+
+    # the sweep again, warm: images/s, the loader's host wait, the forward's device time
+    t0 = time.perf_counter()
+    timed = eval_cli.main(argv)
+    main_s = time.perf_counter() - t0
+    tm = [r["timing"] for r in timed.values()]
+    images = sum(t["samples"] for t in tm)
+    wall = sum(t["wall_s"] for t in tm)
+    out = {
+        "card": smi, "splits": {s: len(k) for s, (_, k) in splits.items()},
+        "native_hw": EVAL_NATIVE_HW, "batch_size": cfg.batch_size, "batches": batches,
+        "launches_per_batch": per_batch, "skipped": 0,
+        "summary": {s: r["summary"] for s, r in results.items()},
+        "first_batch_cosines_vs_cpu_fp32": cos, "cos_min": COS_MIN, "cpu_rows_s": cpu_s,
+        "dataset_write_s": write_s, "first_main_s": first_s, "warm_main_s": main_s,
+        "warm_images": images, "warm_sweep_s": wall, "images_per_s": images / wall,
+        "loader_wait_s": sum(t["load_s"] for t in tm),
+        "forward_device_s": sum(sum(t["forward_ms"]) for t in tm) / 1e3,
+        "forward_ms_by_batch": [round(x, 3) for t in tm for x in t["forward_ms"]],
+        "masks_and_metrics_s": sum(t["post_s"] for t in tm),
+    }
+    print(f"  cli.eval --soft, {images} images in {batches} batches of <= {cfg.batch_size} "
+          f"(native {EVAL_NATIVE_HW}): warm sweep {wall:.2f} s = {out['images_per_s']:.2f} "
+          f"images/s; loader wait {out['loader_wait_s']:.2f} s (host), forward "
+          f"{out['forward_device_s']:.3f} s (device, CUDA events; by batch "
+          f"{out['forward_ms_by_batch']} ms), masks and metrics {out['masks_and_metrics_s']:.2f} "
+          f"s (host); launches per batch {per_batch}; first run {first_s:.1f} s, warm "
+          f"main() {main_s:.1f} s (model init and .pth load included); cosines to the CPU "
+          f"{[round(c, 6) for c in cos]}; {smi}", flush=True)
+    print(json.dumps({"eval_from_files": out}))
+    print("phase 42 eval: ok", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this check runs on a GPU only",
@@ -4154,6 +4446,11 @@ def main():
         mark("phase 39")
         phase_tcp(index_dir, Path(d), smi)
     mark("phase 40")
+    with phase_flags("phases 41-42", tf32_off=False), tempfile.TemporaryDirectory() as d:
+        pth = phase_checkpoints(Path(d), smi)
+        mark("phase 41")
+        phase_eval(Path(d), pth, smi)
+    mark("phase 42")
 
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cuh", "cor_tpu/ops/pallas/layernorm.py:70",

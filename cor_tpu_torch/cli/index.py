@@ -12,10 +12,15 @@ keeps the [G, 64, 64, 256] image embeddings (fp16, 2 MiB per candidate) for
 image encoder from the config's ``seed + 2`` (``core_model.init_core_model``).
 Without ``--config`` the model keys of ``configs/vaild_config.yaml`` apply.
 
-Candidates come from the synthetic dataset (``--synthetic N``, the bits of
-``cor_tpu``'s). A manifest (``CORDataset``), and configs that name a
-checkpoint, are refused with the ROADMAP item that ports them. The last line
-printed is ``cor_tpu``'s JSON: rows, dim, with_store, out.
+The checkpoint keys load over the seeded weights as ``cor_tpu``'s builder
+loads them: the image encoder of a SAM ``.pth``
+(``load_sam_pretrained_checkpoint``), then that of ``load_checkpoint_path``
+(a trained CORE ``.pth`` or a checkpoint directory of the port's trainer);
+a named checkpoint that does not exist is refused. Candidates come from the
+synthetic dataset (``--synthetic N``, the bits of ``cor_tpu``'s) or from the
+config's manifest (``val_csv_A``, else ``val_csv_B``: ``CORDataset``, the
+first ``--limit`` rows). The last line printed is ``cor_tpu``'s JSON: rows,
+dim, with_store, out.
 """
 
 from __future__ import annotations
@@ -25,13 +30,24 @@ import json
 import logging
 import sys
 import time
+from pathlib import Path
 
 import torch
 
-MANIFEST_ITEM = ("ROADMAP Queue 1, item 10 (the manifest data pipeline: CORDataset, decode "
-                 "and augment, PIL)")
-CHECKPOINT_ITEM = "ROADMAP Queue 1, item 5 (checkpoint loaders)"
 log = logging.getLogger("cor_tpu_torch.index")
+
+
+def check_checkpoints_and_manifest(parser, cfg, synthetic: bool) -> Path:
+    """Refuse (``parser.error``) a config whose checkpoint keys name files
+    that do not exist, and, without ``synthetic``, one whose manifest
+    (``val_csv_A``, else ``val_csv_B``) does not exist; the manifest's path."""
+    if cfg.missing_checkpoints():
+        parser.error(f"config names checkpoints that do not exist: {cfg.missing_checkpoints()}")
+    csv_path = cfg.val_csv_A or cfg.val_csv_B
+    if not synthetic and (not csv_path or not Path(csv_path).is_file()):
+        parser.error(f"Manifest {csv_path!r} not found; pass --synthetic N to run on "
+                     "synthetic triplets")
+    return Path(csv_path) if csv_path else None
 
 
 def main(argv=None):
@@ -45,6 +61,8 @@ def main(argv=None):
                         help="index N synthetic candidates")
     parser.add_argument("--batch-size", type=int, default=0,
                         help="candidates per encoder batch (default: the config's batch_size)")
+    parser.add_argument("--limit", type=int, default=0, metavar="N",
+                        help="only the first N manifest rows (ignored with --synthetic)")
     parser.add_argument("--with-store", action="store_true",
                         help="also save the SAM image embeddings for image-free mask decode")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -52,7 +70,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from cor_tpu_torch.config import EvalConfig, load_eval_config
-    from cor_tpu_torch.data.pipeline import DataLoader
+    from cor_tpu_torch.data.pipeline import DataLoader, valid_dataset
     from cor_tpu_torch.data.synthetic import SyntheticDataset
     from cor_tpu_torch.models.core_model import (
         _cast,
@@ -61,16 +79,10 @@ def main(argv=None):
         init_image_encoder,
     )
     from cor_tpu_torch.retrieval.index import build_gallery, save_gallery_index
+    from cor_tpu_torch.utils.convert import load_configured_weights
 
     cfg = load_eval_config(args.config) if args.config else EvalConfig()
-    if cfg.checkpoint_keys():
-        # never index with random weights while the config promises trained ones
-        parser.error(
-            f"config sets {cfg.checkpoint_keys()}: cor_tpu_torch loads no checkpoints "
-            f"yet ({CHECKPOINT_ITEM})"
-        )
-    if not args.synthetic:
-        parser.error(f"only --synthetic N is ported: a manifest needs {MANIFEST_ITEM}")
+    csv_path = check_checkpoints_and_manifest(parser, cfg, bool(args.synthetic))
     try:
         check_kernel_dtype(cfg.core_config(), args.device)
     except ValueError as e:
@@ -79,18 +91,22 @@ def main(argv=None):
         parser.error("no CUDA card is available; pass --device cpu to build on the CPU")
     core_cfg = cfg.core_config()
     sig = core_cfg.support.siglip
-    ds = SyntheticDataset(
-        length=args.synthetic,
-        query_img_size=core_cfg.encoder.img_size,
-        support_img_size=sig.vision.image_size,
-        context_length=sig.text.context_length,
-        vocab_size=sig.text.vocab_size,
-        seed=cfg.seed,
-    )
+    if args.synthetic:
+        ds = SyntheticDataset(
+            length=args.synthetic,
+            query_img_size=core_cfg.encoder.img_size,
+            support_img_size=sig.vision.image_size,
+            context_length=sig.text.context_length,
+            vocab_size=sig.text.vocab_size,
+            seed=cfg.seed,
+        )
+    else:
+        ds = valid_dataset(cfg, csv_path, limit=args.limit or None, core_cfg=core_cfg)
     loader = DataLoader(ds, args.batch_size or cfg.batch_size, num_workers=cfg.num_workers)
     t0 = time.perf_counter()
-    model = init_image_encoder(core_cfg, cfg.seed + 2).to(args.device)
-    model = _cast(model, core_cfg.dtype).eval()
+    model = init_image_encoder(core_cfg, cfg.seed + 2)
+    load_configured_weights(cfg, core_cfg, {"image_encoder": model}, log)
+    model = _cast(model.to(args.device), core_cfg.dtype).eval()
     t1 = time.perf_counter()
     emb, ids, store = build_gallery(core_cfg, model, loader, with_store=args.with_store)
     save_gallery_index(args.out, emb, ids, image_embeddings=store)

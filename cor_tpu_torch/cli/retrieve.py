@@ -22,9 +22,13 @@ port's seeded weights, as ``cli.index`` and ``cli.serve`` make them: the
 image encoder from the config's ``seed + 2``, the support branch and the
 prompt encoder from ``seed``, the mask decoder from ``seed + 1``; so an index
 built by ``cli.index`` pairs the same weights. Without ``--config`` the model
-keys of ``configs/vaild_config.yaml`` apply. Only ``--synthetic N`` triplets
-are ported: a manifest, and configs that name a checkpoint, are refused with
-the ROADMAP item that ports them.
+keys of ``configs/vaild_config.yaml`` apply. The checkpoint keys load over
+them in ``cor_tpu``'s order (``utils/convert.load_configured_weights``: a SAM
+``.pth``, a SigLIP ``.bin``, then a trained CORE ``.pth`` or a checkpoint
+directory of the port's trainer); a named checkpoint that does not exist is
+refused. The triplets are ``--synthetic N`` or the config's manifest
+(``val_csv_A``, else ``val_csv_B``: ``CORDataset``, the first ``--limit``
+rows).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from cor_tpu_torch.cli.index import CHECKPOINT_ITEM, MANIFEST_ITEM
+from cor_tpu_torch.cli.index import check_checkpoints_and_manifest
 
 log = logging.getLogger("cor_tpu_torch.retrieve")
 
@@ -91,7 +95,7 @@ def main(argv=None):
         )
 
     from cor_tpu_torch.config import EvalConfig, load_eval_config
-    from cor_tpu_torch.data.pipeline import DataLoader
+    from cor_tpu_torch.data.pipeline import DataLoader, valid_dataset
     from cor_tpu_torch.data.synthetic import SyntheticDataset
     from cor_tpu_torch.models.core_model import (
         check_kernel_dtype,
@@ -110,16 +114,10 @@ def main(argv=None):
         evaluate_retrieval_with_index,
         prepare_models,
     )
+    from cor_tpu_torch.utils.convert import load_configured_weights
 
     cfg = load_eval_config(args.config) if args.config else EvalConfig()
-    if cfg.checkpoint_keys():
-        # never report recalls of random weights while the config promises trained ones
-        parser.error(
-            f"config sets {cfg.checkpoint_keys()}: cor_tpu_torch loads no checkpoints "
-            f"yet ({CHECKPOINT_ITEM})"
-        )
-    if not args.synthetic:
-        parser.error(f"only --synthetic N is ported: a manifest needs {MANIFEST_ITEM}")
+    csv_path = check_checkpoints_and_manifest(parser, cfg, bool(args.synthetic))
     core_cfg = cfg.core_config()
     try:
         check_kernel_dtype(core_cfg, args.device)
@@ -135,25 +133,37 @@ def main(argv=None):
                          "rebuild it with `cor_tpu_torch.cli.index --with-store`")
 
     sig = core_cfg.support.siglip
-    ds = SyntheticDataset(
-        length=args.synthetic,
-        query_img_size=core_cfg.encoder.img_size,
-        support_img_size=sig.vision.image_size,
-        context_length=sig.text.context_length,
-        vocab_size=sig.text.vocab_size,
-        seed=cfg.seed,
-    )
+    if args.synthetic:
+        ds = SyntheticDataset(
+            length=args.synthetic,
+            query_img_size=core_cfg.encoder.img_size,
+            support_img_size=sig.vision.image_size,
+            context_length=sig.text.context_length,
+            vocab_size=sig.text.vocab_size,
+            seed=cfg.seed,
+        )
+    else:
+        if not cfg.tokenizer_path and (cfg.load_siglip_pretrained_checkpoint
+                                       or cfg.load_checkpoint_path):
+            log.warning("tokenizer_path is unset while pretrained weights are configured: "
+                        "manifest texts will be HASH-tokenized with ids unrelated to the "
+                        "trained vocab, and the recalls mean nothing. Set tokenizer_path to "
+                        "the SigLIP sentencepiece artifact.")
+        ds = valid_dataset(cfg, csv_path, limit=args.limit or None, core_cfg=core_cfg)
     loader = DataLoader(ds, args.batch_size or cfg.batch_size, num_workers=cfg.num_workers)
     t0 = time.perf_counter()
     # an index carries its candidates: the image encoder runs only to encode them
     need_encoder = index is None or args.dump_top1
-    models = prepare_models(
-        core_cfg,
-        init_image_encoder(core_cfg, cfg.seed + 2) if need_encoder else None,
-        init_support_branch(core_cfg, cfg.seed),
-        init_decode_model(core_cfg, cfg.seed) if args.rerank or args.dump_top1 else None,
-        device=args.device,
-    )
+    encoder = init_image_encoder(core_cfg, cfg.seed + 2) if need_encoder else None
+    support = init_support_branch(core_cfg, cfg.seed)
+    decode = init_decode_model(core_cfg, cfg.seed) if args.rerank or args.dump_top1 else None
+    parts = {"support_branch": support}
+    if encoder is not None:
+        parts["image_encoder"] = encoder
+    if decode is not None:
+        parts.update(decode.named_children())
+    load_configured_weights(cfg, core_cfg, parts, log)
+    models = prepare_models(core_cfg, encoder, support, decode, device=args.device)
     t1 = time.perf_counter()
 
     # the user's --k is always reported, with the standard 1/5/10 below it
@@ -176,7 +186,7 @@ def main(argv=None):
         masks = make_candidate_mask_decoder(core_cfg)(models.decode_model, img_emb, emb)
         result["top1_mask_shape"] = list(masks.shape)
     log.info("protocol with %s on %s: %d triplets, model init %.1f s, encode, scan%s %.1f s",
-             describe(core_cfg), args.device, args.synthetic, t1 - t0,
+             describe(core_cfg), args.device, len(ds), t1 - t0,
              " and rerank" if args.rerank else "", time.perf_counter() - t1)
     out = {k: (round(v, 4) if isinstance(v, float) else v) for k, v in result.items()}
     print(json.dumps(out), flush=True)

@@ -21,8 +21,11 @@ select the scan. The model runs on the CUDA card (``--device cpu`` asks for
 the CPU) with the port's own seeded weights: the support branch from the
 config's ``seed``, the prompt encoder from the same seed and the mask decoder
 from ``seed + 1``. Without ``--config`` the model keys of
-``configs/vaild_config.yaml`` apply. Configs that name a checkpoint are
-refused with the ROADMAP item that ports them.
+``configs/vaild_config.yaml`` apply. The checkpoint keys load over them in
+``cor_tpu``'s order (``utils/convert.load_configured_weights``: a SAM
+``.pth``'s mask decoder, a SigLIP ``.bin``, then a trained CORE ``.pth`` or a
+checkpoint directory of the port's trainer); a named checkpoint that does
+not exist is refused.
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ import threading
 
 import torch
 
-CHECKPOINT_ITEM = "ROADMAP Queue 1, item 5 (checkpoint loaders)"
 log = logging.getLogger("cor_tpu_torch.serve")
 
 
@@ -310,14 +312,11 @@ def main(argv=None, ready_event=None):
     )
     from cor_tpu_torch.retrieval.index import load_gallery_index
     from cor_tpu_torch.retrieval.serve import RetrievalServer
+    from cor_tpu_torch.utils.convert import load_configured_weights
 
     cfg = load_eval_config(args.config) if args.config else EvalConfig()
-    if cfg.checkpoint_keys():
-        # never serve random weights while the config promises trained ones
-        parser.error(
-            f"config sets {cfg.checkpoint_keys()}: cor_tpu_torch loads no checkpoints "
-            f"yet ({CHECKPOINT_ITEM})"
-        )
+    if cfg.missing_checkpoints():
+        parser.error(f"config names checkpoints that do not exist: {cfg.missing_checkpoints()}")
     core_cfg = cfg.core_config()
     try:
         check_kernel_dtype(cfg.core_config(), args.device)
@@ -326,12 +325,15 @@ def main(argv=None, ready_event=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA card is available; pass --device cpu to serve on the CPU")
     model = init_support_branch(core_cfg, cfg.seed)
+    decode_model = init_decode_model(core_cfg, cfg.seed) if args.decode_masks else None
+    load_configured_weights(cfg, core_cfg, {"support_branch": model, **(
+        dict(decode_model.named_children()) if decode_model is not None else {})}, log)
     index = load_gallery_index(args.gallery_index)
     try:
         server = RetrievalServer(
             core_cfg, model, index, k=args.k, quantize=args.int8,
             tokenizer_path=cfg.tokenizer_path, device=args.device,
-            decode_model=init_decode_model(core_cfg, cfg.seed) if args.decode_masks else None,
+            decode_model=decode_model,
             decode_dir=args.decode_masks, store_hbm=args.store_hbm, approx=args.approx,
             rescore=args.rescore, rescore_width=args.rescore_width,
             recall_target=args.recall_target,

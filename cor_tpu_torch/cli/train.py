@@ -14,10 +14,16 @@ runs on the CUDA card (``--device cpu`` asks for the CPU); ``--profile N``
 writes a ``torch.profiler`` trace of the first N steps under
 ``{train_model_save_path}/profile``.
 
-Data comes from the synthetic dataset (``--synthetic``: 4 batches to train
-on, 2 to validate on, as ``cor_tpu``'s). A manifest, configs that name a
-checkpoint to load, and the keys of a device mesh are refused with the
-ROADMAP item that ports them. Returns the ``Trainer``.
+The config's ``load_sam_pretrained_checkpoint`` (a SAM ``.pth``: the image
+encoder and the mask decoder) and ``load_siglip_pretrained_checkpoint`` (an
+open_clip ``.bin``) load over the seeded weights, in ``cor_tpu``'s order; a
+named file that does not exist is refused. ``load_checkpoint_path`` resumes
+from a checkpoint directory of the port under ``train_model_save_path``
+(``train/checkpoint.resolve_resume``). Data comes from the synthetic dataset
+(``--synthetic``: 4 batches to train on, 2 to validate on, as
+``cor_tpu``'s). A manifest (the training loader) and the keys of a device
+mesh are refused with the ROADMAP item that ports them. Returns the
+``Trainer``.
 """
 
 from __future__ import annotations
@@ -31,9 +37,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-MANIFEST_ITEM = ("ROADMAP Queue 1, item 10 (the manifest data pipeline: CORDataset, decode "
-                 "and augment, PIL)")
-CHECKPOINT_ITEM = "ROADMAP Queue 1, item 5 (checkpoint loaders)"
+MANIFEST_ITEM = ("ROADMAP Queue 1, item 10 (the training loader: augmentation, "
+                 "get_train_loader)")
 
 
 def main(argv=None):
@@ -57,13 +62,12 @@ def main(argv=None):
     from cor_tpu_torch.train.step import TrainState
     from cor_tpu_torch.train.trainer import Trainer, check_single_device
     from cor_tpu_torch.utils.meters import init_logger
+    from cor_tpu_torch.utils.convert import load_configured_weights
     from cor_tpu_torch.utils.observability import SummaryWriter
 
     cfg = load_train_config(args.config)
-    if cfg.checkpoint_keys():
-        # never train from random weights while the config promises trained ones
-        parser.error(f"config sets {cfg.checkpoint_keys()}: cor_tpu_torch loads no checkpoints "
-                     f"yet ({CHECKPOINT_ITEM})")
+    if cfg.missing_checkpoints():
+        parser.error(f"config names checkpoints that do not exist: {cfg.missing_checkpoints()}")
     if not args.synthetic:
         parser.error(f"only --synthetic is ported: a manifest needs {MANIFEST_ITEM}")
     try:
@@ -85,7 +89,10 @@ def main(argv=None):
     where = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
     logger.info(f"device: {where}; torch {torch.__version__}")
 
-    model = init_core_model(core_cfg, cfg.seed).to(args.device)  # fp32 masters
+    model = init_core_model(core_cfg, cfg.seed)
+    # pretrained towers over the seeded init; load_checkpoint_path resumes below
+    load_configured_weights(cfg, core_cfg, model, logger, trained=False)
+    model = model.to(args.device)  # fp32 masters
     optimizer, schedule = make_optimizer(
         model, cfg.optimizer, cfg.lr, cfg.lr_scheduler, cfg.epoch, cfg.gradient_clip,
         freeze_towers=cfg.freeze_towers, lr_decay_rate=cfg.lr_decay_rate,

@@ -52,11 +52,17 @@ class EvalConfig:
         )
 
     def checkpoint_keys(self) -> list:
-        """The checkpoint keys this config sets (the port loads none yet)."""
+        """The checkpoint keys this config sets."""
         return [
             f.name for f in dataclasses.fields(self)
             if f.name.startswith("load_") and getattr(self, f.name)
         ]
+
+    def missing_checkpoints(self) -> list:
+        """``key=path`` of each checkpoint key whose file or directory does not
+        exist (the entry points refuse them before building a model)."""
+        return [f"{k}={getattr(self, k)}" for k in self.checkpoint_keys()
+                if not Path(str(getattr(self, k))).exists()]
 
 
 @dataclass
@@ -122,9 +128,17 @@ class TrainConfig:
         return cfg
 
     def checkpoint_keys(self) -> list:
-        """The checkpoint keys this config sets (the port loads none yet)."""
+        """The checkpoint keys this config sets."""
         return [f.name for f in dataclasses.fields(self)
                 if f.name.startswith("load_") and getattr(self, f.name)]
+
+    def missing_checkpoints(self) -> list:
+        """``key=path`` of each pretrained-weights key whose file does not
+        exist. ``load_checkpoint_path`` names a checkpoint under
+        ``train_model_save_path``, which ``train/checkpoint.resolve_resume``
+        checks."""
+        return [f"{k}={getattr(self, k)}" for k in self.checkpoint_keys()
+                if k != "load_checkpoint_path" and not Path(str(getattr(self, k))).exists()]
 
 
 # PyYAML's (YAML 1.1) scalar forms that configs/ uses
@@ -193,3 +207,12 @@ def load_train_config(path) -> TrainConfig:
 
 def load_eval_config(path) -> EvalConfig:
     return _load(EvalConfig, path)
+
+
+def load_any_config(path):
+    """An eval YAML as ``EvalConfig``, else a train YAML as ``TrainConfig``
+    (for what only needs the model keys)."""
+    keys = set(_read_config(path))
+    if keys <= {f.name for f in dataclasses.fields(EvalConfig)}:
+        return _load(EvalConfig, path)
+    return _load(TrainConfig, path)

@@ -64,11 +64,6 @@ log = logging.getLogger("cor_tpu_torch.serve")
 # writes release the GIL)
 PNG_WRITERS = min(8, os.cpu_count() or 1)
 
-# cor_tpu.data.pipeline's image statistics (torchvision ImageNet normalisation)
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
-
-
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # np.unpackbits' big-endian order
 
 
@@ -84,19 +79,6 @@ def pack_masks(logits: torch.Tensor) -> torch.Tensor:
 def _write_mask_png(job) -> None:
     path, mask = job  # mask: [H, W] uint8 0/1
     path.write_bytes(png_encode_gray(mask * np.uint8(255), level=1))
-
-
-def _to_float_img(img, size: int, normalize: bool) -> np.ndarray:
-    """A PIL image -> HWC fp32 at size x size (bilinear), optionally
-    ImageNet-normalised (cor_tpu.data.pipeline._to_float_img's PIL path)."""
-    from PIL import Image
-
-    arr = np.asarray(img.resize((size, size), Image.BILINEAR), np.float32) / 255.0
-    if arr.ndim == 2:
-        arr = arr[:, :, None]
-    if normalize:
-        arr = (arr - IMAGENET_MEAN) / IMAGENET_STD
-    return arr
 
 
 class RetrievalServer:
@@ -202,19 +184,16 @@ class RetrievalServer:
         return out
 
     def _file_query(self, request: Dict):
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise RuntimeError(
-                "requests with image files need Pillow (PIL) to decode them; "
-                "synthetic requests do not"
-            ) from e
+        """A request naming files: read as the manifest dataset reads them
+        (PNGs by the port's reader, other formats by Pillow where it is
+        installed; the resize and normalize of the ``preproc`` library)."""
+        from cor_tpu_torch.data.pipeline import _to_float_img
+        from cor_tpu_torch.utils.png import read_image
+
         size = self.cfg.support.siglip.vision.image_size
-        img = Image.open(request["support_img"]).convert("RGB")
-        mask = Image.open(request["support_mask"]).convert("L")
         return (
-            _to_float_img(img, size, True),
-            _to_float_img(mask, size, False),
+            _to_float_img(read_image(request["support_img"], "RGB"), size, True),
+            _to_float_img(read_image(request["support_mask"], "L"), size, False),
             self.tokenizer(str(request.get("text", "")))[0],
         )
 

@@ -89,12 +89,22 @@ def load_cor_tpu_params(module: nn.Module, tree: Any) -> nn.Module:
     return module
 
 
-def to_cor_tpu_tree(module: nn.Module) -> Any:
+def to_cor_tpu_tree(module: nn.Module, state=None) -> Any:
     """The module's parameters and buffers as a ``cor_tpu`` tree: nested
     dicts, and lists where a path component is an index; fp32 numpy leaves
-    in ``cor_tpu``'s layouts (the inverse of ``to_port_layout``)."""
+    in ``cor_tpu``'s layouts (the inverse of ``to_port_layout``). With
+    ``state`` (a state dict of the module, e.g. a checkpoint's), its values
+    instead: the module then only gives the layouts (it may live on the
+    ``meta`` device), and the keys must be the module's own."""
+    if state is not None:
+        want = set(_leaves(module))
+        if set(state) != want:
+            raise ValueError(
+                f"weight bridge: state keys without a port parameter: "
+                f"{sorted(set(state) - want)[:10]}; port parameters without a state key: "
+                f"{sorted(want - set(state))[:10]}")
     tree: Dict[str, Any] = {}
-    for name, t in _leaves(module).items():
+    for name, t in (_leaves(module) if state is None else state).items():
         arr = to_cor_tpu_layout(module, name, t.detach().cpu().float().numpy().copy())
         node = tree
         parts = name.split(".")

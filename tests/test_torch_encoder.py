@@ -355,11 +355,13 @@ def test_cli_index_refuses(tiny_index_config, tmp_path, capsys, monkeypatch, cas
     argv = ["--out", str(tmp_path / "idx"), "--synthetic", "2"]
     want = "--device cpu"
     if case == "manifest":
-        argv, want = argv[:2], "item 10"
+        # without --synthetic the config's manifest is read: none is set
+        argv, want = argv[:2], "Manifest '' not found"
     elif case == "checkpoint":
+        # a checkpoint the config names must exist
         cfg = tmp_path / "cfg.yaml"
         cfg.write_text("load_sam_pretrained_checkpoint: /ckpt/sam.pth\n")
-        argv, want = [*argv, "--config", str(cfg)], "load_sam_pretrained_checkpoint"
+        argv, want = [*argv, "--config", str(cfg)], "load_sam_pretrained_checkpoint=/ckpt/sam.pth"
     else:
         # without a card: bf16 and the fp32 model (tiny_index_config's) both
         # have kernels on the card, so the CLI gets as far as looking for it

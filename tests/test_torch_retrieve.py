@@ -475,17 +475,19 @@ def test_cli_retrieve_on_the_cpu(tiny_cli, tmp_path, capsys):
 @pytest.mark.parametrize("case", ["rerank-rescore", "manifest", "checkpoint", "index-no-store",
                                   "no-card"])
 def test_cli_retrieve_refusals(tiny_cli, tmp_path, capsys, monkeypatch, case):
-    """--rerank with --rescore exits 2 with cor_tpu's message; a manifest
-    names ROADMAP item 10, a config naming a checkpoint item 5, --rerank
-    against an index without a store asks for --with-store, and without a
-    card the CLI exits unless told --device cpu."""
+    """--rerank with --rescore exits 2 with cor_tpu's message; without
+    --synthetic and without a manifest in the config, and with a config
+    naming a checkpoint that does not exist, it exits naming what is
+    missing; --rerank against an index without a store asks for
+    --with-store, and without a card the CLI exits unless told --device
+    cpu."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv, want = {
         "rerank-rescore": (["--synthetic", "4", "--rerank", "--rescore"],
                            "--rerank and --rescore are mutually exclusive"),
-        "manifest": ([], "ROADMAP Queue 1, item 10"),
+        "manifest": ([], "Manifest '' not found"),
         "checkpoint": (["--synthetic", "4", "--config", str(tmp_path / "cfg.yaml")],
-                       "ROADMAP Queue 1, item 5"),
+                       "load_checkpoint_path=/ckpt/best.pth"),
         "index-no-store": (["--synthetic", "4", "--rerank", "--gallery-index", str(tmp_path)],
                            "--with-store"),
         "no-card": (["--synthetic", "4"], "pass --device cpu"),

@@ -203,11 +203,13 @@ def test_engine_scans_match_cor_tpu(rng):
 
 
 def test_cli_refuses_configs_that_name_checkpoints(tmp_path, capsys):
+    """A config naming a checkpoint that does not exist is refused, naming
+    it, before any model is built; an unknown key raises."""
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text("load_checkpoint_path: /ckpt/best.pth\n")
     with pytest.raises(SystemExit):
         pcli.main(["--config", str(cfg), "--gallery-index", str(tmp_path)])
-    assert "load_checkpoint_path" in capsys.readouterr().err
+    assert "load_checkpoint_path=/ckpt/best.pth" in capsys.readouterr().err
     cfg.write_text("bogus_key: 1\n")
     with pytest.raises(ValueError, match="bogus_key"):
         pcli.main(["--config", str(cfg), "--gallery-index", str(tmp_path)])
@@ -232,8 +234,59 @@ NO_JAX_LARGE = """
 """
 
 
+# evaluation from files without jax, cor_tpu, pandas, PIL or cv2: a PNG
+# manifest dataset written by the port (scanline filters 2-4 on the query
+# images), a trained-CORE .pth by its exporter, cli.eval --soft and
+# cli.index on the manifest with the .pth, and cli.export of a checkpoint
+# directory of the port's trainer, read back
+NO_JAX_EVAL = r"""
+from cor_tpu_torch.cli import eval as eval_cli
+from cor_tpu_torch.cli import export as export_cli
+from cor_tpu_torch.train.checkpoint import save_checkpoint
+from cor_tpu_torch.utils import convert, export
+from cor_tpu_torch.utils.png import png_encode
+rng = np.random.default_rng(0)
+ds, rows = root / "ds" / "coco", []
+for sub in ("image", "mask/7", "mask/sup"):
+    (ds / sub).mkdir(parents=True, exist_ok=True)
+for i, (h, w) in enumerate(((40, 56), (64, 64), (30, 50))):
+    (ds / "image" / f"q{i}.png").write_bytes(
+        png_encode(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), filter_type=i + 2))
+    (ds / "mask/7" / f"qm{i}.png").write_bytes(
+        png_encode((rng.random((h, w)) > 0.5).astype(np.uint8) * 255))
+    (ds / "image" / f"s{i}.png").write_bytes(
+        png_encode(rng.integers(0, 256, (20, 24, 3), dtype=np.uint8)))
+    (ds / "mask/sup" / f"sm{i}.png").write_bytes(
+        png_encode((rng.random((20, 24)) > 0.5).astype(np.uint8) * 255))
+    rows.append(f"{i},0,coco,007,q{i}.png,qm{i}.png,s{i}.png,sm{i}.png,text {i}")
+(root / "m.csv").write_text("Id,Compose,Dataset,Target,Query_img,Query_mask,Support_img,"
+                            "Support_mask,Text\n" + "\n".join(rows) + "\n")
+trained = core_model.init_core_model(cfg, 3)
+export.save_core_checkpoint(str(root / "core.pth"), trained)
+(root / "eval.yaml").write_text(
+    f"batch_size: 2\ndataset_path: {root / 'ds'}\nval_csv_A: {root / 'm.csv'}\n"
+    f"vaild_model_save_path: {root / 'ev'}\nload_checkpoint_path: {root / 'core.pth'}\n"
+    "num_workers: 2\n")
+res = eval_cli.main(["--config", str(root / "eval.yaml"), "--soft", "--device", "cpu"])["Test_1"]
+assert res["skipped"] == 0 and len(res["hard"]) == len(res["soft"]) == 3, res
+assert [p.name for p in res["hard"]] == [f"{i}_qm{i}.png" for i in range(3)], res["hard"]
+assert all(0 <= v <= 1 for v in res["summary"].values()), res["summary"]
+with contextlib.redirect_stdout(io.StringIO()):
+    built = index_cli.main(["--config", str(root / "eval.yaml"), "--out", str(root / "idx_m"),
+                            "--device", "cpu"])
+assert built["rows"] == 3, built
+save_checkpoint(root, "best_model", {"params": trained.state_dict(), "epoch": 1})
+with contextlib.redirect_stdout(io.StringIO()):
+    export_cli.main(["--checkpoint", str(root / "best_model"), "--out", str(root / "e.pth")])
+back = core_model.init_core_model(cfg, 9)
+convert.load_trained_params(root / "e.pth", cfg, back, logging.getLogger("no-jax"))
+assert all(torch.equal(a, b) for a, b in zip(back.state_dict().values(),
+                                             trained.state_dict().values()))
+"""
+
+
 def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
-                    prompts: bool = False) -> dict:
+                    prompts: bool = False, evaluate: bool = False) -> dict:
     """Block jax and cor_tpu, import every module of the port, build a
     gallery index with ``cli.index`` at the tiny config ``models`` and serve
     from it end to end: retrieval alone, and with masks decoded
@@ -247,14 +300,18 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
     grid: K1's route at 5 and 8 tokens, K8a/K8b's at 9), and the opt-in
     decode schedules (a decode under each of sam_decoder's DMA_FUSED,
     STACK_FUSED and GRID_FUSED against K1's route, and decode_bench's run
-    on the CPU for each variant). Then K5′ (add_layer_norm, forward and
-    backward) and K9 (fused_upscale2_hyper) on the CPU. Returns the first
+    on the CPU for each variant); with ``evaluate``, ``NO_JAX_EVAL``. Then
+    K5′ (add_layer_norm, forward and backward) and K9 (fused_upscale2_hyper)
+    on the CPU. pandas, PIL and cv2 are blocked too. Returns the first
     response."""
     script = textwrap.dedent(f"""
         import contextlib, dataclasses, importlib, io, json, pkgutil, sys
         from pathlib import Path
         sys.modules["jax"] = None  # any import of jax now raises ImportError
         sys.modules["cor_tpu"] = None  # and so does any import of cor_tpu
+        for blocked in ("pandas", "PIL", "cv2"):  # none on the card's machine
+            sys.modules[blocked] = None
+        import logging
         import numpy as np, torch
         import cor_tpu_torch
         for m in pkgutil.walk_packages(cor_tpu_torch.__path__, "cor_tpu_torch."):
@@ -315,6 +372,8 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
             mat = recall_matrix.run(gallery_rows=600, queries=4, device="cpu")
         assert rec["recall@6"] == 1.0 and rec["gallery_size"] == 6, rec
         assert mat["sigma=0.05/qnoise=0.0"]["int8-approx+rescore"]["agree"] == 1.0, mat
+        if {evaluate!r}:
+            {textwrap.indent(NO_JAX_EVAL, " " * 12).strip()}
         if {train!r}:
             from cor_tpu_torch.cli import train as train_cli
             from cor_tpu_torch.config import TrainConfig
@@ -384,8 +443,8 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
                 b = core_model.init_image_encoder(cfg, 2)(x)
             assert torch.allclose(a, b, atol=1e-5, rtol=1e-5), (a - b).abs().max()
         used = [k for k in sys.modules
-                if k in ("jax", "cor_tpu") and sys.modules[k] is not None
-                or k.startswith(("jax.", "cor_tpu."))]
+                if k in ("jax", "cor_tpu", "pandas", "PIL", "cv2") and sys.modules[k] is not None
+                or k.startswith(("jax.", "cor_tpu.", "pandas.", "PIL.", "cv2."))]
         assert not used, used
         print(json.dumps(out[0]))
     """)
@@ -400,10 +459,12 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Without jax and cor_tpu: build, serve (with masks both ways) and train
-    an epoch at head_dim 64, decode from SAM's stock prompts, decode under
-    each opt-in schedule's flag and run decode_bench."""
-    run_without_jax(tmp_path, NO_JAX_BASE, train=True, prompts=True)
+    """Without jax, cor_tpu, pandas, PIL and cv2: build, serve (with masks
+    both ways) and train an epoch at head_dim 64, decode from SAM's stock
+    prompts, decode under each opt-in schedule's flag and run decode_bench;
+    evaluate from PNG files and a trained .pth (cli.eval, cli.index on the
+    manifest), and export a checkpoint directory and load it back."""
+    run_without_jax(tmp_path, NO_JAX_BASE, train=True, prompts=True, evaluate=True)
 
 
 def test_port_runs_without_jax_at_the_largest_head_dims(tmp_path):

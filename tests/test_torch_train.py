@@ -664,7 +664,8 @@ def test_cli_train_refuses(tiny_train, capsys, monkeypatch, case):
         argv, want = argv[:2], "item 10"
     elif extra:
         tiny_train.write_text(tiny_train.read_text() + extra)
-        want = {"checkpoint": "item 5", "mesh": "item 9", "async": "item 11"}[case]
+        want = {"checkpoint": "load_sam_pretrained_checkpoint=/ckpt/sam.pth", "mesh": "item 9",
+                "async": "item 11"}[case]
     else:
         # without a card: fp16 (no kernels) is refused first, naming its
         # ROADMAP row, before the card is looked for; bf16, and tiny_train's
