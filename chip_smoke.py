@@ -292,7 +292,23 @@ Phases (any failure exits non-zero; no phase catches an exception):
     batch's bf16 predictions against the port's CPU path in fp32 on the
     same weights (cosine >= COS_MIN, its first EVAL_CPU_ROWS rows); then
     the sweep again, warm: images/s, the loader's host wait, the forward's
-    device seconds (CUDA events) and the host's masks and metrics.
+    device seconds (CUDA events) and the host's masks and metrics;
+43. training from files: a training split of 2 batches (20 triplets) and a
+    validation split of one batch written as phase 42's are (query images
+    at its four sizes, an RGB and a palette mask each); the train loader's
+    samples/s on the host with its augmentation and without (the same rows,
+    train=False); ``cli.train.main`` on m3's keys with the manifests, epoch
+    1, train_model_save_epoch 1 and async_checkpoint true: exact launches
+    (K4 24, K5 76, K6 12 per step; K4 24, K5 76, K6 12, K1 8, K2 1, K3 1 for
+    the val batch), finite losses, the val line, each step's device ms and
+    the loop's seconds between steps; checkpoint_epoch_1, best_model and
+    best_model_full loaded, their params the trained model's bit for bit;
+    the seconds a full-state save holds the loop without and with the async
+    writer; warm s/step (CUDA events), samples/s and peak memory; a second
+    ``main()`` on the same path resumes ("Resumed from checkpoint_epoch_1")
+    with the saved weights; then ``cli.eval.main --visualize 3`` on
+    best_model (exact launches of one batch, three panel PNGs of the
+    expected size with no blank panel and a caption).
 The line before the last lists every kernel ({"kernels": [...]}; an fp32
 instantiation is an entry of its own, name@fp32, with its fp32 launches);
 the last line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -4164,6 +4180,37 @@ def blob(h: int, w: int, rng) -> np.ndarray:
     return ((((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) < 1).astype(np.uint8) * 255
 
 
+def write_triplet(root: Path, ds: str, target: str, names, hw, i: int, rng,
+                  mask_kind=None) -> None:
+    """One triplet's four PNGs (``names``: query image, query mask, support
+    image, support mask) under ``root/ds``: the query image [h, w] of 16 px
+    blocks with noise, its scanlines in filter type i % 5; the query mask a
+    blob (gray, or ``mask_kind`` "RGB" or "P"); the support image and mask at
+    (300 + 7 i) x (400 - 5 i)."""
+    from cor_tpu_torch.utils.png import png_encode
+
+    h, w = hw
+    img_dir, mask_dir = root / ds / "image", root / ds / "mask"
+    for sub in (img_dir, mask_dir / str(int(target)), mask_dir / "sup"):
+        sub.mkdir(parents=True, exist_ok=True)
+    coarse = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+    img = np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:h, :w]
+    img = (img + rng.integers(0, 16, img.shape, dtype=np.uint8)).astype(np.uint8)
+    (img_dir / names[0]).write_bytes(png_encode(img, filter_type=i % 5))
+    mask = blob(h, w, rng)
+    if mask_kind == "RGB":
+        data = png_encode(np.repeat(mask[..., None], 3, axis=2))
+    elif mask_kind == "P":
+        data = png_encode((mask > 0).astype(np.uint8),
+                          palette=np.array([[0, 0, 0], [255, 255, 255]], np.uint8))
+    else:
+        data = png_encode(mask)
+    (mask_dir / str(int(target)) / names[1]).write_bytes(data)
+    (img_dir / names[2]).write_bytes(png_encode(
+        rng.integers(0, 256, (300 + 7 * i, 400 - 5 * i, 3), dtype=np.uint8)))
+    (mask_dir / "sup" / names[3]).write_bytes(png_encode(blob(300 + 7 * i, 400 - 5 * i, rng)))
+
+
 def write_eval_dataset(root: Path) -> dict:
     """Phase 42's two splits of EVAL_ROWS triplets over two Dataset folders,
     PNG files by the port's writer: RGB images (the query images at
@@ -4171,8 +4218,6 @@ def write_eval_dataset(root: Path) -> dict:
     and, in Test_1, one RGB and one palette query mask; Targets 007 (the
     folder 7) and 12; a Compose = 1 row at each manifest's end. Returns
     {split: (csv path, [(Id, Query_mask, (h, w))])}."""
-    from cor_tpu_torch.utils.png import png_encode
-
     rng = np.random.default_rng(SEED)
     splits = {}
     for s, split in enumerate(("Test_1", "Test_2")):
@@ -4185,26 +4230,8 @@ def write_eval_dataset(root: Path) -> dict:
             rows.append(f"{pid},{int(i == EVAL_ROWS)},{ds},{target},{','.join(names)},{text}")
             if i == EVAL_ROWS:
                 continue  # dropped by Compose: its files are never read
-            img_dir, mask_dir = root / ds / "image", root / ds / "mask"
-            for sub in (img_dir, mask_dir / str(int(target)), mask_dir / "sup"):
-                sub.mkdir(parents=True, exist_ok=True)
-            coarse = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
-            img = np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:h, :w]
-            img = (img + rng.integers(0, 16, img.shape, dtype=np.uint8)).astype(np.uint8)
-            (img_dir / names[0]).write_bytes(png_encode(img, filter_type=i % 5))
-            mask = blob(h, w, rng)
-            if s == 0 and i == 1:
-                data = png_encode(np.repeat(mask[..., None], 3, axis=2))
-            elif s == 0 and i == 2:
-                data = png_encode((mask > 0).astype(np.uint8),
-                                  palette=np.array([[0, 0, 0], [255, 255, 255]], np.uint8))
-            else:
-                data = png_encode(mask)
-            (mask_dir / str(int(target)) / names[1]).write_bytes(data)
-            (img_dir / names[2]).write_bytes(png_encode(
-                rng.integers(0, 256, (300 + 7 * i, 400 - 5 * i, 3), dtype=np.uint8)))
-            (mask_dir / "sup" / names[3]).write_bytes(png_encode(blob(300 + 7 * i, 400 - 5 * i,
-                                                                      rng)))
+            write_triplet(root, ds, target, names, (h, w), i, rng,
+                          {(0, 1): "RGB", (0, 2): "P"}.get((s, i)))
             kept.append((pid, names[1], (h, w)))
         csv_path = root / f"{split}.csv"
         csv_path.write_text("Id,Compose,Dataset,Target,Query_img,Query_mask,Support_img,"
@@ -4323,6 +4350,226 @@ def phase_eval(d: Path, pth: Path, smi: str) -> dict:
           f"{[round(c, 6) for c in cos]}; {smi}", flush=True)
     print(json.dumps({"eval_from_files": out}))
     print("phase 42 eval: ok", flush=True)
+    return out
+
+
+# phase 43: training from files at full width
+TRAIN_FILES_STEPS = 2  # the training split: this many batches of m3's batch_size
+TRAIN_PER_STEP = {"attention_seq_qkv": 24, "layer_norm": 76, "vit_attention_relpos": 12}  # K4 K5 K6
+TRAIN_WARM_STEPS = 3  # steps timed again after the run, warm
+PANELS = 3
+MANIFEST_HEADER = ("Id,Compose,Dataset,Target,Query_img,Query_mask,Support_img,Support_mask,"
+                   "Text\n")
+
+
+def write_train_dataset(root: Path, batch: int) -> dict:
+    """Phase 43's manifests: Train.csv (TRAIN_FILES_STEPS x ``batch``
+    triplets) and Val.csv (one batch) over two Dataset folders, the query
+    images at EVAL_NATIVE_HW's sizes, one RGB and one palette query mask a
+    split (``write_triplet``). Returns {split: csv path}."""
+    rng = np.random.default_rng(SEED + 43)
+    out = {}
+    for split, n, base in (("Train", TRAIN_FILES_STEPS * batch, 1000), ("Val", batch, 2000)):
+        rows = []
+        for i in range(n):
+            ds, target = ("coco", "lvis")[i % 2], ("007", "12")[i // 2 % 2]
+            names = [f"{split}_{k}{i}.png" for k in ("q", "qm", "s", "sm")]
+            write_triplet(root, ds, target, names, EVAL_NATIVE_HW[i % len(EVAL_NATIVE_HW)], i,
+                          rng, {1: "RGB", 2: "P"}.get(i))
+            rows.append(f"{base + i},0,{ds},{target},{','.join(names)},the object {i}")
+        out[split] = root / f"{split}.csv"
+        out[split].write_text(MANIFEST_HEADER + "\n".join(rows) + "\n")
+    return out
+
+
+def loader_rate(loader) -> float:
+    """Samples a second of one pass of ``loader`` on the host, the batches
+    dropped as they come."""
+    t0, n = time.perf_counter(), 0
+    for b in loader:
+        n += len(b["pair_id"])
+    return n / (time.perf_counter() - t0)
+
+
+def phase_train_from_files(d: Path, smi: str) -> dict:
+    """Phase 43 (see the module's docstring)."""
+    from cor_tpu_torch.cli import eval as eval_cli
+    from cor_tpu_torch.cli import train as train_cli
+    from cor_tpu_torch.config import load_train_config
+    from cor_tpu_torch.data.pipeline import DataLoader, get_train_loader, valid_dataset
+    from cor_tpu_torch.train import trainer as trainer_mod
+    from cor_tpu_torch.train.checkpoint import CheckpointWriter, restore_checkpoint
+    from cor_tpu_torch.utils.png import read_image
+
+    t0 = time.perf_counter()
+    batch = load_train_config(m3_config(d)).batch_size
+    data = write_train_dataset(d / "dataset", batch)
+    write_s = time.perf_counter() - t0
+    ck = d / "ck"
+    cfg_path = m3_config(d, epoch=1, train_model_save_epoch=1, async_checkpoint=True,
+                         dataset_path=str(d / "dataset"), train_csv=str(data["Train"]),
+                         val_csv=str(data["Val"]), train_model_save_path=str(ck))
+    cfg = load_train_config(cfg_path)
+    core = cfg.core_config()
+
+    # the train loader alone on the host: with its augmentation, and the same
+    # rows without it (train=False)
+    aug_rate = loader_rate(get_train_loader(cfg, core_cfg=core))
+    plain_rate = loader_rate(DataLoader(valid_dataset(cfg, str(data["Train"]), core_cfg=core),
+                                        cfg.batch_size, num_workers=cfg.num_workers))
+
+    # the main path once, counted: each step's device time by CUDA events
+    steps = []
+    make = trainer_mod.make_train_step
+
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(*sa, **skw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t_call = time.perf_counter()
+            start.record()
+            out = step(*sa, **skw)
+            end.record()
+            steps.append((t_call, start, end))
+            return out
+        return timed
+
+    trainer_mod.make_train_step = timed_make
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            trainer = train_cli.main(["--config", str(cfg_path)])
+    finally:
+        trainer_mod.make_train_step = make
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    want = {k: TRAIN_FILES_STEPS * TRAIN_PER_STEP.get(k, 0) + EVAL_PER_BATCH[k]
+            for k in EVAL_PER_BATCH}
+    if counts != want or trainer.state.step != TRAIN_FILES_STEPS:
+        fail(f"phase 43: {trainer.state.step} steps, launches {counts}, expected {want} "
+             f"({TRAIN_FILES_STEPS} steps and one val batch)")
+    per_step = {k: (counts[k] - EVAL_PER_BATCH[k]) / TRAIN_FILES_STEPS for k in counts}
+    step_ms = [s.elapsed_time(e) for _, s, e in steps]
+    loop_s = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
+    log = "\n".join(f.read_text() for f in sorted((ck / "logs").glob("*.log")))
+    losses = [float(x.split("]")[0]) for x in log.split("[BLoss: ")[1:]]
+    if not losses or not np.all(np.isfinite(losses)) or "[Val Info]: Epoch: 1," not in log:
+        fail(f"phase 43: losses {losses}; the val line is {'' if '[Val Info]' in log else 'not '}"
+             "there")
+    params = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
+    blocked = dict(trainer.save_seconds)
+    for name in ("checkpoint_epoch_1", "best_model", "best_model_full"):
+        saved = restore_checkpoint(ck, name)
+        if sorted(saved["params"]) != sorted(params) or not all(
+                torch.equal(saved["params"][k], v) for k, v in params.items()):
+            fail(f"phase 43: {name}'s params are not the trained model's")
+        if name != "best_model" and (saved["step"] != TRAIN_FILES_STEPS or "opt_state" not in saved):
+            fail(f"phase 43: {name} is not a full training state: {sorted(saved)}")
+        del saved
+
+    # the seconds a save holds the loop, without and with the async writer,
+    # on the same full training state
+    trainer.ckpt = CheckpointWriter(async_save=False)
+    trainer._save("probe_sync", 1)
+    trainer.ckpt = CheckpointWriter(async_save=True)
+    trainer._save("probe_async", 1)
+    t0 = time.perf_counter()
+    trainer.ckpt.wait()
+    async_write_s = time.perf_counter() - t0
+    probe = {"sync_blocks_s": trainer.save_seconds["probe_sync"],
+             "async_blocks_s": trainer.save_seconds["probe_async"],
+             "async_write_after_s": async_write_s,
+             "state_gib": sum(f.stat().st_size for f in (ck / "probe_sync").iterdir()) / 2**30}
+    for name in ("probe_sync", "probe_async"):
+        shutil.rmtree(ck / name)
+
+    # warm steps on one batch of the loader: s/step by CUDA events, peak memory
+    one = trainer._device_batch(next(iter(get_train_loader(cfg, core_cfg=core))))
+    torch.cuda.reset_peak_memory_stats()
+    warm = []
+    for _ in range(TRAIN_WARM_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(trainer.state, one, cfg.lr)
+        end.record()
+        torch.cuda.synchronize()
+        warm.append(start.elapsed_time(end))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, one
+    torch.cuda.empty_cache()
+
+    # the same path again: it resumes from checkpoint_epoch_1 (epoch 1 done)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        again = train_cli.main(["--config", str(cfg_path)])
+    resume_s = time.perf_counter() - t0
+    log = "\n".join(f.read_text() for f in sorted((ck / "logs").glob("*.log")))
+    if "Resumed from checkpoint_epoch_1 at epoch 2" not in log or again.state.step != 2:
+        fail(f"phase 43: the second run did not resume (step {again.state.step})")
+    if not all(torch.equal(v.cpu(), params[k]) for k, v in again.state.model.state_dict().items()):
+        fail("phase 43: the resumed model is not the saved one")
+    del again, params
+    torch.cuda.empty_cache()
+
+    # cli.eval --visualize on best_model
+    out_dir = d / "eval_out"
+    eval_cfg = flat_config("vaild_config.yaml", d / "eval.yaml", dataset_path=str(d / "dataset"),
+                           val_csv_A=str(data["Val"]), val_csv_B="",
+                           vaild_model_save_path=str(out_dir),
+                           load_checkpoint_path=str(ck / "best_model"))
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        res = eval_cli.main(["--config", str(eval_cfg), "--visualize", str(PANELS)])["Test_1"]
+    eval_s = time.perf_counter() - t0
+    eval_counts = {k: v for k, v in read_counts().items() if v}
+    if eval_counts != EVAL_PER_BATCH or res["skipped"] or len(res["hard"]) != batch:
+        fail(f"phase 43: cli.eval launches {eval_counts}, {len(res['hard'])} masks, "
+             f"{res['skipped']} skipped")
+    shape = (256 + 2 * 10 + 5 * 12 + 2 * 10, 5 * 256 + 6 * 10, 3)  # 5 caption lines
+    panels = sorted((out_dir / "Test_1" / "visualizations").glob("*.png"))
+    if [p.name for p in panels] != sorted(p.name for p in res["panels"]) or len(panels) != PANELS:
+        fail(f"phase 43: panels {panels}")
+    for path in panels:
+        img = read_image(path, "RGB")
+        # the query, its GT, the support image and its mask are never uniform
+        # (the prediction of random weights may be)
+        if img.shape != shape or not all(img[10:266, x:x + 256].std() > 0
+                                         for x in (10, 276, 808, 1074)) or img[276:].min() != 0:
+            fail(f"phase 43: the panel {path.name} is {img.shape} (expected {shape}), or a "
+                 f"panel is blank or the caption missing")
+
+    out = {
+        "card": smi, "model": f"{core.sam_model} + {core.siglip_model}, {core.compute_dtype}, "
+                              f"freeze_towers {cfg.freeze_towers}",
+        "batch_size": cfg.batch_size, "train_rows": TRAIN_FILES_STEPS * batch, "val_rows": batch,
+        "native_hw": EVAL_NATIVE_HW, "dataset_write_s": write_s,
+        "loader_samples_per_s": {"augmented": aug_rate, "without_augmentation": plain_rate},
+        "main_s": main_s, "step_device_ms": step_ms, "loop_s_between_steps": loop_s,
+        "losses": losses, "launches": counts, "launches_per_step": per_step,
+        "save_blocks_s_in_the_run": blocked, "save_probe": probe,
+        "warm_step_ms": warm, "warm_s_per_step": statistics.median(warm) / 1e3,
+        "warm_samples_per_s": cfg.batch_size / (statistics.median(warm) / 1e3),
+        "peak_gib": peak_gib, "resume_main_s": resume_s, "eval_visualize_s": eval_s,
+        "panels": [p.name for p in panels], "panel_shape": shape,
+    }
+    print(f"  train loader (host, {cfg.num_workers} threads): {aug_rate:.1f} samples/s with "
+          f"the augmentation, {plain_rate:.1f} without; cli.train on the manifest "
+          f"({TRAIN_FILES_STEPS} steps of {cfg.batch_size}, one val batch, async checkpoints): "
+          f"main() {main_s:.1f} s, steps {[round(x, 1) for x in step_ms]} ms (device, CUDA "
+          f"events), {[round(x, 2) for x in loop_s]} s between step starts; warm "
+          f"{out['warm_s_per_step']:.3f} s/step ({out['warm_samples_per_s']:.1f} samples/s, "
+          f"peak {peak_gib:.1f} GiB); launches per step {per_step}; saves held the loop "
+          f"{ {k: round(v, 2) for k, v in blocked.items()} } s; a full state "
+          f"({probe['state_gib']:.2f} GiB): {probe['sync_blocks_s']:.2f} s written in the loop, "
+          f"{probe['async_blocks_s']:.2f} s with the async writer (its write "
+          f"{probe['async_write_after_s']:.2f} s after); resumed main() {resume_s:.1f} s; "
+          f"cli.eval --visualize {PANELS} {eval_s:.1f} s; {smi}", flush=True)
+    print(json.dumps({"train_from_files": out}))
+    print("phase 43 training from files: ok", flush=True)
     return out
 
 
@@ -4451,6 +4698,9 @@ def main():
         mark("phase 41")
         phase_eval(Path(d), pth, smi)
     mark("phase 42")
+    with phase_flags("phase 43", tf32_off=False), tempfile.TemporaryDirectory() as d:
+        phase_train_from_files(Path(d), smi)
+    mark("phase 43")
 
     sources = {
         "layer_norm": ("cor_tpu_torch/csrc/layernorm.cuh", "cor_tpu/ops/pallas/layernorm.py:70",

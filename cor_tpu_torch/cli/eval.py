@@ -1,14 +1,17 @@
 """The port's evaluation entry point, the counterpart of ``cor_tpu.cli.eval``:
 
-    python -m cor_tpu_torch.cli.eval --config configs/vaild_config.yaml [--soft] [--limit N]
+    python -m cor_tpu_torch.cli.eval --config configs/vaild_config.yaml [--soft] [--limit N] \\
+        [--visualize N]
 
 Scores the CORE model on the config's manifest splits: ``val_csv_A`` as
 ``Test_1`` and ``val_csv_B`` as ``Test_2`` (an empty key skips its split).
 For each split, one forward per batch (``train/step.make_predict_step``)
 feeds the hard masks (``{vaild_model_save_path}/{split}/pred_masks/
 {pair_id}_{Query_mask}``, 0/255 PNGs at the GT's native size), with
-``--soft`` the soft ones (``soft_pred_masks/``), and the per-sample metric
-CSV (``val_metric.csv``); the log gives the metrics' means, the skipped
+``--soft`` the soft ones (``soft_pred_masks/``), the per-sample metric CSV
+(``val_metric.csv``), and with ``--visualize N`` the comparison panels of
+the first N triplets (``visualizations/{pair_id}.png``,
+``eval/visualize.py``); the log gives the metrics' means, the skipped
 samples and the sweep's images/s split into the loader's host seconds and
 the forward's device seconds.
 
@@ -19,9 +22,7 @@ Weights: the port's seeded init from the config's ``seed``
 ``.pth`` or a checkpoint directory of the port's trainer. The model runs in
 the config's compute dtype on the CUDA card (``--device cpu`` asks for the
 CPU; there is no fallback). The manifests' images are PNGs read by the
-port's reader, or JPEGs where Pillow is installed. ``--visualize N`` (the
-comparison panels) is refused, naming the ROADMAP item that ports it.
-Returns {split: ``run_eval_split``'s result}.
+port's reader, or JPEGs where Pillow is installed. Returns {split: ``run_eval_split``'s result}.
 """
 
 from __future__ import annotations
@@ -42,14 +43,14 @@ def main(argv=None) -> dict:
     parser.add_argument("--limit", type=int, default=0, metavar="N",
                         help="evaluate only the first N manifest rows per split")
     parser.add_argument("--visualize", type=int, default=0, metavar="N",
-                        help="comparison panels per split (not ported: refused above 0)")
+                        help="write the comparison panels of the first N triplets per split")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="where the model runs (default: the CUDA card)")
     args = parser.parse_args(argv)
 
     from cor_tpu_torch.config import load_eval_config
     from cor_tpu_torch.data.pipeline import get_valid_loader
-    from cor_tpu_torch.eval.validator import VISUALIZE_ITEM, run_eval_split
+    from cor_tpu_torch.eval.validator import run_eval_split
     from cor_tpu_torch.models.core_model import (
         _cast,
         check_kernel_dtype,
@@ -60,8 +61,6 @@ def main(argv=None) -> dict:
     from cor_tpu_torch.utils.convert import load_configured_weights
     from cor_tpu_torch.utils.meters import init_logger
 
-    if args.visualize > 0:
-        parser.error(f"--visualize {args.visualize}: the comparison panels need {VISUALIZE_ITEM}")
     cfg = load_eval_config(args.config)
     core_cfg = cfg.core_config()
     if cfg.missing_checkpoints():
@@ -100,11 +99,13 @@ def main(argv=None) -> dict:
         # unshuffled and keeps the last batch, so sample order is manifest order
         mask_names = [str(v) for v in loader.dataset.df.column("Query_mask")]
         result = run_eval_split(predict, model, loader, out_dir, manifest=loader.dataset.df,
-                                mask_names=mask_names, soft=args.soft)
+                                mask_names=mask_names, soft=args.soft,
+                                visualize_n=args.visualize)
         timing = result["timing"]
         wall = timing["wall_s"]
         logger.info(f"[{split_name}] wrote {len(result['hard'])} hard masks to {out_dir}"
                     + (f", {len(result['soft'])} soft masks" if args.soft else "")
+                    + (f", {len(result['panels'])} panels" if args.visualize else "")
                     + f"; skipped samples: {result['skipped']}")
         logger.info(f"[{split_name}] "
                     + ", ".join(f"{k}={v:.4f}" for k, v in result["summary"].items()))

@@ -1,6 +1,6 @@
 """The port's training entry point, the counterpart of ``cor_tpu.cli.train``:
 
-    python -m cor_tpu_torch.cli.train --config configs/train_config_m3.yaml --synthetic
+    python -m cor_tpu_torch.cli.train --config configs/train_config_m3.yaml [--synthetic]
 
 trains the CORE model (the SAM image encoder, the SigLIP towers,
 MaskAdapterPooling, CirFuse, the SAM prompt encoder and mask decoder) in the
@@ -19,11 +19,14 @@ encoder and the mask decoder) and ``load_siglip_pretrained_checkpoint`` (an
 open_clip ``.bin``) load over the seeded weights, in ``cor_tpu``'s order; a
 named file that does not exist is refused. ``load_checkpoint_path`` resumes
 from a checkpoint directory of the port under ``train_model_save_path``
-(``train/checkpoint.resolve_resume``). Data comes from the synthetic dataset
-(``--synthetic``: 4 batches to train on, 2 to validate on, as
-``cor_tpu``'s). A manifest (the training loader) and the keys of a device
-mesh are refused with the ROADMAP item that ports them. Returns the
-``Trainer``.
+(``train/checkpoint.resolve_resume``). ``async_checkpoint: true`` writes
+checkpoints in a background thread. Data comes from the config's COR127K
+manifests, ``train_csv`` (augmented, shuffled: ``data/pipeline.
+get_train_loader``) and ``val_csv`` under ``dataset_path``, sized for the
+model; the paths are checked before anything is built, as ``cor_tpu``'s are.
+``--synthetic`` takes the synthetic dataset instead (4 batches to train on,
+2 to validate on, as ``cor_tpu``'s). The keys of a device mesh are refused
+with the ROADMAP item that ports them. Returns the ``Trainer``.
 """
 
 from __future__ import annotations
@@ -37,15 +40,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-MANIFEST_ITEM = ("ROADMAP Queue 1, item 10 (the training loader: augmentation, "
-                 "get_train_loader)")
-
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="cor_tpu_torch trainer")
     parser.add_argument("--config", required=True, help="experiment YAML")
     parser.add_argument("--synthetic", action="store_true",
-                        help="train on synthetic data (the only data ported)")
+                        help="train on synthetic data instead of the config's manifests")
     parser.add_argument("--profile", type=int, default=0, metavar="N",
                         help="a torch.profiler trace of the first N train steps "
                              "(under {train_model_save_path}/profile)")
@@ -54,7 +54,12 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from cor_tpu_torch.config import load_train_config
-    from cor_tpu_torch.data.pipeline import DataLoader
+    from cor_tpu_torch.data.pipeline import (
+        DataLoader,
+        get_train_loader,
+        get_valid_loader,
+        model_sizes,
+    )
     from cor_tpu_torch.data.synthetic import SyntheticDataset
     from cor_tpu_torch.models.core_model import check_kernel_dtype, init_core_model
     from cor_tpu_torch.train.checkpoint import resolve_resume
@@ -69,7 +74,11 @@ def main(argv=None):
     if cfg.missing_checkpoints():
         parser.error(f"config names checkpoints that do not exist: {cfg.missing_checkpoints()}")
     if not args.synthetic:
-        parser.error(f"only --synthetic is ported: a manifest needs {MANIFEST_ITEM}")
+        # fail fast, before the model is built
+        for key in ("dataset_path", "train_csv", "val_csv"):
+            path = getattr(cfg, key)
+            if not path or not Path(path).exists():
+                parser.error(f"Required data path missing: {key}={path!r}")
     try:
         check_kernel_dtype(cfg.core_config(), args.device)
     except ValueError as e:
@@ -88,6 +97,13 @@ def main(argv=None):
     logger = init_logger(save / "logs", "train")
     where = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
     logger.info(f"device: {where}; torch {torch.__version__}")
+    if not args.synthetic and not cfg.tokenizer_path and (
+            cfg.load_siglip_pretrained_checkpoint or cfg.load_checkpoint_path):
+        logger.warning(
+            "tokenizer_path is unset while pretrained SigLIP/CORE weights are configured: "
+            "texts will be HASH-tokenized with ids unrelated to the trained vocab, so the "
+            "change-text conditioning is lost. Set tokenizer_path to the SigLIP "
+            "sentencepiece artifact.")
 
     model = init_core_model(core_cfg, cfg.seed)
     # pretrained towers over the seeded init; load_checkpoint_path resumes below
@@ -101,14 +117,19 @@ def main(argv=None):
     logger.info(f"params: {count_params(model):,} total, {count_params(model, mask):,} trainable")
     state, start_epoch, best_resume = resolve_resume(cfg, TrainState(model, optimizer), logger)
 
-    sig = core_cfg.support.siglip
-    sizes = dict(query_img_size=core_cfg.encoder.img_size, support_img_size=sig.vision.image_size,
-                 context_length=sig.text.context_length, vocab_size=sig.text.vocab_size)
-    train_loader = DataLoader(
-        SyntheticDataset(length=4 * cfg.batch_size, seed=cfg.seed, train=True, **sizes),
-        cfg.batch_size, num_workers=cfg.num_workers, shuffle=True, drop_last=True)
-    val_loader = DataLoader(SyntheticDataset(length=2 * cfg.batch_size, seed=cfg.seed + 1, **sizes),
-                            cfg.batch_size, num_workers=cfg.num_workers)
+    if args.synthetic:
+        sizes = model_sizes(core_cfg)
+        train_loader = DataLoader(
+            SyntheticDataset(length=4 * cfg.batch_size, seed=cfg.seed, train=True, **sizes),
+            cfg.batch_size, num_workers=cfg.num_workers, shuffle=True, drop_last=True)
+        val_loader = DataLoader(
+            SyntheticDataset(length=2 * cfg.batch_size, seed=cfg.seed + 1, **sizes),
+            cfg.batch_size, num_workers=cfg.num_workers)
+    else:
+        train_loader = get_train_loader(cfg, core_cfg=core_cfg)
+        val_loader = get_valid_loader(cfg, core_cfg=core_cfg)
+        logger.info(f"train: {len(train_loader.dataset)} triplets ({len(train_loader)} batches) "
+                    f"from {cfg.train_csv}; val: {len(val_loader.dataset)} from {cfg.val_csv}")
 
     writer = SummaryWriter(save / "tb")
     trainer = Trainer(cfg, core_cfg, state, schedule, logger, args.device, writer=writer,

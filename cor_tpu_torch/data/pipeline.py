@@ -11,21 +11,24 @@ passes from 0. A synthetic sample draws a 1024 x 1024 x 3 normal image
 on fills that large, so threads scale. At most ``num_workers + prefetch``
 batches are in flight, and each is dropped once consumed.
 
-The manifest side for inference, the counterpart of
-``cor_tpu.data.pipeline``'s: ``load_manifest`` reads a COR127K triplet CSV
-(``REQUIRED_COLUMNS``; rows with ``Compose == 0``) with the standard
-library's ``csv`` and types each column as pandas' ``read_csv`` does
-wherever a value reaches a path, a sample or the metric CSV: a column whose
-values are all integers is int64 (``Id``; a zero-padded ``Target`` such as
-``007`` becomes 7, so its folder is ``7``), one with a missing value among
-numbers float64, one of True/False bool, any other text, pandas' NA
-spellings (an empty cell among them) read as NaN (text ``"nan"``).
-``CORDataset`` (``train=False``) decodes PNGs with the port's reader
-(``utils/png.py``; JPEG through Pillow where it is installed) and resizes
-with the ``preproc`` library (Pillow's BILINEAR, bit for bit);
-``get_valid_loader`` batches a split in manifest order. The training side
-(``train=True``: augmentation, ``get_train_loader``) is refused, naming
-``TRAIN_LOADER_ITEM``.
+The manifest side, the counterpart of ``cor_tpu.data.pipeline``'s:
+``load_manifest`` reads a COR127K triplet CSV (``REQUIRED_COLUMNS``; rows
+with ``Compose == 0``) with the standard library's ``csv`` and types each
+column as pandas' ``read_csv`` does wherever a value reaches a path, a
+sample or the metric CSV: a column whose values are all integers is int64
+(``Id``; a zero-padded ``Target`` such as ``007`` becomes 7, so its folder
+is ``7``), one with a missing value among numbers float64, one of
+True/False bool, any other text, pandas' NA spellings (an empty cell among
+them) read as NaN (text ``"nan"``). ``CORDataset`` decodes PNGs with the
+port's reader (``utils/png.py``; JPEG through Pillow where it is installed)
+and resizes with the ``preproc`` library (Pillow's BILINEAR, bit for bit).
+With ``train=True`` it augments the query image and mask at their native
+size after decoding (``data/augment.py``, drawn from
+``np.random.default_rng((seed, epoch, idx))``; ``native_hw`` is the mask's
+size before the augmentation), and the ``DataLoader`` sets the dataset's
+``epoch`` to its own at each pass, so each epoch draws afresh.
+``get_train_loader`` shuffles a split and drops the short last batch;
+``get_valid_loader`` batches one in manifest order.
 """
 
 from __future__ import annotations
@@ -44,8 +47,6 @@ import numpy as np
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
-TRAIN_LOADER_ITEM = ("ROADMAP Queue 1, item 10 (the training loader: augmentation, "
-                     "get_train_loader)")
 
 
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -83,6 +84,8 @@ class DataLoader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(order)
+        if hasattr(self.dataset, "epoch"):
+            self.dataset.epoch = self.epoch  # fresh augmentation draws each epoch
         self.epoch += 1
         batches = [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         if self.drop_last:
@@ -208,7 +211,7 @@ def load_manifest(csv_path, compose_filter: int = 0) -> Manifest:
 
 
 # ---------------------------------------------------------------------------
-# the manifest dataset (inference)
+# the manifest dataset
 # ---------------------------------------------------------------------------
 
 
@@ -224,8 +227,9 @@ def _to_float_img(img: np.ndarray, size: int, normalize: bool) -> np.ndarray:
 
 @dataclass
 class CORDataset:
-    """Map-style dataset over a COR127K manifest (``train=False``): the
-    samples of ``cor_tpu.data.pipeline.CORDataset``, key for key."""
+    """Map-style dataset over a COR127K manifest: the samples of
+    ``cor_tpu.data.pipeline.CORDataset``, key for key (with ``train``, the
+    same augmentation draws for the same ``seed``, ``epoch`` and index)."""
 
     csv_path: str
     dataset_path: str
@@ -243,8 +247,6 @@ class CORDataset:
     def __post_init__(self):
         from cor_tpu_torch.data.tokenizer import get_tokenizer
 
-        if self.train:
-            raise ValueError(f"CORDataset(train=True) needs {TRAIN_LOADER_ITEM}")
         self.df = load_manifest(self.csv_path)
         if self.limit is not None and self.limit < 1:
             raise ValueError(f"limit must be a positive row count, got {self.limit}")
@@ -267,42 +269,64 @@ class CORDataset:
         }
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        from cor_tpu_torch.data.augment import train_augment
         from cor_tpu_torch.utils.png import read_image
 
         row = self.df.rows[idx]
         paths = self._paths(row)
+        q_img = read_image(paths["query_img"], "RGB")
         q_mask = read_image(paths["query_mask"], "L")
+        native_hw = np.array(q_mask.shape[:2], np.int32)
+        if self.train:
+            # (seed, epoch, idx): the same draws in every run, fresh each epoch
+            rng = np.random.default_rng((self.seed, self.epoch, idx))
+            q_img, q_mask = train_augment(q_img, q_mask, rng)
         return {
             "pair_id": np.int64(row["Id"]),
-            "query_img": _to_float_img(read_image(paths["query_img"], "RGB"),
-                                       self.query_img_size, True),
+            "query_img": _to_float_img(q_img, self.query_img_size, True),
             "query_mask": _to_float_img(q_mask, self.query_img_size, False),
             "support_img": _to_float_img(read_image(paths["support_img"], "RGB"),
                                          self.support_img_size, True),
             "support_mask": _to_float_img(read_image(paths["support_mask"], "L"),
                                           self.support_img_size, False),
             "text": self.tokenizer(str(row["Text"]))[0],
-            "native_hw": np.array(q_mask.shape[:2], np.int32),
+            "native_hw": native_hw,
             "query_mask_path": str(paths["query_mask"]),
         }
 
 
+def model_sizes(core_cfg) -> Dict[str, int]:
+    """The sample sizes the model takes: the query and support image sizes,
+    the text context and the hash tokenizer's vocab. Without a model config,
+    none: ``CORDataset``'s defaults (1024, 384, 64, 32000), the flagship
+    model's."""
+    if core_cfg is None:
+        return {}
+    text = core_cfg.support.siglip.text
+    return dict(query_img_size=core_cfg.encoder.img_size,
+                support_img_size=core_cfg.support.siglip.vision.image_size,
+                context_length=text.context_length, vocab_size=text.vocab_size)
+
+
 def valid_dataset(cfg, csv_path=None, tokenizer_path=None, limit: Optional[int] = None,
                   core_cfg=None) -> CORDataset:
-    """A split's ``CORDataset(train=False)``. ``core_cfg`` sizes the samples
-    as the model takes them (the query and support image sizes, the text
-    context and the hash tokenizer's vocab); without it, ``cor_tpu``'s
-    defaults (1024, 384, 64, 32000), which are the flagship model's."""
-    sizes = {}
-    if core_cfg is not None:
-        text = core_cfg.support.siglip.text
-        sizes = dict(query_img_size=core_cfg.encoder.img_size,
-                     support_img_size=core_cfg.support.siglip.vision.image_size,
-                     context_length=text.context_length, vocab_size=text.vocab_size)
+    """A split's ``CORDataset(train=False)``, sized by ``model_sizes``."""
     return CORDataset(csv_path=csv_path or getattr(cfg, "val_csv", None),
                       dataset_path=cfg.dataset_path, train=False,
                       tokenizer_path=tokenizer_path or getattr(cfg, "tokenizer_path", None),
-                      limit=limit, **sizes)
+                      limit=limit, **model_sizes(core_cfg))
+
+
+def get_train_loader(cfg, tokenizer_path=None, core_cfg=None) -> DataLoader:
+    """The training split (``cfg.train_csv``) as ``CORDataset(train=True,
+    seed=cfg.seed)``, sized by ``model_sizes``, in batches of
+    ``cfg.batch_size``: shuffled by ``(seed, epoch)``, the short last batch
+    dropped. One device reads the whole split (no shards)."""
+    ds = CORDataset(csv_path=cfg.train_csv, dataset_path=cfg.dataset_path, train=True,
+                    tokenizer_path=tokenizer_path or getattr(cfg, "tokenizer_path", None),
+                    seed=cfg.seed, **model_sizes(core_cfg))
+    return DataLoader(ds, cfg.batch_size, num_workers=cfg.num_workers, shuffle=True,
+                      drop_last=True, seed=cfg.seed)
 
 
 def get_valid_loader(cfg, csv_path=None, tokenizer_path=None, limit: Optional[int] = None,
@@ -311,4 +335,3 @@ def get_valid_loader(cfg, csv_path=None, tokenizer_path=None, limit: Optional[in
     short): ``valid_dataset``'s samples in batches of ``cfg.batch_size``."""
     return DataLoader(valid_dataset(cfg, csv_path, tokenizer_path, limit, core_cfg),
                       cfg.batch_size, num_workers=cfg.num_workers)
-

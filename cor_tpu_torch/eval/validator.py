@@ -10,7 +10,8 @@ PyTorch counterpart of ``cor_tpu.eval.validator``.
   1.0 convention, written to a CSV with the manifest's metadata columns
   joined by pair Id, and their means.
 - ``run_eval_split``: one forward per batch feeding the hard and soft
-  dumps and the metric CSV.
+  dumps, the metric CSV and the first N comparison panels
+  (``eval/visualize.py``).
 
 The forward runs batched on the model's device (``predict_stream``); the
 per-sample resizes, metrics and PNG writes stay on the host in numpy. The
@@ -20,8 +21,6 @@ antialias), the masks are written by ``utils/png.py``, and the native GT is
 read by its reader: no cv2 and no PIL. Each sample's writes and metrics sit
 in a try/continue as in the reference, so one bad sample never ends a
 split; the forward is outside it, and the result counts the skipped samples.
-The comparison panels (``eval/visualize.py``, PIL's ``ImageDraw``) are not
-ported: ``visualize_n`` above 0 is refused, naming ``VISUALIZE_ITEM``.
 """
 
 from __future__ import annotations
@@ -40,8 +39,6 @@ from cor_tpu_torch.utils.png import png_encode_gray, read_image
 
 log = logging.getLogger("cor_tpu_torch.eval")
 
-VISUALIZE_ITEM = ("ROADMAP Queue 1, item 8's eval/visualize.py (the comparison panels, "
-                  "Pillow's ImageDraw)")
 _PRED_KEYS = ("query_img", "support_img", "support_mask", "text")
 METRIC_KEYS = ("Dice", "MAE", "IoU", "mDice", "mIoU")
 
@@ -319,23 +316,28 @@ def run_eval_split(predict_fn, model, loader, out_dir, manifest=None,
                    visualize_n: int = 0, csv_name: str = "val_metric.csv") -> Dict:
     """One forward per batch feeding every consumer: the hard (and, with
     ``soft``, the soft) mask dumps under ``out_dir/pred_masks`` and
-    ``out_dir/soft_pred_masks``, and the metric CSV.
+    ``out_dir/soft_pred_masks``, the metric CSV, and the comparison panels
+    of the first ``visualize_n`` samples under ``out_dir/visualizations``.
 
-    Returns {"hard": [paths], "soft": [paths], "panels": [], "summary":
+    Returns {"hard": [paths], "soft": [paths], "panels": [paths], "summary":
     {metric: mean}, "skipped": samples one of whose consumers failed,
     "timing": ``predict_stream``'s stats, the host seconds of the
     per-sample work (``post_s``) and of the whole sweep (``wall_s``)}."""
-    if visualize_n > 0:
-        raise ValueError(f"visualize_n={visualize_n}: the comparison panels need {VISUALIZE_ITEM}")
+    from cor_tpu_torch.eval.visualize import render_panel
+
     out_dir = Path(out_dir)
     hard_dir = out_dir / "pred_masks"
     hard_dir.mkdir(parents=True, exist_ok=True)
     soft_dir = out_dir / "soft_pred_masks"
     if soft:
         soft_dir.mkdir(parents=True, exist_ok=True)
+    vis_dir = out_dir / "visualizations"
+    if visualize_n > 0:
+        vis_dir.mkdir(parents=True, exist_ok=True)
     meta_lookup = manifest_meta_lookup(manifest)
     hard_written: List[Path] = []
     soft_written: List[Path] = []
+    panels: List[Path] = []
     rows: List[Dict] = []
     skipped: set = set()
     stats: dict = {"post_s": 0.0}
@@ -362,9 +364,15 @@ def run_eval_split(predict_fn, model, loader, out_dir, manifest=None,
             except Exception as e:
                 skipped.add(sample_idx)
                 log.warning(f"val_metric: skipping sample {sample_idx} ({e})")
+            if len(panels) < visualize_n:
+                try:
+                    panels.append(render_panel(probs[i], batch, i, meta_lookup, vis_dir))
+                except Exception as e:
+                    skipped.add(sample_idx)
+                    log.warning(f"visualize: skipping sample {sample_idx} ({e})")
             sample_idx += 1
         stats["post_s"] += time.perf_counter() - t0
     summary = write_metric_csv(rows, out_dir / csv_name)
     stats["wall_s"] = time.perf_counter() - t_start
-    return {"hard": hard_written, "soft": soft_written, "panels": [], "summary": summary,
+    return {"hard": hard_written, "soft": soft_written, "panels": panels, "summary": summary,
             "skipped": len(skipped), "timing": stats}

@@ -13,7 +13,12 @@ whole library. A failed build raises; there is no fallback.
 - ``resize_normalize_f32``: the same resize, then ``(x / 255 - mean) / std``
   as float32 HWC (``cor_tpu.native.resize_normalize_f32``'s bits);
 - ``png_unfilter``: a PNG's scanlines with their filters (types 0-4)
-  undone.
+  undone;
+- ``color_enhance_u8``: Pillow's ``ImageEnhance`` Brightness -> Contrast ->
+  Color -> Sharpness chain on an RGB image, bit for bit
+  (``cor_tpu.native.color_enhance_u8``'s bits);
+- ``rotate_bicubic_u8``: Pillow's ``Image.rotate(angle, BICUBIC)``
+  (``expand=False``, black fill) of an RGB or gray image, bit for bit.
 
 Every call releases the GIL (ctypes), so the loader's threads scale.
 """
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import platform
 import shutil
@@ -99,6 +105,11 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.cor_resize_normalize_f32.restype = None
     lib.cor_png_unfilter.argtypes = [_u8p, i, ctypes.c_longlong, i, _u8p]
     lib.cor_png_unfilter.restype = i
+    f = ctypes.c_float
+    lib.cor_color_enhance_u8.argtypes = [_u8p, i, i, f, f, f, f, _u8p]
+    lib.cor_color_enhance_u8.restype = None
+    lib.cor_affine_bicubic_u8.argtypes = [_u8p, i, i, i, ctypes.POINTER(ctypes.c_double), _u8p]
+    lib.cor_affine_bicubic_u8.restype = None
     return lib
 
 
@@ -161,3 +172,60 @@ def png_unfilter(raw: bytes, h: int, rowbytes: int, bpp: int) -> np.ndarray:
         raise ValueError(f"png: scanline {bad - 1} has filter type "
                          f"{buf[(bad - 1) * (rowbytes + 1)]}, not 0-4")
     return out
+
+
+def color_enhance_u8(img: np.ndarray, f_bright: float, f_contrast: float, f_color: float,
+                     f_sharp: float) -> np.ndarray:
+    """Pillow's ``ImageEnhance`` chain on a uint8 [H, W, 3] RGB image:
+    Brightness, Contrast, Color, then Sharpness, each ``enhance(factor)``
+    (the factors rounded to float32, as Pillow's ``blend`` takes them)."""
+    src = np.ascontiguousarray(img)
+    if src.dtype != np.uint8 or src.ndim != 3 or src.shape[2] != 3 or 0 in src.shape:
+        raise ValueError(f"color_enhance_u8 takes a non-empty uint8 [H, W, 3] image, got "
+                         f"{src.dtype} {src.shape}")
+    h, w, _ = src.shape
+    dst = np.empty_like(src)
+    library().cor_color_enhance_u8(src.ctypes.data_as(_u8p), h, w, f_bright, f_contrast,
+                                   f_color, f_sharp, dst.ctypes.data_as(_u8p))
+    return dst
+
+
+def rotation_matrix(angle: float, w: int, h: int):
+    """The six entries of the affine matrix with which Pillow's
+    ``Image.rotate(angle)`` (no ``center``, no ``translate``) samples its
+    source: the rotation by ``-angle`` degrees, entries rounded to 15
+    places, about (w / 2, h / 2); Python floats as Pillow computes them."""
+    cx, cy = w / 2, h / 2
+    rad = -math.radians(angle % 360.0)
+    m = [round(math.cos(rad), 15), round(math.sin(rad), 15), 0.0,
+         round(-math.sin(rad), 15), round(math.cos(rad), 15), 0.0]
+    m[2], m[5] = m[0] * -cx + m[1] * -cy + m[2], m[3] * -cx + m[4] * -cy + m[5]
+    m[2] += cx
+    m[5] += cy
+    return m
+
+
+def rotate_bicubic_u8(img: np.ndarray, angle: float) -> np.ndarray:
+    """Pillow's ``Image.rotate(angle, Image.BICUBIC)`` with ``expand=False``
+    of a uint8 [H, W] ("L") or [H, W, 3] ("RGB") image: the same size, black
+    where the rotated source does not reach. An angle of 0 (mod 360)
+    returns a copy, as Pillow does; 90, 180 and 270, which Pillow turns into
+    transposes, are refused."""
+    src = np.ascontiguousarray(img)
+    if src.dtype != np.uint8 or src.ndim not in (2, 3) or 0 in src.shape or (
+            src.ndim == 3 and src.shape[2] != 3):
+        raise ValueError(f"rotate_bicubic_u8 takes a non-empty uint8 [H, W] or [H, W, 3] "
+                         f"image, got {src.dtype} {src.shape}")
+    turn = float(angle) % 360.0
+    if turn == 0.0:
+        return src.copy()
+    if turn in (90.0, 180.0, 270.0):
+        raise ValueError(f"rotate_bicubic_u8: Pillow transposes at {angle} degrees; only "
+                         f"other angles are ported")
+    h, w = src.shape[:2]
+    ch = 1 if src.ndim == 2 else 3
+    m = (ctypes.c_double * 6)(*rotation_matrix(angle, w, h))
+    dst = np.empty_like(src)
+    library().cor_affine_bicubic_u8(src.ctypes.data_as(_u8p), h, w, ch, m,
+                                    dst.ctypes.data_as(_u8p))
+    return dst

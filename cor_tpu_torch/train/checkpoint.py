@@ -7,15 +7,18 @@ and, in a full save, ``opt_state``, ``step``, ``epoch``, ``best_score``,
 (``checkpoint_epoch_N``, ``interrupted_checkpoint_epoch_N``, ``best_model``,
 ``best_model_full``). A save writes a temporary directory and renames it into
 place, so a cut-off save never leaves a half-written checkpoint under a
-resumable name. The resume rules are ``cor_tpu``'s (``resolve_resume``).
-Reading ``cor_tpu``'s Orbax checkpoints is not ported (the card's machine
-has no orbax).
+resumable name. ``CheckpointWriter`` (``async_checkpoint``) writes in a
+background thread from a host copy of the payload, so training goes on
+while the file is written. The resume rules are ``cor_tpu``'s
+(``resolve_resume``). ``cor_tpu``'s Orbax directories are read and written
+by ``utils/orbax.py`` (parameters only).
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import threading
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -35,6 +38,70 @@ def save_checkpoint(directory, name: str, payload: Dict[str, Any]) -> Path:
         shutil.rmtree(path)
     os.replace(tmp, path)
     return path
+
+
+def host_snapshot(payload: Any) -> Any:
+    """A copy of ``payload`` whose tensors are fresh CPU tensors: nested
+    dicts, lists and tuples are rebuilt, other values kept. Training changes
+    the model's and the optimizer's tensors in place, so a background write
+    must not hold references to them."""
+    if isinstance(payload, torch.Tensor):
+        return payload.detach().to("cpu", copy=True)
+    if isinstance(payload, dict):
+        return {k: host_snapshot(v) for k, v in payload.items()}
+    if isinstance(payload, (list, tuple)):
+        return type(payload)(host_snapshot(v) for v in payload)
+    return payload
+
+
+class CheckpointWriter:
+    """The training loop's checkpoint writer, ``cor_tpu``'s
+    ``CheckpointWriter`` on ``torch.save``.
+
+    With ``async_save`` a ``save`` copies the payload to host memory
+    (``host_snapshot``) and returns; a background thread writes it with
+    ``save_checkpoint``. Saves are serialised: a save first waits for the
+    one before it, so at most one write is in flight and a directory is
+    never replaced under its own pending write. ``wait()`` drains the
+    writer. An error in the writer thread is raised by the next ``save`` or
+    ``wait``, never dropped. Without ``async_save`` a save writes before it
+    returns."""
+
+    def __init__(self, async_save: bool = False):
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
+        self._pending: Optional[Path] = None
+
+    def save(self, directory, name: str, payload: Dict[str, Any]) -> Path:
+        self.wait()
+        if not self.async_save:
+            return save_checkpoint(directory, name, payload)
+        snapshot = host_snapshot(payload)
+        path = Path(directory).absolute() / name
+
+        def write():
+            try:
+                save_checkpoint(directory, name, snapshot)
+            except Exception as e:  # raised by the next save or wait
+                self._error = e
+
+        self._pending = path
+        self._thread = threading.Thread(target=write, name=f"checkpoint-{name}")
+        self._thread.start()
+        return path
+
+    def wait(self) -> None:
+        """Block until the pending write (if any) is on disk; raise its
+        error if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        error, self._error = self._error, None
+        path, self._pending = self._pending, None
+        if error is not None:
+            raise RuntimeError(f"the background write of the checkpoint {path} failed: "
+                               f"{error!r}") from error
 
 
 def restore_checkpoint(directory, name: str) -> Dict[str, Any]:

@@ -4,9 +4,14 @@
 - The loss meter (cumulative mean) and ETA logging every
   ``batch_record_interval`` batches; the step's loss is read only there, so
   the host does not wait for the card on every step.
-- Periodic checkpoints every ``train_model_save_epoch`` epochs.
+- Periodic checkpoints every ``train_model_save_epoch`` epochs, through a
+  ``CheckpointWriter``: with ``async_checkpoint`` the loop waits only for a
+  host copy of the payload while a thread writes it; ``fit`` drains the
+  writer at its end. ``save_seconds`` records how long each save held the
+  loop.
 - ^C or SIGTERM: an emergency ``interrupted_checkpoint_epoch_N`` (during
-  validation, the epoch's training being complete, ``checkpoint_epoch_N``).
+  validation, the epoch's training being complete, ``checkpoint_epoch_N``),
+  on disk before the interrupt goes on.
 - Validation: metric sums over the valid rows of each batch, divided by the
   count once per epoch; the best model on Dice + IoU is saved twice,
   ``best_model`` (parameters) and ``best_model_full`` (resumable).
@@ -14,8 +19,8 @@
   last validation batch to the batch size), with ``valid`` 0 on the padding.
 
 One device, no mesh: the parallel keys (``mesh_data``/``mesh_model`` > 1,
-``mesh_stage`` > 1, ``seq_shard``, ``shard_optimizer_state``) and
-``async_checkpoint`` are refused with the ROADMAP item that ports them.
+``mesh_stage`` > 1, ``seq_shard``, ``shard_optimizer_state``) are refused
+with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -30,16 +35,15 @@ import numpy as np
 import torch
 
 from cor_tpu_torch.models.core_model import check_kernel_dtype
-from cor_tpu_torch.train.checkpoint import save_checkpoint
+from cor_tpu_torch.train.checkpoint import CheckpointWriter
 from cor_tpu_torch.train.step import BATCH_KEYS, TrainState, make_eval_step, make_train_step
 from cor_tpu_torch.utils.meters import AverageMeter, StepTimer
 
 PARALLEL_ITEM = "ROADMAP Queue 1, item 9 (parallel)"
-ASYNC_CHECKPOINT_ITEM = "ROADMAP Queue 1, item 11 (training: the async checkpoint writer)"
 
 
 def check_single_device(cfg) -> None:
-    """Refuse the keys that need a mesh or a background writer."""
+    """Refuse the keys that need a device mesh."""
     parallel = [k for k, bad in (
         ("mesh_data", cfg.mesh_data not in (None, 1)), ("mesh_model", cfg.mesh_model > 1),
         ("mesh_stage", cfg.mesh_stage > 1), ("seq_shard", cfg.seq_shard),
@@ -47,9 +51,6 @@ def check_single_device(cfg) -> None:
     if parallel:
         raise ValueError(f"{parallel} need a device mesh: cor_tpu_torch trains on one device "
                          f"({PARALLEL_ITEM})")
-    if cfg.async_checkpoint:
-        raise ValueError(f"async_checkpoint is not ported: checkpoints are written in the "
-                         f"loop ({ASYNC_CHECKPOINT_ITEM})")
 
 
 @dataclass
@@ -83,6 +84,8 @@ class Trainer:
         self.train_step = make_train_step(core_cfg, cfg.seed, grad_accum=cfg.grad_accum)
         self.eval_step = make_eval_step(core_cfg)
         self.best = BestTracker()
+        self.ckpt = CheckpointWriter(async_save=cfg.async_checkpoint)
+        self.save_seconds: Dict[str, float] = {}  # how long each save held the loop
         # --profile N: a torch.profiler trace of the first N train steps
         self.profile_steps = profile_steps
         self.profile_dir = Path(profile_dir) if profile_dir is not None else None
@@ -196,8 +199,10 @@ class Trainer:
                     self.logger.info("[Train Info]: Interrupt during validation: saving and "
                                      "exiting!")
                     self._save(f"checkpoint_epoch_{epoch}", epoch)
+                    self.ckpt.wait()
                     raise
         finally:
+            self.ckpt.wait()  # the last write is on disk before fit returns
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
             if self._prof is not None:  # --profile N outlasted the steps
@@ -244,6 +249,7 @@ class Trainer:
 
     def _save(self, name: str, epoch: int, loss: Optional[float] = None,
               params_only: bool = False) -> None:
+        t0 = time.perf_counter()
         state = self.state
         payload = {"params": state.model.state_dict()}
         if not params_only:
@@ -251,5 +257,9 @@ class Trainer:
                            best_score=self.best.best_score, best_epoch=self.best.best_epoch)
             if loss is not None:
                 payload["loss"] = loss
-        path = save_checkpoint(self.cfg.train_model_save_path, name, payload)
-        self.logger.info(f"[Train Info]: Saved checkpoint to {path}")
+        path = self.ckpt.save(self.cfg.train_model_save_path, name, payload)
+        if name.startswith("interrupted"):
+            self.ckpt.wait()  # the process is about to exit: the write must be on disk
+        self.save_seconds[name] = time.perf_counter() - t0
+        self.logger.info(f"[Train Info]: Saved checkpoint to {path}"
+                         + (" (writing in the background)" if self.ckpt.async_save else ""))

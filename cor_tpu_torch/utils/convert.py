@@ -28,7 +28,8 @@ part present is loaded in place (``copy_``: every tensor's version moves,
 so a decoder whose kernel packs were made before repacks them at its next
 call); parts that are absent are skipped. ``load_trained_params`` also
 reads the port's own checkpoint directories (``train/checkpoint.py``'s
-``state.pt``) and refuses ``cor_tpu``'s Orbax directories (``ORBAX_ITEM``).
+``state.pt``) and ``cor_tpu``'s Orbax directories (``utils/orbax.py``,
+which needs ``tensorstore``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import torch
 from torch import nn
 
 from cor_tpu_torch.train.checkpoint import STATE_FILE, restore_checkpoint
+from cor_tpu_torch.utils.orbax import is_orbax_checkpoint, read_params
 from cor_tpu_torch.utils.weights import (
     _leaves,
     flatten_tree,
@@ -50,7 +52,6 @@ from cor_tpu_torch.utils.weights import (
 
 Params = Dict[str, Any]
 Parts = Union[nn.Module, Mapping[str, nn.Module]]
-ORBAX_ITEM = "ROADMAP Queue 1, item 11 (Orbax checkpoint import and export)"
 TORCH_SUFFIXES = (".pth", ".pt", ".bin")
 
 
@@ -465,8 +466,11 @@ def load_trained_params(load_checkpoint_path, core_cfg, parts: Parts, logger,
     - a checkpoint directory of the port (``state.pt``: ``best_model``,
       ``checkpoint_epoch_N``, ...): its ``params`` (the model's state dict),
       each part's keys loaded strictly;
-    - any other directory (``cor_tpu``'s Orbax checkpoints) is refused,
-      naming ``ORBAX_ITEM``."""
+    - an Orbax checkpoint directory of ``cor_tpu`` (``best_model``, a full
+      training state): its ``params`` subtree, audited as a ``.pth`` and
+      loaded through the weight bridge (``utils/orbax.read_params``; without
+      ``tensorstore`` it is refused, naming the package);
+    - anything else is refused."""
     ckpt = Path(str(load_checkpoint_path))
     parts = as_parts(parts)
     if ckpt.suffix in TORCH_SUFFIXES and ckpt.is_file():
@@ -484,11 +488,19 @@ def load_trained_params(load_checkpoint_path, core_cfg, parts: Parts, logger,
         return parts
     if not ckpt.exists():
         raise FileNotFoundError(f"load_checkpoint_path={str(ckpt)!r} not found")
+    if is_orbax_checkpoint(ckpt):
+        loaded = {k: v for k, v in read_params(ckpt).items() if k in parts}
+        for kind, keys in audit_params(expected_tree(parts), loaded).items():
+            if keys:
+                logger.info(f"[ckpt audit] {kind} ({len(keys)}): {keys[:10]}")
+        load_tree(parts, loaded)
+        logger.info(f"Loaded Orbax checkpoint: {ckpt}")
+        return parts
     if not ckpt.is_dir() or not is_port_checkpoint(ckpt):
         raise ValueError(
             f"load_checkpoint_path={str(ckpt)!r} is neither a torch checkpoint "
-            f"({'/'.join(TORCH_SUFFIXES)}) nor a cor_tpu_torch checkpoint directory (with "
-            f"{STATE_FILE}); cor_tpu's Orbax checkpoints need {ORBAX_ITEM}")
+            f"({'/'.join(TORCH_SUFFIXES)}), a cor_tpu_torch checkpoint directory (with "
+            f"{STATE_FILE}) nor an Orbax checkpoint directory")
     params = restore_checkpoint(ckpt.parent, ckpt.name)["params"]
     for name, module in parts.items():
         module.load_state_dict({k[len(name) + 1:]: v for k, v in params.items()

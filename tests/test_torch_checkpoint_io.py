@@ -11,7 +11,8 @@ load of the same tree. Also: the audit's three lists, the ``no_mask_embed``
 quirk (a SAM ``.pth`` never loads the prompt encoder), a repack of the
 decoder's kernel packs after a load (P7), the exporters key for key, the
 reference-format ``.pth`` read back by cor_tpu, and ``cli.export`` (a port
-checkpoint directory read, an Orbax one refused).
+checkpoint directory read into a ``.pth``, and ``--to-orbax`` into an Orbax
+directory that cor_tpu restores).
 """
 
 from __future__ import annotations
@@ -306,8 +307,10 @@ def test_export_matches_cor_tpu_and_reads_back(tmp_path):
 def test_cli_export_reads_port_checkpoints_and_refuses_orbax(tmp_path, monkeypatch, capsys):
     """cli.export reads a checkpoint directory of the port's trainer (its
     epoch and loss too) into a .pth that cor_tpu converts to the model's
-    tree; an Orbax directory is refused naming ROADMAP item 11, by cli.export
-    and by load_trained_params."""
+    tree; with --to-orbax into a params-only Orbax directory, which
+    cor_tpu's load_trained_params restores to the same tree bit for bit and
+    the port's loads back bit for bit (the round trip); a path that is
+    neither is refused."""
     from cor_tpu.utils.convert import load_trained_params as j_load
     from cor_tpu_torch.cli import export as pexport_cli
     from cor_tpu_torch.config import EvalConfig
@@ -326,14 +329,20 @@ def test_cli_export_reads_port_checkpoints_and_refuses_orbax(tmp_path, monkeypat
     assert "exported" in capsys.readouterr().out
     assert_trees_equal(j_load(tmp_path / "out" / "e2.pth", _jax_tiny_config(), None, LOG),
                        to_cor_tpu_tree(model))
-    orbax = tmp_path / "orbax_ckpt"
-    orbax.mkdir()
-    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
+    orbax = tmp_path / "out" / "best_model"
+    out = pexport_cli.main(["--checkpoint", str(tmp_path / "checkpoint_epoch_2"),
+                            "--out", str(orbax), "--config", str(cfg), "--to-orbax"])
+    assert out["n_keys"] == len(flatten_tree(to_cor_tpu_tree(model)))
+    assert_trees_equal(j_load(orbax, _jax_tiny_config(), None, LOG), to_cor_tpu_tree(model))
+    back = pcore.init_core_model(pc, 9)
+    pconv.load_trained_params(orbax, pc, back, LOG)
+    for k, v in model.state_dict().items():
+        assert torch.equal(back.state_dict()[k], v), k
     with pytest.raises(SystemExit) as e:
-        pexport_cli.main(["--checkpoint", str(orbax), "--out", str(tmp_path / "x.pth")])
-    assert e.value.code == 2 and "item 11" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="item 11"):
-        pconv.load_trained_params(orbax, pc, model, LOG)
+        pexport_cli.main(["--checkpoint", str(tmp_path), "--out", str(tmp_path / "x.pth")])
+    assert e.value.code == 2 and "neither" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="neither"):
+        pconv.load_trained_params(tmp_path, pc, model, LOG)
     with pytest.raises(FileNotFoundError):
         pconv.load_trained_params(tmp_path / "absent.pth", pc, model, LOG)
 

@@ -19,16 +19,18 @@ OpenCV's), on the CPU.
   (hard) or its x255 within 255e-6 of an integer (soft: the truncation's
   edge), CSV rows equal (metadata as text, metrics within 1e-6), the resize
   within 1e-6 of cv2's; a bad sample skipped and counted; ``val_metric``
-  and ``save_{hard,soft}_pred_masks`` as ``run_eval_split``.
+  and ``save_{hard,soft}_pred_masks`` as ``run_eval_split``; the comparison
+  panels (``visualize_n``) cor_tpu's canvases, pixel for pixel above the
+  caption band, which holds the port's own bitmap text.
 - The slice: cor_tpu's ``make_predict_step`` + ``run_eval_split`` against
-  the port's ``cli.eval`` on the tiny model (tests/helpers.py) in fp32 with
-  weights from one ``.pth``: summary metrics within 1e-3 (``SUMMARY_TOL``),
-  hard masks with IoU >= 0.99 (``MASK_IOU_MIN``).
+  the port's ``cli.eval --visualize 2`` on the tiny model (tests/helpers.py)
+  in fp32 with weights from one ``.pth``: summary metrics within 1e-3
+  (``SUMMARY_TOL``), hard masks and the panels' prediction with IoU >= 0.99
+  (``MASK_IOU_MIN``), the panels' other pixels above the caption equal.
 - ``cli.index`` and ``cli.retrieve`` on a manifest and a ``.pth``: the
   index's rows within 1e-6 of cor_tpu's build over its ``CORDataset``
   (tests/test_torch_encoder.py's tolerance), its recalls cor_tpu's
-  protocol's, and the refusals that remain (``--visualize``,
-  ``train=True``).
+  protocol's.
 - Serving's file requests: read as cor_tpu's server reads them, bit for
   bit.
 """
@@ -50,6 +52,7 @@ from PIL import Image
 from cor_tpu_torch.config import EvalConfig
 from cor_tpu_torch.data import pipeline as ppipe
 from cor_tpu_torch.eval import validator as pval
+from cor_tpu_torch.eval import visualize as pvis
 from cor_tpu_torch.native import preproc as pnat
 from cor_tpu_torch.utils import png as ppng
 from tests.test_torch_retrieve import port_config
@@ -316,8 +319,8 @@ def test_cor_dataset_refusals(dataset):
     for bad in (0, -1):
         with pytest.raises(ValueError, match="positive row count"):
             ppipe.CORDataset(str(csv_path), str(root), limit=bad)
-    with pytest.raises(ValueError, match="item 10"):
-        ppipe.CORDataset(str(csv_path), str(root), train=True)
+    # train=True is taken (the augmentation: tests/test_torch_train_data.py)
+    assert len(ppipe.CORDataset(str(csv_path), str(root), train=True)) == 4
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +343,33 @@ class TinyModel(torch.nn.Module):
     def __init__(self):
         super().__init__()
         self.w = torch.nn.Parameter(torch.zeros(1))
+
+
+PANEL = 256  # the panels' side, cor_tpu's default target_size
+PAD = 10
+
+
+def assert_panels_match(ours, theirs, pred_iou_min=None):
+    """The port's panel PNGs against cor_tpu's: the same names and canvas
+    sizes, every pixel above the caption band equal (with ``pred_iou_min``
+    the prediction panel is held by the IoU of its white pixels instead),
+    and the caption band white but for the port's black text."""
+    assert [p.name for p in ours] == [q.name for q in theirs]
+    band = PANEL + 2 * PAD
+    for p, q in zip(ours, theirs):
+        got, want = ppng.read_image(p, "RGB").copy(), np.array(Image.open(q).convert("RGB"))
+        assert got.shape == want.shape == (got.shape[0], 5 * PANEL + 6 * PAD, 3), p.name
+        if pred_iou_min is None:
+            np.testing.assert_array_equal(got[:band], want[:band], err_msg=p.name)
+        else:
+            x = PAD + 2 * (PANEL + PAD)  # the third panel: the prediction
+            pred = np.s_[PAD:PAD + PANEL, x:x + PANEL]
+            a, b = got[pred][..., 0] > 127, want[pred][..., 0] > 127
+            assert (a & b).sum() / max((a | b).sum(), 1) >= pred_iou_min, p.name
+            got[pred], want[pred] = 0, 0
+            np.testing.assert_array_equal(got[:band], want[:band], err_msg=p.name)
+        caption = got[band:]
+        assert set(np.unique(caption)) == {0, 255} and (caption == 255).all(axis=2).mean() > 0.5
 
 
 def read_csv_rows(path):
@@ -415,8 +445,17 @@ def test_run_eval_split_matches_cor_tpu(dataset, tmp_path):
     bad[0]["pair_id"] = np.array([None, *bad[0]["pair_id"][1:]], object)
     res = pval.run_eval_split(fixed(True), TinyModel(), bad, tmp_path / "b", ds.df, names)
     assert res["skipped"] == 1 and len(res["hard"]) == 3
-    with pytest.raises(ValueError, match="visualize"):
-        pval.run_eval_split(fixed(True), TinyModel(), batches, tmp_path / "v", visualize_n=2)
+    # the comparison panels of the first 3 samples: cor_tpu's canvases
+    ours = pval.run_eval_split(fixed(True), TinyModel(), batches, tmp_path / "pv", ds.df, names,
+                               visualize_n=3)
+    theirs = j_run(fixed(False), None, batches, tmp_path / "jv", j_manifest(csv_path), names,
+                   visualize_n=3)
+    assert ours["skipped"] == 0 and len(ours["panels"]) == 3
+    assert_panels_match(ours["panels"], theirs["panels"])
+    # the panels alone (val_visual_for_compare): the same files
+    alone = pvis.val_visual_for_compare(fixed(True), TinyModel(), batches, tmp_path / "va",
+                                        manifest=ds.df, max_samples=3)
+    assert [p.read_bytes() for p in alone] == [p.read_bytes() for p in ours["panels"]]
 
 
 # ---------------------------------------------------------------------------
@@ -477,15 +516,20 @@ def test_cli_eval_matches_cor_tpu_eval(trained, tiny_cli, tmp_path):
     from cor_tpu_torch.cli import eval as pcli_eval
     from tests.helpers import tiny_core_config
 
-    results = pcli_eval.main(["--config", str(trained["cfg"]), "--soft", "--device", "cpu"])
+    results = pcli_eval.main(["--config", str(trained["cfg"]), "--soft", "--visualize", "2",
+                              "--device", "cpu"])
     jc = tiny_core_config()
     params = jax.tree.map(np.asarray, j_load(trained["pth"], jc, None, LOG))
     predict = make_predict_step(jc)
     for split, csv_path in trained["splits"].items():
         ds = j_dataset(csv_path, trained["root"])
         want = j_run(predict, params, JLoader(ds, 2, num_workers=2), tmp_path / split,
-                     manifest=ds.df, mask_names=list(ds.df["Query_mask"].astype(str)), soft=True)
+                     manifest=ds.df, mask_names=list(ds.df["Query_mask"].astype(str)), soft=True,
+                     visualize_n=2)
         got = results[split]
+        assert len(got["panels"]) == 2
+        assert all(p.parent == trained["out"] / split / "visualizations" for p in got["panels"])
+        assert_panels_match(got["panels"], want["panels"], pred_iou_min=MASK_IOU_MIN)
         assert got["skipped"] == 0 and len(got["hard"]) == len(got["soft"]) == len(ds)
         for m in pval.METRIC_KEYS:
             assert abs(got["summary"][m] - want["summary"][m]) <= SUMMARY_TOL, (split, m)
@@ -505,7 +549,6 @@ def test_cli_eval_refusals(trained, tiny_cli, tmp_path, capsys, monkeypatch):
 
     cfg = tmp_path / "eval.yaml"
     for text, argv, want in (
-            (trained["cfg"].read_text(), ["--visualize", "2"], "item 8's eval/visualize.py"),
             ("load_checkpoint_path: /ckpt/none.pth\n", [], "load_checkpoint_path=/ckpt/none.pth"),
             ("val_csv_A: /data/absent.csv\n", [], "manifest not found"),
             ("batch_size: 2\n", [], "no CUDA card")):

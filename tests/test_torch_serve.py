@@ -267,8 +267,10 @@ export.save_core_checkpoint(str(root / "core.pth"), trained)
     f"batch_size: 2\ndataset_path: {root / 'ds'}\nval_csv_A: {root / 'm.csv'}\n"
     f"vaild_model_save_path: {root / 'ev'}\nload_checkpoint_path: {root / 'core.pth'}\n"
     "num_workers: 2\n")
-res = eval_cli.main(["--config", str(root / "eval.yaml"), "--soft", "--device", "cpu"])["Test_1"]
+res = eval_cli.main(["--config", str(root / "eval.yaml"), "--soft", "--visualize", "2",
+                     "--device", "cpu"])["Test_1"]
 assert res["skipped"] == 0 and len(res["hard"]) == len(res["soft"]) == 3, res
+assert [p.name for p in res["panels"]] == ["0.png", "1.png"], res["panels"]
 assert [p.name for p in res["hard"]] == [f"{i}_qm{i}.png" for i in range(3)], res["hard"]
 assert all(0 <= v <= 1 for v in res["summary"].values()), res["summary"]
 with contextlib.redirect_stdout(io.StringIO()):
@@ -282,6 +284,37 @@ back = core_model.init_core_model(cfg, 9)
 convert.load_trained_params(root / "e.pth", cfg, back, logging.getLogger("no-jax"))
 assert all(torch.equal(a, b) for a, b in zip(back.state_dict().values(),
                                              trained.state_dict().values()))
+# an Orbax directory without tensorstore: refused, naming the package
+(root / "orbax_ck").mkdir()
+(root / "orbax_ck" / "_METADATA").write_text('{"tree_metadata": {}}')
+try:
+    convert.load_trained_params(root / "orbax_ck", cfg, back, logging.getLogger("no-jax"))
+    raise AssertionError("an Orbax directory loaded without tensorstore")
+except ImportError as e:
+    assert "'tensorstore'" in str(e), e
+# training from the manifest (augmented), the async checkpoint writer
+from cor_tpu_torch.cli import train as train_cli
+from cor_tpu_torch.config import TrainConfig
+TrainConfig.core_config = lambda self: cfg
+for i in range(3, 5):
+    (ds / "image" / f"q{i}.png").write_bytes(
+        png_encode(rng.integers(0, 256, (48 + i, 60, 3), dtype=np.uint8)))
+    (ds / "mask/7" / f"qm{i}.png").write_bytes(
+        png_encode((rng.random((48 + i, 60)) > 0.5).astype(np.uint8) * 255))
+    (ds / "image" / f"s{i}.png").write_bytes(
+        png_encode(rng.integers(0, 256, (20, 24, 3), dtype=np.uint8)))
+    (ds / "mask/sup" / f"sm{i}.png").write_bytes(
+        png_encode((rng.random((20, 24)) > 0.5).astype(np.uint8) * 255))
+(root / "t.csv").write_text("Id,Compose,Dataset,Target,Query_img,Query_mask,Support_img,"
+                            "Support_mask,Text\n" + "\n".join(
+                                f"{i},0,coco,7,q{i}.png,qm{i}.png,s{i}.png,sm{i}.png,t {i}"
+                                for i in range(3, 5)) + "\n")
+(root / "mtrain.yaml").write_text(
+    f"epoch: 1\nbatch_size: 1\nnum_workers: 2\ndataset_path: {root / 'ds'}\n"
+    f"train_csv: {root / 't.csv'}\nval_csv: {root / 'm.csv'}\nasync_checkpoint: true\n"
+    f"train_model_save_epoch: 1\ntrain_model_save_path: {root / 'mck'}\n")
+trainer = train_cli.main(["--config", str(root / "mtrain.yaml"), "--device", "cpu"])
+assert trainer.state.step == 2 and (root / "mck" / "checkpoint_epoch_1" / "state.pt").is_file()
 """
 
 
@@ -302,14 +335,14 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
     STACK_FUSED and GRID_FUSED against K1's route, and decode_bench's run
     on the CPU for each variant); with ``evaluate``, ``NO_JAX_EVAL``. Then
     K5′ (add_layer_norm, forward and backward) and K9 (fused_upscale2_hyper)
-    on the CPU. pandas, PIL and cv2 are blocked too. Returns the first
-    response."""
+    on the CPU. pandas, PIL, cv2, orbax and tensorstore are blocked too.
+    Returns the first response."""
     script = textwrap.dedent(f"""
         import contextlib, dataclasses, importlib, io, json, pkgutil, sys
         from pathlib import Path
         sys.modules["jax"] = None  # any import of jax now raises ImportError
         sys.modules["cor_tpu"] = None  # and so does any import of cor_tpu
-        for blocked in ("pandas", "PIL", "cv2"):  # none on the card's machine
+        for blocked in ("pandas", "PIL", "cv2", "orbax", "tensorstore"):  # none on the card's machine
             sys.modules[blocked] = None
         import logging
         import numpy as np, torch
@@ -443,8 +476,10 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
                 b = core_model.init_image_encoder(cfg, 2)(x)
             assert torch.allclose(a, b, atol=1e-5, rtol=1e-5), (a - b).abs().max()
         used = [k for k in sys.modules
-                if k in ("jax", "cor_tpu", "pandas", "PIL", "cv2") and sys.modules[k] is not None
-                or k.startswith(("jax.", "cor_tpu.", "pandas.", "PIL.", "cv2."))]
+                if k in ("jax", "cor_tpu", "pandas", "PIL", "cv2", "orbax", "tensorstore")
+                and sys.modules[k] is not None
+                or k.startswith(("jax.", "cor_tpu.", "pandas.", "PIL.", "cv2.", "orbax.",
+                                 "tensorstore."))]
         assert not used, used
         print(json.dumps(out[0]))
     """)
@@ -459,11 +494,13 @@ def run_without_jax(tmp_path, models: str, train: bool, unfrozen: bool = False,
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Without jax, cor_tpu, pandas, PIL and cv2: build, serve (with masks
-    both ways) and train an epoch at head_dim 64, decode from SAM's stock
-    prompts, decode under each opt-in schedule's flag and run decode_bench;
-    evaluate from PNG files and a trained .pth (cli.eval, cli.index on the
-    manifest), and export a checkpoint directory and load it back."""
+    """Without jax, cor_tpu, orbax, tensorstore, pandas, PIL and cv2: build,
+    serve (with masks both ways) and train an epoch at head_dim 64, decode
+    from SAM's stock prompts, decode under each opt-in schedule's flag and
+    run decode_bench; evaluate from PNG files and a trained .pth (cli.eval
+    with panels, cli.index on the manifest), export a checkpoint directory
+    and load it back, refuse an Orbax directory naming tensorstore, and
+    train from a manifest with the async checkpoint writer."""
     run_without_jax(tmp_path, NO_JAX_BASE, train=True, prompts=True, evaluate=True)
 
 

@@ -656,16 +656,25 @@ def test_cli_train_runs_an_epoch_and_resumes_on_the_cpu(tiny_train, tmp_path):
                                   "fp32_on_the_card", "fp32_frozen_on_the_card",
                                   "fp16_on_the_card"])
 def test_cli_train_refuses(tiny_train, capsys, monkeypatch, case):
+    """What cli.train still refuses: a manifest config whose train_csv is
+    missing (before the model is built), the checkpoints a config names
+    that do not exist, a device mesh (with async_checkpoint, which is taken,
+    the parallel key is what is refused), and the card's absence or fp16."""
     argv = ["--config", str(tiny_train), "--synthetic"]
     want = "--device cpu"
     extra = {"checkpoint": "load_sam_pretrained_checkpoint: /ckpt/sam.pth\n",
-             "mesh": "mesh_data: 2\n", "async": "async_checkpoint: true\n"}.get(case)
+             "mesh": "mesh_data: 2\n",
+             "async": "async_checkpoint: true\nshard_optimizer_state: true\n"}.get(case)
     if case == "manifest":
-        argv, want = argv[:2], "item 10"
+        root = tiny_train.parent
+        (root / "val.csv").write_text("Id\n")
+        tiny_train.write_text(tiny_train.read_text() + f"dataset_path: {root}\n"
+                              f"train_csv: {root / 'absent.csv'}\nval_csv: {root / 'val.csv'}\n")
+        argv, want = argv[:2], "Required data path missing: train_csv="
     elif extra:
         tiny_train.write_text(tiny_train.read_text() + extra)
         want = {"checkpoint": "load_sam_pretrained_checkpoint=/ckpt/sam.pth", "mesh": "item 9",
-                "async": "item 11"}[case]
+                "async": "['shard_optimizer_state'] need a device mesh"}[case]
     else:
         # without a card: fp16 (no kernels) is refused first, naming its
         # ROADMAP row, before the card is looked for; bf16, and tiny_train's
